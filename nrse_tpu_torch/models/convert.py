@@ -15,6 +15,13 @@ arrays (``jax.tree.map(np.asarray, variables)``) and returns the HF
   * ``gru_rel_pos_const`` ``[H]`` becomes ``[1, H, 1, 1]``;
   * the positional conv's ``weight_g``/``weight_v`` become
     ``parametrizations.weight.original0``/``original1``.
+
+``byol_variables_to_state_dicts`` does the same for the JAX
+``BYOLVariables`` (online params with batch_stats, and the target) after
+the layout of ``nrse_tpu/models/byol.py:113-181``: the encoder as above
+under ``encoder.``, the heads' Dense kernels ``[in, out]`` →
+``dense_i.weight [out, in]``, and the BatchNorm ``scale/bias`` (params)
+and ``mean/var`` (batch_stats) → ``weight/bias/running_mean/running_var``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from nrse_tpu_torch.models.byol import OnlineNetwork
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 
@@ -135,4 +143,63 @@ def init_state_dict(config: WavLMConfig,
         else:
             raise KeyError(f"no initialiser for {name} {tuple(shape)}")
         sd[name] = t
+    return sd
+
+
+def _heads(sd, prefix: str, params, stats) -> None:
+    for name, tree in params.items():
+        if name.startswith("dense_"):
+            _dense(sd, f"{prefix}.{name}", tree)
+        else:  # bn_i
+            _norm(sd, f"{prefix}.{name}", tree)
+            sd[f"{prefix}.{name}.running_mean"] = _f32(stats[name]["mean"])
+            sd[f"{prefix}.{name}.running_var"] = _f32(stats[name]["var"])
+
+
+def _tower_state_dict(tower: Mapping[str, Any], config: WavLMConfig):
+    params, stats = tower["params"], tower.get("batch_stats", {})
+    sd = {f"encoder.{k}": v for k, v in
+          jax_params_to_state_dict(params["encoder"], config).items()}
+    for head in ("projector", "predictor"):
+        if head in params:
+            _heads(sd, head, params[head], stats[head])
+    return sd
+
+
+def byol_variables_to_state_dicts(variables, config: WavLMConfig):
+    """JAX ``BYOLVariables`` (numpy leaves; an object with ``online`` and
+    ``target`` or a mapping of them) → ``(online, target)`` state dicts of
+    float32 numpy arrays for :class:`~nrse_tpu_torch.models.byol.
+    OnlineNetwork` and ``TargetNetwork``."""
+    def get(name):
+        return variables[name] if isinstance(variables, Mapping) \
+            else getattr(variables, name)
+    return (_tower_state_dict(get("online"), config),
+            _tower_state_dict(get("target"), config))
+
+
+def init_byol_state_dict(config: WavLMConfig, projection_dim: int,
+                         prediction_dim: int, generator: torch.Generator
+                         ) -> Dict[str, torch.Tensor]:
+    """Seeded random float32 weights of the online tower on the CPU at the
+    config's full width: the encoder as :func:`init_state_dict`, the heads'
+    Dense weights LeCun-normal with normal(0, 0.02) biases, BatchNorm
+    scales 1 and biases 0, running mean 0 and variance 1.  The target is
+    made from it by ``models.byol.make_target``."""
+    sd = {f"encoder.{k}": v
+          for k, v in init_state_dict(config, generator).items()}
+    shapes = OnlineNetwork(config, projection_dim, prediction_dim,
+                           device="meta").state_dict()
+    for name, t in shapes.items():
+        if name.startswith("encoder."):
+            continue
+        if ".dense_" in name and name.endswith(".weight"):
+            sd[name] = torch.randn(t.shape, generator=generator) \
+                * t.shape[1] ** -0.5
+        elif ".dense_" in name:
+            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+        elif name.endswith((".weight", ".running_var")):
+            sd[name] = torch.ones(t.shape)
+        else:  # BatchNorm bias, running_mean
+            sd[name] = torch.zeros(t.shape)
     return sd

@@ -1,27 +1,37 @@
-"""The WavLM encoder's deterministic forward in PyTorch.
+"""The WavLM encoder in PyTorch: the serving forward and the training mode.
 
-Port of ``nrse_tpu/models/wavlm.py`` for serving:
+Port of ``nrse_tpu/models/wavlm.py``:
 
   raw 16 kHz waveform ``[B, T]``
     → strided conv feature encoder (per-layer channel LayerNorm for the
       "layer" variant of wavlm-large, GroupNorm on layer 0 for "group")
     → feature projection (LayerNorm + Linear)
+    → SpecAugment time masking with the learned ``masked_spec_embed``
+      (training only)
     → transformer encoder: key-mask multiply, weight-normed grouped conv
-      positional embedding, the bucketed relative position bias
-      ``[H, T, T]`` (once per forward, from layer 0's table), gated
-      attention through kernel A (``ops.block_attention``), the FFN through
-      kernel B (``ops.fused_ffn``), pre-LN ("stable", large) or post-LN
-      (base_plus) layers
+      positional embedding, dropout, the bucketed relative position bias
+      ``[H, T, T]`` (once per forward, from layer 0's table), LayerDrop,
+      gated attention, the FFN through kernel B (``ops.fused_ffn``), pre-LN
+      ("stable", large) or post-LN (base_plus) layers
     → ``(sequence [B, T', C], pooled [B, C])``, the masked mean over frames.
+
+Eval mode (serving) runs attention through kernel A
+(``ops.block_attention``).  Training mode follows the JAX module with
+``flash_attention: false``: attention through the plain differentiable
+``ops.attention.gated_bias_attention``; dropout at the attention output
+after the head merge, at the post-attention hidden site and once after the
+positional embedding through K1 (``ops.fused_dropout``), and at the FFN's
+two sites inside kernel B and K2; LayerDrop as one host draw per layer per
+step (the whole batch skips together, never layer 0); SpecAugment spans
+drawn on the host.  Every random choice comes from a :class:`TrainRNG`
+(seed, step, tower), which training mode requires.
 
 Parameter names are HF ``WavLMModel``'s state-dict keys, so the layout
 ``nrse_tpu/models/export_torch.py`` writes loads strictly.  Numerics follow
-the JAX module: work in the parameters' dtype (bf16 on the card), with
-float32 LayerNorm and GroupNorm statistics, attention softmax and gates.
-
-Forward only.  SpecAugment, dropout and LayerDrop are training features
-and come with training: a module holding one raises in training mode
-instead of skipping it silently.  Left out as TPU workarounds
+the JAX module (``dtype=bfloat16, param_dtype=float32`` on the card): the
+forward works in ``compute_dtype`` (the parameters' dtype unless set), with
+each weight cast to it at its use, and float32 LayerNorm and GroupNorm
+statistics, attention softmax and gates.  Left out as TPU workarounds
 (``ROADMAP.md``): ``seq_pad_multiple``, ``qkv_impl``, ``frontend_conv``,
 ``frontend_norm`` and ``score_dtype``, none of which changes the valid
 frames' values.
@@ -36,12 +46,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nrse_tpu_torch.ops import philox
+from nrse_tpu_torch.ops.attention import gated_bias_attention
 from nrse_tpu_torch.ops.block_attention import block_gated_attention
+from nrse_tpu_torch.ops.fused_dropout import hw_dropout
 from nrse_tpu_torch.ops.fused_ffn import fused_ffn
 from nrse_tpu_torch.ops.rel_pos_bias import compute_position_bias
 
 # flax GroupNorm's default epsilon, which the JAX frontend keeps
 GROUP_NORM_EPS = 1e-6
+
+# dropout sites of a layer (the FFN's two sites are sites 0 and 1 of the
+# FFN seed inside kernel B); the encoder-level site takes layer ENCODER
+SITE_ATTN, SITE_HIDDEN, SITE_FFN = 0, 1, 2
+ENCODER = 0xFFFF
+# host streams of a tower's step
+STREAM_LAYERDROP, STREAM_SPEC_AUGMENT = 0, 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +83,17 @@ class WavLMConfig:
     num_buckets: int = 320
     max_bucket_distance: int = 800
     layer_norm_eps: float = 1e-5
+    # training: dropout probabilities, LayerDrop and SpecAugment (the JAX
+    # config's defaults; feat_proj_dropout is 0 there and not a field here)
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layerdrop: float = 0.1
     # together these decide whether the checkpoint holds masked_spec_embed
     apply_spec_augment: bool = True
     mask_time_prob: float = 0.05
+    mask_time_length: int = 10
+    mask_time_min_masks: int = 2
 
     def __post_init__(self):
         for name in ("conv_dim", "conv_kernel", "conv_stride"):
@@ -111,11 +139,56 @@ class WavLMConfig:
         return lengths
 
 
-def _forward_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is forward-only: call .eval(). "
-            "Dropout, LayerDrop and SpecAugment are not ported yet.")
+@dataclasses.dataclass(frozen=True)
+class TrainRNG:
+    """The random streams of one tower's training forward at one step.
+
+    Counterpart of ``nrse_tpu/train/byol_trainer.py::_step_rngs`` and the
+    target's ``fold_in(·, 1)`` (``nrse_tpu/models/byol.py:206-208``): every
+    stream is a Philox seed pair derived on the host from (seed, step,
+    tower, layer, site), so no draw ever waits for the device and the same
+    seed gives the same masks on the CPU and on the card."""
+
+    seed: int
+    step: int
+    tower: int = 0  # 0 online, 1 target
+
+    def dropout_seed(self, layer: int, site: int):
+        return philox.stream_seed(self.seed, self.step, self.tower, layer,
+                                  site)
+
+    def generator(self, stream: int) -> torch.Generator:
+        """A CPU generator for a host-side draw (LayerDrop, SpecAugment)."""
+        k0, k1 = philox.stream_seed(self.seed, self.step, self.tower,
+                                    0x10000 + stream)
+        return torch.Generator().manual_seed((k1 << 32) | k0)
+
+
+def _linear(x: torch.Tensor, module: nn.Linear) -> torch.Tensor:
+    """``module`` applied in x's dtype (the weight cast at its use)."""
+    bias = module.bias
+    return F.linear(x, module.weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
+def _dropout(x, p: float, rng: Optional[TrainRNG], layer: int, site: int):
+    if rng is None or p == 0.0:
+        return x
+    return hw_dropout(x, rng.dropout_seed(layer, site), p)
+
+
+def sample_time_mask(generator: torch.Generator, batch: int, length: int,
+                     prob: float, span: int, min_masks: int) -> torch.Tensor:
+    """SpecAugment spans as a ``[B, T]`` bool mask on the CPU, as
+    ``nrse_tpu/models/wavlm.py::_sample_time_mask`` draws them:
+    ``max(min_masks, round(prob·T/span))`` spans per row, uniform starts,
+    overlaps allowed."""
+    n_spans = max(min_masks, int(prob * length / span + 0.5))
+    starts = torch.randint(0, max(1, length - span), (batch, n_spans),
+                           generator=generator)
+    idx = torch.arange(length)[None, None, :]
+    in_span = (idx >= starts[..., None]) & (idx < starts[..., None] + span)
+    return in_span.any(dim=1)
 
 
 class _LayerNorm(nn.LayerNorm):
@@ -145,7 +218,10 @@ class _ConvLayer(nn.Module):
             self.norm = "group"
 
     def forward(self, x):  # [B, C, T] in the working dtype
-        x = self.conv(x)
+        conv = self.conv
+        x = F.conv1d(x, conv.weight.to(x.dtype),
+                     None if conv.bias is None else conv.bias.to(x.dtype),
+                     stride=conv.stride)
         if self.norm == "layer":
             x = self.layer_norm(x.transpose(1, 2)).to(x.dtype).transpose(1, 2)
         elif self.norm == "group":
@@ -163,8 +239,7 @@ class ConvFeatureEncoder(nn.Module):
         self.conv_layers = nn.ModuleList(
             _ConvLayer(config, i, device) for i in range(len(config.conv_dim)))
 
-    def forward(self, input_values):
-        dtype = self.conv_layers[0].conv.weight.dtype
+    def forward(self, input_values, dtype: torch.dtype):
         h = input_values.to(dtype)[:, None, :]           # [B, 1, T]
         for layer in self.conv_layers:
             h = layer(h)
@@ -180,8 +255,7 @@ class FeatureProjection(nn.Module):
                                     device=device)
 
     def forward(self, x):
-        _forward_only(self)
-        return self.projection(self.layer_norm(x).to(x.dtype))
+        return _linear(self.layer_norm(x).to(x.dtype), self.projection)
 
 
 class _WeightNormParams(nn.Module):
@@ -252,40 +326,54 @@ class GatedAttention(nn.Module):
             self.rel_attn_embed = nn.Embedding(config.num_buckets, h,
                                                device=device)
 
-    def forward(self, hidden, pos_bias, key_padding_mask=None):
-        _forward_only(self)
+    def forward(self, hidden, pos_bias, key_padding_mask=None,
+                dropout: float = 0.0, rng: Optional[TrainRNG] = None,
+                layer: int = 0):
+        """Eval mode: kernel A.  Training mode: the plain differentiable
+        attention, then dropout ``dropout`` after the head merge."""
         b, t, c = hidden.shape
         h = self.num_heads
 
         def split_heads(x):
             return x.view(b, t, h, c // h).transpose(1, 2)  # [B, H, T, D]
 
-        q = split_heads(self.q_proj(hidden))
-        k = split_heads(self.k_proj(hidden))
-        v = split_heads(self.v_proj(hidden))
+        q = split_heads(_linear(hidden, self.q_proj))
+        k = split_heads(_linear(hidden, self.k_proj))
+        v = split_heads(_linear(hidden, self.v_proj))
         # per-(batch, head, query) gate from the attention input
-        proj = self.gru_rel_pos_linear(split_heads(hidden))     # [B,H,T,8]
+        proj = _linear(split_heads(hidden), self.gru_rel_pos_linear)
         gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1).float())
         const = self.gru_rel_pos_const.float().view(1, h, 1)
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
-        out = block_gated_attention(q, k, v, gate, pos_bias,
-                                    key_padding_mask)
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, c))
+        attend = gated_bias_attention if self.training \
+            else block_gated_attention
+        out = attend(q, k, v, gate, pos_bias, key_padding_mask)
+        out = out.transpose(1, 2).reshape(b, t, c)
+        out = _dropout(out, dropout, rng, layer, SITE_ATTN)
+        return _linear(out, self.out_proj)
 
 
 class FeedForward(nn.Module):
     def __init__(self, config: WavLMConfig, device=None):
         super().__init__()
+        self.config = config
         self.intermediate_dense = nn.Linear(
             config.hidden_size, config.intermediate_size, device=device)
         self.output_dense = nn.Linear(
             config.intermediate_size, config.hidden_size, device=device)
 
-    def forward(self, x):
-        _forward_only(self)
+    def forward(self, x, rng: Optional[TrainRNG] = None, layer: int = 0):
+        """Kernel B; with ``rng`` (training), both dropout sites inside it
+        and K2 as its backward."""
+        cfg = self.config
+        seed, p_act, p_hid = None, 0.0, 0.0
+        if rng is not None:
+            seed = rng.dropout_seed(layer, SITE_FFN)
+            p_act, p_hid = cfg.activation_dropout, cfg.hidden_dropout
         return fused_ffn(x, self.intermediate_dense.weight,
                          self.intermediate_dense.bias,
-                         self.output_dense.weight, self.output_dense.bias)
+                         self.output_dense.weight, self.output_dense.bias,
+                         seed, p_act, p_hid)
 
 
 class EncoderLayer(nn.Module):
@@ -293,6 +381,8 @@ class EncoderLayer(nn.Module):
 
     def __init__(self, config: WavLMConfig, index: int, device=None):
         super().__init__()
+        self.config = config
+        self.index = index
         self.stable = config.do_stable_layer_norm
         self.attention = GatedAttention(config, index == 0, device)
         self.layer_norm = _LayerNorm(config.hidden_size,
@@ -301,18 +391,23 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = _LayerNorm(
             config.hidden_size, eps=config.layer_norm_eps, device=device)
 
-    def forward(self, hidden, pos_bias, key_padding_mask=None):
-        _forward_only(self)
+    def forward(self, hidden, pos_bias, key_padding_mask=None,
+                rng: Optional[TrainRNG] = None):
+        cfg, i = self.config, self.index
         dt = hidden.dtype
+        p_attn = cfg.attention_dropout if rng is not None else 0.0
+
+        def attention(x):
+            x = self.attention(x, pos_bias, key_padding_mask, p_attn, rng, i)
+            return _dropout(x, cfg.hidden_dropout, rng, i, SITE_HIDDEN)
+
         if self.stable:
-            x = self.attention(self.layer_norm(hidden).to(dt), pos_bias,
-                               key_padding_mask)
-            hidden = hidden + x
+            hidden = hidden + attention(self.layer_norm(hidden).to(dt))
             y = self.final_layer_norm(hidden).to(dt)
-            return hidden + self.feed_forward(y)
-        hidden = hidden + self.attention(hidden, pos_bias, key_padding_mask)
+            return hidden + self.feed_forward(y, rng, i)
+        hidden = hidden + attention(hidden)
         hidden = self.layer_norm(hidden).to(dt)
-        hidden = hidden + self.feed_forward(hidden)
+        hidden = hidden + self.feed_forward(hidden, rng, i)
         return self.final_layer_norm(hidden).to(dt)
 
 
@@ -326,9 +421,22 @@ class WavLMTransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(config, i, device)
             for i in range(config.num_hidden_layers))
+        # layers the last forward ran (fewer than all under LayerDrop)
+        self.layers_run = 0
 
-    def forward(self, hidden, attention_mask=None):
-        _forward_only(self)
+    def layer_keep(self, rng: Optional[TrainRNG]):
+        """LayerDrop: one host draw per layer per step for the whole
+        batch; layer 0 always runs (``nrse_tpu/models/wavlm.py:826-851``)."""
+        n, p = self.config.num_hidden_layers, self.config.layerdrop
+        if rng is None or p <= 0.0:
+            return [True] * n
+        u = torch.rand(n, generator=rng.generator(STREAM_LAYERDROP))
+        keep = (u >= p).tolist()
+        keep[0] = True
+        return keep
+
+    def forward(self, hidden, attention_mask=None,
+                rng: Optional[TrainRNG] = None):
         cfg = self.config
         dt = hidden.dtype
         if attention_mask is not None:
@@ -336,13 +444,18 @@ class WavLMTransformerEncoder(nn.Module):
         hidden = hidden + self.pos_conv_embed(hidden)
         if not cfg.do_stable_layer_norm:
             hidden = self.layer_norm(hidden).to(dt)
+        hidden = _dropout(hidden, cfg.hidden_dropout, rng, ENCODER,
+                          SITE_HIDDEN)
         t = hidden.shape[1]
         table = self.layers[0].attention.rel_attn_embed.weight
         pos_bias = compute_position_bias(table.float(), t, t,
                                          cfg.num_buckets,
                                          cfg.max_bucket_distance)
-        for layer in self.layers:
-            hidden = layer(hidden, pos_bias, attention_mask)
+        keep = self.layer_keep(rng)
+        self.layers_run = sum(keep)
+        for layer, run in zip(self.layers, keep):
+            if run:
+                hidden = layer(hidden, pos_bias, attention_mask, rng)
         if cfg.do_stable_layer_norm:
             hidden = self.layer_norm(hidden).to(dt)
         return hidden
@@ -350,11 +463,17 @@ class WavLMTransformerEncoder(nn.Module):
 
 class WavLMModel(nn.Module):
     """Conv frontend + projection + transformer; returns ``(sequence
-    [B, T', C], pooled [B, C])`` with pooled the masked mean over frames."""
+    [B, T', C], pooled [B, C])`` with pooled the masked mean over frames.
 
-    def __init__(self, config: WavLMConfig, device=None):
+    ``compute_dtype`` (default: the parameters' dtype) is the dtype the
+    forward works in; training on the card keeps float32 parameters and
+    computes in bf16."""
+
+    def __init__(self, config: WavLMConfig, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         self.feature_extractor = ConvFeatureEncoder(config, device)
         self.feature_projection = FeatureProjection(config, device)
         if config.has_masked_spec_embed:  # SpecAugment's learned mask value
@@ -371,15 +490,34 @@ class WavLMModel(nn.Module):
         return (frames[None, :] < lengths[:, None]).to(torch.int32)
 
     def forward(self, input_values: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None):
-        _forward_only(self)
+                attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[TrainRNG] = None):
+        """Eval mode ignores ``rng``; training mode needs it."""
+        if self.training and rng is None:
+            raise ValueError("WavLMModel in training mode needs rng (a "
+                             "TrainRNG): dropout, LayerDrop and SpecAugment "
+                             "draw from it")
+        if not self.training:
+            rng = None
         if input_values.dim() == 3:  # [B, 1, T]
             input_values = input_values[:, 0, :]
-        feats = self.feature_extractor(input_values)
+        dtype = self.compute_dtype or \
+            self.feature_extractor.conv_layers[0].conv.weight.dtype
+        feats = self.feature_extractor(input_values, dtype)
         frame_mask = None
         if attention_mask is not None:
             frame_mask = self.frame_mask(attention_mask, feats.shape[1])
-        hidden = self.encoder(self.feature_projection(feats), frame_mask)
+        hidden = self.feature_projection(feats)
+        if rng is not None and self.config.has_masked_spec_embed:
+            cfg = self.config
+            spans = sample_time_mask(
+                rng.generator(STREAM_SPEC_AUGMENT), hidden.shape[0],
+                hidden.shape[1], cfg.mask_time_prob, cfg.mask_time_length,
+                cfg.mask_time_min_masks).to(hidden.device)
+            hidden = torch.where(spans[..., None],
+                                 self.masked_spec_embed.to(hidden.dtype),
+                                 hidden)
+        hidden = self.encoder(hidden, frame_mask, rng)
         if frame_mask is None:
             pooled = hidden.float().mean(dim=1)
         else:

@@ -11,8 +11,14 @@ The kernel holds a head's whole K and V and whole score rows on chip, so
 it takes T ≤ ``MAX_T`` = 384 frames (≈ 7.7 s of audio), as the TPU kernel
 does.  Longer clips need the streaming flash kernel, which is not ported
 yet; both paths raise for them, so the CPU tests see the card's contract.
-Forward only: the backward kernel and the in-kernel dropout come with
-training.
+
+Forward only, so it serves the eval paths: the serving forward and the
+BYOL eval step.  Training runs attention through the plain differentiable
+``ops.attention.gated_bias_attention`` (as the JAX training config,
+``flash_attention: false``, runs XLA's) until K3, this kernel's backward
+and its in-kernel dropout, is ported.  Until then the CUDA entry raises
+when called under autograd on inputs that require grad, instead of
+returning an output detached from them (``ops/_guard.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from nrse_tpu_torch.ops._guard import require_no_grad
 from nrse_tpu_torch.ops.attention import gated_bias_attention_lse, mask_add
 from nrse_tpu_torch.runtime import cuda_build
 
@@ -52,6 +59,9 @@ def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):
 
 
 def _kernel_fwd(q, k, v, gate, pos_bias, key_padding_mask):
+    require_no_grad(q, k, v, gate, pos_bias,
+                    what="block_attention_fwd (kernel A has no backward "
+                         "until K3 is ported)")
     b, h, t, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM}, got {d}")

@@ -1,41 +1,160 @@
-"""Fused transformer FFN (kernel B's wrapper).
+"""Fused transformer FFN: kernel B's forward and K2's backward.
 
-Port of ``nrse_tpu/ops/fused_ffn.py:397-446`` for the deterministic
-forward: ``dense → exact-erf GELU → cast to the working dtype → dense``.
-The weights stay in torch's ``[out, in]`` layout (``nn.Linear.weight``):
-``w1 [F, C]``, ``w2 [C, F]``.  A CUDA tensor goes to the hand-written
-kernel in ``nrse_tpu_torch/csrc/fused_ffn_fwd.cu``; a CPU tensor goes to
-:func:`ffn_plain`, the same composition as
-``tests/test_fused_ffn.py::_ref_ffn``.  There is no fallback from one to
-the other.  Dropout and the backward come with training.
+Port of ``nrse_tpu/ops/fused_ffn.py:110-518`` and ``dump_masks`` (:527):
+``dense → exact-erf GELU → activation dropout → cast to the working dtype
+→ dense → hidden dropout``.  The weights stay in torch's ``[out, in]``
+layout (``nn.Linear.weight``): ``w1 [F, C]``, ``w2 [C, F]``.
+
+Which kernel runs where:
+  * serving (and any call that needs no gradient, such as the BYOL target
+    tower): kernel B alone (``csrc/fused_ffn_fwd.cu``), with the dropout
+    sites when ``p > 0`` and nothing saved;
+  * training: :class:`FusedFFN`, whose forward is kernel B's training
+    entry (both dropout sites, ``h1`` and the dropped GELU output ``gd``
+    kept in bf16) and whose backward is K2 (``csrc/fused_ffn_bwd.cu``):
+    the dx kernel (dx, db1, db2) and the dW kernel (dW1, dW2).
+
+Masks follow the Philox contract of ``ops/philox.py``: site 0 is the
+activation site over ``[N, F]``, site 1 the hidden site over ``[N, C]``,
+both under one seed pair.  :func:`fused_ffn_masked` takes explicit float32
+masks instead (the tests' path).  A CUDA tensor goes to the kernels; a CPU
+tensor goes to :func:`ffn_plain_fwd` / :func:`ffn_plain_bwd`, whose masks
+come from the Philox twin.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
+from nrse_tpu_torch.ops import fused_dropout, philox
+from nrse_tpu_torch.ops._guard import require_no_grad
 from nrse_tpu_torch.runtime import cuda_build
 
-# the CUDA kernel's tile: C and F must be multiples of this
+# the CUDA kernels' tile: C and F must be multiples of this
 TILE = 128
+SITE_ACT, SITE_HID = 0, 1
 
-# Kernel launches made by this wrapper since the count was last reset.
+# Kernel launches made by this module since the counts were last reset:
+# kernel B (forward), K2's dx kernel, K2's dW kernel.
 LAUNCHES = 0
+DX_LAUNCHES = 0
+DW_LAUNCHES = 0
+
+_NO_DROP, _PHILOX, _MASKS = 0, 1, 2
+
+
+def gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    """GELU′(h) = Φ(h) + h·φ(h), exact erf."""
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+    return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
+
+
+def ffn_plain_fwd(x, w1, b1, w2, b2, keep_act=None, keep_hid=None):
+    """Plain PyTorch forward of ``x [N, C]``: products of the
+    working-dtype operands accumulated in float32, bias, GELU and masks on
+    the float32 sum, the GELU output rounded to x's dtype before the second
+    product.  Returns ``(out, h1, gd)``: ``h1`` the pre-GELU activation and
+    ``gd`` the dropped GELU output, both rounded to x's dtype."""
+    dt = x.dtype
+    h1 = torch.matmul(x.float(), w1.to(dt).float().t()) + b1.float()
+    g = F.gelu(h1, approximate="none")
+    if keep_act is not None:
+        g = g * keep_act
+    gd = g.to(dt)
+    o = torch.matmul(gd.float(), w2.to(dt).float().t()) + b2.float()
+    if keep_hid is not None:
+        o = o * keep_hid
+    return o.to(dt), h1.to(dt), gd
 
 
 def ffn_plain(x, w1, b1, w2, b2):
-    """Plain PyTorch FFN: products of the working-dtype operands
-    accumulated in float32, bias and GELU on the float32 sum, the GELU
-    output rounded to x's dtype before the second product."""
-    dt = x.dtype
-    h = torch.matmul(x.float(), w1.to(dt).float().t()) + b1.float()
-    g = F.gelu(h, approximate="none").to(dt)
-    o = torch.matmul(g.float(), w2.to(dt).float().t()) + b2.float()
-    return o.to(dt)
+    """The deterministic plain forward (no dropout)."""
+    return ffn_plain_fwd(x, w1, b1, w2, b2)[0]
 
 
-def _kernel_fwd(rows, w1, b1, w2, b2):
+def ffn_plain_bwd_dx(dout, h1, w1, w2, keep_act=None, keep_hid=None):
+    """Plain PyTorch version of K2's dx kernel: ``(dx, db1, db2, dh1,
+    dh2)``, dx, dh1 and dh2 in dout's dtype, db1 and db2 float32."""
+    dt = dout.dtype
+    dh2 = dout.float()
+    if keep_hid is not None:
+        dh2 = dh2 * keep_hid
+    db2 = dh2.sum(0)
+    dh2 = dh2.to(dt)
+    dgd = torch.matmul(dh2.float(), w2.to(dt).float())
+    if keep_act is not None:
+        dgd = dgd * keep_act
+    dh1 = dgd * gelu_grad(h1.float())
+    db1 = dh1.sum(0)
+    dh1 = dh1.to(dt)
+    dx = torch.matmul(dh1.float(), w1.to(dt).float()).to(dt)
+    return dx, db1, db2, dh1, dh2
+
+
+def ffn_plain_bwd_dw(x, gd, dh1, dh2):
+    """Plain PyTorch version of K2's dW kernel: ``(dw1 [F, C], dw2
+    [C, F])`` in float32."""
+    return (torch.matmul(dh1.float().t(), x.float()),
+            torch.matmul(dh2.float().t(), gd.float()))
+
+
+def ffn_plain_bwd(dout, x, h1, gd, w1, w2, keep_act=None, keep_hid=None):
+    """Plain PyTorch backward, the arithmetic of K2: returns ``(dx, dw1,
+    db1, dw2, db2)``, dx in x's dtype and the rest float32."""
+    dx, db1, db2, dh1, dh2 = ffn_plain_bwd_dx(dout.to(x.dtype), h1, w1, w2,
+                                              keep_act, keep_hid)
+    dw1, dw2 = ffn_plain_bwd_dw(x, gd, dh1, dh2)
+    return dx, dw1, db1, dw2, db2
+
+
+class _Drop:
+    """How one call gets its masks: none, Philox under a seed, or
+    explicit masks."""
+
+    def __init__(self, seed=None, p_act=0.0, p_hid=0.0, masks=None):
+        self.seed = (0, 0) if seed is None else (int(seed[0]), int(seed[1]))
+        self.p_act, self.p_hid = float(p_act), float(p_hid)
+        self.masks = masks
+        if masks is not None:
+            self.mode = _MASKS
+        elif self.p_act > 0.0 or self.p_hid > 0.0:
+            if seed is None:
+                raise ValueError("dropout with p > 0 needs a seed")
+            self.mode = _PHILOX
+        else:
+            self.mode = _NO_DROP
+
+    def plain_masks(self, n, c, f, device):
+        """``(keep_act [n, f] | None, keep_hid [n, c] | None)``."""
+        if self.mode == _MASKS:
+            return self.masks
+        act = hid = None
+        if self.mode == _PHILOX:
+            if self.p_act > 0.0:
+                act = philox.dump_mask(self.seed, SITE_ACT, (n, f),
+                                       self.p_act, device)
+            if self.p_hid > 0.0:
+                hid = philox.dump_mask(self.seed, SITE_HID, (n, c),
+                                       self.p_hid, device)
+        return act, hid
+
+    def kernel_args(self):
+        ma = mh = 0
+        if self.mode == _MASKS:
+            ma, mh = (m.data_ptr() for m in self.masks)
+        return (ma, mh, self.seed[0], self.seed[1], self.p_act, self.p_hid,
+                philox.keep_scale(self.p_act), philox.keep_scale(self.p_hid),
+                self.mode)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_kernel(rows, w1, w2, b1, b2):
     n, c = rows.shape
     f = w1.shape[0]
     if rows.dtype != torch.bfloat16:
@@ -46,30 +165,130 @@ def _kernel_fwd(rows, w1, b1, w2, b2):
                          f"of {TILE}, got C={c} F={f}")
     if any(t.device != rows.device for t in (w1, b1, w2, b2)):
         raise ValueError("x and the FFN weights must share a device")
-    rows = rows.contiguous()
-    w1 = w1.to(torch.bfloat16).contiguous()
-    w2 = w2.to(torch.bfloat16).contiguous()
+    return n, c, f
+
+
+def _bf16(t):
+    t = t.to(torch.bfloat16).contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned operands")
+    return t
+
+
+def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
+    """Kernel B.  Returns ``(out, h1, gd)``; ``h1`` is None unless
+    ``save``; ``gd`` is kernel B's h (the dropped GELU output)."""
+    require_no_grad(rows, w1, b1, w2, b2, what="fused_ffn_fwd")
+    n, c, f = _check_kernel(rows, w1, w2, b1, b2)
+    rows, w1, w2 = _bf16(rows), _bf16(w1), _bf16(w2)
     b1 = b1.to(torch.float32).contiguous()
     b2 = b2.to(torch.float32).contiguous()
-    h = torch.empty(n, f, dtype=torch.bfloat16, device=rows.device)
+    gd = torch.empty(n, f, dtype=torch.bfloat16, device=rows.device)
+    h1 = torch.empty_like(gd) if save else None
     out = torch.empty_like(rows)
-    if any(t.data_ptr() % 16 for t in (rows, w1, w2, h, out)):
-        raise ValueError("the CUDA kernel needs 16-byte aligned operands")
     lib = cuda_build.load()
     with torch.cuda.device(rows.device):  # the launch goes to the current card
-        err = lib.nrse_fused_ffn_fwd(
-            rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), h.data_ptr(), out.data_ptr(), n, c, f,
-            torch.cuda.current_stream().cuda_stream)
+        if not save and drop.mode == _NO_DROP:
+            err = lib.nrse_fused_ffn_fwd(
+                rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), gd.data_ptr(), out.data_ptr(), n, c, f,
+                _stream())
+        else:
+            err = lib.nrse_fused_ffn_fwd_train(
+                rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), gd.data_ptr(),
+                0 if h1 is None else h1.data_ptr(), out.data_ptr(),
+                *drop.kernel_args(), n, c, f, _stream())
     cuda_build.check(err, "fused_ffn_fwd")
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return out, h1, gd
 
 
-def fused_ffn(x, w1, b1, w2, b2):
-    """``dense2(gelu(dense1(x)))`` for ``x [..., C]``, ``w1 [F, C]``,
-    ``b1 [F]``, ``w2 [C, F]``, ``b2 [C]``.  Returns x's shape and dtype."""
+def _kernel_bwd_dx(dout, h1, w1, w2, drop: _Drop):
+    """K2's dx kernel: ``(dx, db1, db2, dh1, dh2)``."""
+    dout, h1, w1, w2 = (_bf16(t) for t in (dout, h1, w1, w2))
+    n, c = dout.shape
+    f = w1.shape[0]
+    dev = dout.device
+    dh2 = torch.empty(n, c, dtype=torch.bfloat16, device=dev)
+    dh1 = torch.empty(n, f, dtype=torch.bfloat16, device=dev)
+    dx = torch.empty_like(dh2)
+    db1 = torch.empty(f, dtype=torch.float32, device=dev)
+    db2 = torch.empty(c, dtype=torch.float32, device=dev)
+    part = torch.empty(-(-n // TILE) * max(2 * f, c), dtype=torch.float32,
+                       device=dev)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        err = lib.nrse_fused_ffn_bwd_dx(
+            dout.data_ptr(), h1.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            *drop.kernel_args(), dh2.data_ptr(), dh1.data_ptr(),
+            dx.data_ptr(), db1.data_ptr(), db2.data_ptr(), part.data_ptr(),
+            n, c, f, _stream())
+    cuda_build.check(err, "fused_ffn_bwd_dx")
+    global DX_LAUNCHES
+    DX_LAUNCHES += 1
+    return dx, db1, db2, dh1, dh2
+
+
+def _kernel_bwd_dw(x, gd, dh1, dh2):
+    """K2's dW kernel: ``(dw1 [F, C], dw2 [C, F])`` float32."""
+    x, gd, dh1, dh2 = (_bf16(t) for t in (x, gd, dh1, dh2))
+    n, c = x.shape
+    f = gd.shape[1]
+    dw1 = torch.empty(f, c, dtype=torch.float32, device=x.device)
+    dw2 = torch.empty(c, f, dtype=torch.float32, device=x.device)
+    lib = cuda_build.load()
+    with torch.cuda.device(x.device):
+        err = lib.nrse_fused_ffn_bwd_dw(
+            x.data_ptr(), gd.data_ptr(), dh1.data_ptr(), dh2.data_ptr(),
+            dw1.data_ptr(), dw2.data_ptr(), n, c, f, _stream())
+    cuda_build.check(err, "fused_ffn_bwd_dw")
+    global DW_LAUNCHES
+    DW_LAUNCHES += 1
+    return dw1, dw2
+
+
+def _forward(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
+    if rows.device.type == "cuda":
+        return _kernel_fwd(rows, w1, b1, w2, b2, drop, save)
+    if rows.device.type != "cpu":
+        raise ValueError(f"no fused FFN for device {rows.device}")
+    n, c = rows.shape
+    act, hid = drop.plain_masks(n, c, w1.shape[0], rows.device)
+    return ffn_plain_fwd(rows, w1, b1, w2, b2, act, hid)
+
+
+class FusedFFN(torch.autograd.Function):
+    """The FFN pair with its dropout sites; the backward is K2 on the card
+    and :func:`ffn_plain_bwd` on the CPU.  Saves ``x``, ``h1`` and ``gd``
+    (bf16 on the card) and the seed or masks, not the masks of a seed."""
+
+    @staticmethod
+    def forward(ctx, rows, w1, b1, w2, b2, drop):
+        out, h1, gd = _forward(rows, w1, b1, w2, b2, drop, save=True)
+        ctx.save_for_backward(rows, h1, gd, w1, w2)
+        ctx.drop = drop
+        ctx.dtypes = (w1.dtype, b1.dtype, w2.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, h1, gd, w1, w2 = ctx.saved_tensors
+        drop = ctx.drop
+        if rows.device.type == "cuda":
+            dx, db1, db2, dh1, dh2 = _kernel_bwd_dx(dout, h1, w1, w2, drop)
+            dw1, dw2 = _kernel_bwd_dw(rows, gd, dh1, dh2)
+        else:
+            n, c = rows.shape
+            act, hid = drop.plain_masks(n, c, w1.shape[0], rows.device)
+            dx, dw1, db1, dw2, db2 = ffn_plain_bwd(dout, rows, h1, gd, w1,
+                                                   w2, act, hid)
+        t1, tb1, t2, tb2 = ctx.dtypes
+        return (dx, dw1.to(t1), db1.to(tb1), dw2.to(t2), db2.to(tb2), None)
+
+
+def _check_weights(x, w1, b1, w2, b2):
     c = x.shape[-1]
     f = w1.shape[0]
     if w1.shape != (f, c) or w2.shape != (c, f) or b1.shape != (f,) \
@@ -78,11 +297,49 @@ def fused_ffn(x, w1, b1, w2, b2):
             f"FFN weights do not match x[..., {c}]: w1 {tuple(w1.shape)}, "
             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
             f"b2 {tuple(b2.shape)}")
-    rows = x.reshape(-1, c)
-    if x.device.type == "cuda":
-        out = _kernel_fwd(rows, w1, b1, w2, b2)
-    elif x.device.type == "cpu":
-        out = ffn_plain(rows, w1, b1, w2, b2)
+
+
+def _apply(x, w1, b1, w2, b2, drop: _Drop):
+    _check_weights(x, w1, b1, w2, b2)
+    rows = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        out = FusedFFN.apply(rows, w1, b1, w2, b2, drop)
     else:
-        raise ValueError(f"no fused FFN for device {x.device}")
+        out = _forward(rows, w1, b1, w2, b2, drop, save=False)[0]
     return out.reshape(x.shape)
+
+
+def fused_ffn(x, w1, b1, w2, b2, seed: Optional[Tuple[int, int]] = None,
+              p_act: float = 0.0, p_hid: float = 0.0):
+    """``dropout(dense2(dropout(gelu(dense1(x)))))`` for ``x [..., C]``,
+    ``w1 [F, C]``, ``b1 [F]``, ``w2 [C, F]``, ``b2 [C]``; the masks from
+    Philox under ``seed`` when ``p_act`` or ``p_hid`` is above 0.  Returns
+    x's shape and dtype; differentiable in x and the weights."""
+    return _apply(x, w1, b1, w2, b2, _Drop(seed, p_act, p_hid))
+
+
+def fused_ffn_masked(x, w1, b1, w2, b2, mask_act, mask_hid):
+    """:func:`fused_ffn` with explicit float32 ``{0, 1/(1−p)}`` masks,
+    ``mask_act [..., F]`` and ``mask_hid [..., C]`` (the masks get no
+    gradient)."""
+    f, c = w1.shape
+    n = x.numel() // c
+    masks = (mask_act.reshape(-1, f).to(torch.float32).contiguous(),
+             mask_hid.reshape(-1, c).to(torch.float32).contiguous())
+    if masks[0].shape != (n, f) or masks[1].shape != (n, c) or any(
+            m.device != x.device for m in masks):
+        raise ValueError(f"masks must be [..., {f}] and [..., {c}] over x's "
+                         f"{n} rows, on x's device")
+    return _apply(x, w1, b1, w2, b2, _Drop(masks=masks))
+
+
+def dump_masks(seed: Tuple[int, int], n: int, c: int, f: int, p_act: float,
+               p_hid: float, device=None):
+    """``(keep_act [n, f], keep_hid [n, c])``: the float32 masks
+    :func:`fused_ffn` applies for this seed and shape (from the dump
+    kernel on a CUDA device, from the Philox twin elsewhere)."""
+    return (fused_dropout.dump_dropout_mask(seed, (n, f), p_act, SITE_ACT,
+                                            device),
+            fused_dropout.dump_dropout_mask(seed, (n, c), p_hid, SITE_HID,
+                                            device))

@@ -2,14 +2,17 @@
 
 Counterpart of ``nrse_tpu/runtime/native.py``, which builds its audio
 ``.so`` on first use.  Every ``nrse_tpu_torch/csrc/*.cu`` file is compiled
-for Hopper (``sm_90a``) into one shared library with a plain C interface:
+for Hopper (``sm_90a``) into an object, all of them at once (one ``nvcc``
+process each), and the objects are linked into one shared library with a
+plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/nrse_tpu_torch/libnrse_kernels_<hash>.so \\
-         nrse_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj>/<name>.o nrse_tpu_torch/csrc/<name>.cu
+    nvcc -shared -o build/nrse_tpu_torch/libnrse_kernels_<hash>.so <obj>/*.o
 
-The library name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a cached build is reused.  The build directory sits
+The library name carries a hash of the sources (``*.cu`` and the shared
+``*.cuh`` headers) and flags, so an edited kernel is rebuilt and a cached
+build is reused.  The build directory sits
 at the root of the checkout and is listed in ``.gitignore``.  The library
 is loaded with ``ctypes``; each C entry takes device pointers and the CUDA
 stream as ``c_void_p`` and returns a ``cudaError_t`` (0 on success).
@@ -24,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -31,15 +35,27 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "nrse_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of every C entry in csrc/
 _ENTRIES = {
     "nrse_block_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, ctypes.c_float, _P],
+                                 _I, _I, _I, _I, _F, _P],
     "nrse_fused_ffn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nrse_fused_ffn_fwd_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _U, _U, _F, _F, _F, _F, _I, _I, _I, _I,
+                                 _P],
+    "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _U, _U, _F, _F, _F,
+                              _F, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P],
+    "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nrse_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _F, _I, _P],
+    "nrse_adamw_ema": [_P, _P, _P, _P, _P, _P, _L, _L, _P],
 }
 
 _lock = threading.Lock()
@@ -67,6 +83,22 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnrse_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels if the library for these sources is missing.
     Raises ``RuntimeError`` with nvcc's output if the build fails."""
@@ -76,15 +108,18 @@ def build() -> Path:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    objdir = Path(tempfile.mkdtemp(prefix="obj_", dir=BUILD_DIR))
+    try:
+        objs = [objdir / f"{src.stem}.o" for src in sources]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(sources, objs)])
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

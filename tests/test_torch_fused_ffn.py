@@ -1,11 +1,17 @@
-"""Port's ``fused_ffn`` (plain path on the CPU) against the JAX Pallas
-kernel (interpret mode) with a zero seed and no dropout.
+"""Port's ``fused_ffn`` (plain paths on the CPU) against the JAX Pallas
+kernels (interpret mode): the deterministic forward with a zero seed,
+and ``fused_ffn_masked``'s forward and all five gradients against
+``jax.vjp`` of JAX's ``fused_ffn_masked`` with the same masks (p = 0.1).
 
-Float32 throughout.  Tolerance 1e-5 absolute: the JAX kernel's GELU uses
+Float32 throughout.  Tolerances: 1e-5 absolute on the output and 1e-4
+``max|Δ|/max|ref|`` on the gradients: the JAX kernels' GELU and GELU′ use
 the A&S rational erf (|err| ≤ 1.5e-7, ``nrse_tpu/ops/tpu_math.py``) where
-the port uses the exact erf, and the two sum in different orders.
+the port uses the exact erf, and the two sum in different orders.  The
+seeded ``fused_ffn``'s gradients must equal, exactly, the masked
+variant's fed ``dump_masks(seed)``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +19,14 @@ import torch
 
 from nrse_tpu.ops.fused_ffn import ROW_BLOCK
 from nrse_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
+from nrse_tpu.ops.fused_ffn import fused_ffn_masked as jax_fused_ffn_masked
 from nrse_tpu_torch.ops import fused_ffn as port
 
 torch.set_num_threads(1)
 
 TOL = 1e-5
+GRAD_TOL = 1e-4
+P = 0.1
 
 
 def _params(c, f, n, seed=0):
@@ -64,3 +73,60 @@ def test_rejects_mismatched_weights():
         port.fused_ffn(torch.from_numpy(x), torch.from_numpy(w1),
                        torch.from_numpy(b1), torch.from_numpy(w2),
                        torch.from_numpy(b2))
+
+
+def _rel(got, ref):
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _masks(n, c, f, seed=3):
+    rng = np.random.default_rng(seed)
+    scale = np.float32(1.0) / np.float32(1.0 - P)
+    return ((rng.random((n, f)) >= P).astype(np.float32) * scale,
+            (rng.random((n, c)) >= P).astype(np.float32) * scale)
+
+
+@pytest.mark.parametrize("f", [256, 1024])
+def test_masked_forward_and_grads_match_jax(f):
+    n, c = ROW_BLOCK + 40, 128
+    x, w1, b1, w2, b2 = _params(c, f, n, seed=4)
+    ma, mh = _masks(n, c, f)
+    dout = np.random.default_rng(5).standard_normal((n, c)).astype(
+        np.float32)
+    ref, vjp = jax.vjp(
+        lambda *a: jax_fused_ffn_masked(*a, jnp.asarray(ma), jnp.asarray(mh)),
+        *(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    ref_grads = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
+    out = port.fused_ffn_masked(*args, torch.from_numpy(ma),
+                                torch.from_numpy(mh))
+    out.backward(torch.from_numpy(dout))
+    assert np.abs(out.detach().numpy() - np.asarray(ref)).max() < TOL
+    got = [a.grad.numpy() for a in args]
+    got[1], got[3] = got[1].T, got[3].T       # back to flax's [in, out]
+    errs = {name: _rel(g, r) for name, g, r in
+            zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref_grads)}
+    assert max(errs.values()) < GRAD_TOL, errs
+
+
+def test_seeded_grads_equal_masked_with_dumped_masks():
+    n, c, f = 70, 128, 256
+    x, w1, b1, w2, b2 = _params(c, f, n, seed=6)
+    dout = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((n, c)).astype(np.float32))
+    seed = (11, 22)
+    grads = []
+    for masked in (False, True):
+        args = [torch.from_numpy(a).requires_grad_()
+                for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
+        if masked:
+            out = port.fused_ffn_masked(
+                *args, *port.dump_masks(seed, n, c, f, P, 0.2))
+        else:
+            out = port.fused_ffn(*args, seed, P, 0.2)
+        out.backward(dout)
+        grads.append([out.detach()] + [a.grad for a in args])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

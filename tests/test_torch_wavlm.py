@@ -89,6 +89,9 @@ def test_forward_matches_jax(jax_params, arch, impl, masked):
 
 
 def test_training_mode_raises(jax_params):
+    """Training mode draws dropout, LayerDrop and SpecAugment from the
+    step's TrainRNG: without one it raises rather than run
+    deterministically."""
     model = _port_model("stable_ln", jax_params["stable_ln"]).train()
-    with pytest.raises(NotImplementedError, match="forward-only"):
+    with pytest.raises(ValueError, match="needs rng"):
         model(torch.zeros(1, SAMPLES))
