@@ -1,5 +1,5 @@
-"""Drive the port's embedding server and its BYOL train step once on one
-NVIDIA GPU.
+"""Drive the port's embedding server, its BYOL train step and its BYOL
+pretraining entry point once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,14 @@ not 0:
   3. kernel A (block gated attention) against its plain PyTorch version at
      the serving shapes (bf16, B=32, H=16, D=64, T=249 with ragged key
      masks and one fully masked row, and T=384), with µs per call of both;
-     and that it raises under autograd (it has no backward yet);
+     and that a gradient flows through it under autograd;
+  3b. K3 (block attention backward) and kernel A's dropout at the training
+     shapes (bf16, B=36, H=16, D=64, T=249 with ragged key masks and one
+     fully masked row, and T=384, p = 0.1): the seeded forward and backward
+     equal the explicit-mask ones fed K1's dump at the attention site, bit
+     for bit; out, dq, dk, dv, dgate, dbias ≤ 1e-2 and lse ≤ 1e-3 of the
+     plain versions' max|·|; two backward calls give the same bits; the
+     autograd Function equals the direct calls; µs per call of both;
   4. kernel B (fused FFN, serving entry) against its plain version at
      N=7968 (32 clips of 249 frames), C=1024, F=4096, µs per call of both;
   5. serving — WavLM-large at full width (24 layers, 1024 wide, 16 heads,
@@ -42,13 +49,24 @@ not 0:
      dropout 0.1, LayerDrop 0.1, SpecAugment 0.05/10/2) on 36 synthetic
      5 s clips: 2 warm-up steps (the target checked to move by exactly the
      EMA), then 5 timed steps whose kernel launches must equal the counts
-     the layers each tower ran imply; prints s/step, audio-sec/sec and
-     peak memory; then the eval step once; then a cross-check at 4 layers
-     and batch 2, random features off, bf16 on the card against float32
-     on the CPU (loss, grad_norm ratio, gradient cosine ≥ 0.99).
+     the layers each tower ran imply (attention on kernel A in both towers
+     and K3 in the online tower's backward); prints s/step,
+     audio-sec/sec and peak memory; then the eval step once; then a
+     cross-check at 4 layers and batch 2, random features off, bf16 on the
+     card against float32 on the CPU (loss, grad_norm ratio, gradient
+     cosine ≥ 0.99);
+ 10. the entry point — ``nrse_tpu_torch.train_byol.main`` on a synthetic
+     corpus written to a temporary directory (32 clean 5 s clips, 4 noise
+     clips), WavLM-large at full width cut to 2 layers (so that a
+     checkpoint stays under 1 GB), batch 8: 2 epochs, then a resumed third;
+     checks finite losses, the three checkpoints, that the restored state
+     equals the saved one bit for bit and that the resumed run continues
+     at epoch 2; prints the audio decoder that ran, whether PyYAML is
+     installed and the data-fed s/step of each epoch.
 
 The line before the last is the kernels' JSON record (launches: kernels
-A and B from the serving phase, K1, K2 and K4 from the training phase);
+A and B from the serving phase, K1, K2, K3 and K4 from the training
+phase);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.
 """
@@ -70,12 +88,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # the port, from this checkout: without it the script stops here
+from nrse_tpu_torch import train_byol  # noqa: E402
 from nrse_tpu_torch.models.byol import OnlineNetwork, TargetNetwork  # noqa
 from nrse_tpu_torch.models.convert import (  # noqa: E402
     init_byol_state_dict,
     init_state_dict,
 )
 from nrse_tpu_torch.models.wavlm import WavLMConfig  # noqa: E402
+from nrse_tpu_torch.models.wavlm import SITE_ATTN, TrainRNG  # noqa: E402
 from nrse_tpu_torch.ops import (  # noqa: E402
     block_attention,
     fused_dropout,
@@ -84,13 +104,20 @@ from nrse_tpu_torch.ops import (  # noqa: E402
     philox,
 )
 from nrse_tpu_torch.ops.attention import (  # noqa: E402
+    gated_bias_attention_bwd,
+    gated_bias_attention_fwd,
     gated_bias_attention_lse,
+    mask_add,
 )
 from nrse_tpu_torch.runtime import cuda_build  # noqa: E402
 from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
     create_train_state,
     make_byol_eval_step,
     make_byol_train_step,
+)
+from nrse_tpu_torch.train.checkpoint import (  # noqa: E402
+    restore_checkpoint,
+    state_tensors,
 )
 from nrse_tpu_torch.train.schedules import cosine_annealing  # noqa: E402
 from nrse_tpu_torch.serve.export import (  # noqa: E402
@@ -200,17 +227,137 @@ def phase_kernel_a() -> dict:
             log(f"[kernel A] B={b} H={h} T={t} D={d}: kernel "
                 f"{ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} "
                 f"us/call")
-    # §0: under autograd the kernel raises instead of detaching its output
-    try:
-        block_attention.block_gated_attention(
-            q.detach().requires_grad_(), k, v, gate, bias, mask)
-    except RuntimeError as e:
-        log(f"[kernel A] under autograd: raises ({str(e)[:60]}...)")
-    else:
-        raise RuntimeError("kernel A returned an output under autograd")
+    # under autograd the output is differentiable: a gradient flows to q
+    qr = q.detach().requires_grad_()
+    block_attention.block_gated_attention(qr, k, v, gate, bias,
+                                          mask).float().sum().backward()
+    torch.cuda.synchronize()
+    if qr.grad is None or not torch.isfinite(qr.grad.float()).all() or \
+            float(qr.grad.float().abs().max()) == 0.0:
+        raise RuntimeError("kernel A: no gradient flowed to q")
+    log(f"[kernel A] under autograd: dq flows, max|dq| "
+        f"{float(qr.grad.float().abs().max()):.3e}")
     return {"name": "block_attention_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/block_attention_fwd.cu",
             "replaces": "nrse_tpu/ops/block_attention.py:106",
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+GRAD_NAMES = ("dq", "dk", "dv", "dgate", "dbias")
+
+
+def phase_k3() -> dict:
+    """K3 and kernel A's dropout at the training shapes, against the plain
+    versions, with the mask contract and determinism checked bit for
+    bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    b, h, d = TRAIN_BATCH, 16, 64
+    seed = TrainRNG(SEED, 0, 0).dropout_seed(3, SITE_ATTN)
+    worst, timing = 0.0, None
+    for t in (249, 384):
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        gate = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
+        bias = torch.randn(h, t, t, generator=gen, device=dev)
+        mask = None
+        rows = torch.ones(b, dtype=torch.bool, device=dev)
+        if t == 249:
+            lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
+                                    device=dev)
+            lengths[0] = t
+            lengths[1] = 0  # one sample whose keys are all padded
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < lengths[:, None]).to(torch.int32)
+            rows = lengths > 0
+        madd = mask_add(mask, b, t, dev).contiguous()
+        # the seeded kernels' mask is K1's dump over [B, T, C] at the
+        # attention site: fed that dump, the explicit-mask entries must
+        # give the same bits
+        dump = fused_dropout.dump_dropout_mask(seed, (b, t, h * d), DROP_P,
+                                               device=dev)
+        keep = dump.view(b, t, h, d).permute(0, 2, 1, 3).contiguous()
+        seeded = block_attention._Drop(seed=seed, p=DROP_P)
+        masked = block_attention._Drop(mask=keep)
+        with torch.no_grad():
+            out, lse = block_attention._kernel_fwd(q, k, v, gate, bias, mask,
+                                                   seeded)
+            m_out, m_lse = block_attention._kernel_fwd(q, k, v, gate, bias,
+                                                       mask, masked)
+            grads = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
+                                                out, lse, do, seeded)
+            again = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
+                                                out, lse, do, seeded)
+            m_grads = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
+                                                  out, lse, do, masked)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, m_out) and torch.equal(lse, m_lse)):
+            raise RuntimeError(f"K3 phase: the seeded forward's mask differs "
+                               f"from K1's dump at T={t}")
+        for name, a, a2, m in zip(GRAD_NAMES, grads, again, m_grads):
+            if not torch.equal(a, m):
+                raise RuntimeError(f"K3: the seeded {name} differs from the "
+                                   f"explicit-mask one at T={t}")
+            if not torch.equal(a, a2):
+                raise RuntimeError(f"K3: two backward calls differ in {name} "
+                                   f"at T={t}")
+        ref_out, ref_lse = gated_bias_attention_fwd(q, k, v, gate, bias,
+                                                    madd, keep)
+        refs = gated_bias_attention_bwd(q, k, v, gate, bias, madd, out, lse,
+                                        do, keep)
+        if not all(torch.isfinite(x.float()).all()
+                   for x in (out, lse, *grads)):
+            raise RuntimeError(f"K3 phase: non-finite output at T={t}")
+        errs = {"out": rel_err(out, ref_out),
+                "lse": rel_err(lse[rows], ref_lse[rows])}
+        errs.update({n: rel_err(a, r)
+                     for n, a, r in zip(GRAD_NAMES, grads, refs)})
+        scales = {n: float(r.float().abs().max())
+                  for n, r in zip(GRAD_NAMES, refs)}
+        log(f"[K3] B={b} H={h} T={t} D={d} p={DROP_P} masked="
+            f"{mask is not None}: seeded = explicit K1-dump mask bit for bit "
+            f"(fwd and bwd), two backward calls bit-equal; max|Δ|/max|ref| "
+            f"vs plain " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + "; max|ref| " + ", ".join(f"{n} {v:.3e}"
+                                        for n, v in scales.items()))
+        if errs.pop("lse") > LSE_TOL or max(errs.values()) > OUT_TOL:
+            raise RuntimeError(f"K3 / kernel A disagree with plain at T={t}")
+        worst = max(worst, max(float((a.float() - r.float()).abs().max())
+                               for a, r in zip(grads, refs)))
+        del refs, ref_out, ref_lse
+
+        # the autograd Function gives the direct calls' bits
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, gate, bias)]
+        o = block_attention.block_gated_attention(
+            *leaves, mask, p_drop=DROP_P, dropout_seed=seed)
+        o.backward(do)
+        if not torch.equal(o.detach(), out):
+            raise RuntimeError("K3: the Function's output differs from "
+                               "kernel A's")
+        for name, leaf, want in zip(GRAD_NAMES, leaves, grads):
+            if not torch.equal(leaf.grad, want.to(leaf.grad.dtype)):
+                raise RuntimeError(f"K3: the Function's {name} differs from "
+                                   f"the kernel's")
+        del leaves, o
+
+        if t == 249:
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: block_attention._kernel_fwd(
+                    q, k, v, gate, bias, mask, seeded))
+                fwd_plain = cuda_ms(lambda: gated_bias_attention_fwd(
+                    q, k, v, gate, bias, madd, keep), iters=10)
+                ms = cuda_ms(lambda: block_attention._kernel_bwd(
+                    q, k, v, gate, bias, madd, out, lse, do, seeded))
+                plain_ms = cuda_ms(lambda: gated_bias_attention_bwd(
+                    q, k, v, gate, bias, madd, out, lse, do, keep), iters=10)
+            timing = (ms, plain_ms)
+            log(f"[K3] B={b} H={h} T={t}: kernel A with dropout "
+                f"{fwd_ms * 1e3:.1f} us/call, plain {fwd_plain * 1e3:.1f} "
+                f"us/call; K3 backward {ms * 1e3:.1f} us/call, plain "
+                f"{plain_ms * 1e3:.1f} us/call")
+    return {"name": "block_attention_bwd", "route": "cuda",
+            "source": "nrse_tpu_torch/csrc/block_attention_bwd.cu",
+            "replaces": "nrse_tpu/ops/block_attention.py:161",
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
@@ -603,7 +750,7 @@ def _adamw_spec():
 
 
 def _reset_counts() -> None:
-    block_attention.LAUNCHES = 0
+    block_attention.LAUNCHES = block_attention.BWD_LAUNCHES = 0
     fused_ffn.LAUNCHES = fused_ffn.DX_LAUNCHES = fused_ffn.DW_LAUNCHES = 0
     fused_dropout.LAUNCHES = 0
     fused_optimizer.LAUNCHES = 0
@@ -615,7 +762,8 @@ def _train_counts() -> dict:
             "fused_ffn_bwd_dw": fused_ffn.DW_LAUNCHES,
             "fused_dropout": fused_dropout.LAUNCHES,
             "fused_adamw_ema": fused_optimizer.LAUNCHES,
-            "block_attention_fwd": block_attention.LAUNCHES}
+            "block_attention_fwd": block_attention.LAUNCHES,
+            "block_attention_bwd": block_attention.BWD_LAUNCHES}
 
 
 def phase_training(cfg=None, device=torch.device("cuda"),
@@ -685,10 +833,12 @@ def phase_training(cfg=None, device=torch.device("cuda"),
     tg = sum(m["layers_target"] for m in metrics)
     want = {"fused_ffn_fwd": on + tg, "fused_ffn_bwd_dx": on,
             "fused_ffn_bwd_dw": on,
-            # encoder site + 2 per layer run; the online tower's again in
-            # its backward
-            "fused_dropout": 2 * (steps + 2 * on) + steps + 2 * tg,
-            "fused_adamw_ema": steps, "block_attention_fwd": 0}
+            # encoder site + the hidden site of each layer run; the online
+            # tower's again in its backward (the attention output's site is
+            # inside kernel A and K3)
+            "fused_dropout": 2 * (steps + on) + steps + tg,
+            "fused_adamw_ema": steps, "block_attention_fwd": on + tg,
+            "block_attention_bwd": on}
     log(f"[train] {steps} timed steps, layers run online {on}, target {tg}: "
         f"launches {counts} (want {want})")
     if counts != want:
@@ -764,15 +914,152 @@ def phase_crosscheck(layers: int = 4, batch: int = 2) -> None:
             raise RuntimeError(f"gradient cosine {cos} < {COSINE_MIN}")
 
 
+ENTRY_LAYERS = 2
+
+
+def _write_corpus(root: str, n_clean: int, n_noise: int,
+                  clip_seconds: float):
+    """Synthetic clean speech (tones in noise) and noise clips as 16 kHz
+    PCM16 WAV files under ``root/clean`` and ``root/noise``."""
+    import wave
+
+    def save_wav(path, x, sample_rate):
+        pcm = np.clip(x * 32767.0, -32768, 32767).astype(np.int16)
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sample_rate)
+            w.writeframes(pcm.tobytes())
+
+    rng = np.random.default_rng(SEED)
+    t = int(SAMPLE_RATE * clip_seconds)
+    ax = np.arange(t) / SAMPLE_RATE
+    dirs = [os.path.join(root, "clean"), os.path.join(root, "noise")]
+    for path in dirs:
+        os.makedirs(path)
+    for i in range(n_clean):
+        tone = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * ax)
+                + 0.02 * rng.standard_normal(t))
+        save_wav(os.path.join(dirs[0], f"c{i:03d}.wav"),
+                 tone.astype(np.float32), SAMPLE_RATE)
+    for i in range(n_noise):
+        save_wav(os.path.join(dirs[1], f"n{i:03d}.wav"),
+                 (0.2 * rng.standard_normal(t)).astype(np.float32),
+                 SAMPLE_RATE)
+    return dirs
+
+
+def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
+                noise_clips: int = 4, batch: int = 8,
+                clip_seconds: float = CLIP_SECONDS,
+                projection_dim: int = 1024,
+                prediction_dim: int = 2048) -> dict:
+    """BYOL pretraining through ``train_byol.main`` on a synthetic corpus:
+    2 epochs, the checkpoints, then a resumed third epoch.  Its arguments
+    let it be rehearsed at a small width on the CPU."""
+    import importlib.util
+
+    cfg = cfg or WavLMConfig.large(num_hidden_layers=ENTRY_LAYERS)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_corpus_", dir=cuda_build.BUILD_DIR)
+    try:
+        clean, noise = _write_corpus(root, clips, noise_clips, clip_seconds)
+        ckpt = os.path.join(root, "ckpt")
+        config = {
+            "model": {"name": "microsoft/wavlm-large",
+                      "projection_dim": projection_dim,
+                      "prediction_dim": prediction_dim, "ema_decay": 0.997},
+            "training": {"batch_size": batch, "num_workers": 8,
+                         "num_epochs": 2, "learning_rate": 1e-5,
+                         "weight_decay": 1e-5, "seed": SEED,
+                         "checkpoint_dir": ckpt,
+                         "log_dir": os.path.join(root, "logs")},
+            "data": {"clean_data_path": clean, "noise_data_path": noise,
+                     "sample_rate": SAMPLE_RATE,
+                     "max_audio_length": clip_seconds,
+                     "snr_range": [0, 5, 10, 15, 20],
+                     "validation_ratio": 0.25},
+            "device": device.type,
+        }
+        _sync(device)
+        _reset_counts()
+        first = train_byol.main(config, cfg)
+        _sync(device)
+        counts = _train_counts()
+        epochs = first["epochs"]
+        log(f"[entry] WavLM {cfg.num_hidden_layers} layers (depth cut) x "
+            f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s, "
+            f"{clips} clean + {noise_clips} noise clips; audio decoder: "
+            f"{first['decoder']}; PyYAML installed: "
+            f"{importlib.util.find_spec('yaml') is not None}; launches "
+            f"{counts}")
+        if not all(n > 0 for n in counts.values()):
+            raise RuntimeError(f"entry point: a kernel of the path never "
+                               f"ran: {counts}")
+        for e in epochs:
+            if not (np.isfinite(e["train_loss"])
+                    and np.isfinite(e["val_loss"])):
+                raise RuntimeError(f"entry point: non-finite loss {e}")
+        names = ("best_val_loss", "best_val_similarity", "last_model")
+        missing = [n for n in names
+                   if not os.path.isfile(os.path.join(ckpt, n, "state.pt"))]
+        if missing or [e["epoch"] for e in epochs] != [0, 1]:
+            raise RuntimeError(f"entry point: epochs {epochs}, missing "
+                               f"checkpoints {missing}")
+        size = os.path.getsize(os.path.join(ckpt, "last_model", "state.pt"))
+
+        # the checkpoint restores into a state made from other weights
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        fresh = create_train_state(
+            cfg, init_byol_state_dict(cfg, projection_dim, prediction_dim,
+                                      torch.Generator().manual_seed(SEED + 7)),
+            projection_dim, prediction_dim, device, seed=SEED + 7,
+            compute_dtype=dtype)
+        fresh, meta = restore_checkpoint(ckpt, "last_model", fresh)
+        saved, got = state_tensors(first["state"]), state_tensors(fresh)
+        if got.keys() != saved.keys() or not all(
+                torch.equal(got[k], saved[k]) for k in saved) or \
+                (fresh.step, fresh.seed) != (first["state"].step, SEED):
+            raise RuntimeError("entry point: the restored state differs from "
+                               "the saved one")
+        step_after_two = first["state"].step
+        del fresh, saved, got, first
+
+        second = train_byol.main(dict(config, resume=True, training=dict(
+            config["training"], num_epochs=3)), cfg)
+        _sync(device)
+        resumed = second["epochs"]
+        if [e["epoch"] for e in resumed] != [2] or \
+                second["state"].step != step_after_two + resumed[0]["steps"] \
+                or not np.isfinite(resumed[0]["train_loss"]):
+            raise RuntimeError(f"entry point: the resumed run {resumed}")
+        log(f"[entry] 3 checkpoints ({size / 2**20:.1f} MiB each), "
+            f"last_model restored bit for bit (step {step_after_two}); "
+            f"resumed at epoch {resumed[0]['epoch']}, step "
+            f"{second['state'].step}")
+        for e in epochs + resumed:
+            log(f"[entry] epoch {e['epoch']}: train loss "
+                f"{e['train_loss']:.6f}, val loss {e['val_loss']:.6f}, val "
+                f"similarity {e['val_avg_similarity']:.6f}; {e['steps']} "
+                f"data-fed steps at {e['s_per_step']:.4f} s/step "
+                f"({e['audio_sec_per_sec']:.1f} audio-sec/sec; "
+                f"{cfg.num_hidden_layers} layers deep, not the 24-layer "
+                f"model)")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
-    kernels = [phase_kernel_a(), phase_kernel_b(), phase_k1(), *phase_k2(),
-               phase_k4()]
+    kernels = [phase_kernel_a(), phase_k3(), phase_kernel_b(), phase_k1(),
+               *phase_k2(), phase_k4()]
     launches = phase_serving()
     launches.update({k: v for k, v in phase_training().items()
                      if k not in launches})
     phase_crosscheck()
+    phase_entry()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

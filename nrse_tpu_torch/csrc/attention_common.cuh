@@ -1,0 +1,189 @@
+// What the block attention's forward (block_attention_fwd.cu, kernel A)
+// and backward (block_attention_bwd.cu, K3) share: the dropout of the
+// output, and the tiles and tensor-core products they are built from.
+//
+// Dropout.  The keep value of output element (b, h, t, d) of a
+// [B, H, T, 64] tensor comes from Philox (philox.cuh, site 0) at the
+// element's flat index in the merged [B, T, H * 64] layout,
+// (b * T + t) * H * 64 + h * 64 + d: the index K1 (fused_dropout.cu) draws
+// at when it drops the merged tensor, so the attention kernels' masks are
+// K1's mask at the same seed.  Or it comes from an explicit f32
+// [B, H, T, 64] mask (the tests' path).
+//
+// Tiles.  A block of 4 warps works on 64 rows (queries or keys) of one
+// (b, h), a warp on 16 of them.  bf16 [64, 64] tiles of q, k, v or do sit
+// in shared memory with rows padded by 16 bytes, so that ldmatrix reads
+// them without bank conflicts in both orientations (as in mma_gemm.cuh);
+// the f32 bias tile [64 queries, 64 keys] rows by 16 bytes.  Products are
+// mma.sync.m16n8k16 (bf16 in, f32 accumulation); a warp's f32 accumulator
+// of a 16 x 64 product is fed back as the A operand of the next one,
+// rounded to bf16, without leaving registers.  Accumulator element e of
+// n8 tile j sits at row lane / 4 + 8 * (e / 2) of the warp's 16 and column
+// 8 * j + 2 * (lane % 4) + e % 2.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "mma_gemm.cuh"
+#include "philox.cuh"
+
+namespace nrse {
+
+constexpr int kAttnHeadDim = 64;
+
+struct AttnDrop {
+  const float* mask;  // explicit [B, H, T, 64] mask (mode 2), or null
+  uint32_t k0, k1;    // Philox key (mode 1)
+  float p, scale;     // drop probability and keep scale 1 / (1 - p)
+  int mode;           // 0 none, 1 Philox, 2 explicit mask
+
+  __device__ __forceinline__ float keep(int b, int h, int t, int d, int H,
+                                        int T) const {
+    if (mode == 1) {
+      const uint64_t c = static_cast<uint64_t>(H) * kAttnHeadDim;
+      const uint64_t index =
+          (static_cast<uint64_t>(b) * T + t) * c +
+          static_cast<uint64_t>(h) * kAttnHeadDim + d;
+      return philox_keep(k0, k1, index, 0u, p, scale);
+    }
+    if (mode == 2) {
+      return mask[((static_cast<size_t>(b) * H + h) * T + t) * kAttnHeadDim +
+                  d];
+    }
+    return 1.f;
+  }
+};
+
+namespace attn {
+
+using bf16 = __nv_bfloat16;
+using gemm::ldmatrix_x4;
+using gemm::ldmatrix_x4_trans;
+using gemm::mma_bf16;
+
+constexpr int kHeadDim = kAttnHeadDim;  // D: WavLM base/large
+constexpr int kTile = 64;               // keys or queries of a tile
+constexpr int kWarps = 4;               // 16 rows of the tile each
+constexpr int kThreads = kWarps * 32;
+constexpr int kLd = kHeadDim + 8;       // padded bf16 tile row
+constexpr int kBiasLd = kTile + 4;      // padded f32 bias tile row
+constexpr int kNT = kTile / 8;          // n8 tiles across 64 columns: 8
+constexpr int kKT = kHeadDim / 16;      // k16 steps across D: 4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// rows row0.. of a head's [T, D] bf16 tensor into a [kTile, kLd] tile;
+// rows >= T zero-filled
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* head,
+                                          int row0, int T) {
+  for (int c = threadIdx.x; c < kTile * (kHeadDim / 8); c += kThreads) {
+    const int r = c / (kHeadDim / 8);
+    const int col = (c % (kHeadDim / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T) {
+      v = *reinterpret_cast<const uint4*>(
+          head + static_cast<size_t>(row0 + r) * kHeadDim + col);
+    }
+    *reinterpret_cast<uint4*>(s + r * kLd + col) = v;
+  }
+}
+
+// the same for do, with the keep mask folded in: do' = bf16(do * keep)
+__device__ __forceinline__ void load_dout_tile(bf16* s, const bf16* head,
+                                               int row0, int T, int b, int h,
+                                               int H, const AttnDrop& drop) {
+  for (int c = threadIdx.x; c < kTile * (kHeadDim / 8); c += kThreads) {
+    const int r = c / (kHeadDim / 8);
+    const int col = (c % (kHeadDim / 8)) * 8;
+    const int i = row0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (i < T) {
+      v = *reinterpret_cast<const uint4*>(
+          head + static_cast<size_t>(i) * kHeadDim + col);
+      if (drop.mode != 0) {
+        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(x[e]);
+          x[e] = __floats2bfloat162_rn(
+              f.x * drop.keep(b, h, i, col + 2 * e, H, T),
+              f.y * drop.keep(b, h, i, col + 2 * e + 1, H, T));
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(s + r * kLd + col) = v;
+  }
+}
+
+// bias[h, q0 + qi, k0 + kj] into bs[qi][kj] (zero outside T x T)
+__device__ __forceinline__ void load_bias_tile(float* bs, const float* bias,
+                                               int h, int q0, int k0, int T) {
+  for (int c = threadIdx.x; c < kTile * kTile; c += kThreads) {
+    const int qi = c / kTile;
+    const int kj = c % kTile;
+    const int q = q0 + qi;
+    const int k = k0 + kj;
+    bs[qi * kBiasLd + kj] =
+        q < T && k < T ? bias[(static_cast<size_t>(h) * T + q) * T + k] : 0.f;
+  }
+}
+
+// acc[j] += rows . cols^T over D: the warp's 16 rows at `rows` against the
+// kTile rows of `cols` (n8 tile j: rows 8j..8j+7), both [row][d] tiles
+__device__ __forceinline__ void mma_rows_cols(float (&acc)[kNT][4],
+                                              const bf16* rows,
+                                              const bf16* cols, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kKT; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, rows + (lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+    for (int j = 0; j < kNT; j += 2) {
+      uint32_t r[4];
+      ldmatrix_x4(r, cols + (j * 8 + (lane % 8) + (lane / 16) * 8) * kLd +
+                         kk * 16 + ((lane / 8) % 2) * 8);
+      mma_bf16(acc[j], a, r[0], r[1]);
+      mma_bf16(acc[j + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+// out[jd] += bf16(p) . vals: p (16 x 64) an f32 accumulator of
+// mma_rows_cols, fed back as the A operand; vals the [64 rows][d] tile
+// whose rows are p's columns
+__device__ __forceinline__ void mma_acc_vals(float (&out)[kNT][4],
+                                             const float (&p)[kNT][4],
+                                             const bf16* vals, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
+    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
+    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
+    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+#pragma unroll
+    for (int jd = 0; jd < kNT; jd += 2) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, vals + (kk * 16 + ((lane / 8) % 2) * 8 +
+                                   (lane % 8)) * kLd +
+                               jd * 8 + (lane / 16) * 8);
+      mma_bf16(out[jd], a, r[0], r[1]);
+      mma_bf16(out[jd + 1], a, r[2], r[3]);
+    }
+  }
+}
+
+}  // namespace attn
+}  // namespace nrse

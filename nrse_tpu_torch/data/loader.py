@@ -1,0 +1,141 @@
+"""The BYOL data loaders on one process, and a device prefetcher.
+
+:func:`create_dataloaders` is ``nrse_tpu/data/noisy_speech_dataset.py:
+172-230`` without its multi-process branch (whose process count comes from
+JAX): the seeded random train/validation split of the JAX-free
+``NoiseRobustSpeechDataset``, read by the JAX-free ``HostDataLoader``
+(threaded decode; the native C++ decoder of ``nrse_tpu/runtime`` where it
+loads, the Python one of ``nrse_tpu/audio/io.py`` otherwise).  Batches are
+numpy: ``clean [B, T]``, ``noise [B, T]`` float32, ``snr [B]`` float32 and
+``__count__``, the number of real rows (the validation loader pads its
+last batch).
+
+:class:`DevicePrefetcher` is the counterpart of ``PrefetchLoader``
+(``nrse_tpu/data/loader.py:117-181``): a thread reads host batches,
+copies them into pinned memory and on to the card on a side stream, with
+``depth`` batches in flight; the consumer's stream waits on each batch's
+event before using it.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from nrse_tpu.data.loader import HostDataLoader
+from nrse_tpu.data.noisy_speech_dataset import NoiseRobustSpeechDataset
+from nrse_tpu.utils.logging_utils import logger
+
+
+def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:
+    """Seeded random split + train/validation loaders for one process."""
+    data_cfg = config["data"]
+    train_cfg = config["training"]
+    dataset = NoiseRobustSpeechDataset(
+        clean_data_path=data_cfg["clean_data_path"],
+        noise_data_path=data_cfg["noise_data_path"],
+        sample_rate=data_cfg["sample_rate"],
+        max_audio_length=data_cfg["max_audio_length"],
+        snr_range=data_cfg["snr_range"],
+    )
+    n = len(dataset)
+    val_size = int(n * data_cfg.get("validation_ratio", 0.1))
+    train_size = n - val_size
+    logger.info(f"Splitting dataset: {train_size} training samples, "
+                f"{val_size} validation samples")
+    seed = train_cfg.get("seed", 42)
+    perm = np.random.default_rng(seed).permutation(n)
+    num_workers = train_cfg.get("num_workers", 8)
+    bs = train_cfg["batch_size"]
+    train_loader = HostDataLoader(dataset, perm[:train_size], bs,
+                                  shuffle=True, seed=seed,
+                                  num_workers=num_workers, drop_last=True)
+    val_loader = HostDataLoader(dataset, perm[train_size:], bs,
+                                shuffle=False, seed=seed,
+                                num_workers=num_workers, drop_last=False)
+    return train_loader, val_loader
+
+
+class DevicePrefetcher:
+    """Iterates ``loader``'s numpy batches as tensors on ``device``, a
+    thread keeping ``depth`` batches ahead.  On a CUDA device each batch is
+    pinned and copied on a side stream, and the current stream waits on
+    the copy's event when the batch is handed out; on the CPU the batches
+    are only converted.  ``__count__`` is handed out as an int."""
+
+    def __init__(self, loader, device, depth: int = 2):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.depth = max(1, int(depth))
+
+    def _place(self, batch, stream):
+        count = int(batch.pop("__count__", len(batch["snr"])))
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+        if stream is None:
+            return host, count, None
+        with torch.cuda.stream(stream):
+            dev = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return dev, count, event
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        cuda = self.device.type == "cuda"
+        if cuda and self.device.index is None:  # the caller's current card
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        stream = torch.cuda.Stream(self.device) if cuda else None
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        done = object()
+        err: list = []
+        stop = threading.Event()
+
+        def producer():
+            try:
+                if cuda:
+                    torch.cuda.set_device(self.device)
+                for batch in self.loader:
+                    item = self._place(batch, stream)
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except Exception as e:  # raised again in the consumer
+                err.append(e)
+            finally:
+                q.put(done)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    if err:
+                        raise err[0]
+                    return
+                batch, count, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(self.device)
+                    current.wait_event(event)
+                    for t in batch.values():  # freed only after its use
+                        t.record_stream(current)
+                batch["__count__"] = count
+                yield batch
+        finally:
+            stop.set()
+            while thread.is_alive():  # drain so the producer can finish
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()

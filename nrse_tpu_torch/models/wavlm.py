@@ -15,16 +15,20 @@ Port of ``nrse_tpu/models/wavlm.py``:
       ("stable", large) or post-LN (base_plus) layers
     → ``(sequence [B, T', C], pooled [B, C])``, the masked mean over frames.
 
-Eval mode (serving) runs attention through kernel A
-(``ops.block_attention``).  Training mode follows the JAX module with
-``flash_attention: false``: attention through the plain differentiable
-``ops.attention.gated_bias_attention``; dropout at the attention output
-after the head merge, at the post-attention hidden site and once after the
-positional embedding through K1 (``ops.fused_dropout``), and at the FFN's
-two sites inside kernel B and K2; LayerDrop as one host draw per layer per
-step (the whole batch skips together, never layer 0); SpecAugment spans
-drawn on the host.  Every random choice comes from a :class:`TrainRNG`
-(seed, step, tower), which training mode requires.
+Attention runs through ``ops.block_attention`` in both modes: kernel A
+forward, K3 backward, with the attention-output dropout inside them in
+training.  That is the JAX module with ``use_flash_attention=True`` and
+``attn_dropout_impl="kernel"`` at T ≤ 384; the JAX default (off,
+``bench.py:490``) runs XLA's attention instead, a speed choice for the TPU
+with the same arithmetic, so the port has no switch for it.  The
+attention-output dropout draws K1's mask over the merged ``[B, T, C]``
+output, so its random stream is the one a separate K1 pass there would
+draw.  Training mode drops out at the post-attention hidden site and once
+after the positional embedding through K1 (``ops.fused_dropout``), and at
+the FFN's two sites inside kernel B and K2; LayerDrop as one host draw per
+layer per step (the whole batch skips together, never layer 0);
+SpecAugment spans drawn on the host.  Every random choice comes from a
+:class:`TrainRNG` (seed, step, tower), which training mode requires.
 
 Parameter names are HF ``WavLMModel``'s state-dict keys, so the layout
 ``nrse_tpu/models/export_torch.py`` writes loads strictly.  Numerics follow
@@ -47,7 +51,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from nrse_tpu_torch.ops import philox
-from nrse_tpu_torch.ops.attention import gated_bias_attention
 from nrse_tpu_torch.ops.block_attention import block_gated_attention
 from nrse_tpu_torch.ops.fused_dropout import hw_dropout
 from nrse_tpu_torch.ops.fused_ffn import fused_ffn
@@ -56,8 +59,9 @@ from nrse_tpu_torch.ops.rel_pos_bias import compute_position_bias
 # flax GroupNorm's default epsilon, which the JAX frontend keeps
 GROUP_NORM_EPS = 1e-6
 
-# dropout sites of a layer (the FFN's two sites are sites 0 and 1 of the
-# FFN seed inside kernel B); the encoder-level site takes layer ENCODER
+# dropout sites of a layer (the attention output's inside kernel A and K3;
+# the FFN's two sites are sites 0 and 1 of the FFN seed inside kernel B);
+# the encoder-level site takes layer ENCODER
 SITE_ATTN, SITE_HIDDEN, SITE_FFN = 0, 1, 2
 ENCODER = 0xFFFF
 # host streams of a tower's step
@@ -329,8 +333,8 @@ class GatedAttention(nn.Module):
     def forward(self, hidden, pos_bias, key_padding_mask=None,
                 dropout: float = 0.0, rng: Optional[TrainRNG] = None,
                 layer: int = 0):
-        """Eval mode: kernel A.  Training mode: the plain differentiable
-        attention, then dropout ``dropout`` after the head merge."""
+        """Kernel A (and K3 for its gradient); with ``rng`` (training),
+        dropout ``dropout`` of the attention output inside them."""
         b, t, c = hidden.shape
         h = self.num_heads
 
@@ -345,11 +349,12 @@ class GatedAttention(nn.Module):
         gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1).float())
         const = self.gru_rel_pos_const.float().view(1, h, 1)
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
-        attend = gated_bias_attention if self.training \
-            else block_gated_attention
-        out = attend(q, k, v, gate, pos_bias, key_padding_mask)
+        p, seed = 0.0, None
+        if rng is not None and dropout > 0.0:
+            p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
+        out = block_gated_attention(q, k, v, gate, pos_bias, key_padding_mask,
+                                    p_drop=p, dropout_seed=seed)
         out = out.transpose(1, 2).reshape(b, t, c)
-        out = _dropout(out, dropout, rng, layer, SITE_ATTN)
         return _linear(out, self.out_proj)
 
 

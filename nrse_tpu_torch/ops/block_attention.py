@@ -1,24 +1,30 @@
-"""Block gated attention for short sequences (kernel A's wrapper).
+"""Block gated attention for short sequences (kernel A and K3's wrapper).
 
-Port of ``nrse_tpu/ops/block_attention.py:486-577``: the same signature and
-``[B, H, T, D]`` layout, consuming the dense ``[H, T, T]`` position bias.
-A CUDA tensor goes to the hand-written kernel in
-``nrse_tpu_torch/csrc/block_attention_fwd.cu``; a CPU tensor goes to the
-plain version, ``ops.attention.gated_bias_attention_lse``.  There is no
-fallback from one to the other.
+Port of ``nrse_tpu/ops/block_attention.py:339-577``: the same signature and
+``[B, H, T, D]`` layout, consuming the dense ``[H, T, T]`` position bias,
+with optional dropout of the output inside the kernel.
+:func:`block_gated_attention` is a ``torch.autograd.Function``: its
+forward is kernel A (``csrc/block_attention_fwd.cu``), which saves the
+output after dropout and the per-row ``lse``; its backward is K3
+(``csrc/block_attention_bwd.cu``), which recomputes the scores and
+probabilities from them and regenerates the keep mask from the seed, so no
+``[B, H, T, T]`` tensor and no mask is kept.  A CPU tensor goes to the
+plain versions in ``ops.attention`` instead; there is no fallback from one
+to the other.
 
-The kernel holds a head's whole K and V and whole score rows on chip, so
-it takes T ≤ ``MAX_T`` = 384 frames (≈ 7.7 s of audio), as the TPU kernel
-does.  Longer clips need the streaming flash kernel, which is not ported
-yet; both paths raise for them, so the CPU tests see the card's contract.
+Dropout comes either from a seed pair (the mask is K1's at the same seed
+over the merged ``[B, T, C]`` layout, ``ops.attention.attention_keep_mask``)
+or from an explicit float32 ``{0, 1/(1−p)}`` ``[B, H, T, D]`` mask (the
+tests' path).  The counterpart of the TPU module's mask dump
+(``dump_block_masks``) is therefore K1's ``dump_dropout_mask`` over ``[B,
+T, C]``.
 
-Forward only, so it serves the eval paths: the serving forward and the
-BYOL eval step.  Training runs attention through the plain differentiable
-``ops.attention.gated_bias_attention`` (as the JAX training config,
-``flash_attention: false``, runs XLA's) until K3, this kernel's backward
-and its in-kernel dropout, is ported.  Until then the CUDA entry raises
-when called under autograd on inputs that require grad, instead of
-returning an output detached from them (``ops/_guard.py``).
+The kernels hold a head's whole K and V and whole score rows on chip, so
+they take T ≤ ``MAX_T`` = 384 frames (≈ 7.7 s of audio), as the TPU
+kernels do.  Longer clips need the streaming flash kernels, which are not
+ported yet; both paths raise for them, so the CPU tests see the card's
+contract.  The raw CUDA entries refuse inputs that require grad under
+autograd (``ops/_guard.py``); the Function calls them with grad mode off.
 """
 
 from __future__ import annotations
@@ -27,15 +33,62 @@ from typing import Optional, Tuple
 
 import torch
 
+from nrse_tpu_torch.ops import philox
 from nrse_tpu_torch.ops._guard import require_no_grad
-from nrse_tpu_torch.ops.attention import gated_bias_attention_lse, mask_add
+from nrse_tpu_torch.ops.attention import (
+    attention_keep_mask,
+    gated_bias_attention_bwd,
+    gated_bias_attention_fwd,
+    mask_add,
+)
 from nrse_tpu_torch.runtime import cuda_build
 
 MAX_T = 384
 HEAD_DIM = 64
 
-# Kernel launches made by this wrapper since the count was last reset.
+# Kernel launches made by this wrapper since the counts were last reset:
+# kernel A (forward) and K3 (backward).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+_MODE_NONE, _MODE_SEEDED, _MODE_MASKED = 0, 1, 2
+
+
+class _Drop:
+    """How the output is dropped: not at all, from a seed pair under
+    probability ``p``, or by an explicit mask."""
+
+    def __init__(self, seed=None, p: float = 0.0, mask=None):
+        self.seed = None if seed is None else (int(seed[0]), int(seed[1]))
+        self.p, self.mask = float(p), mask
+
+    @property
+    def mode(self) -> int:
+        if self.mask is not None:
+            return _MODE_MASKED
+        return _MODE_SEEDED if self.p > 0.0 else _MODE_NONE
+
+    def plain_mask(self, shape, device) -> Optional[torch.Tensor]:
+        """The keep mask as a tensor, for the plain versions."""
+        if self.mode == _MODE_SEEDED:
+            return attention_keep_mask(self.seed, shape, self.p, device)
+        return self.mask
+
+    def c_args(self, shape, device):
+        """``(mask pointer, k0, k1, p, keep scale, mode)`` for a C entry;
+        keeps the explicit mask it hands over alive on ``self``."""
+        k0, k1 = self.seed or (0, 0)
+        ptr = 0
+        if self.mode == _MODE_MASKED:
+            m = self.mask
+            if tuple(m.shape) != tuple(shape) or m.device != device:
+                raise ValueError(f"the dropout mask must be {tuple(shape)} on "
+                                 f"{device}, got {tuple(m.shape)} on "
+                                 f"{m.device}")
+            self._cmask = m.to(torch.float32).contiguous()
+            ptr = self._cmask.data_ptr()
+        scale = philox.keep_scale(self.p) if self.mode == _MODE_SEEDED else 1.0
+        return ptr, k0, k1, self.p, scale, self.mode
 
 
 def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):
@@ -58,22 +111,37 @@ def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):
             "the streaming flash-attention kernel is not ported yet")
 
 
-def _kernel_fwd(q, k, v, gate, pos_bias, key_padding_mask):
-    require_no_grad(q, k, v, gate, pos_bias,
-                    what="block_attention_fwd (kernel A has no backward "
-                         "until K3 is ported)")
-    b, h, t, d = q.shape
+def _check_cuda(q, k, v, *others):
+    d = q.shape[-1]
     if d != HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head_dim {HEAD_DIM}, got {d}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"the CUDA kernel takes bf16 q/k/v, got {q.dtype}")
-    tensors = (q, k, v, gate, pos_bias)
-    if any(x.device != q.device for x in tensors):
-        raise ValueError("q, k, v, gate and pos_bias must share a device")
+    if any(x.device != q.device for x in (k, v, *others)):
+        raise ValueError("the attention's tensors must share a device")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def _kernel_fwd(q, k, v, gate, pos_bias, key_padding_mask, drop=None):
+    """Kernel A: ``(out, lse)``; ``drop`` a :class:`_Drop` (none if
+    omitted)."""
+    require_no_grad(q, k, v, gate, pos_bias,
+                    what="block_attention_fwd (the raw kernel A entry; "
+                         "gradients go through block_gated_attention, whose "
+                         "backward is K3)")
+    drop = drop or _Drop()
+    _check_cuda(q, k, v, gate, pos_bias)
+    b, h, t, d = q.shape
     q, k, v = (x.contiguous() for x in (q, k, v))
-    gate = gate.to(torch.float32).contiguous()
-    bias = pos_bias.to(torch.float32).contiguous()
     madd = mask_add(key_padding_mask, b, t, q.device).contiguous()
+    return _launch_fwd(q, k, v, _f32(gate), _f32(pos_bias), madd, drop)
+
+
+def _launch_fwd(q, k, v, gate, bias, madd, drop):
+    b, h, t, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     lib = cuda_build.load()
@@ -81,38 +149,129 @@ def _kernel_fwd(q, k, v, gate, pos_bias, key_padding_mask):
         err = lib.nrse_block_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(),
             bias.data_ptr(), madd.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, t, d, 1.0 / d ** 0.5,
-            torch.cuda.current_stream().cuda_stream)
+            lse.data_ptr(), *drop.c_args(q.shape, q.device), b, h, t, d,
+            1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "block_attention_fwd")
     global LAUNCHES
     LAUNCHES += 1
     return out, lse
 
 
+def _kernel_bwd(q, k, v, gate, bias, madd, out, lse, do, drop):
+    """K3: ``(dq, dk, dv, dgate, dbias)`` from kernel A's saved tensors
+    (q, k, v contiguous bf16; gate, bias, madd, lse float32)."""
+    require_no_grad(q, k, v, gate, bias, do,
+                    what="block_attention_bwd (the raw K3 entry; gradients "
+                         "go through block_gated_attention)")
+    _check_cuda(q, k, v, gate, bias, madd, out, lse, do)
+    b, h, t, d = q.shape
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    gate, bias, madd, lse = (_f32(x) for x in (gate, bias, madd, lse))
+    do = do.to(q.dtype).contiguous()
+    # rowsum(do ⊙ out), a plain reduction, as the JAX package leaves it
+    # to XLA (nrse_tpu/ops/block_attention.py:353)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dgate = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    dbias = torch.empty(h, t, t, dtype=torch.float32, device=q.device)
+    # the per-batch gate·ds partials, summed over b in a fixed order
+    partial = torch.empty(b, h, t, t, dtype=torch.float32, device=q.device)
+    lib = cuda_build.load()
+    with torch.cuda.device(q.device):
+        err = lib.nrse_block_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(),
+            bias.data_ptr(), madd.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *drop.c_args(q.shape, q.device),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgate.data_ptr(),
+            dbias.data_ptr(), partial.data_ptr(), b, h, t, d, 1.0 / d ** 0.5,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "block_attention_bwd")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv, dgate, dbias
+
+
+class _BlockAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, gate, pos_bias, madd, drop):
+        ctx.dtypes = (gate.dtype, pos_bias.dtype)
+        gate, bias = _f32(gate), _f32(pos_bias)
+        if q.device.type == "cuda":
+            _check_cuda(q, k, v, gate, bias, madd)
+            q, k, v = (x.contiguous() for x in (q, k, v))
+            out, lse = _launch_fwd(q, k, v, gate, bias, madd, drop)
+        else:
+            out, lse = gated_bias_attention_fwd(
+                q, k, v, gate, bias, madd, drop.plain_mask(q.shape, q.device))
+        ctx.drop = drop
+        ctx.save_for_backward(q, k, v, gate, bias, madd, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, gate, bias, madd, out, lse = ctx.saved_tensors
+        drop = ctx.drop
+        if q.device.type == "cuda":
+            grads = _kernel_bwd(q, k, v, gate, bias, madd, out, lse, do,
+                                drop)
+        else:
+            grads = gated_bias_attention_bwd(
+                q, k, v, gate, bias, madd, out, lse, do,
+                drop.plain_mask(q.shape, q.device))
+        dq, dk, dv, dgate, dbias = grads
+        gate_dtype, bias_dtype = ctx.dtypes
+        return (dq, dk, dv, dgate.to(gate_dtype), dbias.to(bias_dtype),
+                None, None)
+
+
 def block_gated_attention_lse(q, k, v, gate, pos_bias,
-                              key_padding_mask: Optional[torch.Tensor] = None
+                              key_padding_mask: Optional[torch.Tensor] = None,
+                              *, p_drop: float = 0.0,
+                              dropout_seed: Optional[Tuple[int, int]] = None,
+                              dropout_mask: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, H, T, D], lse [B, H, T] float32)``; see
-    :func:`block_gated_attention`."""
+    :func:`block_gated_attention`.  ``out`` is differentiable; ``lse`` is
+    the softmax's log-sum-exp (without dropout) and is not."""
     _check_inputs(q, k, v, gate, pos_bias, key_padding_mask)
-    if q.device.type == "cuda":
-        return _kernel_fwd(q, k, v, gate, pos_bias, key_padding_mask)
-    if q.device.type == "cpu":
-        return gated_bias_attention_lse(q, k, v, gate, pos_bias,
-                                        key_padding_mask)
-    raise ValueError(f"no block attention for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no block attention for device {q.device}")
+    if dropout_mask is not None:
+        drop = _Drop(mask=dropout_mask)
+    elif p_drop > 0.0:
+        if not p_drop < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got "
+                             f"{p_drop}")
+        if dropout_seed is None:
+            raise ValueError("p_drop > 0 requires dropout_seed")
+        drop = _Drop(seed=dropout_seed, p=p_drop)
+    else:
+        drop = _Drop()
+    b, _, t, _ = q.shape
+    madd = mask_add(key_padding_mask, b, t, q.device).contiguous()
+    return _BlockAttention.apply(q, k, v, gate, pos_bias, madd, drop)
 
 
 def block_gated_attention(q, k, v, gate, pos_bias,
-                          key_padding_mask: Optional[torch.Tensor] = None):
-    """Gated-bias attention at T ≤ 384.
+                          key_padding_mask: Optional[torch.Tensor] = None,
+                          *, p_drop: float = 0.0,
+                          dropout_seed: Optional[Tuple[int, int]] = None,
+                          dropout_mask: Optional[torch.Tensor] = None):
+    """Gated-bias attention at T ≤ 384, differentiable.
 
     Args:
       q, k, v: ``[B, H, T, D]``; on the card bf16 with D = 64.
       gate: ``[B, H, T]`` per-query bias gate.
       pos_bias: dense ``[H, T, T]`` (``rel_pos_bias.compute_position_bias``).
       key_padding_mask: optional ``[B, T]`` (1 = valid key).
+      p_drop / dropout_seed: dropout of the output inside the kernel, the
+        mask drawn from Philox under the seed pair (K1's mask over the
+        merged ``[B, T, C]`` layout) and drawn again in the backward.
+      dropout_mask: an explicit float32 ``{0, 1/(1−p)}`` ``[B, H, T, D]``
+        keep mask instead (the tests' path).
     Returns ``[B, H, T, D]`` in v's dtype.
     """
-    return block_gated_attention_lse(q, k, v, gate, pos_bias,
-                                     key_padding_mask)[0]
+    return block_gated_attention_lse(
+        q, k, v, gate, pos_bias, key_padding_mask, p_drop=p_drop,
+        dropout_seed=dropout_seed, dropout_mask=dropout_mask)[0]

@@ -45,6 +45,11 @@ _L = ctypes.c_longlong
 # name -> argtypes of every C entry in csrc/
 _ENTRIES = {
     "nrse_block_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _U, _U, _F, _F, _I,
+                                 _I, _I, _I, _I, _F, _P],
+    "nrse_block_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _U, _U, _F, _F, _I,
+                                 _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _F, _P],
     "nrse_fused_ffn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nrse_fused_ffn_fwd_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,1 +1,2 @@
-"""The BYOL training step, its schedules and its eval step."""
+"""The BYOL training step, its schedules and its eval step; checkpoints
+and early stopping."""

@@ -1,0 +1,102 @@
+"""Checkpoints of the BYOL train state, with resume.
+
+Counterpart of ``nrse_tpu/train/checkpoint.py:27-183`` with ``torch.save``
+in place of orbax: the same names (``best_val_loss``,
+``best_val_similarity``, ``last_model``) and the same layout,
+``<ckpt_dir>/<name>/state.pt`` beside ``<name>/meta.json`` (``epoch``,
+``loss``, ``similarity``, ``best``).  ``state.pt`` holds
+:func:`state_tensors` (the flat float32 ``params``, ``mu``, ``nu`` and
+``target_params`` of ``train.byol_trainer.BYOLTrainState`` and the
+BatchNorm running statistics of both towers), ``step`` and ``seed``.  It
+is read back with ``torch.load(weights_only=True)`` and written into the
+existing buffers in place, so the modules' parameters and gradients, which
+are views of the flat buffers, stay valid.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from nrse_tpu_torch.train.byol_trainer import BYOLTrainState
+
+STATE_FILE = "state.pt"
+META_FILE = "meta.json"
+
+
+def state_tensors(state: BYOLTrainState) -> Dict[str, torch.Tensor]:
+    """The tensors a checkpoint holds, by name: ``params``, ``mu``, ``nu``,
+    ``target_params`` and each tower's buffers (``online.<name>``,
+    ``target.<name>``: the BatchNorm running statistics)."""
+    out = {k: getattr(state, k)
+           for k in ("params", "mu", "nu", "target_params")}
+    for tower, module in (("online", state.online), ("target", state.target)):
+        for name, buf in module.named_buffers():
+            out[f"{tower}.{name}"] = buf
+    return out
+
+
+def save_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState,
+                    metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Save ``state`` under ``ckpt_dir/name`` (overwriting it); returns the
+    checkpoint's directory.  The file is written whole and then renamed, so
+    a run cut during a save leaves the previous checkpoint readable."""
+    path = os.path.abspath(os.path.join(ckpt_dir, name))
+    os.makedirs(path, exist_ok=True)
+    payload = {"tensors": {k: v.detach().cpu()
+                           for k, v in state_tensors(state).items()},
+               "step": int(state.step), "seed": int(state.seed)}
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    with open(os.path.join(path, META_FILE), "w") as f:
+        json.dump(metadata or {}, f)
+    return path
+
+
+def restore_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState
+                       ) -> Tuple[BYOLTrainState, Dict[str, Any]]:
+    """Load ``ckpt_dir/name`` into ``state`` in place and return ``(state,
+    metadata)``.  Raises ``ValueError`` if a tensor's name or shape differs
+    from the state's (another model configuration)."""
+    path = os.path.abspath(os.path.join(ckpt_dir, name))
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    sources, targets = saved["tensors"], state_tensors(state)
+    if sources.keys() != targets.keys():
+        raise ValueError(f"checkpoint {name!r} holds other tensors than the "
+                         f"state: {sorted(sources.keys() ^ targets.keys())}")
+    for k, dst in targets.items():
+        if sources[k].shape != dst.shape:
+            raise ValueError(f"checkpoint {name!r}: {k} has shape "
+                             f"{tuple(sources[k].shape)}, the state "
+                             f"{tuple(dst.shape)}")
+    with torch.no_grad():
+        for k, dst in targets.items():
+            dst.copy_(sources[k])
+    state.step = int(saved["step"])
+    state.seed = int(saved["seed"])
+    metadata: Dict[str, Any] = {}
+    meta_path = os.path.join(path, META_FILE)
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            metadata = json.load(f)
+    return state, metadata
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """Name of the most recently written checkpoint in ``ckpt_dir``."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    best, best_t = None, -1
+    for name in sorted(os.listdir(ckpt_dir)):
+        meta = os.path.join(ckpt_dir, name, META_FILE)
+        if os.path.exists(os.path.join(ckpt_dir, name, STATE_FILE)) and \
+                os.path.exists(meta):
+            t = os.stat(meta).st_mtime_ns
+            if t > best_t:
+                best, best_t = name, t
+    return best

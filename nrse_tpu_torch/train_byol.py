@@ -1,0 +1,310 @@
+"""BYOL pretraining on one GPU: the port of ``train_byol.py:27-278``.
+
+    python -m nrse_tpu_torch.train_byol --config <yaml or preset name> \\
+        [--device cuda|cpu] [--batch_size N] [--epochs N] [--lr X] [--resume]
+
+The JAX presets (``nrse_tpu/config/presets/*.yaml``) load as they are,
+through a small loader of this module (PyYAML, imported when a file is
+read) with the JAX loader's defaults for the keys used here;
+:func:`main` takes the config as a dict, so a caller needs no YAML.  The
+orchestration is the JAX entry point's, in its order: seeds, loaders
+(``data.loader``), the train state (seeded random weights,
+``models.convert.init_byol_state_dict``) with AdamW + EMA
+(``ops.fused_optimizer.FusedAdamWSpec``) on a cosine schedule over
+``len(train_loader) × num_epochs`` steps, resume from the latest
+checkpoint, then per epoch: the train step fed by the device prefetcher
+(losses kept on the device until the epoch ends), validation
+(``eval.evaluate_byol.validate_model``), early stopping, and the
+``best_val_loss``, ``best_val_similarity`` and ``last_model`` checkpoints
+(``train.checkpoint``; ``training.save_checkpoints: false`` skips them).
+
+One process on one card (``device: cuda``, computing in bf16, the type
+the kernels take) or on the CPU (float32, the plain paths).  Not ported
+here: the multi-process path, the t-SNE plot (logged as not ported where
+the JAX entry point draws it) and experiment tracking (wandb, disabled in
+every preset).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import os
+import random
+import sys
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from nrse_tpu.runtime.native import native_available
+from nrse_tpu.utils.logging_utils import logger, setup_logger
+from nrse_tpu_torch.data.loader import DevicePrefetcher, create_dataloaders
+from nrse_tpu_torch.eval.evaluate_byol import validate_model
+from nrse_tpu_torch.models.convert import init_byol_state_dict
+from nrse_tpu_torch.models.wavlm import WavLMConfig
+from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
+from nrse_tpu_torch.train.byol_trainer import (
+    create_train_state,
+    make_byol_train_step,
+)
+from nrse_tpu_torch.train.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from nrse_tpu_torch.train.early_stopping import EarlyStopping
+from nrse_tpu_torch.train.schedules import cosine_annealing
+
+PRESET_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "nrse_tpu", "config", "presets")
+
+# the JAX loader's defaults (nrse_tpu/config/config_utils.py:106-147) for
+# the keys this entry point reads
+DEFAULTS = {
+    "model": {"name": "microsoft/wavlm-large", "projection_dim": 1024,
+              "prediction_dim": 2048, "ema_decay": 0.997},
+    "training": {"batch_size": 36, "num_workers": 8, "num_epochs": 100,
+                 "learning_rate": 1.0e-5, "weight_decay": 1.0e-5,
+                 "seed": 42, "checkpoint_dir": "checkpoints/byol/default",
+                 "log_dir": "outputs/byol/default",
+                 "early_stopping_metric": "val_loss",
+                 "early_stopping_patience": 5,
+                 "early_stopping_min_delta": 0.0},
+    "data": {"sample_rate": 16000, "max_audio_length": 5.0,
+             "snr_range": [0, 5, 10, 15, 20], "validation_ratio": 0.15},
+    "logging": {"wandb_mode": "disabled", "level": "INFO",
+                "console_level": "ERROR", "visualization_interval": 2},
+}
+
+
+def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of ``config`` with :data:`DEFAULTS` filled in and ``device``
+    (default ``cuda``)."""
+    config = copy.deepcopy(config)
+    for section, values in DEFAULTS.items():
+        block = config.setdefault(section, {})
+        for key, value in values.items():
+            block.setdefault(key, copy.deepcopy(value))
+    config.setdefault("device", "cuda")
+    return config
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """A YAML config file, or a preset of the JAX package by name."""
+    import yaml
+
+    if not os.path.exists(path):
+        name = os.path.basename(path)
+        candidate = os.path.join(
+            PRESET_DIR, name if name.endswith(".yaml") else name + ".yaml")
+        if os.path.exists(candidate):
+            path = candidate
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def encoder_config(name: str) -> WavLMConfig:
+    """The encoder of ``model.name``, as ``WavLMConfig.from_model_name``
+    of the JAX package picks it."""
+    if "tiny" in name:
+        return WavLMConfig.tiny()
+    if "large" in name:
+        return WavLMConfig.large()
+    if "base" in name:
+        return WavLMConfig.base_plus()
+    raise ValueError(f"unknown WavLM variant: {name}")
+
+
+def _device(config) -> torch.device:
+    name = str(config["device"]).lower()
+    if name in ("cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("device cuda requested, but no CUDA device is "
+                               "available")
+        return torch.device("cuda")
+    if name == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"device must be cuda or cpu, got {config['device']!r}")
+
+
+def _set_seed(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def main(config: Dict[str, Any],
+         encoder: Optional[WavLMConfig] = None) -> Dict[str, Any]:
+    """Pretrain with ``config`` (the YAML layout, as a dict).  ``encoder``
+    replaces the encoder that ``model.name`` names (e.g. a shallower one).
+
+    Returns ``{"state": the BYOLTrainState, "epochs": [per-epoch metrics],
+    "decoder": "native" or "python", "stopped_early": bool}``; each epoch's
+    metrics hold ``epoch``, ``train_loss``, ``val_loss``,
+    ``val_avg_similarity``, ``val_similarities``, ``steps``, ``s_per_step``
+    (host clock over the epoch's train steps, data loading included) and
+    ``audio_sec_per_sec``."""
+    config = with_defaults(config)
+    setup_logger(config)
+    tr, data_cfg, model_cfg = (config["training"], config["data"],
+                               config["model"])
+    seed = int(tr["seed"])
+    _set_seed(seed)
+    device = _device(config)
+    ckpt_dir = tr["checkpoint_dir"]
+    os.makedirs(ckpt_dir, exist_ok=True)
+    os.makedirs(tr["log_dir"], exist_ok=True)
+
+    # the loaders decode with the native C++ runtime where it loads
+    decoder = "native" if native_available() else "python"
+    logger.info(f"audio decoder: {decoder}")
+    train_loader, val_loader = create_dataloaders(config)
+    prefetch = int(config.get("tpu", {}).get("prefetch_depth", 2))
+
+    enc = encoder or encoder_config(model_cfg["name"])
+    num_epochs = int(tr["num_epochs"])
+    total_steps = len(train_loader) * num_epochs
+    lr = tr["learning_rate"]
+    schedule = cosine_annealing(lr, total_steps) if total_steps else lr
+    proj, pred = model_cfg["projection_dim"], model_cfg["prediction_dim"]
+    state = create_train_state(
+        enc, init_byol_state_dict(enc, proj, pred,
+                                  torch.Generator().manual_seed(seed)),
+        proj, pred, device, seed=seed,
+        compute_dtype=torch.bfloat16 if device.type == "cuda"
+        else torch.float32)
+    spec = FusedAdamWSpec(schedule=schedule,
+                          weight_decay=tr["weight_decay"],
+                          ema_decay=model_cfg["ema_decay"])
+
+    start_epoch, resumed_best = 0, {}
+    if config.get("resume"):
+        name = latest_checkpoint(ckpt_dir)
+        if name:
+            state, meta = restore_checkpoint(ckpt_dir, name, state)
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            resumed_best = meta.get("best", {})
+            logger.info(f"resumed from {name} at epoch {start_epoch}, step "
+                        f"{state.step}")
+
+    train_step = make_byol_train_step(spec)
+    metric = tr["early_stopping_metric"]
+    early_stopping = EarlyStopping(
+        patience=tr["early_stopping_patience"],
+        mode="min" if metric == "val_loss" else "max",
+        min_delta=tr["early_stopping_min_delta"])
+    best_val_loss = resumed_best.get("val_loss", float("inf"))
+    best_val_similarity = resumed_best.get("val_similarity", 0.0)
+    batch_size = tr["batch_size"]
+    clip_seconds = data_cfg["max_audio_length"]
+    save_ckpts = tr.get("save_checkpoints", True)
+    history, stopped = [], False
+
+    for epoch in range(start_epoch, num_epochs):
+        # losses stay on the device until the epoch ends: a float() per
+        # step would make the host wait for the card every step
+        step_losses = []
+        t0 = time.perf_counter()
+        for batch in DevicePrefetcher(train_loader, device, prefetch):
+            batch.pop("__count__")
+            step_losses.append(train_step(state, batch)["loss"])
+        epoch_loss = float(torch.stack(step_losses).mean()) \
+            if step_losses else 0.0
+        dt = time.perf_counter() - t0
+        steps = len(step_losses)
+        s_per_step = dt / max(steps, 1)
+
+        val_loss, val_metrics = validate_model(state, val_loader, config)
+        record = {"epoch": epoch, "train_loss": epoch_loss,
+                  "val_loss": val_loss,
+                  "val_avg_similarity": val_metrics["val_avg_similarity"],
+                  "val_similarities": val_metrics["val_similarities"],
+                  "steps": steps, "s_per_step": s_per_step,
+                  "audio_sec_per_sec":
+                      batch_size * clip_seconds / s_per_step if steps
+                      else 0.0}
+        history.append(record)
+        logger.info(f"epoch {epoch}: {record}")
+        print(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: "
+              f"{epoch_loss:.4f}, Val Loss: {val_loss:.4f}, Val Avg "
+              f"Similarity: {val_metrics['val_avg_similarity']:.4f}, "
+              f"{record['audio_sec_per_sec']:.1f} audio-sec/sec", flush=True)
+
+        stop_value = val_loss if metric == "val_loss" else \
+            val_metrics["val_avg_similarity"]
+        stop = early_stopping(stop_value)
+
+        viz_every = config["logging"]["visualization_interval"]
+        if (epoch + 1) % viz_every == 0 or epoch == num_epochs - 1:
+            logger.info("t-SNE plot of the embeddings: not ported (needs "
+                        "scikit-learn and matplotlib)")
+
+        meta = {"epoch": epoch, "loss": val_loss,
+                "similarity": val_metrics["val_avg_similarity"],
+                "best": {"val_loss": min(best_val_loss, val_loss),
+                         "val_similarity": max(
+                             best_val_similarity,
+                             val_metrics["val_avg_similarity"])}}
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            if save_ckpts:
+                save_checkpoint(ckpt_dir, "best_val_loss", state, meta)
+                print(f"Saved best model checkpoint with validation loss: "
+                      f"{best_val_loss:.4f}", flush=True)
+        if val_metrics["val_avg_similarity"] > best_val_similarity:
+            best_val_similarity = val_metrics["val_avg_similarity"]
+            if save_ckpts:
+                save_checkpoint(ckpt_dir, "best_val_similarity", state, meta)
+                print(f"Saved best model checkpoint with validation "
+                      f"similarity: {best_val_similarity:.4f}", flush=True)
+        if save_ckpts:
+            save_checkpoint(ckpt_dir, "last_model", state, meta)
+
+        if stop:
+            print(f"Early stopping triggered after epoch {epoch + 1}",
+                  flush=True)
+            stopped = True
+            break
+
+    print("Training complete!", flush=True)
+    return {"state": state, "epochs": history, "decoder": decoder,
+            "stopped_early": stopped}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="BYOL pretraining of the WavLM encoder on one GPU")
+    parser.add_argument("--config", required=True,
+                        help="YAML config file, or a preset name of "
+                             "nrse_tpu/config/presets")
+    parser.add_argument("--device", default=None, help="cuda or cpu")
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in "
+                             "training.checkpoint_dir")
+    return parser.parse_args(argv)
+
+
+def cli(argv=None) -> int:
+    args = parse_args(argv)
+    config = load_config(args.config)
+    training = config.setdefault("training", {})
+    if args.device is not None:
+        config["device"] = args.device
+    if args.batch_size is not None:
+        training["batch_size"] = args.batch_size
+    if args.epochs is not None:
+        training["num_epochs"] = args.epochs
+    if args.lr is not None:
+        training["learning_rate"] = args.lr
+    config["resume"] = args.resume
+    main(config)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

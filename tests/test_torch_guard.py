@@ -44,9 +44,12 @@ def _entries():
     b = torch.ones(128)
     drop = fused_ffn._Drop()
     buf = torch.ones(8, requires_grad=True)
+    madd, lse = torch.zeros(1, 4), torch.zeros(1, 1, 4)
     return {
         "kernel A": lambda: block_attention._kernel_fwd(q, q, q, gate, bias,
                                                         None),
+        "K3": lambda: block_attention._kernel_bwd(
+            q, q, q, gate, bias, madd, q, lse, q, block_attention._Drop()),
         "kernel B": lambda: fused_ffn._kernel_fwd(torch.ones(4, 128), w, b,
                                                   w, b, drop, False),
         "K1": lambda: fused_dropout._launch(0, buf, None, buf, 8),
@@ -55,7 +58,8 @@ def _entries():
     }
 
 
-@pytest.mark.parametrize("entry", ["kernel A", "kernel B", "K1", "K4"])
+@pytest.mark.parametrize("entry", ["kernel A", "kernel B", "K1", "K4",
+                                   "K3"])
 def test_cuda_entries_refuse_autograd(entry):
     with pytest.raises(RuntimeError, match="detached"):
         _entries()[entry]()

@@ -1,7 +1,13 @@
-"""Guard: the port imports neither JAX nor the JAX package, and its
-wrappers launch no kernel for CPU tensors (every LAUNCHES counter stays 0
-through a tiny BYOL train step on the CPU)."""
+"""Guard: the port's import rule, and its wrappers launch no kernel for CPU
+tensors (every LAUNCHES counter stays 0 through a tiny BYOL train step on
+the CPU).
 
+The import rule: no jax, jaxlib, flax, optax or orbax anywhere in the
+port's import closure; of the JAX package only the JAX-free host modules
+of ``ALLOWED`` (the data loaders, audio decoding, the native decoder's
+bindings and the logger) and what they import themselves."""
+
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -45,31 +51,72 @@ MODULES = [
     "nrse_tpu_torch.audio.features",
     "nrse_tpu_torch.train.schedules",
     "nrse_tpu_torch.train.byol_trainer",
+    "nrse_tpu_torch.train.checkpoint",
+    "nrse_tpu_torch.train.early_stopping",
+    "nrse_tpu_torch.data.loader",
+    "nrse_tpu_torch.eval.evaluate_byol",
+    "nrse_tpu_torch.train_byol",
     "nrse_tpu_torch.serve.export",
 ]
+ALLOWED = [
+    "nrse_tpu.data.noisy_speech_dataset",
+    "nrse_tpu.data.loader",
+    "nrse_tpu.audio.io",
+    "nrse_tpu.runtime.native",
+    "nrse_tpu.utils.logging_utils",
+]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+def _imported_modules(modules):
+    """The modules a fresh interpreter holds after importing ``modules``."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    return set(json.loads(res.stdout.strip().splitlines()[-1]))
 
 
 def _counts():
-    return (block_attention.LAUNCHES, fused_ffn.LAUNCHES,
+    return (block_attention.LAUNCHES, block_attention.BWD_LAUNCHES,
+            fused_ffn.LAUNCHES,
             fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES,
             fused_dropout.LAUNCHES, fused_dropout.DUMP_LAUNCHES,
             fused_optimizer.LAUNCHES)
 
 
+def _top(name):
+    return name.split(".")[0]
+
+
 def test_port_imports_no_jax():
-    code = (
-        "import importlib, sys\n"
-        f"for m in {MODULES!r}:\n"
-        "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                    'nrse_tpu'))\n"
-        "assert not bad, bad\n"
-        "print('ok')\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    port = _imported_modules(MODULES)
+    assert not sorted(m for m in port if _top(m) in FORBIDDEN)
+    allowed = {m for m in _imported_modules(ALLOWED)
+               if _top(m) == "nrse_tpu"}
+    assert set(ALLOWED) <= allowed
+    assert not sorted(m for m in port if _top(m) == "nrse_tpu"
+                      and m not in allowed)
+
+
+def test_allowed_host_modules_import_no_jax():
+    assert not sorted(m for m in _imported_modules(ALLOWED)
+                      if _top(m) in FORBIDDEN)
+
+
+def test_every_port_module_is_listed():
+    found = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+             for p in (ROOT / "nrse_tpu_torch").rglob("*.py")}
+    found = {m[:-len(".__init__")] if m.endswith(".__init__") else m
+             for m in found}
+    packages = {m for m in found
+                if (ROOT / m.replace(".", "/") / "__init__.py").is_file()}
+    assert found - packages <= set(MODULES), sorted(
+        found - packages - set(MODULES))
 
 
 def test_cpu_tensors_launch_no_kernel():
