@@ -1,5 +1,6 @@
-"""Drive the port's embedding server, its BYOL train step and its BYOL
-pretraining entry point once on one NVIDIA GPU.
+"""Drive the port's embedding server, its BYOL train step, its BYOL
+pretraining entry point and its baseline SER evaluator once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -13,17 +14,21 @@ not 0:
      ``build/nrse_tpu_torch/`` and prints the seconds;
   3. kernel A (block gated attention) against its plain PyTorch version at
      the serving shapes (bf16, B=32, H=16, D=64, T=249 with ragged key
-     masks and one fully masked row, and T=384), with µs per call of both;
-     and that a gradient flows through it under autograd;
+     masks and one fully masked row, and T=384), with µs per call of both
+     and of the library call (``scaled_dot_product_attention`` with the
+     dense float bias); and that a gradient flows through it under
+     autograd;
   3b. K3 (block attention backward) and kernel A's dropout at the training
      shapes (bf16, B=36, H=16, D=64, T=249 with ragged key masks and one
      fully masked row, and T=384, p = 0.1): the seeded forward and backward
      equal the explicit-mask ones fed K1's dump at the attention site, bit
      for bit; out, dq, dk, dv, dgate, dbias ≤ 1e-2 and lse ≤ 1e-3 of the
      plain versions' max|·|; two backward calls give the same bits; the
-     autograd Function equals the direct calls; µs per call of both;
+     autograd Function equals the direct calls; µs per call of both and
+     of SDPA's backward;
   4. kernel B (fused FFN, serving entry) against its plain version at
-     N=7968 (32 clips of 249 frames), C=1024, F=4096, µs per call of both;
+     N=7968 (32 clips of 249 frames), C=1024, F=4096, µs per call of both
+     and of ``F.linear`` → exact GELU → ``F.linear`` in bf16;
   5. serving — WavLM-large at full width (24 layers, 1024 wide, 16 heads,
      FFN 4096) with seeded random weights, exported with buckets
      (1, 8, 32) and 5 s clips, loaded by ``ServingModel`` on the card,
@@ -35,14 +40,23 @@ not 0:
   6. K1 (dropout) at [36·249, 1024] bf16, p = 0.1: the kernel's mask equals
      the Philox twin bit for bit, forward and backward equal the plain
      version, the explicit-mask entry equals the seeded one; µs per call
-     of both;
+     of both and of ``F.dropout``;
   7. kernel B's training forward (both dropout sites, h1 saved) and K2's
      dx and dW kernels at N = 36·249, C = 1024, F = 4096, p = 0.1, against
      the plain versions (max|Δ|/max|ref| ≤ 1e-2), the explicit-mask entries
      and the autograd Function against the direct seeded calls (bit for
-     bit); µs per call and TFLOP/s of each beside the plain version's;
+     bit); µs per call and TFLOP/s of each beside the plain version's and
+     autograd's backward of the library forward of phase 4;
   8. K4 (AdamW + EMA) over the flat BYOL parameter set (~326 M) against
-     the plain version (≤ 1e-6 relative); µs per call and GB/s;
+     the plain version (≤ 1e-6 relative); µs per call and GB/s, and of
+     ``torch.optim.AdamW(fused=True)`` + ``torch._foreach_lerp_``;
+  8b. K5 (flash attention forward, T > 384) against its plain version at
+     B=4, H=16, D=64, T ∈ {499, 749, 1499} and B=1, T=3199 (the streamed
+     regime of the TPU kernels), ragged key masks and a wholly masked
+     batch row: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked
+     row finite and within 1e-2 of plain; µs per call of kernel, plain and
+     SDPA (dense float bias built outside the timed call) at B=32 and at
+     B=1, T=3199; that a gradient through the wrapper raises;
   9. training — BYOL on WavLM-large at full width and depth (projection
      1024, prediction 2048, seeded weights) with the JAX preset's
      hyper-parameters (lr 1e-5 cosine, wd 1e-5, clip 1.0, EMA 0.997,
@@ -62,11 +76,30 @@ not 0:
      checks finite losses, the three checkpoints, that the restored state
      equals the saved one bit for bit and that the resumed run continues
      at epoch 2; prints the audio decoder that ran, whether PyYAML is
-     installed and the data-fed s/step of each epoch.
+     installed and the data-fed s/step of each epoch;
+ 11. SER evaluation — ``nrse_tpu_torch.baseline.eval_cat_ser.main`` at
+     batch 32 on WavLM-large at full width and depth + ASP + the head
+     (seeded weights through ``final_model``), over 256 synthetic WAVs of
+     2–11.5 s and 4 of 25–30 s in a temporary directory under ``build/``
+     (buckets of 5, 10, 15 and 30 s: 249, 499, 749 and 1499 frames):
+     outputs written, metrics finite, each bucket's logits equal to a
+     direct forward, launches of kernel A and K5 equal to 24 × the batches
+     of the buckets on each side of 384 frames; the warm timed modes
+     (default, prestaged, overlapped copies) in s per audio-second and
+     audio-sec/sec; the logits of a 10 s and a 15 s clip against float32
+     on the CPU (cosine ≥ 0.99);
+ 12. serving a long clip — an embedder artifact of 64 s clips (3199
+     frames, bucket 1) served through K5; pooled cosine against the same
+     weights in float32 on the card through the plain versions (≥ 0.99);
+     audio-sec/sec.
 
-The line before the last is the kernels' JSON record (launches: kernels
-A and B from the serving phase, K1, K2, K3 and K4 from the training
-phase);
+Each kernel's bound is the larger of its operations over the bf16 tensor
+cores' 989 TFLOP/s and the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s, the H100 SXM's published peaks;
+the elementwise kernels (K1, K4) are bound by bytes, their operations are
+not counted.  The line before the last is the kernels' JSON record
+(launches: kernels A and B from the serving phase, K1, K2, K3 and K4 from
+the training phase, K5 from the SER evaluation);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.
 """
@@ -89,26 +122,43 @@ sys.path.insert(0, ROOT)
 
 # the port, from this checkout: without it the script stops here
 from nrse_tpu_torch import train_byol  # noqa: E402
+from nrse_tpu_torch.audio.io import save_wav  # noqa: E402
+from nrse_tpu_torch.baseline import eval_cat_ser  # noqa: E402
+from nrse_tpu_torch.baseline.pipeline import (  # noqa: E402
+    BaselineSER,
+    bucket_length,
+    make_baseline_forward,
+)
+from nrse_tpu_torch.baseline.wavset import WavNormStats  # noqa: E402
+from nrse_tpu_torch.labels.parsing import BASELINE_EMOTIONS_MAP  # noqa
+from nrse_tpu_torch.models import wavlm as wavlm_module  # noqa: E402
 from nrse_tpu_torch.models.byol import OnlineNetwork, TargetNetwork  # noqa
 from nrse_tpu_torch.models.convert import (  # noqa: E402
+    init_baseline_state_dict,
     init_byol_state_dict,
     init_state_dict,
 )
-from nrse_tpu_torch.models.wavlm import WavLMConfig  # noqa: E402
+from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel  # noqa
 from nrse_tpu_torch.models.wavlm import SITE_ATTN, TrainRNG  # noqa: E402
 from nrse_tpu_torch.ops import (  # noqa: E402
     block_attention,
+    flash_attention,
     fused_dropout,
     fused_ffn,
     fused_optimizer,
     philox,
 )
 from nrse_tpu_torch.ops.attention import (  # noqa: E402
+    gated_bias_attention,
     gated_bias_attention_bwd,
     gated_bias_attention_fwd,
     gated_bias_attention_lse,
     mask_add,
 )
+from nrse_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_plain_fwd,
+)
+from nrse_tpu_torch.ops.fused_ffn import ffn_plain  # noqa: E402
 from nrse_tpu_torch.runtime import cuda_build  # noqa: E402
 from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
     create_train_state,
@@ -117,6 +167,7 @@ from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
 )
 from nrse_tpu_torch.train.checkpoint import (  # noqa: E402
     restore_checkpoint,
+    save_model,
     state_tensors,
 )
 from nrse_tpu_torch.train.schedules import cosine_annealing  # noqa: E402
@@ -132,6 +183,9 @@ BUCKETS = (1, 8, 32)
 OUT_TOL = 1e-2      # max|Δ| / max|ref|, bf16 outputs (one bf16 ulp ≈ 4e-3)
 LSE_TOL = 1e-3      # max|Δ| / max|ref| of the f32 log-sum-exp
 COSINE_MIN = 0.99   # pooled cosine, bf16 card vs f32 CPU
+# the H100 SXM's published dense peaks (NVIDIA's data sheet)
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -141,6 +195,27 @@ def log(msg: str) -> None:
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     got, ref = got.float(), ref.float()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flop: float, nbytes_moved: float) -> dict:
+    """The least time the card could take: the larger of ``flop`` at the
+    bf16 tensor cores' peak and ``nbytes_moved`` at the HBM rate."""
+    ops_ms = flop / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes_moved / PEAK_HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def dense_bias(gate, bias, madd) -> torch.Tensor:
+    """The ``[B, H, T, T]`` bf16 float mask SDPA takes for gated-bias
+    attention: ``gate ⊙ bias + key mask`` (the library call's input, built
+    outside its timed call)."""
+    return (gate.float()[..., None] * bias.float()[None]
+            + madd[:, None, None, :]).to(torch.bfloat16)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -223,10 +298,20 @@ def phase_kernel_a() -> dict:
                 q, k, v, gate, bias, mask))
             plain_ms = cuda_ms(lambda: gated_bias_attention_lse(
                 q, k, v, gate, bias, mask))
-            timing = (ms, plain_ms)
+            madd = mask_add(mask, b, t, dev)
+            full = dense_bias(gate, bias, madd)
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=full))
+            del full
+            timing = (ms, plain_ms, lib_ms, bound(
+                4.0 * b * h * t * t * d,
+                nbytes(q, k, v, gate, bias, madd, out, lse)))
             log(f"[kernel A] B={b} H={h} T={t} D={d}: kernel "
                 f"{ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} "
-                f"us/call")
+                f"us/call, SDPA with the dense bias {lib_ms * 1e3:.1f} "
+                f"us/call; bound {timing[3]['bound_ms'] * 1e3:.1f} us "
+                f"({timing[3]['bound_by']})")
     # under autograd the output is differentiable: a gradient flows to q
     qr = q.detach().requires_grad_()
     block_attention.block_gated_attention(qr, k, v, gate, bias,
@@ -240,7 +325,8 @@ def phase_kernel_a() -> dict:
     return {"name": "block_attention_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/block_attention_fwd.cu",
             "replaces": "nrse_tpu/ops/block_attention.py:106",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+            **timing[3], "library_ms": timing[2]}
 
 
 GRAD_NAMES = ("dq", "dk", "dv", "dgate", "dbias")
@@ -350,15 +436,31 @@ def phase_k3() -> dict:
                     q, k, v, gate, bias, madd, out, lse, do, seeded))
                 plain_ms = cuda_ms(lambda: gated_bias_attention_bwd(
                     q, k, v, gate, bias, madd, out, lse, do, keep), iters=10)
-            timing = (ms, plain_ms)
+            # the library: SDPA's backward, dense bias differentiable, no
+            # dropout (SDPA drops probabilities, not the output)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            full = dense_bias(gate, bias, madd).requires_grad_()
+            with torch.enable_grad():
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, attn_mask=full)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                    o, leaves + [full], do, retain_graph=True), iters=10)
+            del leaves, full, o
+            timing = (ms, plain_ms, lib_ms, bound(
+                10.0 * b * h * t * t * d,
+                nbytes(q, k, v, gate, bias, madd, out, lse, do, *grads)))
             log(f"[K3] B={b} H={h} T={t}: kernel A with dropout "
                 f"{fwd_ms * 1e3:.1f} us/call, plain {fwd_plain * 1e3:.1f} "
                 f"us/call; K3 backward {ms * 1e3:.1f} us/call, plain "
-                f"{plain_ms * 1e3:.1f} us/call")
+                f"{plain_ms * 1e3:.1f} us/call, SDPA's backward (no "
+                f"dropout) {lib_ms * 1e3:.1f} us/call; bound "
+                f"{timing[3]['bound_ms'] * 1e3:.1f} us "
+                f"({timing[3]['bound_by']})")
     return {"name": "block_attention_bwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/block_attention_bwd.cu",
             "replaces": "nrse_tpu/ops/block_attention.py:161",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+            **timing[3], "library_ms": timing[2]}
 
 
 def phase_kernel_b() -> dict:
@@ -386,14 +488,27 @@ def phase_kernel_b() -> dict:
                            f"{err}")
     ms = cuda_ms(lambda: fused_ffn.fused_ffn(x, w1, b1, w2, b2))
     plain_ms = cuda_ms(lambda: fused_ffn.ffn_plain(x, w1, b1, w2, b2))
+    b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: library_ffn(x, w1, b1h, w2, b2h))
     flop = 4.0 * n * c * f
+    bd = bound(flop, nbytes(x, w1, b1, w2, b2, out))
     log(f"[kernel B] kernel {ms * 1e3:.1f} us/call "
         f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
-        f"us/call ({flop / plain_ms / 1e9:.1f} TFLOP/s)")
+        f"us/call ({flop / plain_ms / 1e9:.1f} TFLOP/s), F.linear-GELU-"
+        f"F.linear {lib_ms * 1e3:.1f} us/call ({flop / lib_ms / 1e9:.1f} "
+        f"TFLOP/s); bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
     return {"name": "fused_ffn_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/fused_ffn_fwd.cu",
             "replaces": "nrse_tpu/ops/fused_ffn.py:110",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": lib_ms}
+
+
+def library_ffn(x, w1, b1, w2, b2):
+    """One FFN forward in PyTorch's own bf16 calls (the library yardstick
+    of kernel B and, under autograd, of K2)."""
+    f = torch.nn.functional
+    return f.linear(f.gelu(f.linear(x, w1, b1), approximate="none"), w2, b2)
 
 
 TRAIN_BATCH = 36
@@ -442,13 +557,19 @@ def phase_k1() -> dict:
         ms = cuda_ms(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
         plain_ms = cuda_ms(lambda: fused_dropout.dropout_plain(
             x, philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)))
-    nbytes = 2 * 2 * n * c
-    log(f"[K1] kernel {ms * 1e3:.1f} us/call ({_gbps(nbytes, ms):.0f} GB/s), "
-        f"plain (Philox twin + multiply) {plain_ms * 1e3:.1f} us/call")
+        lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(
+            x, DROP_P, training=True))
+    moved = nbytes(x, y)
+    bd = bound(0.0, moved)
+    log(f"[K1] kernel {ms * 1e3:.1f} us/call ({_gbps(moved, ms):.0f} GB/s), "
+        f"plain (Philox twin + multiply) {plain_ms * 1e3:.1f} us/call, "
+        f"F.dropout {lib_ms * 1e3:.1f} us/call; bound "
+        f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
     return {"name": "fused_dropout", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/fused_dropout.cu",
             "replaces": "nrse_tpu/ops/fused_dropout.py:68",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": lib_ms}
 
 
 def phase_k2() -> list:
@@ -530,10 +651,31 @@ def phase_k2() -> list:
                    cuda_ms(lambda: fused_ffn.ffn_plain_bwd_dw(
                        x, gd, dh1, dh2))),
         }
+    # the library: autograd's backward of library_ffn, for dx alone and
+    # for the weights alone
+    leaves = [t.to(torch.bfloat16).clone().requires_grad_()
+              for t in (x, w1, b1, w2, b2)]
+    with torch.enable_grad():
+        o = library_ffn(*leaves)
+        lib = {"dx": cuda_ms(lambda: torch.autograd.grad(
+                   o, leaves[:1], dout, retain_graph=True)),
+               "dw": cuda_ms(lambda: torch.autograd.grad(
+                   o, leaves[1:], dout, retain_graph=True))}
+    del leaves, o
+    bounds = {"dx": bound(flop, nbytes(dout, h1, w1, w2, dx, db1, db2, dh1,
+                                       dh2)),
+              "dw": bound(flop, nbytes(x, gd, dh1, dh2, dw1, dw2))}
     for k, (ms, plain_ms) in times.items():
-        log(f"[K2] {k}: kernel {ms * 1e3:.1f} us/call "
-            f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
-            f"us/call ({flop / plain_ms / 1e9:.1f} TFLOP/s)")
+        line = (f"[K2] {k}: kernel {ms * 1e3:.1f} us/call "
+                f"({flop / ms / 1e9:.1f} TFLOP/s), plain "
+                f"{plain_ms * 1e3:.1f} us/call "
+                f"({flop / plain_ms / 1e9:.1f} TFLOP/s)")
+        if k in lib:
+            line += (f", autograd of F.linear-GELU-F.linear "
+                     f"{lib[k] * 1e3:.1f} us/call; bound "
+                     f"{bounds[k]['bound_ms'] * 1e3:.1f} us "
+                     f"({bounds[k]['bound_by']})")
+        log(line)
     abs_err = {k: float((a.float() - b.float()).abs().max())
                for k, (a, b) in checks.items()}
     return [
@@ -541,12 +683,14 @@ def phase_k2() -> list:
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
          "replaces": "nrse_tpu/ops/fused_ffn.py:204",
          "max_abs_err": max(abs_err[k] for k in ("dx", "db1", "db2")),
-         "ms": times["dx"][0], "plain_ms": times["dx"][1]},
+         "ms": times["dx"][0], "plain_ms": times["dx"][1], **bounds["dx"],
+         "library_ms": lib["dx"]},
         {"name": "fused_ffn_bwd_dw", "route": "cuda",
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
          "replaces": "nrse_tpu/ops/fused_ffn.py:253",
          "max_abs_err": max(abs_err["dw1"], abs_err["dw2"]),
-         "ms": times["dw"][0], "plain_ms": times["dw"][1]},
+         "ms": times["dw"][0], "plain_ms": times["dw"][1], **bounds["dw"],
+         "library_ms": lib["dw"]},
     ]
 
 
@@ -594,14 +738,32 @@ def phase_k4() -> dict:
                      iters=10)
         plain_ms = cuda_ms(lambda: fused_optimizer.adamw_ema_plain(
             sc, g, p, mu, nu, pt), iters=5, warmup=1)
-    nbytes = 4.0 * (7 * n + 2 * n_ema)
-    log(f"[K4] kernel {ms * 1e3:.1f} us/call ({_gbps(nbytes, ms):.0f} GB/s), "
+    # each input read once (g, p, mu, nu, target), each output written once
+    moved = nbytes(g, p, mu, nu, pt) + nbytes(p, mu, nu, pt)
+    bd = bound(0.0, moved)
+    # the library: fused AdamW over the same flat parameter, then the EMA
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.clone()
+    target = pt.clone()
+    opt = torch.optim.AdamW([param], lr=1e-5, weight_decay=1e-5, fused=True)
+
+    def library_step():
+        opt.step()
+        torch._foreach_lerp_([target], [param.detach()[:n_ema]],
+                             1.0 - spec.ema_decay)
+
+    lib_ms = cuda_ms(library_step, iters=10)
+    del param, target, opt
+    log(f"[K4] kernel {ms * 1e3:.1f} us/call ({_gbps(moved, ms):.0f} GB/s), "
         f"plain {plain_ms * 1e3:.1f} us/call "
-        f"({_gbps(nbytes, plain_ms):.0f} GB/s)")
+        f"({_gbps(moved, plain_ms):.0f} GB/s), AdamW(fused=True) + "
+        f"_foreach_lerp_ {lib_ms * 1e3:.1f} us/call; bound "
+        f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
     return {"name": "fused_adamw_ema", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/fused_adamw_ema.cu",
             "replaces": "nrse_tpu/ops/fused_optimizer.py:75",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bd,
+            "library_ms": lib_ms}
 
 
 def _requests(rng: np.random.Generator, clip_seconds: float):
@@ -751,6 +913,7 @@ def _adamw_spec():
 
 def _reset_counts() -> None:
     block_attention.LAUNCHES = block_attention.BWD_LAUNCHES = 0
+    flash_attention.LAUNCHES = 0
     fused_ffn.LAUNCHES = fused_ffn.DX_LAUNCHES = fused_ffn.DW_LAUNCHES = 0
     fused_dropout.LAUNCHES = 0
     fused_optimizer.LAUNCHES = 0
@@ -1050,16 +1213,462 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# (B, T) of the timings: the evaluator's 10, 15 and 30 s buckets at batch
+# 32, and one 64 s clip (the TPU kernels' streamed regime)
+K5_TIMED = ((32, 499), (32, 749), (32, 1499), (1, 3199))
+K5_ROW_T = 499  # the K5 bucket with the most batches: the JSON row
+
+
+def _k5_inputs(gen, b, t, lengths, h=16, d=64):
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    gate = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
+    bias_rel = torch.randn(h, 2 * t, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    mask = (torch.arange(t, device=dev)[None, :]
+            < lengths[:, None]).to(torch.int32)
+    return q, k, v, gate, bias_rel, mask
+
+
+def phase_k5() -> dict:
+    """K5 against its plain version at the SER buckets' lengths and a
+    64 s clip's, then its time at batch 32 beside plain and SDPA."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    worst = 0.0
+    for b, t in ((4, 499), (4, 749), (4, 1499), (1, 3199)):
+        lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
+                                device=dev)
+        if b > 1:
+            lengths[0] = t
+            lengths[1] = 0  # a row that pads a bucket's last batch
+        q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
+        out, lse = flash_attention.flash_gated_attention_lse(
+            q, k, v, gate, bias_rel, mask)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention.flash_attention_plain_fwd(
+            q, k, v, gate, bias_rel, mask_add(mask, b, t, dev))
+        if not (torch.isfinite(out.float()).all()
+                and torch.isfinite(lse).all()):
+            raise RuntimeError(f"K5: non-finite output at T={t}")
+        rows = lengths > 0
+        e_out = rel_err(out[rows], ref[rows])
+        e_lse = rel_err(lse[rows], ref_lse[rows])
+        e_masked = rel_err(out[~rows], ref[~rows]) if (~rows).any() \
+            else 0.0
+        abs_err = float((out.float() - ref.float()).abs().max())
+        log(f"[K5] B={b} H=16 T={t} D=64, key lengths "
+            f"{sorted(lengths.tolist())[:4]}...: out rel {e_out:.3e} (abs "
+            f"{abs_err:.3e}), lse rel {e_lse:.3e}, wholly masked rows rel "
+            f"{e_masked:.3e}")
+        if e_out > OUT_TOL or e_lse > LSE_TOL or e_masked > OUT_TOL:
+            raise RuntimeError(f"K5 disagrees with its plain version at "
+                               f"T={t}: out {e_out}, lse {e_lse}, masked "
+                               f"rows {e_masked}")
+        worst = max(worst, abs_err)
+    # no backward yet: a gradient through the wrapper raises
+    try:
+        flash_attention.flash_gated_attention(q.requires_grad_(), k, v, gate,
+                                              bias_rel, mask)
+    except RuntimeError as e:
+        log(f"[K5] under autograd: raises ({str(e)[:60]}...)")
+    else:
+        raise RuntimeError("K5: a gradient through the wrapper did not raise")
+    del q, k, v, out, ref
+
+    h, d = 16, 64
+    row = None
+    for b, t in K5_TIMED:
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=gen,
+                                device=dev)
+        lengths[0] = t
+        q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
+        madd = mask_add(mask, b, t, dev)
+        with torch.no_grad():
+            out, lse = flash_attention.flash_gated_attention_lse(
+                q, k, v, gate, bias_rel, mask)
+            ms = cuda_ms(lambda: flash_attention.flash_gated_attention_lse(
+                q, k, v, gate, bias_rel, mask))
+            plain_ms = cuda_ms(
+                lambda: flash_attention.flash_attention_plain_fwd(
+                    q, k, v, gate, bias_rel, madd), iters=5, warmup=1)
+            full = dense_bias(gate, flash_attention.dense_bias_from_rel(
+                bias_rel, t), madd)
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=full),
+                             iters=10)
+            del full
+        flop = 4.0 * b * h * t * t * d
+        bd = bound(flop, nbytes(q, k, v, gate, bias_rel, madd, out, lse))
+        log(f"[K5] B={b} H={h} T={t} D={d}: kernel {ms * 1e3:.1f} us/call "
+            f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
+            f"us/call, SDPA with the dense bias {lib_ms * 1e3:.1f} us/call; "
+            f"bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+        if t == K5_ROW_T:
+            row = {"ms": ms, "plain_ms": plain_ms, **bd,
+                   "library_ms": lib_ms}
+        del q, k, v, out
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "nrse_tpu_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "nrse_tpu/ops/flash_attention.py:150, :564",
+            "max_abs_err": worst, **row}
+
+
+SER_BATCH = 32
+EMOTION_CODES = sorted(BASELINE_EMOTIONS_MAP, key=BASELINE_EMOTIONS_MAP.get)
+
+
+def _write_ser_corpus(root: str, n_clips: int, long_clips: int,
+                      lo: float, hi: float, long_lo: float, long_hi: float):
+    """``n_clips`` WAVs of ``lo``–``hi`` s drawn as ``bench.py:699-714``
+    draws its sereval list (numpy seed 0: length, emotion, samples; the
+    samples scaled by 0.25 so that PCM16 does not clip them), then
+    ``long_clips`` of ``long_lo``–``long_hi`` s, with their label list.
+    Returns ``(list path, audio dir, waveforms)``."""
+    rng = np.random.default_rng(0)
+    audio = os.path.join(root, "Audios")
+    os.makedirs(audio)
+    lines, waves = [], []
+    spans = [(lo, hi)] * n_clips + [(long_lo, long_hi)] * long_clips
+    for i, (a, b) in enumerate(spans):
+        n = int(rng.uniform(a, b) * SAMPLE_RATE)
+        emotion = int(rng.integers(0, 8))
+        x = (0.25 * rng.standard_normal(n)).astype(np.float32)
+        name = f"synthetic_{i:05d}.wav"
+        save_wav(os.path.join(audio, name), x, SAMPLE_RATE)
+        waves.append(x)
+        lines.append(f"Audios/{name}; {EMOTION_CODES[emotion]}; A:4.0; "
+                     f"V:4.0; D:4.0;")
+    path = os.path.join(root, "list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path, root, waves
+
+
+def _bucket_batches(cfg, loaded, batch: int):
+    """``{bucket length: (frames, batches)}`` of the evaluator's buckets."""
+    counts = {}
+    for _, wav in loaded:
+        blen = bucket_length(len(wav))
+        counts[blen] = counts.get(blen, 0) + 1
+    return {blen: (int(cfg.feature_lengths(blen)), -(-n // batch))
+            for blen, n in sorted(counts.items())}
+
+
+def _cosine(a, b) -> float:
+    a, b = (torch.as_tensor(np.asarray(x, np.float64)).flatten()
+            for x in (a, b))
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def phase_ser(cfg=None, device=torch.device("cuda"),
+              model_name: str = "microsoft/wavlm-large", n_clips: int = 256,
+              long_clips: int = 4, batch: int = SER_BATCH, lo: float = 2.0,
+              hi: float = 11.5, long_lo: float = 25.0, long_hi: float = 30.0,
+              head_dim: int = 1024) -> dict:
+    """The baseline evaluator end to end through ``eval_cat_ser.main``;
+    its arguments let it be rehearsed at a small width on the CPU, with
+    the wrappers' plain paths standing in."""
+    cfg = cfg or WavLMConfig.large()
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_ser_", dir=cuda_build.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        label_list, audio_dir, waves = _write_ser_corpus(
+            root, n_clips, long_clips, lo, hi, long_lo, long_hi)
+        model_path = os.path.join(root, "model")
+        os.makedirs(model_path)
+        WavNormStats.from_waveforms(waves).save(
+            os.path.join(model_path, "train_norm_stat.pkl"))
+        del waves
+        model = BaselineSER(cfg, head_dim=head_dim, device="meta")
+        model.load_state_dict(init_baseline_state_dict(
+            cfg, torch.Generator().manual_seed(SEED + 10), head_dim=head_dim),
+            strict=True, assign=True)
+        save_model(model_path, "final_model", model)
+        size = os.path.getsize(os.path.join(model_path, "final_model",
+                                            "state.pt"))
+        del model
+        log(f"[ser] corpus of {n_clips} + {long_clips} WAVs, stats and a "
+            f"{size / 2**20:.1f} MiB final_model written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        _sync(device)
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics, scored = eval_cat_ser.main([
+            "--model_path", model_path, "--audio_list", label_list,
+            "--audio_dir", audio_dir, "--batch_size", str(batch),
+            "--head_dim", str(head_dim), "--model_name", model_name,
+            "--device", device.type])
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = {"block_attention_fwd": block_attention.LAUNCHES,
+                  "flash_attention_fwd": flash_attention.LAUNCHES,
+                  "fused_ffn_fwd": fused_ffn.LAUNCHES}
+
+        out = os.path.join(model_path, "results")
+        files = [os.path.join(out, n) for n in ("metrics.txt",
+                                                "inference_results.csv")]
+        finite = all(np.isfinite(v) for v in metrics.values())
+        log(f"[ser] eval_cat_ser.main in {wall:.1f} s (cold: loading, "
+            f"decode, first calls): {json.dumps(metrics)}")
+        if not all(os.path.isfile(f) for f in files) or not finite or \
+                metrics["n_files"] != n_clips + long_clips:
+            raise RuntimeError(f"SER evaluation: outputs {files}, metrics "
+                               f"{metrics}")
+
+        stats = WavNormStats.load(os.path.join(model_path,
+                                               "train_norm_stat.pkl"))
+        loaded = [(e, stats.apply(eval_cat_ser.load_audio_16k(e.path)))
+                  for e, _ in scored]
+        plan = _bucket_batches(cfg, loaded, batch)
+        layers = cfg.num_hidden_layers
+        want = {"block_attention_fwd": layers * sum(
+                    n for f, n in plan.values() if f <= block_attention.MAX_T),
+                "flash_attention_fwd": layers * sum(
+                    n for f, n in plan.values() if f > block_attention.MAX_T),
+                "fused_ffn_fwd": layers * sum(n for _, n in plan.values())}
+        log(f"[ser] buckets (samples: frames, batches) {plan}; launches "
+            f"{counts} (want {want})")
+        if counts != want:
+            raise RuntimeError(f"SER evaluation: launches {counts} != {want}")
+
+        # each bucket's logits equal a direct forward of its first batch
+        model = eval_cat_ser.load_model(model_path, model_name, head_dim,
+                                        device)
+        forward = make_baseline_forward(model)
+        by_entry = {id(e): logit for e, logit in scored}
+        picked = {}
+        for blen in plan:
+            chunk = [(e, w) for e, w in loaded
+                     if bucket_length(len(w)) == blen][:batch]
+            x = np.zeros((batch, blen), np.float32)
+            m = np.zeros((batch, blen), np.float32)
+            for j, (_, w) in enumerate(chunk):
+                x[j, :len(w)], m[j, :len(w)] = w, 1.0  # len(w) ≤ 30 s
+            direct = forward(torch.from_numpy(x).to(device),
+                             torch.from_numpy(m).to(device)).float().cpu()
+            got = np.stack([by_entry[id(e)] for e, _ in chunk])
+            err = float(np.abs(got - direct[:len(chunk)].numpy()).max())
+            log(f"[ser] bucket {blen / SAMPLE_RATE:g} s: main's logits vs a "
+                f"direct forward max|Δ| {err:.3e}")
+            if err > 1e-5 * max(1.0, float(np.abs(got).max())):
+                raise RuntimeError(f"SER evaluation: bucket {blen} logits "
+                                   f"differ from a direct forward by {err}")
+            picked[blen] = chunk[0]
+
+        # the warm timed modes of the evaluator's hot path
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for mode in ({}, {"prestage": True}, {"overlap": True}):
+            _, dt, audio_s = eval_cat_ser.bucketed_forward_timed(
+                forward, loaded, batch, device, warmup_shapes=True, **mode)
+            name = next(iter(mode), "default")
+            log(f"[ser] {name}: {dt / audio_s:.6f} s per audio-second, "
+                f"{audio_s / dt:.1f} audio-sec/sec ({audio_s:.1f} s of "
+                f"audio, {dt:.3f} s)")
+        if device.type == "cuda":
+            log(f"[ser] peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            blen = 3 * 5 * SAMPLE_RATE
+            chunk = [(e, w) for e, w in loaded
+                     if bucket_length(len(w)) == blen][:batch]
+            x = torch.zeros(batch, blen)
+            m = torch.zeros(batch, blen)
+            for j, (_, w) in enumerate(chunk):
+                x[j, :len(w)], m[j, :len(w)] = torch.from_numpy(w), 1.0
+            profile_forward(forward, x.to(device), m.to(device),
+                            f"[ser] 15 s bucket, batch {batch}")
+        del model, forward
+
+        # a 10 s and a 15 s clip against float32 on the CPU
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu_forward = make_baseline_forward(
+            eval_cat_ser.load_model(model_path, model_name, head_dim, "cpu"))
+        for blen in (2 * 5 * SAMPLE_RATE, 3 * 5 * SAMPLE_RATE):
+            if blen not in picked:
+                raise RuntimeError(f"SER evaluation: no clip in the "
+                                   f"{blen // SAMPLE_RATE} s bucket")
+            e, w = picked[blen]
+            x = np.zeros((1, blen), np.float32)
+            m = np.zeros((1, blen), np.float32)
+            x[0, :len(w)], m[0, :len(w)] = w, 1.0
+            ref = cpu_forward(torch.from_numpy(x), torch.from_numpy(m))
+            cos = _cosine(by_entry[id(e)], ref.numpy())
+            log(f"[ser] {len(w) / SAMPLE_RATE:.2f} s clip ({blen // 16000} s "
+                f"bucket, {plan[blen][0]} frames): logits cosine vs float32 "
+                f"CPU {cos:.6f}")
+            if cos < COSINE_MIN:
+                raise RuntimeError(f"SER logits cosine {cos} < {COSINE_MIN}")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# kernel name patterns → the groups PERF.md §5 reports, first match wins
+PROFILE_GROUPS = (
+    ("K5 (flash attention)", "flash_attention_fwd"),
+    ("kernel A (block attention)", "block_attention_fwd"),
+    ("kernel B (fused FFN)", "nrse::gemm"),
+    ("cuDNN convs", "conv|cudnn|implicit|winograd|fft"),
+    ("cuBLAS (projections, heads)", "gemm|cutlass|xmma|nvjet|cublas"),
+    ("LayerNorm", "layer_norm|LayerNorm"),
+    ("dtype/layout copies", "copy|Copy|cast"),
+    ("reductions", "reduce|Reduce|softmax|Softmax"),
+    ("elementwise", "elementwise|Elementwise|vectorized"),
+)
+
+
+def profile_forward(forward, x, m, label: str, iters: int = 3) -> None:
+    """Device time of ``forward(x, m)`` by kernel group, from the CUDA
+    kernels of a ``torch.profiler`` trace over ``iters`` forwards after
+    one warm-up; and the card's busy share of the host clock over them."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    forward(x, m).cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            forward(x, m).cpu()
+        wall = time.perf_counter() - t0
+    fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    groups = {}
+    for e in kernels:
+        name = next((g for g, pat in PROFILE_GROUPS
+                     if re.search(pat, e["name"])), "other")
+        groups[name] = groups.get(name, 0.0) + e["dur"] / 1e3 / iters
+    busy = sum(groups.values())
+    log(f"{label}: {len(kernels) // iters} kernels and {busy:.1f} ms of "
+        f"device time a forward, {wall / iters * 1e3:.1f} ms of host clock "
+        f"(busy {busy / (wall / iters * 1e3):.3f}); by group: " + ", ".join(
+            f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in
+            sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+class _PlainVersions:
+    """Within the block, the WavLM module calls the plain versions of its
+    kernels' wrappers: the float32 reference on the card."""
+
+    def __enter__(self):
+        def flash(q, k, v, gate, bias_rel, mask=None):
+            b, _, t, _ = q.shape
+            return flash_attention_plain_fwd(
+                q, k, v, gate, bias_rel, mask_add(mask, b, t, q.device))[0]
+
+        def block(q, k, v, gate, pos_bias, mask=None, **_):
+            return gated_bias_attention(q, k, v, gate, pos_bias, mask)
+
+        def ffn(x, w1, b1, w2, b2, *_):
+            rows = x.reshape(-1, x.shape[-1])
+            return ffn_plain(rows, w1, b1, w2, b2).reshape(x.shape)
+
+        self.saved = {n: getattr(wavlm_module, n) for n in
+                      ("flash_gated_attention", "block_gated_attention",
+                       "fused_ffn")}
+        wavlm_module.flash_gated_attention = flash
+        wavlm_module.block_gated_attention = block
+        wavlm_module.fused_ffn = ffn
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(wavlm_module, name, fn)
+
+
+def phase_long_clip(cfg=None, device=torch.device("cuda"),
+                    clip_seconds: float = 64.0) -> dict:
+    """Serving one clip of ``clip_seconds`` (T > 3072 frames: the TPU's
+    streamed regime) through K5, against float32 plain versions on the
+    same device."""
+    cfg = cfg or WavLMConfig.large()
+    sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED + 9))
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    art = tempfile.mkdtemp(prefix="smoke_long_", dir=cuda_build.BUILD_DIR)
+    try:
+        export_embedder(sd, cfg, art, batch_sizes=(1,),
+                        clip_seconds=clip_seconds, sample_rate=SAMPLE_RATE)
+        server = ServingModel(art, device)
+    finally:
+        shutil.rmtree(art)
+    clip = server.clip_samples
+    frames = int(cfg.feature_lengths(clip))
+    audio = (0.1 * np.random.default_rng(SEED + 9).standard_normal(
+        (1, clip))).astype(np.float32)
+    server(audio)  # warm-up
+    _sync(device)
+    _reset_counts()
+    seq, pooled = server(audio)
+    _sync(device)
+    counts = {"flash_attention_fwd": flash_attention.LAUNCHES,
+              "block_attention_fwd": block_attention.LAUNCHES,
+              "fused_ffn_fwd": fused_ffn.LAUNCHES}
+    layers = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": layers, "block_attention_fwd": 0,
+            "fused_ffn_fwd": layers}
+    log(f"[long] {clip_seconds:g} s clip, {frames} frames: sequence "
+        f"{seq.shape}, launches {counts} (want {want})")
+    if counts != want or not (np.isfinite(seq).all()
+                              and np.isfinite(pooled).all()):
+        raise RuntimeError(f"long clip: launches {counts}, finite "
+                           f"{np.isfinite(seq).all()}")
+
+    ref_model = WavLMModel(cfg, device="meta")
+    ref_model.load_state_dict(sd, strict=True, assign=True)
+    ref_model = ref_model.to(device).eval()
+    del sd
+    with _PlainVersions(), torch.inference_mode():
+        _, ref_pooled = ref_model(torch.from_numpy(audio).to(device),
+                                  torch.ones(1, clip, dtype=torch.int32,
+                                             device=device))
+    _sync(device)
+    if (flash_attention.LAUNCHES, fused_ffn.LAUNCHES) != (layers, layers):
+        raise RuntimeError("long clip: the float32 reference launched a "
+                           "kernel")
+    cos = _cosine(pooled, ref_pooled.float().cpu().numpy())
+    del ref_model
+    log(f"[long] pooled cosine vs float32 plain versions on the same "
+        f"device {cos:.6f}")
+    if cos < COSINE_MIN:
+        raise RuntimeError(f"long clip pooled cosine {cos} < {COSINE_MIN}")
+    for _ in range(2):
+        server(audio)
+    iters = 5
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        server(audio)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    log(f"[long] bucket 1: {dt * 1e3:.2f} ms/request, "
+        f"{clip_seconds / dt:.1f} audio-sec/sec")
+    return counts
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
     kernels = [phase_kernel_a(), phase_k3(), phase_kernel_b(), phase_k1(),
-               *phase_k2(), phase_k4()]
+               *phase_k2(), phase_k4(), phase_k5()]
     launches = phase_serving()
     launches.update({k: v for k, v in phase_training().items()
                      if k not in launches})
     phase_crosscheck()
     phase_entry()
+    launches["flash_attention_fwd"] = phase_ser()["flash_attention_fwd"]
+    phase_long_clip()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

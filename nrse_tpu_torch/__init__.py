@@ -1,16 +1,25 @@
-"""nrse_tpu_torch — the WavLM embedding server and BYOL pretraining on
-PyTorch and CUDA.
+"""nrse_tpu_torch — the WavLM embedding server, BYOL pretraining and the
+baseline SER evaluator on PyTorch and CUDA.
 
 A port of ``nrse_tpu`` (JAX on a TPU) to one NVIDIA H100.  ``nrse_tpu``
-stays the reference each module is tested against; this package imports
-``torch`` and numpy, never ``jax``, and of ``nrse_tpu`` only the JAX-free
-host modules it reuses: the data loaders (``nrse_tpu.data.loader``,
-``nrse_tpu.data.noisy_speech_dataset``), audio decoding
-(``nrse_tpu.audio.io``, ``nrse_tpu.runtime.native``) and the logger
-(``nrse_tpu.utils.logging_utils``).
+stays the reference each module is tested against.  This package imports
+``torch``, numpy and the standard library (scipy to resample, PyYAML to
+read a config file), never ``jax``, and nothing of ``nrse_tpu``, not even
+its JAX-free modules: what it needs from them it keeps as its own copies,
+each naming its origin (the audio decoding and its C++ runtime, the data
+loaders, the logger, the label parser, the BYOL presets).  Only the tests
+import both (``tests/test_torch_imports.py`` holds the rule with the JAX
+package blocked).
 
 Layers, from the entry points down to the device:
 
+  * ``baseline.eval_cat_ser`` — the Odyssey-2024 baseline evaluator
+    (``python -m nrse_tpu_torch.baseline.eval_cat_ser``): label list,
+    normalisation stats, ``final_model``, bucketed batched SER inference
+    timed per audio second, ``inference_results.csv`` and ``metrics.txt``;
+    ``baseline.pipeline`` (``BaselineSER``: WavLM → ASP → head),
+    ``baseline.net``, ``baseline.wavset``, ``labels.parsing``,
+    ``eval.metrics``, ``train.losses``.
   * ``train_byol`` — BYOL pretraining (``python -m
     nrse_tpu_torch.train_byol --config <yaml>``): loaders, train state,
     epoch loop, validation, early stopping, checkpoints and resume;
@@ -30,17 +39,21 @@ Layers, from the entry points down to the device:
   * ``models.wavlm`` — the WavLM encoder (conv frontend, feature
     projection, positional conv, gated-relative-position transformer,
     masked-mean pooling; dropout, LayerDrop and SpecAugment in training
-    mode), HF ``WavLMModel`` parameter names; ``models.convert`` — JAX
-    param trees (as numpy) to its state dicts, and seeded random weights.
+    mode; attention on the block kernel at T ≤ 384 frames, on the flash
+    kernel above), HF ``WavLMModel`` parameter names;
+    ``models.emotion`` the ASP pooling; ``models.convert`` — JAX param
+    trees (as numpy) to its state dicts, and seeded random weights.
   * ``ops`` — the kernels' wrappers with their plain PyTorch versions:
-    ``block_attention`` (kernel A and K3, its backward), ``fused_ffn``
+    ``block_attention`` (kernel A and K3, its backward),
+    ``flash_attention`` (K5's forward, T > 384), ``fused_ffn``
     (kernel B and K2, the FFN backward), ``fused_dropout`` (K1),
     ``fused_optimizer`` (K4);
-    ``philox`` the dropout-RNG contract they share; ``attention`` and
-    ``rel_pos_bias``.
+    ``philox`` the dropout-RNG contract they share; ``attention``,
+    ``rel_pos_bias`` and ``asp_pooling``.
   * ``csrc`` — the kernels in CUDA C++ for Hopper (``sm_90a``);
     ``runtime.cuda_build`` compiles them with ``nvcc`` at first use and
-    binds them with ``ctypes``.
+    binds them with ``ctypes``; ``runtime.native`` builds the C++ audio
+    decoder with ``g++`` the same way.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

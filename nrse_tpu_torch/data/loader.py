@@ -1,14 +1,16 @@
 """The BYOL data loaders on one process, and a device prefetcher.
 
+:class:`HostDataLoader` is the port's copy of ``nrse_tpu/data/loader.py:
+28-114``: a thread pool decodes and assembles fixed-shape numpy batches
+(the native C++ decoder of ``runtime/native.py`` releases the GIL, so
+threads are enough), the train loader drops the last ragged batch and an
+eval loader pads it and reports the true count.
 :func:`create_dataloaders` is ``nrse_tpu/data/noisy_speech_dataset.py:
-172-230`` without its multi-process branch (whose process count comes from
-JAX): the seeded random train/validation split of the JAX-free
-``NoiseRobustSpeechDataset``, read by the JAX-free ``HostDataLoader``
-(threaded decode; the native C++ decoder of ``nrse_tpu/runtime`` where it
-loads, the Python one of ``nrse_tpu/audio/io.py`` otherwise).  Batches are
-numpy: ``clean [B, T]``, ``noise [B, T]`` float32, ``snr [B]`` float32 and
-``__count__``, the number of real rows (the validation loader pads its
-last batch).
+172-230`` without its multi-process branch: the seeded random
+train/validation split of the port's ``NoiseRobustSpeechDataset``
+(``data/noisy_speech_dataset.py``).  Batches are numpy: ``clean [B, T]``,
+``noise [B, T]`` float32, ``snr [B]`` float32 and ``__count__``, the number
+of real rows (the validation loader pads its last batch).
 
 :class:`DevicePrefetcher` is the counterpart of ``PrefetchLoader``
 (``nrse_tpu/data/loader.py:117-181``): a thread reads host batches,
@@ -21,14 +23,96 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from nrse_tpu.data.loader import HostDataLoader
-from nrse_tpu.data.noisy_speech_dataset import NoiseRobustSpeechDataset
-from nrse_tpu.utils.logging_utils import logger
+from nrse_tpu_torch.data.noisy_speech_dataset import NoiseRobustSpeechDataset
+from nrse_tpu_torch.runtime.native import native_readahead
+from nrse_tpu_torch.utils.logging_utils import logger
+
+
+class HostDataLoader:
+    """Batched iterator over a dataset with per-item worker threads.
+
+    ``dataset`` must expose ``sample(index, rng) -> Dict[str, np.ndarray]``
+    returning fixed-shape arrays; failures are handled inside ``sample``
+    (the retry semantics live in the dataset, as in the reference's
+    ``__getitem__`` retry loop).  A dataset may also expose
+    ``sample_batch(indices, rngs)`` (a vectorised decode, or None to fall
+    back to per-item workers) and ``readahead_paths(indices)`` (files to
+    advise the kernel about ``readahead_batches`` batches ahead).
+    """
+
+    def __init__(self, dataset, indices: Sequence[int], batch_size: int,
+                 shuffle: bool = False, seed: int = 0, num_workers: int = 8,
+                 drop_last: bool = True, readahead_batches: int = 4):
+        self.dataset = dataset
+        self.indices = np.asarray(indices, dtype=np.int64)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.num_workers = max(1, num_workers)
+        self.drop_last = drop_last
+        self.epoch = 0
+        self.readahead_batches = readahead_batches
+
+    def __len__(self) -> int:
+        n = len(self.indices)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self.indices
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            order = rng.permutation(order)
+        self.epoch += 1
+
+        bs = self.batch_size
+        n_batches = len(self)
+        fast_path = getattr(self.dataset, "sample_batch", None)
+        ra_hook = getattr(self.dataset, "readahead_paths", None)
+        ra_depth = self.readahead_batches if ra_hook is not None else 0
+
+        def advise(b_future):
+            if b_future < n_batches:
+                native_readahead(ra_hook(
+                    order[b_future * bs : (b_future + 1) * bs]))
+
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            for b in range(n_batches):
+                if ra_depth:
+                    # fire-and-forget: a pool worker opens, advises and
+                    # closes the files batch b + depth will decode
+                    pool.submit(advise, b + ra_depth if b else 1)
+                    if b == 0:  # prime the window on the first batch
+                        for k in range(2, ra_depth + 1):
+                            pool.submit(advise, k)
+                chunk = order[b * bs : (b + 1) * bs]
+                true_count = len(chunk)
+                if true_count < bs:  # pad for fixed shapes (eval only)
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], bs - true_count)]
+                    )
+                item_rngs = [
+                    np.random.default_rng((self.seed, self.epoch, b, i))
+                    for i in range(bs)
+                ]
+                batch = fast_path(chunk, item_rngs) if fast_path else None
+                if batch is None:
+                    items = list(pool.map(
+                        lambda a: self.dataset.sample(int(a[0]), a[1]),
+                        zip(chunk, item_rngs),
+                    ))
+                    batch = {
+                        k: np.stack([it[k] for it in items]) for k in items[0]
+                    }
+                batch["__count__"] = np.asarray(true_count, np.int32)
+                yield batch
 
 
 def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:

@@ -16,6 +16,12 @@ arrays (``jax.tree.map(np.asarray, variables)``) and returns the HF
   * the positional conv's ``weight_g``/``weight_v`` become
     ``parametrizations.weight.original0``/``original1``.
 
+``baseline_params_to_state_dict`` does the same for the JAX baseline
+pipeline (``nrse_tpu/baseline/pipeline.py::BaselineSER``): the encoder as
+above under ``ssl.``, the pooling's flax leaves as they are under
+``pool.`` (the port keeps their ``[in, out]`` layout and names), and the
+head's Dense and LayerNorm leaves under ``ser.``.
+
 ``byol_variables_to_state_dicts`` does the same for the JAX
 ``BYOLVariables`` (online params with batch_stats, and the target) after
 the layout of ``nrse_tpu/models/byol.py:113-181``: the encoder as above
@@ -31,6 +37,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from nrse_tpu_torch.baseline.pipeline import BaselineSER
 from nrse_tpu_torch.models.byol import OnlineNetwork
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
@@ -202,4 +209,54 @@ def init_byol_state_dict(config: WavLMConfig, projection_dim: int,
             sd[name] = torch.ones(t.shape)
         else:  # BatchNorm bias, running_mean
             sd[name] = torch.zeros(t.shape)
+    return sd
+
+
+def baseline_params_to_state_dict(params_np: Mapping[str, Any],
+                                  config: WavLMConfig
+                                  ) -> Dict[str, np.ndarray]:
+    """JAX ``BaselineSER`` params (numpy leaves; a ``{'params': ...}``
+    wrapper is accepted) → :class:`~nrse_tpu_torch.baseline.pipeline.
+    BaselineSER`'s state dict as float32 numpy arrays."""
+    p = params_np.get("params", params_np)
+    sd = {f"ssl.{k}": v for k, v in
+          jax_params_to_state_dict(p["ssl"], config).items()}
+    for name, leaf in p["pool"].items():
+        sd[f"pool.{name}"] = _f32(leaf)
+    for name, tree in p["ser"].items():
+        if name.startswith("norm_"):
+            _norm(sd, f"ser.{name}", tree)
+        else:  # fc_i, out
+            _dense(sd, f"ser.{name}", tree)
+    return sd
+
+
+def init_baseline_state_dict(config: WavLMConfig,
+                             generator: torch.Generator,
+                             head_dim: int = 1024, num_classes: int = 8,
+                             head_layers: int = 1
+                             ) -> Dict[str, torch.Tensor]:
+    """Seeded random float32 weights of :class:`BaselineSER` on the CPU:
+    the encoder as :func:`init_state_dict`; after the JAX initialisers,
+    the pooling's projection LeCun-normal and its attention vector
+    normal(0, 1), the head's Dense weights LeCun-normal and LayerNorm
+    scales 1; every bias normal(0, 0.02)."""
+    sd = {f"ssl.{k}": v for k, v in init_state_dict(config, generator).items()}
+    shapes = BaselineSER(config, head_dim, num_classes, head_layers,
+                         device="meta").state_dict()
+    for name, t in shapes.items():
+        if name.startswith("ssl."):
+            continue
+        if name == "pool.attention":
+            sd[name] = torch.randn(t.shape, generator=generator)
+        elif name == "pool.sap_linear_kernel":  # [in, out]
+            sd[name] = torch.randn(t.shape, generator=generator) \
+                * t.shape[0] ** -0.5
+        elif "bias" in name:
+            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+        elif ".norm_" in name:
+            sd[name] = torch.ones(t.shape)
+        else:  # Linear [out, in]
+            sd[name] = torch.randn(t.shape, generator=generator) \
+                * t.shape[1] ** -0.5
     return sd

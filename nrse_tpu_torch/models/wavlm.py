@@ -10,17 +10,23 @@ Port of ``nrse_tpu/models/wavlm.py``:
       (training only)
     → transformer encoder: key-mask multiply, weight-normed grouped conv
       positional embedding, dropout, the bucketed relative position bias
-      ``[H, T, T]`` (once per forward, from layer 0's table), LayerDrop,
-      gated attention, the FFN through kernel B (``ops.fused_ffn``), pre-LN
-      ("stable", large) or post-LN (base_plus) layers
+      (once per forward, from layer 0's table: dense ``[H, T, T]`` in
+      float32 at T ≤ 384, its Toeplitz generator ``[H, 2T]`` in the
+      compute dtype above), LayerDrop, gated attention, the FFN through
+      kernel B (``ops.fused_ffn``), pre-LN ("stable", large) or post-LN
+      (base_plus) layers
     → ``(sequence [B, T', C], pooled [B, C])``, the masked mean over frames.
 
-Attention runs through ``ops.block_attention`` in both modes: kernel A
-forward, K3 backward, with the attention-output dropout inside them in
-training.  That is the JAX module with ``use_flash_attention=True`` and
-``attn_dropout_impl="kernel"`` at T ≤ 384; the JAX default (off,
-``bench.py:490``) runs XLA's attention instead, a speed choice for the TPU
-with the same arithmetic, so the port has no switch for it.  The
+Attention dispatches on the frame count as the JAX module with
+``use_flash_attention=True`` does (``nrse_tpu/models/wavlm.py:284-291,
+898-906``): T ≤ 384 (clips up to 7.7 s) runs ``ops.block_attention`` in
+both modes (kernel A forward, K3 backward, the attention-output dropout
+inside them in training, as ``attn_dropout_impl="kernel"``); longer
+sequences run ``ops.flash_attention`` (K5), forward only until its
+backward is ported, so a training forward or a gradient at T > 384
+raises.  The JAX default (off, ``bench.py:490``) runs XLA's attention
+instead, a speed choice for the TPU with the same arithmetic, so the port
+has no switch for it.  The
 attention-output dropout draws K1's mask over the merged ``[B, T, C]``
 output, so its random stream is the one a separate K1 pass there would
 draw.  Training mode drops out at the post-attention hidden site and once
@@ -51,10 +57,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from nrse_tpu_torch.ops import philox
+from nrse_tpu_torch.ops.block_attention import MAX_T as BLOCK_MAX_T
 from nrse_tpu_torch.ops.block_attention import block_gated_attention
+from nrse_tpu_torch.ops.flash_attention import flash_gated_attention
 from nrse_tpu_torch.ops.fused_dropout import hw_dropout
 from nrse_tpu_torch.ops.fused_ffn import fused_ffn
-from nrse_tpu_torch.ops.rel_pos_bias import compute_position_bias
+from nrse_tpu_torch.ops.rel_pos_bias import (
+    compute_position_bias,
+    rel_bias_vector,
+)
 
 # flax GroupNorm's default epsilon, which the JAX frontend keeps
 GROUP_NORM_EPS = 1e-6
@@ -129,6 +140,18 @@ class WavLMConfig:
                    num_conv_pos_embeddings=16,
                    num_conv_pos_embedding_groups=4, num_buckets=40,
                    max_bucket_distance=100, **kw)
+
+    @classmethod
+    def from_model_name(cls, name: str, **kw) -> "WavLMConfig":
+        """The encoder a model name names, as the JAX package's
+        ``WavLMConfig.from_model_name`` picks it."""
+        if "tiny" in name:
+            return cls.tiny(**kw)
+        if "large" in name:
+            return cls.large(**kw)
+        if "base" in name:
+            return cls.base_plus(**kw)
+        raise ValueError(f"unknown WavLM variant: {name}")
 
     @property
     def has_masked_spec_embed(self) -> bool:
@@ -333,8 +356,10 @@ class GatedAttention(nn.Module):
     def forward(self, hidden, pos_bias, key_padding_mask=None,
                 dropout: float = 0.0, rng: Optional[TrainRNG] = None,
                 layer: int = 0):
-        """Kernel A (and K3 for its gradient); with ``rng`` (training),
-        dropout ``dropout`` of the attention output inside them."""
+        """``pos_bias`` dense ``[H, T, T]``: kernel A (and K3 for its
+        gradient), with ``rng`` (training) dropout ``dropout`` of the
+        attention output inside them; the generator ``[H, 2T]``: K5, with
+        no dropout and no gradient."""
         b, t, c = hidden.shape
         h = self.num_heads
 
@@ -352,8 +377,17 @@ class GatedAttention(nn.Module):
         p, seed = 0.0, None
         if rng is not None and dropout > 0.0:
             p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
-        out = block_gated_attention(q, k, v, gate, pos_bias, key_padding_mask,
-                                    p_drop=p, dropout_seed=seed)
+        if pos_bias.dim() == 2:
+            if p > 0.0:
+                raise ValueError(
+                    f"attention dropout at T={t} > {BLOCK_MAX_T} frames "
+                    "needs the flash attention's backward, not ported yet")
+            out = flash_gated_attention(q, k, v, gate, pos_bias,
+                                        key_padding_mask)
+        else:
+            out = block_gated_attention(q, k, v, gate, pos_bias,
+                                        key_padding_mask, p_drop=p,
+                                        dropout_seed=seed)
         out = out.transpose(1, 2).reshape(b, t, c)
         return _linear(out, self.out_proj)
 
@@ -453,9 +487,13 @@ class WavLMTransformerEncoder(nn.Module):
                           SITE_HIDDEN)
         t = hidden.shape[1]
         table = self.layers[0].attention.rel_attn_embed.weight
-        pos_bias = compute_position_bias(table.float(), t, t,
-                                         cfg.num_buckets,
-                                         cfg.max_bucket_distance)
+        if t <= BLOCK_MAX_T:
+            pos_bias = compute_position_bias(table.float(), t, t,
+                                             cfg.num_buckets,
+                                             cfg.max_bucket_distance)
+        else:  # the flash kernel's generator, in the compute dtype
+            pos_bias = rel_bias_vector(table.to(dt), t, cfg.num_buckets,
+                                       cfg.max_bucket_distance)
         keep = self.layer_keep(rng)
         self.layers_run = sum(keep)
         for layer, run in zip(self.layers, keep):

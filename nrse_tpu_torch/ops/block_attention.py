@@ -19,11 +19,10 @@ tests' path).  The counterpart of the TPU module's mask dump
 (``dump_block_masks``) is therefore K1's ``dump_dropout_mask`` over ``[B,
 T, C]``.
 
-The kernels hold a head's whole K and V and whole score rows on chip, so
-they take T ≤ ``MAX_T`` = 384 frames (≈ 7.7 s of audio), as the TPU
-kernels do.  Longer clips need the streaming flash kernels, which are not
-ported yet; both paths raise for them, so the CPU tests see the card's
-contract.  The raw CUDA entries refuse inputs that require grad under
+The block attention takes T ≤ ``MAX_T`` = 384 frames (≈ 7.7 s of audio),
+as the TPU kernels do: the model sends longer sequences to the flash
+attention (``ops.flash_attention``, K5), and both paths here raise for
+them, so the CPU tests see the card's contract.  The raw CUDA entries refuse inputs that require grad under
 autograd (``ops/_guard.py``); the Function calls them with grad mode off.
 """
 
@@ -108,7 +107,7 @@ def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):
     if t > MAX_T:
         raise ValueError(
             f"T={t} frames exceeds the block kernel's limit of {MAX_T}; "
-            "the streaming flash-attention kernel is not ported yet")
+            "longer sequences go to ops.flash_attention (K5)")
 
 
 def _check_cuda(q, k, v, *others):

@@ -86,7 +86,7 @@ def _load(module: nn.Module, state_dict: Mapping, device) -> nn.Module:
 
 def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
                        projection_dim: int = 1024,
-                       prediction_dim: int = 2048, device="cpu",
+                       prediction_dim: int = 2048, device="cuda",
                        seed: int = 0,
                        target_state_dict: Optional[Mapping] = None,
                        compute_dtype: Optional[torch.dtype] = None

@@ -11,6 +11,10 @@ BatchNorm running statistics of both towers), ``step`` and ``seed``.  It
 is read back with ``torch.load(weights_only=True)`` and written into the
 existing buffers in place, so the modules' parameters and gradients, which
 are views of the flat buffers, stay valid.
+
+:func:`save_model` and :func:`restore_model` keep a module's state dict
+(``tensors`` only) in the same layout: the baseline evaluator restores its
+``final_model`` with them.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch import nn
 
 from nrse_tpu_torch.train.byol_trainer import BYOLTrainState
 
@@ -44,11 +49,16 @@ def save_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState,
     """Save ``state`` under ``ckpt_dir/name`` (overwriting it); returns the
     checkpoint's directory.  The file is written whole and then renamed, so
     a run cut during a save leaves the previous checkpoint readable."""
-    path = os.path.abspath(os.path.join(ckpt_dir, name))
-    os.makedirs(path, exist_ok=True)
     payload = {"tensors": {k: v.detach().cpu()
                            for k, v in state_tensors(state).items()},
                "step": int(state.step), "seed": int(state.seed)}
+    return _write(ckpt_dir, name, payload, metadata)
+
+
+def _write(ckpt_dir: str, name: str, payload: Dict[str, Any],
+           metadata: Optional[Dict[str, Any]]) -> str:
+    path = os.path.abspath(os.path.join(ckpt_dir, name))
+    os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
@@ -57,14 +67,25 @@ def save_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState,
     return path
 
 
+def _read(ckpt_dir: str, name: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(payload, metadata)`` of ``ckpt_dir/name``."""
+    path = os.path.abspath(os.path.join(ckpt_dir, name))
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    metadata: Dict[str, Any] = {}
+    meta_path = os.path.join(path, META_FILE)
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            metadata = json.load(f)
+    return saved, metadata
+
+
 def restore_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState
                        ) -> Tuple[BYOLTrainState, Dict[str, Any]]:
     """Load ``ckpt_dir/name`` into ``state`` in place and return ``(state,
     metadata)``.  Raises ``ValueError`` if a tensor's name or shape differs
     from the state's (another model configuration)."""
-    path = os.path.abspath(os.path.join(ckpt_dir, name))
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                       weights_only=True)
+    saved, metadata = _read(ckpt_dir, name)
     sources, targets = saved["tensors"], state_tensors(state)
     if sources.keys() != targets.keys():
         raise ValueError(f"checkpoint {name!r} holds other tensors than the "
@@ -79,12 +100,27 @@ def restore_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState
             dst.copy_(sources[k])
     state.step = int(saved["step"])
     state.seed = int(saved["seed"])
-    metadata: Dict[str, Any] = {}
-    meta_path = os.path.join(path, META_FILE)
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            metadata = json.load(f)
     return state, metadata
+
+
+def save_model(ckpt_dir: str, name: str, module: nn.Module,
+               metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Save ``module``'s state dict under ``ckpt_dir/name`` (overwriting
+    it); returns the checkpoint's directory."""
+    payload = {"tensors": {k: v.detach().cpu()
+                           for k, v in module.state_dict().items()}}
+    return _write(ckpt_dir, name, payload, metadata)
+
+
+def restore_model(ckpt_dir: str, name: str, module: nn.Module
+                  ) -> Dict[str, Any]:
+    """Load ``ckpt_dir/name`` into ``module`` and return its metadata.  A
+    strict load (a missing, extra or reshaped tensor raises) that assigns
+    the loaded CPU tensors as the module's parameters, so a module built
+    on the meta device is filled without allocating twice."""
+    saved, metadata = _read(ckpt_dir, name)
+    module.load_state_dict(saved["tensors"], strict=True, assign=True)
+    return metadata
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -3,7 +3,9 @@
     python -m nrse_tpu_torch.train_byol --config <yaml or preset name> \\
         [--device cuda|cpu] [--batch_size N] [--epochs N] [--lr X] [--resume]
 
-The JAX presets (``nrse_tpu/config/presets/*.yaml``) load as they are,
+A preset name resolves to the port's own copy of the JAX package's BYOL
+presets (``nrse_tpu_torch/config/presets/*.yaml``); ``--config`` also
+takes any YAML path, the JAX package's presets included.  The file loads
 through a small loader of this module (PyYAML, imported when a file is
 read) with the JAX loader's defaults for the keys used here;
 :func:`main` takes the config as a dict, so a caller needs no YAML.  The
@@ -38,13 +40,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from nrse_tpu.runtime.native import native_available
-from nrse_tpu.utils.logging_utils import logger, setup_logger
 from nrse_tpu_torch.data.loader import DevicePrefetcher, create_dataloaders
 from nrse_tpu_torch.eval.evaluate_byol import validate_model
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
+from nrse_tpu_torch.runtime.native import native_available
 from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
     make_byol_train_step,
@@ -56,9 +57,10 @@ from nrse_tpu_torch.train.checkpoint import (
 )
 from nrse_tpu_torch.train.early_stopping import EarlyStopping
 from nrse_tpu_torch.train.schedules import cosine_annealing
+from nrse_tpu_torch.utils.logging_utils import logger, setup_logger
 
-PRESET_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "nrse_tpu", "config", "presets")
+PRESET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "config", "presets")
 
 # the JAX loader's defaults (nrse_tpu/config/config_utils.py:106-147) for
 # the keys this entry point reads
@@ -92,7 +94,7 @@ def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    """A YAML config file, or a preset of the JAX package by name."""
+    """A YAML config file, or a preset of ``PRESET_DIR`` by name."""
     import yaml
 
     if not os.path.exists(path):
@@ -103,18 +105,6 @@ def load_config(path: str) -> Dict[str, Any]:
             path = candidate
     with open(path) as f:
         return yaml.safe_load(f)
-
-
-def encoder_config(name: str) -> WavLMConfig:
-    """The encoder of ``model.name``, as ``WavLMConfig.from_model_name``
-    of the JAX package picks it."""
-    if "tiny" in name:
-        return WavLMConfig.tiny()
-    if "large" in name:
-        return WavLMConfig.large()
-    if "base" in name:
-        return WavLMConfig.base_plus()
-    raise ValueError(f"unknown WavLM variant: {name}")
 
 
 def _device(config) -> torch.device:
@@ -163,7 +153,7 @@ def main(config: Dict[str, Any],
     train_loader, val_loader = create_dataloaders(config)
     prefetch = int(config.get("tpu", {}).get("prefetch_depth", 2))
 
-    enc = encoder or encoder_config(model_cfg["name"])
+    enc = encoder or WavLMConfig.from_model_name(model_cfg["name"])
     num_epochs = int(tr["num_epochs"])
     total_steps = len(train_loader) * num_epochs
     lr = tr["learning_rate"]
@@ -278,7 +268,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="BYOL pretraining of the WavLM encoder on one GPU")
     parser.add_argument("--config", required=True,
                         help="YAML config file, or a preset name of "
-                             "nrse_tpu/config/presets")
+                             "nrse_tpu_torch/config/presets")
     parser.add_argument("--device", default=None, help="cuda or cpu")
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--epochs", type=int, default=None)

@@ -208,7 +208,7 @@ def _train_step():
     0.1, hidden/FFN dropout, LayerDrop, SpecAugment): ``(loss, grads)``."""
     cfg = WavLMConfig.tiny()
     sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(0))
-    state = create_train_state(cfg, sd, 16, 32, seed=9)
+    state = create_train_state(cfg, sd, 16, 32, "cpu", seed=9)
     rng = np.random.default_rng(4)
     t = 3200
     ax = np.arange(t) / 16000.0

@@ -1,11 +1,13 @@
 """Guard: the port's import rule, and its wrappers launch no kernel for CPU
-tensors (every LAUNCHES counter stays 0 through a tiny BYOL train step on
-the CPU).
+tensors (every LAUNCHES counter stays 0 through a tiny BYOL train step and
+a tiny SER forward on the CPU).
 
-The import rule: no jax, jaxlib, flax, optax or orbax anywhere in the
-port's import closure; of the JAX package only the JAX-free host modules
-of ``ALLOWED`` (the data loaders, audio decoding, the native decoder's
-bindings and the logger) and what they import themselves."""
+The import rule: the port imports nothing of the JAX package — not even
+its JAX-free modules; it keeps its own copies of what it needs — and no
+jax, jaxlib, flax, optax or orbax.  A fresh interpreter with a
+``sys.meta_path`` finder that raises on ``nrse_tpu`` and ``nrse_tpu.*``
+imports every module of the port and ``chip_smoke``, and resolves a BYOL
+preset through ``train_byol``."""
 
 import json
 import subprocess
@@ -14,10 +16,15 @@ from pathlib import Path
 
 import torch
 
-from nrse_tpu_torch.models.convert import init_byol_state_dict
+from nrse_tpu_torch.baseline.pipeline import BaselineSER, make_baseline_forward
+from nrse_tpu_torch.models.convert import (
+    init_baseline_state_dict,
+    init_byol_state_dict,
+)
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops import (
     block_attention,
+    flash_attention,
     fused_dropout,
     fused_ffn,
     fused_optimizer,
@@ -35,9 +42,12 @@ ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "nrse_tpu_torch",
     "nrse_tpu_torch.runtime.cuda_build",
+    "nrse_tpu_torch.runtime.native",
     "nrse_tpu_torch.ops.rel_pos_bias",
     "nrse_tpu_torch.ops.attention",
     "nrse_tpu_torch.ops.block_attention",
+    "nrse_tpu_torch.ops.flash_attention",
+    "nrse_tpu_torch.ops.asp_pooling",
     "nrse_tpu_torch.ops.fused_ffn",
     "nrse_tpu_torch.ops.philox",
     "nrse_tpu_torch.ops.fused_dropout",
@@ -46,44 +56,62 @@ MODULES = [
     "nrse_tpu_torch.models.wavlm",
     "nrse_tpu_torch.models.heads",
     "nrse_tpu_torch.models.byol",
+    "nrse_tpu_torch.models.emotion",
     "nrse_tpu_torch.models.convert",
     "nrse_tpu_torch.audio.augment",
     "nrse_tpu_torch.audio.features",
+    "nrse_tpu_torch.audio.io",
+    "nrse_tpu_torch.audio.resample",
+    "nrse_tpu_torch.utils.logging_utils",
+    "nrse_tpu_torch.labels.parsing",
     "nrse_tpu_torch.train.schedules",
     "nrse_tpu_torch.train.byol_trainer",
     "nrse_tpu_torch.train.checkpoint",
     "nrse_tpu_torch.train.early_stopping",
+    "nrse_tpu_torch.train.losses",
     "nrse_tpu_torch.data.loader",
+    "nrse_tpu_torch.data.noisy_speech_dataset",
     "nrse_tpu_torch.eval.evaluate_byol",
+    "nrse_tpu_torch.eval.metrics",
+    "nrse_tpu_torch.baseline.net",
+    "nrse_tpu_torch.baseline.pipeline",
+    "nrse_tpu_torch.baseline.wavset",
+    "nrse_tpu_torch.baseline.eval_cat_ser",
     "nrse_tpu_torch.train_byol",
     "nrse_tpu_torch.serve.export",
 ]
-ALLOWED = [
-    "nrse_tpu.data.noisy_speech_dataset",
-    "nrse_tpu.data.loader",
-    "nrse_tpu.audio.io",
-    "nrse_tpu.runtime.native",
-    "nrse_tpu.utils.logging_utils",
-]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
 
+# a finder that refuses the JAX package, installed before anything else
+BLOCK = (
+    "import importlib, json, sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name == 'nrse_tpu' or name.startswith('nrse_tpu.'):\n"
+    "            raise ImportError(f'the port imported {name}')\n"
+    "        return None\n"
+    "sys.meta_path.insert(0, Block())\n")
 
-def _imported_modules(modules):
-    """The modules a fresh interpreter holds after importing ``modules``."""
-    code = (
-        "import importlib, json, sys\n"
-        f"for m in {modules!r}:\n"
-        "    importlib.import_module(m)\n"
-        "print(json.dumps(sorted(sys.modules)))\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", BLOCK + code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+
+
+def _imported_modules(modules, extra: str = ""):
+    """The modules a fresh interpreter with the JAX package blocked holds
+    after importing ``modules`` and running ``extra``."""
+    res = _run(f"for m in {modules!r}:\n"
+               "    importlib.import_module(m)\n"
+               + extra +
+               "print(json.dumps(sorted(sys.modules)))\n")
     assert res.returncode == 0, res.stderr
     return set(json.loads(res.stdout.strip().splitlines()[-1]))
 
 
 def _counts():
     return (block_attention.LAUNCHES, block_attention.BWD_LAUNCHES,
-            fused_ffn.LAUNCHES,
+            flash_attention.LAUNCHES, fused_ffn.LAUNCHES,
             fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES,
             fused_dropout.LAUNCHES, fused_dropout.DUMP_LAUNCHES,
             fused_optimizer.LAUNCHES)
@@ -94,18 +122,24 @@ def _top(name):
 
 
 def test_port_imports_no_jax():
-    port = _imported_modules(MODULES)
-    assert not sorted(m for m in port if _top(m) in FORBIDDEN)
-    allowed = {m for m in _imported_modules(ALLOWED)
-               if _top(m) == "nrse_tpu"}
-    assert set(ALLOWED) <= allowed
-    assert not sorted(m for m in port if _top(m) == "nrse_tpu"
-                      and m not in allowed)
+    loaded = _imported_modules(
+        MODULES + ["chip_smoke"],
+        "from nrse_tpu_torch import train_byol\n"
+        "cfg = train_byol.load_config('dev_wavlm-large_byol')\n"
+        "assert cfg['model']['name'] == 'microsoft/wavlm-large', cfg\n")
+    assert not sorted(m for m in loaded if _top(m) == "nrse_tpu")
+    assert not sorted(m for m in loaded if _top(m) in FORBIDDEN)
+    assert set(MODULES) | {"chip_smoke"} <= loaded
 
 
-def test_allowed_host_modules_import_no_jax():
-    assert not sorted(m for m in _imported_modules(ALLOWED)
-                      if _top(m) in FORBIDDEN)
+def test_blocker_refuses_the_jax_package():
+    """The finder the import test relies on does refuse the JAX package,
+    its JAX-free modules included."""
+    for name in ("nrse_tpu", "nrse_tpu.labels.parsing",
+                 "nrse_tpu.utils.logging_utils"):
+        res = _run(f"importlib.import_module({name!r})\n")
+        assert res.returncode != 0
+        assert "the port imported nrse_tpu" in res.stderr
 
 
 def test_every_port_module_is_listed():
@@ -126,6 +160,8 @@ def test_cpu_tensors_launch_no_kernel():
     gate = torch.rand(1, 2, 8, generator=g)
     bias = torch.randn(2, 8, 8, generator=g)
     block_attention.block_gated_attention(q, k, v, gate, bias)
+    flash_attention.flash_gated_attention(q, k, v, gate,
+                                          torch.randn(2, 16, generator=g))
     x = torch.randn(5, 128, generator=g)
     fused_ffn.fused_ffn(x, torch.randn(256, 128, generator=g),
                         torch.randn(256, generator=g),
@@ -138,7 +174,7 @@ def test_cpu_train_step_launches_no_kernel():
     before = _counts()
     cfg = WavLMConfig.tiny()  # dropout, LayerDrop and SpecAugment on
     sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(0))
-    state = create_train_state(cfg, sd, 16, 32)
+    state = create_train_state(cfg, sd, 16, 32, "cpu")
     g = torch.Generator().manual_seed(1)
     batch = {"clean": torch.randn(2, 2400, generator=g),
              "noise": torch.randn(2, 2400, generator=g),
@@ -148,4 +184,19 @@ def test_cpu_train_step_launches_no_kernel():
     assert bool(metrics["finite"])
     loss, sim = make_byol_eval_step()(state, batch)
     assert loss.shape == sim.shape == (2,)
+    assert _counts() == before
+
+
+def test_cpu_ser_forward_launches_no_kernel():
+    """Both attention paths of the SER forward (799 tiny frames: flash;
+    383: block) on the CPU."""
+    before = _counts()
+    cfg = WavLMConfig.tiny()
+    model = BaselineSER(cfg, head_dim=16)
+    model.load_state_dict(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(0), head_dim=16))
+    forward = make_baseline_forward(model)
+    for n in (16000, 7680):
+        logits = forward(torch.zeros(1, n), torch.ones(1, n))
+        assert logits.shape == (1, 8) and torch.isfinite(logits).all()
     assert _counts() == before

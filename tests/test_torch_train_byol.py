@@ -10,6 +10,7 @@ noise clips, cropped to 0.3 s (239 frames, inside the block attention's
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -98,7 +99,7 @@ def _restore(ckpt):
     fresh = create_train_state(
         cfg, init_byol_state_dict(cfg, PROJ, PRED,
                                   torch.Generator().manual_seed(99)),
-        PROJ, PRED, seed=0)
+        PROJ, PRED, "cpu", seed=0)
     return restore_checkpoint(str(ckpt), "last_model", fresh)
 
 
@@ -175,8 +176,11 @@ def test_load_config_reads_the_jax_presets():
     assert config["model"]["name"] == "microsoft/wavlm-large"
     assert config["training"]["batch_size"] == 4
     assert config["device"] == "cuda"
-    assert train_byol.encoder_config(config["model"]["name"]) == \
+    assert WavLMConfig.from_model_name(config["model"]["name"]) == \
         WavLMConfig.large()
+    # the name resolves to the port's own copy of the JAX preset
+    assert os.path.dirname(train_byol.PRESET_DIR) == os.path.join(
+        os.path.dirname(os.path.abspath(train_byol.__file__)), "config")
 
 
 def test_cuda_device_without_a_card_raises():

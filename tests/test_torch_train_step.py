@@ -130,7 +130,7 @@ def _runs(use_flash_attention: bool):
 
     cfg = WavLMConfig.tiny(**QUIET)
     online_sd, target_sd = byol_variables_to_state_dicts(start, cfg)
-    pstate = create_train_state(cfg, online_sd, PROJ, PRED,
+    pstate = create_train_state(cfg, online_sd, PROJ, PRED, "cpu",
                                 target_state_dict=target_sd)
     pstep = make_byol_train_step(FusedAdamWSpec(
         schedule=cosine_annealing(LR, STEPS_TOTAL), weight_decay=1e-5,
@@ -234,7 +234,7 @@ def _noisy_run(step_index=0):
     cfg = WavLMConfig.tiny()  # dropout 0.1 everywhere, LayerDrop 0.1,
     sd = init_byol_state_dict(cfg, PROJ, PRED,  # SpecAugment 0.05 / 10 / 2
                               torch.Generator().manual_seed(0))
-    state = create_train_state(cfg, sd, PROJ, PRED, seed=7)
+    state = create_train_state(cfg, sd, PROJ, PRED, "cpu", seed=7)
     state.step = step_index
     step = make_byol_train_step(FusedAdamWSpec(
         schedule=cosine_annealing(LR, STEPS_TOTAL)))
