@@ -51,9 +51,11 @@ not 0:
      the plain version (≤ 1e-6 relative); µs per call and GB/s, and of
      ``torch.optim.AdamW(fused=True)`` + ``torch._foreach_lerp_``;
   8b. K5 (flash attention forward, T > 384) against its plain version at
-     B=4, H=16, D=64, T ∈ {499, 749, 1499} and B=1, T=3199 (the streamed
-     regime of the TPU kernels), ragged key masks and a wholly masked
-     batch row: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked
+     H=16, D=64: B=4 at T ∈ {385, 449} (T ≡ 1 mod 64: a last key tile of
+     one key) and T ∈ {499, 749, 1499}, the evaluator's B=32 at T ∈ {499,
+     749, 1499}, and B=1, T=3199 (the streamed regime of the TPU
+     kernels), ragged key masks and, for B > 1, a wholly masked batch
+     row: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked
      row finite and within 1e-2 of plain; µs per call of kernel, plain and
      SDPA (dense float bias built outside the timed call) at B=32 and at
      B=1, T=3199; that a gradient through the wrapper raises;
@@ -160,6 +162,7 @@ from nrse_tpu_torch.ops.flash_attention import (  # noqa: E402
 )
 from nrse_tpu_torch.ops.fused_ffn import ffn_plain  # noqa: E402
 from nrse_tpu_torch.runtime import cuda_build  # noqa: E402
+from nrse_tpu_torch.runtime.device import sync  # noqa: E402
 from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
     create_train_state,
     make_byol_eval_step,
@@ -789,11 +792,6 @@ def _requests(rng: np.random.Generator, clip_seconds: float):
             (f"40 clips of {clip_seconds:g} s", forty, None)]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def phase_serving(cfg=None, device=torch.device("cuda"),
                   clip_seconds: float = CLIP_SECONDS,
                   buckets=BUCKETS) -> dict:
@@ -822,7 +820,7 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
     frames = int(cfg.feature_lengths(clip))
     for bkt in buckets:  # warm-up: cuDNN algorithm choice, allocator
         server(np.zeros((bkt, clip), np.float32))
-    _sync(device)
+    sync(device)
 
     reqs = _requests(np.random.default_rng(SEED), clip_seconds)
     forwards = sum(len(server.plan(len(a))) for _, a, _ in reqs)
@@ -835,7 +833,7 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
             mask = (np.arange(audio.shape[1])[None, :]
                     < np.asarray(lengths)[:, None]).astype(np.int32)
         results.append(server(audio, mask))
-    _sync(device)
+    sync(device)
     launches = {"block_attention_fwd": block_attention.LAUNCHES,
                 "fused_ffn_fwd": fused_ffn.LAUNCHES}
     want = cfg.num_hidden_layers * forwards
@@ -875,11 +873,11 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
         for _ in range(3):  # warm-up; the card idled during the CPU run
             server(audio)
         iters = 10
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         for _ in range(iters):
             server(audio)
-        _sync(device)
+        sync(device)
         dt = (time.perf_counter() - t0) / iters
         log(f"[serve] bucket {bkt}: {dt * 1e3:.2f} ms/request, "
             f"{bkt * clip_seconds / dt:.1f} audio-sec/sec")
@@ -981,13 +979,13 @@ def phase_training(cfg=None, device=torch.device("cuda"),
     if ema_err != 0.0:
         raise RuntimeError(f"the target did not move by the EMA: {ema_err}")
 
-    _sync(device)
+    sync(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
     metrics = [step(state, data) for _ in range(steps)]
-    _sync(device)
+    sync(device)
     dt = (time.perf_counter() - t0) / steps
     counts = _train_counts()
     for i, m in enumerate(metrics):
@@ -1015,7 +1013,7 @@ def phase_training(cfg=None, device=torch.device("cuda"),
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     loss, sim = make_byol_eval_step()(state, data)
-    _sync(device)
+    sync(device)
     if loss.shape != (batch,) or sim.shape != (batch,) or not (
             torch.isfinite(loss).all() and torch.isfinite(sim).all()):
         raise RuntimeError("bad eval step output")
@@ -1144,10 +1142,10 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
                      "validation_ratio": 0.25},
             "device": device.type,
         }
-        _sync(device)
+        sync(device)
         _reset_counts()
         first = train_byol.main(config, cfg)
-        _sync(device)
+        sync(device)
         counts = _train_counts()
         epochs = first["epochs"]
         log(f"[entry] WavLM {cfg.num_hidden_layers} layers (depth cut) x "
@@ -1190,7 +1188,7 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
 
         second = train_byol.main(dict(config, resume=True, training=dict(
             config["training"], num_epochs=3)), cfg)
-        _sync(device)
+        sync(device)
         resumed = second["epochs"]
         if [e["epoch"] for e in resumed] != [2] or \
                 second["state"].step != step_after_two + resumed[0]["steps"] \
@@ -1213,8 +1211,12 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
         shutil.rmtree(root, ignore_errors=True)
 
 
-# (B, T) of the timings: the evaluator's 10, 15 and 30 s buckets at batch
-# 32, and one 64 s clip (the TPU kernels' streamed regime)
+# (B, T) of the comparisons: T ≡ 1 (mod 64) twice (the bias window's
+# last key tile is all padding), the evaluator's 10, 15 and 30 s buckets
+# at batch 4 and at its batch of 32, and one 64 s clip (the TPU kernels'
+# streamed regime).  The batch-32 cases and the 64 s clip are also timed.
+K5_CASES = ((4, 385), (4, 449), (4, 499), (4, 749), (4, 1499),
+            (32, 499), (32, 749), (32, 1499), (1, 3199))
 K5_TIMED = ((32, 499), (32, 749), (32, 1499), (1, 3199))
 K5_ROW_T = 499  # the K5 bucket with the most batches: the JSON row
 
@@ -1232,62 +1234,49 @@ def _k5_inputs(gen, b, t, lengths, h=16, d=64):
 
 
 def phase_k5() -> dict:
-    """K5 against its plain version at the SER buckets' lengths and a
-    64 s clip's, then its time at batch 32 beside plain and SDPA."""
+    """K5 against its plain version at the SER buckets' lengths (at the
+    evaluator's batch of 32 too) and a 64 s clip's, then its time at
+    batch 32 beside plain and SDPA."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
-    worst = 0.0
-    for b, t in ((4, 499), (4, 749), (4, 1499), (1, 3199)):
+    h, d = 16, 64
+    worst, row = 0.0, None
+    for b, t in K5_CASES:
         lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
                                 device=dev)
+        lengths[0] = t
         if b > 1:
-            lengths[0] = t
             lengths[1] = 0  # a row that pads a bucket's last batch
         q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
-        out, lse = flash_attention.flash_gated_attention_lse(
-            q, k, v, gate, bias_rel, mask)
-        torch.cuda.synchronize()
-        ref, ref_lse = flash_attention.flash_attention_plain_fwd(
-            q, k, v, gate, bias_rel, mask_add(mask, b, t, dev))
+        madd = mask_add(mask, b, t, dev)
+        with torch.no_grad():
+            out, lse = flash_attention.flash_gated_attention_lse(
+                q, k, v, gate, bias_rel, mask)
+            torch.cuda.synchronize()
+            ref, ref_lse = flash_attention.flash_attention_plain_fwd(
+                q, k, v, gate, bias_rel, madd)
         if not (torch.isfinite(out.float()).all()
                 and torch.isfinite(lse).all()):
-            raise RuntimeError(f"K5: non-finite output at T={t}")
+            raise RuntimeError(f"K5: non-finite output at B={b} T={t}")
         rows = lengths > 0
         e_out = rel_err(out[rows], ref[rows])
         e_lse = rel_err(lse[rows], ref_lse[rows])
         e_masked = rel_err(out[~rows], ref[~rows]) if (~rows).any() \
             else 0.0
         abs_err = float((out.float() - ref.float()).abs().max())
-        log(f"[K5] B={b} H=16 T={t} D=64, key lengths "
+        log(f"[K5] B={b} H={h} T={t} D={d}, key lengths "
             f"{sorted(lengths.tolist())[:4]}...: out rel {e_out:.3e} (abs "
             f"{abs_err:.3e}), lse rel {e_lse:.3e}, wholly masked rows rel "
             f"{e_masked:.3e}")
         if e_out > OUT_TOL or e_lse > LSE_TOL or e_masked > OUT_TOL:
             raise RuntimeError(f"K5 disagrees with its plain version at "
-                               f"T={t}: out {e_out}, lse {e_lse}, masked "
-                               f"rows {e_masked}")
+                               f"B={b} T={t}: out {e_out}, lse {e_lse}, "
+                               f"masked rows {e_masked}")
         worst = max(worst, abs_err)
-    # no backward yet: a gradient through the wrapper raises
-    try:
-        flash_attention.flash_gated_attention(q.requires_grad_(), k, v, gate,
-                                              bias_rel, mask)
-    except RuntimeError as e:
-        log(f"[K5] under autograd: raises ({str(e)[:60]}...)")
-    else:
-        raise RuntimeError("K5: a gradient through the wrapper did not raise")
-    del q, k, v, out, ref
-
-    h, d = 16, 64
-    row = None
-    for b, t in K5_TIMED:
-        lengths = torch.randint(t // 2, t + 1, (b,), generator=gen,
-                                device=dev)
-        lengths[0] = t
-        q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
-        madd = mask_add(mask, b, t, dev)
+        del ref, ref_lse
+        if (b, t) not in K5_TIMED:
+            continue
         with torch.no_grad():
-            out, lse = flash_attention.flash_gated_attention_lse(
-                q, k, v, gate, bias_rel, mask)
             ms = cuda_ms(lambda: flash_attention.flash_gated_attention_lse(
                 q, k, v, gate, bias_rel, mask))
             plain_ms = cuda_ms(
@@ -1309,7 +1298,15 @@ def phase_k5() -> dict:
         if t == K5_ROW_T:
             row = {"ms": ms, "plain_ms": plain_ms, **bd,
                    "library_ms": lib_ms}
-        del q, k, v, out
+    # no backward yet: a gradient through the wrapper raises
+    try:
+        flash_attention.flash_gated_attention(q.requires_grad_(), k, v, gate,
+                                              bias_rel, mask)
+    except RuntimeError as e:
+        log(f"[K5] under autograd: raises ({str(e)[:60]}...)")
+    else:
+        raise RuntimeError("K5: a gradient through the wrapper did not raise")
+    del q, k, v, out
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "nrse_tpu/ops/flash_attention.py:150, :564",
@@ -1395,7 +1392,7 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             f"{size / 2**20:.1f} MiB final_model written in "
             f"{time.perf_counter() - t0:.1f} s")
 
-        _sync(device)
+        sync(device)
         _reset_counts()
         t0 = time.perf_counter()
         metrics, scored = eval_cat_ser.main([
@@ -1403,7 +1400,7 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             "--audio_dir", audio_dir, "--batch_size", str(batch),
             "--head_dim", str(head_dim), "--model_name", model_name,
             "--device", device.type])
-        _sync(device)
+        sync(device)
         wall = time.perf_counter() - t0
         counts = {"block_attention_fwd": block_attention.LAUNCHES,
                   "flash_attention_fwd": flash_attention.LAUNCHES,
@@ -1608,10 +1605,10 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
     audio = (0.1 * np.random.default_rng(SEED + 9).standard_normal(
         (1, clip))).astype(np.float32)
     server(audio)  # warm-up
-    _sync(device)
+    sync(device)
     _reset_counts()
     seq, pooled = server(audio)
-    _sync(device)
+    sync(device)
     counts = {"flash_attention_fwd": flash_attention.LAUNCHES,
               "block_attention_fwd": block_attention.LAUNCHES,
               "fused_ffn_fwd": fused_ffn.LAUNCHES}
@@ -1633,7 +1630,7 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
         _, ref_pooled = ref_model(torch.from_numpy(audio).to(device),
                                   torch.ones(1, clip, dtype=torch.int32,
                                              device=device))
-    _sync(device)
+    sync(device)
     if (flash_attention.LAUNCHES, fused_ffn.LAUNCHES) != (layers, layers):
         raise RuntimeError("long clip: the float32 reference launched a "
                            "kernel")
@@ -1646,11 +1643,11 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
     for _ in range(2):
         server(audio)
     iters = 5
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(iters):
         server(audio)
-    _sync(device)
+    sync(device)
     dt = (time.perf_counter() - t0) / iters
     log(f"[long] bucket 1: {dt * 1e3:.2f} ms/request, "
         f"{clip_seconds / dt:.1f} audio-sec/sec")

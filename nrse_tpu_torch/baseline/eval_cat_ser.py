@@ -51,6 +51,7 @@ from nrse_tpu_torch.labels.parsing import (
     parse_label_list,
 )
 from nrse_tpu_torch.models.wavlm import WavLMConfig
+from nrse_tpu_torch.runtime.device import resolve_device, sync
 from nrse_tpu_torch.train.checkpoint import restore_model
 from nrse_tpu_torch.train.losses import ce_weight_category
 
@@ -71,11 +72,6 @@ def load_audio_16k(path: str) -> Optional[np.ndarray]:
     if sr != SAMPLE_RATE:
         wav = resample(wav, sr, SAMPLE_RATE)
     return wav[0].astype(np.float32)
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def bucketed_forward_timed(forward, loaded, batch_size: int,
@@ -172,7 +168,7 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
     for chunk, x, mask in batches:
         if prestage:
             xd, md = x.to(device), mask.to(device)
-            _sync(device)
+            sync(device)
             t0 = time.perf_counter()
         else:
             t0 = time.perf_counter()
@@ -181,14 +177,6 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
         inference_time += time.perf_counter() - t0
         collect(chunk, mask, logits)
     return results, inference_time, audio_seconds
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda requested, but no CUDA device is "
-                           "available")
-    return device
 
 
 def load_model(model_path: str, model_name: str, head_dim: int,
@@ -212,7 +200,7 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
     """Evaluate a trained baseline pipeline on a semicolon label list.
     Returns ``(metrics, results)``: what ``metrics.txt`` holds, and the
     ``(entry, logits)`` of every file that decoded, in bucket order."""
-    device = _device(str(device))
+    device = resolve_device(device)
     output_dir = output_dir or os.path.join(model_path, "results")
     os.makedirs(output_dir, exist_ok=True)
 

@@ -33,8 +33,9 @@
 // (and their madd) stream through a two-stage cp.async ring, so tile n+1
 // loads while tile n computes.  Running max, running sum and the f32
 // output accumulator stay in registers.  The query tile's window of the
-// bias generator (64 + T - 1 bf16 values: 1.6 KB at T=749, 6.4 KB at
-// T=3199) is read into shared memory once and indexed at T-1+k-q directly:
+// bias generator (64 + T - 1 bf16 values, zero-padded to the last key
+// tile's end: 1.6 KB at T=749, 6.5 KB at T=3199) is read into shared
+// memory once and indexed at T-1+k-q directly:
 // the TPU kernel's shear of a [1, BQ+T] window into [BQ, BK] blocks and the
 // host's per-block window gathers have no counterpart.  T is not padded on
 // the host: keys >= T are zero-filled in shared memory and set to -inf
@@ -65,6 +66,12 @@ constexpr int kStages = 2;
 // tile's madd, then the bias window (its size depends on T)
 constexpr size_t kFixedSmem = (1 + 2 * kStages) * kTile * kLd * sizeof(bf16) +
                               kStages * kTile * sizeof(float);
+
+// entries of the bias window: every key tile's 64 keys (the last tile's
+// past T included) against the query tile's 64 rows
+__host__ __device__ constexpr int win_len(int T) {
+  return ((T + kTile - 1) / kTile) * kTile + kTile - 1;
+}
 
 struct Args {
   const bf16 *q, *k, *v;
@@ -136,13 +143,15 @@ flash_attention_fwd_kernel(Args args) {
 
   // win[j] = bias[h, w0 + j], w0 = T - 1 - (q0 + kTile - 1): the entries
   // of query rows q0..q0+63 against keys 0..T-1.  The bias of (query
-  // q0 + r, key k) is win[k - r + kTile - 1].  Entries below 0 belong to
-  // queries >= T only and are zero-filled.
+  // q0 + r, key k) is win[k - r + kTile - 1].  The score loop reads it for
+  // every key of the last tile, up to k = nk * kTile - 1, so the window
+  // holds win_len(T) entries; those past kTile + T - 2 (keys >= T) and
+  // those below generator index 0 (queries >= T) are zero-filled.
   const int w0 = T - q0 - kTile;
   const bf16* brow = args.bias + static_cast<size_t>(h) * 2 * T;
-  for (int j = threadIdx.x; j < kTile + T - 1; j += kThreads) {
+  for (int j = threadIdx.x; j < win_len(T); j += kThreads) {
     const int p = w0 + j;
-    win[j] = p >= 0 ? brow[p] : __float2bfloat16(0.f);
+    win[j] = p >= 0 && j < kTile + T - 1 ? brow[p] : __float2bfloat16(0.f);
   }
 
   // this thread's two queries (accumulator rows lane/4 and lane/4 + 8)
@@ -263,8 +272,7 @@ extern "C" int nrse_flash_attention_fwd(const void* q, const void* k,
   args.H = H;
   args.T = T;
   args.scale = scale;
-  const size_t win_bytes =
-      ((kTile + T - 1) * sizeof(bf16) + 15) / 16 * 16;
+  const size_t win_bytes = (win_len(T) * sizeof(bf16) + 15) / 16 * 16;
   const size_t smem = kFixedSmem + win_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -356,10 +356,11 @@ class GatedAttention(nn.Module):
     def forward(self, hidden, pos_bias, key_padding_mask=None,
                 dropout: float = 0.0, rng: Optional[TrainRNG] = None,
                 layer: int = 0):
-        """``pos_bias`` dense ``[H, T, T]``: kernel A (and K3 for its
-        gradient), with ``rng`` (training) dropout ``dropout`` of the
-        attention output inside them; the generator ``[H, 2T]``: K5, with
-        no dropout and no gradient."""
+        """T ≤ ``BLOCK_MAX_T`` frames: kernel A (and K3 for its gradient)
+        on the dense ``pos_bias [H, T, T]``, with ``rng`` (training)
+        dropout ``dropout`` of the attention output inside them.  Longer:
+        K5 on the generator ``pos_bias [H, 2T]``, with no dropout and no
+        gradient (its wrapper raises under autograd)."""
         b, t, c = hidden.shape
         h = self.num_heads
 
@@ -377,7 +378,7 @@ class GatedAttention(nn.Module):
         p, seed = 0.0, None
         if rng is not None and dropout > 0.0:
             p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
-        if pos_bias.dim() == 2:
+        if t > BLOCK_MAX_T:
             if p > 0.0:
                 raise ValueError(
                     f"attention dropout at T={t} > {BLOCK_MAX_T} frames "

@@ -45,6 +45,7 @@ from nrse_tpu_torch.eval.evaluate_byol import validate_model
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
+from nrse_tpu_torch.runtime.device import resolve_device
 from nrse_tpu_torch.runtime.native import native_available
 from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
@@ -107,18 +108,6 @@ def load_config(path: str) -> Dict[str, Any]:
         return yaml.safe_load(f)
 
 
-def _device(config) -> torch.device:
-    name = str(config["device"]).lower()
-    if name in ("cuda", "gpu"):
-        if not torch.cuda.is_available():
-            raise RuntimeError("device cuda requested, but no CUDA device is "
-                               "available")
-        return torch.device("cuda")
-    if name == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"device must be cuda or cpu, got {config['device']!r}")
-
-
 def _set_seed(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
@@ -142,7 +131,7 @@ def main(config: Dict[str, Any],
                                config["model"])
     seed = int(tr["seed"])
     _set_seed(seed)
-    device = _device(config)
+    device = resolve_device(config["device"])
     ckpt_dir = tr["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)
     os.makedirs(tr["log_dir"], exist_ok=True)

@@ -42,6 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "nrse_tpu_torch",
     "nrse_tpu_torch.runtime.cuda_build",
+    "nrse_tpu_torch.runtime.device",
     "nrse_tpu_torch.runtime.native",
     "nrse_tpu_torch.ops.rel_pos_bias",
     "nrse_tpu_torch.ops.attention",

@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from nrse_tpu.audio.io import save_wav
+from nrse_tpu.config.config_utils import preset_path
 from nrse_tpu_torch import train_byol
+from nrse_tpu_torch.baseline import eval_cat_ser
 from nrse_tpu_torch.data.loader import create_dataloaders
 from nrse_tpu_torch.eval.evaluate_byol import (
     evaluate_embedding_similarity,
@@ -25,6 +27,7 @@ from nrse_tpu_torch.eval.evaluate_byol import (
 )
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
+from nrse_tpu_torch.runtime.device import resolve_device
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -183,8 +186,24 @@ def test_load_config_reads_the_jax_presets():
         os.path.dirname(os.path.abspath(train_byol.__file__)), "config")
 
 
+@pytest.mark.parametrize("name", sorted(
+    f for f in os.listdir(train_byol.PRESET_DIR) if f.endswith(".yaml")))
+def test_port_presets_equal_the_jax_presets(name):
+    # the port's copies may not drift from the reference's hyper-parameters
+    assert train_byol.load_config(os.path.join(train_byol.PRESET_DIR, name)) \
+        == train_byol.load_config(preset_path(name))
+
+
 def test_cuda_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
+    for name in ("cuda", "gpu", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(name)
+    # the evaluator resolves its device before it reads anything
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        train_byol._device({"device": "cuda"})
+        eval_cat_ser.run_inference("unused", "unused", "unused",
+                                   device="cuda")
+    assert resolve_device("CPU") == torch.device("cpu")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        resolve_device("meta")
