@@ -1,6 +1,6 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
-pretraining entry point and its baseline SER evaluator once on one NVIDIA
-GPU.
+pretraining entry point, its baseline SER evaluator and its SER fine-tune
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -58,7 +58,15 @@ not 0:
      row: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked
      row finite and within 1e-2 of plain; µs per call of kernel, plain and
      SDPA (dense float bias built outside the timed call) at B=32 and at
-     B=1, T=3199; that a gradient through the wrapper raises;
+     B=1, T=3199;
+  8c. K5's backward (the dq kernel with its dbias fold, and the dk/dv
+     kernel) against the plain backward at 8b's shapes (ragged keys, a
+     wholly masked row for B > 1): dq, dk, dv, dgate and dbias_rel ≤ 1e-2
+     of plain's max|·|, two calls bit-equal, the autograd Function equal
+     to the direct calls; µs per call of each kernel, of the pair, of
+     plain and of SDPA's backward with the dense bias requiring grad at
+     B=32 and at B=1, T=3199, beside the bound (5 products, or each
+     kernel's own);
   9. training — BYOL on WavLM-large at full width and depth (projection
      1024, prediction 2048, seeded weights) with the JAX preset's
      hyper-parameters (lr 1e-5 cosine, wd 1e-5, clip 1.0, EMA 0.997,
@@ -93,7 +101,25 @@ not 0:
  12. serving a long clip — an embedder artifact of 64 s clips (3199
      frames, bucket 1) served through K5; pooled cosine against the same
      weights in float32 on the card through the plain versions (≥ 0.99);
-     audio-sec/sec.
+     audio-sec/sec;
+ 13. the SER fine-tune step — ``BaselineSER`` on WavLM-large at full width
+     and depth (seeded weights), batch 32 × 10 s (499 frames; every fourth
+     clip shorter and masked), lr 5e-6, k = 4, dropout, LayerDrop,
+     SpecAugment and the head's dropout on, end to end and with the
+     encoder frozen: a warm-up cycle of 4 micro-steps and one K4 update,
+     then a timed one (s per micro-step, audio-sec/sec, peak memory)
+     whose launches must equal what the layers run imply (K5's forward,
+     dq and dk/dv on every layer run end to end, no K5 backward frozen);
+     frozen, the encoder's weights must equal p·(1 − lr·wd) after the
+     update; a ``torch.profiler`` breakdown of one e2e micro-step; then a
+     cross-check at 4 layers and batch 2, dropout off, bf16 on the card
+     against float32 on the CPU (gradient cosine ≥ 0.99);
+ 14. the fine-tune's entry point — ``train_ft_cat_ser.main`` on a
+     synthetic corpus under ``build/`` (24 train and 8 dev WAVs of
+     3–12 s, a one-hot CSV), WavLM-large at full width cut to 2 layers,
+     batch 8, k = 2: one epoch frozen, one end to end, then
+     ``eval_cat_ser.main`` on the ``final_model`` it wrote: every dev file
+     scored; prints the data-fed s per micro-step.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
@@ -101,7 +127,8 @@ each output written once) over 3.35 TB/s, the H100 SXM's published peaks;
 the elementwise kernels (K1, K4) are bound by bytes, their operations are
 not counted.  The line before the last is the kernels' JSON record
 (launches: kernels A and B from the serving phase, K1, K2, K3 and K4 from
-the training phase, K5 from the SER evaluation);
+the training phase, K5 from the SER evaluation, K5's backward from the
+fine-tune step, end to end);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.
 """
@@ -126,6 +153,7 @@ sys.path.insert(0, ROOT)
 from nrse_tpu_torch import train_byol  # noqa: E402
 from nrse_tpu_torch.audio.io import save_wav  # noqa: E402
 from nrse_tpu_torch.baseline import eval_cat_ser  # noqa: E402
+from nrse_tpu_torch.baseline import train_ft_cat_ser  # noqa: E402
 from nrse_tpu_torch.baseline.pipeline import (  # noqa: E402
     BaselineSER,
     bucket_length,
@@ -912,6 +940,7 @@ def _adamw_spec():
 def _reset_counts() -> None:
     block_attention.LAUNCHES = block_attention.BWD_LAUNCHES = 0
     flash_attention.LAUNCHES = 0
+    flash_attention.DQ_LAUNCHES = flash_attention.DKV_LAUNCHES = 0
     fused_ffn.LAUNCHES = fused_ffn.DX_LAUNCHES = fused_ffn.DW_LAUNCHES = 0
     fused_dropout.LAUNCHES = 0
     fused_optimizer.LAUNCHES = 0
@@ -1298,19 +1327,146 @@ def phase_k5() -> dict:
         if t == K5_ROW_T:
             row = {"ms": ms, "plain_ms": plain_ms, **bd,
                    "library_ms": lib_ms}
-    # no backward yet: a gradient through the wrapper raises
-    try:
-        flash_attention.flash_gated_attention(q.requires_grad_(), k, v, gate,
-                                              bias_rel, mask)
-    except RuntimeError as e:
-        log(f"[K5] under autograd: raises ({str(e)[:60]}...)")
-    else:
-        raise RuntimeError("K5: a gradient through the wrapper did not raise")
     del q, k, v, out
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "nrse_tpu/ops/flash_attention.py:150, :564",
             "max_abs_err": worst, **row}
+
+
+K5_BWD_ROW = (32, 499)  # the fine-tune's shape: the backward's JSON rows
+DQ_NAMES = ("dq", "dgate", "dbias")
+DKV_NAMES = ("dk", "dv")
+
+
+def phase_k5_bwd() -> list:
+    """K5's dq and dk/dv kernels against the plain backward at the forward's
+    shapes, with ragged keys and, for B > 1, a wholly masked batch row:
+    the gradients within 1e-2 of plain, two calls bit-equal, the autograd
+    Function equal to the direct calls; µs per call of each kernel, the
+    pair, plain and SDPA's backward at the timed shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    h, d = 16, 64
+    worst = {"dq": 0.0, "dkv": 0.0}
+    rows = {}
+    for b, t in K5_CASES:
+        lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
+                                device=dev)
+        lengths[0] = t
+        if b > 1:
+            lengths[1] = 0  # a row that pads a bucket's last batch
+        q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
+        do = torch.randn(b, h, t, d, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        madd = mask_add(mask, b, t, dev).contiguous()
+        with torch.no_grad():
+            out, lse = flash_attention._kernel_fwd(q, k, v, gate, bias_rel,
+                                                   madd)
+            grads = flash_attention._kernel_bwd(q, k, v, gate, bias_rel,
+                                                madd, out, lse, do)
+            again = flash_attention._kernel_bwd(q, k, v, gate, bias_rel,
+                                                madd, out, lse, do)
+            torch.cuda.synchronize()
+            refs = flash_attention.flash_attention_plain_bwd(
+                q, k, v, gate, bias_rel, madd, out, lse, do)
+        names = ("dq", "dk", "dv", "dgate", "dbias")
+        if not all(torch.isfinite(x.float()).all() for x in grads):
+            raise RuntimeError(f"K5 backward: non-finite output at B={b} "
+                               f"T={t}")
+        for name, a, a2 in zip(names, grads, again):
+            if not torch.equal(a, a2):
+                raise RuntimeError(f"K5 backward: two calls differ in {name} "
+                                   f"at B={b} T={t}")
+        errs = {n: rel_err(a, r) for n, a, r in zip(names, grads, refs)}
+        ok = lengths > 0
+        masked = {n: rel_err(a[~ok], r[~ok]) for n, a, r in
+                  zip(names[:4], grads[:4], refs[:4])} if (~ok).any() else {}
+        log(f"[K5 bwd] B={b} H={h} T={t} D={d}: two calls bit-equal; "
+            f"max|Δ|/max|ref| vs plain " + ", ".join(
+                f"{n} {e:.2e}" for n, e in errs.items())
+            + ("; the wholly masked row's " + ", ".join(
+                f"{n} {e:.2e}" for n, e in masked.items()) if masked else ""))
+        if max(errs.values()) > OUT_TOL or \
+                max(masked.values(), default=0.0) > OUT_TOL:
+            raise RuntimeError(f"K5 backward disagrees with plain at B={b} "
+                               f"T={t}: {errs}, masked rows {masked}")
+        absd = {n: float((a.float() - r.float()).abs().max())
+                for n, a, r in zip(names, grads, refs)}
+        worst["dq"] = max(worst["dq"], *(absd[n] for n in DQ_NAMES))
+        worst["dkv"] = max(worst["dkv"], *(absd[n] for n in DKV_NAMES))
+        del refs, again
+
+        # the autograd Function gives the direct calls' bits
+        leaves = [x.clone().requires_grad_()
+                  for x in (q, k, v, gate, bias_rel)]
+        o = flash_attention.flash_gated_attention(*leaves, mask)
+        o.backward(do)
+        if not torch.equal(o.detach(), out):
+            raise RuntimeError("K5: the Function's output differs from the "
+                               "forward kernel's")
+        for name, leaf, want in zip(names, leaves, grads):
+            if not torch.equal(leaf.grad, want.to(leaf.grad.dtype)):
+                raise RuntimeError(f"K5: the Function's {name} differs from "
+                                   f"the backward kernels'")
+        del leaves, o
+        if (b, t) not in K5_TIMED:
+            continue
+
+        with torch.no_grad():
+            ins = flash_attention.bwd_inputs(q, k, v, gate, bias_rel, madd,
+                                             out, lse, do)
+            dq_ms = cuda_ms(lambda: flash_attention.launch_bwd_dq(*ins))
+            dkv_ms = cuda_ms(lambda: flash_attention.launch_bwd_dkv(*ins))
+            pair_ms = cuda_ms(lambda: flash_attention._kernel_bwd(
+                q, k, v, gate, bias_rel, madd, out, lse, do))
+            plain_ms = cuda_ms(
+                lambda: flash_attention.flash_attention_plain_bwd(
+                    q, k, v, gate, bias_rel, madd, out, lse, do),
+                iters=3, warmup=1)
+            del ins
+        # the library: SDPA's backward with the dense float bias requiring
+        # grad, built outside the timed call
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        full = dense_bias(gate, flash_attention.dense_bias_from_rel(
+            bias_rel, t), madd).requires_grad_()
+        with torch.enable_grad():
+            o = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=full)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, leaves + [full], do, retain_graph=True), iters=5)
+        del leaves, full, o
+        product = 2.0 * b * h * t * t * d
+        moved = nbytes(q, k, v, out, do, *grads[:3])
+        bd = {"dq": bound(3 * product, nbytes(q, k, v, do, grads[0])),
+              "dkv": bound(4 * product, nbytes(q, k, v, do, *grads[1:3])),
+              "pair": bound(5 * product, moved)}
+        log(f"[K5 bwd] B={b} H={h} T={t} D={d}: dq kernel {dq_ms * 1e3:.1f} "
+            f"us/call (bound {bd['dq']['bound_ms'] * 1e3:.1f} us), dk/dv "
+            f"kernel {dkv_ms * 1e3:.1f} us/call (bound "
+            f"{bd['dkv']['bound_ms'] * 1e3:.1f} us), the pair "
+            f"{pair_ms * 1e3:.1f} us/call ({5 * product / pair_ms / 1e9:.1f} "
+            f"TFLOP/s of the 5 products; bound "
+            f"{bd['pair']['bound_ms'] * 1e3:.1f} us, "
+            f"{bd['pair']['bound_by']}); plain {plain_ms * 1e3:.1f} "
+            f"us/call; SDPA's backward with the dense bias {lib_ms * 1e3:.1f} "
+            f"us/call")
+        rows[(b, t)] = {"dq": (dq_ms, bd["dq"]), "dkv": (dkv_ms, bd["dkv"]),
+                        "plain_ms": plain_ms, "library_ms": lib_ms}
+    del q, k, v, out, do, grads
+    row = rows[K5_BWD_ROW]
+    out = []
+    for key, name, line in (("dq", "flash_attention_bwd_dq", ":288, :656"),
+                            ("dkv", "flash_attention_bwd_dkv",
+                             ":401, :774")):
+        ms, bd = row[key]
+        out.append({"name": name, "route": "cuda",
+                    "source": "nrse_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": f"nrse_tpu/ops/flash_attention.py{line}",
+                    "max_abs_err": worst[key], "ms": ms,
+                    "plain_ms": row["plain_ms"], **bd,
+                    "library_ms": row["library_ms"]})
+    return out
 
 
 SER_BATCH = 32
@@ -1477,8 +1633,9 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             m = torch.zeros(batch, blen)
             for j, (_, w) in enumerate(chunk):
                 x[j, :len(w)], m[j, :len(w)] = torch.from_numpy(w), 1.0
-            profile_forward(forward, x.to(device), m.to(device),
-                            f"[ser] 15 s bucket, batch {batch}")
+            x, m = x.to(device), m.to(device)
+            profile_device(lambda: forward(x, m).cpu(),
+                           f"[ser] 15 s bucket, batch {batch}")
         del model, forward
 
         # a 10 s and a 15 s clip against float32 on the CPU
@@ -1508,8 +1665,12 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
 # kernel name patterns → the groups PERF.md §5 reports, first match wins
 PROFILE_GROUPS = (
     ("K5 (flash attention)", "flash_attention_fwd"),
+    ("K5 backward (dq, dk/dv, dbias fold)",
+     "flash_attention_bwd|flash_dbias_fold"),
     ("kernel A (block attention)", "block_attention_fwd"),
-    ("kernel B (fused FFN)", "nrse::gemm"),
+    ("kernel B and K2 (fused FFN GEMMs)", "nrse::gemm|dh2_kernel|colsum"),
+    ("K1 (dropout)", "dropout_kernel"),
+    ("K4 (AdamW)", "adamw_ema"),
     ("cuDNN convs", "conv|cudnn|implicit|winograd|fft"),
     ("cuBLAS (projections, heads)", "gemm|cutlass|xmma|nvjet|cublas"),
     ("LayerNorm", "layer_norm|LayerNorm"),
@@ -1519,19 +1680,20 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_forward(forward, x, m, label: str, iters: int = 3) -> None:
-    """Device time of ``forward(x, m)`` by kernel group, from the CUDA
-    kernels of a ``torch.profiler`` trace over ``iters`` forwards after
-    one warm-up; and the card's busy share of the host clock over them."""
+def profile_device(run, label: str, iters: int = 3) -> None:
+    """Device time of ``run()`` (which ends waiting for the card) by kernel
+    group, from the CUDA kernels of a ``torch.profiler`` trace over
+    ``iters`` calls after one warm-up; and the card's busy share of the
+    host clock over them."""
     import re
     from torch.profiler import ProfilerActivity, profile
 
-    forward(x, m).cpu()
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            forward(x, m).cpu()
+            run()
         wall = time.perf_counter() - t0
     fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
     os.close(fd)
@@ -1549,7 +1711,7 @@ def profile_forward(forward, x, m, label: str, iters: int = 3) -> None:
         groups[name] = groups.get(name, 0.0) + e["dur"] / 1e3 / iters
     busy = sum(groups.values())
     log(f"{label}: {len(kernels) // iters} kernels and {busy:.1f} ms of "
-        f"device time a forward, {wall / iters * 1e3:.1f} ms of host clock "
+        f"device time a call, {wall / iters * 1e3:.1f} ms of host clock "
         f"(busy {busy / (wall / iters * 1e3):.3f}); by group: " + ", ".join(
             f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in
             sorted(groups.items(), key=lambda kv: -kv[1])))
@@ -1654,11 +1816,296 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
     return counts
 
 
+FT_BATCH = 32          # the fine-tune's batch (train_ft_cat_ser's default)
+FT_CLIP_SECONDS = 10.0  # its --max_seconds: 499 frames, K5 and its backward
+FT_LR = 5e-6
+FT_ACCUMULATION = 4
+FT_WEIGHTS = tuple(np.linspace(0.5, 1.5, 8))  # class weights of the CE
+
+
+def _ft_batches(n: int, batch: int, clip_seconds: float, device,
+                seed: int):
+    """``n`` fine-tune batches of z-normed noise at ``clip_seconds``, every
+    fourth clip cut to 50–100% and masked past its end, random labels."""
+    rng = np.random.default_rng(seed)
+    t = int(clip_seconds * SAMPLE_RATE)
+    out = []
+    for _ in range(n):
+        x = rng.standard_normal((batch, t)).astype(np.float32)
+        mask = np.ones((batch, t), np.float32)
+        for i in range(0, batch, 4):
+            cut = int(rng.uniform(0.5, 1.0) * t)
+            x[i, cut:], mask[i, cut:] = 0.0, 0.0
+        labels = rng.integers(0, 8, batch).astype(np.int32)
+        out.append({k: torch.from_numpy(v).to(device) for k, v in (
+            ("input_values", x), ("attention_mask", mask),
+            ("label", labels))})
+    return out
+
+
+def _ft_state(cfg, device, seed: int, head_dim: int = 1024,
+              dropout: float = 0.5):
+    """A fine-tune state of seeded ``BaselineSER`` weights on ``device``
+    (bf16 compute on the card, float32 on the CPU)."""
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = BaselineSER(cfg, head_dim=head_dim, dropout=dropout,
+                        device="meta", compute_dtype=dtype)
+    model.load_state_dict(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(seed), head_dim=head_dim),
+        strict=True, assign=True)
+    return train_ft_cat_ser.create_train_state(model.to(device))
+
+
+def _ft_counts() -> dict:
+    return {"flash_attention_fwd": flash_attention.LAUNCHES,
+            "flash_attention_bwd_dq": flash_attention.DQ_LAUNCHES,
+            "flash_attention_bwd_dkv": flash_attention.DKV_LAUNCHES,
+            **_train_counts()}
+
+
+def phase_ft_step(cfg=None, device=torch.device("cuda"),
+                  batch: int = FT_BATCH,
+                  clip_seconds: float = FT_CLIP_SECONDS,
+                  accumulation: int = FT_ACCUMULATION,
+                  head_dim: int = 1024) -> dict:
+    """The SER fine-tune's micro-step at full width with the JAX defaults
+    (lr 5e-6, k = 4, the encoder's dropout, LayerDrop and SpecAugment, the
+    head's dropout 0.5), end to end and frozen: a warm-up cycle of ``k``
+    micro-steps and one K4 update, then a timed one whose launches must
+    equal what the layers run imply.  Frozen, the encoder's weights must
+    move by the decay alone.  Returns the end-to-end cycle's launches.
+    Its arguments let it be rehearsed at a small width on the CPU."""
+    cfg = cfg or WavLMConfig.large()
+    weights = torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device)
+    data = _ft_batches(accumulation, batch, clip_seconds, device, SEED + 12)
+    frames = int(cfg.feature_lengths(data[0]["input_values"].shape[1]))
+    spec = train_ft_cat_ser.adamw_spec(FT_LR)
+    e2e_counts = None
+    for freeze in (False, True):
+        mode = "frozen" if freeze else "e2e"
+        state = _ft_state(cfg, device, SEED + 12, head_dim)
+        step = train_ft_cat_ser.make_train_step(spec, accumulation, freeze,
+                                                weights)
+        micro = [0]
+
+        def cycle():
+            losses, layers = [], 0
+            for b in data:
+                losses.append(step(state, b, TrainRNG(SEED, micro[0])))
+                micro[0] += 1
+                layers += state.model.ssl.encoder.layers_run
+            return losses, layers
+
+        losses, _ = cycle()  # warm-up, one K4 update
+        if not all(bool(torch.isfinite(x)) for x in losses):
+            raise RuntimeError(f"fine-tune {mode}: non-finite warm-up loss")
+        ssl_before = state.params[:state.n_ssl].clone() if freeze else None
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        losses, layers = cycle()
+        sync(device)
+        dt = (time.perf_counter() - t0) / accumulation
+        counts = _ft_counts()
+        losses = [float(x) for x in losses]
+        backward = 0 if freeze else layers
+        want = {"flash_attention_fwd": layers,
+                "flash_attention_bwd_dq": backward,
+                "flash_attention_bwd_dkv": backward,
+                "block_attention_fwd": 0, "block_attention_bwd": 0,
+                "fused_ffn_fwd": layers, "fused_ffn_bwd_dx": backward,
+                "fused_ffn_bwd_dw": backward,
+                # the encoder site and each layer's attention-output and
+                # hidden sites, again in the backward end to end
+                "fused_dropout": (1 if freeze else 2) * (accumulation
+                                                         + 2 * layers),
+                "fused_adamw_ema": 1}
+        log(f"[ft] {mode}: {cfg.num_hidden_layers} layers x "
+            f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s "
+            f"({frames} frames), k = {accumulation}: {dt:.4f} s per "
+            f"micro-step, {batch * clip_seconds / dt:.1f} audio-sec/sec; "
+            f"losses {[round(x, 6) for x in losses]}; layers run {layers}; "
+            f"launches {counts} (want {want})")
+        if not all(np.isfinite(losses)) or counts != want:
+            raise RuntimeError(f"fine-tune {mode}: losses {losses}, "
+                               f"launches {counts} != {want}")
+        if device.type == "cuda":
+            log(f"[ft] {mode}: peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if freeze:  # AdamW's decoupled decay alone: p · (1 − lr · wd)
+            with torch.no_grad():
+                want_p = ssl_before * (1.0 - FT_LR * spec.weight_decay)
+                err = float((state.params[:state.n_ssl] - want_p).abs().max()
+                            / want_p.abs().max())
+            log(f"[ft] frozen: ssl after the update vs p·(1 − lr·wd): "
+                f"max|Δ|/max|p| {err:.3e}")
+            if err > OPT_TOL:
+                raise RuntimeError(f"frozen ssl weights moved by more than "
+                                   f"the decay: {err}")
+            del ssl_before, want_p
+        else:
+            e2e_counts = counts
+            if device.type == "cuda":
+                profile_device(lambda: (step(state, data[0],
+                                             TrainRNG(SEED, micro[0])),
+                                        sync(device)),
+                               f"[ft] e2e micro-step, batch {batch}",
+                               iters=2)
+        del state, step
+    return e2e_counts
+
+
+def phase_ft_crosscheck(layers: int = 4, batch: int = 2) -> None:
+    """One end-to-end micro-step at full width and ``layers`` deep, random
+    features and the head's dropout off, in bf16 on the card against
+    float32 on the CPU through the plain paths, from the same weights and
+    batch: loss and gradient cosine."""
+    cfg = WavLMConfig.large(num_hidden_layers=layers, hidden_dropout=0.0,
+                            activation_dropout=0.0, attention_dropout=0.0,
+                            layerdrop=0.0, mask_time_prob=0.0)
+    torch.set_num_threads(os.cpu_count() or 1)
+    data = _ft_batches(1, batch, FT_CLIP_SECONDS, torch.device("cpu"),
+                       SEED + 13)[0]
+    losses, grads = [], []
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        state = _ft_state(cfg, device, SEED + 13, dropout=0.0)
+        step = train_ft_cat_ser.make_train_step(
+            train_ft_cat_ser.adamw_spec(FT_LR), 1, False,
+            torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device))
+        loss = step(state, {k: v.to(device) for k, v in data.items()},
+                    TrainRNG(SEED, 0))
+        losses.append(float(loss))
+        grads.append(state.grads.double().cpu())
+        n_ssl = state.n_ssl
+        del state
+    cos = torch.nn.functional.cosine_similarity
+    c_all = float(cos(grads[0], grads[1], dim=0))
+    c_ssl = float(cos(grads[0][:n_ssl], grads[1][:n_ssl], dim=0))
+    log(f"[ft crosscheck] {layers} layers, batch {batch} x "
+        f"{FT_CLIP_SECONDS:g} s: loss bf16 card {losses[0]:.6f} vs f32 CPU "
+        f"{losses[1]:.6f}; gradient cosine {c_all:.6f} (encoder part "
+        f"{c_ssl:.6f})")
+    if c_all < COSINE_MIN:
+        raise RuntimeError(f"fine-tune gradient cosine {c_all} < "
+                           f"{COSINE_MIN}")
+
+
+def _write_ft_corpus(root: str, n_train: int, n_dev: int, lo: float,
+                     hi: float):
+    """``n_train + n_dev`` WAVs of ``lo``–``hi`` s (noise, random emotions)
+    with the one-hot CSV, the config JSON the trainer reads and the dev
+    label list the evaluator reads.  Returns ``(config, list)`` paths."""
+    import csv
+
+    rng = np.random.default_rng(SEED + 14)
+    audio = os.path.join(root, "Audios")
+    os.makedirs(audio)
+    rows, lines = [], []
+    for i in range(n_train + n_dev):
+        n = int(rng.uniform(lo, hi) * SAMPLE_RATE)
+        code = EMOTION_CODES[int(rng.integers(0, 8))]
+        name = f"ft_{i:04d}.wav"
+        save_wav(os.path.join(audio, name),
+                 (0.25 * rng.standard_normal(n)).astype(np.float32),
+                 SAMPLE_RATE)
+        split = "Train" if i < n_train else "Development"
+        rows.append([name] + [1.0 if c == code else 0.0
+                              for c in train_ft_cat_ser.ONE_HOT_COLUMNS]
+                    + [split])
+        if i >= n_train:
+            lines.append(f"Audios/{name}; {code}; A:4.0; V:4.0; D:4.0;")
+    labels = os.path.join(root, "labels_onehot.csv")
+    with open(labels, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["FileName", *train_ft_cat_ser.ONE_HOT_COLUMNS,
+                         "Split_Set"])
+        writer.writerows(rows)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump({"wav_dir": audio, "label_path": labels}, f)
+    label_list = os.path.join(root, "dev_list.txt")
+    with open(label_list, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return config, label_list
+
+
+def phase_ft_entry(device=torch.device("cuda"),
+                   model_name: str = "microsoft/wavlm-large",
+                   layers: int = ENTRY_LAYERS, n_train: int = 24,
+                   n_dev: int = 8, batch: int = 8, accumulation: int = 2,
+                   lo: float = 3.0, hi: float = 12.0,
+                   max_seconds: float = FT_CLIP_SECONDS,
+                   head_dim: int = 1024) -> None:
+    """``train_ft_cat_ser.main`` on a synthetic corpus under ``build/``,
+    one epoch frozen, then one end to end into the same model directory,
+    then ``eval_cat_ser.main`` on the ``final_model`` it wrote.  Its
+    arguments let it be rehearsed at a small width on the CPU."""
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_ft_", dir=cuda_build.BUILD_DIR)
+    try:
+        config, label_list = _write_ft_corpus(root, n_train, n_dev, lo, hi)
+        model_path = os.path.join(root, "model")
+        args = ["--config", config, "--model_path", model_path,
+                "--epochs", "1", "--batch_size", str(batch),
+                "--accumulation_steps", str(accumulation),
+                "--head_dim", str(head_dim), "--model_name", model_name,
+                "--num_hidden_layers", str(layers),
+                "--max_seconds", str(max_seconds),
+                "--device", device.type]
+        for freeze in ("true", "false"):
+            sync(device)
+            _reset_counts()
+            result = train_ft_cat_ser.main(args + ["--freeze_ssl", freeze])
+            sync(device)
+            counts = _ft_counts()
+            (epoch,) = result["epochs"]
+            width = result["state"].model.encoder_config.hidden_size
+            log(f"[ft entry] --freeze_ssl {freeze}: WavLM {layers} layers "
+                f"(depth cut) x {width}, batch {batch}, k = {accumulation}: "
+                f"train loss {epoch['train_loss']:.6f}, dev loss "
+                f"{epoch['dev_loss']:.6f}; "
+                f"{epoch['steps']} data-fed micro-steps at "
+                f"{epoch['s_per_step']:.4f} s each "
+                f"({epoch['audio_sec_per_sec']:.1f} audio-sec/sec); "
+                f"launches {counts}")
+            backward = counts["flash_attention_bwd_dq"]
+            ok = (np.isfinite(epoch["train_loss"])
+                  and np.isfinite(epoch["dev_loss"])
+                  and counts["flash_attention_fwd"] > 0
+                  and counts["fused_adamw_ema"] == epoch["steps"]
+                  // accumulation
+                  and backward == counts["flash_attention_bwd_dkv"]
+                  and (backward == 0) == (freeze == "true"))
+            if not ok:
+                raise RuntimeError(f"fine-tune entry point: {epoch}, "
+                                   f"launches {counts}")
+            del result
+        for path in ("train_norm_stat.pkl", "final_model/state.pt"):
+            if not os.path.isfile(os.path.join(model_path, path)):
+                raise RuntimeError(f"fine-tune entry point: no {path}")
+        metrics, scored = eval_cat_ser.main([
+            "--model_path", model_path, "--audio_list", label_list,
+            "--audio_dir", root, "--batch_size", str(batch),
+            "--head_dim", str(head_dim), "--model_name", model_name,
+            "--num_hidden_layers", str(layers), "--device", device.type])
+        log(f"[ft entry] eval_cat_ser.main on its final_model: "
+            f"{metrics['n_scored']} of {n_dev} dev files scored, f1_macro "
+            f"{metrics['f1_macro']:.4f}, inference loss "
+            f"{metrics['inference_loss']:.6f}")
+        if not (metrics["n_files"] == metrics["n_scored"] == n_dev
+                and all(np.isfinite(logit).all() for _, logit in scored)):
+            raise RuntimeError(f"fine-tune entry point: evaluation {metrics}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
     kernels = [phase_kernel_a(), phase_k3(), phase_kernel_b(), phase_k1(),
-               *phase_k2(), phase_k4(), phase_k5()]
+               *phase_k2(), phase_k4(), phase_k5(), *phase_k5_bwd()]
     launches = phase_serving()
     launches.update({k: v for k, v in phase_training().items()
                      if k not in launches})
@@ -1666,6 +2113,11 @@ def main() -> int:
     phase_entry()
     launches["flash_attention_fwd"] = phase_ser()["flash_attention_fwd"]
     phase_long_clip()
+    ft = phase_ft_step()
+    for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        launches[k] = ft[k]
+    phase_ft_crosscheck()
+    phase_ft_entry()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

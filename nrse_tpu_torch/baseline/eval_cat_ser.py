@@ -2,7 +2,8 @@
 
     python -m nrse_tpu_torch.baseline.eval_cat_ser --model_path <dir> \\
         --audio_list <list> --audio_dir <dir> [--batch_size 8] \\
-        [--model_name microsoft/wavlm-large] [--device cuda|cpu]
+        [--model_name microsoft/wavlm-large] [--num_hidden_layers N] \\
+        [--device cuda|cpu]
 
 Port of ``nrse_tpu/baseline/eval_cat_ser.py`` (capability parity with the
 reference's ``baseline/eval_cat_ser_weighted_with_list.py``):
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import struct
@@ -179,12 +181,23 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
     return results, inference_time, audio_seconds
 
 
+def encoder_config(model_name: str,
+                   num_hidden_layers: Optional[int] = None) -> WavLMConfig:
+    """The encoder ``model_name`` names, cut to its first
+    ``num_hidden_layers`` layers if given."""
+    cfg = WavLMConfig.from_model_name(model_name)
+    if num_hidden_layers is None:
+        return cfg
+    return dataclasses.replace(cfg, num_hidden_layers=num_hidden_layers)
+
+
 def load_model(model_path: str, model_name: str, head_dim: int,
-               device) -> BaselineSER:
+               device, num_hidden_layers: Optional[int] = None
+               ) -> BaselineSER:
     """``BaselineSER`` with ``<model_path>/final_model`` restored, on
     ``device``, computing in bf16 on a card and float32 on the CPU."""
     device = torch.device(device)
-    cfg = WavLMConfig.from_model_name(model_name)
+    cfg = encoder_config(model_name, num_hidden_layers)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = BaselineSER(cfg, head_dim=head_dim, device="meta",
                         compute_dtype=dtype)
@@ -196,7 +209,8 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
                   output_dir: Optional[str] = None, batch_size: int = 8,
                   head_dim: int = 1024,
                   model_name: str = "microsoft/wavlm-large",
-                  device="cuda") -> Tuple[Dict, list]:
+                  device="cuda", num_hidden_layers: Optional[int] = None
+                  ) -> Tuple[Dict, list]:
     """Evaluate a trained baseline pipeline on a semicolon label list.
     Returns ``(metrics, results)``: what ``metrics.txt`` holds, and the
     ``(entry, logits)`` of every file that decoded, in bucket order."""
@@ -209,7 +223,8 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
                                emotion_map=BASELINE_EMOTIONS_MAP)
     print(f"Loaded {len(entries)} files from list")
     forward = make_baseline_forward(
-        load_model(model_path, model_name, head_dim, device))
+        load_model(model_path, model_name, head_dim, device,
+                   num_hidden_layers))
 
     loaded = []
     for e in entries:
@@ -275,11 +290,15 @@ def main(argv=None) -> Tuple[Dict, list]:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--head_dim", type=int, default=1024)
     parser.add_argument("--model_name", default="microsoft/wavlm-large")
+    parser.add_argument("--num_hidden_layers", type=int, default=None,
+                        help="the encoder cut to its first N layers (as "
+                             "the model was trained)")
     parser.add_argument("--device", default="cuda", help="cuda or cpu")
     args = parser.parse_args(argv)
     return run_inference(args.model_path, args.audio_list, args.audio_dir,
                          args.output_dir, args.batch_size, args.head_dim,
-                         args.model_name, device=args.device)
+                         args.model_name, device=args.device,
+                         num_hidden_layers=args.num_hidden_layers)
 
 
 if __name__ == "__main__":

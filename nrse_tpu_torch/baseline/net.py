@@ -2,7 +2,8 @@
 
 Port of ``nrse_tpu/baseline/net.py:23-40``: ``EmotionRegression``,
 ``num_layers`` × [Dense → LayerNorm → ReLU → Dropout] → Dense(out), in
-float32 whatever the input's dtype.  The LayerNorm is flax's, with eps
+float32 whatever the input's dtype; the dropout draws from a
+``models.wavlm.TrainRNG`` stream.  The LayerNorm is flax's, with eps
 1e-6 (torch's default is 1e-5).  Submodule names follow the flax ones
 (``fc_i``, ``norm_i``, ``out``), so the converter maps the JAX tree by
 name.
@@ -10,9 +11,13 @@ name.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nrse_tpu_torch.models.wavlm import STREAM_HEAD_DROPOUT, TrainRNG
 
 # flax LayerNorm's default epsilon
 LAYER_NORM_EPS = 1e-6
@@ -35,9 +40,21 @@ class EmotionRegression(nn.Module):
                 hidden_dim, eps=LAYER_NORM_EPS, device=device))
         self.out = nn.Linear(dims[-1], output_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[TrainRNG] = None) -> torch.Tensor:
+        """In training mode with ``dropout`` > 0, the masks come from
+        ``rng``'s head stream (a seeded CPU generator, never torch's
+        global one), which training mode then requires."""
+        drop = self.training and self.dropout > 0.0
+        if drop and rng is None:
+            raise ValueError("EmotionRegression in training mode needs rng "
+                             "(a TrainRNG) for its dropout")
+        gen = rng.generator(STREAM_HEAD_DROPOUT) if drop else None
         h = x.float()
         for i in range(self.num_layers):
-            h = getattr(self, f"norm_{i}")(getattr(self, f"fc_{i}")(h))
-            h = F.dropout(F.relu(h), self.dropout, self.training)
+            h = F.relu(getattr(self, f"norm_{i}")(getattr(self, f"fc_{i}")(h)))
+            if drop:  # flax's Dropout: keep with 1 − p, scale by 1/(1 − p)
+                keep = torch.rand(h.shape, generator=gen) >= self.dropout
+                h = torch.where(keep.to(h.device), h / (1.0 - self.dropout),
+                                torch.zeros_like(h))
         return self.out(h)

@@ -7,7 +7,8 @@ scripts assemble from three torch modules (``ssl_model``/``pool_model``/
 as one module with submodules ``ssl``, ``pool`` and ``ser``.  Parameters
 are float32; ``compute_dtype`` (bf16 on the card) is the encoder's and the
 pooling's working type, the head works in float32, as the JAX module with
-``dtype=bfloat16, param_dtype=float32``.
+``dtype=bfloat16, param_dtype=float32``.  Training mode (the fine-tune,
+``baseline.train_ft_cat_ser``) takes a ``TrainRNG``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from nrse_tpu_torch.baseline.net import EmotionRegression
 from nrse_tpu_torch.models.emotion import AttentiveStatisticsPooling
-from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig, WavLMModel
 
 
 class BaselineSER(nn.Module):
@@ -40,10 +41,15 @@ class BaselineSER(nn.Module):
                                      dropout, device)
 
     def forward(self, input_values: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        seq, _ = self.ssl(input_values, attention_mask)
-        return self.ser(self.pool(seq, attention_mask))
+                attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[TrainRNG] = None) -> torch.Tensor:
+        """In training mode ``rng`` drives the encoder's dropout, LayerDrop
+        and SpecAugment and the head's dropout (``deterministic=False`` in
+        the JAX module); eval mode ignores it."""
+        if not self.training:
+            rng = None
+        seq, _ = self.ssl(input_values, attention_mask, rng)
+        return self.ser(self.pool(seq, attention_mask), rng)
 
 
 def make_baseline_forward(model: BaselineSER) -> Callable:

@@ -56,22 +56,14 @@
 namespace {
 
 using namespace nrse::attn;
-using nrse::gemm::cp_async16;
-using nrse::gemm::smem_addr;
 
 constexpr int kMaxT = 65536;  // the bias window must fit shared memory
 constexpr int kStages = 2;
 
 // shared memory: the Q tile, two stages of K and V tiles and of the key
-// tile's madd, then the bias window (its size depends on T)
+// tile's madd, then the bias window of win_len(T) entries
 constexpr size_t kFixedSmem = (1 + 2 * kStages) * kTile * kLd * sizeof(bf16) +
                               kStages * kTile * sizeof(float);
-
-// entries of the bias window: every key tile's 64 keys (the last tile's
-// past T included) against the query tile's 64 rows
-__host__ __device__ constexpr int win_len(int T) {
-  return ((T + kTile - 1) / kTile) * kTile + kTile - 1;
-}
 
 struct Args {
   const bf16 *q, *k, *v;
@@ -83,27 +75,6 @@ struct Args {
   int H, T;
   float scale;
 };
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-// rows row0.. of a head's [T, D] bf16 tensor into a [kTile, kLd] tile with
-// cp.async; rows >= T zero-filled
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* head,
-                                                int row0, int T) {
-  for (int c = threadIdx.x; c < kTile * (kHeadDim / 8); c += kThreads) {
-    const int r = c / (kHeadDim / 8);
-    const int col = (c % (kHeadDim / 8)) * 8;
-    const bool ok = row0 + r < T;
-    const bf16* src =
-        head + static_cast<size_t>(ok ? row0 + r : 0) * kHeadDim + col;
-    cp_async16(s + r * kLd + col, src, ok ? 16 : 0);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_kernel(Args args) {

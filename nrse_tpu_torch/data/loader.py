@@ -157,7 +157,7 @@ class DevicePrefetcher:
         self.depth = max(1, int(depth))
 
     def _place(self, batch, stream):
-        count = int(batch.pop("__count__", len(batch["snr"])))
+        count = int(batch.pop("__count__"))
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
         if stream is None:

@@ -22,8 +22,8 @@ from nrse_tpu_torch.ops.asp_pooling import (
 
 
 class AttentiveStatisticsPooling(nn.Module):
-    """ASP over ``[B, T, D]`` frames → ``[B, 2·D]``; float32 parameters,
-    cast to the frames' dtype at their use."""
+    """ASP over ``[B, T, D]`` frames → ``[B, 2·D]`` float32; float32
+    parameters, cast to the frames' dtype at their use."""
 
     def __init__(self, input_size: int, device=None):
         super().__init__()

@@ -22,9 +22,14 @@ Attention dispatches on the frame count as the JAX module with
 898-906``): T ≤ 384 (clips up to 7.7 s) runs ``ops.block_attention`` in
 both modes (kernel A forward, K3 backward, the attention-output dropout
 inside them in training, as ``attn_dropout_impl="kernel"``); longer
-sequences run ``ops.flash_attention`` (K5), forward only until its
-backward is ported, so a training forward or a gradient at T > 384
-raises.  The JAX default (off, ``bench.py:490``) runs XLA's attention
+sequences run ``ops.flash_attention`` (K5 forward, its dq and dk/dv
+kernels backward), and in training the attention-output dropout after the
+head merge through K1, as JAX's ``_hw_drop`` does there
+(``nrse_tpu/models/wavlm.py:657-675``); K1's mask at that seed is the one
+kernel A draws inside, so both paths drop alike.  The generator ``[H,
+2T]`` is gathered from the table in the compute dtype, and its gradient
+reaches the table through that gather.  The JAX default (off,
+``bench.py:490``) runs XLA's attention
 instead, a speed choice for the TPU with the same arithmetic, so the port
 has no switch for it.  The
 attention-output dropout draws K1's mask over the merged ``[B, T, C]``
@@ -75,8 +80,8 @@ GROUP_NORM_EPS = 1e-6
 # the encoder-level site takes layer ENCODER
 SITE_ATTN, SITE_HIDDEN, SITE_FFN = 0, 1, 2
 ENCODER = 0xFFFF
-# host streams of a tower's step
-STREAM_LAYERDROP, STREAM_SPEC_AUGMENT = 0, 1
+# host streams of a tower's step (the SER head's dropout takes the third)
+STREAM_LAYERDROP, STREAM_SPEC_AUGMENT, STREAM_HEAD_DROPOUT = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,8 +364,10 @@ class GatedAttention(nn.Module):
         """T ≤ ``BLOCK_MAX_T`` frames: kernel A (and K3 for its gradient)
         on the dense ``pos_bias [H, T, T]``, with ``rng`` (training)
         dropout ``dropout`` of the attention output inside them.  Longer:
-        K5 on the generator ``pos_bias [H, 2T]``, with no dropout and no
-        gradient (its wrapper raises under autograd)."""
+        K5 (and its dq and dk/dv kernels for the gradient) on the generator
+        ``pos_bias [H, 2T]``, then the same dropout through K1 over the
+        merged ``[B, T, C]`` output: the same seed, site and flat index, so
+        the same mask kernel A draws inside."""
         b, t, c = hidden.shape
         h = self.num_heads
 
@@ -379,17 +386,16 @@ class GatedAttention(nn.Module):
         if rng is not None and dropout > 0.0:
             p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
         if t > BLOCK_MAX_T:
-            if p > 0.0:
-                raise ValueError(
-                    f"attention dropout at T={t} > {BLOCK_MAX_T} frames "
-                    "needs the flash attention's backward, not ported yet")
             out = flash_gated_attention(q, k, v, gate, pos_bias,
                                         key_padding_mask)
+            out = out.transpose(1, 2).reshape(b, t, c)
+            if p > 0.0:  # JAX's _hw_drop after the head merge
+                out = hw_dropout(out, seed, p)
         else:
             out = block_gated_attention(q, k, v, gate, pos_bias,
                                         key_padding_mask, p_drop=p,
                                         dropout_seed=seed)
-        out = out.transpose(1, 2).reshape(b, t, c)
+            out = out.transpose(1, 2).reshape(b, t, c)
         return _linear(out, self.out_proj)
 
 

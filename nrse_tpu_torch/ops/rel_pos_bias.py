@@ -90,8 +90,21 @@ def dense_bias_from_rel(bias_rel: torch.Tensor,
                         seq_length: int) -> torch.Tensor:
     """Expand the generator ``[H, 2T]`` to the dense ``[H, T, T]``
     (``out[h, q, k] = bias_rel[h, T − 1 + k − q]``): the plain flash
-    attention's bias; the K5 kernel never forms it."""
-    t = seq_length
-    ar = torch.arange(t, device=bias_rel.device)
-    idx = (t - 1) + ar[None, :] - ar[:, None]
-    return bias_rel[:, idx]
+    attention's bias; the K5 kernels never form it."""
+    return bias_rel[:, _toeplitz_index(seq_length, bias_rel.device)]
+
+
+def fold_dense_bias(dense: torch.Tensor, seq_length: int) -> torch.Tensor:
+    """The adjoint of :func:`dense_bias_from_rel`: ``[H, T, T]`` → ``[H,
+    2T]``, entry ``T − 1 + k − q`` the sum of ``dense[h, q, k]`` over its
+    diagonal (the last entry, never addressed, is 0)."""
+    h, t = dense.shape[0], seq_length
+    idx = _toeplitz_index(t, dense.device).reshape(-1)
+    out = torch.zeros(h, 2 * t, dtype=dense.dtype, device=dense.device)
+    return out.index_add_(1, idx, dense.reshape(h, t * t))
+
+
+def _toeplitz_index(t: int, device) -> torch.Tensor:
+    """``[T, T]`` generator index ``T − 1 + k − q`` of each (q, k)."""
+    ar = torch.arange(t, device=device)
+    return (t - 1) + ar[None, :] - ar[:, None]

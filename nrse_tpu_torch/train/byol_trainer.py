@@ -64,7 +64,7 @@ class BYOLTrainState:
     seed: int = 0
 
 
-def _flatten(params: List[nn.Parameter], device) -> torch.Tensor:
+def flatten_params(params: List[nn.Parameter], device) -> torch.Tensor:
     """One float32 buffer holding ``params``, which become views of it."""
     flat = torch.empty(sum(p.numel() for p in params), dtype=torch.float32,
                        device=device)
@@ -112,7 +112,7 @@ def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
             [(n, p.shape) for n, p in target_params]:
         raise ValueError("the target's parameters are not a prefix of the "
                          "online tower's")
-    params = _flatten([p for _, p in online_params], device)
+    params = flatten_params([p for _, p in online_params], device)
     grads = torch.zeros_like(params)
     off = 0
     for _, p in online_params:
@@ -122,7 +122,7 @@ def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
         online=online.train(), target=target.train(), params=params,
         grads=grads, mu=torch.zeros_like(params),
         nu=torch.zeros_like(params),
-        target_params=_flatten([p for _, p in target_params], device),
+        target_params=flatten_params([p for _, p in target_params], device),
         seed=seed)
 
 

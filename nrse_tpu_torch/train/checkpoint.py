@@ -13,8 +13,10 @@ existing buffers in place, so the modules' parameters and gradients, which
 are views of the flat buffers, stay valid.
 
 :func:`save_model` and :func:`restore_model` keep a module's state dict
-(``tensors`` only) in the same layout: the baseline evaluator restores its
-``final_model`` with them.
+(``tensors`` only) in the same layout: the baseline fine-tune saves its
+``final_model`` with them and the evaluator restores it.
+:func:`load_byol_encoder` reads a BYOL checkpoint's online encoder, which
+the fine-tune's ``--byol_checkpoint`` starts from.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from nrse_tpu_torch.models.byol import OnlineNetwork
+from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.train.byol_trainer import BYOLTrainState
 
 STATE_FILE = "state.pt"
@@ -121,6 +125,31 @@ def restore_model(ckpt_dir: str, name: str, module: nn.Module
     saved, metadata = _read(ckpt_dir, name)
     module.load_state_dict(saved["tensors"], strict=True, assign=True)
     return metadata
+
+
+def load_byol_encoder(path: str, config: WavLMConfig
+                      ) -> Dict[str, torch.Tensor]:
+    """The online encoder of a BYOL checkpoint (the directory
+    :func:`save_checkpoint` wrote, ``<ckpt_dir>/<name>``) as a state dict
+    of :class:`~nrse_tpu_torch.models.wavlm.WavLMModel` for ``config``:
+    the leading part of the flat ``params``, the online tower being laid
+    out encoder first.  Raises ``ValueError`` if the flat buffer is not
+    that of an online tower with this encoder (its heads' widths are read
+    from their BatchNorm statistics)."""
+    saved, _ = _read(*os.path.split(os.path.abspath(path)))
+    tensors = saved["tensors"]
+    flat = tensors["params"]
+    online = OnlineNetwork(
+        config, tensors["online.projector.bn_1.running_mean"].numel(),
+        tensors["online.predictor.bn_0.running_mean"].numel(), device="meta")
+    if flat.numel() != sum(p.numel() for p in online.parameters()):
+        raise ValueError(f"checkpoint {path!r} holds {flat.numel()} online "
+                         f"parameters, not those of this encoder's tower")
+    sd, off = {}, 0
+    for name, p in online.encoder.named_parameters():
+        sd[name] = flat[off:off + p.numel()].view(p.shape).clone()
+        off += p.numel()
+    return sd
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -130,11 +130,19 @@ def test_fully_masked_row_finite_and_as_recorded():
 
 
 def test_raises_under_autograd_and_on_bad_shapes():
+    """Under autograd a gradient flows, the plain backward's (the raw
+    entries' raise is for the CUDA kernels alone); bad shapes raise."""
     (q, k, v, gate, bias_rel), _ = make_inputs(40, seed=2)
     tensors = [torch.from_numpy(a) for a in (q, k, v, gate, bias_rel)]
     leaf = tensors[0].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention.flash_gated_attention(leaf, *tensors[1:])
+    out = flash_attention.flash_gated_attention(leaf, *tensors[1:])
+    do = torch.ones_like(out)
+    out.backward(do)
+    madd = torch.zeros(B, 40)
+    ref_out, lse = flash_attention.flash_attention_plain_fwd(*tensors, madd)
+    dq = flash_attention.flash_attention_plain_bwd(*tensors, madd, ref_out,
+                                                   lse, do)[0]
+    assert torch.equal(leaf.grad, dq) and float(dq.abs().max()) > 0
     with torch.no_grad():  # no gradient asked for: it runs
         flash_attention.flash_gated_attention(leaf, *tensors[1:])
     with pytest.raises(ValueError, match="bias_rel"):

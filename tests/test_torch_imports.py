@@ -4,10 +4,11 @@ a tiny SER forward on the CPU).
 
 The import rule: the port imports nothing of the JAX package — not even
 its JAX-free modules; it keeps its own copies of what it needs — and no
-jax, jaxlib, flax, optax or orbax.  A fresh interpreter with a
-``sys.meta_path`` finder that raises on ``nrse_tpu`` and ``nrse_tpu.*``
-imports every module of the port and ``chip_smoke``, and resolves a BYOL
-preset through ``train_byol``."""
+jax, jaxlib, flax, optax, orbax or pandas (the card's machine has no
+pandas).  A fresh interpreter with a ``sys.meta_path`` finder that raises
+on ``nrse_tpu``, ``pandas`` and their submodules imports every module of
+the port and ``chip_smoke``, and resolves a BYOL preset through
+``train_byol``."""
 
 import json
 import subprocess
@@ -78,17 +79,19 @@ MODULES = [
     "nrse_tpu_torch.baseline.pipeline",
     "nrse_tpu_torch.baseline.wavset",
     "nrse_tpu_torch.baseline.eval_cat_ser",
+    "nrse_tpu_torch.baseline.train_ft_cat_ser",
     "nrse_tpu_torch.train_byol",
     "nrse_tpu_torch.serve.export",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
-# a finder that refuses the JAX package, installed before anything else
+# a finder that refuses the JAX package and pandas (the card's machine has
+# none), installed before anything else
 BLOCK = (
     "import importlib, json, sys\n"
     "class Block:\n"
     "    def find_spec(self, name, path=None, target=None):\n"
-    "        if name == 'nrse_tpu' or name.startswith('nrse_tpu.'):\n"
+    "        if name.split('.')[0] in ('nrse_tpu', 'pandas'):\n"
     "            raise ImportError(f'the port imported {name}')\n"
     "        return None\n"
     "sys.meta_path.insert(0, Block())\n")
@@ -112,7 +115,8 @@ def _imported_modules(modules, extra: str = ""):
 
 def _counts():
     return (block_attention.LAUNCHES, block_attention.BWD_LAUNCHES,
-            flash_attention.LAUNCHES, fused_ffn.LAUNCHES,
+            flash_attention.LAUNCHES, flash_attention.DQ_LAUNCHES,
+            flash_attention.DKV_LAUNCHES, fused_ffn.LAUNCHES,
             fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES,
             fused_dropout.LAUNCHES, fused_dropout.DUMP_LAUNCHES,
             fused_optimizer.LAUNCHES)
@@ -135,12 +139,12 @@ def test_port_imports_no_jax():
 
 def test_blocker_refuses_the_jax_package():
     """The finder the import test relies on does refuse the JAX package,
-    its JAX-free modules included."""
+    its JAX-free modules included, and pandas."""
     for name in ("nrse_tpu", "nrse_tpu.labels.parsing",
-                 "nrse_tpu.utils.logging_utils"):
+                 "nrse_tpu.utils.logging_utils", "pandas"):
         res = _run(f"importlib.import_module({name!r})\n")
         assert res.returncode != 0
-        assert "the port imported nrse_tpu" in res.stderr
+        assert f"the port imported {_top(name)}" in res.stderr
 
 
 def test_every_port_module_is_listed():
@@ -161,8 +165,9 @@ def test_cpu_tensors_launch_no_kernel():
     gate = torch.rand(1, 2, 8, generator=g)
     bias = torch.randn(2, 8, 8, generator=g)
     block_attention.block_gated_attention(q, k, v, gate, bias)
-    flash_attention.flash_gated_attention(q, k, v, gate,
-                                          torch.randn(2, 16, generator=g))
+    qr = q.clone().requires_grad_()  # K5's forward and backward
+    flash_attention.flash_gated_attention(
+        qr, k, v, gate, torch.randn(2, 16, generator=g)).sum().backward()
     x = torch.randn(5, 128, generator=g)
     fused_ffn.fused_ffn(x, torch.randn(256, 128, generator=g),
                         torch.randn(256, generator=g),
