@@ -137,6 +137,62 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
   }
 }
 
+// One warp's products over one 32-deep stage: acc[i][j] (m16 tile i, n8
+// tile j) += A rows m_off + 16 i.. x B rows n_off + 8 j.., read from the
+// stage's tiles `at` and `bt` by ldmatrix.  kLdA / kLdB are the tiles' row
+// lengths in bf16 elements: kRowK for a K-contiguous tile, the padded
+// M/N width for a transposed one.
+template <int kMT, int kNT, bool kAT, bool kBT, int kLdA, int kLdB>
+__device__ __forceinline__ void warp_mma_stage(float (&acc)[kMT][kNT][4],
+                                               const __nv_bfloat16* at,
+                                               const __nv_bfloat16* bt,
+                                               int m_off, int n_off,
+                                               int lane) {
+  static_assert(kNT % 2 == 0, "n8 tiles are loaded in pairs");
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    uint32_t af[kMT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+      if (!kAT) {
+        const int row = m_off + i * 16 + (lane % 16);
+        const int col = kk + (lane / 16) * 8;
+        ldmatrix_x4(af[i], at + row * kLdA + col);
+      } else {
+        // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
+        // (m 8-15, k 8-15), each read transposed from [k][m] rows
+        const int krow = kk + (lane / 16) * 8 + (lane % 8);
+        const int mcol = m_off + i * 16 + ((lane / 8) % 2) * 8;
+        ldmatrix_x4_trans(af[i], at + krow * kLdA + mcol);
+      }
+    }
+    uint32_t bf[kNT][2];
+#pragma unroll
+    for (int j = 0; j < kNT; j += 2) {
+      // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+      // (n 8-15, k 8-15) -> b0/b1 of n-tile j, then of n-tile j + 1
+      uint32_t r[4];
+      if (!kBT) {
+        const int row = n_off + j * 8 + (lane % 8) + (lane / 16) * 8;
+        const int col = kk + ((lane / 8) % 2) * 8;
+        ldmatrix_x4(r, bt + row * kLdB + col);
+      } else {
+        const int krow = kk + ((lane / 8) % 2) * 8 + (lane % 8);
+        const int ncol = n_off + j * 8 + (lane / 16) * 8;
+        ldmatrix_x4_trans(r, bt + krow * kLdB + ncol);
+      }
+      bf[j][0] = r[0];
+      bf[j][1] = r[1];
+      bf[j + 1][0] = r[2];
+      bf[j + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+  }
+}
+
 template <bool kAT, bool kBT, class Epi>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const __nv_bfloat16* __restrict__ a,
@@ -181,51 +237,9 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
     }
     __syncthreads();
 
-    const __nv_bfloat16* at = as[stage];
-    const __nv_bfloat16* bt = bs[stage];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMTiles][4];
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i) {
-        if (!kAT) {
-          const int row = wm * kWarpM + i * 16 + (lane % 16);
-          const int col = kk + (lane / 16) * 8;
-          ldmatrix_x4(af[i], at + row * kRowK + col);
-        } else {
-          // matrices: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15),
-          // (m 8-15, k 8-15), each read transposed from [k][m] rows
-          const int krow = kk + (lane / 16) * 8 + (lane % 8);
-          const int mcol = wm * kWarpM + i * 16 + ((lane / 8) % 2) * 8;
-          ldmatrix_x4_trans(af[i], at + krow * kRowMN + mcol);
-        }
-      }
-      uint32_t bf[kNTiles][2];
-#pragma unroll
-      for (int j = 0; j < kNTiles; j += 2) {
-        // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
-        // (n 8-15, k 8-15) -> b0/b1 of n-tile j, then of n-tile j + 1
-        uint32_t r[4];
-        if (!kBT) {
-          const int row = wn * kWarpN + j * 8 + (lane % 8) + (lane / 16) * 8;
-          const int col = kk + ((lane / 8) % 2) * 8;
-          ldmatrix_x4(r, bt + row * kRowK + col);
-        } else {
-          const int krow = kk + ((lane / 8) % 2) * 8 + (lane % 8);
-          const int ncol = wn * kWarpN + j * 8 + (lane / 16) * 8;
-          ldmatrix_x4_trans(r, bt + krow * kRowMN + ncol);
-        }
-        bf[j][0] = r[0];
-        bf[j][1] = r[1];
-        bf[j + 1][0] = r[2];
-        bf[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-        for (int j = 0; j < kNTiles; ++j)
-          mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-    }
+    warp_mma_stage<kMTiles, kNTiles, kAT, kBT, kAT ? kRowMN : kRowK,
+                   kBT ? kRowMN : kRowK>(acc, as[stage], bs[stage],
+                                         wm * kWarpM, wn * kWarpN, lane);
     __syncthreads();  // the stage is overwritten by the next load
   }
 

@@ -3,8 +3,17 @@
 Port of ``nrse_tpu/models/wavlm.py``:
 
   raw 16 kHz waveform ``[B, T]``
-    → strided conv feature encoder (per-layer channel LayerNorm for the
-      "layer" variant of wavlm-large, GroupNorm on layer 0 for "group")
+    → strided conv feature encoder: for the "layer" variant of
+      wavlm-large channels-last ``[B, T, C]`` from layer 0 to the
+      projection, as the JAX module's ``frontend_norm="fused"`` route
+      (``nrse_tpu/models/wavlm.py:365-450``): layers of stride 2, k ∈ {2,
+      3} and C_in == C_out (1–6) through K6 (``ops.fused_frontend``: conv,
+      channel LayerNorm and GELU in one kernel, its backward a kernel too);
+      any other layer (layer 0: k = 10, s = 5, 1 → 512) as one
+      ``F.linear`` over the input's window view (the conv JAX also leaves
+      to its compiler), K7 (``ops.pallas_norm``, the channel LayerNorm, as
+      ``frontend_norm="pallas"`` runs it) and exact GELU; for "group"
+      (base_plus) channels-first cuDNN convs, GroupNorm on layer 0
     → feature projection (LayerNorm + Linear)
     → SpecAugment time masking with the learned ``masked_spec_embed``
       (training only)
@@ -46,10 +55,12 @@ Parameter names are HF ``WavLMModel``'s state-dict keys, so the layout
 the JAX module (``dtype=bfloat16, param_dtype=float32`` on the card): the
 forward works in ``compute_dtype`` (the parameters' dtype unless set), with
 each weight cast to it at its use, and float32 LayerNorm and GroupNorm
-statistics, attention softmax and gates.  Left out as TPU workarounds
-(``ROADMAP.md``): ``seq_pad_multiple``, ``qkv_impl``, ``frontend_conv``,
-``frontend_norm`` and ``score_dtype``, none of which changes the valid
-frames' values.
+statistics, attention softmax and gates.  The frontend always runs the
+``frontend_norm="fused"`` route above (K6's and K7's LayerNorm take the
+fast variance ``E[x²] − E[x]²``, flax's), so the port has no switch for
+it.  Left out as TPU workarounds (``ROADMAP.md``): ``seq_pad_multiple``,
+``qkv_impl``, ``frontend_conv`` and ``score_dtype``, none of which changes
+the valid frames' values.
 """
 
 from __future__ import annotations
@@ -67,6 +78,10 @@ from nrse_tpu_torch.ops.block_attention import block_gated_attention
 from nrse_tpu_torch.ops.flash_attention import flash_gated_attention
 from nrse_tpu_torch.ops.fused_dropout import hw_dropout
 from nrse_tpu_torch.ops.fused_ffn import fused_ffn
+from nrse_tpu_torch.ops.fused_frontend import KERNEL_SIZES as FUSED_KERNEL_SIZES
+from nrse_tpu_torch.ops.fused_frontend import STRIDE as FUSED_STRIDE
+from nrse_tpu_torch.ops.fused_frontend import fused_conv_ln_gelu
+from nrse_tpu_torch.ops.pallas_norm import channel_layernorm
 from nrse_tpu_torch.ops.rel_pos_bias import (
     compute_position_bias,
     rel_bias_vector,
@@ -231,7 +246,25 @@ class _LayerNorm(nn.LayerNorm):
                             self.weight.float(), self.bias.float(), self.eps)
 
 
+def strided_conv(h, weight, bias, stride: int):
+    """VALID Conv1d of channels-last ``h [B, T, C_in]`` with ``weight
+    [C_out, C_in, k]``, landing channels-last ``[B, T_out, C_out]``: the
+    ``[B, T_out, C_in, k]`` window view of h (a free view for C_in = 1, the
+    raw-audio layer 0) times the weight as one ``F.linear``."""
+    c_out, c_in, k = weight.shape
+    cols = h.unfold(1, k, stride)                    # [B, T_out, C_in, k]
+    cols = cols.reshape(*cols.shape[:2], c_in * k)
+    return F.linear(cols, weight.reshape(c_out, c_in * k), bias)
+
+
 class _ConvLayer(nn.Module):
+    """One conv layer of the frontend.  With the "layer" norm it works
+    channels-last, ``[B, T, C_in] → [B, T', C]``: K6 when the layer is
+    K6's shape (stride 2, k ∈ {2, 3}, C_in == C_out), else the conv as
+    :func:`strided_conv`, K7 and exact GELU.  Otherwise (wavlm-base-plus's
+    "group") channels-first ``[B, C_in, T] → [B, C, T']``: Conv1d, a
+    float32 GroupNorm on layer 0, GELU."""
+
     def __init__(self, config: WavLMConfig, i: int, device=None):
         super().__init__()
         c_in = config.conv_dim[i - 1] if i else 1
@@ -240,23 +273,37 @@ class _ConvLayer(nn.Module):
                               stride=config.conv_stride[i],
                               bias=config.conv_bias, device=device)
         self.norm = None
+        self.eps = config.layer_norm_eps
         if config.feat_extract_norm == "layer":
-            self.layer_norm = _LayerNorm(dim, eps=config.layer_norm_eps,
-                                         device=device)
+            # its parameters only: K6 or K7 normalises
+            self.layer_norm = nn.LayerNorm(dim, eps=self.eps, device=device)
             self.norm = "layer"
         elif config.feat_extract_norm == "group" and i == 0:
             self.layer_norm = nn.GroupNorm(dim, dim, eps=GROUP_NORM_EPS,
                                            device=device)
             self.norm = "group"
+        self.fused = (self.norm == "layer" and c_in == dim
+                      and config.conv_stride[i] == FUSED_STRIDE
+                      and config.conv_kernel[i] in FUSED_KERNEL_SIZES)
 
-    def forward(self, x):  # [B, C, T] in the working dtype
+    def forward(self, x):  # in the working dtype
         conv = self.conv
+        if self.norm == "layer":
+            ln = self.layer_norm
+            if self.fused:
+                bias = conv.bias if conv.bias is not None else torch.zeros(
+                    conv.out_channels, device=x.device)
+                return fused_conv_ln_gelu(x, conv.weight.permute(2, 1, 0),
+                                          bias, ln.weight, ln.bias, self.eps)
+            x = strided_conv(x, conv.weight.to(x.dtype),
+                             None if conv.bias is None
+                             else conv.bias.to(x.dtype), conv.stride[0])
+            x = channel_layernorm(x, ln.weight, ln.bias, self.eps)
+            return F.gelu(x, approximate="none")
         x = F.conv1d(x, conv.weight.to(x.dtype),
                      None if conv.bias is None else conv.bias.to(x.dtype),
                      stride=conv.stride)
-        if self.norm == "layer":
-            x = self.layer_norm(x.transpose(1, 2)).to(x.dtype).transpose(1, 2)
-        elif self.norm == "group":
+        if self.norm == "group":
             ln = self.layer_norm
             x = F.group_norm(x.float(), ln.num_groups, ln.weight.float(),
                              ln.bias.float(), ln.eps).to(x.dtype)
@@ -264,18 +311,21 @@ class _ConvLayer(nn.Module):
 
 
 class ConvFeatureEncoder(nn.Module):
-    """Strided 1-D conv stack: 16 kHz samples → ~50 Hz frame features."""
+    """Strided 1-D conv stack: 16 kHz samples → ~50 Hz frame features,
+    a contiguous ``[B, T', C]``."""
 
     def __init__(self, config: WavLMConfig, device=None):
         super().__init__()
+        self.channels_last = config.feat_extract_norm == "layer"
         self.conv_layers = nn.ModuleList(
             _ConvLayer(config, i, device) for i in range(len(config.conv_dim)))
 
     def forward(self, input_values, dtype: torch.dtype):
-        h = input_values.to(dtype)[:, None, :]           # [B, 1, T]
+        h = input_values.to(dtype)
+        h = h[:, :, None] if self.channels_last else h[:, None, :]
         for layer in self.conv_layers:
             h = layer(h)
-        return h.transpose(1, 2)                          # [B, T', C]
+        return h if self.channels_last else h.transpose(1, 2)
 
 
 class FeatureProjection(nn.Module):

@@ -68,6 +68,13 @@ _ENTRIES = {
                               _P],
     "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nrse_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _F, _I, _P],
+    "nrse_channel_layernorm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "nrse_channel_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _P],
+    "nrse_fused_frontend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _F, _P],
+    "nrse_fused_frontend_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _I, _I, _I, _I, _I, _P],
     "nrse_adamw_ema": [_P, _P, _P, _P, _P, _P, _L, _L, _P],
 }
 

@@ -70,6 +70,28 @@ def test_converter_matches_export_torch(name):
                           strict=True, assign=True)
 
 
+@pytest.mark.parametrize("frontend_norm", ["fused", "pallas"])
+def test_fused_frontend_params_load_strictly(frontend_norm):
+    """JAX's kernel routes of the frontend declare nn.Conv's and
+    nn.LayerNorm's tree (``nrse_tpu/ops/fused_frontend.py:332-373``): their
+    params convert and load strictly, with the frontend weights where the
+    port's K6 and K7 read them."""
+    jcfg = JaxConfig.tiny(frontend_norm=frontend_norm)
+    params = jax.tree.map(np.asarray, jax.jit(JaxModel(jcfg).init)(
+        jax.random.PRNGKey(2), jnp.zeros((1, 4000), jnp.float32)))
+    cfg = WavLMConfig.tiny()
+    sd = jax_params_to_state_dict(params, cfg)
+    np.testing.assert_array_equal(
+        params["params"]["feature_extractor"]["conv_1"]["kernel"],
+        np.transpose(sd["feature_extractor.conv_layers.1.conv.weight"],
+                     (2, 1, 0)))
+    model = WavLMModel(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+    assert model.feature_extractor.conv_layers[1].fused
+    assert not model.feature_extractor.conv_layers[0].fused
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_init_state_dict_loads_strictly(name):
     cfg = CONFIGS[name][1]()

@@ -28,7 +28,9 @@ from nrse_tpu_torch.ops import (
     flash_attention,
     fused_dropout,
     fused_ffn,
+    fused_frontend,
     fused_optimizer,
+    pallas_norm,
 )
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
 from nrse_tpu_torch.train.byol_trainer import (
@@ -54,6 +56,8 @@ MODULES = [
     "nrse_tpu_torch.ops.philox",
     "nrse_tpu_torch.ops.fused_dropout",
     "nrse_tpu_torch.ops.fused_optimizer",
+    "nrse_tpu_torch.ops.fused_frontend",
+    "nrse_tpu_torch.ops.pallas_norm",
     "nrse_tpu_torch.ops._guard",
     "nrse_tpu_torch.models.wavlm",
     "nrse_tpu_torch.models.heads",
@@ -119,7 +123,9 @@ def _counts():
             flash_attention.DKV_LAUNCHES, fused_ffn.LAUNCHES,
             fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES,
             fused_dropout.LAUNCHES, fused_dropout.DUMP_LAUNCHES,
-            fused_optimizer.LAUNCHES)
+            fused_optimizer.LAUNCHES, fused_frontend.LAUNCHES,
+            fused_frontend.BWD_LAUNCHES, pallas_norm.LAUNCHES,
+            pallas_norm.BWD_LAUNCHES)
 
 
 def _top(name):
