@@ -14,13 +14,16 @@ not 0:
      ``build/nrse_tpu_torch/`` and prints the seconds;
   3. kernel A (block gated attention) against its plain PyTorch version at
      the serving shapes (bf16, B=32, H=16, D=64, T=249 with ragged key
-     masks and one fully masked row, and T=384), with µs per call of both
+     masks and one fully masked row, and T=384) and at T ∈ {1, 63, 65,
+     257, 383} (ragged last tiles, ragged keys), with µs per call of both
      and of the library call (``scaled_dot_product_attention`` with the
      dense float bias); and that a gradient flows through it under
      autograd;
   3b. K3 (block attention backward) and kernel A's dropout at the training
      shapes (bf16, B=36, H=16, D=64, T=249 with ragged key masks and one
-     fully masked row, and T=384, p = 0.1): the seeded forward and backward
+     fully masked row, and T=384, p = 0.1) and at T ∈ {1, 63, 65, 257,
+     383} (ragged keys; at T = 1 the gradients that vanish are compared
+     against at least 1e-3): the seeded forward and backward
      equal the explicit-mask ones fed K1's dump at the attention site, bit
      for bit; out, dq, dk, dv, dgate, dbias ≤ 1e-2 and lse ≤ 1e-3 of the
      plain versions' max|·|; two backward calls give the same bits; the
@@ -37,16 +40,26 @@ not 0:
      24 × (bucket forwards) times, and the pooled cosine of one request
      against the same weights in float32 on the CPU through the plain
      path; then prints audio-sec/sec for each bucket;
-  6. K1 (dropout) at [36·249, 1024] bf16, p = 0.1: the kernel's mask equals
+  6. K1 (dropout, one Philox draw per four elements) at [36·249, 1024]
+     and [32·499, 1024] bf16 and at [1 | 127 | 129, 1024] and [3, 333],
+     p = 0.1, every buffer inside NaN guard bands: the kernel's mask equals
      the Philox twin bit for bit, forward and backward equal the plain
-     version, the explicit-mask entry equals the seeded one; µs per call
-     of both and of ``F.dropout``;
+     version, two calls give the same bits, the explicit-mask entry equals
+     the seeded one, the autograd Function the direct calls; registers;
+     µs per call of the wrapper (CUDA events) and of the kernel on the
+     card (profiler), of plain and of ``F.dropout`` at both large shapes;
+     the mask dump at [36·249, 4096] timed beside its byte bound;
   7. kernel B's training forward (both dropout sites, h1 saved) and K2's
      dx and dW kernels at N = 36·249, C = 1024, F = 4096, p = 0.1, against
      the plain versions (max|Δ|/max|ref| ≤ 1e-2), the explicit-mask entries
      and the autograd Function against the direct seeded calls (bit for
-     bit); µs per call and TFLOP/s of each beside the plain version's and
-     autograd's backward of the library forward of phase 4;
+     bit); K2's dx kernel (wgmma fed by TMA) also at N = 32·499 and N ∈
+     {1, 127, 129}: two calls bit-equal, explicit masks = Philox masks,
+     every buffer inside NaN guard bands, dx, db1, db2, dh1 ≤ 1e-2 of
+     plain; HGMMA in its SASS (``cuobjdump -sass``), registers and spills;
+     µs per call and TFLOP/s of each beside the plain version's and
+     autograd's backward of the library forward of phase 4, the dx kernel
+     at both N with its time on the card split by kernel;
   8. K4 (AdamW + EMA) over the flat BYOL parameter set (~326 M) against
      the plain version (≤ 1e-6 relative); µs per call and GB/s, and of
      ``torch.optim.AdamW(fused=True)`` + ``torch._foreach_lerp_``;
@@ -89,7 +102,8 @@ not 0:
      EMA), then 5 timed steps whose kernel launches must equal the counts
      the layers each tower ran imply (attention on kernel A in both towers
      and K3 in the online tower's backward); prints s/step,
-     audio-sec/sec and peak memory; then the eval step once; then a
+     audio-sec/sec, peak memory and a ``torch.profiler`` breakdown of a
+     step's device time; then the eval step once; then a
      cross-check at 4 layers and batch 2, random features off, bf16 on the
      card against float32 on the CPU (loss, grad_norm ratio, gradient
      cosine ≥ 0.99);
@@ -243,6 +257,8 @@ BUCKETS = (1, 8, 32)
 OUT_TOL = 1e-2      # max|Δ| / max|ref|, bf16 outputs (one bf16 ulp ≈ 4e-3)
 LSE_TOL = 1e-3      # max|Δ| / max|ref| of the f32 log-sum-exp
 COSINE_MIN = 0.99   # pooled cosine, bf16 card vs f32 CPU
+# kernel A and K3 are also held to plain at these T (ragged last tiles)
+BLOCK_RAGGED_T = (1, 63, 65, 257, 383)
 # the H100 SXM's published dense peaks (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
@@ -252,9 +268,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+def rel_err(got: torch.Tensor, ref: torch.Tensor,
+            floor: float = 1e-30) -> float:
+    """max|Δ| / max|ref|, the denominator at least ``floor``."""
     got, ref = got.float(), ref.float()
-    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(floor))
 
 
 def nbytes(*tensors) -> int:
@@ -322,14 +340,14 @@ def phase_kernel_a() -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, h, d = 32, 16, 64
     worst, timing = 0.0, None
-    for t in (249, 384):
+    for t in (249, 384, *BLOCK_RAGGED_T):
         q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         gate = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
         bias = torch.randn(h, t, t, generator=gen, device=dev)
         mask = None
         rows = torch.ones(b, dtype=torch.bool, device=dev)  # lse compared
-        if t == 249:
+        if t != 384:
             lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
                                     device=dev)
             lengths[0] = t
@@ -401,14 +419,14 @@ def phase_k3() -> dict:
     b, h, d = TRAIN_BATCH, 16, 64
     seed = TrainRNG(SEED, 0, 0).dropout_seed(3, SITE_ATTN)
     worst, timing = 0.0, None
-    for t in (249, 384):
+    for t in (249, 384, *BLOCK_RAGGED_T):
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
         gate = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
         bias = torch.randn(h, t, t, generator=gen, device=dev)
         mask = None
         rows = torch.ones(b, dtype=torch.bool, device=dev)
-        if t == 249:
+        if t != 384:
             lengths = torch.randint(t // 4, t + 1, (b,), generator=gen,
                                     device=dev)
             lengths[0] = t
@@ -456,7 +474,9 @@ def phase_k3() -> dict:
             raise RuntimeError(f"K3 phase: non-finite output at T={t}")
         errs = {"out": rel_err(out, ref_out),
                 "lse": rel_err(lse[rows], ref_lse[rows])}
-        errs.update({n: rel_err(a, r)
+        # at T = 1 a row's one key gets p = 1, so dq, dk, dgate and dbias
+        # are 0 up to rounding: their error is taken against at least 1e-3
+        errs.update({n: rel_err(a, r, floor=1e-3)
                      for n, a, r in zip(GRAD_NAMES, grads, refs)})
         scales = {n: float(r.float().abs().max())
                   for n, r in zip(GRAD_NAMES, refs)}
@@ -581,64 +601,267 @@ def _gbps(nbytes: float, ms: float) -> float:
     return nbytes / ms / 1e6
 
 
+def device_us(run, iters: int = 10) -> dict:
+    """Device µs a call of ``run()`` by kernel name (shortened), from the
+    CUDA kernels of a ``torch.profiler`` trace over ``iters`` calls after
+    one warm-up: the card's own time, without the host's gaps between
+    launches that CUDA events around a call also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = (e["name"].replace("(anonymous namespace)::", "")
+                    .replace("void ", "").split("(")[0][:60])
+            out[name] = out.get(name, 0.0) + e["dur"] / iters
+    return out
+
+
+def _us_line(times: dict) -> str:
+    return ", ".join(f"{k} {v:.1f}" for k, v in
+                     sorted(times.items(), key=lambda kv: -kv[1]))
+
+
+# K1 and K2 dx are also checked at these small, ragged shapes
+K1_RAGGED = ((1, 1024), (127, 1024), (129, 1024), (3, 333))
+K2_RAGGED_N = (1, 127, 129)
+FT_ROWS = 32 * 499  # the fine-tune's rows: batch 32 x 499 frames
+
+
+def _check_k1(gen, shape, seed, dev) -> float:
+    """K1 at one shape, every input, output and scratch buffer inside NaN
+    guard bands: the dump equals the Philox twin bit for bit, the seeded
+    pass equals plain exactly forward and backward, two calls give the
+    same bits, the explicit-mask entry fed the twin gives the seeded bits.
+    Returns the keep fraction."""
+    bf = torch.bfloat16
+    with GuardBands(fused_dropout) as guard, torch.no_grad():
+        x = guard.band(torch.randn(shape, generator=gen, device=dev).to(bf))
+        dy = guard.band(torch.randn(shape, generator=gen, device=dev).to(bf))
+        mask = fused_dropout.dump_dropout_mask(seed, shape, DROP_P,
+                                               device=dev)
+        twin = philox.dump_mask(seed, 0, shape, DROP_P, device=dev)
+        y = fused_dropout._seeded(x, seed, DROP_P, 0)
+        again = fused_dropout._seeded(x, seed, DROP_P, 0)
+        dx = fused_dropout._seeded(dy, seed, DROP_P, 0)
+        y_masked = fused_dropout._masked(x, guard.band(twin))
+        guard.check(f"K1 at {shape}")
+    for what, got, want in (
+            ("the mask dump vs the Philox twin", mask, twin),
+            ("two seeded calls", again, y),
+            ("forward vs plain", y, fused_dropout.dropout_plain(x, twin)),
+            ("backward vs plain", dx, fused_dropout.dropout_plain(dy, twin)),
+            ("the explicit-mask entry vs the seeded one", y_masked, y)):
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K1 at {shape}: {what} differ at "
+                               f"{int((got != want).sum())} elements")
+    return float((twin > 0).float().mean())
+
+
+def _time_k1(gen, n, c, seed, dev) -> dict:
+    x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
+        dev_us = device_us(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
+        plain_ms = cuda_ms(lambda: fused_dropout.dropout_plain(
+            x, philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)),
+            iters=5)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(
+            x, DROP_P, training=True))
+    moved = 2 * nbytes(x)
+    bd = bound(0.0, moved)
+    log(f"[K1] [{n}, {c}]: the wrapper {ms * 1e3:.1f} us/call "
+        f"({_gbps(moved, ms):.0f} GB/s), on the card {_us_line(dev_us)} "
+        f"us/call; plain (Philox twin + multiply) {plain_ms * 1e3:.1f} "
+        f"us/call, F.dropout {lib_ms * 1e3:.1f} us/call; bound "
+        f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+
+
 def phase_k1() -> dict:
-    """K1 at the training shape: the kernel's mask against the Philox twin
-    bit for bit, forward and backward against the plain version."""
+    """K1 at the BYOL and fine-tune shapes and at ragged ones: the
+    kernel's mask against the Philox twin bit for bit, forward and backward
+    against the plain version, inside guard bands; times, and the mask
+    dump's at [8964, 4096]."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     n, c = TRAIN_BATCH * 249, 1024
     seed = philox.stream_seed(SEED, 0, 0, 0, 0)
+    kernel_resources(("dropout_kernel",), tag="K1")
+    for shape in ((n, c), (FT_ROWS, c), *K1_RAGGED):
+        kept = _check_k1(gen, shape, seed, dev)
+        log(f"[K1] {list(shape)} bf16 p={DROP_P}: the dump equals the Philox "
+            f"twin bit for bit (keep {kept:.5f}); seeded = plain forward and "
+            f"backward, = the explicit-mask entry, two calls bit-equal; "
+            f"guard bands untouched")
+
+    # the autograd Function: forward and backward are the direct calls
     x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
     dy = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
-    mask = fused_dropout.dump_dropout_mask(seed, (n, c), DROP_P, device=dev)
     twin = philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)
-    torch.cuda.synchronize()
-    if not torch.equal(mask, twin):
-        raise RuntimeError(f"K1: the kernel's mask differs from the Philox "
-                           f"twin at {int((mask != twin).sum())} elements")
     xr = x.clone().requires_grad_()
     y = fused_dropout.hw_dropout(xr, seed, DROP_P)
     y.backward(dy)
-    ref_y = fused_dropout.dropout_plain(x, twin)
-    ref_dx = fused_dropout.dropout_plain(dy, twin)
-    err = max(float((y.detach().float() - ref_y.float()).abs().max()),
-              float((xr.grad.float() - ref_dx.float()).abs().max()))
-    log(f"[K1] [{n}, {c}] bf16 p={DROP_P}: mask equals the Philox twin bit "
-        f"for bit (keep {float((twin > 0).float().mean()):.5f}); forward "
-        f"and backward max|Δ| vs plain {err:.3e}")
+    err = max(float((y.detach().float() - fused_dropout.dropout_plain(
+                  x, twin).float()).abs().max()),
+              float((xr.grad.float() - fused_dropout.dropout_plain(
+                  dy, twin).float()).abs().max()))
     if err != 0.0:
-        raise RuntimeError(f"K1 disagrees with its plain version: {err}")
-    with torch.no_grad():  # the explicit-mask entry, fed the same mask
-        if not torch.equal(fused_dropout.hw_dropout_masked(x, twin),
-                           y.detach()):
-            raise RuntimeError("K1's explicit-mask entry differs from its "
-                               "Philox entry")
-    with torch.no_grad():
-        ms = cuda_ms(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
-        plain_ms = cuda_ms(lambda: fused_dropout.dropout_plain(
-            x, philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)))
-        lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(
-            x, DROP_P, training=True))
-    moved = nbytes(x, y)
-    bd = bound(0.0, moved)
-    log(f"[K1] kernel {ms * 1e3:.1f} us/call ({_gbps(moved, ms):.0f} GB/s), "
-        f"plain (Philox twin + multiply) {plain_ms * 1e3:.1f} us/call, "
-        f"F.dropout {lib_ms * 1e3:.1f} us/call; bound "
+        raise RuntimeError(f"K1's autograd Function disagrees with its "
+                           f"plain version: {err}")
+    del x, dy, twin, xr, y
+
+    row = _time_k1(gen, n, c, seed, dev)
+    _time_k1(gen, FT_ROWS, c, seed, dev)
+    # the mask dump (mode 2) at the activation site's shape: no library
+    # call computes it
+    shape = (n, 4 * c)
+    dump_ms = cuda_ms(lambda: fused_dropout.dump_dropout_mask(
+        seed, shape, DROP_P, device=dev))
+    dump_us = device_us(lambda: fused_dropout.dump_dropout_mask(
+        seed, shape, DROP_P, device=dev))
+    twin_ms = cuda_ms(lambda: philox.dump_mask(seed, 0, shape, DROP_P,
+                                               device=dev), iters=3)
+    bd = bound(0.0, 4 * n * 4 * c)
+    log(f"[K1] mask dump {list(shape)} f32: the wrapper {dump_ms * 1e3:.1f} "
+        f"us/call, on the card {_us_line(dump_us)} us/call; plain (the "
+        f"Philox twin on the card) {twin_ms * 1e3:.1f} us/call; bound "
         f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
     return {"name": "fused_dropout", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/fused_dropout.cu",
             "replaces": "nrse_tpu/ops/fused_dropout.py:68",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": lib_ms}
+            "max_abs_err": err, **row}
+
+
+def check_hgmma(pattern: str = "gemm_tn_kernel") -> None:
+    """Fail unless every kernel whose name holds ``pattern`` runs its
+    products on wgmma: ``HGMMA`` in its SASS, as ``cuobjdump -sass`` reads
+    it from the built library."""
+    sass = subprocess.run([_cuda_bin("cuobjdump"), "-sass",
+                           str(cuda_build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0].strip()
+        if pattern in name:
+            counts[name] = section.count("HGMMA")
+    log(f"[K2] HGMMA instructions in the SASS of {pattern}: "
+        + ", ".join(f"{k[-40:]} {v}" for k, v in counts.items()))
+    if not counts or not all(counts.values()):
+        raise RuntimeError(f"{pattern}: no HGMMA in its SASS ({counts})")
+
+
+def _check_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
+    """K2's dx kernel at ``n`` rows, every input, output and scratch buffer
+    inside NaN guard bands: seeded twice (bit-equal) and with the dumped
+    masks (bit-equal to seeded), then against the plain version.  Returns
+    ``{output: (max|Δ|/max|ref|, max|Δ|)}``."""
+    bf = torch.bfloat16
+    dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)).to(bf)
+    h1 = torch.randn(n, f, generator=gen, device=dev).to(bf)
+    w1 = torch.randn(f, c, generator=gen, device=dev) * c ** -0.5
+    w2 = torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
+    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
+                                              device=dev)
+    drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
+    with GuardBands(fused_ffn) as guard, torch.no_grad():
+        args = [guard.band(t) for t in (dout, h1, w1, w2)]
+        got = fused_ffn._kernel_bwd_dx(*args, drop)
+        again = fused_ffn._kernel_bwd_dx(*args, drop)
+        masked = fused_ffn._Drop(masks=(guard.band(keep_act),
+                                        guard.band(keep_hid)))
+        m_got = fused_ffn._kernel_bwd_dx(*args, masked)
+        guard.check(f"K2 dx at N={n}")
+    names = ("dx", "db1", "db2", "dh1", "dh2")
+    for name, a, b, m in zip(names, got, again, m_got):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K2 dx at N={n}: two calls differ in {name}")
+        if not torch.equal(a, m):
+            raise RuntimeError(f"K2 dx at N={n}: the explicit masks' {name} "
+                               f"differs from the Philox masks' run")
+    with torch.no_grad():
+        ref = fused_ffn.ffn_plain_bwd_dx(dout, h1, w1, w2, keep_act,
+                                         keep_hid)
+    if not all(torch.isfinite(t.float()).all() for t in got):
+        raise RuntimeError(f"K2 dx at N={n}: non-finite output")
+    errs = {k: (rel_err(a, r), float((a.float() - r.float()).abs().max()))
+            for k, a, r in zip(names, got, ref)}
+    log(f"[K2] dx N={n} C={c} F={f} p={DROP_P}: two calls bit-equal, "
+        f"explicit masks = Philox masks bit for bit, guard bands untouched; "
+        f"max|Δ|/max|ref| vs plain "
+        + ", ".join(f"{k} {v[0]:.2e}" for k, v in errs.items()))
+    if max(v[0] for v in errs.values()) > GRAD_TOL:
+        raise RuntimeError(f"K2 dx disagrees with plain at N={n}: {errs}")
+    return errs
+
+
+def _time_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
+    bf = torch.bfloat16
+    x = torch.randn(n, c, generator=gen, device=dev).to(bf)
+    dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)).to(bf)
+    h1 = torch.randn(n, f, generator=gen, device=dev).to(bf)
+    w1 = torch.randn(f, c, generator=gen, device=dev) * c ** -0.5
+    w2 = torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
+    b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
+    b2 = 0.1 * torch.randn(c, generator=gen, device=dev)
+    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
+                                              device=dev)
+    drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
+    with torch.no_grad():
+        out = fused_ffn._kernel_bwd_dx(dout, h1, w1, w2, drop)
+        ms = cuda_ms(lambda: fused_ffn._kernel_bwd_dx(dout, h1, w1, w2, drop))
+        dev_us = device_us(lambda: fused_ffn._kernel_bwd_dx(
+            dout, h1, w1, w2, drop))
+        plain_ms = cuda_ms(lambda: fused_ffn.ffn_plain_bwd_dx(
+            dout, h1, w1, w2, keep_act, keep_hid), iters=5)
+    leaves = [t.to(bf).clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    with torch.enable_grad():
+        o = library_ffn(*leaves)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, leaves[:1], dout, retain_graph=True))
+    del leaves, o
+    flop = 4.0 * n * c * f
+    bd = bound(flop, nbytes(dout, h1, w1, w2, *out))
+    log(f"[K2] dx N={n}: the wrapper {ms * 1e3:.1f} us/call "
+        f"({flop / ms / 1e9:.1f} TFLOP/s), on the card "
+        f"{sum(dev_us.values()):.1f} us/call ({_us_line(dev_us)}); plain "
+        f"{plain_ms * 1e3:.1f} us/call, autograd of F.linear-GELU-F.linear "
+        f"(dx only) {lib_ms * 1e3:.1f} us/call; bound "
+        f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
 
 
 def phase_k2() -> list:
     """Kernel B's training forward (both dropout sites, h1 saved) and K2's
-    dx and dW kernels at N = 36 x 249, against the plain versions."""
+    dx and dW kernels at N = 36 x 249 against the plain versions; K2's dx
+    kernel also at the fine-tune's N = 32 x 499 and at ragged N, inside
+    guard bands, with its SASS read for HGMMA."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n, c, f = TRAIN_BATCH * 249, 1024, 4096
     seed = philox.stream_seed(SEED, 0, 0, 0, 2)
+    check_hgmma()
+    usage = kernel_resources(("gemm_tn_kernel", "dh2_kernel", "colsum_fold",
+                              "transpose_cast"), tag="K2")
+    spilled = [name for name, u in usage
+               if not {"STACK:0", "LOCAL:0"} <= set(u.split())]
+    if spilled:
+        raise RuntimeError(f"K2's dx kernels spill registers: {spilled}")
     x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
     dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)
             ).to(torch.bfloat16)
@@ -695,6 +918,14 @@ def phase_k2() -> list:
                             ("db2", params[3].grad, db2)):
         if not torch.equal(got, want.to(got.dtype)):
             raise RuntimeError(f"FusedFFN's {name} differs from K2's")
+    del xr, params, m_out, m_h1, m_dx, masked
+
+    # K2's dx kernel at every N it is held to: guard bands, repeats, plain
+    dx_abs = max(float((a.float() - b.float()).abs().max())
+                 for a, b in (checks["dx"], checks["db1"], checks["db2"]))
+    for rows in (n, FT_ROWS, *K2_RAGGED_N):
+        e = _check_k2_dx(gen, rows, seed, dev)
+        dx_abs = max(dx_abs, e["dx"][1], e["db1"][1], e["db2"][1])
 
     flop = 4.0 * n * c * f
     with torch.no_grad():
@@ -703,54 +934,46 @@ def phase_k2() -> list:
                         x, w1, b1, w2, b2, drop, True)),
                     cuda_ms(lambda: fused_ffn.ffn_plain_fwd(
                         x, w1, b1, w2, b2, keep_act, keep_hid))),
-            "dx": (cuda_ms(lambda: fused_ffn._kernel_bwd_dx(
-                       dout, h1, w1, w2, drop)),
-                   cuda_ms(lambda: fused_ffn.ffn_plain_bwd_dx(
-                       dout, h1, w1, w2, keep_act, keep_hid))),
             "dw": (cuda_ms(lambda: fused_ffn._kernel_bwd_dw(x, gd, dh1, dh2)),
                    cuda_ms(lambda: fused_ffn.ffn_plain_bwd_dw(
                        x, gd, dh1, dh2))),
         }
-    # the library: autograd's backward of library_ffn, for dx alone and
-    # for the weights alone
+    # the library: autograd's backward of library_ffn for the weights alone
     leaves = [t.to(torch.bfloat16).clone().requires_grad_()
               for t in (x, w1, b1, w2, b2)]
     with torch.enable_grad():
         o = library_ffn(*leaves)
-        lib = {"dx": cuda_ms(lambda: torch.autograd.grad(
-                   o, leaves[:1], dout, retain_graph=True)),
-               "dw": cuda_ms(lambda: torch.autograd.grad(
-                   o, leaves[1:], dout, retain_graph=True))}
+        lib_dw = cuda_ms(lambda: torch.autograd.grad(
+            o, leaves[1:], dout, retain_graph=True))
     del leaves, o
-    bounds = {"dx": bound(flop, nbytes(dout, h1, w1, w2, dx, db1, db2, dh1,
-                                       dh2)),
-              "dw": bound(flop, nbytes(x, gd, dh1, dh2, dw1, dw2))}
+    bound_dw = bound(flop, nbytes(x, gd, dh1, dh2, dw1, dw2))
     for k, (ms, plain_ms) in times.items():
         line = (f"[K2] {k}: kernel {ms * 1e3:.1f} us/call "
                 f"({flop / ms / 1e9:.1f} TFLOP/s), plain "
                 f"{plain_ms * 1e3:.1f} us/call "
                 f"({flop / plain_ms / 1e9:.1f} TFLOP/s)")
-        if k in lib:
+        if k == "dw":
             line += (f", autograd of F.linear-GELU-F.linear "
-                     f"{lib[k] * 1e3:.1f} us/call; bound "
-                     f"{bounds[k]['bound_ms'] * 1e3:.1f} us "
-                     f"({bounds[k]['bound_by']})")
+                     f"{lib_dw * 1e3:.1f} us/call; bound "
+                     f"{bound_dw['bound_ms'] * 1e3:.1f} us "
+                     f"({bound_dw['bound_by']})")
         log(line)
+    del x, dout, h1, gd, dh1, dh2, keep_act, keep_hid
+    dx_row = _time_k2_dx(gen, n, seed, dev)
+    _time_k2_dx(gen, FT_ROWS, seed, dev)
     abs_err = {k: float((a.float() - b.float()).abs().max())
                for k, (a, b) in checks.items()}
     return [
         {"name": "fused_ffn_bwd_dx", "route": "cuda",
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
          "replaces": "nrse_tpu/ops/fused_ffn.py:204",
-         "max_abs_err": max(abs_err[k] for k in ("dx", "db1", "db2")),
-         "ms": times["dx"][0], "plain_ms": times["dx"][1], **bounds["dx"],
-         "library_ms": lib["dx"]},
+         "max_abs_err": dx_abs, **dx_row},
         {"name": "fused_ffn_bwd_dw", "route": "cuda",
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
          "replaces": "nrse_tpu/ops/fused_ffn.py:253",
          "max_abs_err": max(abs_err["dw1"], abs_err["dw2"]),
-         "ms": times["dw"][0], "plain_ms": times["dw"][1], **bounds["dw"],
-         "library_ms": lib["dw"]},
+         "ms": times["dw"][0], "plain_ms": times["dw"][1], **bound_dw,
+         "library_ms": lib_dw},
     ]
 
 
@@ -1100,6 +1323,10 @@ def phase_training(cfg=None, device=torch.device("cuda"),
     if device.type == "cuda":
         log(f"[train] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # the step's device time by kernel group (PERF.md §5): the host
+        # clock above also counts the host's gaps between launches
+        profile_device(lambda: (step(state, data), sync(device)),
+                       "[train] BYOL step", iters=2)
 
     loss, sim = make_byol_eval_step()(state, data)
     sync(device)
@@ -1870,11 +2097,18 @@ def _time_k7(x2, tensors) -> dict:
                     "library_ms": lib_bwd}}
 
 
-def kernel_resources(patterns=("k6_", "ln_row_", "ln_fold")) -> None:
-    """Registers, stack and local (spill) bytes of the frontend kernels, as
-    ``cuobjdump -res-usage`` reads them from the built library."""
-    cuda = os.path.dirname(os.path.dirname(cuda_build._nvcc()))
-    res = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"),
+def _cuda_bin(tool: str) -> str:
+    return os.path.join(os.path.dirname(os.path.dirname(cuda_build._nvcc())),
+                        "bin", tool)
+
+
+def kernel_resources(patterns=("k6_", "ln_row_", "ln_fold"),
+                     tag: str = "8d") -> list:
+    """Registers, stack and local (spill) bytes of the kernels whose names
+    hold one of ``patterns`` (the frontend's by default), as ``cuobjdump
+    -res-usage`` reads them from the built library; returns ``[(name,
+    usage)]``."""
+    res = subprocess.run([_cuda_bin("cuobjdump"),
                           "-res-usage", str(cuda_build.library_path())],
                          capture_output=True, text=True, check=True,
                          timeout=120)
@@ -1887,7 +2121,7 @@ def kernel_resources(patterns=("k6_", "ln_row_", "ln_fold")) -> None:
             if any(p in name for p in patterns):
                 found.append((name, " ".join(line.split()[:4])))
             name = None
-    filt = os.path.join(cuda, "bin", "cu++filt")
+    filt = _cuda_bin("cu++filt")
     if found and os.path.isfile(filt):
         names = subprocess.run([filt], input="\n".join(n for n, _ in found),
                                capture_output=True, text=True, check=True,
@@ -1897,9 +2131,10 @@ def kernel_resources(patterns=("k6_", "ln_row_", "ln_fold")) -> None:
                   .split("(")[0], usage)
                  for short, (_, usage) in zip(names, found)]
     for name, usage in found:
-        log(f"[8d] {name}: {usage}")
+        log(f"[{tag}] {name}: {usage}")
     if not found:
-        raise RuntimeError("cuobjdump listed no frontend kernel")
+        raise RuntimeError(f"cuobjdump listed no kernel matching {patterns}")
+    return found
 
 
 def phase_frontend_kernels() -> list:
@@ -2221,7 +2456,10 @@ PROFILE_GROUPS = (
     ("K5 backward (dq, dk/dv, dbias fold)",
      "flash_attention_bwd|flash_dbias_fold"),
     ("kernel A (block attention)", "block_attention_fwd"),
-    ("kernel B and K2 (fused FFN GEMMs)", "nrse::gemm|dh2_kernel|colsum"),
+    ("K3 (block attention backward)",
+     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum"),
+    ("kernel B and K2 (fused FFN GEMMs)",
+     "nrse::gemm|nrse::wg|dh2_kernel|colsum|transpose_cast"),
     ("K1 (dropout)", "dropout_kernel"),
     ("K4 (AdamW)", "adamw_ema"),
     ("cuDNN convs", "conv|cudnn|implicit|winograd|fft"),

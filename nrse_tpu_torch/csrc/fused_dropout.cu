@@ -11,13 +11,15 @@
 //   out[i] = bf16(float(x[i]) * keep(i))     keep from philox.cuh or a mask
 //
 // What bounds it on the H100: at the training shape, [36 x 249, 1024]
-// bf16, the pass moves ~37 MB, ~11 us of HBM time at 3.35 TB/s; Philox
-// costs ~100 integer operations per element (~0.9 G for the tensor), about
-// as much again on the CUDA cores.  Design: one pass, 8 elements (16
-// bytes of bf16) a thread, vector loads and stores, a scalar tail for a
-// ragged end; Philox per element, keyed on the flat element index, so the
-// mask is the one the plain twin (ops/philox.py) draws, whatever the grid.
-// Fusing the mask into the residual add that follows it is a later item.
+// bf16, a forward and its backward move ~37 MB, ~11 us of HBM time at
+// 3.35 TB/s.  A Philox4x32-10 draw is ~50 integer instructions: a draw
+// per element makes the pass integer-bound (7.6x its byte bound measured
+// so on the H100).  Design: one pass, 8 elements (16 bytes of bf16) a thread,
+// vector loads and stores, a scalar tail for a ragged end; two grouped
+// draws a thread (philox.cuh: one draw per four elements, all four words
+// used), keyed on the flat group index, so the mask is the one the plain
+// twin (ops/philox.py) draws, whatever the grid.  Fusing the mask into the
+// residual add that follows it is a later item.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,16 +50,19 @@ dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
     const float4 m1 = *reinterpret_cast<const float4*>(mask + base + 4);
     keep[0] = m0.x; keep[1] = m0.y; keep[2] = m0.z; keep[3] = m0.w;
     keep[4] = m1.x; keep[5] = m1.y; keep[6] = m1.z; keep[7] = m1.w;
-  } else {
+  } else if (kMode == 1) {
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
-      const int64_t i = base + e;
-      keep[e] = i >= n ? 0.f
-                : kMode == 1
-                    ? mask[i]
-                    : nrse::philox_keep(k0, k1, static_cast<uint64_t>(i),
-                                        site, p, scale);
+      keep[e] = base + e < n ? mask[base + e] : 0.f;
     }
+  } else {
+    // base is a multiple of 8: elements base .. base + 7 are groups
+    // base / 4 and base / 4 + 1, whole (past n on a ragged end, unused)
+    const uint64_t g = static_cast<uint64_t>(base) >> 2;
+    const float4 a = nrse::philox_keep4(k0, k1, g, site, p, scale);
+    const float4 b = nrse::philox_keep4(k0, k1, g + 1, site, p, scale);
+    keep[0] = a.x; keep[1] = a.y; keep[2] = a.z; keep[3] = a.w;
+    keep[4] = b.x; keep[5] = b.y; keep[6] = b.z; keep[7] = b.w;
   }
 
   if (kMode == 2) {

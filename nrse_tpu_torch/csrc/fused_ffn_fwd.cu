@@ -22,7 +22,9 @@
 // What bounds it on the H100: at N = 36 x 249 = 8964 rows, C = 1024,
 // F = 4096 the pair is ~150 GFLOP against ~100 MB of operands (plus 73 MB
 // for h1 in training), so it is bound by the tensor cores; Philox costs
-// ~100 integer instructions per masked element, a few % of the GEMM time.
+// ~50 integer instructions per draw, one draw per pair of neighbouring
+// elements (the two columns of an accumulator pair share a group of the
+// contract, philox.cuh).
 //
 // Design: the tiled GEMM of mma_gemm.cuh, launched twice: GEMM1 with a
 // bias + GELU (+ h1 save + activation mask) epilogue that writes bf16 h,
@@ -50,15 +52,14 @@ using namespace nrse::gemm;
 // GEMM1: h = bf16(gelu(acc + b1) * keep_act), optionally h1 = bf16(acc + b1)
 template <bool kTrain>
 struct EpiGelu {
-  static constexpr bool kColSum = false;
   const float* bias;
   bf16* out;
   bf16* h1;  // training: null, or where h1 goes
   int ld;
   DropSite drop;
 
-  __device__ __forceinline__ float2 operator()(int row, int col, float x0,
-                                               float x1) const {
+  __device__ __forceinline__ void operator()(int row, int col, float x0,
+                                             float x1) const {
     x0 += bias[col];
     x1 += bias[col + 1];
     const size_t idx = static_cast<size_t>(row) * ld + col;
@@ -66,37 +67,34 @@ struct EpiGelu {
     float g1 = gelu_erf(x1);
     if (kTrain) {
       if (h1 != nullptr) store_bf16x2(h1 + idx, x0, x1);
-      g0 *= drop.keep(idx);
-      g1 *= drop.keep(idx + 1);
+      const float2 k = drop.keep2(idx);  // col is even: one draw
+      g0 *= k.x;
+      g1 *= k.y;
     }
     store_bf16x2(out + idx, g0, g1);
-    return make_float2(0.f, 0.f);
   }
-  __device__ void colsum(int, int, float, float) const {}
 };
 
 // GEMM2: out = bf16((acc + b2) * keep_hid)
 template <bool kTrain>
 struct EpiBias {
-  static constexpr bool kColSum = false;
   const float* bias;
   bf16* out;
   int ld;
   DropSite drop;
 
-  __device__ __forceinline__ float2 operator()(int row, int col, float x0,
-                                               float x1) const {
+  __device__ __forceinline__ void operator()(int row, int col, float x0,
+                                             float x1) const {
     x0 += bias[col];
     x1 += bias[col + 1];
     const size_t idx = static_cast<size_t>(row) * ld + col;
     if (kTrain) {
-      x0 *= drop.keep(idx);
-      x1 *= drop.keep(idx + 1);
+      const float2 k = drop.keep2(idx);  // col is even: one draw
+      x0 *= k.x;
+      x1 *= k.y;
     }
     store_bf16x2(out + idx, x0, x1);
-    return make_float2(0.f, 0.f);
   }
-  __device__ void colsum(int, int, float, float) const {}
 };
 
 bool bad_shape(int N, int C, int F) {

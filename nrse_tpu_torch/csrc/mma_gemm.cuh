@@ -19,10 +19,7 @@
 // whose rows are padded by 16 bytes so that ldmatrix is free of bank
 // conflicts in both orientations.  The epilogue functor sees each pair of
 // neighbouring columns (row, col), (row, col + 1) of the f32 accumulator,
-// row < M, and may return a pair to be summed over the block's rows
-// (Epi::kColSum): the kernel reduces it per warp and hands one partial
-// per (block row, warp row, column) to Epi::colsum, a fixed order, so a
-// later pass can finish the column sum the same way on every run.
+// row < M.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -248,26 +245,14 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
     const int col = n0 + wn * kWarpN + j * 8 + (lane % 4) * 2;
-    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * kWarpM + i * 16 + lane / 4 + half * 8;
         if (row >= M) continue;
-        const float2 c =
-            epi(row, col, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-        s0 += c.x;
-        s1 += c.y;
+        epi(row, col, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
-    }
-    if constexpr (Epi::kColSum) {
-#pragma unroll
-      for (int off = 4; off < 32; off *= 2) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      }
-      if (lane < 4) epi.colsum(blockIdx.y * 2 + wm, col, s0, s1);
     }
   }
 }

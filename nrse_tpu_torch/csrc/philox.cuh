@@ -1,23 +1,36 @@
 // The dropout-RNG contract of the port's kernels (see ops/philox.py, its
 // plain twin, which is bit for bit the same).
 //
-// Philox4x32-10 (Random123's philox4x32_10) keyed by the seed pair; the
-// counter is (element index lo, element index hi, site, 0), with the
-// element index flat over the real, unpadded [N, C] or [N, F] tensor, so
-// an element's mask never depends on how a kernel tiles the tensor.  The
-// first output word gives the bits; keep iff (bits >> 8) * 2^-24 >= p, and
-// a kept value is scaled by 1 / (1 - p), computed in float32 on the host.
+// Philox4x32-10 (Random123's philox4x32_10) keyed by the seed pair.  One
+// draw serves four consecutive elements: element i of a site takes its
+// bits from output word i mod 4 of the draw at the counter
+// (g lo, g hi, site, 0), g = floor(i / 4), with the element index i flat
+// over the real, unpadded [N, C] or [N, F] tensor, so an element's mask
+// never depends on how a kernel tiles the tensor.  Keep iff
+// (bits >> 8) * 2^-24 >= p, and a kept value is scaled by 1 / (1 - p),
+// computed in float32 on the host.
+//
+// Three forms: philox_keep4 gives the four keep multipliers of group g
+// (the form K1 and K2 use: one draw per four elements, nothing thrown
+// away); DropSite::keep2 those of an even-indexed pair of neighbours (one
+// draw per two elements: kernel B's forward, whose accumulator pairs are
+// such neighbours); philox_keep gives element i's alone (draw group
+// i >> 2, take word i & 3: a whole draw per element, the form kernel A and
+// K3 still use).
 #pragma once
 
 #include <stdint.h>
 
 namespace nrse {
 
-__device__ __forceinline__ uint32_t philox_bits(uint32_t k0, uint32_t k1,
-                                                uint64_t index,
-                                                uint32_t site) {
-  uint32_t c0 = static_cast<uint32_t>(index);
-  uint32_t c1 = static_cast<uint32_t>(index >> 32);
+struct Philox4 {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ Philox4 philox4(uint32_t k0, uint32_t k1,
+                                           uint64_t group, uint32_t site) {
+  uint32_t c0 = static_cast<uint32_t>(group);
+  uint32_t c1 = static_cast<uint32_t>(group >> 32);
   uint32_t c2 = site;
   uint32_t c3 = 0u;
 #pragma unroll
@@ -33,16 +46,46 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t k0, uint32_t k1,
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return c0;
+  return Philox4{{c0, c1, c2, c3}};
 }
 
-// The dropout multiplier of one element: `scale` if kept, else 0.
+// Whether one output word keeps its element.
+__device__ __forceinline__ bool philox_kept(uint32_t bits, float p) {
+  return static_cast<float>(bits >> 8) * 5.9604644775390625e-08f >= p;
+}
+
+// The four keep bits of group g: bit e for element 4 g + e.
+__device__ __forceinline__ uint32_t philox_keep_bits4(uint32_t k0, uint32_t k1,
+                                                      uint64_t group,
+                                                      uint32_t site, float p) {
+  const Philox4 r = philox4(k0, k1, group, site);
+  return static_cast<uint32_t>(philox_kept(r.w[0], p)) |
+         static_cast<uint32_t>(philox_kept(r.w[1], p)) << 1 |
+         static_cast<uint32_t>(philox_kept(r.w[2], p)) << 2 |
+         static_cast<uint32_t>(philox_kept(r.w[3], p)) << 3;
+}
+
+// The dropout multipliers of elements 4 g .. 4 g + 3: `scale` if kept,
+// else 0.
+__device__ __forceinline__ float4 philox_keep4(uint32_t k0, uint32_t k1,
+                                               uint64_t group, uint32_t site,
+                                               float p, float scale) {
+  const Philox4 r = philox4(k0, k1, group, site);
+  return make_float4(philox_kept(r.w[0], p) ? scale : 0.f,
+                     philox_kept(r.w[1], p) ? scale : 0.f,
+                     philox_kept(r.w[2], p) ? scale : 0.f,
+                     philox_kept(r.w[3], p) ? scale : 0.f);
+}
+
+// The dropout multiplier of element `index` alone.
 __device__ __forceinline__ float philox_keep(uint32_t k0, uint32_t k1,
                                              uint64_t index, uint32_t site,
                                              float p, float scale) {
-  const uint32_t u24 = philox_bits(k0, k1, index, site) >> 8;
-  return static_cast<float>(u24) * 5.9604644775390625e-08f >= p ? scale
-                                                                : 0.f;
+  const Philox4 r = philox4(k0, k1, index >> 2, site);
+  const uint32_t e = static_cast<uint32_t>(index & 3u);
+  const uint32_t bits = e == 0 ? r.w[0] : e == 1 ? r.w[1] : e == 2 ? r.w[2]
+                                                                  : r.w[3];
+  return philox_kept(bits, p) ? scale : 0.f;
 }
 
 // How a kernel gets the keep mask of a dropout site: not at all (p = 0),
@@ -53,10 +96,25 @@ struct DropSite {
   float p, scale;
   int mode;  // 0 none, 1 philox, 2 explicit mask
 
-  __device__ __forceinline__ float keep(uint64_t index) const {
-    if (mode == 1) return philox_keep(k0, k1, index, site, p, scale);
-    if (mode == 2) return mask[index];
-    return 1.f;
+  // The multipliers of elements index and index + 1, index even: both
+  // lie in group index >> 2, so mode 1 makes one draw for the pair.
+  __device__ __forceinline__ float2 keep2(uint64_t index) const {
+    if (mode == 1) {
+      const Philox4 r = philox4(k0, k1, index >> 2, site);
+      const bool hi = (index & 2u) != 0;
+      return make_float2(philox_kept(hi ? r.w[2] : r.w[0], p) ? scale : 0.f,
+                         philox_kept(hi ? r.w[3] : r.w[1], p) ? scale : 0.f);
+    }
+    if (mode == 2) return *reinterpret_cast<const float2*>(mask + index);
+    return make_float2(1.f, 1.f);
+  }
+
+  // The multipliers of elements 4 g .. 4 g + 3 (one draw in mode 1; the
+  // explicit mask is read as one float4, so it must be 16-byte aligned).
+  __device__ __forceinline__ float4 keep4(uint64_t group) const {
+    if (mode == 1) return philox_keep4(k0, k1, group, site, p, scale);
+    if (mode == 2) return reinterpret_cast<const float4*>(mask)[group];
+    return make_float4(1.f, 1.f, 1.f, 1.f);
   }
 };
 

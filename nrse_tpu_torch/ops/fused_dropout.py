@@ -41,7 +41,7 @@ def _launch(mode, x, mask, out, n, seed=(0, 0), site=0, p=0.0):
     require_no_grad(x, mask, what="fused_dropout")
     lib = cuda_build.load()
     dev = out.device
-    with torch.cuda.device(dev):  # the launch goes to the current card
+    with cuda_build.on_device(dev):  # the launch goes to that card
         err = lib.nrse_dropout(
             0 if x is None else x.data_ptr(),
             0 if mask is None else mask.data_ptr(), out.data_ptr(), n,
@@ -125,8 +125,10 @@ def hw_dropout(x: torch.Tensor, seed: Tuple[int, int], p: float,
         return x
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout probability must be in [0, 1), got {p}")
-    return _HwDropout.apply(x, (int(seed[0]), int(seed[1])), float(p),
-                            int(site))
+    seed = (int(seed[0]), int(seed[1]))
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _HwDropout.apply(x, seed, float(p), int(site))
+    return _seeded(x, seed, float(p), int(site))  # no graph to record
 
 
 def hw_dropout_masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ Which kernel runs where:
   * training: :class:`FusedFFN`, whose forward is kernel B's training
     entry (both dropout sites, ``h1`` and the dropped GELU output ``gd``
     kept in bf16) and whose backward is K2 (``csrc/fused_ffn_bwd.cu``):
-    the dx kernel (dx, db1, db2) and the dW kernel (dW1, dW2).
+    the dx kernel (dx, db1, db2; its two products on wgmma fed by TMA,
+    ``csrc/wgmma_gemm.cuh``, the weights cast and transposed by the
+    kernel into scratch the wrapper allocates, see :func:`dx_plan`) and
+    the dW kernel (dW1, dW2).
 
 Masks follow the Philox contract of ``ops/philox.py``: site 0 is the
 activation site over ``[N, F]``, site 1 the hidden site over ``[N, C]``,
@@ -33,8 +36,11 @@ from nrse_tpu_torch.ops import fused_dropout, philox
 from nrse_tpu_torch.ops._guard import require_no_grad
 from nrse_tpu_torch.runtime import cuda_build
 
-# the CUDA kernels' tile: C and F must be multiples of this
+# the CUDA kernels' tile: C and F must be multiples of this; the row tile
+# of K2's dx products (csrc/wgmma_gemm.cuh kBM)
 TILE = 128
+# rows per partial column sum of dh2 in K2's dx kernel (csrc kDh2Rows)
+DH2_ROWS = 16
 SITE_ACT, SITE_HID = 0, 1
 
 # Kernel launches made by this module since the counts were last reset:
@@ -187,7 +193,7 @@ def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
     h1 = torch.empty_like(gd) if save else None
     out = torch.empty_like(rows)
     lib = cuda_build.load()
-    with torch.cuda.device(rows.device):  # the launch goes to the current card
+    with cuda_build.on_device(rows.device):  # launch on x's card
         if not save and drop.mode == _NO_DROP:
             err = lib.nrse_fused_ffn_fwd(
                 rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -205,23 +211,51 @@ def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
     return out, h1, gd
 
 
+def dx_plan(n: int, c: int, f: int) -> dict:
+    """What K2's dx kernel (``csrc/fused_ffn_bwd.cu``) works on for ``n``
+    rows: the dh2 pass's row chunks, the 128-row tiles of the two wgmma
+    products and their tile counts (128 x 128 output tiles), and the f32
+    scratch the wrapper allocates (the dh2 partials, then reused for
+    dh1's, one per chunk or tile and column)."""
+    chunks = -(-n // DH2_ROWS)
+    row_tiles = -(-n // TILE)
+    return {"dh2_chunks": chunks, "row_tiles": row_tiles,
+            "dgd_tiles": row_tiles * (f // TILE),
+            "dx_tiles": row_tiles * (c // TILE),
+            "scratch": max(chunks * c, row_tiles * f)}
+
+
+def _weight(w):
+    """A weight as the dx kernel reads it: float32, contiguous, 16-byte
+    aligned (the kernel casts it to bf16 and transposes it itself)."""
+    w = w.float().contiguous()
+    if w.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned operands")
+    return w
+
+
 def _kernel_bwd_dx(dout, h1, w1, w2, drop: _Drop):
     """K2's dx kernel: ``(dx, db1, db2, dh1, dh2)``."""
-    dout, h1, w1, w2 = (_bf16(t) for t in (dout, h1, w1, w2))
+    dout, h1 = _bf16(dout), _bf16(h1)
+    w1, w2 = _weight(w1), _weight(w2)
     n, c = dout.shape
     f = w1.shape[0]
     dev = dout.device
+    # the weights cast to bf16 and transposed, by the kernel
+    w1t = torch.empty(c, f, dtype=torch.bfloat16, device=dev)
+    w2t = torch.empty(f, c, dtype=torch.bfloat16, device=dev)
     dh2 = torch.empty(n, c, dtype=torch.bfloat16, device=dev)
     dh1 = torch.empty(n, f, dtype=torch.bfloat16, device=dev)
     dx = torch.empty_like(dh2)
     db1 = torch.empty(f, dtype=torch.float32, device=dev)
     db2 = torch.empty(c, dtype=torch.float32, device=dev)
-    part = torch.empty(-(-n // TILE) * max(2 * f, c), dtype=torch.float32,
+    part = torch.empty(dx_plan(n, c, f)["scratch"], dtype=torch.float32,
                        device=dev)
     lib = cuda_build.load()
-    with torch.cuda.device(dev):
+    with cuda_build.on_device(dev):
         err = lib.nrse_fused_ffn_bwd_dx(
             dout.data_ptr(), h1.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            w1t.data_ptr(), w2t.data_ptr(),
             *drop.kernel_args(), dh2.data_ptr(), dh1.data_ptr(),
             dx.data_ptr(), db1.data_ptr(), db2.data_ptr(), part.data_ptr(),
             n, c, f, _stream())
@@ -239,7 +273,7 @@ def _kernel_bwd_dw(x, gd, dh1, dh2):
     dw1 = torch.empty(f, c, dtype=torch.float32, device=x.device)
     dw2 = torch.empty(c, f, dtype=torch.float32, device=x.device)
     lib = cuda_build.load()
-    with torch.cuda.device(x.device):
+    with cuda_build.on_device(x.device):
         err = lib.nrse_fused_ffn_bwd_dw(
             x.data_ptr(), gd.data_ptr(), dh1.data_ptr(), dh2.data_ptr(),
             dw1.data_ptr(), dw2.data_ptr(), n, c, f, _stream())

@@ -11,9 +11,11 @@ on (seed, site, element index):
   * generator: Philox4x32-10 (Salmon et al., SC'11; Random123's
     ``philox4x32_10``), written out by hand in ``csrc/philox.cuh`` and
     bit for bit the same here;
-  * key: the seed pair ``(k0, k1)``; counter: ``(index lo, index hi, site,
-    0)`` with ``index`` the flat element index over the real, unpadded
-    ``[N, C]`` (or ``[N, F]``) tensor; the first output word is the bits;
+  * key: the seed pair ``(k0, k1)``; one draw serves four consecutive
+    elements: element ``i`` takes output word ``i mod 4`` of the draw at
+    the counter ``(g lo, g hi, site, 0)``, ``g = ⌊i / 4⌋``, with ``i`` the
+    flat element index over the real, unpadded ``[N, C]`` (or ``[N, F]``)
+    tensor;
   * keep rule (``kernel_rng.keep_mask``'s): ``u24 = bits >> 8``, keep iff
     ``u24 · 2⁻²⁴ ≥ p``, the kept value scaled by ``1 / (1 − p)`` in
     float32 (:func:`keep_scale`), then cast;
@@ -29,6 +31,7 @@ same mask on the CPU and on the card.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -77,6 +80,7 @@ def stream_seed(root: int, *ids: int) -> Tuple[int, int]:
     return int(out[0]), int(out[1])
 
 
+@functools.lru_cache(maxsize=64)
 def keep_scale(p: float) -> float:
     """``1 / (1 − p)`` rounded as float32 arithmetic rounds it."""
     return float(np.float32(1.0) / (np.float32(1.0) - np.float32(p)))
@@ -85,12 +89,16 @@ def keep_scale(p: float) -> float:
 def keep_mask(seed: Tuple[int, int], site: int, p: float, count: int,
               start: int = 0, device=None) -> torch.Tensor:
     """The float32 ``{0, 1/(1−p)}`` mask of the ``count`` elements from
-    flat index ``start`` (a 1-D tensor): exactly what the kernels apply."""
-    idx = torch.arange(start, start + count, dtype=torch.int64,
-                       device=device)
-    bits = philox4x32(int(seed[0]), int(seed[1]), idx & MASK32, idx >> 32,
-                      torch.full_like(idx, int(site)),
-                      torch.zeros_like(idx))[0]
+    flat index ``start`` (a 1-D tensor): exactly what the kernels apply.
+    ``start`` and ``count`` need not be multiples of 4: the groups that
+    hold the range are drawn whole and cut to it."""
+    first = start >> 2
+    g = torch.arange(first, ((start + count + 3) >> 2), dtype=torch.int64,
+                     device=device)
+    words = philox4x32(int(seed[0]), int(seed[1]), g & MASK32, g >> 32,
+                       torch.full_like(g, int(site)), torch.zeros_like(g))
+    off = start - 4 * first
+    bits = torch.stack(words, dim=1).reshape(-1)[off:off + count]
     u = (bits >> 8).to(torch.float32) * U24
     keep = u >= torch.tensor(p, dtype=torch.float32)
     return keep.to(torch.float32) * keep_scale(p)

@@ -22,6 +22,7 @@ module of the port, and that machine has no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,9 +64,9 @@ _ENTRIES = {
     "nrse_fused_ffn_fwd_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _U, _U, _F, _F, _F, _F, _I, _I, _I, _I,
                                  _P],
-    "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _U, _U, _F, _F, _F,
-                              _F, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _P],
+    "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
+                              _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _P],
     "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nrse_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _F, _I, _P],
     "nrse_channel_layernorm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
@@ -155,6 +156,17 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def on_device(dev):
+    """A context that makes the card ``dev`` current for a launch: a no-op
+    when it already is (entering ``torch.cuda.device`` costs host time on
+    every call of a wrapper)."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check(err: int, what: str) -> None:

@@ -130,3 +130,21 @@ def test_seeded_grads_equal_masked_with_dumped_masks():
         grads.append([out.detach()] + [a.grad for a in args])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, (1, 1, 32, 8, 4096)),
+    (127, (8, 1, 32, 8, 8192)),
+    (128, (8, 1, 32, 8, 8192)),
+    (8964, (561, 71, 2272, 568, 561 * 1024)),
+    (15968, (998, 125, 4000, 1000, 998 * 1024)),
+])
+def test_dx_plan(n, want):
+    """K2's dx kernel at C = 1024, F = 4096: dh2 chunks of 16 rows, 128-row
+    tiles of the wgmma products, their 128 x 128 tile counts, and scratch
+    for the larger of the two sets of partial column sums."""
+    plan = port.dx_plan(n, 1024, 4096)
+    assert (plan["dh2_chunks"], plan["row_tiles"], plan["dgd_tiles"],
+            plan["dx_tiles"], plan["scratch"]) == want
+    assert plan["scratch"] >= max(plan["dh2_chunks"] * 1024,
+                                  plan["row_tiles"] * 4096)
