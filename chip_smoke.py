@@ -15,10 +15,13 @@ not 0:
   3. kernel A (block gated attention) against its plain PyTorch version at
      the serving shapes (bf16, B=32, H=16, D=64, T=249 with ragged key
      masks and one fully masked row, and T=384) and at T ∈ {1, 63, 65,
-     257, 383} (ragged last tiles, ragged keys), with µs per call of both
-     and of the library call (``scaled_dot_product_attention`` with the
-     dense float bias); and that a gradient flows through it under
-     autograd;
+     257, 383} (ragged last tiles, ragged keys; up to 256 frames the
+     one-pass wgmma route, above it the two-pass one), every buffer inside
+     NaN guard bands, two calls bit-equal; HGMMA in the one-pass route's
+     SASS, registers and no spills; µs per call of both and of the
+     library call (``scaled_dot_product_attention`` with the dense float
+     bias), the kernel's device time; and that a gradient flows through it
+     under autograd;
   3b. K3 (block attention backward) and kernel A's dropout at the training
      shapes (bf16, B=36, H=16, D=64, T=249 with ragged key masks and one
      fully masked row, and T=384, p = 0.1) and at T ∈ {1, 63, 65, 257,
@@ -26,12 +29,19 @@ not 0:
      against at least 1e-3): the seeded forward and backward
      equal the explicit-mask ones fed K1's dump at the attention site, bit
      for bit; out, dq, dk, dv, dgate, dbias ≤ 1e-2 and lse ≤ 1e-3 of the
-     plain versions' max|·|; two backward calls give the same bits; the
-     autograd Function equals the direct calls; µs per call of both and
-     of SDPA's backward;
-  4. kernel B (fused FFN, serving entry) against its plain version at
-     N=7968 (32 clips of 249 frames), C=1024, F=4096, µs per call of both
-     and of ``F.linear`` → exact GELU → ``F.linear`` in bf16;
+     plain versions' max|·|; two forward and two backward calls give the
+     same bits; every buffer of both inside NaN guard bands; the autograd
+     Function equals the direct calls; µs per call of both and of SDPA's
+     backward;
+  4. kernel B (fused FFN: two wgmma GEMMs fed by TMA), its serving entry
+     at N = 32·249 = 7968, 32·499 = 15968 and 32·749 = 23968 and its
+     training entry (both dropout sites seeded, h1 saved) at N = 36·249,
+     both also at N ∈ {1, 127, 129}, C=1024, F=4096, against the plain
+     version, every buffer inside NaN guard bands, two calls bit-equal,
+     the training entry fed K1's dumps of its masks bit-equal to its
+     seeded run; HGMMA in both GEMMs' SASS, no spills; µs per call at the
+     large N of kernel, plain and ``F.linear`` → exact GELU → ``F.linear``
+     in bf16, and the kernel's device time split into GEMM1 and GEMM2;
   5. serving — WavLM-large at full width (24 layers, 1024 wide, 16 heads,
      FFN 4096) with seeded random weights, exported with buckets
      (1, 8, 32) and 5 s clips, loaded by ``ServingModel`` on the card,
@@ -61,21 +71,24 @@ not 0:
      autograd's backward of the library forward of phase 4, the dx kernel
      at both N with its time on the card split by kernel;
   8. K4 (AdamW + EMA) over the flat BYOL parameter set (~326 M) against
-     the plain version (≤ 1e-6 relative); µs per call and GB/s, and of
+     the plain version (≤ 1e-6 relative), the state it updates inside NaN
+     guard bands; µs per call and GB/s, and of
      ``torch.optim.AdamW(fused=True)`` + ``torch._foreach_lerp_``;
   8b. K5 (flash attention forward, T > 384) against its plain version at
      H=16, D=64: B=4 at T ∈ {385, 449} (T ≡ 1 mod 64: a last key tile of
      one key) and T ∈ {499, 749, 1499}, the evaluator's B=32 at T ∈ {499,
      749, 1499}, and B=1, T=3199 (the streamed regime of the TPU
      kernels), ragged key masks and, for B > 1, a wholly masked batch
-     row: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked
+     row, every buffer inside NaN guard bands: out ≤ 1e-2 and lse ≤ 1e-3
+     of max|ref|, the wholly masked
      row finite and within 1e-2 of plain; µs per call of kernel, plain and
      SDPA (dense float bias built outside the timed call) at B=32 and at
      B=1, T=3199;
   8c. K5's backward (the dq kernel with its dbias fold, and the dk/dv
      kernel) against the plain backward at 8b's shapes (ragged keys, a
-     wholly masked row for B > 1): dq, dk, dv, dgate and dbias_rel ≤ 1e-2
-     of plain's max|·|, two calls bit-equal, the autograd Function equal
+     wholly masked row for B > 1), every buffer inside NaN guard bands:
+     dq, dk, dv, dgate and dbias_rel ≤ 1e-2 of plain's max|·|, two calls
+     bit-equal, the autograd Function equal
      to the direct calls; µs per call of each kernel, of the pair, of
      plain and of SDPA's backward with the dense bias requiring grad at
      B=32 and at B=1, T=3199, beside the bound (5 products, or each
@@ -170,6 +183,7 @@ the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -335,10 +349,25 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
+def check_no_spills(usage, what: str) -> None:
+    """Fail if any kernel of ``kernel_resources``' list spills."""
+    spilled = [name for name, u in usage
+               if not {"STACK:0", "LOCAL:0"} <= set(u.split())]
+    if spilled:
+        raise RuntimeError(f"{what} spill registers: {spilled}")
+
+
 def phase_kernel_a() -> dict:
+    """Kernel A against its plain version at the serving shapes and at
+    ragged T, every input, output and scratch buffer inside NaN guard
+    bands, two calls bit-equal; the one-pass route's SASS read for HGMMA,
+    registers and spills; its time beside plain, SDPA and the bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, h, d = 32, 16, 64
+    check_hgmma("block_attention_fwd_wgmma", tag="kernel A")
+    check_no_spills(kernel_resources(("block_attention_fwd",),
+                                     tag="kernel A"), "kernel A's routes")
     worst, timing = 0.0, None
     for t in (249, 384, *BLOCK_RAGGED_T):
         q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev)
@@ -355,9 +384,15 @@ def phase_kernel_a() -> dict:
             mask = (torch.arange(t, device=dev)[None, :]
                     < lengths[:, None]).to(torch.int32)
             rows = lengths > 0  # lse of an all-padded row is ~-1e9
-        out, lse = block_attention.block_gated_attention_lse(
-            q, k, v, gate, bias, mask)
-        torch.cuda.synchronize()
+        with GuardBands(block_attention) as guard, torch.no_grad():
+            args = [guard.band(x) for x in (q, k, v, gate, bias)]
+            gmask = None if mask is None else guard.band(mask)
+            out, lse = block_attention.block_gated_attention_lse(*args, gmask)
+            again = block_attention.block_gated_attention_lse(*args, gmask)
+            guard.check(f"kernel A at T={t}")
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise RuntimeError(f"kernel A: two calls differ at T={t}")
+        del again
         ref, ref_lse = gated_bias_attention_lse(q, k, v, gate, bias, mask)
         if not (torch.isfinite(out.float()).all()
                 and torch.isfinite(lse).all()):
@@ -365,8 +400,10 @@ def phase_kernel_a() -> dict:
         e_out = rel_err(out, ref)
         e_lse = rel_err(lse[rows], ref_lse[rows])
         abs_err = float((out.float() - ref.float()).abs().max())
-        log(f"[kernel A] T={t} masked={mask is not None}: out rel "
-            f"{e_out:.3e} (abs {abs_err:.3e}), lse rel {e_lse:.3e}")
+        route = "one pass" if -(-t // 64) * 64 <= 256 else "two passes"
+        log(f"[kernel A] T={t} ({route}) masked={mask is not None}: out rel "
+            f"{e_out:.3e} (abs {abs_err:.3e}), lse rel {e_lse:.3e}; two "
+            f"calls bit-equal, guard bands untouched")
         if e_out > OUT_TOL or e_lse > LSE_TOL:
             raise RuntimeError(f"kernel A disagrees with its plain version "
                                f"at T={t}: out {e_out}, lse {e_lse}")
@@ -374,6 +411,9 @@ def phase_kernel_a() -> dict:
         if t == 249:
             ms = cuda_ms(lambda: block_attention.block_gated_attention_lse(
                 q, k, v, gate, bias, mask))
+            dev_us = device_us(
+                lambda: block_attention.block_gated_attention_lse(
+                    q, k, v, gate, bias, mask))
             plain_ms = cuda_ms(lambda: gated_bias_attention_lse(
                 q, k, v, gate, bias, mask))
             madd = mask_add(mask, b, t, dev)
@@ -386,9 +426,10 @@ def phase_kernel_a() -> dict:
                 4.0 * b * h * t * t * d,
                 nbytes(q, k, v, gate, bias, madd, out, lse)))
             log(f"[kernel A] B={b} H={h} T={t} D={d}: kernel "
-                f"{ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} "
-                f"us/call, SDPA with the dense bias {lib_ms * 1e3:.1f} "
-                f"us/call; bound {timing[3]['bound_ms'] * 1e3:.1f} us "
+                f"{ms * 1e3:.1f} us/call (on the card {_us_line(dev_us)}), "
+                f"plain {plain_ms * 1e3:.1f} us/call, SDPA with the dense "
+                f"bias {lib_ms * 1e3:.1f} us/call; bound "
+                f"{timing[3]['bound_ms'] * 1e3:.1f} us "
                 f"({timing[3]['bound_by']})")
     # under autograd the output is differentiable: a gradient flows to q
     qr = q.detach().requires_grad_()
@@ -442,22 +483,30 @@ def phase_k3() -> dict:
                                                device=dev)
         keep = dump.view(b, t, h, d).permute(0, 2, 1, 3).contiguous()
         seeded = block_attention._Drop(seed=seed, p=DROP_P)
-        masked = block_attention._Drop(mask=keep)
-        with torch.no_grad():
-            out, lse = block_attention._kernel_fwd(q, k, v, gate, bias, mask,
-                                                   seeded)
-            m_out, m_lse = block_attention._kernel_fwd(q, k, v, gate, bias,
-                                                       mask, masked)
-            grads = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
-                                                out, lse, do, seeded)
-            again = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
-                                                out, lse, do, seeded)
-            m_grads = block_attention._kernel_bwd(q, k, v, gate, bias, madd,
-                                                  out, lse, do, masked)
-        torch.cuda.synchronize()
+        # every input, output and scratch buffer of both kernels inside
+        # NaN guard bands
+        with GuardBands(block_attention) as guard, torch.no_grad():
+            args = [guard.band(x) for x in (q, k, v, gate, bias)]
+            gmask = None if mask is None else guard.band(mask)
+            gmadd, gdo = guard.band(madd), guard.band(do)
+            masked = block_attention._Drop(mask=guard.band(keep))
+            out, lse = block_attention._kernel_fwd(*args, gmask, seeded)
+            f_again = block_attention._kernel_fwd(*args, gmask, seeded)
+            m_out, m_lse = block_attention._kernel_fwd(*args, gmask, masked)
+            grads = block_attention._kernel_bwd(*args, gmadd, out, lse, gdo,
+                                                seeded)
+            again = block_attention._kernel_bwd(*args, gmadd, out, lse, gdo,
+                                                seeded)
+            m_grads = block_attention._kernel_bwd(*args, gmadd, out, lse,
+                                                  gdo, masked)
+            guard.check(f"kernel A / K3 at T={t}")
         if not (torch.equal(out, m_out) and torch.equal(lse, m_lse)):
             raise RuntimeError(f"K3 phase: the seeded forward's mask differs "
                                f"from K1's dump at T={t}")
+        if not (torch.equal(out, f_again[0]) and torch.equal(lse, f_again[1])):
+            raise RuntimeError(f"kernel A with dropout: two calls differ at "
+                               f"T={t}")
+        del f_again
         for name, a, a2, m in zip(GRAD_NAMES, grads, again, m_grads):
             if not torch.equal(a, m):
                 raise RuntimeError(f"K3: the seeded {name} differs from the "
@@ -482,7 +531,8 @@ def phase_k3() -> dict:
                   for n, r in zip(GRAD_NAMES, refs)}
         log(f"[K3] B={b} H={h} T={t} D={d} p={DROP_P} masked="
             f"{mask is not None}: seeded = explicit K1-dump mask bit for bit "
-            f"(fwd and bwd), two backward calls bit-equal; max|Δ|/max|ref| "
+            f"(fwd and bwd), two forward and two backward calls bit-equal, "
+            f"guard bands untouched; max|Δ|/max|ref| "
             f"vs plain " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + "; max|ref| " + ", ".join(f"{n} {v:.3e}"
                                         for n, v in scales.items()))
@@ -510,6 +560,8 @@ def phase_k3() -> dict:
             with torch.no_grad():
                 fwd_ms = cuda_ms(lambda: block_attention._kernel_fwd(
                     q, k, v, gate, bias, mask, seeded))
+                fwd_us = device_us(lambda: block_attention._kernel_fwd(
+                    q, k, v, gate, bias, mask, seeded))
                 fwd_plain = cuda_ms(lambda: gated_bias_attention_fwd(
                     q, k, v, gate, bias, madd, keep), iters=10)
                 ms = cuda_ms(lambda: block_attention._kernel_bwd(
@@ -530,7 +582,8 @@ def phase_k3() -> dict:
                 10.0 * b * h * t * t * d,
                 nbytes(q, k, v, gate, bias, madd, out, lse, do, *grads)))
             log(f"[K3] B={b} H={h} T={t}: kernel A with dropout "
-                f"{fwd_ms * 1e3:.1f} us/call, plain {fwd_plain * 1e3:.1f} "
+                f"{fwd_ms * 1e3:.1f} us/call (on the card "
+                f"{_us_line(fwd_us)}), plain {fwd_plain * 1e3:.1f} "
                 f"us/call; K3 backward {ms * 1e3:.1f} us/call, plain "
                 f"{plain_ms * 1e3:.1f} us/call, SDPA's backward (no "
                 f"dropout) {lib_ms * 1e3:.1f} us/call; bound "
@@ -543,45 +596,131 @@ def phase_k3() -> dict:
             **timing[3], "library_ms": timing[2]}
 
 
-def phase_kernel_b() -> dict:
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    n, c, f = 32 * 249, 1024, 4096
-    x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
+# kernel B's serving entry at BYOL's / serving's, the fine-tune's and the
+# 15 s SER bucket's rows; its training entry at BYOL's; both at ragged N
+KB_SERVE_N = (32 * 249, 32 * 499, 32 * 749)
+KB_TRAIN_N = 36 * 249
+KB_RAGGED_N = (1, 127, 129)
+
+
+def _ffn_weights(gen, dev, c=1024, f=4096):
+    """Seeded FFN weights ``(w1, b1, w2, b2)``, bf16 matrices."""
     w1 = (torch.randn(f, c, generator=gen, device=dev) * c ** -0.5
           ).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
     w2 = (torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
           ).to(torch.bfloat16)
-    b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(c, generator=gen, device=dev)
-    out = fused_ffn.fused_ffn(x, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    ref = fused_ffn.ffn_plain(x, w1, b1, w2, b2)
-    if not torch.isfinite(out.float()).all():
-        raise RuntimeError("kernel B: non-finite output")
-    err = rel_err(out, ref)
-    abs_err = float((out.float() - ref.float()).abs().max())
-    log(f"[kernel B] N={n} C={c} F={f}: out rel {err:.3e} "
-        f"(abs {abs_err:.3e})")
-    if err > OUT_TOL:
-        raise RuntimeError(f"kernel B disagrees with its plain version: "
-                           f"{err}")
-    ms = cuda_ms(lambda: fused_ffn.fused_ffn(x, w1, b1, w2, b2))
-    plain_ms = cuda_ms(lambda: fused_ffn.ffn_plain(x, w1, b1, w2, b2))
-    b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-    lib_ms = cuda_ms(lambda: library_ffn(x, w1, b1h, w2, b2h))
+    return w1, b1, w2, b2
+
+
+def _check_kernel_b(gen, n, weights, train: bool, seed, dev) -> dict:
+    """Kernel B's serving entry (``train`` False) or its training entry
+    (both dropout sites seeded, h1 saved) at ``n`` rows, every input,
+    output and scratch buffer inside NaN guard bands: two calls bit-equal,
+    the training entry fed K1's dumps of its masks bit-equal to its seeded
+    run; then against plain.  Returns the inputs and ``max|Δ|``."""
+    c, f = weights[0].shape[1], weights[0].shape[0]
+    x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
+    drop, masks = fused_ffn._Drop(), (None, None)
+    if train:
+        drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
+        masks = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
+                                     device=dev)
+    with GuardBands(fused_ffn) as guard, torch.no_grad():
+        args = [guard.band(t) for t in (x, *weights)]
+        got = fused_ffn._kernel_fwd(*args, drop, train)
+        again = fused_ffn._kernel_fwd(*args, drop, train)
+        if train:
+            m_drop = fused_ffn._Drop(masks=tuple(guard.band(m)
+                                                 for m in masks))
+            m_got = fused_ffn._kernel_fwd(*args, m_drop, True)
+        guard.check(f"kernel B at N={n}")
+    names = ("out", "h1", "gd")
+    for name, a, a2 in zip(names, got, again):
+        if a is not None and not torch.equal(a, a2):
+            raise RuntimeError(f"kernel B at N={n}: two calls differ in "
+                               f"{name}")
+    if train:
+        for name, a, m in zip(names, got, m_got):
+            if not torch.equal(a, m):
+                raise RuntimeError(f"kernel B at N={n}: the explicit masks' "
+                                   f"{name} differs from the seeded run")
+    with torch.no_grad():
+        refs = fused_ffn.ffn_plain_fwd(x, *weights, *masks)
+    errs = {k: rel_err(a, r) for k, a, r in zip(names, got, refs)
+            if a is not None}
+    if not all(torch.isfinite(a.float()).all() for a in got if a is not None):
+        raise RuntimeError(f"kernel B at N={n}: non-finite output")
+    entry = "training" if train else "serving"
+    log(f"[kernel B] {entry} N={n}: two calls bit-equal"
+        + (", explicit masks = seeded bit for bit" if train else "")
+        + ", guard bands untouched; max|Δ|/max|ref| vs plain "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    if max(errs.values()) > OUT_TOL:
+        raise RuntimeError(f"kernel B disagrees with plain at N={n}: {errs}")
+    return {"x": x, "drop": drop, "masks": masks,
+            "abs": max(float((a.float() - r.float()).abs().max())
+                       for a, r in zip(got, refs) if a is not None)}
+
+
+def _time_kernel_b(x, weights, drop, masks, train: bool) -> dict:
+    """Kernel B's call, its two GEMMs on the card, plain and the library's
+    ``F.linear``-GELU-``F.linear`` at ``x``'s rows, beside the bound."""
+    n, c = x.shape
+    f = weights[0].shape[0]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused_ffn._kernel_fwd(x, *weights, drop, train))
+        dev_us = device_us(lambda: fused_ffn._kernel_fwd(x, *weights, drop,
+                                                         train))
+        plain_ms = cuda_ms(lambda: fused_ffn.ffn_plain_fwd(
+            x, *weights, *masks), iters=3, warmup=1)
+        w1, b1, w2, b2 = weights
+        b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: library_ffn(x, w1, b1h, w2, b2h))
     flop = 4.0 * n * c * f
-    bd = bound(flop, nbytes(x, w1, b1, w2, b2, out))
-    log(f"[kernel B] kernel {ms * 1e3:.1f} us/call "
-        f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
-        f"us/call ({flop / plain_ms / 1e9:.1f} TFLOP/s), F.linear-GELU-"
-        f"F.linear {lib_ms * 1e3:.1f} us/call ({flop / lib_ms / 1e9:.1f} "
-        f"TFLOP/s); bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+    # inputs once, out (and in training h1 and gd, [n, f] bf16) once
+    moved = nbytes(x, *weights) + 2 * n * c + (4 * n * f if train else 0)
+    bd = bound(flop, moved)
+    log(f"[kernel B] {'training' if train else 'serving'} N={n}: kernel "
+        f"{ms * 1e3:.1f} us/call ({flop / ms / 1e9:.1f} TFLOP/s), on the card "
+        f"{sum(dev_us.values()):.1f} us ({_us_line(dev_us)}); plain "
+        f"{plain_ms * 1e3:.1f} us/call, F.linear-GELU-F.linear "
+        f"{lib_ms * 1e3:.1f} us/call ({flop / lib_ms / 1e9:.1f} TFLOP/s); "
+        f"bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+
+
+def phase_kernel_b() -> dict:
+    """Kernel B's serving entry at the serving, fine-tune and 15 s SER
+    rows and its training entry at BYOL's, both at ragged N, against plain
+    inside guard bands (two calls bit-equal; the training entry's
+    explicit masks equal its seeded ones); HGMMA in both GEMMs' SASS, no
+    spills; times beside plain, the library and the bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    seed = philox.stream_seed(SEED, 0, 0, 0, 1)
+    for epilogue in ("EpiGelu", "EpiBias"):
+        check_hgmma(epilogue, tag="kernel B")
+    check_no_spills(kernel_resources(("EpiGelu", "EpiBias"), tag="kernel B"),
+                    "kernel B's GEMMs")
+    weights = _ffn_weights(gen, dev)
+    worst, row = 0.0, None
+    cases = [(n, False) for n in (*KB_SERVE_N, *KB_RAGGED_N)] \
+        + [(n, True) for n in (KB_TRAIN_N, *KB_RAGGED_N)]
+    for n, train in cases:
+        r = _check_kernel_b(gen, n, weights, train, seed, dev)
+        worst = max(worst, r["abs"])
+        if n in KB_SERVE_N or n == KB_TRAIN_N:
+            times = _time_kernel_b(r["x"], weights, r["drop"], r["masks"],
+                                   train)
+            if n == KB_SERVE_N[0] and not train:
+                row = times
+        del r
     return {"name": "fused_ffn_fwd", "route": "cuda",
             "source": "nrse_tpu_torch/csrc/fused_ffn_fwd.cu",
             "replaces": "nrse_tpu/ops/fused_ffn.py:110",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, **bd,
-            "library_ms": lib_ms}
+            "max_abs_err": worst, **row}
 
 
 def library_ffn(x, w1, b1, w2, b2):
@@ -747,20 +886,25 @@ def phase_k1() -> dict:
             "max_abs_err": err, **row}
 
 
-def check_hgmma(pattern: str = "gemm_tn_kernel") -> None:
+@functools.lru_cache(maxsize=1)
+def _sass(library: str) -> str:
+    """The built library's SASS, as ``cuobjdump -sass`` lists it."""
+    return subprocess.run([_cuda_bin("cuobjdump"), "-sass", library],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+
+
+def check_hgmma(pattern: str = "gemm_tn_kernel", tag: str = "K2") -> None:
     """Fail unless every kernel whose name holds ``pattern`` runs its
     products on wgmma: ``HGMMA`` in its SASS, as ``cuobjdump -sass`` reads
     it from the built library."""
-    sass = subprocess.run([_cuda_bin("cuobjdump"), "-sass",
-                           str(cuda_build.library_path())],
-                          capture_output=True, text=True, check=True,
-                          timeout=600).stdout
     counts = {}
+    sass = _sass(str(cuda_build.library_path()))
     for section in sass.split("Function : ")[1:]:
         name = section.split("\n", 1)[0].strip()
         if pattern in name:
             counts[name] = section.count("HGMMA")
-    log(f"[K2] HGMMA instructions in the SASS of {pattern}: "
+    log(f"[{tag}] HGMMA instructions in the SASS of {pattern}: "
         + ", ".join(f"{k[-40:]} {v}" for k, v in counts.items()))
     if not counts or not all(counts.values()):
         raise RuntimeError(f"{pattern}: no HGMMA in its SASS ({counts})")
@@ -855,13 +999,11 @@ def phase_k2() -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n, c, f = TRAIN_BATCH * 249, 1024, 4096
     seed = philox.stream_seed(SEED, 0, 0, 0, 2)
-    check_hgmma()
-    usage = kernel_resources(("gemm_tn_kernel", "dh2_kernel", "colsum_fold",
-                              "transpose_cast"), tag="K2")
-    spilled = [name for name, u in usage
-               if not {"STACK:0", "LOCAL:0"} <= set(u.split())]
-    if spilled:
-        raise RuntimeError(f"K2's dx kernels spill registers: {spilled}")
+    for epilogue in ("EpiDgd", "EpiStoreBf16"):
+        check_hgmma(epilogue)
+    check_no_spills(kernel_resources(("EpiDgd", "EpiStoreBf16", "dh2_kernel",
+                                      "colsum_fold", "transpose_cast"),
+                                     tag="K2"), "K2's dx kernels")
     x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
     dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)
             ).to(torch.bfloat16)
@@ -1003,15 +1145,19 @@ def phase_k4() -> dict:
     with torch.no_grad():
         sc = fused_optimizer.scalars(spec, 3, grad_norm)
         ref = fused_optimizer.adamw_ema_plain(sc, g, p, mu, nu, pt)
-        fused_optimizer.fused_adamw_ema_update(g, p, mu, nu, pt, spec, 3,
-                                               grad_norm)
-        torch.cuda.synchronize()
+        # the state it updates in place, and its gradient, inside NaN
+        # guard bands
+        with GuardBands(fused_optimizer) as guard:
+            g, p, mu, nu, pt = (guard.band(t) for t in (g, p, mu, nu, pt))
+            fused_optimizer.fused_adamw_ema_update(g, p, mu, nu, pt, spec, 3,
+                                                   grad_norm)
+            guard.check("K4")
     errs = {k: rel_err(a, b) for k, a, b in zip(
         ("p", "mu", "nu", "target"), (p, mu, nu, pt), ref)}
     abs_err = max(float((a - b).abs().max())
                   for a, b in zip((p, mu, nu, pt), ref))
-    log(f"[K4] {n / 1e6:.1f} M params ({n_ema / 1e6:.1f} M with EMA): "
-        f"max|Δ|/max|ref| vs plain " +
+    log(f"[K4] {n / 1e6:.1f} M params ({n_ema / 1e6:.1f} M with EMA), "
+        f"guard bands untouched: max|Δ|/max|ref| vs plain " +
         ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     if max(errs.values()) > OPT_TOL:
         raise RuntimeError(f"K4 disagrees with its plain version: {errs}")
@@ -1565,10 +1711,11 @@ def phase_k5() -> dict:
             lengths[1] = 0  # a row that pads a bucket's last batch
         q, k, v, gate, bias_rel, mask = _k5_inputs(gen, b, t, lengths)
         madd = mask_add(mask, b, t, dev)
-        with torch.no_grad():
+        with GuardBands(flash_attention) as guard, torch.no_grad():
             out, lse = flash_attention.flash_gated_attention_lse(
-                q, k, v, gate, bias_rel, mask)
-            torch.cuda.synchronize()
+                *(guard.band(x) for x in (q, k, v, gate, bias_rel, mask)))
+            guard.check(f"K5 at B={b} T={t}")
+        with torch.no_grad():
             ref, ref_lse = flash_attention.flash_attention_plain_fwd(
                 q, k, v, gate, bias_rel, madd)
         if not (torch.isfinite(out.float()).all()
@@ -1581,7 +1728,8 @@ def phase_k5() -> dict:
             else 0.0
         abs_err = float((out.float() - ref.float()).abs().max())
         log(f"[K5] B={b} H={h} T={t} D={d}, key lengths "
-            f"{sorted(lengths.tolist())[:4]}...: out rel {e_out:.3e} (abs "
+            f"{sorted(lengths.tolist())[:4]}..., guard bands untouched: out "
+            f"rel {e_out:.3e} (abs "
             f"{abs_err:.3e}), lse rel {e_lse:.3e}, wholly masked rows rel "
             f"{e_masked:.3e}")
         if e_out > OUT_TOL or e_lse > LSE_TOL or e_masked > OUT_TOL:
@@ -1647,14 +1795,15 @@ def phase_k5_bwd() -> list:
         do = torch.randn(b, h, t, d, generator=gen,
                          device=dev).to(torch.bfloat16)
         madd = mask_add(mask, b, t, dev).contiguous()
+        # every input, output and scratch buffer inside NaN guard bands
+        with GuardBands(flash_attention) as guard, torch.no_grad():
+            args = [guard.band(x) for x in (q, k, v, gate, bias_rel, madd)]
+            out, lse = flash_attention._kernel_fwd(*args)
+            gdo = guard.band(do)
+            grads = flash_attention._kernel_bwd(*args, out, lse, gdo)
+            again = flash_attention._kernel_bwd(*args, out, lse, gdo)
+            guard.check(f"K5 backward at B={b} T={t}")
         with torch.no_grad():
-            out, lse = flash_attention._kernel_fwd(q, k, v, gate, bias_rel,
-                                                   madd)
-            grads = flash_attention._kernel_bwd(q, k, v, gate, bias_rel,
-                                                madd, out, lse, do)
-            again = flash_attention._kernel_bwd(q, k, v, gate, bias_rel,
-                                                madd, out, lse, do)
-            torch.cuda.synchronize()
             refs = flash_attention.flash_attention_plain_bwd(
                 q, k, v, gate, bias_rel, madd, out, lse, do)
         names = ("dq", "dk", "dv", "dgate", "dbias")
@@ -1669,7 +1818,8 @@ def phase_k5_bwd() -> list:
         ok = lengths > 0
         masked = {n: rel_err(a[~ok], r[~ok]) for n, a, r in
                   zip(names[:4], grads[:4], refs[:4])} if (~ok).any() else {}
-        log(f"[K5 bwd] B={b} H={h} T={t} D={d}: two calls bit-equal; "
+        log(f"[K5 bwd] B={b} H={h} T={t} D={d}: two calls bit-equal, guard "
+            f"bands untouched; "
             f"max|Δ|/max|ref| vs plain " + ", ".join(
                 f"{n} {e:.2e}" for n, e in errs.items())
             + ("; the wholly masked row's " + ", ".join(
@@ -1760,7 +1910,8 @@ class GuardBands:
     """Guard bands around a kernel call's tensors.  Within the block, the
     given ops modules' ``torch.empty`` and ``torch.empty_like`` return
     views into buffers ``PAD`` elements longer on each side whose margins
-    hold NaN, so every output and scratch buffer a wrapper allocates is
+    hold NaN (an integer type's least value for integer tensors, such as
+    key masks), so every output and scratch buffer a wrapper allocates is
     banded; :meth:`band` copies an input into such a buffer.  :meth:`check`
     raises if any margin no longer holds NaN (a write past a buffer); a
     read past an input reads NaN and shows in the outputs."""
@@ -1788,9 +1939,15 @@ class GuardBands:
 
         self.proxy = Proxy()
 
+    @staticmethod
+    def _fill(dtype):
+        """The margins' value: NaN, or for an integer type its least."""
+        return float("nan") if dtype.is_floating_point \
+            else torch.iinfo(dtype).min
+
     def _banded(self, size, dtype, device):
         n = int(np.prod(size))
-        buf = torch.full((n + 2 * self.PAD,), float("nan"), dtype=dtype,
+        buf = torch.full((n + 2 * self.PAD,), self._fill(dtype), dtype=dtype,
                          device=device)
         self.buffers.append((buf, n))
         return buf[self.PAD:self.PAD + n].view(size)
@@ -1813,7 +1970,10 @@ class GuardBands:
         torch.cuda.synchronize()
         for buf, n in self.buffers:
             margins = torch.cat([buf[:self.PAD], buf[self.PAD + n:]])
-            if not torch.isnan(margins.float()).all():
+            fill = self._fill(buf.dtype)
+            if not (torch.isnan(margins.float()).all()
+                    if buf.dtype.is_floating_point
+                    else (margins == fill).all()):
                 raise RuntimeError(f"{what}: a write past a buffer of "
                                    f"{n} elements (guard band changed)")
 

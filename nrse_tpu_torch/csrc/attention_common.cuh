@@ -7,8 +7,9 @@
 // element's flat index in the merged [B, T, H * 64] layout,
 // (b * T + t) * H * 64 + h * 64 + d: the index K1 (fused_dropout.cu) draws
 // at when it drops the merged tensor, so the attention kernels' masks are
-// K1's mask at the same seed.  Or it comes from an explicit f32
-// [B, H, T, 64] mask (the tests' path).
+// K1's mask at the same seed (kernel A draws once per four elements,
+// keep_bits_rows; K3 once per element, keep).  Or it comes from an
+// explicit f32 [B, H, T, 64] mask (the tests' path).
 //
 // Tiles.  A block of 4 warps works on 64 rows (queries or keys) of one
 // (b, h), a warp on 16 of them.  bf16 [64, 64] tiles of q, k, v or do sit
@@ -53,6 +54,50 @@ struct AttnDrop {
                   d];
     }
     return 1.f;
+  }
+
+  // Mode 1 with one draw per group of four (kernel A's output): the keep
+  // bits of a thread's rows t0 (word .x) and t0 + 8 (word .y) over the 64
+  // head-dim columns, in the m16n8 / m64nN accumulator layout, where the
+  // thread holds columns 8 jd + 2 (lane % 4) + e (jd < 8, e < 2).  Lanes
+  // 2 m and 2 m + 1 hold the two halves of each group of four columns, so
+  // the even lane draws row t0's groups, the odd lane row t0 + 8's, and
+  // they swap the words: bit 4 jd + 2 (lane % 2) + e keeps column
+  // 8 jd + 2 (lane % 4) + e.  Rows >= T are not drawn.  Every lane of the
+  // warp must call it.
+  __device__ __forceinline__ uint2 keep_bits_rows(int b, int h, int t0,
+                                                  int H, int T,
+                                                  int lane) const {
+    const int par = lane & 1;
+    const int t = t0 + 8 * par;
+    uint32_t own = 0u;
+    if (t < T) {
+      const uint64_t g0 =
+          ((static_cast<uint64_t>(b) * T + t) *
+               (static_cast<uint64_t>(H) * kAttnHeadDim) +
+           static_cast<uint64_t>(h) * kAttnHeadDim + 4 * ((lane & 3) >> 1)) >>
+          2;
+#pragma unroll
+      for (int jd = 0; jd < kAttnHeadDim / 8; ++jd) {
+        own |= philox_keep_bits4(k0, k1, g0 + 2 * jd, 0u, p) << (4 * jd);
+      }
+    }
+    const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
+    return par ? make_uint2(other, own) : make_uint2(own, other);
+  }
+
+  // The keep multiplier of column 8 jd + 2 (lane % 4) + e of row t of a
+  // thread's half hf, from keep_bits_rows' words (mode 1) or the explicit
+  // mask (mode 2).
+  __device__ __forceinline__ float keep_col(const uint2& bits, int hf,
+                                            int jd, int e, int lane, int b,
+                                            int h, int t, int H,
+                                            int T) const {
+    if (mode == 1) {
+      const uint32_t w = hf ? bits.y : bits.x;
+      return (w >> (4 * jd + 2 * (lane & 1) + e)) & 1u ? scale : 0.f;
+    }
+    return keep(b, h, t, 8 * jd + 2 * (lane & 3) + e, H, T);
   }
 };
 

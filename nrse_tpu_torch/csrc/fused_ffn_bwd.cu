@@ -37,10 +37,8 @@
 //     tile's rows in shared memory in a fixed order; it runs while the
 //     other consumer warpgroup's main loop keeps the tensor cores busy.
 //     Its keep bits come from the producer warpgroup's three spare warps,
-//     one Philox draw per four elements, into shared memory: in the
-//     accumulator layout threads 2m and 2m + 1 hold the two halves of each
-//     group of four columns, so a draw's words 0-1 go to the one and 2-3 to
-//     the other, nothing drawn twice or thrown away.  Two small
+//     one Philox draw per four elements, into shared memory
+//     (wgmma_gemm.cuh keep_bits_job).  Two small
 //     passes finish db2 and db1 over the partials in a fixed order.
 //   * dW: each 128 x 128 output tile is one block that loops over all N
 //     rows (both operands read transposed, mma_gemm.cuh): no split-K and
@@ -187,41 +185,21 @@ colsum_fold_kernel(const float* __restrict__ part, int rows, int cols,
 // over it in place and leaves by TMA.
 struct EpiDgd {
   static constexpr bool kSideTile = true;
+  static constexpr bool kSideLoad = true;
   // per consumer: f32 partial column sums [4 warps][128 columns][4], one
   // per pair of row lanes and column over their 8 rows of the tile
   static constexpr int kScratchFloats = 4 * kBN * 4;
-  // keep bits: 4 words per consumer thread, (r, h) = word 2 r + h, element
-  // (r, h, j, e) at bit 2 j + e; 256 jobs of 16 draws
-  static constexpr int kAuxWords = 4;
-  static constexpr int kAuxJobs = 256;
+  // keep bits: nrse::wg::keep_bits_job's words, drawn by the producer's
+  // spare warps
+  static constexpr int kAuxWords = nrse::wg::kKeepAuxWords;
+  static constexpr int kAuxJobs = nrse::wg::kKeepAuxJobs;
   float* part;  // [ceil(N / 128), F]
   int M, ld;    // N, F
   DropSite act;
 
-  // Job (p, r, h): the keep bits of consumer threads 2 p and 2 p + 1 at
-  // row block r, row half h: one Philox draw per group of four columns,
-  // words 0-1 to the even lane (its two columns), 2-3 to the odd one.
   __device__ __forceinline__ void aux(int mt, int n0, int job,
                                       uint32_t* words) const {
-    if (act.mode != 1) return;
-    const int t = 2 * (job >> 2);  // the even consumer thread of the pair
-    const int rh = job & 3;
-    const int lane = t & 31;
-    const int row = mt * nrse::wg::kBM + (t >> 5) * 16 + (lane >> 2) +
-                    64 * (rh >> 1) + 8 * (rh & 1);
-    const uint64_t g0 = (static_cast<uint64_t>(row) * ld + n0 +
-                         4 * ((lane & 3) >> 1)) >> 2;
-    uint32_t even = 0u, odd = 0u;
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      // column chunk j starts 8 j columns, 2 groups, further on
-      const uint32_t bits =
-          nrse::philox_keep_bits4(act.k0, act.k1, g0 + 2 * j, act.site, act.p);
-      even |= (bits & 3u) << (2 * j);
-      odd |= (bits >> 2) << (2 * j);
-    }
-    words[t * kAuxWords + rh] = even;
-    words[(t + 1) * kAuxWords + rh] = odd;
+    nrse::wg::keep_bits_job(act, ld, mt, n0, job, words);
   }
 
   __device__ __forceinline__ void store(float (&acc)[2][64],
@@ -298,6 +276,7 @@ struct EpiDgd {
 // The dx product's epilogue: bf16 out, rows < M.
 struct EpiStoreBf16 {
   static constexpr bool kSideTile = false;
+  static constexpr bool kSideLoad = false;
   static constexpr int kScratchFloats = 0;
   static constexpr int kAuxWords = 0;
   static constexpr int kAuxJobs = 0;
@@ -406,12 +385,12 @@ extern "C" int nrse_fused_ffn_bwd_dw(const void* x, const void* gd,
   if (bad_shape(N, C, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EpiStoreF32 e1{static_cast<float*>(dw1), C};
-  cudaError_t err = nrse::gemm::launch<true, true>(
+  cudaError_t err = nrse::gemm::launch(
       static_cast<const bf16*>(dh1), static_cast<const bf16*>(x), F, C, N,
       e1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const EpiStoreF32 e2{static_cast<float*>(dw2), F};
-  return static_cast<int>(nrse::gemm::launch<true, true>(
+  return static_cast<int>(nrse::gemm::launch(
       static_cast<const bf16*>(dh2), static_cast<const bf16*>(gd), C, F, N,
       e2, s));
 }

@@ -6,7 +6,7 @@
 // fused_ffn_bwd.cu).
 //
 // Computes, with the weights in torch [out, in] layout (both products are
-// K-major, "NT" GEMMs):
+// K-major "TN" GEMMs, wgmma's native operands):
 //   h1  = x . W1^T + b1                        x [N, C], W1 [F, C], f32
 //   h   = bf16(gelu_erf(h1) * keep_act)        h [N, F]  (site 0 over [N, F])
 //   out = bf16((h . W2^T + b2) * keep_hid)     W2 [C, F], out [N, C]
@@ -21,20 +21,40 @@
 //
 // What bounds it on the H100: at N = 36 x 249 = 8964 rows, C = 1024,
 // F = 4096 the pair is ~150 GFLOP against ~100 MB of operands (plus 73 MB
-// for h1 in training), so it is bound by the tensor cores; Philox costs
-// ~50 integer instructions per draw, one draw per pair of neighbouring
-// elements (the two columns of an accumulator pair share a group of the
-// contract, philox.cuh).
+// for h1 in training): the tensor cores, ~152 us at 989 TFLOP/s.
 //
-// Design: the tiled GEMM of mma_gemm.cuh, launched twice: GEMM1 with a
-// bias + GELU (+ h1 save + activation mask) epilogue that writes bf16 h,
-// then GEMM2 with a bias (+ hidden mask) epilogue.  Rows beyond N are
-// zero-filled on load and masked on store, so N need not be a multiple of
-// the tile.  The serving entry instantiates epilogues without the training
-// work, so its code is what it was before dropout existed.  The TPU
-// kernel's point is that h never leaves the chip; here h makes one round
-// trip through device memory.  Keeping h on chip, and wgmma/TMA in place
-// of mma.sync/cp.async, are the first performance items for this kernel.
+// Design: two launches of the persistent wgmma GEMM of wgmma_gemm.cuh (TMA
+// into a ring of 128-byte-swizzled tiles, a producer warpgroup and two
+// ping-pong consumer warpgroups, so one tile's epilogue runs while the
+// other consumer's main loop keeps the tensor cores busy): GEMM1 x . W1^T
+// (M = N, N = F, K = C) with the bias + GELU (+ h1 + activation keep)
+// epilogue that writes bf16 h, then GEMM2 h . W2^T (M = N, N = C, K = F)
+// with the bias (+ hidden keep) epilogue.  Rows of x or h past N arrive as
+// zeros from TMA and are not stored, so every N >= 1 works; C and F are
+// multiples of 128.
+//
+// GEMM1's epilogue, not its 16-step main loop (K = C = 1024), sets its
+// time: h leaves through the consumer's side tile in shared memory and a
+// TMA store (4 ring stages then) rather than as scattered 4-byte stores,
+// which cut the training GEMM1 from 424-472 to 314-356 us; h1 is stored
+// straight from the accumulators.  The keep bits of both sites come from
+// the producer warpgroup's three spare warps (keep_bits_job: one Philox
+// draw per group of four columns, words 0-1 to the even thread of a pair
+// and 2-3 to the odd one) into shared memory: drawing in the epilogue
+// would spill beside the 128 accumulators a thread holds under ptxas's
+// 168-register cap.  That cap is what this epilogue is shaped by: a
+// variant that stored h1 from a separate pass before the GELU (GEMM1 at
+// N = 8964 in 253 us instead of 356) spilled 72-80 bytes, whatever else
+// was tried.  The serving entry instantiates epilogues without the
+// training work (no aux words, no h1, no keep).  GEMM2 (K = F = 4096) is
+// bound by its main loop and stores directly.
+//
+// Why h makes a round trip through device memory, where the TPU kernel
+// keeps it in VMEM (nrse_tpu/ops/fused_ffn.py:110-160): fusing the two
+// products needs an f32 [rows, C] accumulator across all of F, at C = 1024
+// 512 KB for 128 rows, twice an SM's register file.  The round trip is
+// ~39 us of HBM time at N = 7968 against ~2 x 130 us of products, and the
+// training forward must write h (gd) and h1 for K2 anyway.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,63 +62,122 @@
 
 #include "mma_gemm.cuh"
 #include "philox.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using nrse::DropSite;
-using namespace nrse::gemm;
+using nrse::gemm::gelu_erf;
+using nrse::gemm::store_bf16x2;
+using nrse::wg::TileCtx;
 
-// GEMM1: h = bf16(gelu(acc + b1) * keep_act), optionally h1 = bf16(acc + b1)
+// Training epilogues draw their sites' keep bits on the producer's spare
+// warps; serving ones do nothing there.
+template <bool kTrain, bool kSide>
+struct KeepAux {
+  static constexpr bool kSideTile = kSide;
+  static constexpr bool kSideLoad = false;
+  static constexpr int kScratchFloats = 0;
+  static constexpr int kAuxWords = kTrain ? nrse::wg::kKeepAuxWords : 0;
+  static constexpr int kAuxJobs = kTrain ? nrse::wg::kKeepAuxJobs : 0;
+};
+
+// GEMM1: h = bf16(gelu(acc + b1) * keep_act), and in training
+// h1 = bf16(acc + b1).  h is written into the side tile, which the GEMM
+// stores by TMA; h1 goes straight to device memory.
 template <bool kTrain>
-struct EpiGelu {
+struct EpiGelu : KeepAux<kTrain, true> {
   const float* bias;
-  bf16* out;
   bf16* h1;  // training: null, or where h1 goes
-  int ld;
+  int M, ld;
   DropSite drop;
 
-  __device__ __forceinline__ void operator()(int row, int col, float x0,
-                                             float x1) const {
-    x0 += bias[col];
-    x1 += bias[col + 1];
-    const size_t idx = static_cast<size_t>(row) * ld + col;
-    float g0 = gelu_erf(x0);
-    float g1 = gelu_erf(x1);
-    if (kTrain) {
-      if (h1 != nullptr) store_bf16x2(h1 + idx, x0, x1);
-      const float2 k = drop.keep2(idx);  // col is even: one draw
-      g0 *= k.x;
-      g1 *= k.y;
+  __device__ __forceinline__ void aux(int mt, int n0, int job,
+                                      uint32_t* words) const {
+    if (kTrain) nrse::wg::keep_bits_job(drop, ld, mt, n0, job, words);
+  }
+
+  __device__ __forceinline__ void store(float (&acc)[2][64],
+                                        const TileCtx& ctx, uint8_t* side,
+                                        float*, const uint32_t* aux) const {
+    uint4 keep = make_uint4(0u, 0u, 0u, 0u);
+    if (kTrain) keep = nrse::wg::keep_words(drop, aux);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = ctx.col + 8 * j;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = ctx.row + 64 * r + 8 * h;
+          if (row >= M) continue;
+          const size_t idx = static_cast<size_t>(row) * ld + col;
+          const float x0 = acc[r][4 * j + 2 * h] + b.x;
+          const float x1 = acc[r][4 * j + 2 * h + 1] + b.y;
+          float g0 = gelu_erf(x0);
+          float g1 = gelu_erf(x1);
+          if (kTrain) {
+            if (h1 != nullptr) store_bf16x2(h1 + idx, x0, x1);
+            const float2 k = nrse::wg::keep_pair(drop, keep, r, h, j, idx);
+            g0 *= k.x;
+            g1 *= k.y;
+          }
+          store_bf16x2(reinterpret_cast<bf16*>(
+                           side + nrse::wg::side_offset(ctx, r, h, j)),
+                       g0, g1);
+        }
+      }
     }
-    store_bf16x2(out + idx, g0, g1);
   }
 };
 
 // GEMM2: out = bf16((acc + b2) * keep_hid)
 template <bool kTrain>
-struct EpiBias {
+struct EpiBias : KeepAux<kTrain, false> {
   const float* bias;
   bf16* out;
-  int ld;
+  int M, ld;
   DropSite drop;
 
-  __device__ __forceinline__ void operator()(int row, int col, float x0,
-                                             float x1) const {
-    x0 += bias[col];
-    x1 += bias[col + 1];
-    const size_t idx = static_cast<size_t>(row) * ld + col;
-    if (kTrain) {
-      const float2 k = drop.keep2(idx);  // col is even: one draw
-      x0 *= k.x;
-      x1 *= k.y;
+  __device__ __forceinline__ void aux(int mt, int n0, int job,
+                                      uint32_t* words) const {
+    if (kTrain) nrse::wg::keep_bits_job(drop, ld, mt, n0, job, words);
+  }
+
+  __device__ __forceinline__ void store(float (&acc)[2][64],
+                                        const TileCtx& ctx, uint8_t*, float*,
+                                        const uint32_t* aux) const {
+    uint4 keep = make_uint4(0u, 0u, 0u, 0u);
+    if (kTrain) keep = nrse::wg::keep_words(drop, aux);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = ctx.col + 8 * j;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = ctx.row + 64 * r + 8 * h;
+          if (row >= M) continue;
+          const size_t idx = static_cast<size_t>(row) * ld + col;
+          float x0 = acc[r][4 * j + 2 * h] + b.x;
+          float x1 = acc[r][4 * j + 2 * h + 1] + b.y;
+          if (kTrain) {
+            const float2 k = nrse::wg::keep_pair(drop, keep, r, h, j, idx);
+            x0 *= k.x;
+            x1 *= k.y;
+          }
+          store_bf16x2(out + idx, x0, x1);
+        }
+      }
     }
-    store_bf16x2(out + idx, x0, x1);
   }
 };
 
 bool bad_shape(int N, int C, int F) {
-  return N < 1 || C % kBN || F % kBN || C % kBK || F % kBK;
+  return N < 1 || C % nrse::wg::kBN || F % nrse::wg::kBN;
 }
 
 template <bool kTrain>
@@ -107,24 +186,21 @@ int run(const void* x, const void* w1, const void* b1, const void* w2,
         DropSite hid, int N, int C, int F, void* stream) {
   if (bad_shape(N, C, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const EpiGelu<kTrain> e1{static_cast<const float*>(b1),
-                           static_cast<bf16*>(h), static_cast<bf16*>(h1), F,
-                           act};
-  cudaError_t err = launch<false, false>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), N, F, C, e1,
-      s);
+  const EpiGelu<kTrain> e1{{}, static_cast<const float*>(b1),
+                           static_cast<bf16*>(h1), N, F, act};
+  cudaError_t err = nrse::wg::launch(x, w1, nullptr, h, N, F, C, e1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const EpiBias<kTrain> e2{static_cast<const float*>(b2),
-                           static_cast<bf16*>(out), C, hid};
-  return static_cast<int>(launch<false, false>(static_cast<const bf16*>(h),
-                                               static_cast<const bf16*>(w2),
-                                               N, C, F, e2, s));
+  const EpiBias<kTrain> e2{{}, static_cast<const float*>(b2),
+                           static_cast<bf16*>(out), N, C, hid};
+  return static_cast<int>(
+      nrse::wg::launch(h, w2, nullptr, nullptr, N, C, F, e2, s));
 }
 
 }  // namespace
 
 // Serving: x [N, C], w1 [F, C], b1 [F] f32, w2 [C, F], b2 [C] f32; h [N, F]
-// is scratch the caller allocates; out [N, C].  All bf16 unless noted.
+// is scratch the caller allocates; out [N, C].  All bf16 unless noted,
+// 16-byte aligned.
 extern "C" int nrse_fused_ffn_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, void* h, void* out, int N,

@@ -1,25 +1,22 @@
-// One hand-written tiled bf16 GEMM for kernel B (fused_ffn_fwd.cu) and K2
-// (fused_ffn_bwd.cu), with the operand layouts and the epilogue as template
-// parameters.
+// One hand-written tiled bf16 GEMM on mma.sync with the epilogue as a
+// template parameter: K2's dW kernel (fused_ffn_bwd.cu) runs on it; K6
+// (fused_frontend.cu) and the block attention (attention_common.cuh) use
+// its warp-level pieces (warp_mma_stage takes either operand layout), and
+// kernel B its GELU and bf16 store.
 //
 //   out[m, n] = epilogue(sum_k A(m, k) * B(n, k))   f32 accumulation
 //
-//   A not transposed: a is [M, K] row-major (lda = K); rows >= M zero-fill.
-//   A transposed:     a is [K, M] row-major (lda = M); k rows >= K zero-fill.
-//   B not transposed: b is [N, K] row-major (ldb = K)   ("NT" with A plain).
-//   B transposed:     b is [K, N] row-major (ldb = N); k rows >= K zero-fill.
+//   a is [K, M] row-major (lda = M), b is [K, N] row-major (ldb = N): both
+//   operands read transposed; k rows >= K zero-fill.
 //
-// Requirements: N % 128 == 0; M % 128 == 0 when A is transposed; K % 32 == 0
-// when either operand is not transposed (the K-contiguous tile rows are not
-// bounds-checked along k).
+// Requirements: M % 128 == 0, N % 128 == 0.
 //
 // Design: 128 x 128 x 32 block tile, 8 warps of 64 x 32 (2 along M, 4 along
-// N), mma.sync.m16n8k16 bf16 -> f32, operands fed by ldmatrix (.trans for
-// the transposed layouts) from a two-stage cp.async ring in shared memory
-// whose rows are padded by 16 bytes so that ldmatrix is free of bank
-// conflicts in both orientations.  The epilogue functor sees each pair of
-// neighbouring columns (row, col), (row, col + 1) of the f32 accumulator,
-// row < M.
+// N), mma.sync.m16n8k16 bf16 -> f32, operands fed by ldmatrix.trans from a
+// two-stage cp.async ring in shared memory whose rows are padded by 16
+// bytes so that ldmatrix is free of bank conflicts.  The epilogue functor
+// sees each pair of neighbouring columns (row, col), (row, col + 1) of the
+// f32 accumulator.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,11 +42,8 @@ constexpr int kNTiles = kWarpN / 8;      // 4 n8 tiles per warp
 
 static_assert(kBM == kBN, "one tile row length serves A and B");
 
-// bf16 elements of one stage of a 128 x 32 operand tile
-template <bool kT>
-struct Tile {
-  static constexpr int kElems = kT ? kBK * kRowMN : kBM * kRowK;
-};
+// bf16 elements of one stage of a 32 x 128 operand tile (k rows)
+constexpr int kTileElems = kBK * kRowMN;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -104,33 +98,21 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x0,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
-// One stage of a 128 x 32 operand tile into shared memory: 512 chunks of
-// 16 bytes, two per thread.  Not transposed: tile rows r0.. of a [R, K]
-// operand, columns k0..k0+31.  Transposed: k rows k0..k0+31 of a [K, R]
-// operand, columns r0..r0+127.
-template <bool kT>
+// One stage of an operand tile into shared memory: k rows k0..k0+31 of a
+// [K, R] operand, columns r0..r0+127; 512 chunks of 16 bytes, two per
+// thread.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
                                           const __nv_bfloat16* g, int r0,
-                                          int k0, int R, int K, int ld,
-                                          int tid) {
+                                          int k0, int K, int ld, int tid) {
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int chunk = tid + c * kThreads;
-    if (!kT) {
-      const int row = chunk / 4;
-      const int col = (chunk % 4) * 8;
-      const bool ok = r0 + row < R;
-      const __nv_bfloat16* src =
-          g + static_cast<size_t>(ok ? r0 + row : 0) * ld + k0 + col;
-      cp_async16(s + row * kRowK + col, src, ok ? 16 : 0);
-    } else {
-      const int row = chunk / 16;
-      const int col = (chunk % 16) * 8;
-      const bool ok = k0 + row < K;
-      const __nv_bfloat16* src =
-          g + static_cast<size_t>(ok ? k0 + row : 0) * ld + r0 + col;
-      cp_async16(s + row * kRowMN + col, src, ok ? 16 : 0);
-    }
+    const int row = chunk / 16;
+    const int col = (chunk % 16) * 8;
+    const bool ok = k0 + row < K;
+    const __nv_bfloat16* src =
+        g + static_cast<size_t>(ok ? k0 + row : 0) * ld + r0 + col;
+    cp_async16(s + row * kRowMN + col, src, ok ? 16 : 0);
   }
 }
 
@@ -190,13 +172,13 @@ __device__ __forceinline__ void warp_mma_stage(float (&acc)[kMT][kNT][4],
   }
 }
 
-template <bool kAT, bool kBT, class Epi>
+template <class Epi>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(const __nv_bfloat16* __restrict__ a,
             const __nv_bfloat16* __restrict__ b, int M, int N, int K,
             Epi epi) {
-  __shared__ __align__(16) __nv_bfloat16 as[kStages][Tile<kAT>::kElems];
-  __shared__ __align__(16) __nv_bfloat16 bs[kStages][Tile<kBT>::kElems];
+  __shared__ __align__(16) __nv_bfloat16 as[kStages][kTileElems];
+  __shared__ __align__(16) __nv_bfloat16 bs[kStages][kTileElems];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -205,12 +187,9 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
   const int wn = warp % 4;  // 0..3
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  const int lda = kAT ? M : K;
-  const int ldb = kBT ? N : K;
-
   auto load_stage = [&](int stage, int k0) {
-    load_tile<kAT>(as[stage], a, m0, k0, M, K, lda, tid);
-    load_tile<kBT>(bs[stage], b, n0, k0, N, K, ldb, tid);
+    load_tile(as[stage], a, m0, k0, K, M, tid);
+    load_tile(bs[stage], b, n0, k0, K, N, tid);
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
@@ -234,9 +213,8 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
     }
     __syncthreads();
 
-    warp_mma_stage<kMTiles, kNTiles, kAT, kBT, kAT ? kRowMN : kRowK,
-                   kBT ? kRowMN : kRowK>(acc, as[stage], bs[stage],
-                                         wm * kWarpM, wn * kWarpN, lane);
+    warp_mma_stage<kMTiles, kNTiles, true, true, kRowMN, kRowMN>(
+        acc, as[stage], bs[stage], wm * kWarpM, wn * kWarpN, lane);
     __syncthreads();  // the stage is overwritten by the next load
   }
 
@@ -250,7 +228,6 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * kWarpM + i * 16 + lane / 4 + half * 8;
-        if (row >= M) continue;
         epi(row, col, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
       }
     }
@@ -258,13 +235,12 @@ gemm_kernel(const __nv_bfloat16* __restrict__ a,
 }
 
 // Launch on `stream`; returns cudaGetLastError().
-template <bool kAT, bool kBT, class Epi>
+template <class Epi>
 inline cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* b,
                           int M, int N, int K, const Epi& epi,
                           cudaStream_t stream) {
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<kAT, kBT, Epi><<<grid, kThreads, 0, stream>>>(a, b, M, N, K,
-                                                            epi);
+  const dim3 grid(N / kBN, M / kBM);
+  gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, b, M, N, K, epi);
   return cudaGetLastError();
 }
 

@@ -11,12 +11,13 @@
 // computed in float32 on the host.
 //
 // Three forms: philox_keep4 gives the four keep multipliers of group g
-// (the form K1 and K2 use: one draw per four elements, nothing thrown
-// away); DropSite::keep2 those of an even-indexed pair of neighbours (one
-// draw per two elements: kernel B's forward, whose accumulator pairs are
-// such neighbours); philox_keep gives element i's alone (draw group
-// i >> 2, take word i & 3: a whole draw per element, the form kernel A and
-// K3 still use).
+// (K1, K2's dh2 pass), philox_keep_bits4 their four keep bits (the wgmma
+// epilogues' keep bits, drawn by a spare warp or by one lane of the pair
+// that holds the group's two halves in the accumulator layout: K2's dgd
+// product, kernel B's two products, kernel A's output): one draw per four
+// elements, nothing thrown away.  philox_keep gives element i's alone
+// (draw group i >> 2, take word i & 3: a whole draw per element, the form
+// K3 still uses).
 #pragma once
 
 #include <stdint.h>
@@ -95,19 +96,6 @@ struct DropSite {
   uint32_t k0, k1, site;
   float p, scale;
   int mode;  // 0 none, 1 philox, 2 explicit mask
-
-  // The multipliers of elements index and index + 1, index even: both
-  // lie in group index >> 2, so mode 1 makes one draw for the pair.
-  __device__ __forceinline__ float2 keep2(uint64_t index) const {
-    if (mode == 1) {
-      const Philox4 r = philox4(k0, k1, index >> 2, site);
-      const bool hi = (index & 2u) != 0;
-      return make_float2(philox_kept(hi ? r.w[2] : r.w[0], p) ? scale : 0.f,
-                         philox_kept(hi ? r.w[3] : r.w[1], p) ? scale : 0.f);
-    }
-    if (mode == 2) return *reinterpret_cast<const float2*>(mask + index);
-    return make_float2(1.f, 1.f);
-  }
 
   // The multipliers of elements 4 g .. 4 g + 3 (one draw in mode 1; the
   // explicit mask is read as one float4, so it must be 16-byte aligned).

@@ -1,7 +1,7 @@
 // A persistent, warp-specialised bf16 GEMM for Hopper: TMA loads into a
 // ring of 128-byte-swizzled shared-memory tiles, wgmma.mma_async on them,
-// and an epilogue given as a template parameter (K2's dx kernel,
-// fused_ffn_bwd.cu, is its user).
+// and an epilogue given as a template parameter (its users: K2's dx
+// kernel, fused_ffn_bwd.cu, and kernel B's two products, fused_ffn_fwd.cu).
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * B[n, k])   f32 accumulation
 //
@@ -15,8 +15,8 @@
 // B's 128 x 64 tile (32 KB) and the ring has kStages of them.  Three
 // warpgroups.  The first is the producer: its first thread issues two TMA
 // loads per stage, each completing on the stage's "full" mbarrier; its
-// other three warps compute each tile's aux words for the epilogue (K2's
-// dropout keep bits) into shared memory.  The other two are consumers
+// other three warps compute each tile's aux words for the epilogue (the
+// dropout keep bits, keep_bits_job below) into shared memory.  The other two are consumers
 // that take the block's tiles in turn ("ping-pong"): each owns a whole
 // tile, two wgmma.m64n128k16 per 16-deep step (rows 0-63 and 64-127, 128
 // f32 accumulators a thread), one group kept in flight, a stage released
@@ -32,11 +32,15 @@
 // spilling: the draws run on the producer's spare warps.
 //
 // The epilogue type Epi provides
-//   static constexpr bool kSideTile;     whether it reads a bf16 tile of a
-//                                        [M, N] tensor (TMA-loaded beside
-//                                        the ring, 4 stages then) and writes
-//                                        its bf16 output tile over it in
-//                                        place (TMA-stored after it)
+//   static constexpr bool kSideTile;     whether it writes its bf16 output
+//                                        tile into a side tile of shared
+//                                        memory beside the ring (4 stages
+//                                        then), TMA-stored after it
+//   static constexpr bool kSideLoad;     whether the side tile first holds
+//                                        the tile of a bf16 [M, N] tensor,
+//                                        TMA-loaded during the main loop,
+//                                        which the epilogue reads and
+//                                        overwrites in place
 //   static constexpr int kScratchFloats; shared f32 scratch per consumer
 //   static constexpr int kAuxWords;      32-bit aux words per consumer
 //                                        thread (0: none), made in kAuxJobs
@@ -50,13 +54,16 @@
 // e < 2), the m64nNk16 layout; side is the tile's side tile in shared
 // memory (two boxes of 128 rows x 64 columns, 128-byte swizzle) or null;
 // scratch is the consumer's own, for use between wg_barrier(ctx) calls;
-// aux the thread's kAuxWords words.
+// aux the thread's kAuxWords words.  The dropout sites' keep bits come from
+// keep_bits_job (kKeepAuxWords, kKeepAuxJobs) and are read with keep_pair.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap; the driver entry is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
+#include "wgmma_common.cuh"
 
 namespace nrse {
 namespace wg {
@@ -105,145 +112,82 @@ struct TileCtx {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of `bar` with the given parity to complete.  A wait
-// of more than ~10^10 cycles (seconds: a pipeline that can never advance)
-// traps, so a fault shows as a launch error instead of a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - start > 10000000000LL) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One box of a 2-D tensor map (c0 the inner coordinate) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// One box of shared memory into a 2-D tensor map (c0 the inner
-// coordinate; the part past the tensor's end is not written), in the
-// thread's bulk group.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
-                                             const void* src, int c0,
-                                             int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte rows
-// under the 128-byte swizzle: start address >> 4, leading byte offset 16
-// (unused for this layout), stride byte offset 1024 (8 rows), layout
-// type 1 (SWIZZLE_128B).  The tile must be 1024-byte aligned; a K step of
-// 16 bf16 (32 bytes) inside the row adds 2 to the descriptor.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 uint64_t desc_a,
-                                                 uint64_t desc_b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 // A barrier of the 128 threads of one consumer warpgroup (ids 1 and 2).
 __device__ __forceinline__ void wg_barrier(const TileCtx& ctx) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + ctx.wg()) : "memory");
+}
+
+// The keep bits of a dropout site over an [M, ld] tensor, as aux words:
+// 4 words a consumer thread, word 2 r + h for its row ctx.row + 64 r + 8 h,
+// bit 2 j + e for column ctx.col + 8 j + e.  256 jobs of 16 Philox draws.
+constexpr int kKeepAuxWords = 4;
+constexpr int kKeepAuxJobs = 256;
+
+// Job (p, r, h) of the tile (mt, n0): the keep bits of consumer threads
+// 2 p and 2 p + 1 at row block r, row half h.  In the accumulator layout
+// those two threads hold the two halves of each group of four columns of
+// the contract (philox.cuh), so one draw per group serves both: words 0-1
+// to the even thread (its two columns), 2-3 to the odd one.  Nothing is
+// drawn twice or thrown away.  Only for mode 1 (Philox).
+__device__ __forceinline__ void keep_bits_job(const DropSite& site, int ld,
+                                              int mt, int n0, int job,
+                                              uint32_t* words) {
+  if (site.mode != 1) return;
+  const int t = 2 * (job >> 2);  // the even consumer thread of the pair
+  const int rh = job & 3;
+  const int lane = t & 31;
+  const int row = mt * kBM + (t >> 5) * 16 + (lane >> 2) + 64 * (rh >> 1) +
+                  8 * (rh & 1);
+  const uint64_t g0 = (static_cast<uint64_t>(row) * ld + n0 +
+                       4 * ((lane & 3) >> 1)) >> 2;
+  uint32_t even = 0u, odd = 0u;
+#pragma unroll 4
+  for (int j = 0; j < 16; ++j) {
+    // column chunk j starts 8 j columns, 2 groups, further on
+    const uint32_t bits =
+        philox_keep_bits4(site.k0, site.k1, g0 + 2 * j, site.site, site.p);
+    even |= (bits & 3u) << (2 * j);
+    odd |= (bits >> 2) << (2 * j);
+  }
+  words[t * kKeepAuxWords + rh] = even;
+  words[(t + 1) * kKeepAuxWords + rh] = odd;
+}
+
+// The keep multipliers of a consumer thread's columns ctx.col + 8 j and
+// + 1 at row ctx.row + 64 r + 8 h: from its aux words (mode 1, `bits` the
+// thread's four words), from the explicit f32 mask (mode 2, at `index`, the
+// pair's flat index), or 1.
+__device__ __forceinline__ float2 keep_pair(const DropSite& site,
+                                            const uint4& bits, int r, int h,
+                                            int j, size_t index) {
+  if (site.mode == 1) {
+    const uint32_t w = r ? (h ? bits.w : bits.z) : (h ? bits.y : bits.x);
+    return make_float2((w >> (2 * j)) & 1u ? site.scale : 0.f,
+                       (w >> (2 * j + 1)) & 1u ? site.scale : 0.f);
+  }
+  if (site.mode == 2) {
+    return *reinterpret_cast<const float2*>(site.mask + index);
+  }
+  return make_float2(1.f, 1.f);
+}
+
+// Byte offset in a side tile (two boxes of 128 rows x 64 columns under the
+// 128-byte swizzle) of a consumer thread's pair of columns ctx.col + 8 j,
+// + 1 at row ctx.row + 64 r + 8 h: box j / 8, 16-byte chunk j % 8 of the
+// row, XOR the row's phase, which is lane / 4 for all the thread's rows.
+__device__ __forceinline__ int side_offset(const TileCtx& ctx, int r, int h,
+                                           int j) {
+  const int swz = ctx.lane() >> 2;
+  return (j >> 3) * (kSideBytes / 2) +
+         (ctx.warp() * 16 + swz + 64 * r + 8 * h) * 128 +
+         (((j & 7) ^ swz) << 4) + 4 * (ctx.lane() & 3);
+}
+
+// A consumer thread's aux words as one vector (zeros unless mode 1).
+__device__ __forceinline__ uint4 keep_words(const DropSite& site,
+                                            const uint32_t* aux) {
+  return site.mode == 1 ? *reinterpret_cast<const uint4*>(aux)
+                        : make_uint4(0u, 0u, 0u, 0u);
 }
 
 template <class Epi>
@@ -326,7 +270,7 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
             phase ^= 1;
           }
         }
-        if constexpr (Epi::kSideTile) {
+        if constexpr (Epi::kSideTile && Epi::kSideLoad) {
           // the side tile of tile j, for consumer j % 2's epilogue, once
           // that consumer's epilogue of tile j - 2 has read the buffer
           const int c = j % kConsumers;
@@ -396,7 +340,9 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
       mbar_arrive(&empty[prev]);
       uint8_t* my_side = nullptr;
       if constexpr (Epi::kSideTile) {
-        mbar_wait(&side_full[c], (j / kConsumers) & 1);
+        if constexpr (Epi::kSideLoad) {
+          mbar_wait(&side_full[c], (j / kConsumers) & 1);
+        }
         my_side = side + c * kSideBytes;
       }
       const uint32_t* my_aux = nullptr;
@@ -419,7 +365,11 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
           asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
           asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         }
-        mbar_arrive(&side_empty[c]);
+        if constexpr (Epi::kSideLoad) {
+          mbar_arrive(&side_empty[c]);  // the producer may load it again
+        } else {
+          wg_barrier(ctx);  // the next epilogue may write it again
+        }
       }
     }
     if (Epi::kSideTile && tid == 0) {
@@ -428,55 +378,23 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver-API function, found through the
-// runtime so that the library needs no link against libcuda.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The tensor map of a K-major bf16 operand [rows, k] (or of a side tile's
 // tensor, k its columns): boxes of 128 rows x 64 k under the 128-byte
 // swizzle, zeros past the last row on a load, nothing written past it on a
 // store.
 inline cudaError_t make_operand_map(CUtensorMap* map, const void* ptr,
                                     int rows, int k) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
   const cuuint32_t box[2] = {kBK, kBM};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_sw128_map(map, ptr, 2, dims, box);
 }
 
 // out = epilogue(a [M, K] . b [N, K]^T) on `stream`, one persistent block
-// per SM.  With Epi::kSideTile, `side` is the bf16 [M, N] tensor whose
-// tiles the epilogue reads and `out` the bf16 [M, N] tensor it writes
-// (else both unused).  Returns the first CUDA error.
+// per SM.  With Epi::kSideTile, `out` is the bf16 [M, N] tensor the side
+// tiles are stored to, and with Epi::kSideLoad `side` the bf16 [M, N]
+// tensor they are loaded from (else unused).  Returns the first CUDA
+// error.
 template <class Epi>
 inline cudaError_t launch(const void* a, const void* b, const void* side,
                           void* out, int M, int N, int K, const Epi& epi,
@@ -486,8 +404,9 @@ inline cudaError_t launch(const void* a, const void* b, const void* side,
   cudaError_t err = make_operand_map(&ma, a, M, K);
   if (err == cudaSuccess) err = make_operand_map(&mb, b, N, K);
   if (err == cudaSuccess) {
-    err = Epi::kSideTile ? make_operand_map(&mc, side, M, N)
-                         : make_operand_map(&mc, a, M, K);
+    err = Epi::kSideTile && Epi::kSideLoad
+              ? make_operand_map(&mc, side, M, N)
+              : make_operand_map(&mc, a, M, K);
   }
   if (err == cudaSuccess) {
     err = Epi::kSideTile ? make_operand_map(&md, out, M, N)

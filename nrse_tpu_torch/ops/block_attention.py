@@ -2,7 +2,10 @@
 
 Port of ``nrse_tpu/ops/block_attention.py:339-577``: the same signature and
 ``[B, H, T, D]`` layout, consuming the dense ``[H, T, T]`` position bias,
-with optional dropout of the output inside the kernel.
+with optional dropout of the output inside the kernel.  Kernel A takes one
+pass on wgmma fed by TMA while ``T`` pads to at most 256 frames (every main
+path: 5 s clips are 249 frames) and two passes on mma.sync above that
+(:func:`attention_fwd_plan`).
 :func:`block_gated_attention` is a ``torch.autograd.Function``: its
 forward is kernel A (``csrc/block_attention_fwd.cu``), which saves the
 output after dropout and the per-row ``lse``; its backward is K3
@@ -44,6 +47,11 @@ from nrse_tpu_torch.runtime import cuda_build
 
 MAX_T = 384
 HEAD_DIM = 64
+# kernel A's routes (csrc/block_attention_fwd.cu): query and key tiles of
+# 64, the one-pass wgmma route up to WGMMA_MAX_T_PAD keys
+TILE = 64
+WGMMA_MAX_T_PAD = 256
+SM_SMEM = 233472  # an H100 SM's shared memory
 
 # Kernel launches made by this wrapper since the counts were last reset:
 # kernel A (forward) and K3 (backward).
@@ -88,6 +96,31 @@ class _Drop:
             ptr = self._cmask.data_ptr()
         scale = philox.keep_scale(self.p) if self.mode == _MODE_SEEDED else 1.0
         return ptr, k0, k1, self.p, scale, self.mode
+
+
+def attention_fwd_plan(t: int) -> dict:
+    """What kernel A (``csrc/block_attention_fwd.cu``) does for ``t``
+    frames: the route (``"wgmma"``, one pass over the whole head's keys
+    by TMA and wgmma, while ``T_pad = 64·⌈t/64⌉ ≤ 256``; else
+    ``"two_pass"``, mma.sync over 64-key tiles), the query tiles (blocks
+    per (b, h)), the dynamic shared memory of a block, and the blocks its
+    launch bounds ask to share an SM (whose 228 KB, 1 KB reserved per
+    block, must hold them).  The kernel needs no scratch."""
+    t_pad = TILE * -(-t // TILE)
+    if t_pad <= WGMMA_MAX_T_PAD:
+        # alignment slack, Q's 64-row tile, K and V of 256 rows (64 bf16 a
+        # row), the key mask (f32) and one mbarrier
+        route = "wgmma"
+        smem = 1024 + 2 * HEAD_DIM * (TILE + 2 * WGMMA_MAX_T_PAD) \
+            + 4 * WGMMA_MAX_T_PAD + 8
+    else:
+        # padded bf16 Q, K and V tiles (rows of 72), the f32 bias tile
+        # (rows of 68) and the key mask tile
+        route = "two_pass"
+        smem = 2 * 3 * TILE * (HEAD_DIM + 8) + 4 * TILE * (TILE + 4) \
+            + 4 * TILE
+    return {"route": route, "t_pad": t_pad, "query_tiles": t_pad // TILE,
+            "smem": smem, "blocks_per_sm": 2 if route == "wgmma" else 1}
 
 
 def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):

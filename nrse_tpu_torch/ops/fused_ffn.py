@@ -7,8 +7,9 @@ layout (``nn.Linear.weight``): ``w1 [F, C]``, ``w2 [C, F]``.
 
 Which kernel runs where:
   * serving (and any call that needs no gradient, such as the BYOL target
-    tower): kernel B alone (``csrc/fused_ffn_fwd.cu``), with the dropout
-    sites when ``p > 0`` and nothing saved;
+    tower): kernel B alone (``csrc/fused_ffn_fwd.cu``: two wgmma products
+    fed by TMA, ``csrc/wgmma_gemm.cuh``, see :func:`ffn_fwd_plan`), with
+    the dropout sites when ``p > 0`` and nothing saved;
   * training: :class:`FusedFFN`, whose forward is kernel B's training
     entry (both dropout sites, ``h1`` and the dropped GELU output ``gd``
     kept in bf16) and whose backward is K2 (``csrc/fused_ffn_bwd.cu``):
@@ -37,8 +38,20 @@ from nrse_tpu_torch.ops._guard import require_no_grad
 from nrse_tpu_torch.runtime import cuda_build
 
 # the CUDA kernels' tile: C and F must be multiples of this; the row tile
-# of K2's dx products (csrc/wgmma_gemm.cuh kBM)
+# of the wgmma products of kernel B and K2's dx kernel (csrc/wgmma_gemm.cuh
+# kBM)
 TILE = 128
+# csrc/wgmma_gemm.cuh: ring stages of 32 KB (two 128 x 64 bf16 tiles), 6
+# of them, or 4 beside a 32 KB side tile per consumer warpgroup (kernel B's
+# GEMM1 stages h there for its TMA store), and the keep-bit words a
+# consumer thread gets from the producer's spare warps (kKeepAuxWords)
+GEMM_STAGES, GEMM_STAGES_SIDE = 6, 4
+GEMM_STAGE_BYTES = 2 * TILE * 64 * 2
+GEMM_SIDE_BYTES = TILE * TILE * 2
+GEMM_CONSUMERS = 2
+KEEP_AUX_WORDS = 4
+# shared memory a block may use on the H100 (sm_90)
+SMEM_LIMIT = 232448
 # rows per partial column sum of dh2 in K2's dx kernel (csrc kDh2Rows)
 DH2_ROWS = 16
 SITE_ACT, SITE_HID = 0, 1
@@ -189,12 +202,14 @@ def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
     rows, w1, w2 = _bf16(rows), _bf16(w1), _bf16(w2)
     b1 = b1.to(torch.float32).contiguous()
     b2 = b2.to(torch.float32).contiguous()
-    gd = torch.empty(n, f, dtype=torch.bfloat16, device=rows.device)
+    train = save or drop.mode != _NO_DROP
+    gd = torch.empty(ffn_fwd_plan(n, c, f, train)["h"], dtype=torch.bfloat16,
+                     device=rows.device).view(n, f)
     h1 = torch.empty_like(gd) if save else None
     out = torch.empty_like(rows)
     lib = cuda_build.load()
     with cuda_build.on_device(rows.device):  # launch on x's card
-        if not save and drop.mode == _NO_DROP:
+        if not train:
             err = lib.nrse_fused_ffn_fwd(
                 rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), gd.data_ptr(), out.data_ptr(), n, c, f,
@@ -209,6 +224,35 @@ def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
     global LAUNCHES
     LAUNCHES += 1
     return out, h1, gd
+
+
+def gemm_smem(side: bool, aux_words: int) -> int:
+    """Dynamic shared memory of one block of ``csrc/wgmma_gemm.cuh``'s
+    GEMM without f32 scratch: alignment slack, the ring, the side tiles
+    (``side``), the mbarriers (two a stage, five a consumer) and each
+    consumer's aux words."""
+    stages = GEMM_STAGES_SIDE if side else GEMM_STAGES
+    return (1024 + stages * GEMM_STAGE_BYTES
+            + (GEMM_CONSUMERS * GEMM_SIDE_BYTES if side else 0)
+            + 8 * (2 * stages + 5 * GEMM_CONSUMERS)
+            + GEMM_CONSUMERS * 128 * 4 * aux_words)
+
+
+def ffn_fwd_plan(n: int, c: int, f: int, train: bool = False) -> dict:
+    """What kernel B (``csrc/fused_ffn_fwd.cu``) works on for ``n`` rows:
+    the 128-row tiles, the 128 x 128 output tiles of GEMM1 (``x · W1ᵀ``,
+    [n, f], h staged in a side tile) and GEMM2 (``h · W2ᵀ``, [n, c]), each
+    GEMM's shared memory (the training entry's epilogues get the keep bits
+    as aux words, the serving entry's none), and the bf16 elements of h,
+    the scratch between them."""
+    row_tiles = -(-n // TILE)
+    aux = KEEP_AUX_WORDS if train else 0
+    return {"row_tiles": row_tiles,
+            "gemm1_tiles": row_tiles * (f // TILE),
+            "gemm2_tiles": row_tiles * (c // TILE),
+            "gemm1_smem": gemm_smem(True, aux),
+            "gemm2_smem": gemm_smem(False, aux),
+            "h": n * f}
 
 
 def dx_plan(n: int, c: int, f: int) -> dict:

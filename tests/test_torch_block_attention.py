@@ -104,3 +104,29 @@ def test_rejects_long_sequences_and_bad_shapes():
                            for a in make_inputs(32, seed=2)[0]]
     with pytest.raises(ValueError, match="pos_bias"):
         block_attention.block_gated_attention(q, k, v, gate, bias[:, :-1])
+
+
+def test_attention_fwd_plan_fits_every_t():
+    """Kernel A's launch plan for every T it takes: the query tiles cover
+    T, a block fits the H100's 232,448 bytes of shared memory and the
+    blocks its launch bounds ask for fit an SM's 228 KB, the one-pass
+    wgmma route takes T_pad ≤ 256 (two blocks an SM), the two-pass route
+    the rest."""
+    for t in range(1, block_attention.MAX_T + 1):
+        plan = block_attention.attention_fwd_plan(t)
+        assert plan["t_pad"] % 64 == 0 and 0 <= plan["t_pad"] - t < 64
+        assert plan["query_tiles"] * 64 == plan["t_pad"]
+        assert plan["smem"] <= 232448
+        assert plan["blocks_per_sm"] * (plan["smem"] + 1024) \
+            <= block_attention.SM_SMEM
+        if plan["t_pad"] <= 256:
+            assert plan["route"] == "wgmma" and plan["blocks_per_sm"] == 2
+        else:
+            assert plan["route"] == "two_pass"
+
+
+@pytest.mark.parametrize("t,route", [(1, "wgmma"), (249, "wgmma"),
+                                     (256, "wgmma"), (257, "two_pass"),
+                                     (384, "two_pass")])
+def test_attention_fwd_plan_route_switch(t, route):
+    assert block_attention.attention_fwd_plan(t)["route"] == route

@@ -148,3 +148,22 @@ def test_dx_plan(n, want):
             plan["dx_tiles"], plan["scratch"]) == want
     assert plan["scratch"] >= max(plan["dh2_chunks"] * 1024,
                                   plan["row_tiles"] * 4096)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 7968, 8964, 15968, 23968])
+def test_ffn_fwd_plan(n):
+    """Kernel B at C = 1024, F = 4096: 128-row tiles, GEMM1's [n, F] and
+    GEMM2's [n, C] 128 x 128 tiles, each entry's GEMM blocks within the
+    H100's 232,448 bytes of shared memory, h sized [n, F]."""
+    plans = [port.ffn_fwd_plan(n, 1024, 4096, train)
+             for train in (False, True)]
+    row_tiles = -(-n // 128)
+    for plan in plans:
+        assert plan["row_tiles"] == row_tiles
+        assert plan["gemm1_tiles"] == row_tiles * 32
+        assert plan["gemm2_tiles"] == row_tiles * 8
+        assert plan["h"] == n * 4096
+        assert max(plan["gemm1_smem"], plan["gemm2_smem"]) <= port.SMEM_LIMIT
+    # the training entry's epilogues take 4 keep-bit words a consumer thread
+    for gemm in ("gemm1_smem", "gemm2_smem"):
+        assert plans[1][gemm] - plans[0][gemm] == 2 * 128 * 4 * 4
