@@ -26,13 +26,16 @@ not 0:
      shapes (bf16, B=36, H=16, D=64, T=249 with ragged key masks and one
      fully masked row, and T=384, p = 0.1) and at T ∈ {1, 63, 65, 257,
      383} (ragged keys; at T = 1 the gradients that vanish are compared
-     against at least 1e-3): the seeded forward and backward
+     against at least 1e-3), and at B=5, T=249 (a batch group of one):
+     HGMMA in the wgmma route's SASS (T_pad ≤ 256), registers and no
+     spills in every K3 kernel, the dbias partials at most ceil(B/4)
+     slices there; the seeded forward and backward
      equal the explicit-mask ones fed K1's dump at the attention site, bit
      for bit; out, dq, dk, dv, dgate, dbias ≤ 1e-2 and lse ≤ 1e-3 of the
      plain versions' max|·|; two forward and two backward calls give the
      same bits; every buffer of both inside NaN guard bands; the autograd
      Function equals the direct calls; µs per call of both and of SDPA's
-     backward;
+     backward, K3's device time by kernel;
   4. kernel B (fused FFN: two wgmma GEMMs fed by TMA), its serving entry
      at N = 32·249 = 7968, 32·499 = 15968 and 32·749 = 23968 and its
      training entry (both dropout sites seeded, h1 saved) at N = 36·249,
@@ -66,10 +69,14 @@ not 0:
      bit); K2's dx kernel (wgmma fed by TMA) also at N = 32·499 and N ∈
      {1, 127, 129}: two calls bit-equal, explicit masks = Philox masks,
      every buffer inside NaN guard bands, dx, db1, db2, dh1 ≤ 1e-2 of
-     plain; HGMMA in its SASS (``cuobjdump -sass``), registers and spills;
-     µs per call and TFLOP/s of each beside the plain version's and
-     autograd's backward of the library forward of phase 4, the dx kernel
-     at both N with its time on the card split by kernel;
+     plain; K2's dW kernel (both products in one wgmma launch, operands
+     MN-major) at N ∈ {1, 127, 129, 36·249, 32·499} inside NaN guard
+     bands, two calls bit-equal, dW1 and dW2 ≤ 1e-2 of plain; HGMMA in
+     both kernels' SASS (``cuobjdump -sass``), registers and no spills; a
+     digest of kernel B's and K2 dx's outputs (equal on two commits when
+     their bits are); µs per call and TFLOP/s of each beside the plain
+     version's and autograd's backward of the library forward of phase 4,
+     the dx and dW kernels at both large N with their time on the card;
   8. K4 (AdamW + EMA) over the flat BYOL parameter set (~326 M) against
      the plain version (≤ 1e-6 relative), the state it updates inside NaN
      guard bands; µs per call and GB/s, and of
@@ -184,6 +191,7 @@ the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -451,16 +459,44 @@ def phase_kernel_a() -> dict:
 GRAD_NAMES = ("dq", "dk", "dv", "dgate", "dbias")
 
 
+def _k3_plan(b: int, h: int, t: int) -> str:
+    """K3's route and dbias partials at (b, h, t), from the wrapper's plan
+    (an earlier package without one: its per-batch partials); fails if
+    the wgmma route's partials exceed ceil(b / 4) slices of [h, t, t]."""
+    plan_fn = getattr(block_attention, "attention_bwd_plan", None)
+    if plan_fn is None:
+        return f"mma.sync, {b} partial slices"
+    plan = plan_fn(b, h, t, torch.cuda.get_device_properties(0)
+                   .multi_processor_count)
+    if plan["route"] == "wgmma" and plan["partial"] > -(-b // 4) * h * t * t:
+        raise RuntimeError(f"K3's dbias partials at B={b} T={t}: "
+                           f"{plan['partial']} elements")
+    return (f"{plan['route']}, {plan['partial'] // (h * t * t)} partial "
+            f"slices")
+
+
+# K3 is also held to plain at a batch that is not a multiple of its dbias
+# group (at least ops/block_attention.py DBIAS_MIN_GROUP)
+K3_RAGGED_B = 5
+
+
 def phase_k3() -> dict:
     """K3 and kernel A's dropout at the training shapes, against the plain
     versions, with the mask contract and determinism checked bit for
-    bit."""
+    bit; the wgmma route's SASS read for HGMMA, registers and spills, its
+    dbias partials' size against the plan."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    b, h, d = TRAIN_BATCH, 16, 64
+    h, d = 16, 64
     seed = TrainRNG(SEED, 0, 0).dropout_seed(3, SITE_ATTN)
+    for pattern in ("bwd_dq_wgmma", "bwd_dkdv_wgmma"):
+        check_hgmma(pattern, tag="K3")
+    check_no_spills(kernel_resources(("attention_bwd", "dout_prep",
+                                      "dbias_sum"), tag="K3"),
+                    "K3's kernels")
     worst, timing = 0.0, None
-    for t in (249, 384, *BLOCK_RAGGED_T):
+    cases = [(TRAIN_BATCH, t) for t in (249, 384, *BLOCK_RAGGED_T)]
+    for b, t in cases + [(K3_RAGGED_B, 249)]:
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
         gate = 1.0 + torch.rand(b, h, t, generator=gen, device=dev)
@@ -499,7 +535,8 @@ def phase_k3() -> dict:
                                                 seeded)
             m_grads = block_attention._kernel_bwd(*args, gmadd, out, lse,
                                                   gdo, masked)
-            guard.check(f"kernel A / K3 at T={t}")
+            guard.check(f"kernel A / K3 at B={b} T={t}")
+        plan = _k3_plan(b, h, t)
         if not (torch.equal(out, m_out) and torch.equal(lse, m_lse)):
             raise RuntimeError(f"K3 phase: the seeded forward's mask differs "
                                f"from K1's dump at T={t}")
@@ -530,7 +567,8 @@ def phase_k3() -> dict:
         scales = {n: float(r.float().abs().max())
                   for n, r in zip(GRAD_NAMES, refs)}
         log(f"[K3] B={b} H={h} T={t} D={d} p={DROP_P} masked="
-            f"{mask is not None}: seeded = explicit K1-dump mask bit for bit "
+            f"{mask is not None} ({plan}): seeded = explicit K1-dump mask "
+            f"bit for bit "
             f"(fwd and bwd), two forward and two backward calls bit-equal, "
             f"guard bands untouched; max|Δ|/max|ref| "
             f"vs plain " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
@@ -556,7 +594,7 @@ def phase_k3() -> dict:
                                    f"the kernel's")
         del leaves, o
 
-        if t == 249:
+        if t == 249 and b == TRAIN_BATCH:
             with torch.no_grad():
                 fwd_ms = cuda_ms(lambda: block_attention._kernel_fwd(
                     q, k, v, gate, bias, mask, seeded))
@@ -565,6 +603,8 @@ def phase_k3() -> dict:
                 fwd_plain = cuda_ms(lambda: gated_bias_attention_fwd(
                     q, k, v, gate, bias, madd, keep), iters=10)
                 ms = cuda_ms(lambda: block_attention._kernel_bwd(
+                    q, k, v, gate, bias, madd, out, lse, do, seeded))
+                bwd_us = device_us(lambda: block_attention._kernel_bwd(
                     q, k, v, gate, bias, madd, out, lse, do, seeded))
                 plain_ms = cuda_ms(lambda: gated_bias_attention_bwd(
                     q, k, v, gate, bias, madd, out, lse, do, keep), iters=10)
@@ -584,7 +624,8 @@ def phase_k3() -> dict:
             log(f"[K3] B={b} H={h} T={t}: kernel A with dropout "
                 f"{fwd_ms * 1e3:.1f} us/call (on the card "
                 f"{_us_line(fwd_us)}), plain {fwd_plain * 1e3:.1f} "
-                f"us/call; K3 backward {ms * 1e3:.1f} us/call, plain "
+                f"us/call; K3 backward {ms * 1e3:.1f} us/call (on the card "
+                f"{sum(bwd_us.values()):.1f}: {_us_line(bwd_us)}), plain "
                 f"{plain_ms * 1e3:.1f} us/call, SDPA's backward (no "
                 f"dropout) {lib_ms * 1e3:.1f} us/call; bound "
                 f"{timing[3]['bound_ms'] * 1e3:.1f} us "
@@ -740,33 +781,117 @@ def _gbps(nbytes: float, ms: float) -> float:
     return nbytes / ms / 1e6
 
 
+# the range of a trace's timed calls (a ``record_function``), after calls
+# for TRACE_WARM_S seconds under the profiler
+TIMED = "chip_smoke.timed"
+TRACE_WARM_S = 0.05
+TRACE_ATTEMPTS = 4
+
+
+def _trace_faults(events: list, event_ms: float):
+    """``(kernels, faults)`` of a ``torch.profiler`` trace whose calls inside
+    the :data:`TIMED` range CUDA events timed at ``event_ms``: the kernels
+    of the launches made on the host inside that range (runtime or driver
+    ``LaunchKernel`` calls, any thread), and what is wrong with the trace:
+    a launch whose kernel it lacks (the profiler drops kernel records,
+    mostly early in a session), or a span from the first kernel's start to
+    the last one's end that disagrees with the events (a trace once read
+    every kernel at about half its time: its clock misconverted)."""
+    timed = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == TIMED]
+    if len(timed) != 1:
+        return [], [f"{len(timed)} timed ranges in the trace"]
+    t0, t1 = timed[0]["ts"], timed[0]["ts"] + timed[0]["dur"]
+    launches = sorted((e for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e.get("name", "")
+                       and t0 <= e["ts"] <= t1), key=lambda e: e["ts"])
+    by_corr = {e["args"].get("correlation"): e for e in events
+               if e.get("cat") == "kernel"}
+    kernels = [by_corr[e["args"].get("correlation")] for e in launches
+               if e["args"].get("correlation") in by_corr]
+    faults = []
+    lost = [i for i, e in enumerate(launches)
+            if e["args"].get("correlation") not in by_corr]
+    if lost:
+        faults.append(f"{len(lost)} of {len(launches)} kernel launches have "
+                      f"no kernel in the trace (launches {lost[:8]} in host "
+                      f"order)")
+    if kernels:
+        span = (max(e["ts"] + e["dur"] for e in kernels)
+                - min(e["ts"] for e in kernels)) / 1e3
+        # the events also count the host's lead-in before the first kernel
+        # and the copy back after the last
+        if not 0.8 * event_ms - 0.2 <= span <= 1.05 * event_ms + 0.05:
+            faults.append(f"kernels span {span:.3f} ms of the trace against "
+                          f"{event_ms:.3f} ms of CUDA events")
+    elif not lost:
+        faults.append("no kernel launched in the timed range")
+    return kernels, faults
+
+
+def traced_kernels(run, iters: int, context=None):
+    """``(events, kernels, host seconds)`` of a ``torch.profiler`` trace
+    (host and card) over ``iters`` calls of ``run()``, which ends waiting
+    for the card or is followed by a synchronize here: ``kernels`` are
+    those the calls launched, checked against CUDA events around the same
+    calls (:func:`_trace_faults`).  Calls for :data:`TRACE_WARM_S` seconds
+    (one at least) run traced before them: the profiler lost the kernels
+    of a session's first milliseconds most often.  A trace at fault is
+    logged and taken again, up to :data:`TRACE_ATTEMPTS` times in all; then
+    the phase fails."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with (context() if context else contextlib.nullcontext()), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                record_shapes=context is not None) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < TRACE_WARM_S:
+                run()
+                torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            with record_function(TIMED):
+                for _ in range(iters):
+                    run()
+            end.record()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
+        kernels, faults = _trace_faults(events, start.elapsed_time(end))
+        if not faults:
+            return events, kernels, wall
+        log(f"[profile] trace {attempt} at fault: {'; '.join(faults)}")
+    raise RuntimeError(f"{TRACE_ATTEMPTS} profiler traces at fault, the "
+                       f"last: " + "; ".join(faults))
+
+
 def device_us(run, iters: int = 10) -> dict:
     """Device µs a call of ``run()`` by kernel name (shortened), from the
-    CUDA kernels of a ``torch.profiler`` trace over ``iters`` calls after
-    one warm-up: the card's own time, without the host's gaps between
-    launches that CUDA events around a call also count."""
-    from torch.profiler import ProfilerActivity, profile
-
+    CUDA kernels of a checked ``torch.profiler`` trace over ``iters`` calls
+    after one warm-up (:func:`traced_kernels`): the card's own time,
+    without the host's gaps between launches that CUDA events around a
+    call also count."""
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-    fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
+    _, kernels, _ = traced_kernels(run, iters)
     out = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            name = (e["name"].replace("(anonymous namespace)::", "")
-                    .replace("void ", "").split("(")[0][:60])
-            out[name] = out.get(name, 0.0) + e["dur"] / iters
+    for e in kernels:
+        name = (e["name"].replace("(anonymous namespace)::", "")
+                .replace("void ", "").split("(")[0][:60])
+        out[name] = out.get(name, 0.0) + e["dur"] / iters
     return out
 
 
@@ -954,6 +1079,82 @@ def _check_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
     return errs
 
 
+def _check_k2_dw(gen, n, dev, c=1024, f=4096) -> float:
+    """K2's dW kernel at ``n`` rows, every input and output inside NaN
+    guard bands: two calls bit-equal, dW1 and dW2 against the plain
+    version.  Returns max|Δ|."""
+    bf = torch.bfloat16
+    x = torch.randn(n, c, generator=gen, device=dev).to(bf)
+    gd = torch.randn(n, f, generator=gen, device=dev).to(bf)
+    dh1 = (0.1 * torch.randn(n, f, generator=gen, device=dev)).to(bf)
+    dh2 = (0.1 * torch.randn(n, c, generator=gen, device=dev)).to(bf)
+    with GuardBands(fused_ffn) as guard, torch.no_grad():
+        args = [guard.band(t) for t in (x, gd, dh1, dh2)]
+        got = fused_ffn._kernel_bwd_dw(*args)
+        again = fused_ffn._kernel_bwd_dw(*args)
+        guard.check(f"K2 dW at N={n}")
+    for name, a, b in zip(("dw1", "dw2"), got, again):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"K2 dW at N={n}: two calls differ in {name}")
+    with torch.no_grad():
+        ref = fused_ffn.ffn_plain_bwd_dw(x, gd, dh1, dh2)
+    if not all(torch.isfinite(t).all() for t in got):
+        raise RuntimeError(f"K2 dW at N={n}: non-finite output")
+    errs = {k: rel_err(a, r) for k, a, r in zip(("dw1", "dw2"), got, ref)}
+    log(f"[K2] dW N={n} C={c} F={f}: two calls bit-equal, guard bands "
+        f"untouched; max|Δ|/max|ref| vs plain "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if max(errs.values()) > GRAD_TOL:
+        raise RuntimeError(f"K2 dW disagrees with plain at N={n}: {errs}")
+    return max(float((a - r).abs().max()) for a, r in zip(got, ref))
+
+
+def _time_k2_dw(gen, n, dev, c=1024, f=4096) -> dict:
+    """K2's dW kernel at ``n`` rows: µs a call and on the card, plain, the
+    library (autograd's weight gradients of ``library_ffn``) and the
+    bound."""
+    bf = torch.bfloat16
+    x = torch.randn(n, c, generator=gen, device=dev).to(bf)
+    gd = torch.randn(n, f, generator=gen, device=dev).to(bf)
+    dh1 = (0.1 * torch.randn(n, f, generator=gen, device=dev)).to(bf)
+    dh2 = (0.1 * torch.randn(n, c, generator=gen, device=dev)).to(bf)
+    dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)).to(bf)
+    weights = [torch.randn(f, c, generator=gen, device=dev) * c ** -0.5,
+               0.1 * torch.randn(f, generator=gen, device=dev),
+               torch.randn(c, f, generator=gen, device=dev) * f ** -0.5,
+               0.1 * torch.randn(c, generator=gen, device=dev)]
+    with torch.no_grad():
+        out = fused_ffn._kernel_bwd_dw(x, gd, dh1, dh2)
+        ms = cuda_ms(lambda: fused_ffn._kernel_bwd_dw(x, gd, dh1, dh2))
+        dev_us = device_us(lambda: fused_ffn._kernel_bwd_dw(x, gd, dh1, dh2))
+        plain_ms = cuda_ms(lambda: fused_ffn.ffn_plain_bwd_dw(
+            x, gd, dh1, dh2), iters=5)
+    leaves = [t.to(bf).clone().requires_grad_() for t in (x, *weights)]
+    with torch.enable_grad():
+        o = library_ffn(*leaves)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, leaves[1:], dout, retain_graph=True))
+    del leaves, o
+    flop = 4.0 * n * c * f
+    bd = bound(flop, nbytes(x, gd, dh1, dh2, *out))
+    log(f"[K2] dW N={n}: the wrapper {ms * 1e3:.1f} us/call "
+        f"({flop / ms / 1e9:.1f} TFLOP/s), on the card "
+        f"{sum(dev_us.values()):.1f} us/call ({_us_line(dev_us)}); plain "
+        f"{plain_ms * 1e3:.1f} us/call, autograd of F.linear-GELU-F.linear "
+        f"(weights only) {lib_ms * 1e3:.1f} us/call; bound "
+        f"{bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+    return {"ms": ms, "plain_ms": plain_ms, **bd, "library_ms": lib_ms}
+
+
+def _digest(*tensors) -> str:
+    """A short hash of the tensors' bytes: equal outputs, equal digests."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def _time_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
     bf = torch.bfloat16
     x = torch.randn(n, c, generator=gen, device=dev).to(bf)
@@ -999,11 +1200,13 @@ def phase_k2() -> list:
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n, c, f = TRAIN_BATCH * 249, 1024, 4096
     seed = philox.stream_seed(SEED, 0, 0, 0, 2)
-    for epilogue in ("EpiDgd", "EpiStoreBf16"):
+    for epilogue in ("EpiDgd", "EpiStoreBf16", "EpiDw"):
         check_hgmma(epilogue)
     check_no_spills(kernel_resources(("EpiDgd", "EpiStoreBf16", "dh2_kernel",
                                       "colsum_fold", "transpose_cast"),
                                      tag="K2"), "K2's dx kernels")
+    check_no_spills(kernel_resources(("EpiDw",), tag="K2 dW"),
+                    "K2's dW kernel")
     x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
     dout = (0.1 * torch.randn(n, c, generator=gen, device=dev)
             ).to(torch.bfloat16)
@@ -1025,6 +1228,11 @@ def phase_k2() -> list:
         ref_dx, ref_db1, ref_db2, ref_dh1, ref_dh2 = \
             fused_ffn.ffn_plain_bwd_dx(dout, h1, w1, w2, keep_act, keep_hid)
         ref_dw1, ref_dw2 = fused_ffn.ffn_plain_bwd_dw(x, gd, dh1, dh2)
+    # kernel B's and K2 dx's bits on these seeded inputs: equal digests on
+    # two commits mean equal outputs
+    log(f"[K2] digest of kernel B's training forward (out, h1, gd) "
+        f"{_digest(out, h1, gd)}, of K2 dx (dx, db1, db2, dh1, dh2) "
+        f"{_digest(dx, db1, db2, dh1, dh2)}, of K2 dW {_digest(dw1, dw2)}")
     checks = {"out": (out, ref_out), "h1": (h1, ref_h1), "gd": (gd, ref_gd),
               "dx": (dx, ref_dx), "db1": (db1, ref_db1),
               "db2": (db2, ref_db2), "dh1": (dh1, ref_dh1),
@@ -1068,6 +1276,11 @@ def phase_k2() -> list:
     for rows in (n, FT_ROWS, *K2_RAGGED_N):
         e = _check_k2_dx(gen, rows, seed, dev)
         dx_abs = max(dx_abs, e["dx"][1], e["db1"][1], e["db2"][1])
+    # K2's dW kernel likewise
+    dw_abs = max(float((a - b).abs().max())
+                 for a, b in (checks["dw1"], checks["dw2"]))
+    for rows in (*K2_RAGGED_N, n, FT_ROWS):
+        dw_abs = max(dw_abs, _check_k2_dw(gen, rows, dev))
 
     flop = 4.0 * n * c * f
     with torch.no_grad():
@@ -1103,8 +1316,8 @@ def phase_k2() -> list:
     del x, dout, h1, gd, dh1, dh2, keep_act, keep_hid
     dx_row = _time_k2_dx(gen, n, seed, dev)
     _time_k2_dx(gen, FT_ROWS, seed, dev)
-    abs_err = {k: float((a.float() - b.float()).abs().max())
-               for k, (a, b) in checks.items()}
+    _time_k2_dw(gen, n, dev)
+    _time_k2_dw(gen, FT_ROWS, dev)
     return [
         {"name": "fused_ffn_bwd_dx", "route": "cuda",
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
@@ -1113,7 +1326,7 @@ def phase_k2() -> list:
         {"name": "fused_ffn_bwd_dw", "route": "cuda",
          "source": "nrse_tpu_torch/csrc/fused_ffn_bwd.cu",
          "replaces": "nrse_tpu/ops/fused_ffn.py:253",
-         "max_abs_err": max(abs_err["dw1"], abs_err["dw2"]),
+         "max_abs_err": dw_abs,
          "ms": times["dw"][0], "plain_ms": times["dw"][1], **bound_dw,
          "library_ms": lib_dw},
     ]
@@ -2617,7 +2830,7 @@ PROFILE_GROUPS = (
      "flash_attention_bwd|flash_dbias_fold"),
     ("kernel A (block attention)", "block_attention_fwd"),
     ("K3 (block attention backward)",
-     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum"),
+     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum|dout_prep"),
     ("kernel B and K2 (fused FFN GEMMs)",
      "nrse::gemm|nrse::wg|dh2_kernel|colsum|transpose_cast"),
     ("K1 (dropout)", "dropout_kernel"),
@@ -2725,31 +2938,15 @@ def _param_shapes(model) -> frozenset:
 def profile_device(run, label: str, iters: int = 3,
                    weight_shapes=frozenset()) -> None:
     """Device time of ``run()`` (which ends waiting for the card) by kernel
-    group, from the CUDA kernels of a ``torch.profiler`` trace over
-    ``iters`` calls after one warm-up; and the card's busy share of the
-    host clock over them.  The copies group is also split by source
-    (``copy_sources``; ``weight_shapes`` are the model's parameter
-    shapes)."""
+    group, from the CUDA kernels of a checked ``torch.profiler`` trace over
+    ``iters`` calls after one warm-up (:func:`traced_kernels`); and the
+    card's busy share of the host clock over them.  The copies group is
+    also split by source (``copy_sources``; ``weight_shapes`` are the
+    model's parameter shapes)."""
     import re
-    from torch.profiler import ProfilerActivity, profile
 
     run()
-    with _CopySources(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA],
-                                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            run()
-        wall = time.perf_counter() - t0
-    fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    events, kernels, wall = traced_kernels(run, iters, _CopySources)
     groups, copies = {}, []
     for e in kernels:
         name = next((g for g, pat in PROFILE_GROUPS

@@ -7,9 +7,9 @@
 // element's flat index in the merged [B, T, H * 64] layout,
 // (b * T + t) * H * 64 + h * 64 + d: the index K1 (fused_dropout.cu) draws
 // at when it drops the merged tensor, so the attention kernels' masks are
-// K1's mask at the same seed (kernel A draws once per four elements,
-// keep_bits_rows; K3 once per element, keep).  Or it comes from an
-// explicit f32 [B, H, T, 64] mask (the tests' path).
+// K1's mask at the same seed, one draw per four elements (kernel A's
+// keep_bits_rows, K3's pre-pass).  Or it comes from an explicit f32
+// [B, H, T, 64] mask (the tests' path).
 //
 // Tiles.  A block of 4 warps works on 64 rows (queries or keys) of one
 // (b, h), a warp on 16 of them.  bf16 [64, 64] tiles of q, k, v or do sit
@@ -40,20 +40,11 @@ struct AttnDrop {
   float p, scale;     // drop probability and keep scale 1 / (1 - p)
   int mode;           // 0 none, 1 Philox, 2 explicit mask
 
-  __device__ __forceinline__ float keep(int b, int h, int t, int d, int H,
-                                        int T) const {
-    if (mode == 1) {
-      const uint64_t c = static_cast<uint64_t>(H) * kAttnHeadDim;
-      const uint64_t index =
-          (static_cast<uint64_t>(b) * T + t) * c +
-          static_cast<uint64_t>(h) * kAttnHeadDim + d;
-      return philox_keep(k0, k1, index, 0u, p, scale);
-    }
-    if (mode == 2) {
-      return mask[((static_cast<size_t>(b) * H + h) * T + t) * kAttnHeadDim +
-                  d];
-    }
-    return 1.f;
+  // The explicit mask's multiplier of element (b, h, t, d) (mode 2).
+  __device__ __forceinline__ float mask_at(int b, int h, int t, int d, int H,
+                                           int T) const {
+    return mask[((static_cast<size_t>(b) * H + h) * T + t) * kAttnHeadDim +
+                d];
   }
 
   // Mode 1 with one draw per group of four (kernel A's output): the keep
@@ -97,7 +88,7 @@ struct AttnDrop {
       const uint32_t w = hf ? bits.y : bits.x;
       return (w >> (4 * jd + 2 * (lane & 1) + e)) & 1u ? scale : 0.f;
     }
-    return keep(b, h, t, 8 * jd + 2 * (lane & 3) + e, H, T);
+    return mask_at(b, h, t, 8 * jd + 2 * (lane & 3) + e, H, T);
   }
 };
 
@@ -168,33 +159,6 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* head,
     if (row0 + r < T) {
       v = *reinterpret_cast<const uint4*>(
           head + static_cast<size_t>(row0 + r) * kHeadDim + col);
-    }
-    *reinterpret_cast<uint4*>(s + r * kLd + col) = v;
-  }
-}
-
-// the same for do, with the keep mask folded in: do' = bf16(do * keep)
-__device__ __forceinline__ void load_dout_tile(bf16* s, const bf16* head,
-                                               int row0, int T, int b, int h,
-                                               int H, const AttnDrop& drop) {
-  for (int c = threadIdx.x; c < kTile * (kHeadDim / 8); c += kThreads) {
-    const int r = c / (kHeadDim / 8);
-    const int col = (c % (kHeadDim / 8)) * 8;
-    const int i = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (i < T) {
-      v = *reinterpret_cast<const uint4*>(
-          head + static_cast<size_t>(i) * kHeadDim + col);
-      if (drop.mode != 0) {
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(x[e]);
-          x[e] = __floats2bfloat162_rn(
-              f.x * drop.keep(b, h, i, col + 2 * e, H, T),
-              f.y * drop.keep(b, h, i, col + 2 * e + 1, H, T));
-        }
-      }
     }
     *reinterpret_cast<uint4*>(s + r * kLd + col) = v;
   }

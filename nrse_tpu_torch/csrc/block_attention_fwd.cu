@@ -427,17 +427,6 @@ block_attention_fwd_kernel(Args args) {
   store_rows(of, m, l, q0 + warp * 16 + lane / 4, b, h, args);
 }
 
-// The tensor map of a [B*H, T, 64] bf16 tensor in boxes of `rows` rows of
-// one head (rows past T read as zeros).
-cudaError_t head_map(CUtensorMap* map, const void* ptr, int BH, int T,
-                     int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kHeadDim),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint32_t box[3] = {kHeadDim, static_cast<cuuint32_t>(rows), 1};
-  return nrse::wg::make_sw128_map(map, ptr, 3, dims, box);
-}
-
 }  // namespace
 
 // Dropout: mode 0 none, 1 Philox under (k0, k1) with probability p and
@@ -475,9 +464,10 @@ extern "C" int nrse_block_attention_fwd(const void* q, const void* k,
   const dim3 grid((T + kTile - 1) / kTile, B * H);
   if (grid.x * kTile <= kWgKeys) {
     CUtensorMap mq, mk, mv;
-    cudaError_t err = head_map(&mq, q, B * H, T, kTile);
-    if (err == cudaSuccess) err = head_map(&mk, k, B * H, T, kWgKeys);
-    if (err == cudaSuccess) err = head_map(&mv, v, B * H, T, kWgKeys);
+    namespace wg = nrse::wg;
+    cudaError_t err = wg::head_map(&mq, q, B * H, T, kTile);
+    if (err == cudaSuccess) err = wg::head_map(&mk, k, B * H, T, kWgKeys);
+    if (err == cudaSuccess) err = wg::head_map(&mv, v, B * H, T, kWgKeys);
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(block_attention_fwd_wgmma_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,

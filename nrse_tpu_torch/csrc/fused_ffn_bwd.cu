@@ -40,10 +40,17 @@
 //     one Philox draw per four elements, into shared memory
 //     (wgmma_gemm.cuh keep_bits_job).  Two small
 //     passes finish db2 and db1 over the partials in a fixed order.
-//   * dW: each 128 x 128 output tile is one block that loops over all N
-//     rows (both operands read transposed, mma_gemm.cuh): no split-K and
-//     no atomics, so dW is the same from run to run.  1024 x 4096 is 256
-//     tiles, about two blocks on each of the 132 SMs.
+//   * dW: both products in one launch of the same persistent wgmma GEMM in
+//     its MN-major mode (wgmma_gemm.cuh launch_mn): dh1, x, dh2 and gd
+//     are read by TMA as they lie, [N, F] and [N, C] with the token
+//     dimension N as the reduction, and wgmma reads each stage transposed;
+//     the last K-tile's rows past N arrive as zeros, so N needs no
+//     padding.  dW1 [F, C] and dW2 [C, F] are 256 output tiles of 128 x
+//     128 each: 512 tiles over the persistent blocks the wrapper plans
+//     (one an SM, ops/fused_ffn.py dw_plan), four each on an H100.  A tile's consumer walks all N in order (no split-K, no
+//     atomics), so dW is the same from run to run; its f32 epilogue
+//     stores the tile while the block's other consumer warpgroup runs
+//     the next tile's main loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -304,13 +311,38 @@ struct EpiStoreBf16 {
   }
 };
 
-struct EpiStoreF32 {
-  float* out;
-  int ld;
-  __device__ __forceinline__ void operator()(int row, int col, float x0,
-                                             float x1) const {
-    *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * ld + col) =
-        make_float2(x0, x1);
+// The dW products' epilogue (the MN-major mode): f32 out, problem 0 into
+// dw1 [F, C], problem 1 into dw2 [C, F]; every row is inside M.
+struct EpiDw {
+  static constexpr bool kSideTile = false;
+  static constexpr bool kSideLoad = false;
+  static constexpr int kScratchFloats = 0;
+  static constexpr int kAuxWords = 0;
+  static constexpr int kAuxJobs = 0;
+  nrse::wg::MNProblems probs;
+  float* out[2];
+  int ld[2];
+
+  __device__ __forceinline__ void aux(int, int, int, uint32_t*) const {}
+
+  __device__ __forceinline__ void store(float (&acc)[2][64],
+                                        const TileCtx& ctx, uint8_t*, float*,
+                                        const uint32_t*) const {
+    float* o = ctx.prob ? out[1] : out[0];
+    const int l = ctx.prob ? ld[1] : ld[0];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* row = o + static_cast<size_t>(ctx.row + 64 * r + 8 * h) * l +
+                     ctx.col;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          *reinterpret_cast<float2*>(row + 8 * j) =
+              make_float2(acc[r][4 * j + 2 * h], acc[r][4 * j + 2 * h + 1]);
+        }
+      }
+    }
   }
 };
 
@@ -377,20 +409,18 @@ extern "C" int nrse_fused_ffn_bwd_dx(
 }
 
 // dW half: x [N, C], gd [N, F] (kernel B's h), dh1 [N, F], dh2 [N, C]
-// bf16 -> dw1 [F, C] and dw2 [C, F] f32, torch's weight layouts.
+// bf16 -> dw1 = dh1^T . x [F, C] and dw2 = dh2^T . gd [C, F] f32, torch's
+// weight layouts, in one launch.
 extern "C" int nrse_fused_ffn_bwd_dw(const void* x, const void* gd,
                                      const void* dh1, const void* dh2,
                                      void* dw1, void* dw2, int N, int C,
-                                     int F, void* stream) {
+                                     int F, int blocks, void* stream) {
   if (bad_shape(N, C, F)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const EpiStoreF32 e1{static_cast<float*>(dw1), C};
-  cudaError_t err = nrse::gemm::launch(
-      static_cast<const bf16*>(dh1), static_cast<const bf16*>(x), F, C, N,
-      e1, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const EpiStoreF32 e2{static_cast<float*>(dw2), F};
-  return static_cast<int>(nrse::gemm::launch(
-      static_cast<const bf16*>(dh2), static_cast<const bf16*>(gd), C, F, N,
-      e2, s));
+  using nrse::wg::kBM;
+  const EpiDw epi{{{F / kBM, C / kBM}, {C / kBN, F / kBN}},
+                  {static_cast<float*>(dw1), static_cast<float*>(dw2)},
+                  {C, F}};
+  return static_cast<int>(nrse::wg::launch_mn(
+      dh1, x, F, C, dh2, gd, C, F, N, blocks, epi,
+      static_cast<cudaStream_t>(stream)));
 }

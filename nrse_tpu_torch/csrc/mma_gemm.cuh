@@ -1,22 +1,13 @@
-// One hand-written tiled bf16 GEMM on mma.sync with the epilogue as a
-// template parameter: K2's dW kernel (fused_ffn_bwd.cu) runs on it; K6
-// (fused_frontend.cu) and the block attention (attention_common.cuh) use
-// its warp-level pieces (warp_mma_stage takes either operand layout), and
-// kernel B its GELU and bf16 store.
+// The warp-level pieces of a tiled bf16 GEMM on mma.sync: K6
+// (fused_frontend.cu) runs its products on warp_mma_stage (either operand
+// layout) with this block tile, the block attention's mma.sync route
+// (attention_common.cuh) uses its ldmatrix and mma wrappers, and kernel B
+// and K2 its GELU and bf16 store.
 //
-//   out[m, n] = epilogue(sum_k A(m, k) * B(n, k))   f32 accumulation
-//
-//   a is [K, M] row-major (lda = M), b is [K, N] row-major (ldb = N): both
-//   operands read transposed; k rows >= K zero-fill.
-//
-// Requirements: M % 128 == 0, N % 128 == 0.
-//
-// Design: 128 x 128 x 32 block tile, 8 warps of 64 x 32 (2 along M, 4 along
-// N), mma.sync.m16n8k16 bf16 -> f32, operands fed by ldmatrix.trans from a
-// two-stage cp.async ring in shared memory whose rows are padded by 16
-// bytes so that ldmatrix is free of bank conflicts.  The epilogue functor
-// sees each pair of neighbouring columns (row, col), (row, col + 1) of the
-// f32 accumulator.
+// The tile: 128 x 128 x 32, 8 warps of 64 x 32 (2 along M, 4 along N),
+// mma.sync.m16n8k16 bf16 -> f32, operands fed by ldmatrix (.trans for an
+// M- or N-contiguous tile) from shared-memory rows padded by 16 bytes so
+// that ldmatrix is free of bank conflicts.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,8 +33,6 @@ constexpr int kNTiles = kWarpN / 8;      // 4 n8 tiles per warp
 
 static_assert(kBM == kBN, "one tile row length serves A and B");
 
-// bf16 elements of one stage of a 32 x 128 operand tile (k rows)
-constexpr int kTileElems = kBK * kRowMN;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -96,24 +85,6 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
 __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x0,
                                              float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-// One stage of an operand tile into shared memory: k rows k0..k0+31 of a
-// [K, R] operand, columns r0..r0+127; 512 chunks of 16 bytes, two per
-// thread.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g, int r0,
-                                          int k0, int K, int ld, int tid) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int chunk = tid + c * kThreads;
-    const int row = chunk / 16;
-    const int col = (chunk % 16) * 8;
-    const bool ok = k0 + row < K;
-    const __nv_bfloat16* src =
-        g + static_cast<size_t>(ok ? k0 + row : 0) * ld + r0 + col;
-    cp_async16(s + row * kRowMN + col, src, ok ? 16 : 0);
-  }
 }
 
 // One warp's products over one 32-deep stage: acc[i][j] (m16 tile i, n8
@@ -170,78 +141,6 @@ __device__ __forceinline__ void warp_mma_stage(float (&acc)[kMT][kNT][4],
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
   }
-}
-
-template <class Epi>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(const __nv_bfloat16* __restrict__ a,
-            const __nv_bfloat16* __restrict__ b, int M, int N, int K,
-            Epi epi) {
-  __shared__ __align__(16) __nv_bfloat16 as[kStages][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 bs[kStages][kTileElems];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int wm = warp / 4;  // 0..1
-  const int wn = warp % 4;  // 0..3
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  auto load_stage = [&](int stage, int k0) {
-    load_tile(as[stage], a, m0, k0, K, M, tid);
-    load_tile(bs[stage], b, n0, k0, K, N, tid);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float acc[kMTiles][kNTiles][4];
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int ktiles = (K + kBK - 1) / kBK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int stage = kt % kStages;
-    if (kt + 1 < ktiles) {
-      load_stage((kt + 1) % kStages, (kt + 1) * kBK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-
-    warp_mma_stage<kMTiles, kNTiles, true, true, kRowMN, kRowMN>(
-        acc, as[stage], bs[stage], wm * kWarpM, wn * kWarpN, lane);
-    __syncthreads();  // the stage is overwritten by the next load
-  }
-
-  // Epilogue: accumulator element e of tile (i, j) sits at row
-  // lane / 4 (+ 8 for e >= 2) and column (lane % 4) * 2 (+ 1 for odd e).
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    const int col = n0 + wn * kWarpN + j * 8 + (lane % 4) * 2;
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * kWarpM + i * 16 + lane / 4 + half * 8;
-        epi(row, col, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// Launch on `stream`; returns cudaGetLastError().
-template <class Epi>
-inline cudaError_t launch(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                          int M, int N, int K, const Epi& epi,
-                          cudaStream_t stream) {
-  const dim3 grid(N / kBN, M / kBM);
-  gemm_kernel<Epi><<<grid, kThreads, 0, stream>>>(a, b, M, N, K, epi);
-  return cudaGetLastError();
 }
 
 }  // namespace gemm

@@ -10,14 +10,13 @@
 // (bits >> 8) * 2^-24 >= p, and a kept value is scaled by 1 / (1 - p),
 // computed in float32 on the host.
 //
-// Three forms: philox_keep4 gives the four keep multipliers of group g
-// (K1, K2's dh2 pass), philox_keep_bits4 their four keep bits (the wgmma
-// epilogues' keep bits, drawn by a spare warp or by one lane of the pair
+// Two forms: philox_keep4 gives the four keep multipliers of group g
+// (K1, K2's dh2 pass, K3's pre-pass), philox_keep_bits4 their four keep
+// bits (the wgmma epilogues' keep bits, drawn by a spare warp or by one
+// lane of the pair
 // that holds the group's two halves in the accumulator layout: K2's dgd
 // product, kernel B's two products, kernel A's output): one draw per four
-// elements, nothing thrown away.  philox_keep gives element i's alone
-// (draw group i >> 2, take word i & 3: a whole draw per element, the form
-// K3 still uses).
+// elements, nothing thrown away.
 #pragma once
 
 #include <stdint.h>
@@ -76,17 +75,6 @@ __device__ __forceinline__ float4 philox_keep4(uint32_t k0, uint32_t k1,
                      philox_kept(r.w[1], p) ? scale : 0.f,
                      philox_kept(r.w[2], p) ? scale : 0.f,
                      philox_kept(r.w[3], p) ? scale : 0.f);
-}
-
-// The dropout multiplier of element `index` alone.
-__device__ __forceinline__ float philox_keep(uint32_t k0, uint32_t k1,
-                                             uint64_t index, uint32_t site,
-                                             float p, float scale) {
-  const Philox4 r = philox4(k0, k1, index >> 2, site);
-  const uint32_t e = static_cast<uint32_t>(index & 3u);
-  const uint32_t bits = e == 0 ? r.w[0] : e == 1 ? r.w[1] : e == 2 ? r.w[2]
-                                                                  : r.w[3];
-  return philox_kept(bits, p) ? scale : 0.f;
 }
 
 // How a kernel gets the keep mask of a dropout site: not at all (p = 0),

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's wgmma kernels (the GEMM of
-// wgmma_gemm.cuh, which K2's dx kernel and kernel B run on, and kernel A's
-// one-pass attention, block_attention_fwd.cu): mbarriers, TMA copies
+// wgmma_gemm.cuh, which K2's dx and dW kernels and kernel B run on, and
+// the block attention's one-pass forward and backward, kernel A and K3):
+// mbarriers, TMA copies
 // between device memory and shared memory, the shared-memory matrix
 // descriptor of the 128-byte swizzle, and wgmma.mma_async in the shapes
 // those kernels use.  All of it needs sm_90a.
@@ -109,6 +110,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
          (1ull << 62);
 }
 
+// The same for an MN-major operand wider than 64: blocks of 64 M or N
+// columns (128-byte rows, 8 rows a 1024-byte swizzle atom along K) lie
+// `block_bytes` apart, the descriptor's leading byte offset; the stride
+// byte offset stays 1024 (8 K rows).  A K step of 16 rows adds 128.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* tile,
+                                                  uint32_t block_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((block_bytes >> 4) & 0x3FFF) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -139,7 +152,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory.
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both from shared memory,
+// K-major unless kTransA / kTransB set an operand MN-major (M or N
+// contiguous, read transposed).
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
@@ -154,7 +170,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -169,6 +185,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both from shared memory,
+// K-major; scale_d = 0 ignores d's old value.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -300,6 +342,17 @@ inline cudaError_t make_sw128_map(CUtensorMap* map, const void* ptr,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a [heads, T, 64] bf16 tensor (the attention kernels'
+// [B*H, T, 64] q, k, v and do) in boxes of `rows` rows of one head: rows
+// past T read as zeros, never another head's.
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int heads,
+                            int T, int rows) {
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return make_sw128_map(map, ptr, 3, dims, box);
 }
 
 }  // namespace wg

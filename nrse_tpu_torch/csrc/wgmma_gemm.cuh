@@ -1,7 +1,7 @@
 // A persistent, warp-specialised bf16 GEMM for Hopper: TMA loads into a
 // ring of 128-byte-swizzled shared-memory tiles, wgmma.mma_async on them,
-// and an epilogue given as a template parameter (its users: K2's dx
-// kernel, fused_ffn_bwd.cu, and kernel B's two products, fused_ffn_fwd.cu).
+// and an epilogue given as a template parameter (its users: K2's dx and dW
+// kernels, fused_ffn_bwd.cu, and kernel B's two products, fused_ffn_fwd.cu).
 //
 //   out[m, n] = epilogue(sum_k A[m, k] * B[n, k])   f32 accumulation
 //
@@ -9,6 +9,15 @@
 //   both, wgmma's native K-major operands).  Rows of A past M read as zero
 //   (TMA fills a box past the tensor's end with zeros); the epilogue masks
 //   them.  Requirements: N % 128 == 0, K % 64 == 0, 16-byte aligned rows.
+//
+//   The MN-major mode (template parameter kMN, launch_mn): a is [K, M] and
+//   b is [K, N], row-major (M and N contiguous: a product that reduces over
+//   the rows of both, as a weight gradient reduces over tokens).  A stage
+//   holds each operand as two boxes of 64 K rows x 64 M (or N) columns,
+//   read by wgmma with its transpose bits set.  K may be ragged: the last
+//   K-tile's rows past K arrive as zeros.  Two products with the same K
+//   (the same epilogue type) run in one launch, problem 0's tiles first.
+//   Requirements: M, N % 128 == 0, 16-byte aligned rows.
 //
 // Design.  Output tiles of 128 x 128, K-tiles of 64 bf16 = 128 bytes, which
 // is one row of CU_TENSOR_MAP_SWIZZLE_128B: a stage holds A's 128 x 64 and
@@ -94,6 +103,7 @@ struct Smem {
 static_assert(kBM == kBN, "one tensor-map box serves A and B");
 
 struct TileCtx {
+  int prob = 0;  // the MN-major mode's problem, 0 or 1
   int mt;   // tile row index (blocks of kBM rows)
   int n0;   // first column of the tile
   int row;  // this thread's first accumulator row
@@ -190,7 +200,23 @@ __device__ __forceinline__ uint4 keep_words(const DropSite& site,
                         : make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <class Epi>
+// The MN-major mode's two products: tile counts along M and N of each.
+struct MNProblems {
+  int m_tiles[2], n_tiles[2];
+};
+
+// The MN-major mode's tile `tile` over both products: (problem, m0, n0).
+__device__ __forceinline__ int3 mn_tile(const MNProblems& pr, int tile) {
+  // selects, not an index by p: a runtime index would put the kernel
+  // parameter's arrays on the stack
+  const int t0 = pr.m_tiles[0] * pr.n_tiles[0];
+  const bool p = tile >= t0;
+  const int local = p ? tile - t0 : tile;
+  const int nt = p ? pr.n_tiles[1] : pr.n_tiles[0];
+  return make_int3(p ? 1 : 0, local / nt * kBM, local % nt * kBN);
+}
+
+template <class Epi, bool kMN = false>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
                const __grid_constant__ CUtensorMap tmb,
@@ -214,8 +240,13 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
       scratch + kConsumers * Epi::kScratchFloats);
 
   const int n_tiles = N / kBN;
-  const int tiles = (M + kBM - 1) / kBM * n_tiles;
-  const int kblocks = K / kBK;
+  int tiles = (M + kBM - 1) / kBM * n_tiles;
+  int kblocks = K / kBK;
+  if constexpr (kMN) {
+    tiles = epi.probs.m_tiles[0] * epi.probs.n_tiles[0] +
+            epi.probs.m_tiles[1] * epi.probs.n_tiles[1];
+    kblocks = (K + kBK - 1) / kBK;
+  }
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) {
@@ -257,14 +288,36 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
       uint32_t phase = 0;
       for (int j = 0; blockIdx.x + j * gridDim.x < tiles; ++j) {
         const int tile = blockIdx.x + j * gridDim.x;
-        const int m0 = tile / n_tiles * kBM;
-        const int n0 = tile % n_tiles * kBN;
+        int m0 = tile / n_tiles * kBM;
+        int n0 = tile % n_tiles * kBN;
+        const CUtensorMap* mapa = &tma;
+        const CUtensorMap* mapb = &tmb;
+        if constexpr (kMN) {
+          // problem 1's operands are the maps tmc and tmd
+          const int3 t = mn_tile(epi.probs, tile);
+          m0 = t.y;
+          n0 = t.z;
+          if (t.x) {
+            mapa = &tmc;
+            mapb = &tmd;
+          }
+        }
         for (int kb = 0; kb < kblocks; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], kStageBytes);
           uint8_t* st = smem + stage * kStageBytes;
-          tma_load_2d(st, &tma, kb * kBK, m0, &full[stage]);
-          tma_load_2d(st + kTileBytes, &tmb, kb * kBK, n0, &full[stage]);
+          if constexpr (kMN) {
+            // boxes of 64 K rows x 64 columns: columns 0-63, then 64-127
+            constexpr int kBox = kTileBytes / 2;
+            tma_load_2d(st, mapa, m0, kb * kBK, &full[stage]);
+            tma_load_2d(st + kBox, mapa, m0 + 64, kb * kBK, &full[stage]);
+            tma_load_2d(st + kTileBytes, mapb, n0, kb * kBK, &full[stage]);
+            tma_load_2d(st + kTileBytes + kBox, mapb, n0 + 64, kb * kBK,
+                        &full[stage]);
+          } else {
+            tma_load_2d(st, &tma, kb * kBK, m0, &full[stage]);
+            tma_load_2d(st + kTileBytes, &tmb, kb * kBK, n0, &full[stage]);
+          }
           if (++stage == kRing) {
             stage = 0;
             phase ^= 1;
@@ -300,6 +353,12 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
       TileCtx ctx;
       ctx.mt = tile / n_tiles;
       ctx.n0 = tile % n_tiles * kBN;
+      if constexpr (kMN) {
+        const int3 t = mn_tile(epi.probs, tile);
+        ctx.prob = t.x;
+        ctx.mt = t.y / kBM;
+        ctx.n0 = t.z;
+      }
       ctx.row = ctx.mt * kBM + warp * 16 + lane / 4;
       ctx.col = ctx.n0 + 2 * (lane % 4);
 
@@ -313,16 +372,29 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap tma,
         mbar_wait(&full[stage], (it / kRing) & 1);
         const uint8_t* sa = smem + stage * kStageBytes;
         const uint64_t da = sw128_desc(sa);
-        const uint64_t db = sw128_desc(sa + kTileBytes);
         fence_acc(acc[0]);
         fence_acc(acc[1]);
         wgmma_fence();
+        if constexpr (kMN) {
+          // A's rows 64-127 are its second box, 8 KB (512 units) on; B's
+          // two boxes are the descriptor's 8 KB-apart column blocks; a
+          // 16-deep step is 16 K rows, 2048 bytes (128 units)
+          const uint64_t db = sw128_mn_desc(sa + kTileBytes, kTileBytes / 2);
 #pragma unroll
-        for (int k = 0; k < kBK / 16; ++k) {
-          // rows 64-127 of A start 64 rows x 128 bytes on: 512 in the
-          // descriptor's 16-byte units
-          wgmma_m64n128k16(acc[0], da + 2 * k, db + 2 * k, 1);
-          wgmma_m64n128k16(acc[1], da + 512 + 2 * k, db + 2 * k, 1);
+          for (int k = 0; k < kBK / 16; ++k) {
+            wgmma_m64n128k16<1, 1>(acc[0], da + 128 * k, db + 128 * k, 1);
+            wgmma_m64n128k16<1, 1>(acc[1], da + 512 + 128 * k, db + 128 * k,
+                                   1);
+          }
+        } else {
+          const uint64_t db = sw128_desc(sa + kTileBytes);
+#pragma unroll
+          for (int k = 0; k < kBK / 16; ++k) {
+            // rows 64-127 of A start 64 rows x 128 bytes on: 512 in the
+            // descriptor's 16-byte units
+            wgmma_m64n128k16(acc[0], da + 2 * k, db + 2 * k, 1);
+            wgmma_m64n128k16(acc[1], da + 512 + 2 * k, db + 2 * k, 1);
+          }
         }
         wgmma_commit();
         fence_acc(acc[0]);
@@ -428,6 +500,50 @@ inline cudaError_t launch(const void* a, const void* b, const void* side,
   const int grid = tiles < sms ? tiles : sms;
   gemm_tn_kernel<Epi><<<grid, kThreads, Smem<Epi>::kBytes, stream>>>(
       ma, mb, mc, md, M, N, K, epi);
+  return cudaGetLastError();
+}
+
+// The tensor map of an MN-major operand [k, cols] (cols contiguous):
+// boxes of 64 k rows x 64 columns under the 128-byte swizzle, zeros past
+// the last row.
+inline cudaError_t make_mn_map(CUtensorMap* map, const void* ptr, int k,
+                               int cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(k)};
+  const cuuint32_t box[2] = {64, kBK};
+  return make_sw128_map(map, ptr, 2, dims, box);
+}
+
+// The MN-major mode: out_p = epilogue(a_p^T . b_p) for p = 0, 1, a_p
+// [K, M_p] and b_p [K, N_p], in one persistent launch of `grid` blocks on
+// `stream` (the caller's plan: one an SM, at most the tiles); epi.probs
+// must hold the problems' tile counts.  Returns the first CUDA error.
+template <class Epi>
+inline cudaError_t launch_mn(const void* a0, const void* b0, int M0, int N0,
+                             const void* a1, const void* b1, int M1, int N1,
+                             int K, int grid, const Epi& epi,
+                             cudaStream_t stream) {
+  static_assert(!Epi::kSideTile && Epi::kAuxWords == 0,
+                "the MN-major mode has no side tile and no aux words");
+  const int tiles = (M0 / kBM) * (N0 / kBN) + (M1 / kBM) * (N1 / kBN);
+  if (K < 1 || grid < 1 || grid > tiles || M0 % kBM || N0 % kBN ||
+      M1 % kBM || N1 % kBN ||
+      epi.probs.m_tiles[0] != M0 / kBM || epi.probs.n_tiles[0] != N0 / kBN ||
+      epi.probs.m_tiles[1] != M1 / kBM || epi.probs.n_tiles[1] != N1 / kBN)
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb, mc, md;
+  cudaError_t err = make_mn_map(&ma, a0, K, M0);
+  if (err == cudaSuccess) err = make_mn_map(&mb, b0, K, N0);
+  if (err == cudaSuccess) err = make_mn_map(&mc, a1, K, M1);
+  if (err == cudaSuccess) err = make_mn_map(&md, b1, K, N1);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(gemm_tn_kernel<Epi, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Smem<Epi>::kBytes);
+  }
+  if (err != cudaSuccess) return err;
+  gemm_tn_kernel<Epi, true><<<grid, kThreads, Smem<Epi>::kBytes, stream>>>(
+      ma, mb, mc, md, M0, N0, K, epi);
   return cudaGetLastError();
 }
 

@@ -17,8 +17,10 @@ card:
     the PV product, which is divided by ``max(Σp, 1e-30)`` afterwards;
   * dropout multiplies the float32 output by its keep mask before the cast;
   * the backward recomputes the probabilities from the saved ``lse``,
-    folds the keep mask into ``do`` before any product, and rounds ``p``
-    and ``ds`` to the input dtype before the products that take them.
+    folds the keep mask into ``do`` before any product, rounds ``p``
+    and ``ds`` to the input dtype before the products that take them, and
+    sums ``dbias`` over the batch in a fixed grouped order
+    (:func:`grouped_dbias`).
 
 The keep mask of the attention output is K1's mask at the same seed over
 the merged ``[B, T, C]`` layout (:func:`attention_keep_mask`): the element
@@ -36,6 +38,9 @@ import torch
 from nrse_tpu_torch.ops import philox
 
 NEG_INF = -1e9
+# the plain backward sums gate·ds over groups of DBIAS_GROUP batches in
+# batch order, then the groups' sums in order
+DBIAS_GROUP = 4
 
 
 def mask_add(key_padding_mask: Optional[torch.Tensor], b: int, t: int,
@@ -124,8 +129,21 @@ def gated_bias_attention_bwd(q, k, v, gate, pos_bias, madd, out, lse, do,
     dq = (torch.matmul(dsb, k.float()) * scale).to(mm)
     dk = (torch.matmul(dsb.transpose(-1, -2), q.float()) * scale).to(mm)
     dgate = (ds * pos_bias.float()[None]).sum(-1)
-    dbias = (gate.float()[..., None] * ds).sum(0)
-    return dq, dk, dv, dgate, dbias
+    return dq, dk, dv, dgate, grouped_dbias(gate, ds, DBIAS_GROUP)
+
+
+def grouped_dbias(gate, ds, group: int) -> torch.Tensor:
+    """``dbias [H, T, T] = Σ_b gate[b]·ds[b]`` in a fixed order: each
+    group of ``group`` batches summed in batch order into a partial, then
+    the partials in group order (float32)."""
+    contrib = gate.float()[..., None] * ds
+    dbias = None
+    for g0 in range(0, contrib.shape[0], group):
+        part = contrib[g0]
+        for b in range(g0 + 1, min(g0 + group, contrib.shape[0])):
+            part = part + contrib[b]
+        dbias = part if dbias is None else dbias + part
+    return dbias
 
 
 def gated_bias_attention(q, k, v, gate, pos_bias, key_padding_mask=None):

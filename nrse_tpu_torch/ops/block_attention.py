@@ -9,11 +9,13 @@ path: 5 s clips are 249 frames) and two passes on mma.sync above that
 :func:`block_gated_attention` is a ``torch.autograd.Function``: its
 forward is kernel A (``csrc/block_attention_fwd.cu``), which saves the
 output after dropout and the per-row ``lse``; its backward is K3
-(``csrc/block_attention_bwd.cu``), which recomputes the scores and
-probabilities from them and regenerates the keep mask from the seed, so no
-``[B, H, T, T]`` tensor and no mask is kept.  A CPU tensor goes to the
-plain versions in ``ops.attention`` instead; there is no fallback from one
-to the other.
+(``csrc/block_attention_bwd.cu``: a pre-pass forms ``do'`` and ``delta``,
+then two wgmma kernels while ``T`` pads to at most 256 frames, two
+mma.sync kernels above, :func:`attention_bwd_plan`), which recomputes the
+scores and probabilities from them and regenerates the keep mask from the
+seed, so no ``[B, H, T, T]`` tensor and no mask is kept.  A CPU tensor
+goes to the plain versions in ``ops.attention`` instead; there is no
+fallback from one to the other.
 
 Dropout comes either from a seed pair (the mask is K1's at the same seed
 over the merged ``[B, T, C]`` layout, ``ops.attention.attention_keep_mask``)
@@ -52,6 +54,9 @@ HEAD_DIM = 64
 TILE = 64
 WGMMA_MAX_T_PAD = 256
 SM_SMEM = 233472  # an H100 SM's shared memory
+# K3's wgmma route sums gate·ds over groups of at least DBIAS_MIN_GROUP
+# batches, one dbias partial a group, with two dq blocks an SM
+DBIAS_MIN_GROUP = 4
 
 # Kernel launches made by this wrapper since the counts were last reset:
 # kernel A (forward) and K3 (backward).
@@ -121,6 +126,58 @@ def attention_fwd_plan(t: int) -> dict:
             + 4 * TILE
     return {"route": route, "t_pad": t_pad, "query_tiles": t_pad // TILE,
             "smem": smem, "blocks_per_sm": 2 if route == "wgmma" else 1}
+
+
+def dbias_group(b: int, h: int, t: int, sms: int) -> int:
+    """The batches of one of K3's dbias partials on a card of ``sms`` SMs:
+    on its wgmma route (``T_pad = 64·⌈t/64⌉ ≤ 256``) the fewest, at least
+    :data:`DBIAS_MIN_GROUP`, whose dq blocks (one a query tile, head and
+    group, each walking its group's batches in turn, two an SM) fit the
+    card in one wave; on the mma.sync route one (a partial a batch)."""
+    tiles = -(-t // TILE)
+    if TILE * tiles > WGMMA_MAX_T_PAD:
+        return 1
+    g = DBIAS_MIN_GROUP
+    while g < b and tiles * h * -(-b // g) > 2 * sms:
+        g += 1
+    return g
+
+
+def attention_bwd_plan(b: int, h: int, t: int, sms: int) -> dict:
+    """What K3 (``csrc/block_attention_bwd.cu``) does for ``b`` batches,
+    ``h`` heads and ``t`` frames on a card of ``sms`` SMs: the route
+    (``"wgmma"`` while ``T_pad = 64·⌈t/64⌉ ≤ 256``, else ``"mma_sync"``),
+    the 64-row tiles, the batches of a dbias partial (:func:`dbias_group`),
+    the slices of f32 ``[h, t, t]`` partials the wrapper allocates (one a
+    group on the wgmma route, none for one group; one a batch on the
+    mma.sync route) and the blocks of its kernels: the wgmma route's dq
+    kernel (a block per query tile, head and group) and dk/dv kernel (a
+    block per key tile, batch and head), with their dynamic shared memory,
+    two blocks an SM.  Both routes take the pre-pass's ``do'`` (bf16
+    ``[b, h, t, 64]``) and ``delta`` (f32 ``[b, h, t]``)."""
+    t_pad = TILE * -(-t // TILE)
+    tiles = t_pad // TILE
+    group = dbias_group(b, h, t, sms)
+    if t_pad <= WGMMA_MAX_T_PAD:
+        groups = -(-b // group)
+        slices = groups if groups > 1 else 0
+        tile_b, head_b = 2 * TILE * HEAD_DIM, 2 * WGMMA_MAX_T_PAD * HEAD_DIM
+        # alignment slack, two 64-row and two 256-row bf16 tiles, f32
+        # vectors of 256 (one, or three), the dq kernel's f32 gate·ds
+        # stage tile (rows of 72), one mbarrier
+        return {"route": "wgmma", "t_pad": t_pad, "tiles": tiles,
+                "group": group, "groups": groups,
+                "partial": slices * h * t * t,
+                "dq_blocks": tiles * h * groups, "dkdv_blocks": tiles * b * h,
+                "dq_smem": 1024 + 2 * tile_b + 2 * head_b
+                + 4 * WGMMA_MAX_T_PAD + 4 * TILE * (TILE + 8) + 8,
+                "dkdv_smem": 1024 + 2 * tile_b + 2 * head_b
+                + 12 * WGMMA_MAX_T_PAD + 8,
+                "blocks_per_sm": 2}
+    return {"route": "mma_sync", "t_pad": t_pad, "tiles": tiles,
+            "group": group, "groups": b, "partial": b * h * t * t,
+            "dq_blocks": tiles * b * h, "dkdv_blocks": tiles * b * h,
+            "blocks_per_sm": 1}
 
 
 def _check_inputs(q, k, v, gate, pos_bias, key_padding_mask):
@@ -200,23 +257,29 @@ def _kernel_bwd(q, k, v, gate, bias, madd, out, lse, do, drop):
     q, k, v = (x.contiguous() for x in (q, k, v))
     gate, bias, madd, lse = (_f32(x) for x in (gate, bias, madd, lse))
     do = do.to(q.dtype).contiguous()
-    # rowsum(do ⊙ out), a plain reduction, as the JAX package leaves it
-    # to XLA (nrse_tpu/ops/block_attention.py:353)
-    delta = (do.float() * out.float()).sum(-1).contiguous()
+    out = out.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dgate = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     dbias = torch.empty(h, t, t, dtype=torch.float32, device=q.device)
-    # the per-batch gate·ds partials, summed over b in a fixed order
-    partial = torch.empty(b, h, t, t, dtype=torch.float32, device=q.device)
+    # the pre-pass's do' = do·keep and delta = rowsum(do ⊙ out), and the
+    # dbias partials the kernels sum in a fixed order
+    dop = torch.empty_like(q)
+    delta = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    plan = attention_bwd_plan(b, h, t, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    partial = (torch.empty(plan["partial"], dtype=torch.float32,
+                           device=q.device) if plan["partial"] else None)
     lib = cuda_build.load()
     with torch.cuda.device(q.device):
         err = lib.nrse_block_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(),
-            bias.data_ptr(), madd.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *drop.c_args(q.shape, q.device),
+            bias.data_ptr(), madd.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *drop.c_args(q.shape, q.device),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dgate.data_ptr(),
-            dbias.data_ptr(), partial.data_ptr(), b, h, t, d, 1.0 / d ** 0.5,
-            torch.cuda.current_stream().cuda_stream)
+            dbias.data_ptr(), dop.data_ptr(), delta.data_ptr(),
+            0 if partial is None else partial.data_ptr(), plan["group"],
+            b, h, t, d,
+            1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "block_attention_bwd")
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1

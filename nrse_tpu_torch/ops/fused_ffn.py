@@ -16,7 +16,8 @@ Which kernel runs where:
     the dx kernel (dx, db1, db2; its two products on wgmma fed by TMA,
     ``csrc/wgmma_gemm.cuh``, the weights cast and transposed by the
     kernel into scratch the wrapper allocates, see :func:`dx_plan`) and
-    the dW kernel (dW1, dW2).
+    the dW kernel (dW1, dW2: both products in one launch of the same
+    GEMM, its operands read MN-major, see :func:`dw_plan`).
 
 Masks follow the Philox contract of ``ops/philox.py``: site 0 is the
 activation site over ``[N, F]``, site 1 the hidden site over ``[N, C]``,
@@ -269,6 +270,18 @@ def dx_plan(n: int, c: int, f: int) -> dict:
             "scratch": max(chunks * c, row_tiles * f)}
 
 
+def dw_plan(n: int, c: int, f: int, sms: int) -> dict:
+    """What K2's dW kernel (``csrc/fused_ffn_bwd.cu``) works on for ``n``
+    rows on a card of ``sms`` SMs: the 64-row K-tiles each output tile's
+    main loop walks (the last one ragged, zero-filled by TMA), the 128 x
+    128 output tiles of dW1 ``[f, c]`` and dW2 ``[c, f]`` in one launch,
+    and the persistent blocks the wrapper launches (one an SM, at most the
+    tiles), each taking every ``blocks``-th tile.  It needs no scratch."""
+    tiles = 2 * (f // TILE) * (c // TILE)
+    return {"k_tiles": -(-n // 64), "dw1_tiles": (f // TILE) * (c // TILE),
+            "tiles": tiles, "blocks": min(tiles, sms)}
+
+
 def _weight(w):
     """A weight as the dx kernel reads it: float32, contiguous, 16-byte
     aligned (the kernel casts it to bf16 and transposes it itself)."""
@@ -316,11 +329,14 @@ def _kernel_bwd_dw(x, gd, dh1, dh2):
     f = gd.shape[1]
     dw1 = torch.empty(f, c, dtype=torch.float32, device=x.device)
     dw2 = torch.empty(c, f, dtype=torch.float32, device=x.device)
+    plan = dw_plan(n, c, f, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     lib = cuda_build.load()
     with cuda_build.on_device(x.device):
         err = lib.nrse_fused_ffn_bwd_dw(
             x.data_ptr(), gd.data_ptr(), dh1.data_ptr(), dh2.data_ptr(),
-            dw1.data_ptr(), dw2.data_ptr(), n, c, f, _stream())
+            dw1.data_ptr(), dw2.data_ptr(), n, c, f, plan["blocks"],
+            _stream())
     cuda_build.check(err, "fused_ffn_bwd_dw")
     global DW_LAUNCHES
     DW_LAUNCHES += 1

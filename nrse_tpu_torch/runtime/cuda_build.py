@@ -50,8 +50,8 @@ _ENTRIES = {
                                  _I, _I, _I, _I, _F, _P],
     "nrse_block_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _U, _U, _F, _F, _I,
-                                 _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _F, _P],
+                                 _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _F, _P],
     "nrse_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _F, _P],
     "nrse_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -67,7 +67,7 @@ _ENTRIES = {
     "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
                               _F, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _P],
-    "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "nrse_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _F, _I, _P],
     "nrse_channel_layernorm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "nrse_channel_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -30,6 +30,7 @@ from nrse_tpu_torch.ops.attention import (
     gated_bias_attention,
     gated_bias_attention_bwd,
     gated_bias_attention_lse,
+    grouped_dbias,
     mask_add,
 )
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
@@ -45,23 +46,24 @@ P_DROP = 0.25
 JAX_TOL = 1e-4
 ROUTE_TOL = 1e-5
 NAMES = ("out", "dq", "dk", "dv", "dgate", "dbias")
+H100_SMS = 132
 
 
-def make_inputs(t, seed=0, fully_masked=False):
+def make_inputs(t, seed=0, fully_masked=False, b=B):
     """q, k, v, gate, bias, key mask, dropout keep mask and the output's
     cotangent, as numpy float32.  Sample 0 keeps 70% of its keys; sample 1
-    40%, or none."""
+    40%, or none; any others all."""
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.standard_normal((B, H, t, D)).astype(np.float32)
+    q, k, v = (rng.standard_normal((b, H, t, D)).astype(np.float32)
                for _ in range(3))
-    gate = rng.uniform(0.5, 2.5, (B, H, t)).astype(np.float32)
+    gate = rng.uniform(0.5, 2.5, (b, H, t)).astype(np.float32)
     bias = rng.standard_normal((H, t, t)).astype(np.float32)
-    mask = np.ones((B, t), np.int32)
+    mask = np.ones((b, t), np.int32)
     mask[0, int(0.7 * t):] = 0
     mask[1, 0 if fully_masked else int(0.4 * t):] = 0
-    keep = ((rng.random((B, H, t, D)) >= P_DROP) / (1 - P_DROP)
+    keep = ((rng.random((b, H, t, D)) >= P_DROP) / (1 - P_DROP)
             ).astype(np.float32)
-    cot = rng.standard_normal((B, H, t, D)).astype(np.float32)
+    cot = rng.standard_normal((b, H, t, D)).astype(np.float32)
     return (q, k, v, gate, bias), mask, keep, cot
 
 
@@ -97,13 +99,21 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-@pytest.mark.parametrize("t,fully_masked", [(37, False), (128, True),
-                                            (200, False)])
-def test_forward_and_backward_match_jax_block_kernel(t, fully_masked):
+@pytest.mark.parametrize("t,fully_masked,b", [(37, False, B),
+                                              (128, True, B),
+                                              (200, False, B),
+                                              pytest.param(
+                                                  100, False, 5,
+                                                  marks=pytest.mark.fast)],
+                         ids=["37-False", "128-True", "200-False",
+                              "100-False-B5"])
+def test_forward_and_backward_match_jax_block_kernel(t, fully_masked, b):
     """At T = 128 the JAX kernel pads nothing, so the fully masked sample
     is held to it too (both recompute p = exp(s − lse) from the rounded
-    lse there; ROADMAP Queue 3)."""
-    inputs = make_inputs(t, seed=t, fully_masked=fully_masked)
+    lse there; ROADMAP Queue 3).  B = 5 is not a multiple of the plain
+    version's dbias group (4): the grouped sum over a group of 4 and one of
+    1 against the JAX kernel's sum over the batch."""
+    inputs = make_inputs(t, seed=t, fully_masked=fully_masked, b=b)
     ours = _port_block(*inputs)
     ref = _jax_block(*inputs)
     errs = {n: _rel(a, b) for n, a, b in zip(NAMES, ours, ref)}
@@ -125,6 +135,76 @@ def test_fully_masked_sample_is_the_uniform_mean(t):
         jnp.asarray(mask))) * keep
     assert _rel(ours[0], ref) <= JAX_TOL
     assert all(np.isfinite(a).all() for a in ours)
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("b", [1, 2, 5, 36])
+@pytest.mark.parametrize("t,route", [(1, "wgmma"), (63, "wgmma"),
+                                     (65, "wgmma"), (249, "wgmma"),
+                                     (256, "wgmma"), (257, "mma_sync"),
+                                     (384, "mma_sync")])
+def test_attention_bwd_plan(b, t, route):
+    """K3's route by T_pad (wgmma up to 256 frames, as kernel A), and the
+    dbias partials the wrapper allocates: on the wgmma route one [H, T, T]
+    slice per group of at least 4 batches (the fewest whose dq blocks fit
+    an H100's 132 SMs, two an SM, in one wave), none for one group, never
+    more than ceil(B/4) slices; on the mma.sync route one a batch.  Two
+    wgmma blocks fit an SM's shared memory."""
+    h = 16
+    plan = block_attention.attention_bwd_plan(b, h, t, H100_SMS)
+    assert plan["route"] == route
+    assert plan["tiles"] == -(-t // 64)
+    if route == "wgmma":
+        g = plan["group"]
+        assert g >= 4 and plan["groups"] == -(-b // g)
+        if g > 4:  # no smaller group fits one wave
+            assert plan["tiles"] * h * -(-b // (g - 1)) > 2 * H100_SMS
+            assert plan["dq_blocks"] <= 2 * H100_SMS
+        assert plan["partial"] == (plan["groups"] * h * t * t
+                                   if plan["groups"] > 1 else 0)
+        assert plan["partial"] <= -(-b // 4) * h * t * t
+        assert plan["dq_blocks"] == plan["tiles"] * h * plan["groups"]
+        assert plan["dkdv_blocks"] == plan["tiles"] * b * h
+        for smem in (plan["dq_smem"], plan["dkdv_smem"]):
+            assert 2 * (smem + 1024) <= block_attention.SM_SMEM
+    else:
+        assert plan["group"] == 1
+        assert plan["partial"] == b * h * t * t
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("b,t,group,groups", [(1, 249, 4, 1), (2, 249, 4, 1),
+                                              (5, 249, 4, 2),
+                                              (36, 249, 9, 4),
+                                              (36, 65, 5, 8),
+                                              (36, 63, 4, 9)])
+def test_dbias_groups_at_the_training_shapes(b, t, group, groups):
+    """BYOL's batch of 36 at 249 frames: groups of 9 batches, 4 partial
+    slices, 256 dq blocks (one wave of two an SM)."""
+    plan = block_attention.attention_bwd_plan(b, 16, t, H100_SMS)
+    assert (plan["group"], plan["groups"]) == (group, groups)
+
+
+@pytest.mark.fast
+def test_grouped_dbias_is_fixed_order_group_sums():
+    """The plain path's dbias order: the gate·ds of each group of batches
+    summed in batch order, then the groups in order — bit for bit the loop
+    written out, and within float32 rounding of the float64 sum."""
+    rng = np.random.default_rng(7)
+    b, t = 5, 9
+    gate = torch.from_numpy(rng.uniform(0.5, 2.5, (b, H, t))
+                            .astype(np.float32))
+    ds = torch.from_numpy(rng.standard_normal((b, H, t, t))
+                          .astype(np.float32))
+    got = grouped_dbias(gate, ds, 4)
+    c = gate[..., None] * ds
+    want = (((c[0] + c[1]) + c[2]) + c[3]) + c[4]
+    assert torch.equal(got, want)
+    assert torch.equal(grouped_dbias(gate, ds, 2),
+                       ((c[0] + c[1]) + (c[2] + c[3])) + c[4])
+    exact = (gate.double()[..., None] * ds.double()).sum(0)
+    assert float((got.double() - exact).abs().max()) <= 1e-5 * float(
+        exact.abs().max())
 
 
 def test_plain_backward_matches_autograd_of_plain_forward():

@@ -150,6 +150,22 @@ def test_dx_plan(n, want):
                                   plan["row_tiles"] * 4096)
 
 
+@pytest.mark.fast
+@pytest.mark.parametrize("n,k_tiles", [(1, 1), (127, 2), (8964, 141),
+                                       (15968, 250)])
+def test_dw_plan(n, k_tiles):
+    """K2's dW kernel at C = 1024, F = 4096: each output tile walks the
+    64-row K-tiles of all n rows (the last one ragged), dW1's 256 and
+    dW2's 256 tiles of 128 x 128 in one launch, over one persistent block
+    an SM of an H100 (132), or over every tile on a card of more SMs than
+    tiles."""
+    plan = port.dw_plan(n, 1024, 4096, 132)
+    assert plan["k_tiles"] == k_tiles
+    assert (plan["dw1_tiles"], plan["tiles"], plan["blocks"]) == (
+        256, 512, 132)
+    assert port.dw_plan(n, 1024, 4096, 600)["blocks"] == 512
+
+
 @pytest.mark.parametrize("n", [1, 127, 128, 7968, 8964, 15968, 23968])
 def test_ffn_fwd_plan(n):
     """Kernel B at C = 1024, F = 4096: 128-row tiles, GEMM1's [n, F] and
