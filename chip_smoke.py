@@ -2193,6 +2193,9 @@ class GuardBands:
 
 FRONTEND_C = 512
 LN_EPS = 1e-5
+LONG_CLIP_SECONDS = 64.0  # phase 12's clip; K6's serving entry alone
+# K6's kernels on wgmma (HGMMA in their SASS, no spills)
+K6_WGMMA = ("k6_fwd_wgmma", "k6_dx_wgmma", "k6_dw_wgmma")
 RSTD_TOL = 1e-4    # max|Δ| / max|ref| of rstd, mean and inv
 
 
@@ -2302,6 +2305,41 @@ def _check_k6(gen, b, t_in, k, dev) -> dict:
                                      out, xhat, rstd, grads)}
 
 
+def _check_k6_serving(gen, b, t_in, k, dev) -> float:
+    """K6's serving entry alone (out only: no x̂, no rstd) at one shape
+    against plain, two calls bit-equal, inside guard bands; returns
+    max|Δ|."""
+    x, kernel, (bias, scale, ln_bias), _ = _k6_inputs(gen, b, t_in, k, dev)
+    with torch.no_grad():
+        out = fused_frontend._kernel_fwd(x, kernel, bias, scale, ln_bias,
+                                         LN_EPS, False)[0]
+        again = fused_frontend._kernel_fwd(x, kernel, bias, scale, ln_bias,
+                                           LN_EPS, False)[0]
+        torch.cuda.synchronize()
+        ref = fused_frontend.conv_ln_gelu_plain_fwd(x, kernel, bias, scale,
+                                                    ln_bias, LN_EPS)[0]
+    where = f"serving B={b} T_in={t_in} k={k}"
+    if not torch.equal(out, again):
+        raise RuntimeError(f"K6 {where}: two calls differ")
+    if not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"K6 {where}: non-finite output")
+    err = rel_err(out, ref)
+    absd = float((out.float() - ref.float()).abs().max())
+    del ref, again
+    with GuardBands(fused_frontend) as g, torch.no_grad():
+        gx, gk = g.band(x), g.band(kernel)
+        gv = [g.band(v) for v in (bias, scale, ln_bias)]
+        g_out = fused_frontend._kernel_fwd(gx, gk, *gv, LN_EPS, False)[0]
+        g.check(f"K6 {where}")
+    if not torch.equal(g_out, out):
+        raise RuntimeError(f"K6 {where}: inside guard bands out differs")
+    log(f"[8d K6] {where}: max|Δ|/max|ref| vs plain {err:.2e}; two calls "
+        f"bit-equal, guard bands untouched")
+    if err > OUT_TOL:
+        raise RuntimeError(f"K6 disagrees with plain at {where}: {err}")
+    return absd
+
+
 def library_conv_ln_gelu(x, w, b, g, beta):
     """The library composition K6 is held against: cuDNN's conv1d on the
     channels-last input, ``F.layer_norm`` and exact GELU, in bf16."""
@@ -2311,10 +2349,22 @@ def library_conv_ln_gelu(x, w, b, g, beta):
                   approximate="none")
 
 
-def _time_k6(tensors, k) -> dict:
+def _time_k6(tensors, k, by_kernel: bool = False) -> dict:
+    """K6's forward and backward at one shape beside plain, the library
+    composition and the bound; with ``by_kernel`` also the card's time of
+    each of their kernels."""
     x, kernel, bias, scale, ln_bias, dout, out, xhat, rstd, grads = tensors
     b, t_in, c = x.shape
     t_out = out.shape[1]
+    if by_kernel:
+        with torch.no_grad():
+            fwd_us = device_us(lambda: fused_frontend._kernel_fwd(
+                x, kernel, bias, scale, ln_bias, LN_EPS, True), iters=5)
+            bwd_us = device_us(lambda: fused_frontend._kernel_bwd(
+                dout, x, xhat, rstd, kernel, scale, ln_bias), iters=5)
+        log(f"[8d K6] B={b} T_in={t_in} k={k}: device us a call, forward "
+            f"{_us_line(fwd_us)}; backward (row pass, dx, dW, folds) "
+            f"{_us_line(bwd_us)}, in all {sum(bwd_us.values()):.1f}")
     with torch.no_grad():
         fwd = cuda_ms(lambda: fused_frontend._kernel_fwd(
             x, kernel, bias, scale, ln_bias, LN_EPS, True), iters=10)
@@ -2513,35 +2563,51 @@ def kernel_resources(patterns=("k6_", "ln_row_", "ln_fold"),
 def phase_frontend_kernels() -> list:
     """Phase 8d: K6 and K7 against their plain versions at every frontend
     shape of the fine-tune (32 × 10 s) and of BYOL (36 × 5 s) and at ragged
-    small shapes; their times beside plain, the library calls and the
-    bounds; the layer-0 conv choice and K7 against a two-pass LayerNorm on
-    layer 0's real output."""
+    small shapes, K6's serving entry alone at a 64 s clip's layer 1; HGMMA
+    in the SASS of K6's wgmma kernels, their registers and no spills; the
+    fine-tune's and BYOL's layers timed beside plain, the library calls and
+    the bounds, layer 1's kernels by device time; the layer-0 conv choice and K7 against a two-pass
+    LayerNorm on layer 0's real output."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     kernel_resources()
+    for pattern in K6_WGMMA:
+        check_hgmma(pattern, tag="8d K6")
+    check_no_spills(kernel_resources(K6_WGMMA, tag="8d K6"),
+                    "K6's wgmma kernels")
     ft_rows, ft_layers = frontend_shapes(FT_BATCH, FT_CLIP_SECONDS)
     byol_rows, byol_layers = frontend_shapes(TRAIN_BATCH, CLIP_SECONDS)
     cases = ([(FT_BATCH, t, k) for t, k in ft_layers]
              + [(TRAIN_BATCH, t, k) for t, k in byol_layers]
              + [(2, t, k) for t in (3, 4, 5, 1030, 1031) for k in (2, 3)])
-    worst6, k6_rows, totals = 0.0, None, {"fwd": 0.0, "bwd": 0.0, "flop": 0.0}
+    worst6, k6_rows = 0.0, None
+    totals = {b: {"fwd": 0.0, "bwd": 0.0, "flop": 0.0}
+              for b in (FT_BATCH, TRAIN_BATCH)}
     for i, (b, t_in, k) in enumerate(cases):
         r = _check_k6(gen, b, t_in, k, dev)
         worst6 = max(worst6, r["abs"])
-        if b == FT_BATCH:  # the fine-tune's layers are timed
-            times = _time_k6(r["tensors"], k)
-            totals["fwd"] += times["fwd"]["ms"]
-            totals["bwd"] += times["bwd"]["ms"]
-            totals["flop"] += 2.0 * b * fused_frontend.out_length(t_in, k) \
+        if b in totals:  # the fine-tune's and BYOL's layers are timed
+            first = (t_in, k) == (ft_layers if b == FT_BATCH
+                                  else byol_layers)[0]
+            times = _time_k6(r["tensors"], k, by_kernel=first)
+            tot = totals[b]
+            tot["fwd"] += times["fwd"]["ms"]
+            tot["bwd"] += times["bwd"]["ms"]
+            tot["flop"] += 2.0 * b * fused_frontend.out_length(t_in, k) \
                 * k * FRONTEND_C ** 2
-            if i == 0:  # layer 1: the JSON rows
+            if i == 0:  # layer 1 of the fine-tune: the JSON rows
                 k6_rows = times
         del r
-    tb = bound(totals["flop"], 0.0)["bound_ms"]
-    log(f"[8d K6] the fine-tune's layers 1-6 (B={FT_BATCH}): forward "
-        f"{totals['fwd'] * 1e3:.1f} us, backward {totals['bwd'] * 1e3:.1f} "
-        f"us; bound {tb * 1e3:.1f} / {2 * tb * 1e3:.1f} us (operations, "
-        f"{totals['flop'] / 1e12:.3f} TFLOP forward)")
+    for b, tot in totals.items():
+        tb = bound(tot["flop"], 0.0)["bound_ms"]
+        log(f"[8d K6] {'the fine-tune' if b == FT_BATCH else 'BYOL'}'s "
+            f"layers 1-6 (B={b}): forward {tot['fwd'] * 1e3:.1f} us, "
+            f"backward {tot['bwd'] * 1e3:.1f} us; bound {tb * 1e3:.1f} / "
+            f"{2 * tb * 1e3:.1f} us (operations, {tot['flop'] / 1e12:.3f} "
+            f"TFLOP forward)")
+    # the serving entry alone at a 64 s clip's layer 1
+    long_t = frontend_shapes(1, LONG_CLIP_SECONDS)[1][0]
+    worst6 = max(worst6, _check_k6_serving(gen, 1, *long_t, dev))
 
     # layer 0 of the fine-tune on z-normed noise, seeded layer-0 weights
     sd = init_state_dict(WavLMConfig.large(num_hidden_layers=1),
@@ -3011,7 +3077,7 @@ class _PlainVersions:
 
 
 def phase_long_clip(cfg=None, device=torch.device("cuda"),
-                    clip_seconds: float = 64.0) -> dict:
+                    clip_seconds: float = LONG_CLIP_SECONDS) -> dict:
     """Serving one clip of ``clip_seconds`` (T > 3072 frames: the TPU's
     streamed regime) through K5, against float32 plain versions on the
     same device."""

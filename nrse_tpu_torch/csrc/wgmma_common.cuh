@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's wgmma kernels (the GEMM of
-// wgmma_gemm.cuh, which K2's dx and dW kernels and kernel B run on, and
-// the block attention's one-pass forward and backward, kernel A and K3):
+// wgmma_gemm.cuh, which K2's dx and dW kernels and kernel B run on, the
+// block attention's one-pass forward and backward, kernel A and K3, and
+// K6's three kernels, fused_frontend.cu):
 // mbarriers, TMA copies
 // between device memory and shared memory, the shared-memory matrix
 // descriptor of the 128-byte swizzle, and wgmma.mma_async in the shapes
@@ -214,8 +215,10 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d[64 x 256] (+)= A[64 x 16] . B[256 x 16]^T, both from shared memory
-// (K-major); scale_d = 0 ignores d's old value.
+// d[64 x 256] (+)= A[64 x 16] . B[256 x 16]^T, both from shared memory,
+// K-major unless kTransA / kTransB set an operand MN-major; scale_d = 0
+// ignores d's old value.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
                                                  uint64_t desc_a,
                                                  uint64_t desc_b,
@@ -236,7 +239,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
       "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -264,7 +267,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A from registers (the

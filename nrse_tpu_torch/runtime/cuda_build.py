@@ -72,10 +72,10 @@ _ENTRIES = {
     "nrse_channel_layernorm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "nrse_channel_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _P],
-    "nrse_fused_frontend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _F, _P],
+    "nrse_fused_frontend_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _F, _I, _I, _P],
     "nrse_fused_frontend_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _I, _I, _I, _I, _I, _P],
+                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "nrse_adamw_ema": [_P, _P, _P, _P, _P, _P, _L, _L, _P],
 }
 

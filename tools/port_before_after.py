@@ -1,9 +1,10 @@
 """The "before" half of a before/after comparison of the port on one card.
 
 Runs ``chip_smoke.py``'s phases 3 (kernel A), 3b (K3), 4 (kernel B), 5
-(serving), 6 (K1), 7 (kernel B's training forward and K2), 9 (BYOL step),
-11 (SER evaluator, with its device profile) and 13 (fine-tune micro-step,
-with its profile) on the package of an earlier commit.  The kernels named
+(serving), 6 (K1), 7 (kernel B's training forward and K2), 8d (K6 and K7,
+the conv frontend), 9 (BYOL step), 11 (SER evaluator, with its device
+profile) and 13 (fine-tune micro-step, with its profile) on the package of
+an earlier commit.  The kernels named
 in ``WGMMA_KERNELS`` are new since that commit, so the checks that their
 SASS holds HGMMA, and the listings of their registers, are skipped there;
 the other kernels' registers are listed on both, and phase 7 prints a
@@ -30,10 +31,11 @@ import sys
 
 import chip_smoke
 
-# the kernels this tree adds, which the earlier commit does not have: their
-# HGMMA checks and register listings are skipped there (the earlier
-# commit's K3 and K2 dW ran on mma.sync)
-WGMMA_KERNELS = ("bwd_dq_wgmma", "bwd_dkdv_wgmma", "dout_prep", "EpiDw")
+# the kernels new since an earlier commit, which it does not have: their
+# HGMMA checks and register listings are skipped there (K3, K2 dW and K6
+# ran on mma.sync before their wgmma redesigns)
+WGMMA_KERNELS = ("bwd_dq_wgmma", "bwd_dkdv_wgmma", "dout_prep", "EpiDw",
+                 "k6_fwd_wgmma", "k6_dx_wgmma", "k6_dw_wgmma")
 
 
 def skipped(*args, **kwargs) -> list:
@@ -43,8 +45,8 @@ def skipped(*args, **kwargs) -> list:
 
 
 # the phases run, in order, unless the command line names some of them
-PHASES = ("kernel_a", "k3", "kernel_b", "serving", "k1", "k2", "training",
-          "ser", "ft_step")
+PHASES = ("kernel_a", "k3", "kernel_b", "serving", "k1", "k2",
+          "frontend_kernels", "training", "ser", "ft_step")
 
 
 def main(names=()) -> int:
