@@ -81,25 +81,31 @@ not 0:
      the plain version (≤ 1e-6 relative), the state it updates inside NaN
      guard bands; µs per call and GB/s, and of
      ``torch.optim.AdamW(fused=True)`` + ``torch._foreach_lerp_``;
-  8b. K5 (flash attention forward, T > 384) against its plain version at
-     H=16, D=64: B=4 at T ∈ {385, 449} (T ≡ 1 mod 64: a last key tile of
-     one key) and T ∈ {499, 749, 1499}, the evaluator's B=32 at T ∈ {499,
-     749, 1499}, and B=1, T=3199 (the streamed regime of the TPU
-     kernels), ragged key masks and, for B > 1, a wholly masked batch
-     row, every buffer inside NaN guard bands: out ≤ 1e-2 and lse ≤ 1e-3
-     of max|ref|, the wholly masked
-     row finite and within 1e-2 of plain; µs per call of kernel, plain and
-     SDPA (dense float bias built outside the timed call) at B=32 and at
-     B=1, T=3199;
-  8c. K5's backward (the dq kernel with its dbias fold, and the dk/dv
-     kernel) against the plain backward at 8b's shapes (ragged keys, a
-     wholly masked row for B > 1), every buffer inside NaN guard bands:
-     dq, dk, dv, dgate and dbias_rel ≤ 1e-2 of plain's max|·|, two calls
-     bit-equal, the autograd Function equal
-     to the direct calls; µs per call of each kernel, of the pair, of
-     plain and of SDPA's backward with the dense bias requiring grad at
-     B=32 and at B=1, T=3199, beside the bound (5 products, or each
-     kernel's own);
+  8b. K5 (flash attention forward, T > 384, wgmma fed by TMA) against its
+     plain version at H=16, D=64: B=4 at T ∈ {385, 449, 513} (T ≡ 1 mod
+     64 or 128: keys padded to the next multiple of 128, as JAX pads
+     them), T = 512 (no padding) and T ∈ {499, 749, 1499}, the
+     evaluator's B=32 at T ∈ {499, 749, 1499}, and B=1 at T=3199 (the
+     streamed regime of the TPU kernels) and T=8191, ragged key masks and,
+     for B > 1, a wholly masked batch row, every buffer inside NaN guard
+     bands: out ≤ 1e-2 and lse ≤ 1e-3 of max|ref|, the wholly masked row
+     finite and within 1e-2 of plain (JAX's result: the mean of v times T
+     / t_pad); HGMMA in its SASS, registers and no spills; µs per call of
+     kernel, plain and SDPA (dense float bias built outside the timed
+     call) at B=32 and at B=1, T=3199, the kernel's device time, every
+     kernel of a call in the profile's K5 group;
+  8c. K5's backward (the dq entry: the delta pre-pass, the dq kernel and
+     its dbias fold; the dk/dv kernel) against the plain backward at 8b's
+     shapes (ragged keys, a wholly masked row for B > 1), every buffer
+     inside NaN guard bands: delta equal to its contract
+     (``flash_attention.bwd_delta``) bit for bit, dq, dk, dv, dgate and
+     dbias_rel ≤ 1e-2 of plain's max|·|, two calls bit-equal, the autograd
+     Function equal to the direct calls; HGMMA in the dq and dk/dv
+     kernels' SASS, registers and no spills; µs per call of each entry, of
+     the pair, of plain and of SDPA's backward with the dense bias
+     requiring grad at B=32 and at B=1, T=3199, beside the bound (5
+     products, or each kernel's own), the pair's device time by kernel,
+     every kernel in the profile's K5 backward group;
   8d. K6 (fused conv + LayerNorm + GELU, forward and backward) and K7 (the
      channel LayerNorm, forward and backward) against their plain versions
      at every frontend layer of the fine-tune (32 × 10 s: T_in 31999 …
@@ -1886,12 +1892,15 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
         shutil.rmtree(root, ignore_errors=True)
 
 
-# (B, T) of the comparisons: T ≡ 1 (mod 64) twice (the bias window's
-# last key tile is all padding), the evaluator's 10, 15 and 30 s buckets
-# at batch 4 and at its batch of 32, and one 64 s clip (the TPU kernels'
-# streamed regime).  The batch-32 cases and the 64 s clip are also timed.
-K5_CASES = ((4, 385), (4, 449), (4, 499), (4, 749), (4, 1499),
-            (32, 499), (32, 749), (32, 1499), (1, 3199))
+# (B, T) of the comparisons: T ≡ 1 (mod 64) twice and T ≡ 1 (mod 128)
+# (a last key tile of one key; 127 padded keys at 513), T = 512 (no padded
+# key), the evaluator's 10, 15 and 30 s buckets at batch 4 and at its
+# batch of 32, one 64 s clip (the TPU kernels' streamed regime) and a
+# 164 s one (the longest whose dense plain version fits the card).  The
+# batch-32 cases and the 64 s clip are also timed.
+K5_CASES = ((4, 385), (4, 449), (4, 513), (4, 512), (4, 499), (4, 749),
+            (4, 1499), (32, 499), (32, 749), (32, 1499), (1, 3199),
+            (1, 8191))
 K5_TIMED = ((32, 499), (32, 749), (32, 1499), (1, 3199))
 K5_ROW_T = 499  # the K5 bucket with the most batches: the JSON row
 
@@ -1912,6 +1921,9 @@ def phase_k5() -> dict:
     """K5 against its plain version at the SER buckets' lengths (at the
     evaluator's batch of 32 too) and a 64 s clip's, then its time at
     batch 32 beside plain and SDPA."""
+    check_hgmma("flash_attention_fwd_wgmma", tag="K5")
+    check_no_spills(kernel_resources(("flash_attention_fwd_wgmma",),
+                                     tag="K5"), "K5's forward")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     h, d = 16, 64
@@ -1966,12 +1978,16 @@ def phase_k5() -> dict:
                                                            attn_mask=full),
                              iters=10)
             del full
+            us = device_us(lambda: flash_attention._kernel_fwd(
+                q, k, v, gate, bias_rel, madd))
+        check_group(us, "K5 (flash attention)")
         flop = 4.0 * b * h * t * t * d
         bd = bound(flop, nbytes(q, k, v, gate, bias_rel, madd, out, lse))
         log(f"[K5] B={b} H={h} T={t} D={d}: kernel {ms * 1e3:.1f} us/call "
             f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms * 1e3:.1f} "
             f"us/call, SDPA with the dense bias {lib_ms * 1e3:.1f} us/call; "
-            f"bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']})")
+            f"bound {bd['bound_ms'] * 1e3:.1f} us ({bd['bound_by']}); on "
+            f"the card (us): {_us_line(us)}")
         if t == K5_ROW_T:
             row = {"ms": ms, "plain_ms": plain_ms, **bd,
                    "library_ms": lib_ms}
@@ -1990,9 +2006,17 @@ DKV_NAMES = ("dk", "dv")
 def phase_k5_bwd() -> list:
     """K5's dq and dk/dv kernels against the plain backward at the forward's
     shapes, with ragged keys and, for B > 1, a wholly masked batch row:
-    the gradients within 1e-2 of plain, two calls bit-equal, the autograd
-    Function equal to the direct calls; µs per call of each kernel, the
-    pair, plain and SDPA's backward at the timed shapes."""
+    delta equal to its contract, the gradients within 1e-2 of plain, two
+    calls bit-equal, the autograd Function equal to the direct calls; µs
+    per call of each kernel, the pair, plain and SDPA's backward at the
+    timed shapes, the pair's device time by kernel."""
+    for pattern in ("flash_attention_bwd_dq_wgmma",
+                    "flash_attention_bwd_dkv_wgmma"):
+        check_hgmma(pattern, tag="K5 bwd")
+    check_no_spills(kernel_resources(
+        ("flash_attention_bwd_dq_wgmma", "flash_attention_bwd_dkv_wgmma",
+         "flash_attention_bwd_delta", "flash_dbias_fold"), tag="K5 bwd"),
+        "K5's backward kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     h, d = 16, 64
@@ -2015,6 +2039,15 @@ def phase_k5_bwd() -> list:
             gdo = guard.band(do)
             grads = flash_attention._kernel_bwd(*args, out, lse, gdo)
             again = flash_attention._kernel_bwd(*args, out, lse, gdo)
+            if hasattr(flash_attention, "bwd_delta"):
+                # the pre-pass's delta against its contract, bit for bit
+                ins = flash_attention.bwd_inputs(*args, out, lse, gdo)
+                flash_attention.launch_bwd_dq(*ins)
+                if not torch.equal(ins[-1],
+                                   flash_attention.bwd_delta(gdo, out)):
+                    raise RuntimeError(f"K5 backward: delta differs from "
+                                       f"its contract at B={b} T={t}")
+                del ins
             guard.check(f"K5 backward at B={b} T={t}")
         with torch.no_grad():
             refs = flash_attention.flash_attention_plain_bwd(
@@ -2075,6 +2108,11 @@ def phase_k5_bwd() -> list:
                     q, k, v, gate, bias_rel, madd, out, lse, do),
                 iters=3, warmup=1)
             del ins
+            us = device_us(lambda: flash_attention._kernel_bwd(
+                q, k, v, gate, bias_rel, madd, out, lse, do))
+        if hasattr(flash_attention, "bwd_delta"):
+            # (an earlier K5 formed delta in torch, outside the group)
+            check_group(us, "K5 backward (delta, dq, dk/dv, dbias fold)")
         # the library: SDPA's backward with the dense float bias requiring
         # grad, built outside the timed call
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -2100,7 +2138,7 @@ def phase_k5_bwd() -> list:
             f"{bd['pair']['bound_ms'] * 1e3:.1f} us, "
             f"{bd['pair']['bound_by']}); plain {plain_ms * 1e3:.1f} "
             f"us/call; SDPA's backward with the dense bias {lib_ms * 1e3:.1f} "
-            f"us/call")
+            f"us/call; the pair on the card (us): {_us_line(us)}")
         rows[(b, t)] = {"dq": (dq_ms, bd["dq"]), "dkv": (dkv_ms, bd["dkv"]),
                         "plain_ms": plain_ms, "library_ms": lib_ms}
     del q, k, v, out, do, grads
@@ -2891,8 +2929,10 @@ COPIES = "dtype/layout copies"
 PROFILE_GROUPS = (
     ("K6 (fused conv frontend)", "k6_|K6RowSource"),
     ("K7 (channel LayerNorm)", "ln_row_|ln_fold"),
+    # flash_attention_fwd_wgmma_kernel
     ("K5 (flash attention)", "flash_attention_fwd"),
-    ("K5 backward (dq, dk/dv, dbias fold)",
+    # flash_attention_bwd_{delta,dq_wgmma,dkv_wgmma}_kernel and the fold
+    ("K5 backward (delta, dq, dk/dv, dbias fold)",
      "flash_attention_bwd|flash_dbias_fold"),
     ("kernel A (block attention)", "block_attention_fwd"),
     ("K3 (block attention backward)",
@@ -3001,6 +3041,23 @@ def _param_shapes(model) -> frozenset:
                      if p.numel() > 1)
 
 
+def group_of(name: str) -> str:
+    """The :data:`PROFILE_GROUPS` group of a kernel name (first match)."""
+    import re
+
+    return next((g for g, pat in PROFILE_GROUPS if re.search(pat, name)),
+                "other")
+
+
+def check_group(times: dict, group: str) -> None:
+    """Fail unless every kernel of a traced call (``device_us``'s names)
+    falls in ``group`` of the profiles' breakdown."""
+    stray = {n: group_of(n) for n in times if group_of(n) != group}
+    if not times or stray:
+        raise RuntimeError(f"kernels outside the profile group {group!r}: "
+                           f"{stray or 'none traced'}")
+
+
 def profile_device(run, label: str, iters: int = 3,
                    weight_shapes=frozenset()) -> None:
     """Device time of ``run()`` (which ends waiting for the card) by kernel
@@ -3009,14 +3066,11 @@ def profile_device(run, label: str, iters: int = 3,
     card's busy share of the host clock over them.  The copies group is
     also split by source (``copy_sources``; ``weight_shapes`` are the
     model's parameter shapes)."""
-    import re
-
     run()
     events, kernels, wall = traced_kernels(run, iters, _CopySources)
     groups, copies = {}, []
     for e in kernels:
-        name = next((g for g, pat in PROFILE_GROUPS
-                     if re.search(pat, e["name"])), "other")
+        name = group_of(e["name"])
         groups[name] = groups.get(name, 0.0) + e["dur"] / 1e3 / iters
         if name == COPIES:
             copies.append(e)

@@ -120,34 +120,6 @@ __device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// entries of the flash kernels' (K5) Toeplitz bias window: every key tile's
-// 64 keys (the last tile's past T included) against 64 query rows
-__host__ __device__ constexpr int win_len(int T) {
-  return ((T + kTile - 1) / kTile) * kTile + kTile - 1;
-}
-
-// 4-byte cp.async; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   gemm::smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-// rows row0.. of a head's [T, D] bf16 tensor into a [kTile, kLd] tile with
-// cp.async (joining the caller's next commit group); rows >= T zero-filled
-__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* head,
-                                                int row0, int T) {
-  for (int c = threadIdx.x; c < kTile * (kHeadDim / 8); c += kThreads) {
-    const int r = c / (kHeadDim / 8);
-    const int col = (c % (kHeadDim / 8)) * 8;
-    const bool ok = row0 + r < T;
-    const bf16* src =
-        head + static_cast<size_t>(ok ? row0 + r : 0) * kHeadDim + col;
-    gemm::cp_async16(s + r * kLd + col, src, ok ? 16 : 0);
-  }
-}
-
 // rows row0.. of a head's [T, D] bf16 tensor into a [kTile, kLd] tile;
 // rows >= T zero-filled
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* head,

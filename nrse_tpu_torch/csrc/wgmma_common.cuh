@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's wgmma kernels (the GEMM of
 // wgmma_gemm.cuh, which K2's dx and dW kernels and kernel B run on, the
-// block attention's one-pass forward and backward, kernel A and K3, and
-// K6's three kernels, fused_frontend.cu):
+// block attention's one-pass forward and backward, kernel A and K3, the
+// flash attention's forward and backward, K5, and K6's three kernels,
+// fused_frontend.cu):
 // mbarriers, TMA copies
 // between device memory and shared memory, the shared-memory matrix
 // descriptor of the 128-byte swizzle, and wgmma.mma_async in the shapes
@@ -96,6 +97,54 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// The same for a 3-D tensor map (c0 innermost); with the 3-D maps of
+// head_map, rows past T are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes the thread's bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until the thread's bulk groups but the newest kPending have read
+// their shared memory (it may be written again).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Orders the thread's writes to shared memory before the async proxy's
+// (TMA's, wgmma's) reads of it.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier of `count` threads (warps of whole warps), and the
+// arrival at one without waiting.  Id 0 is __syncthreads'.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 2^x on the MUFU unit (ex2.approx: 2^-inf = 0, 2^0 = 1).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Shared-memory matrix descriptor of a tile with 128-byte rows under the
@@ -356,6 +405,20 @@ inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int heads,
                               static_cast<cuuint64_t>(heads)};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   return make_sw128_map(map, ptr, 3, dims, box);
+}
+
+// head_map from the wrapper's words (dims, strides in elements, box, each
+// innermost first: ops/flash_attention.py::map_geometry), refused unless
+// they describe a [heads, T, 64] tensor read in boxes of `rows` rows of one
+// head: the kernels' transaction bytes assume that box.
+inline cudaError_t head_map_words(CUtensorMap* map, const void* ptr,
+                                  const long long* g, int heads, int T,
+                                  int rows) {
+  const long long want[9] = {64, T, heads, 1, 64, 64LL * T, 64, rows, 1};
+  for (int i = 0; i < 9; ++i) {
+    if (g[i] != want[i]) return cudaErrorInvalidValue;
+  }
+  return head_map(map, ptr, heads, T, rows);
 }
 
 }  // namespace wg

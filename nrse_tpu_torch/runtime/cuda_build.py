@@ -52,14 +52,14 @@ _ENTRIES = {
                                  _P, _U, _U, _F, _F, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _F, _P],
-    "nrse_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _F, _P],
+    "nrse_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _F, _I, _I, _P],
     "nrse_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _F, _P],
+                                    _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _F, _I, _I, _P],
     "nrse_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _P,
-                                     _I, _I, _I, _I, _F, _P],
+                                     _P, _P, _P,
+                                     _I, _I, _I, _I, _F, _I, _I, _P],
     "nrse_fused_ffn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nrse_fused_ffn_fwd_train": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _U, _U, _F, _F, _F, _F, _I, _I, _I, _I,

@@ -8,9 +8,9 @@ throughout; a fixed cotangent ``w``.  All five gradients (q, k, v, the gate
 and the generator ``bias_rel``) are held to 1e-4 of max|ref|: the two sides
 differ in the order of float32 sums (the JAX kernel sums its dbias
 windows over the batch, then folds them; the port folds the batch-summed
-dense ``dbias``), and JAX pads T to its block size with masked keys.
-T = 100 and 499 take the JAX kernels' single-block branch (t_pad ≤ 512),
-T = 640 their multi-block one.
+dense ``dbias``).  Both pad T to a multiple of 128 with masked keys, so a
+row whose keys are all padded agrees too.  T = 100 and 499 take the JAX
+kernels' single-block branch (t_pad ≤ 512), T = 640 their multi-block one.
 """
 
 import jax
@@ -95,11 +95,9 @@ def test_gradients_match_jax_streamed_kernels(monkeypatch):
 def test_fully_masked_row_gradient_as_recorded():
     """A batch row whose keys are all padded: its saved ``lse`` rounds to
     −1e9 in float32, so the backward recomputes ``p = 1`` for each of its
-    keys, not 1/T (ROADMAP Queue 3).  Its dv is then the sum of ``do`` over
-    the row's queries at every key, as in JAX's kernel (whose padded
-    queries carry no cotangent); its other gradients differ from JAX's,
-    whose forward output for the row is scaled by T / t_pad.  The other
-    row is held to JAX as usual."""
+    t_pad keys, as JAX's kernel does on its padded keys.  Its dv is then the
+    sum of ``do`` over the row's queries at every key; all five gradients
+    are held to JAX's, the masked row's against its own scale too."""
     t = 499
     arrays, mask, w = make_inputs(t, seed=12, masked=True)
     mask[1, :] = 0
@@ -110,10 +108,28 @@ def test_fully_masked_row_gradient_as_recorded():
     np.testing.assert_allclose(
         dv, np.broadcast_to(w[1].sum(axis=1, keepdims=True), dv.shape),
         rtol=0, atol=TOL * np.abs(dv).max())
-    assert np.abs(dv - ref[2][1]).max() < TOL * np.abs(ref[2][1]).max()
+    assert_close(ours, ref)
+    for name, a, r in zip(NAMES[:4], ours[:4], ref[:4]):
+        for row in (0, 1):
+            err = np.abs(a[row] - r[row]).max() / np.abs(r[row]).max()
+            assert err < TOL, f"{name} of batch row {row}: {err}"
+
+
+@pytest.mark.parametrize("t", [512, 513, 449])
+def test_masked_row_padding_gradients_match_jax(t):
+    """The keys' padding at T ≡ 0, 1 and 65 (mod 128), a wholly masked
+    row beside a ragged one: all five gradients held to ``jax.grad`` of
+    JAX's flash kernel, the masked row's against its own scale too (its
+    padded keys' ``ds = −delta`` enter dgate and fold onto the generator's
+    clamped index)."""
+    arrays, mask, w = make_inputs(t, seed=t + 2, masked=True)
+    mask[0, :] = 0
+    ours = port_grads(arrays, mask, w)
+    ref = jax_grads(arrays, mask, w)
+    assert_close(ours, ref)
     for name, a, r in zip(NAMES[:4], ours[:4], ref[:4]):
         err = np.abs(a[0] - r[0]).max() / np.abs(r[0]).max()
-        assert err < TOL, f"{name} of the unmasked row: {err}"
+        assert err < TOL, f"{name} of the masked row: {err}"
 
 
 def test_function_matches_direct_plain_calls():

@@ -1,10 +1,10 @@
 """The "before" half of a before/after comparison of the port on one card.
 
 Runs ``chip_smoke.py``'s phases 3 (kernel A), 3b (K3), 4 (kernel B), 5
-(serving), 6 (K1), 7 (kernel B's training forward and K2), 8d (K6 and K7,
-the conv frontend), 9 (BYOL step), 11 (SER evaluator, with its device
-profile) and 13 (fine-tune micro-step, with its profile) on the package of
-an earlier commit.  The kernels named
+(serving), 6 (K1), 7 (kernel B's training forward and K2), 8b and 8c (K5
+and its backward), 8d (K6 and K7, the conv frontend), 9 (BYOL step), 11
+(SER evaluator, with its device profile) and 13 (fine-tune micro-step,
+with its profile) on the package of an earlier commit.  The kernels named
 in ``WGMMA_KERNELS`` are new since that commit, so the checks that their
 SASS holds HGMMA, and the listings of their registers, are skipped there;
 the other kernels' registers are listed on both, and phase 7 prints a
@@ -32,10 +32,12 @@ import sys
 import chip_smoke
 
 # the kernels new since an earlier commit, which it does not have: their
-# HGMMA checks and register listings are skipped there (K3, K2 dW and K6
-# ran on mma.sync before their wgmma redesigns)
+# HGMMA checks and register listings are skipped there (K3, K2 dW, K6 and
+# K5 ran on mma.sync before their wgmma redesigns)
 WGMMA_KERNELS = ("bwd_dq_wgmma", "bwd_dkdv_wgmma", "dout_prep", "EpiDw",
-                 "k6_fwd_wgmma", "k6_dx_wgmma", "k6_dw_wgmma")
+                 "k6_fwd_wgmma", "k6_dx_wgmma", "k6_dw_wgmma",
+                 "flash_attention_fwd_wgmma", "flash_attention_bwd_dq_wgmma",
+                 "flash_attention_bwd_dkv_wgmma")
 
 
 def skipped(*args, **kwargs) -> list:
@@ -45,8 +47,8 @@ def skipped(*args, **kwargs) -> list:
 
 
 # the phases run, in order, unless the command line names some of them
-PHASES = ("kernel_a", "k3", "kernel_b", "serving", "k1", "k2",
-          "frontend_kernels", "training", "ser", "ft_step")
+PHASES = ("kernel_a", "k3", "kernel_b", "serving", "k1", "k2", "k5",
+          "k5_bwd", "frontend_kernels", "training", "ser", "ft_step")
 
 
 def main(names=()) -> int:
