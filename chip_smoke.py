@@ -1,6 +1,6 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
-pretraining entry point, its baseline SER evaluator and its SER fine-tune
-once on one NVIDIA GPU.
+pretraining entry point, its baseline SER evaluator, its SER fine-tune and
+its two-phase SER trainers once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -177,16 +177,43 @@ not 0:
      3–12 s, a one-hot CSV), WavLM-large at full width cut to 2 layers,
      batch 8, k = 2: one epoch frozen, one end to end, then
      ``eval_cat_ser.main`` on the ``final_model`` it wrote: every dev file
-     scored; prints the data-fed s per micro-step.
+     scored; prints the data-fed s per micro-step;
+ 15. the SER trainers' step — ``train.emotion_trainer.
+     make_emotion_train_step("both")`` on an ``EmotionClassifier``
+     (WavLM-large at full width and depth + ASP + the shared, categorical
+     and dimensional trunks of 1024, seeded weights) at the ``dim_ft``
+     preset's batch of 36 × 5 s (249 frames; every third clip masked),
+     dropout 0.3 in the trunks, the encoder's dropouts, LayerDrop and
+     SpecAugment on, in three runs of 2 warm-up and 3 timed steps: the
+     encoder frozen (lr 1e-4), its top 12 layers unfrozen and the whole
+     encoder (lr 5e-6); each run's losses finite, the frozen prefix of the
+     flat parameters bit-equal after it (``torch.equal``), launches equal
+     to what the layers run imply (kernel A and B on every layer run, K3
+     and K2 on the unfrozen ones LayerDrop kept, K1 forward and on the
+     unfrozen sites backward, K4 once a step over the trainable suffix,
+     K6's and K7's backward only in the whole-encoder run); s/step,
+     audio-sec/sec, peak memory and a ``torch.profiler`` breakdown of a
+     step of each run; then one eval step's logits and A/V/D for 2 clips
+     against float32 on the CPU (cosine ≥ 0.99);
+ 16. the SER trainers' entry points — ``train_emotion.main --config
+     <the dim_ft preset> --task both`` on a synthetic MSP-style corpus
+     under ``build/`` (24 train and 8 validation WAVs of 2–8 s, 2 noise
+     WAVs, ``labels_consensus.csv``; training noise on), WavLM-large at
+     full width cut to 2 layers, batch 8, one epoch frozen and one
+     unfrozen per trainer: finite losses, K4 once a step, no frontend
+     backward (the non-layer encoder stays frozen); then
+     ``evaluate_emotion.main`` on each trainer's best fine-tuned
+     checkpoint, clean and noisy reports finite; prints the data-fed
+     s/step.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s, the H100 SXM's published peaks;
 the elementwise kernels (K1, K4) are bound by bytes, their operations are
-not counted, nor are K7's.  Phases 5 and 9–14 also check the frontend's
+not counted, nor are K7's.  Phases 5 and 9–16 also check the frontend's
 launches: each encoder forward runs K6 on layers 1–6 and K7 on layer 0,
-each backward (the BYOL online tower's, the end-to-end fine-tune's) K6's
-and K7's backward as often.  The line before the last is the kernels'
+each backward (the BYOL online tower's, the end-to-end fine-tune's, the
+whole-encoder SER step's) K6's and K7's backward as often.  The line before the last is the kernels'
 JSON record (launches: kernels A and B from the serving phase, K1, K2, K3
 and K4 from the training phase, K5 from the SER evaluation, K5's backward,
 K6 and K7 from the fine-tune step, end to end);
@@ -213,6 +240,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 # the port, from this checkout: without it the script stops here
+from nrse_tpu_torch import evaluate_emotion, train_emotion  # noqa: E402
 from nrse_tpu_torch import train_byol  # noqa: E402
 from nrse_tpu_torch.audio.io import save_wav  # noqa: E402
 from nrse_tpu_torch.baseline import eval_cat_ser  # noqa: E402
@@ -223,14 +251,17 @@ from nrse_tpu_torch.baseline.pipeline import (  # noqa: E402
     make_baseline_forward,
 )
 from nrse_tpu_torch.baseline.wavset import WavNormStats  # noqa: E402
+from nrse_tpu_torch.config import config_utils  # noqa: E402
 from nrse_tpu_torch.labels.parsing import BASELINE_EMOTIONS_MAP  # noqa
 from nrse_tpu_torch.models import wavlm as wavlm_module  # noqa: E402
 from nrse_tpu_torch.models.byol import OnlineNetwork, TargetNetwork  # noqa
 from nrse_tpu_torch.models.convert import (  # noqa: E402
     init_baseline_state_dict,
     init_byol_state_dict,
+    init_emotion_state_dict,
     init_state_dict,
 )
+from nrse_tpu_torch.models.emotion import EmotionClassifier  # noqa: E402
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel  # noqa
 from nrse_tpu_torch.models.wavlm import SITE_ATTN, TrainRNG  # noqa: E402
 from nrse_tpu_torch.ops import (  # noqa: E402
@@ -262,6 +293,7 @@ from nrse_tpu_torch.ops.pallas_norm import (  # noqa: E402
 )
 from nrse_tpu_torch.runtime import cuda_build  # noqa: E402
 from nrse_tpu_torch.runtime.device import sync  # noqa: E402
+from nrse_tpu_torch.train import emotion_trainer  # noqa: E402
 from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
     create_train_state,
     make_byol_eval_step,
@@ -3542,6 +3574,285 @@ def phase_ft_entry(device=torch.device("cuda"),
         shutil.rmtree(root, ignore_errors=True)
 
 
+EMO_BATCH = 36          # the dim_ft preset's emotion.batch_size
+EMO_HIDDEN = 1024       # its emotion.hidden_dim
+EMO_DROPOUT = 0.3       # its emotion.dropout_rate
+EMO_LR = 1e-4           # its emotion.learning_rate (phase 1)
+EMO_FT_LR = 5e-6        # its emotion.fine_tuning_lr (phase 2)
+EMO_WD = 1e-4           # its emotion.weight_decay
+
+
+def _emotion_batch(n: int, clip_seconds: float, device, seed: int):
+    """A batch of ``n`` synthetic clips as the emotion loader gives them:
+    tones in noise, every third clip cut to 40–90% and masked past its
+    end, classes 0–9 (8 and 9, X and O, are masked out of the CE) and
+    A/V/D ratings in [1, 7]."""
+    rng = np.random.default_rng(seed)
+    t = int(SAMPLE_RATE * clip_seconds)
+    ax = np.arange(t) / SAMPLE_RATE
+    x = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300, (n, 1)) * ax)
+         + 0.02 * rng.standard_normal((n, t))).astype(np.float32)
+    mask = np.ones((n, t), np.float32)
+    for i in range(0, n, 3):
+        cut = int(rng.uniform(0.4, 0.9) * t)
+        x[i, cut:], mask[i, cut:] = 0.0, 0.0
+    out = {"input_values": x, "attention_mask": mask,
+           "C": rng.integers(0, 10, n).astype(np.int32)}
+    for k in ("A", "V", "D"):
+        out[k] = rng.uniform(1, 7, n).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _emotion_model(cfg, device, hidden_dim: int, dropout: float):
+    """A seeded ``EmotionClassifier`` on ``device`` (bf16 compute on the
+    card, float32 on the CPU)."""
+    model = EmotionClassifier(
+        cfg, hidden_dim, dropout=dropout, device="meta",
+        compute_dtype=torch.bfloat16 if device.type == "cuda"
+        else torch.float32)
+    model.load_state_dict(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(SEED + 15), hidden_dim),
+        strict=True, assign=True)
+    return model.to(device)
+
+
+def _cosine_flat(a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0))
+
+
+def phase_emotion_step(cfg=None, device=torch.device("cuda"),
+                       batch: int = EMO_BATCH,
+                       clip_seconds: float = CLIP_SECONDS, warmup: int = 2,
+                       steps: int = 3, hidden_dim: int = EMO_HIDDEN) -> dict:
+    """The SER train step of ``train_emotion`` at full width: WavLM-large
+    + ASP + the shared, categorical and dimensional trunks, seeded
+    weights, the ``dim_ft`` preset's batch of 36 × 5 s (249 frames: kernel
+    A, K3), ``--task both``'s two losses in one step, all dropouts,
+    LayerDrop and SpecAugment on.  Three runs of ``warmup`` + ``steps``
+    steps: the encoder frozen (lr 1e-4), its top half unfrozen and the
+    whole encoder trainable (lr 5e-6): finite losses, the frozen prefix
+    of the flat parameters bit-equal after the run, and launches equal to
+    what the layers run imply (K3 and K2 on the unfrozen layers LayerDrop
+    kept, K4 once a step, K6's and K7's backward only with the whole
+    encoder), and a step's device time by group.  Then one eval step's
+    logits and A/V/D for 2 clips against float32 on the CPU (cosine ≥
+    0.99).  Returns the launches of the whole-encoder run.  Its arguments
+    let it be rehearsed at a small width on the CPU."""
+    cfg = cfg or WavLMConfig.large()
+    t0 = time.perf_counter()
+    model = _emotion_model(cfg, device, hidden_dim, EMO_DROPOUT)
+    state = emotion_trainer.create_emotion_state(model, SEED)
+    step = emotion_trainer.make_emotion_train_step("both", EMO_WD)
+    data = _emotion_batch(batch, clip_seconds, device, SEED + 15)
+    weights = torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device)
+    n = cfg.num_hidden_layers
+    frames = int(cfg.feature_lengths(data["input_values"].shape[1]))
+    log(f"[emotion] EmotionClassifier on WavLM {n} x {cfg.hidden_size} + "
+        f"ASP + trunks of {hidden_dim}: {state.params.numel() / 1e6:.1f} M "
+        f"params; batch {batch} x {clip_seconds:g} s ({frames} frames); "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+    runs = (("frozen", [], 0.0, EMO_LR),
+            (f"top {n - n // 2} unfrozen", list(range(n // 2, n)), 0.0,
+             EMO_FT_LR),
+            ("whole encoder", list(range(n)), 1.0, EMO_FT_LR))
+    whole = None
+    for name, layers, rest, lr in runs:
+        def run_step():
+            keep = state.model.encoder.encoder.layer_keep(
+                TrainRNG(state.seed, state.step))
+            m = step(state, data, weights, layers, lr, rest)
+            return m, keep
+
+        for _ in range(warmup):
+            m, _ = run_step()
+            if not bool(torch.isfinite(m["loss"])):
+                raise RuntimeError(f"emotion {name}: non-finite warm-up "
+                                   f"loss {float(m['loss'])}")
+        off = emotion_trainer.trainable_segments(state, layers, rest)[0][0]
+        frozen_before = state.params[:off].clone()
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        results = [run_step() for _ in range(steps)]
+        sync(device)
+        dt = (time.perf_counter() - t0) / steps
+        counts = _train_counts()
+        losses = [float(m["loss"]) for m, _ in results]
+        run = sum(sum(keep) for _, keep in results)
+        unfrozen = sum(sum(keep[i] for i in layers) for _, keep in results)
+        want = {"fused_ffn_fwd": run, "fused_ffn_bwd_dx": unfrozen,
+                "fused_ffn_bwd_dw": unfrozen,
+                # the encoder site and each layer's hidden site; their
+                # backward on the unfrozen layers, the encoder site's with
+                # the whole encoder (the attention output's site is inside
+                # kernel A and K3)
+                "fused_dropout": steps + run + unfrozen
+                + (steps if rest else 0),
+                "fused_adamw_ema": steps, "block_attention_fwd": run,
+                "block_attention_bwd": unfrozen,
+                **frontend_want(cfg, steps, steps if rest else 0)}
+        bit_equal = torch.equal(state.params[:off], frozen_before)
+        log(f"[emotion] {name}: {dt:.4f} s/step, "
+            f"{batch * clip_seconds / dt:.1f} audio-sec/sec; losses "
+            f"{[round(x, 6) for x in losses]}; layers run {run}, unfrozen "
+            f"run {unfrozen}; the frozen {off / 1e6:.1f} M params "
+            f"bit-equal: {bit_equal}; launches {counts} (want {want})")
+        if not (all(np.isfinite(losses)) and bit_equal and counts == want):
+            raise RuntimeError(f"emotion step {name}: losses {losses}, "
+                               f"frozen prefix bit-equal {bit_equal}, "
+                               f"launches {counts} != {want}")
+        if device.type == "cuda":
+            log(f"[emotion] {name}: peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del frozen_before
+        if rest:
+            whole = counts
+        if device.type == "cuda":  # the step's device time by group
+            profile_device(lambda: (run_step(), sync(device)),
+                           f"[emotion] {name} step, batch {batch}", iters=2,
+                           weight_shapes=_param_shapes(model))
+
+    # the eval step on 2 clips against the same weights in float32 on the
+    # CPU through the plain versions
+    clips = {k: v[:2] for k, v in data.items()}
+    eval_step = emotion_trainer.make_emotion_eval_step("both")
+    got = eval_step(state.model, clips)
+    ref_model = EmotionClassifier(cfg, hidden_dim, dropout=EMO_DROPOUT,
+                                  device="meta", compute_dtype=torch.float32)
+    ref_model.load_state_dict({k: v.detach().float().cpu() for k, v in
+                               state.model.state_dict().items()},
+                              strict=True, assign=True)
+    torch.set_num_threads(os.cpu_count() or 1)
+    ref = eval_step(ref_model, {k: v.cpu() for k, v in clips.items()})
+    cos = {k: _cosine_flat(got[k].cpu(), ref[k]) for k in ("logits", "dims")}
+    log(f"[emotion] eval step, 2 clips: cosine vs float32 CPU logits "
+        f"{cos['logits']:.6f}, A/V/D {cos['dims']:.6f} (bound {COSINE_MIN})")
+    if min(cos.values()) < COSINE_MIN or not all(
+            torch.isfinite(v).all() for v in got.values()):
+        raise RuntimeError(f"emotion eval step against float32: {cos}")
+    del state, model, ref_model
+    return whole
+
+
+NRSE_CODES = "AHSFUDCNXO"  # the NRSE ordering, then X and O
+
+
+def _write_emotion_corpus(root: str, n_train: int, n_val: int,
+                          n_noise: int, lo: float, hi: float):
+    """An MSP-style corpus under ``root``: ``Audios/`` with ``n_train +
+    n_val`` WAVs of ``lo``–``hi`` s (tones in noise), ``noise/`` with
+    ``n_noise`` 5 s noise WAVs, and ``labels_consensus.csv`` (FileName,
+    EmoClass, EmoAct, EmoVal, EmoDom, SpkrID, Gender, Split_Set)."""
+    import csv
+
+    rng = np.random.default_rng(SEED + 16)
+    for sub in ("Audios", "noise"):
+        os.makedirs(os.path.join(root, sub))
+    rows = []
+    for i in range(n_train + n_val):
+        n = int(rng.uniform(lo, hi) * SAMPLE_RATE)
+        ax = np.arange(n) / SAMPLE_RATE
+        x = (0.3 * np.sin(2 * np.pi * rng.uniform(80, 300) * ax)
+             + 0.02 * rng.standard_normal(n)).astype(np.float32)
+        name = f"MSP-PODCAST_{5000 + i:04d}_{i:04d}.wav"
+        save_wav(os.path.join(root, "Audios", name), x, SAMPLE_RATE)
+        rows.append([name, NRSE_CODES[i % len(NRSE_CODES)],
+                     *np.round(rng.uniform(1, 7, 3), 4), 100 + i % 5,
+                     "Female" if i % 2 else "Male",
+                     "Train" if i < n_train else "Development"])
+    for i in range(n_noise):
+        save_wav(os.path.join(root, "noise", f"noise_{i}.wav"),
+                 (0.2 * rng.standard_normal(5 * SAMPLE_RATE)).astype(
+                     np.float32), SAMPLE_RATE)
+    with open(os.path.join(root, "labels_consensus.csv"), "w",
+              newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["FileName", "EmoClass", "EmoAct", "EmoVal",
+                         "EmoDom", "SpkrID", "Gender", "Split_Set"])
+        writer.writerows(rows)
+
+
+def phase_emotion_entry(device=torch.device("cuda"),
+                        model_name: str = "microsoft/wavlm-large",
+                        layers: int = ENTRY_LAYERS, n_train: int = 24,
+                        n_val: int = 8, batch: int = 8,
+                        clip_seconds: float = CLIP_SECONDS, lo: float = 2.0,
+                        hi: float = 8.0, hidden_dim: int = EMO_HIDDEN) -> None:
+    """``python -m nrse_tpu_torch.train_emotion --config
+    default_wavlm-large_emotion_dim_ft --task both`` as ``main``, on a
+    synthetic MSP-style corpus under ``build/`` with training noise, the
+    encoder cut to ``layers`` deep, ``batch`` clips, one epoch a phase:
+    each trainer's phase 1 (frozen) and phase 2 (its one epoch unfreezes
+    every layer); then ``evaluate_emotion.main`` on each trainer's best
+    fine-tuned checkpoint, clean and noisy.  Its arguments let it be
+    rehearsed at a small width on the CPU."""
+    import yaml
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_emotion_", dir=cuda_build.BUILD_DIR)
+    try:
+        _write_emotion_corpus(root, n_train, n_val, 2, lo, hi)
+        config = config_utils.load_config("default_wavlm-large_emotion_dim_ft")
+        config["model"].update(name=model_name, num_hidden_layers=layers)
+        config["training"].update(log_dir=os.path.join(root, "logs"))
+        config["data"].update(noise_data_path=os.path.join(root, "noise"),
+                              max_audio_length=clip_seconds)
+        config["emotion"].update(
+            labels_file=os.path.join(root, "labels_consensus.csv"),
+            audio_dir=os.path.join(root, "Audios"), encoder_checkpoint=None,
+            checkpoint_dir=os.path.join(root, "ckpt"), batch_size=batch,
+            hidden_dim=hidden_dim, classifier_epochs=1, fine_tuning_epochs=1)
+        path = os.path.join(root, "emotion.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(config, f)
+        sync(device)
+        _reset_counts()
+        results = train_emotion.main(["--config", path, "--task", "both",
+                                      "--device", device.type])
+        sync(device)
+        counts = _train_counts()
+        steps = sum(e["steps"] for r in results.values()
+                    for e in r["epochs"])
+        for task, result in results.items():
+            for e in result["epochs"]:
+                log(f"[emotion entry] {task} {e['phase']}: WavLM {layers} "
+                    f"layers (depth cut) x "
+                    f"{result['state'].model.encoder_config.hidden_size}, "
+                    f"batch {batch}, layers unfrozen {e['layers']}: train "
+                    f"loss {e['train_loss']:.6f}, val loss "
+                    f"{e['val_loss']:.6f}; {e['steps']} data-fed steps at "
+                    f"{e['s_per_step']:.4f} s each "
+                    f"({e['audio_sec_per_sec']:.1f} audio-sec/sec)")
+        log(f"[emotion entry] launches {counts}")
+        ok = (all(np.isfinite(e["train_loss"]) and np.isfinite(e["val_loss"])
+                  for r in results.values() for e in r["epochs"])
+              and counts["fused_adamw_ema"] == steps > 0
+              and counts["block_attention_fwd"] > 0
+              and counts["block_attention_bwd"] > 0
+              and counts["fused_ffn_bwd_dx"] > 0
+              and counts["fused_frontend_fwd"] > 0
+              and counts["fused_frontend_bwd"] == 0
+              and counts["channel_layernorm_bwd"] == 0)
+        if not ok:
+            raise RuntimeError(f"emotion entry point: launches {counts}, "
+                               f"{steps} steps")
+        for task in ("categorical", "dimensional"):
+            ckpt = os.path.join(root, "ckpt", task, "best_fine_tuned_model")
+            report = evaluate_emotion.main([
+                "--config", path, "--checkpoint", ckpt, "--task", task,
+                "--device", device.type])
+            log(f"[emotion entry] evaluate_emotion.main on the {task} "
+                f"checkpoint: {report}")
+            if not all(np.isfinite(v) for cond in report.values()
+                       for v in cond.values()) or not report["clean"]:
+                raise RuntimeError(f"emotion evaluation {task}: {report}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -3562,6 +3873,8 @@ def main() -> int:
         launches[k] = ft[k]
     phase_ft_crosscheck()
     phase_ft_entry()
+    phase_emotion_step()
+    phase_emotion_entry()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-"""nrse_tpu_torch — the WavLM embedding server, BYOL pretraining and the
-baseline SER evaluator on PyTorch and CUDA.
+"""nrse_tpu_torch — the WavLM embedding server, BYOL pretraining, the
+baseline SER evaluator and fine-tune, and the two-phase SER trainers on
+PyTorch and CUDA.
 
 A port of ``nrse_tpu`` (JAX on a TPU) to one NVIDIA H100.  ``nrse_tpu``
 stays the reference each module is tested against.  This package imports
@@ -7,12 +8,24 @@ stays the reference each module is tested against.  This package imports
 read a config file), never ``jax``, and nothing of ``nrse_tpu``, not even
 its JAX-free modules: what it needs from them it keeps as its own copies,
 each naming its origin (the audio decoding and its C++ runtime, the data
-loaders, the logger, the label parser, the BYOL presets).  Only the tests
+loaders, the logger, the label parser and maps, the config loader and
+presets, the wandb stub, the seeding).  Only the tests
 import both (``tests/test_torch_imports.py`` holds the rule with the JAX
 package blocked).
 
 Layers, from the entry points down to the device:
 
+  * ``train_emotion`` and ``evaluate_emotion`` — the SER trainers
+    (``python -m nrse_tpu_torch.train_emotion --config <yaml|preset>
+    --task categorical|dimensional|both``) and the clean-vs-noisy report
+    (``python -m nrse_tpu_torch.evaluate_emotion``); ``config`` the YAML
+    loader and presets; ``train.categorical_emotions`` and
+    ``train.dimentional_emotions`` the two-phase loops;
+    ``train.emotion_trainer`` the step (freezing as a trainable suffix of
+    the flat buffers, K4 over it) and the eval step;
+    ``data.emotion_dataset`` the MSP-Podcast CSV and its loaders;
+    ``models.emotion`` the classifier; ``metrics.categorical_metrics`` the
+    offline scorer.
   * ``baseline.eval_cat_ser`` — the Odyssey-2024 baseline evaluator
     (``python -m nrse_tpu_torch.baseline.eval_cat_ser``): label list,
     normalisation stats, ``final_model``, bucketed batched SER inference

@@ -1,2 +1,2 @@
-"""Data loading for the port: the JAX-free host loaders and a device
-prefetcher."""
+"""Data loading for the port: the host loaders of the BYOL and emotion
+datasets, and a device prefetcher."""

@@ -1,12 +1,19 @@
-"""MSP-Podcast semicolon label lists.
+"""MSP-Podcast labels: the two emotion orderings and semicolon label lists.
 
-The port's copy of the list parser of ``nrse_tpu/labels/parsing.py:32-140``
-(the reference parser ``baseline/eval_cat_ser_weighted_with_list.py:
-57-120``; list fixtures under ``labels/*.txt``): one row per line,
-``path; EmoClass; A:x; V:y; D:z;``, with the emotion indexed in the
-Odyssey-2024 challenge ordering A,S,H,U,F,D,C,N
-(``BASELINE_EMOTIONS_MAP``, ``baseline/eval_cat_ser_weighted_with_list.py:
-86-96``) unless another map is given.
+The port's copy of ``nrse_tpu/labels/parsing.py:33-140,198-207``:
+
+  * ``VALID_EMOTIONS_MAP`` — the NRSE ordering A,H,S,F,U,D,C,N of the SER
+    trainers (reference ``src/data/emotion_dataset.py:13-22``), and
+    ``EMOTIONS_MAP``, the same with X → 8 and O → 9;
+  * ``BASELINE_EMOTIONS_MAP`` — the Odyssey-2024 challenge ordering
+    A,S,H,U,F,D,C,N (``baseline/eval_cat_ser_weighted_with_list.py:
+    86-96``);
+  * the list parser (reference ``baseline/eval_cat_ser_weighted_with_list.
+    py:57-120``; list fixtures under ``labels/*.txt``): one row per line,
+    ``path; EmoClass; A:x; V:y; D:z;``, the emotion indexed in the
+    challenge ordering unless another map is given;
+  * :func:`clean_filename`, the offline scorer's normalisation of
+    augmented file names (``src/metrics/categorical_metrics.py:51-58``).
 """
 
 from __future__ import annotations
@@ -15,10 +22,22 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+# NRSE ordering (reference src/data/emotion_dataset.py:13-22)
+VALID_EMOTIONS_MAP: Dict[str, int] = {
+    "A": 0,  # Anger
+    "H": 1,  # Happiness
+    "S": 2,  # Sadness
+    "F": 3,  # Fear
+    "U": 4,  # Surprise
+    "D": 5,  # Disgust
+    "C": 6,  # Contempt
+    "N": 7,  # Neutral
+}
 INVALID_EMOTIONS_MAP: Dict[str, int] = {
     "X": 8,  # No agreement
     "O": 9,  # Other
 }
+EMOTIONS_MAP: Dict[str, int] = {**VALID_EMOTIONS_MAP, **INVALID_EMOTIONS_MAP}
 
 # Odyssey-2024 challenge ordering (reference baseline/...:86-96)
 BASELINE_EMOTIONS_MAP: Dict[str, int] = {
@@ -99,3 +118,12 @@ def parse_label_list(
                     entry.extra[key] = fval
             entries.append(entry)
     return entries
+
+
+def clean_filename(filename: str) -> str:
+    """The base ``.wav`` name of a path: the directory and an ``_snrN_...``
+    suffix stripped."""
+    base = os.path.basename(filename)
+    if "_snr" in base:
+        base = base.split("_snr")[0] + ".wav"
+    return base

@@ -22,6 +22,12 @@ above under ``ssl.``, the pooling's flax leaves as they are under
 ``pool.`` (the port keeps their ``[in, out]`` layout and names), and the
 head's Dense and LayerNorm leaves under ``ser.``.
 
+``emotion_params_to_state_dict`` does the same for the JAX
+``EmotionClassifier`` (``nrse_tpu/models/emotion.py:68-112``): the
+encoder as above under ``encoder.``, the pooling's leaves as they are
+under ``pooling.``, the trunks' and outputs' Dense and LayerNorm leaves
+under their flax names.
+
 ``byol_variables_to_state_dicts`` does the same for the JAX
 ``BYOLVariables`` (online params with batch_stats, and the target) after
 the layout of ``nrse_tpu/models/byol.py:113-181``: the encoder as above
@@ -39,6 +45,7 @@ import torch
 
 from nrse_tpu_torch.baseline.pipeline import BaselineSER
 from nrse_tpu_torch.models.byol import OnlineNetwork
+from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 
@@ -255,6 +262,55 @@ def init_baseline_state_dict(config: WavLMConfig,
         elif "bias" in name:
             sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
         elif ".norm_" in name:
+            sd[name] = torch.ones(t.shape)
+        else:  # Linear [out, in]
+            sd[name] = torch.randn(t.shape, generator=generator) \
+                * t.shape[1] ** -0.5
+    return sd
+
+
+def emotion_params_to_state_dict(params_np: Mapping[str, Any],
+                                 config: WavLMConfig
+                                 ) -> Dict[str, np.ndarray]:
+    """JAX ``EmotionClassifier`` params (numpy leaves; a ``{'params':
+    ...}`` wrapper is accepted) → :class:`~nrse_tpu_torch.models.emotion.
+    EmotionClassifier`'s state dict as float32 numpy arrays."""
+    p = params_np.get("params", params_np)
+    sd = {f"encoder.{k}": v for k, v in
+          jax_params_to_state_dict(p["encoder"], config).items()}
+    for name, leaf in p["pooling"].items():
+        sd[f"pooling.{name}"] = _f32(leaf)
+    for name, tree in p.items():
+        if name.endswith("_norm"):
+            _norm(sd, name, tree)
+        elif name.endswith(("_dense", "_out")):
+            _dense(sd, name, tree)
+    return sd
+
+
+def init_emotion_state_dict(config: WavLMConfig, generator: torch.Generator,
+                            hidden_dim: int = 1024, num_emotions: int = 8
+                            ) -> Dict[str, torch.Tensor]:
+    """Seeded random float32 weights of :class:`EmotionClassifier` on the
+    CPU: the encoder as :func:`init_state_dict`; after the JAX
+    initialisers, the pooling's projection LeCun-normal and its attention
+    vector normal(0, 1), the Dense weights LeCun-normal and the LayerNorm
+    scales 1; every bias normal(0, 0.02)."""
+    sd = {f"encoder.{k}": v
+          for k, v in init_state_dict(config, generator).items()}
+    shapes = EmotionClassifier(config, hidden_dim, num_emotions=num_emotions,
+                               device="meta").state_dict()
+    for name, t in shapes.items():
+        if name.startswith("encoder."):
+            continue
+        if name == "pooling.attention":
+            sd[name] = torch.randn(t.shape, generator=generator)
+        elif name == "pooling.sap_linear_kernel":  # [in, out]
+            sd[name] = torch.randn(t.shape, generator=generator) \
+                * t.shape[0] ** -0.5
+        elif "bias" in name:
+            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+        elif "_norm." in name:
             sd[name] = torch.ones(t.shape)
         else:  # Linear [out, in]
             sd[name] = torch.randn(t.shape, generator=generator) \

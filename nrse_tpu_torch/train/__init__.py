@@ -1,2 +1,2 @@
-"""The BYOL training step, its schedules and its eval step; checkpoints
-and early stopping."""
+"""The train steps (BYOL, the SER trainers), their schedules and eval
+steps; checkpoints and early stopping; the two-phase SER loops."""

@@ -1,4 +1,4 @@
-"""Checkpoints of the BYOL train state, with resume.
+"""Checkpoints of the BYOL and SER train states, with resume.
 
 Counterpart of ``nrse_tpu/train/checkpoint.py:27-183`` with ``torch.save``
 in place of orbax: the same names (``best_val_loss``,
@@ -10,7 +10,11 @@ in place of orbax: the same names (``best_val_loss``,
 BatchNorm running statistics of both towers), ``step`` and ``seed``.  It
 is read back with ``torch.load(weights_only=True)`` and written into the
 existing buffers in place, so the modules' parameters and gradients, which
-are views of the flat buffers, stay valid.
+are views of the flat buffers, stay valid.  The SER trainers' state
+(``train.emotion_trainer.EmotionTrainState``, the counterpart of the JAX
+``EmotionTrainState`` these names hold there: ``best_classifier_model``,
+``best_fine_tuned_model``) is kept the same way: ``params``, ``mu``,
+``nu``, the Adam count as ``step``, and ``seed``.
 
 :func:`save_model` and :func:`restore_model` keep a module's state dict
 (``tensors`` only) in the same layout: the baseline fine-tune saves its
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,15 +35,22 @@ from torch import nn
 from nrse_tpu_torch.models.byol import OnlineNetwork
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.train.byol_trainer import BYOLTrainState
+from nrse_tpu_torch.train.emotion_trainer import EmotionTrainState
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
 
 
-def state_tensors(state: BYOLTrainState) -> Dict[str, torch.Tensor]:
-    """The tensors a checkpoint holds, by name: ``params``, ``mu``, ``nu``,
-    ``target_params`` and each tower's buffers (``online.<name>``,
-    ``target.<name>``: the BatchNorm running statistics)."""
+TrainState = Union[BYOLTrainState, EmotionTrainState]
+
+
+def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The tensors a checkpoint holds, by name: ``params``, ``mu``, ``nu``
+    and, of a BYOL state, ``target_params`` and each tower's buffers
+    (``online.<name>``, ``target.<name>``: the BatchNorm running
+    statistics)."""
+    if isinstance(state, EmotionTrainState):
+        return {k: getattr(state, k) for k in ("params", "mu", "nu")}
     out = {k: getattr(state, k)
            for k in ("params", "mu", "nu", "target_params")}
     for tower, module in (("online", state.online), ("target", state.target)):
@@ -48,7 +59,7 @@ def state_tensors(state: BYOLTrainState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState,
+def save_checkpoint(ckpt_dir: str, name: str, state: TrainState,
                     metadata: Optional[Dict[str, Any]] = None) -> str:
     """Save ``state`` under ``ckpt_dir/name`` (overwriting it); returns the
     checkpoint's directory.  The file is written whole and then renamed, so
@@ -84,8 +95,8 @@ def _read(ckpt_dir: str, name: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     return saved, metadata
 
 
-def restore_checkpoint(ckpt_dir: str, name: str, state: BYOLTrainState
-                       ) -> Tuple[BYOLTrainState, Dict[str, Any]]:
+def restore_checkpoint(ckpt_dir: str, name: str, state: TrainState
+                       ) -> Tuple[TrainState, Dict[str, Any]]:
     """Load ``ckpt_dir/name`` into ``state`` in place and return ``(state,
     metadata)``.  Raises ``ValueError`` if a tensor's name or shape differs
     from the state's (another model configuration)."""

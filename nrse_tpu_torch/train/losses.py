@@ -1,23 +1,43 @@
-"""Task losses of the SER heads.
+"""Task losses and class weighting of the SER heads.
 
-Port of ``nrse_tpu/train/losses.py:41-56,87-95`` (formula parity with the
+Port of ``nrse_tpu/train/losses.py:30-95`` (formula parity with the
 reference):
 
+  * :func:`compute_class_weights` — ``(total / (count·K))^1.5`` boosted
+    rare-class weights (``src/train/categorical_emotions.py:432-443``);
   * :func:`ce_weight_category` — weighted cross-entropy that masks invalid
     labels (< 0 or ≥ K) instead of using ``ignore_index``, zero when no
     label is valid (``src/train/categorical_emotions.py:453-483``); the
     weighted mean ``Σ w_yi·ce_i / Σ w_yi`` of torch's
     ``CrossEntropyLoss(weight=w)``;
+  * :func:`focal_loss` — the reference's unused experiment, kept for
+    parity (``categorical_emotions.py:446-451``);
+  * :func:`ccc_loss` — per dimension ``1 − 2cov / (σp² + σt² + (μp −
+    μt)² + 1e-10)``, averaged over A/V/D; 0 for a batch of one
+    (``src/train/dimentional_emotions.py:427-450``);
   * :func:`compute_ccc` — the concordance correlation coefficient in numpy
     for epoch metrics (``src/train/dimentional_emotions.py:453-465``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+
+def compute_class_weights(label_counts: Dict[int, int], num_classes: int,
+                          exponent: float = 1.5) -> np.ndarray:
+    """Rare-class-boosted float32 weights from a ``{class: count}``
+    mapping; 1 for a class that does not occur (or lies outside
+    ``[0, num_classes)``)."""
+    weights = np.ones(num_classes, dtype=np.float32)
+    total = float(sum(label_counts.values()))
+    for cls, cnt in label_counts.items():
+        if 0 <= cls < num_classes and cnt > 0:
+            weights[cls] = (total / (cnt * num_classes)) ** exponent
+    return weights
 
 
 def ce_weight_category(logits: torch.Tensor, labels: torch.Tensor,
@@ -40,6 +60,38 @@ def ce_weight_category(logits: torch.Tensor, labels: torch.Tensor,
     denom = w.sum()
     loss = (nll * w).sum() / denom.clamp_min(1e-9)
     return torch.where(denom > 0, loss, torch.zeros_like(loss))
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+               gamma: float = 2.0, alpha=None) -> torch.Tensor:
+    """Focal loss, the unweighted mean over the batch (torch parity);
+    ``alpha`` weights each sample by its class."""
+    num_classes = logits.shape[-1]
+    labels = labels.to(device=logits.device, dtype=torch.int64)
+    safe = labels.clamp(0, num_classes - 1)
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    ce = -log_probs.gather(-1, safe[:, None])[:, 0]
+    if alpha is not None:
+        ce = ce * torch.as_tensor(alpha, dtype=torch.float32,
+                                  device=logits.device)[safe]
+    pt = torch.exp(-ce)
+    return ((1 - pt) ** gamma * ce).mean()
+
+
+def ccc_loss(predictions: torch.Tensor, targets: torch.Tensor,
+             eps: float = 1e-10) -> torch.Tensor:
+    """Mean ``1 − CCC`` over the last axis's dimensions (A, V, D) of
+    ``[N, 3]`` predictions and targets, in float32; 0 for N ≤ 1."""
+    p = predictions.float()
+    t = targets.to(device=p.device, dtype=torch.float32)
+    if p.shape[0] <= 1:
+        return p.sum() * 0.0
+    mean_p, mean_t = p.mean(dim=0), t.mean(dim=0)
+    var_p = p.var(dim=0, unbiased=False)
+    var_t = t.var(dim=0, unbiased=False)
+    covar = ((p - mean_p) * (t - mean_t)).mean(dim=0)
+    ccc = 2 * covar / (var_p + var_t + (mean_p - mean_t) ** 2 + eps)
+    return (1.0 - ccc).mean()
 
 
 def compute_ccc(predictions: np.ndarray, targets: np.ndarray,

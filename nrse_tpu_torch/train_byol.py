@@ -6,8 +6,8 @@
 A preset name resolves to the port's own copy of the JAX package's BYOL
 presets (``nrse_tpu_torch/config/presets/*.yaml``); ``--config`` also
 takes any YAML path, the JAX package's presets included.  The file loads
-through a small loader of this module (PyYAML, imported when a file is
-read) with the JAX loader's defaults for the keys used here;
+through ``config.config_utils.load_config`` (PyYAML, imported when a file
+is read), with the JAX loader's defaults for the keys used here;
 :func:`main` takes the config as a dict, so a caller needs no YAML.  The
 orchestration is the JAX entry point's, in its order: seeds, loaders
 (``data.loader``), the train state (seeded random weights,
@@ -32,14 +32,17 @@ from __future__ import annotations
 import argparse
 import copy
 import os
-import random
 import sys
 import time
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
+from nrse_tpu_torch.config.config_utils import (  # noqa: F401 (re-exported)
+    PRESET_DIR,
+    load_config,
+    validate_config,
+)
 from nrse_tpu_torch.data.loader import DevicePrefetcher, create_dataloaders
 from nrse_tpu_torch.eval.evaluate_byol import validate_model
 from nrse_tpu_torch.models.convert import init_byol_state_dict
@@ -59,59 +62,13 @@ from nrse_tpu_torch.train.checkpoint import (
 from nrse_tpu_torch.train.early_stopping import EarlyStopping
 from nrse_tpu_torch.train.schedules import cosine_annealing
 from nrse_tpu_torch.utils.logging_utils import logger, setup_logger
-
-PRESET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "config", "presets")
-
-# the JAX loader's defaults (nrse_tpu/config/config_utils.py:106-147) for
-# the keys this entry point reads
-DEFAULTS = {
-    "model": {"name": "microsoft/wavlm-large", "projection_dim": 1024,
-              "prediction_dim": 2048, "ema_decay": 0.997},
-    "training": {"batch_size": 36, "num_workers": 8, "num_epochs": 100,
-                 "learning_rate": 1.0e-5, "weight_decay": 1.0e-5,
-                 "seed": 42, "checkpoint_dir": "checkpoints/byol/default",
-                 "log_dir": "outputs/byol/default",
-                 "early_stopping_metric": "val_loss",
-                 "early_stopping_patience": 5,
-                 "early_stopping_min_delta": 0.0},
-    "data": {"sample_rate": 16000, "max_audio_length": 5.0,
-             "snr_range": [0, 5, 10, 15, 20], "validation_ratio": 0.15},
-    "logging": {"wandb_mode": "disabled", "level": "INFO",
-                "console_level": "ERROR", "visualization_interval": 2},
-}
+from nrse_tpu_torch.utils.setup_utils import set_seed
 
 
 def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
-    """A copy of ``config`` with :data:`DEFAULTS` filled in and ``device``
-    (default ``cuda``)."""
-    config = copy.deepcopy(config)
-    for section, values in DEFAULTS.items():
-        block = config.setdefault(section, {})
-        for key, value in values.items():
-            block.setdefault(key, copy.deepcopy(value))
-    config.setdefault("device", "cuda")
-    return config
-
-
-def load_config(path: str) -> Dict[str, Any]:
-    """A YAML config file, or a preset of ``PRESET_DIR`` by name."""
-    import yaml
-
-    if not os.path.exists(path):
-        name = os.path.basename(path)
-        candidate = os.path.join(
-            PRESET_DIR, name if name.endswith(".yaml") else name + ".yaml")
-        if os.path.exists(candidate):
-            path = candidate
-    with open(path) as f:
-        return yaml.safe_load(f)
-
-
-def _set_seed(seed: int) -> None:
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    """A copy of ``config`` with the JAX loader's defaults filled in and
+    ``device`` (default ``cuda``): ``config_utils.validate_config``."""
+    return validate_config(copy.deepcopy(config))
 
 
 def main(config: Dict[str, Any],
@@ -130,7 +87,7 @@ def main(config: Dict[str, Any],
     tr, data_cfg, model_cfg = (config["training"], config["data"],
                                config["model"])
     seed = int(tr["seed"])
-    _set_seed(seed)
+    set_seed(seed)
     device = resolve_device(config["device"])
     ckpt_dir = tr["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)

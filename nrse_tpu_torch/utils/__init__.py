@@ -1,1 +1,1 @@
-"""Host utilities of the port (the logger)."""
+"""Host utilities of the port: the logger, seeding and the wandb stub."""

@@ -7,8 +7,8 @@ its JAX-free modules; it keeps its own copies of what it needs — and no
 jax, jaxlib, flax, optax, orbax or pandas (the card's machine has no
 pandas).  A fresh interpreter with a ``sys.meta_path`` finder that raises
 on ``nrse_tpu``, ``pandas`` and their submodules imports every module of
-the port and ``chip_smoke``, and resolves a BYOL preset through
-``train_byol``."""
+the port and ``chip_smoke``, resolves a BYOL preset through
+``train_byol`` and an emotion preset through ``config.config_utils``."""
 
 import json
 import subprocess
@@ -86,6 +86,17 @@ MODULES = [
     "nrse_tpu_torch.baseline.train_ft_cat_ser",
     "nrse_tpu_torch.train_byol",
     "nrse_tpu_torch.serve.export",
+    "nrse_tpu_torch.config",
+    "nrse_tpu_torch.config.config_utils",
+    "nrse_tpu_torch.utils.setup_utils",
+    "nrse_tpu_torch.utils.wandb_utils",
+    "nrse_tpu_torch.data.emotion_dataset",
+    "nrse_tpu_torch.metrics.categorical_metrics",
+    "nrse_tpu_torch.train.emotion_trainer",
+    "nrse_tpu_torch.train.categorical_emotions",
+    "nrse_tpu_torch.train.dimentional_emotions",
+    "nrse_tpu_torch.train_emotion",
+    "nrse_tpu_torch.evaluate_emotion",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
@@ -137,7 +148,12 @@ def test_port_imports_no_jax():
         MODULES + ["chip_smoke"],
         "from nrse_tpu_torch import train_byol\n"
         "cfg = train_byol.load_config('dev_wavlm-large_byol')\n"
-        "assert cfg['model']['name'] == 'microsoft/wavlm-large', cfg\n")
+        "assert cfg['model']['name'] == 'microsoft/wavlm-large', cfg\n"
+        "from nrse_tpu_torch.config import config_utils\n"
+        "cfg = config_utils.get_config(['--config',\n"
+        "    'default_wavlm-large_emotion_dim_ft', '--task', 'both'])\n"
+        "assert cfg['emotion']['unfreeze_encoder'] is True, cfg\n"
+        "assert (cfg['device'], cfg['task']) == ('cuda', 'both'), cfg\n")
     assert not sorted(m for m in loaded if _top(m) == "nrse_tpu")
     assert not sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert set(MODULES) | {"chip_smoke"} <= loaded
