@@ -1,6 +1,7 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
-pretraining entry point, its baseline SER evaluator, its SER fine-tune and
-its two-phase SER trainers once on one NVIDIA GPU.
+pretraining entry point, its baseline SER evaluator, its SER fine-tune,
+its two-phase SER trainers, its SER classifier server and its bridges to
+the reference's PyTorch files once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -204,13 +205,41 @@ not 0:
      backward (the non-layer encoder stays frozen); then
      ``evaluate_emotion.main`` on each trainer's best fine-tuned
      checkpoint, clean and noisy reports finite; prints the data-fed
-     s/step.
+     s/step;
+ 17. the SER classifier's server — ``export_classifier`` of an
+     ``EmotionClassifier`` (WavLM-large at full width and depth + ASP +
+     trunks of 1024, 8 classes and A/V/D, seeded weights), buckets (1, 8,
+     32), 5 s clips, ``task="both"``, loaded by ``ServingModel`` on the
+     card, answers phase 5's three ragged requests: kernels A and B
+     launched 24 × (bucket forwards) times, K6 and K7 as the frontend
+     implies, no K5; logits ``[N, 8]`` and A/V/D ``[N, 3]`` finite; one
+     request's outputs against the same artifact in float32 on the CPU
+     (cosine ≥ 0.99); each bucket's outputs equal to a direct forward of
+     the classifier built as the server builds it, bit for bit; ms a
+     request and audio-sec/sec per bucket; then a 10 s artifact (499
+     frames) of bucket 8 serves one ragged request: K5 launched 24 times,
+     kernel A never; its ms a request;
+ 18. the bridges and the encoder API — a reference-format
+     ``BYOLSpeechModel`` state dict of seeded weights at full width
+     (``models.export_torch.byol_state_dicts_to_reference``) through
+     ``models.convert.reference_byol_to_state_dicts``: the weights back
+     bit for bit; ``WavLMEncoder`` on the bridged online encoder equal to
+     ``WavLMModel`` loaded directly on the card, bit for bit, its launches
+     and ms a batch at 8 × 5 s; at 2 layers, ``save_reference_byol_
+     checkpoint`` writes a ``.pt`` under ``build/`` that
+     ``train_emotion.main`` (``emotion.encoder_checkpoint``) trains from
+     for one step, its frozen encoder equal to the ``.pt``'s; then
+     ``python -m nrse_tpu_torch.serve.export``'s ``main`` exports a port
+     ``train_byol`` checkpoint, whose artifact ``ServingModel`` answers
+     with the pooled embedding of the checkpoint's encoder run directly,
+     and ``utils.profiling.profile_trace`` around one request holds a
+     ``block_attention`` kernel record.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s, the H100 SXM's published peaks;
 the elementwise kernels (K1, K4) are bound by bytes, their operations are
-not counted, nor are K7's.  Phases 5 and 9–16 also check the frontend's
+not counted, nor are K7's.  Phases 5, 9–18 also check the frontend's
 launches: each encoder forward runs K6 on layers 1–6 and K7 on layer 0,
 each backward (the BYOL online tower's, the end-to-end fine-tune's, the
 whole-encoder SER step's) K6's and K7's backward as often.  The line before the last is the kernels'
@@ -223,6 +252,7 @@ the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import json
@@ -260,8 +290,14 @@ from nrse_tpu_torch.models.convert import (  # noqa: E402
     init_byol_state_dict,
     init_emotion_state_dict,
     init_state_dict,
+    reference_byol_to_state_dicts,
 )
 from nrse_tpu_torch.models.emotion import EmotionClassifier  # noqa: E402
+from nrse_tpu_torch.models.encoder import WavLMEncoder  # noqa: E402
+from nrse_tpu_torch.models.export_torch import (  # noqa: E402
+    byol_state_dicts_to_reference,
+    save_reference_byol_checkpoint,
+)
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel  # noqa
 from nrse_tpu_torch.models.wavlm import SITE_ATTN, TrainRNG  # noqa: E402
 from nrse_tpu_torch.ops import (  # noqa: E402
@@ -301,14 +337,18 @@ from nrse_tpu_torch.train.byol_trainer import (  # noqa: E402
 )
 from nrse_tpu_torch.train.checkpoint import (  # noqa: E402
     restore_checkpoint,
+    save_checkpoint,
     save_model,
     state_tensors,
 )
 from nrse_tpu_torch.train.schedules import cosine_annealing  # noqa: E402
+from nrse_tpu_torch.serve import export as serve_export  # noqa: E402
 from nrse_tpu_torch.serve.export import (  # noqa: E402
     ServingModel,
+    export_classifier,
     export_embedder,
 )
+from nrse_tpu_torch.utils.profiling import profile_trace  # noqa: E402
 
 SEED = 0
 CLIP_SECONDS = 5.0
@@ -3853,6 +3893,425 @@ def phase_emotion_entry(device=torch.device("cuda"),
         shutil.rmtree(root, ignore_errors=True)
 
 
+CLASSIFIER_LONG_SECONDS = 10.0  # phase 17's second artifact: 499 frames, K5
+CLASSIFIER_LONG_BUCKET = 8
+
+
+def _served_model(artifact: str, device):
+    """The artifact's ``EmotionClassifier`` built on its own as
+    ``ServingModel`` builds it (the encoder's weights in the working
+    dtype, the heads float32), for a direct forward."""
+    with open(os.path.join(artifact, "manifest.json")) as f:
+        manifest = json.load(f)
+    model = EmotionClassifier(WavLMConfig(**manifest["encoder_config"]),
+                              manifest["hidden_dim"], device="meta")
+    model.load_state_dict(torch.load(
+        os.path.join(artifact, "params.pt"), map_location="cpu",
+        weights_only=True), strict=True, assign=True)
+    model.encoder.to(torch.bfloat16 if device.type == "cuda"
+                     else torch.float32)
+    return model.to(device).eval()
+
+
+def _serving_rate(server, device, clip_seconds: float, bkt: int,
+                  tag: str) -> float:
+    """ms a request of ``bkt`` full clips after 3 warm-up requests (host
+    clock over 10, the card synchronised at both ends); prints it with
+    audio-sec/sec."""
+    audio = 0.1 * np.random.default_rng(bkt).standard_normal(
+        (bkt, server.clip_samples)).astype(np.float32)
+    for _ in range(3):
+        server(audio)
+    iters = 10
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        server(audio)
+    sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    log(f"[{tag}] bucket {bkt} x {clip_seconds:g} s: {dt * 1e3:.2f} "
+        f"ms/request, {bkt * clip_seconds / dt:.1f} audio-sec/sec")
+    return dt
+
+
+def _forward_ms(fn, device, iters: int = 10) -> float:
+    """ms a call of ``fn``: CUDA events on the card, the host clock
+    between synchronisations on the CPU."""
+    if device.type == "cuda":
+        return cuda_ms(fn, iters=iters)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _compare_with_embedder(server, sd, cfg, device, clip_seconds: float,
+                           buckets) -> None:
+    """The classifier's bucket forward against the embedder's on the same
+    encoder weights, in turns (classifier, embedder, embedder,
+    classifier), on inputs already on the device; then the embedder's
+    request, whose sequence output crosses to the host."""
+    art = tempfile.mkdtemp(prefix="smoke_embedder_",
+                           dir=cuda_build.BUILD_DIR)
+    try:
+        export_embedder({k[len("encoder."):]: v for k, v in sd.items()
+                         if k.startswith("encoder.")}, cfg, art,
+                        batch_sizes=buckets, clip_seconds=clip_seconds,
+                        sample_rate=SAMPLE_RATE)
+        embedder = ServingModel(art, device)
+    finally:
+        shutil.rmtree(art)
+    clip = server.clip_samples
+    for bkt in buckets:
+        a = 0.1 * torch.randn(bkt, clip, generator=torch.Generator()
+                              .manual_seed(bkt)).to(device)
+        m = torch.ones(bkt, clip, dtype=torch.int32, device=device)
+        order = (server, embedder, embedder, server)
+        ms = [_forward_ms(lambda s=srv: s.forward(a, m), device)
+              for srv in order]
+        log(f"[classifier] bucket {bkt} forward on the {device.type}, "
+            f"classifier / embedder / embedder / classifier: "
+            f"{' / '.join(f'{t:.2f}' for t in ms)} ms")
+        _serving_rate(embedder, device, clip_seconds, bkt,
+                      "classifier: the embedder")
+
+
+def phase_classifier(cfg=None, device=torch.device("cuda"),
+                     clip_seconds: float = CLIP_SECONDS, buckets=BUCKETS,
+                     hidden_dim: int = EMO_HIDDEN,
+                     long_seconds: float = CLASSIFIER_LONG_SECONDS,
+                     long_bucket: int = CLASSIFIER_LONG_BUCKET) -> dict:
+    """Phase 17, the SER classifier's server: ``export_classifier`` of a
+    seeded ``EmotionClassifier`` (``task="both"``), ``ServingModel`` on
+    the card answering ``_requests``; launches, shapes, the cosine of a
+    request against the artifact served in float32 on the CPU, each
+    bucket's outputs against a direct forward; then a ``long_seconds``
+    artifact of one bucket (K5's length) serving one request.  Its
+    arguments let it be rehearsed at a small width on the CPU."""
+    cfg = cfg or WavLMConfig.large()
+    t0 = time.perf_counter()
+    sd = init_emotion_state_dict(cfg, torch.Generator().manual_seed(
+        SEED + 17), hidden_dim)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    art = tempfile.mkdtemp(prefix="smoke_classifier_",
+                           dir=cuda_build.BUILD_DIR)
+    try:
+        export_classifier(sd, cfg, art, batch_sizes=buckets,
+                          clip_seconds=clip_seconds, sample_rate=SAMPLE_RATE,
+                          task="both", hidden_dim=hidden_dim)
+        server = ServingModel(art, device)
+        ref_server = ServingModel(art, torch.device("cpu"))  # float32
+        direct = _served_model(art, device)
+    finally:
+        shutil.rmtree(art)
+    log(f"[classifier] EmotionClassifier: WavLM {cfg.num_hidden_layers} "
+        f"layers x {cfg.hidden_size} + ASP + trunks of {hidden_dim}, "
+        f"{sum(v.numel() for v in sd.values()) / 1e6:.1f} M params, task "
+        f"both, exported and loaded in {time.perf_counter() - t0:.1f} s")
+    clip = server.clip_samples
+    for bkt in buckets:  # warm-up
+        server(np.zeros((bkt, clip), np.float32))
+    sync(device)
+
+    reqs = _requests(np.random.default_rng(SEED + 17), clip_seconds)
+    forwards = sum(len(server.plan(len(a))) for _, a, _ in reqs)
+    _reset_counts()
+    results = []
+    for _, audio, lengths in reqs:
+        mask = None
+        if lengths is not None:
+            mask = (np.arange(audio.shape[1])[None, :]
+                    < np.asarray(lengths)[:, None]).astype(np.int32)
+        results.append(server(audio, mask))
+    sync(device)
+    layers = cfg.num_hidden_layers
+    launches = {"block_attention_fwd": block_attention.LAUNCHES,
+                "flash_attention_fwd": flash_attention.LAUNCHES,
+                "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
+    want = {"block_attention_fwd": layers * forwards,
+            "flash_attention_fwd": 0, "fused_ffn_fwd": layers * forwards,
+            **frontend_want(cfg, forwards, 0)}
+    log(f"[classifier] {forwards} bucket forwards; launches {launches} "
+        f"(want {want})")
+    if launches != want:
+        raise RuntimeError(f"classifier launches {launches} != {want}")
+    for (name, audio, _), (logits, dims) in zip(reqs, results):
+        n = audio.shape[0]
+        ok = (logits.shape == (n, 8) and dims.shape == (n, 3)
+              and np.isfinite(logits).all() and np.isfinite(dims).all())
+        log(f"[classifier] {name}: logits {logits.shape}, A/V/D "
+            f"{dims.shape}, finite={ok}")
+        if not ok:
+            raise RuntimeError(f"bad classifier output for {name}")
+
+    ref_logits, ref_dims = ref_server(reqs[0][1])
+    del ref_server
+    cos = (_cosine(results[0][0], ref_logits), _cosine(results[0][1],
+                                                       ref_dims))
+    log(f"[classifier] {reqs[0][0]}: cosine vs float32 CPU logits "
+        f"{cos[0]:.6f}, A/V/D {cos[1]:.6f}")
+    if min(cos) < COSINE_MIN:
+        raise RuntimeError(f"classifier cosine {cos} < {COSINE_MIN}")
+
+    for bkt in buckets:  # each bucket against a direct forward, bit for bit
+        audio = 0.1 * np.random.default_rng(bkt + 17).standard_normal(
+            (bkt, clip)).astype(np.float32)
+        got = server(audio)
+        with torch.inference_mode():
+            want_out = direct(torch.from_numpy(audio).to(device),
+                              torch.ones(bkt, clip, dtype=torch.int32,
+                                         device=device), "both")
+        same = all(np.array_equal(g, w.float().cpu().numpy())
+                   for g, w in zip(got, want_out))
+        log(f"[classifier] bucket {bkt}: outputs = a direct "
+            f"EmotionClassifier forward on the {device.type}: {same}")
+        if not same:
+            raise RuntimeError(f"classifier bucket {bkt} differs from a "
+                               f"direct forward")
+    del direct
+    times = {bkt: _serving_rate(server, device, clip_seconds, bkt,
+                                "classifier") for bkt in buckets}
+    _compare_with_embedder(server, sd, cfg, device, clip_seconds, buckets)
+    del server
+
+    art = tempfile.mkdtemp(prefix="smoke_classifier_long_",
+                           dir=cuda_build.BUILD_DIR)
+    try:
+        export_classifier(sd, cfg, art, batch_sizes=(long_bucket,),
+                          clip_seconds=long_seconds,
+                          sample_rate=SAMPLE_RATE, task="both",
+                          hidden_dim=hidden_dim)
+        server = ServingModel(art, device)
+    finally:
+        shutil.rmtree(art)
+    long_clip = server.clip_samples
+    frames = int(cfg.feature_lengths(long_clip))
+    server(np.zeros((long_bucket, long_clip), np.float32))  # warm-up
+    lengths = np.linspace(0.5, 1.0, long_bucket) * long_clip
+    audio = 0.1 * np.random.default_rng(SEED + 18).standard_normal(
+        (long_bucket, long_clip)).astype(np.float32)
+    mask = (np.arange(long_clip)[None, :] < lengths[:, None]).astype(
+        np.int32)
+    sync(device)
+    _reset_counts()
+    logits, dims = server(audio, mask)
+    sync(device)
+    launches_long = {"block_attention_fwd": block_attention.LAUNCHES,
+                     "flash_attention_fwd": flash_attention.LAUNCHES,
+                     "fused_ffn_fwd": fused_ffn.LAUNCHES,
+                     **_frontend_counts()}
+    want = {"block_attention_fwd": 0, "flash_attention_fwd": layers,
+            "fused_ffn_fwd": layers, **frontend_want(cfg, 1, 0)}
+    ok = (logits.shape == (long_bucket, 8) and dims.shape == (long_bucket, 3)
+          and np.isfinite(logits).all() and np.isfinite(dims).all())
+    log(f"[classifier] {long_seconds:g} s artifact ({frames} frames), one "
+        f"request of {long_bucket} ragged clips: finite={ok}; launches "
+        f"{launches_long} (want {want})")
+    if not ok or launches_long != want:
+        raise RuntimeError(f"long-clip classifier: finite={ok}, launches "
+                           f"{launches_long} != {want}")
+    times[f"{long_bucket} x {long_seconds:g} s"] = _serving_rate(
+        server, device, long_seconds, long_bucket, "classifier")
+    if device.type == "cuda":
+        log(f"[classifier] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def _newest_trace_records(log_dir: str, category: str, pattern: str) -> int:
+    """The records of ``category`` whose name holds ``pattern`` in the
+    newest trace under ``log_dir``."""
+    path = max((os.path.join(log_dir, f) for f in os.listdir(log_dir)),
+               key=os.path.getmtime)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == category
+               and pattern in e.get("name", ""))
+
+
+def phase_bridges(cfg=None, device=torch.device("cuda"),
+                  model_name: str = "microsoft/wavlm-large",
+                  layers: int = ENTRY_LAYERS, batch: int = 8,
+                  clip_seconds: float = CLIP_SECONDS,
+                  projection_dim: int = 1024, prediction_dim: int = 2048,
+                  hidden_dim: int = EMO_HIDDEN, lo: float = 2.0,
+                  hi: float = 8.0, trace_kernel: str = "block_attention"
+                  ) -> None:
+    """Phase 18, the bridges and the encoder API: a reference-format BYOL
+    state dict of seeded weights at full width through
+    ``reference_byol_to_state_dicts``, ``WavLMEncoder`` on its online
+    encoder against ``WavLMModel`` loaded directly (bit for bit) and
+    timed; at ``layers`` deep, ``save_reference_byol_checkpoint`` → a
+    ``.pt`` under ``build/`` → ``train_emotion.main`` for one step from
+    it, and ``serve.export.main`` on a port BYOL checkpoint whose artifact
+    ``ServingModel`` answers, one request traced by ``profile_trace``.
+    Its arguments let it be rehearsed at a small width on the CPU (where
+    the trace holds no kernel, ``trace_kernel`` names a CPU op)."""
+    import yaml
+
+    cfg = cfg or WavLMConfig.from_model_name(model_name)
+    t0 = time.perf_counter()
+    online = init_byol_state_dict(cfg, projection_dim, prediction_dim,
+                                  torch.Generator().manual_seed(SEED + 18))
+    target = {k: v for k, v in online.items()
+              if not k.startswith("predictor.")}
+    reference = byol_state_dicts_to_reference(online, target)
+    bridged, bridged_target = reference_byol_to_state_dicts(reference, cfg)
+    exact = (bridged.keys() == online.keys()
+             and bridged_target.keys() == target.keys()
+             and all(np.array_equal(bridged[k], online[k].numpy())
+                     for k in online))
+    log(f"[bridges] WavLM {cfg.num_hidden_layers} x {cfg.hidden_size} BYOL "
+        f"tower → reference layout ({len(reference)} tensors) → "
+        f"reference_byol_to_state_dicts in {time.perf_counter() - t0:.1f} s:"
+        f" the seeded weights back bit for bit: {exact}")
+    if not exact:
+        raise RuntimeError("the bridge changed the weights")
+    encoder_sd = {k[len("encoder."):]: v for k, v in bridged.items()
+                  if k.startswith("encoder.")}
+    del reference, bridged, bridged_target, target
+    enc = WavLMEncoder(config=cfg, state_dict=encoder_sd, device=device)
+    direct = WavLMModel(cfg, device="meta")
+    direct.load_state_dict({k[len("encoder."):]: v for k, v in online.items()
+                            if k.startswith("encoder.")},
+                           strict=True, assign=True)
+    direct = direct.to(device=device, dtype=enc.model.feature_projection
+                       .projection.weight.dtype).eval()
+    clip = int(clip_seconds * SAMPLE_RATE)
+    audio = torch.from_numpy((0.1 * np.random.default_rng(SEED + 18)
+                              .standard_normal((batch, 1, clip))).astype(
+        np.float32)).to(device)
+    mask = torch.ones(batch, clip, dtype=torch.int32, device=device)
+    mask[1, clip // 2:] = 0
+    got = enc(audio, mask)
+    with torch.inference_mode():
+        want_seq, _ = direct(audio[:, 0], mask)
+    same = torch.equal(got, want_seq)
+    log(f"[bridges] WavLMEncoder on the bridged online encoder = WavLMModel "
+        f"loaded directly, on the {device.type}: {same}; output_dim "
+        f"{enc.output_dim}, hidden state {tuple(got.shape)}")
+    if not same:
+        raise RuntimeError("WavLMEncoder differs from WavLMModel")
+    del direct
+    for _ in range(3):
+        enc(audio, mask)
+    sync(device)
+    _reset_counts()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        enc(audio, mask)
+    sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    calls = {"block_attention_fwd": block_attention.LAUNCHES,
+             "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
+    want = {"block_attention_fwd": cfg.num_hidden_layers * iters,
+            "fused_ffn_fwd": cfg.num_hidden_layers * iters,
+            **frontend_want(cfg, iters, 0)}
+    log(f"[bridges] WavLMEncoder {batch} x {clip_seconds:g} s: "
+        f"{dt * 1e3:.2f} ms/batch, {batch * clip_seconds / dt:.1f} "
+        f"audio-sec/sec; launches {calls} (want {want})")
+    if calls != want:
+        raise RuntimeError(f"WavLMEncoder launches {calls} != {want}")
+    del enc, online, encoder_sd
+
+    shallow = dataclasses.replace(cfg, num_hidden_layers=layers)
+    root = tempfile.mkdtemp(prefix="smoke_bridges_", dir=cuda_build.BUILD_DIR)
+    try:
+        tower = init_byol_state_dict(shallow, projection_dim, prediction_dim,
+                                     torch.Generator().manual_seed(SEED + 19))
+        pt = os.path.join(root, "byol_reference.pt")
+        save_reference_byol_checkpoint(
+            pt, tower, {k: v for k, v in tower.items()
+                        if not k.startswith("predictor.")}, epoch=3)
+        _write_emotion_corpus(root, batch + 2, 4, 2, lo, hi)
+        config = config_utils.load_config("default_wavlm-large_emotion_dim_ft")
+        config["model"].update(name=model_name, num_hidden_layers=layers)
+        config["training"].update(log_dir=os.path.join(root, "logs"))
+        config["data"].update(noise_data_path=os.path.join(root, "noise"),
+                              max_audio_length=clip_seconds)
+        config["emotion"].update(
+            labels_file=os.path.join(root, "labels_consensus.csv"),
+            audio_dir=os.path.join(root, "Audios"), encoder_checkpoint=pt,
+            checkpoint_dir=os.path.join(root, "ckpt"), batch_size=batch,
+            hidden_dim=hidden_dim, classifier_epochs=1,
+            unfreeze_encoder=False)
+        path = os.path.join(root, "emotion.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(config, f)
+        result = train_emotion.main(["--config", path, "--task",
+                                     "categorical", "--device",
+                                     device.type])["categorical"]
+        (epoch,) = result["epochs"]
+        model = result["state"].model
+        from_pt = all(torch.equal(p.detach().cpu(), tower[f"encoder.{n}"])
+                      for n, p in model.encoder.named_parameters())
+        log(f"[bridges] train_emotion.main from the reference .pt "
+            f"(WavLM {layers} layers x {shallow.hidden_size}): "
+            f"{epoch['steps']} step, train loss {epoch['train_loss']:.6f}, "
+            f"the frozen encoder = the .pt's online encoder: {from_pt}")
+        if epoch["steps"] != 1 or not np.isfinite(epoch["train_loss"]) \
+                or not from_pt:
+            raise RuntimeError(f"train_emotion from a .pt: {epoch}, "
+                               f"encoder from the .pt {from_pt}")
+        del result, model
+
+        state = create_train_state(shallow, tower, projection_dim,
+                                   prediction_dim, "cpu")
+        ckpt = save_checkpoint(os.path.join(root, "byol"), "best_val_loss",
+                               state)
+        byol_yaml = os.path.join(root, "byol.yaml")
+        with open(byol_yaml, "w") as f:
+            yaml.safe_dump({"model": {"name": model_name,
+                                 "num_hidden_layers": layers},
+                       "data": {"max_audio_length": clip_seconds,
+                                "sample_rate": SAMPLE_RATE}}, f)
+        out = serve_export.main(["--config", byol_yaml, "--checkpoint", ckpt,
+                                 "--out", os.path.join(root, "artifact"),
+                                 "--batch-sizes", "1,8", "--device",
+                                 device.type])
+        server = ServingModel(out, device)
+        direct = WavLMModel(shallow, device="meta")
+        direct.load_state_dict({k[len("encoder."):]: v for k, v in
+                                tower.items() if k.startswith("encoder.")},
+                               strict=True, assign=True)
+        direct = direct.to(device=device, dtype=next(
+            server.model.parameters()).dtype).eval()
+        req = 0.1 * np.random.default_rng(SEED + 20).standard_normal(
+            (batch, server.clip_samples)).astype(np.float32)
+        seq, pooled = server(req)
+        with torch.inference_mode():
+            _, want_pooled = direct(torch.from_numpy(req).to(device),
+                                    torch.ones(batch, server.clip_samples,
+                                               dtype=torch.int32,
+                                               device=device))
+        same = np.array_equal(pooled, want_pooled.float().cpu().numpy())
+        log(f"[bridges] serve.export.main on a port BYOL checkpoint: "
+            f"{server.kind} artifact, buckets {server.buckets}; a request "
+            f"of {batch}: sequence {seq.shape}, pooled = the checkpoint's "
+            f"encoder run directly: {same}")
+        if not same or not np.isfinite(seq).all():
+            raise RuntimeError("the exported embedder differs from its "
+                               "checkpoint's encoder")
+        traces = os.path.join(root, "traces")
+        category = "kernel" if device.type == "cuda" else "cpu_op"
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            with profile_trace(traces):
+                server(req)
+            found = _newest_trace_records(traces, category, trace_kernel)
+            log(f"[bridges] profile_trace of one request (attempt "
+                f"{attempt}): {found} '{trace_kernel}' {category} records")
+            if found:
+                break
+        else:
+            raise RuntimeError(f"profile_trace held no {trace_kernel} "
+                               f"{category} record in {TRACE_ATTEMPTS} "
+                               f"traces")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -3875,6 +4334,8 @@ def main() -> int:
     phase_ft_entry()
     phase_emotion_step()
     phase_emotion_entry()
+    phase_classifier()
+    phase_bridges()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

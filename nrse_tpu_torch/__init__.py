@@ -1,6 +1,6 @@
-"""nrse_tpu_torch — the WavLM embedding server, BYOL pretraining, the
-baseline SER evaluator and fine-tune, and the two-phase SER trainers on
-PyTorch and CUDA.
+"""nrse_tpu_torch — the WavLM embedding and SER classifier servers, BYOL
+pretraining, the baseline SER evaluator and fine-tune, and the two-phase
+SER trainers on PyTorch and CUDA.
 
 A port of ``nrse_tpu`` (JAX on a TPU) to one NVIDIA H100.  ``nrse_tpu``
 stays the reference each module is tested against.  This package imports
@@ -40,9 +40,18 @@ Layers, from the entry points down to the device:
     ``eval.evaluate_byol`` the validation; ``train.checkpoint`` and
     ``train.early_stopping``.
 
-  * ``serve.export`` — ``export_embedder`` writes weights and a manifest;
+  * ``serve.export`` — ``export_embedder`` and ``export_classifier`` (the
+    SER classifier: logits, A/V/D or both) write weights and a manifest;
     ``ServingModel`` loads them once, pads ragged requests to the clip
-    length, routes them to batch buckets and slices the results back.
+    length, routes them to batch buckets and slices the results back;
+    ``python -m nrse_tpu_torch.serve.export`` exports a BYOL checkpoint's
+    encoder.
+  * ``models.convert`` and ``models.export_torch`` — the bridges to the
+    reference's PyTorch files (its BYOL ``.pt`` checkpoints, HF WavLM
+    directories, the harness's ``final_*.pt``), in and out;
+    ``models.encoder.WavLMEncoder`` the reference's encoder API;
+    ``utils.profiling``, ``data.synthetic``, ``data.mock``,
+    ``labels.tools`` and the other host-side tools.
   * ``train.byol_trainer`` — the BYOL train step (views, online and target
     towers, loss, backward, AdamW + EMA over flat float32 state) and the
     eval step; ``train.schedules`` the cosine LR; ``audio`` the SNR mixing

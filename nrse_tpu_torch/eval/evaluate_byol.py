@@ -1,18 +1,21 @@
-"""BYOL validation: the loss and the clean↔noisy similarity per SNR.
+"""BYOL validation: the loss, the clean↔noisy similarity per SNR, and the
+t-SNE plot of the embeddings.
 
-Port of ``nrse_tpu/eval/evaluate_byol.py:41-120``:
+Port of ``nrse_tpu/eval/evaluate_byol.py:41-161``:
 ``evaluate_embedding_similarity`` (the mean cosine of the online encoder's
-pooled clean and noisy embeddings, per SNR of ``data.snr_range``) and
+pooled clean and noisy embeddings, per SNR of ``data.snr_range``),
 ``validate_model`` (the BYOL loss and those similarities from one pass of
-``train.byol_trainer.make_byol_eval_step``).  The per-sample outputs stay
-on the device until the pass ends; the means are weighted by the real rows
-of each batch (the validation loader pads its last batch).  The t-SNE plot
-(``visualize_embeddings``) is not ported: it needs scikit-learn and
-matplotlib.
+``train.byol_trainer.make_byol_eval_step``) and ``visualize_embeddings``
+(a t-SNE scatter of the clean and the per-SNR noisy embeddings, saved as a
+PNG; scikit-learn and matplotlib are imported inside it, and the card's
+machine has neither).  The per-sample outputs stay on the device until the
+pass ends; the means are weighted by the real rows of each batch (the
+validation loader pads its last batch).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Tuple
 
 import numpy as np
@@ -23,29 +26,36 @@ from nrse_tpu_torch.train.byol_trainer import (
     BYOLTrainState,
     make_byol_eval_step,
 )
+from nrse_tpu_torch.utils.logging_utils import logger
 
 
-def _run_eval_pass(state: BYOLTrainState, loader, depth: int = 2):
-    """``(losses, similarities, snrs)`` of every real row, as numpy."""
-    eval_step = make_byol_eval_step()
-    losses, sims, snrs = [], [], []
-    for batch in DevicePrefetcher(loader, state.params.device, depth):
+def _run_eval_pass(state: BYOLTrainState, loader, depth: int = 2,
+                   collect_embeddings: bool = False, max_batches: int = 0):
+    """``(losses, similarities, snrs, embeddings)`` of every real row of
+    the first ``max_batches`` batches (all for 0), as numpy;
+    ``embeddings`` is ``(clean [N, C], noisy [N, C])`` of the online
+    encoder with ``collect_embeddings``, else None."""
+    eval_step = make_byol_eval_step(embeddings=collect_embeddings)
+    outs = [[] for _ in range(5 if collect_embeddings else 3)]
+    for i, batch in enumerate(DevicePrefetcher(loader, state.params.device,
+                                               depth)):
+        if max_batches and i >= max_batches:
+            break
         count = batch.pop("__count__")
-        loss, sim = eval_step(state, batch)
-        losses.append(loss[:count])
-        sims.append(sim[:count])
-        snrs.append(batch["snr"][:count])
-    if not losses:
+        res = eval_step(state, batch)
+        for out, r in zip(outs, (res[0], res[1], batch["snr"], *res[2:])):
+            out.append(r[:count])
+    if not outs[0]:
         empty = np.zeros(0, np.float32)
-        return empty, empty, empty
-    return tuple(torch.cat(x).float().cpu().numpy()
-                 for x in (losses, sims, snrs))
+        return empty, empty, empty, None
+    arrays = [torch.cat(x).float().cpu().numpy() for x in outs]
+    return (*arrays[:3], tuple(arrays[3:]) if collect_embeddings else None)
 
 
 def evaluate_embedding_similarity(state: BYOLTrainState, dataloader, config
                                   ) -> Dict[float, float]:
     """Per-SNR mean similarity; 0.0 for an SNR no row has."""
-    _, sims, snrs = _run_eval_pass(state, dataloader)
+    _, sims, snrs, _ = _run_eval_pass(state, dataloader)
     out = {}
     for snr in config["data"]["snr_range"]:
         mask = snrs == float(snr)
@@ -58,7 +68,7 @@ def validate_model(state: BYOLTrainState, val_loader, config
     """``(val_loss, metrics)`` with ``metrics`` holding ``val_loss``,
     ``val_avg_similarity`` (the mean over the SNRs that have rows) and
     ``val_similarities`` (per SNR; SNRs without rows are left out)."""
-    losses, sims, snrs = _run_eval_pass(state, val_loader)
+    losses, sims, snrs, _ = _run_eval_pass(state, val_loader)
     avg_loss = float(losses.mean()) if len(losses) else float("inf")
     similarities = {}
     for snr in config["data"]["snr_range"]:
@@ -70,3 +80,43 @@ def validate_model(state: BYOLTrainState, val_loader, config
     return avg_loss, {"val_loss": avg_loss,
                       "val_avg_similarity": avg_similarity,
                       "val_similarities": similarities}
+
+
+def visualize_embeddings(state: BYOLTrainState, dataloader, log_dir: str,
+                         img_file_name: str, num_samples: int = 100) -> str:
+    """A t-SNE scatter of the clean (o) and the per-SNR noisy (x) pooled
+    embeddings of the first ``num_samples // batch_size`` batches, saved
+    as ``log_dir/img_file_name``; returns its path.  Raises
+    ``ImportError`` where scikit-learn or matplotlib is absent."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from sklearn.manifold import TSNE
+
+    batches = max(1, num_samples // max(1, dataloader.batch_size))
+    _, _, snrs, (clean, noisy) = _run_eval_pass(
+        state, dataloader, collect_embeddings=True, max_batches=batches)
+    all_emb = np.concatenate([clean, noisy], axis=0)
+    perplexity = min(30, max(2, len(all_emb) // 4))
+    tsne = TSNE(n_components=2, random_state=42, perplexity=perplexity)
+    pts = tsne.fit_transform(all_emb)
+    c_pts, n_pts = pts[: len(clean)], pts[len(clean):]
+
+    os.makedirs(log_dir, exist_ok=True)
+    plt.figure(figsize=(10, 8))
+    plt.scatter(c_pts[:, 0], c_pts[:, 1], marker="o", color="blue",
+                alpha=0.7, label="Clean")
+    uniq = sorted(set(snrs.tolist()))
+    colors = plt.cm.rainbow(np.linspace(0, 1, len(uniq)))
+    for color, snr in zip(colors, uniq):
+        idx = snrs == snr
+        plt.scatter(n_pts[idx, 0], n_pts[idx, 1], marker="x", color=color,
+                    alpha=0.7, label=f"Noisy (SNR={int(snr)}dB)")
+    plt.title("t-SNE of speech embeddings (clean vs noisy)")
+    plt.legend()
+    out_path = os.path.join(log_dir, img_file_name)
+    plt.savefig(out_path)
+    plt.close()
+    logger.info(f"Visualization saved to {out_path}")
+    return out_path

@@ -34,10 +34,22 @@ the layout of ``nrse_tpu/models/byol.py:113-181``: the encoder as above
 under ``encoder.``, the heads' Dense kernels ``[in, out]`` →
 ``dense_i.weight [out, in]``, and the BatchNorm ``scale/bias`` (params)
 and ``mean/var`` (batch_stats) → ``weight/bias/running_mean/running_var``.
+
+The reference's own PyTorch files come in through the counterparts of
+``nrse_tpu/models/convert.py:182-234``: :func:`reference_byol_to_state_dicts`
+and :func:`load_reference_byol_checkpoint` (its ``BYOLSpeechModel``
+``.pt`` checkpoints) and :func:`load_hf_wavlm` (a local HF WavLM
+directory, read without ``transformers``; ``model.safetensors`` through
+:func:`read_safetensors`).  The port's encoder keys are HF's, so these
+only strip prefixes, spell the positional conv's weight norm the port's
+way and lay the heads' ``Sequential`` indices out as named modules.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import struct
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -50,6 +62,8 @@ from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 
 def _f32(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        x = x.detach().cpu().float().numpy()
     return np.array(x, dtype=np.float32)  # a writable copy
 
 
@@ -316,3 +330,138 @@ def init_emotion_state_dict(config: WavLMConfig, generator: torch.Generator,
             sd[name] = torch.randn(t.shape, generator=generator) \
                 * t.shape[1] ** -0.5
     return sd
+
+
+# --- the reference's PyTorch files → the port ---------------------------
+
+# the positional conv's weight norm: the port's spelling → torch's legacy one
+_LEGACY_WEIGHT_NORM = {"parametrizations.weight.original0": "weight_g",
+                       "parametrizations.weight.original1": "weight_v"}
+
+
+def hf_state_to_port(sd: Mapping[str, Any], config: WavLMConfig,
+                     prefix: str = "") -> Dict[str, np.ndarray]:
+    """An HF ``WavLMModel`` state dict (keys under ``prefix``) → the port's
+    WavLM state dict as float32 numpy arrays: the positional conv's weight
+    norm in either spelling (``weight_g``/``weight_v`` or
+    ``parametrizations.weight.original0/1``, the same dimension) under the
+    port's ``parametrizations`` keys, every other key as it is.  Keys the
+    port's module does not hold are left out, as JAX's converter reads only
+    the keys it needs; a key it needs and ``sd`` lacks raises ``KeyError``."""
+    out: Dict[str, np.ndarray] = {}
+    for key in WavLMModel(config, device="meta").state_dict():
+        src = prefix + key
+        for spelling, legacy in _LEGACY_WEIGHT_NORM.items():
+            if src not in sd and key.endswith(spelling):
+                src = src[:-len(spelling)] + legacy
+        if src not in sd:
+            raise KeyError(f"the state dict has no {prefix + key}")
+        out[key] = _f32(sd[src])
+    return out
+
+
+def _reference_heads(sd: Mapping[str, Any], src: str, dst: str,
+                     dense: tuple, bn: tuple) -> Dict[str, np.ndarray]:
+    """A reference head's ``layers.N`` Sequential
+    (``multi_layer_heads.py:4-48``) → the port's ``dense_i`` / ``bn_i``;
+    BatchNorm's ``num_batches_tracked`` is dropped (the port's BatchNorm
+    has no count)."""
+    out = {}
+    for i, n in enumerate(dense):
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.dense_{i}.{leaf}"] = _f32(
+                sd[f"{src}.layers.{n}.{leaf}"])
+    for i, n in enumerate(bn):
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.bn_{i}.{leaf}"] = _f32(sd[f"{src}.layers.{n}.{leaf}"])
+    return out
+
+
+def reference_byol_to_state_dicts(sd: Mapping[str, Any],
+                                  config: WavLMConfig):
+    """A reference ``BYOLSpeechModel`` state dict (the ``model_state_dict``
+    of its ``.pt`` checkpoints: ``{online,target}_encoder.model.*``,
+    ``{online,target}_projector.layers.N.*``,
+    ``online_predictor.layers.N.*``) → ``(online, target)`` state dicts of
+    float32 numpy arrays for :class:`~nrse_tpu_torch.models.byol.
+    OnlineNetwork` and ``TargetNetwork``, the layout of
+    :func:`byol_variables_to_state_dicts`.  Counterpart of
+    ``nrse_tpu/models/convert.py:182-210``.
+
+    The BatchNorm running statistics are copied as they are, as JAX's
+    ``_torch_bn`` (``convert.py:149-157``) copies them: torch advanced its
+    ``running_var`` with the *unbiased* batch variance, the port's
+    :class:`~nrse_tpu_torch.models.heads.BatchNorm` advances it with flax's
+    biased one, and both normalise by ``running_var`` in eval mode, so the
+    bridged heads give torch's eval outputs; training on from them mixes
+    the two statistics, as JAX's bridge does."""
+    def tower(name, predictor):
+        out = {f"encoder.{k}": v for k, v in hf_state_to_port(
+            sd, config, f"{name}_encoder.model.").items()}
+        out.update(_reference_heads(sd, f"{name}_projector", "projector",
+                                    (0, 3), (1, 4)))
+        if predictor:
+            out.update(_reference_heads(sd, f"{name}_predictor", "predictor",
+                                        (0, 3, 6), (1, 4)))
+        return out
+
+    return tower("online", True), tower("target", False)
+
+
+def load_reference_byol_checkpoint(path: str, config: WavLMConfig):
+    """A reference ``.pt`` BYOL checkpoint → ``(online, target)`` as
+    :func:`reference_byol_to_state_dicts`.  Takes the full checkpoint dict
+    (``{epoch, model_state_dict, optimizer_state_dict, loss,
+    similarity}``, the reference's ``train_byol.py:207-240``) or a bare
+    state dict, read with ``torch.load(weights_only=True)``.  Counterpart
+    of ``nrse_tpu/models/convert.py:213-223``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) \
+        else ckpt
+    return reference_byol_to_state_dicts(sd, config)
+
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8,
+    "BOOL": torch.bool}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as CPU tensors, without the ``safetensors``
+    package: an 8-byte little-endian header length, a JSON header (each
+    tensor's ``dtype``, ``shape`` and ``data_offsets`` into the data that
+    follows; ``__metadata__`` aside), then the raw little-endian data."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        buf = bytearray(data[begin:end])
+        t = torch.frombuffer(buf, dtype=dtype) if buf else \
+            torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def load_hf_wavlm(path: str, config: WavLMConfig) -> Dict[str, np.ndarray]:
+    """A local HF WavLM directory (``save_pretrained``'s ``model.
+    safetensors`` or ``pytorch_model.bin``) → the port's WavLM state dict
+    as :func:`hf_state_to_port` gives it.  Reads the files itself, needs
+    no ``transformers`` and downloads nothing; a head model's ``wavlm.``
+    prefix is stripped.  Counterpart of
+    ``nrse_tpu/models/convert.py:226-234``."""
+    st = os.path.join(path, "model.safetensors")
+    if os.path.isfile(st):
+        sd = read_safetensors(st)
+    else:
+        sd = torch.load(os.path.join(path, "pytorch_model.bin"),
+                        map_location="cpu", weights_only=True)
+    prefix = "wavlm." if any(k.startswith("wavlm.") for k in sd) else ""
+    return hf_state_to_port(sd, config, prefix)

@@ -1,36 +1,74 @@
-"""Export and serve the WavLM embedder.
+"""Export and serve the WavLM embedder and the SER classifier.
 
 Port of ``nrse_tpu/serve/export.py`` (``export_embedder`` :113-180,
-``ServingModel`` :230-318) for the embedder.  Artifact layout, one
-directory:
+``export_classifier`` :183-227, ``ServingModel`` :230-318, the export CLI
+:325-364).  Artifact layout, one directory:
 
-    manifest.json   — kind, buckets, with_mask, clip_seconds, sample_rate,
-                      outputs, encoder_config, weights (the keys of the JAX
+    manifest.json   — kind (``embed`` or ``classify``), buckets,
+                      with_mask, clip_seconds, sample_rate, outputs,
+                      encoder_config, weights (the keys of the JAX
                       package's unbaked layout; there is no per-bucket
-                      program file, since PyTorch runs the module eagerly)
-    params.pt       — the state dict (HF ``WavLMModel`` layout), loaded once
+                      program file, since PyTorch runs the module eagerly),
+                      and for the classifier task, hidden_dim and
+                      num_emotions
+    params.pt       — the state dict (the embedder's in HF ``WavLMModel``
+                      layout, the classifier's that of
+                      ``models.emotion.EmotionClassifier``), loaded once
                       when the server starts
 
 Serving traffic is ragged: :class:`ServingModel` pads each request to the
 clip length with a mask, routes it to the smallest batch bucket that fits,
 chunks requests larger than the biggest bucket, and slices the padding
 rows off the results.
+
+    python -m nrse_tpu_torch.serve.export --config <preset or yaml> \\
+        --checkpoint <train_byol checkpoint_dir>/best_val_loss \\
+        --out <dir> --batch-sizes 1,8 [--device cuda|cpu]
+
+writes an embedder artifact of a BYOL checkpoint's online encoder, then
+serves one request from it on the device as a check.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from nrse_tpu_torch.runtime.device import resolve_device
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "params.pt"
+# the classifier's outputs for each task (JAX's ``export.py:213-216``)
+CLASSIFIER_OUTPUTS = {
+    "categorical": ["categorical_logits"],
+    "dimensional": ["dimensional_values"],
+    "both": ["categorical_logits", "dimensional_values"]}
+
+
+def _cpu_tensors(state_dict: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+            else v.detach().cpu() for k, v in state_dict.items()}
+
+
+def _write(module: nn.Module, sd: Dict[str, torch.Tensor], out_dir: str,
+           manifest: Dict) -> str:
+    """Strict-load ``sd`` into ``module`` (built on ``meta``), then write
+    the weights and the manifest."""
+    module.load_state_dict(sd, strict=True, assign=True)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(sd, os.path.join(out_dir, _WEIGHTS))
+    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+        json.dump({**manifest, "weights": _WEIGHTS}, f, indent=2)
+    return out_dir
 
 
 def export_embedder(state_dict: Mapping[str, object], config: WavLMConfig,
@@ -42,40 +80,56 @@ def export_embedder(state_dict: Mapping[str, object], config: WavLMConfig,
     ``state_dict``: the port's WavLM state dict (torch tensors or numpy
     arrays, e.g. from ``models.convert``).  It is checked by a strict load
     before anything is written."""
-    sd = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-          else v.detach().cpu() for k, v in state_dict.items()}
-    WavLMModel(config, device="meta").load_state_dict(sd, strict=True,
-                                                      assign=True)
-    os.makedirs(out_dir, exist_ok=True)
-    torch.save(sd, os.path.join(out_dir, _WEIGHTS))
-    manifest = {
-        "kind": "embed",
-        "buckets": sorted(int(b) for b in batch_sizes),
-        "with_mask": True,
-        "clip_seconds": clip_seconds,
-        "sample_rate": sample_rate,
-        "outputs": ["sequence", "pooled"],
-        "encoder_config": dataclasses.asdict(config),
-        "weights": _WEIGHTS,
-    }
-    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=2)
-    return out_dir
+    return _write(WavLMModel(config, device="meta"), _cpu_tensors(state_dict),
+                  out_dir, {
+                      "kind": "embed",
+                      "buckets": sorted(int(b) for b in batch_sizes),
+                      "with_mask": True, "clip_seconds": clip_seconds,
+                      "sample_rate": sample_rate,
+                      "outputs": ["sequence", "pooled"],
+                      "encoder_config": dataclasses.asdict(config)})
+
+
+def export_classifier(state_dict: Mapping[str, object],
+                      encoder_config: WavLMConfig, out_dir: str,
+                      batch_sizes: Sequence[int] = (1, 8),
+                      clip_seconds: float = 5.0, sample_rate: int = 16000,
+                      task: str = "both", hidden_dim: int = 1024,
+                      num_emotions: int = 8) -> str:
+    """Write the SER classifier's serving artifact (audio + mask → the
+    categorical logits ``[B, num_emotions]``, the A/V/D values ``[B, 3]``,
+    or both, per ``task``) to ``out_dir``.
+
+    ``state_dict``: an :class:`~nrse_tpu_torch.models.emotion.
+    EmotionClassifier` state dict, checked by a strict load before
+    anything is written."""
+    if task not in TASKS:
+        raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    module = EmotionClassifier(encoder_config, hidden_dim,
+                               num_emotions=num_emotions, device="meta")
+    return _write(module, _cpu_tensors(state_dict), out_dir, {
+        "kind": "classify", "buckets": sorted(int(b) for b in batch_sizes),
+        "with_mask": True, "clip_seconds": clip_seconds,
+        "sample_rate": sample_rate, "task": task,
+        "outputs": CLASSIFIER_OUTPUTS[task],
+        "encoder_config": dataclasses.asdict(encoder_config),
+        "hidden_dim": hidden_dim, "num_emotions": num_emotions})
 
 
 class ServingModel:
     """Loads an artifact directory once and serves ragged batches on
-    ``device``: in bf16 on a CUDA device (the kernels' type), in float32
-    on the CPU (the plain paths, the reference).
+    ``device``: the encoder in bf16 on a CUDA device (the kernels' type),
+    in float32 on the CPU (the plain paths, the reference); the
+    classifier's pooling statistics and trunks work in float32 on both.
     """
 
     def __init__(self, artifact_dir: str, device="cuda"):
         with open(os.path.join(artifact_dir, _MANIFEST)) as f:
             self.manifest = json.load(f)
-        if self.manifest.get("kind") != "embed":
-            raise ValueError(f"not an embedder artifact: "
-                             f"{self.manifest.get('kind')!r}")
-        self.device = torch.device(device)
+        self.kind = self.manifest.get("kind")
+        if self.kind not in ("embed", "classify"):
+            raise ValueError(f"not a serving artifact: {self.kind!r}")
+        self.device = resolve_device(device)
         dtype = (torch.bfloat16 if self.device.type == "cuda"
                  else torch.float32)
         self.config = WavLMConfig(**self.manifest["encoder_config"])
@@ -83,12 +137,21 @@ class ServingModel:
         self.with_mask = self.manifest.get("with_mask", True)
         self.clip_samples = int(self.manifest["clip_seconds"]
                                 * self.manifest["sample_rate"])
+        self.task = self.manifest.get("task")
         sd = torch.load(os.path.join(artifact_dir, self.manifest["weights"]),
                         map_location="cpu", weights_only=True)
-        model = WavLMModel(self.config, device="meta")
+        if self.kind == "embed":
+            model = WavLMModel(self.config, device="meta")
+        else:
+            model = EmotionClassifier(
+                self.config, self.manifest["hidden_dim"],
+                num_emotions=self.manifest["num_emotions"], device="meta")
         model.load_state_dict(sd, strict=True, assign=True)
-        # weights move to the device and the working dtype once, here
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        # weights move to the device and the working dtype once, here; the
+        # classifier's heads stay float32
+        encoder = model if self.kind == "embed" else model.encoder
+        encoder.to(dtype=dtype)
+        self.model = model.to(self.device).eval()
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -106,18 +169,22 @@ class ServingModel:
             start += chunk
         return out
 
-    def _forward(self, audio: np.ndarray, mask: np.ndarray):
-        a = torch.from_numpy(audio).to(self.device)
-        m = torch.from_numpy(mask).to(self.device) if self.with_mask else None
+    def forward(self, audio: torch.Tensor, mask: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, ...]:
+        """One bucket's forward on the device: the embedder's ``(sequence,
+        pooled)`` or the outputs the classifier's task names."""
         with torch.inference_mode():
-            return self.model(a, m)
+            if self.kind == "embed":
+                return self.model(audio, mask)
+            logits, dims = self.model(audio, mask, self.task)
+            return tuple(o for o in (logits, dims) if o is not None)
 
-    def __call__(self, audio: np.ndarray, mask: Optional[np.ndarray] = None
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+    def __call__(self, audio: np.ndarray, mask: Optional[np.ndarray] = None):
         """``audio [N, T]`` (T ≤ the exported clip length; shorter audio
-        is zero-padded and masked) → ``(sequence [N, T', C], pooled
-        [N, C])`` as float32 numpy arrays.  N larger than the biggest
-        bucket is chunked."""
+        is zero-padded and masked) → float32 numpy arrays, N rows each:
+        the embedder's ``(sequence [N, T', C], pooled [N, C])``; the
+        classifier's logits ``[N, num_emotions]``, A/V/D ``[N, 3]``, or
+        both as a tuple.  N larger than the biggest bucket is chunked."""
         audio = np.asarray(audio, np.float32)
         n, t = audio.shape
         if t > self.clip_samples:
@@ -142,13 +209,57 @@ class ServingModel:
             # padding rows keep an all-zero mask; the model's masked
             # pooling/attention ignores them and the rows are sliced off
             m[chunk:, 0] = 1  # avoid fully-empty frame counts downstream
-            res = self._forward(a, m)
+            res = self.forward(
+                torch.from_numpy(a).to(self.device),
+                torch.from_numpy(m).to(self.device) if self.with_mask
+                else None)
             outs.append(tuple(r[:chunk].float().cpu().numpy() for r in res))
             start += chunk
-        seq, pooled = (np.concatenate(parts) for parts in zip(*outs))
-        return seq, pooled
+        joined = tuple(np.concatenate(parts) for parts in zip(*outs))
+        return joined if len(joined) > 1 else joined[0]
 
 
 def load_serving_model(artifact_dir: str, device="cuda") -> ServingModel:
     return ServingModel(artifact_dir, device)
 
+
+def main(argv=None) -> str:
+    """Export a BYOL checkpoint's online encoder as an embedder artifact
+    and answer one request from it on the device; returns the artifact
+    directory."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", required=True,
+                    help="YAML config file, or a preset name of "
+                         "nrse_tpu_torch/config/presets")
+    ap.add_argument("--checkpoint", required=True,
+                    help="a checkpoint directory of train_byol "
+                         "(<checkpoint_dir>/<name>)")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--batch-sizes", default="1,8")
+    ap.add_argument("--device", default=None, help="cuda or cpu")
+    args = ap.parse_args(argv)
+
+    from nrse_tpu_torch.config.config_utils import get_config
+    from nrse_tpu_torch.train.categorical_emotions import encoder_config_from
+    from nrse_tpu_torch.train.checkpoint import load_byol_encoder
+
+    cfg_args = ["--config", args.config]
+    if args.device:
+        cfg_args += ["--device", args.device]
+    config = get_config(cfg_args)
+    device = resolve_device(config["device"])
+    enc_cfg = encoder_config_from(config)
+    out = export_embedder(
+        load_byol_encoder(args.checkpoint, enc_cfg), enc_cfg, args.out,
+        batch_sizes=[int(b) for b in args.batch_sizes.split(",")],
+        clip_seconds=float(config["data"]["max_audio_length"]),
+        sample_rate=int(config["data"]["sample_rate"]))
+    server = ServingModel(out, device)
+    _, pooled = server(np.zeros((1, server.clip_samples), np.float32))
+    print(f"serving artifact written to {out}; one request on "
+          f"{device.type}: pooled {pooled.shape}", flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -164,12 +164,15 @@ def make_byol_train_step(spec: FusedAdamWSpec
     return train_step
 
 
-def make_byol_eval_step() -> Callable[[BYOLTrainState, Dict],
-                                      Tuple[torch.Tensor, torch.Tensor]]:
+def make_byol_eval_step(embeddings: bool = False
+                        ) -> Callable[[BYOLTrainState, Dict], Tuple]:
     """``eval_step(state, batch) → (loss [B], similarity [B])``: the BYOL
     loss per sample and the clean↔noisy cosine of the online encoder's
     pooled embeddings, from three encoder forwards in eval mode
-    (``byol_trainer.py:183-235``)."""
+    (``byol_trainer.py:183-235``).  With ``embeddings``, also those pooled
+    clean and noisy embeddings ``[B, C]`` in float32, which JAX's
+    ``make_byol_embed_step`` (``:238-261``) computes in a pass of its
+    own."""
 
     @torch.no_grad()
     def eval_step(state: BYOLTrainState, batch: Dict):
@@ -192,6 +195,9 @@ def make_byol_eval_step() -> Callable[[BYOLTrainState, Dict],
             return e / torch.clamp_min(
                 torch.linalg.vector_norm(e, dim=1, keepdim=True), 1e-10)
 
-        return loss, (unit(clean_emb) * unit(noisy_emb)).sum(1)
+        sim = (unit(clean_emb) * unit(noisy_emb)).sum(1)
+        if embeddings:
+            return loss, sim, clean_emb, noisy_emb
+        return loss, sim
 
     return eval_step

@@ -3,7 +3,8 @@ the dimensional trainer shares.
 
 Port of ``nrse_tpu/train/categorical_emotions.py:53-315`` (capability
 parity with the reference's ``src/train/categorical_emotions.py:21-301``):
-a BYOL encoder of the port's ``train_byol`` (or seeded random weights)
+a BYOL encoder of the port's ``train_byol`` or of the reference's
+``.pt`` checkpoints (or seeded random weights)
 in an :class:`~nrse_tpu_torch.models.emotion.EmotionClassifier` → class
 weights ``(total / (count·K))^1.5`` → phase 1, ``classifier_epochs`` with
 the encoder frozen → phase 2 (``unfreeze_encoder``): phase 1's best
@@ -42,7 +43,10 @@ from nrse_tpu_torch.eval.metrics import (
     confusion_matrix,
     f1_scores,
 )
-from nrse_tpu_torch.models.convert import init_emotion_state_dict
+from nrse_tpu_torch.models.convert import (
+    init_emotion_state_dict,
+    load_reference_byol_checkpoint,
+)
 from nrse_tpu_torch.models.emotion import (
     EmotionClassifier,
     gradually_unfrozen_layers,
@@ -113,17 +117,19 @@ def build_classifier(config, device: torch.device, seed: int,
 
 def load_pretrained_encoder(config, enc_cfg: WavLMConfig
                             ) -> Optional[Dict[str, torch.Tensor]]:
-    """The online encoder of a BYOL checkpoint directory of the port's
-    ``train_byol`` (``emotion.encoder_checkpoint``), or None, with a
-    warning, where there is none (training starts from seeded weights,
-    as the JAX trainer starts from scratch).  A reference PyTorch ``.pt``
-    checkpoint raises: its bridge is not ported (ROADMAP Queue 1, item 3)."""
+    """The online encoder of ``emotion.encoder_checkpoint``: a reference
+    PyTorch BYOL ``.pt`` checkpoint, bridged through
+    ``models.convert.load_reference_byol_checkpoint`` (as
+    ``nrse_tpu/train/categorical_emotions.py:81-89`` bridges it), or a
+    checkpoint directory of the port's ``train_byol``; or None, with a
+    warning, where there is neither (training starts from seeded weights,
+    as the JAX trainer starts from scratch)."""
     path = config["emotion"].get("encoder_checkpoint")
-    if path and str(path).endswith(".pt"):
-        raise NotImplementedError(
-            f"encoder checkpoint {path!r} is a reference PyTorch .pt file; "
-            "the port reads only its own train_byol checkpoint directories "
-            "(the .pt bridge is ROADMAP Queue 1, item 3)")
+    if path and os.path.isfile(path) and str(path).endswith(".pt"):
+        online, _ = load_reference_byol_checkpoint(path, enc_cfg)
+        logger.info(f"bridged reference torch BYOL checkpoint {path}")
+        return {k[len("encoder."):]: torch.from_numpy(v)
+                for k, v in online.items() if k.startswith("encoder.")}
     if not path or not os.path.isdir(path):
         msg = (f"encoder checkpoint {path!r} not found: training from "
                "seeded random weights")

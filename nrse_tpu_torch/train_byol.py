@@ -18,13 +18,19 @@ checkpoint, then per epoch: the train step fed by the device prefetcher
 (losses kept on the device until the epoch ends), validation
 (``eval.evaluate_byol.validate_model``), early stopping, and the
 ``best_val_loss``, ``best_val_similarity`` and ``last_model`` checkpoints
-(``train.checkpoint``; ``training.save_checkpoints: false`` skips them).
+(``train.checkpoint``; ``training.save_checkpoints: false`` skips them),
+a ``utils.profiling.ThroughputMeter`` per epoch, experiment tracking
+through ``utils.wandb_utils.get_wandb`` (disabled in every preset), and
+the t-SNE plot of the embeddings (``eval.evaluate_byol.
+visualize_embeddings``) every ``logging.visualization_interval`` epochs
+and at the last one, into ``training.log_dir``.  Where scikit-learn or
+matplotlib is absent (the card's machine has neither) the entry point
+says once that the plot is skipped and why, and goes on: the plot is
+host-side.
 
 One process on one card (``device: cuda``, computing in bf16, the type
 the kernels take) or on the CPU (float32, the plain paths).  Not ported
-here: the multi-process path, the t-SNE plot (logged as not ported where
-the JAX entry point draws it) and experiment tracking (wandb, disabled in
-every preset).
+here: the multi-process path (``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
@@ -44,7 +50,10 @@ from nrse_tpu_torch.config.config_utils import (  # noqa: F401 (re-exported)
     validate_config,
 )
 from nrse_tpu_torch.data.loader import DevicePrefetcher, create_dataloaders
-from nrse_tpu_torch.eval.evaluate_byol import validate_model
+from nrse_tpu_torch.eval.evaluate_byol import (
+    validate_model,
+    visualize_embeddings,
+)
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
@@ -62,7 +71,9 @@ from nrse_tpu_torch.train.checkpoint import (
 from nrse_tpu_torch.train.early_stopping import EarlyStopping
 from nrse_tpu_torch.train.schedules import cosine_annealing
 from nrse_tpu_torch.utils.logging_utils import logger, setup_logger
+from nrse_tpu_torch.utils.profiling import ThroughputMeter
 from nrse_tpu_torch.utils.setup_utils import set_seed
+from nrse_tpu_torch.utils.wandb_utils import get_wandb
 
 
 def with_defaults(config: Dict[str, Any]) -> Dict[str, Any]:
@@ -80,8 +91,11 @@ def main(config: Dict[str, Any],
     "decoder": "native" or "python", "stopped_early": bool}``; each epoch's
     metrics hold ``epoch``, ``train_loss``, ``val_loss``,
     ``val_avg_similarity``, ``val_similarities``, ``steps``, ``s_per_step``
-    (host clock over the epoch's train steps, data loading included) and
-    ``audio_sec_per_sec``."""
+    and ``audio_sec_per_sec`` (host clock over the epoch's train steps,
+    data loading included), ``step_time_s`` and
+    ``audio_sec_per_sec_per_chip`` (the epoch's ``ThroughputMeter``, one
+    chip, as the JAX entry point logs them) and ``tsne`` (the plot's path,
+    or None)."""
     config = with_defaults(config)
     setup_logger(config)
     tr, data_cfg, model_cfg = (config["training"], config["data"],
@@ -92,6 +106,10 @@ def main(config: Dict[str, Any],
     ckpt_dir = tr["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)
     os.makedirs(tr["log_dir"], exist_ok=True)
+    wandb_mode = config["logging"]["wandb_mode"]
+    wandb = get_wandb(wandb_mode)
+    wandb.init(project="noise-robust-speech-embeddings", config=config,
+               mode=wandb_mode)
 
     # the loaders decode with the native C++ runtime where it loads
     decoder = "native" if native_available() else "python"
@@ -136,16 +154,18 @@ def main(config: Dict[str, Any],
     batch_size = tr["batch_size"]
     clip_seconds = data_cfg["max_audio_length"]
     save_ckpts = tr.get("save_checkpoints", True)
-    history, stopped = [], False
+    history, stopped, plot = [], False, True
 
     for epoch in range(start_epoch, num_epochs):
         # losses stay on the device until the epoch ends: a float() per
         # step would make the host wait for the card every step
         step_losses = []
+        meter = ThroughputMeter(n_chips=1)
         t0 = time.perf_counter()
         for batch in DevicePrefetcher(train_loader, device, prefetch):
             batch.pop("__count__")
             step_losses.append(train_step(state, batch)["loss"])
+            meter.update(batch_size, clip_seconds)
         epoch_loss = float(torch.stack(step_losses).mean()) \
             if step_losses else 0.0
         dt = time.perf_counter() - t0
@@ -160,9 +180,16 @@ def main(config: Dict[str, Any],
                   "steps": steps, "s_per_step": s_per_step,
                   "audio_sec_per_sec":
                       batch_size * clip_seconds / s_per_step if steps
-                      else 0.0}
+                      else 0.0,
+                  "audio_sec_per_sec_per_chip":
+                      meter.audio_sec_per_sec_per_chip,
+                  "step_time_s": meter.step_time, "tsne": None}
         history.append(record)
         logger.info(f"epoch {epoch}: {record}")
+        wandb.log({k: v for k, v in record.items()
+                   if k not in ("val_similarities", "tsne")}
+                  | {f"val_similarity_snr_{snr}": sim for snr, sim
+                     in val_metrics["val_similarities"].items()})
         print(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: "
               f"{epoch_loss:.4f}, Val Loss: {val_loss:.4f}, Val Avg "
               f"Similarity: {val_metrics['val_avg_similarity']:.4f}, "
@@ -173,9 +200,19 @@ def main(config: Dict[str, Any],
         stop = early_stopping(stop_value)
 
         viz_every = config["logging"]["visualization_interval"]
-        if (epoch + 1) % viz_every == 0 or epoch == num_epochs - 1:
-            logger.info("t-SNE plot of the embeddings: not ported (needs "
-                        "scikit-learn and matplotlib)")
+        if plot and (
+                (epoch + 1) % viz_every == 0 or epoch == num_epochs - 1):
+            try:
+                record["tsne"] = visualize_embeddings(
+                    state, val_loader, tr["log_dir"],
+                    f"tsne_embeddings_epoch_{epoch + 1}.png")
+                wandb.log({"embeddings": wandb.Image(record["tsne"])})
+            except ImportError as e:  # host-side only: the run goes on
+                plot = False
+                msg = (f"t-SNE plot of the embeddings skipped for this run:"
+                       f" {e.name or e} is not installed")
+                logger.warning(msg)
+                print(msg, flush=True)
 
         meta = {"epoch": epoch, "loss": val_loss,
                 "similarity": val_metrics["val_avg_similarity"],
@@ -204,6 +241,7 @@ def main(config: Dict[str, Any],
             stopped = True
             break
 
+    wandb.finish()
     print("Training complete!", flush=True)
     return {"state": state, "epochs": history, "decoder": decoder,
             "stopped_early": stopped}

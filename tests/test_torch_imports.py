@@ -8,7 +8,10 @@ jax, jaxlib, flax, optax, orbax or pandas (the card's machine has no
 pandas).  A fresh interpreter with a ``sys.meta_path`` finder that raises
 on ``nrse_tpu``, ``pandas`` and their submodules imports every module of
 the port and ``chip_smoke``, resolves a BYOL preset through
-``train_byol`` and an emotion preset through ``config.config_utils``."""
+``train_byol`` and an emotion preset through ``config.config_utils``, and
+finds ``WavLMEncoder`` in ``nrse_tpu_torch.models``.  The optional
+imports (matplotlib and scikit-learn for the t-SNE plot, demucs, wandb)
+sit inside the functions that need them."""
 
 import json
 import subprocess
@@ -97,6 +100,18 @@ MODULES = [
     "nrse_tpu_torch.train.dimentional_emotions",
     "nrse_tpu_torch.train_emotion",
     "nrse_tpu_torch.evaluate_emotion",
+    "nrse_tpu_torch.models.encoder",
+    "nrse_tpu_torch.models.export_torch",
+    "nrse_tpu_torch.serve",
+    "nrse_tpu_torch.utils.profiling",
+    "nrse_tpu_torch.utils.debugging_utils",
+    "nrse_tpu_torch.utils.preprocess_audio_files",
+    "nrse_tpu_torch.evaluate_byol",
+    "nrse_tpu_torch.data.synthetic",
+    "nrse_tpu_torch.data.mock",
+    "nrse_tpu_torch.data.preprocess",
+    "nrse_tpu_torch.data.preprocess.demucs_speech_separation",
+    "nrse_tpu_torch.labels.tools",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
@@ -153,7 +168,9 @@ def test_port_imports_no_jax():
         "cfg = config_utils.get_config(['--config',\n"
         "    'default_wavlm-large_emotion_dim_ft', '--task', 'both'])\n"
         "assert cfg['emotion']['unfreeze_encoder'] is True, cfg\n"
-        "assert (cfg['device'], cfg['task']) == ('cuda', 'both'), cfg\n")
+        "assert (cfg['device'], cfg['task']) == ('cuda', 'both'), cfg\n"
+        "from nrse_tpu_torch.models import WavLMEncoder\n"
+        "assert WavLMEncoder.__module__ == 'nrse_tpu_torch.models.encoder'\n")
     assert not sorted(m for m in loaded if _top(m) == "nrse_tpu")
     assert not sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert set(MODULES) | {"chip_smoke"} <= loaded

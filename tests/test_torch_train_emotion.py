@@ -14,7 +14,8 @@ nrse_tpu_torch.evaluate_emotion``.
   2. ``evaluate_emotion.main`` on each trainer's best checkpoint: a finite
      clean and noisy report in ``--out-json``.
   3. The encoder from a BYOL checkpoint directory of the port's
-     ``train_byol``; a reference ``.pt`` path raises; a preset resolves by
+     ``train_byol``, and from the same tower written as a reference
+     ``.pt`` checkpoint (bridged); a preset resolves by
      name; without ``--device`` the entry points ask for the card and raise
      where there is none.
 """
@@ -31,6 +32,7 @@ import yaml
 from nrse_tpu_torch import evaluate_emotion, train_emotion
 from nrse_tpu_torch.config.config_utils import get_config
 from nrse_tpu_torch.models.convert import init_byol_state_dict
+from nrse_tpu_torch.models.export_torch import save_reference_byol_checkpoint
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.categorical_emotions import build_classifier
@@ -142,9 +144,14 @@ def test_encoder_from_a_byol_checkpoint(emo_config, tmp_path):
     model = build_classifier(config, torch.device("cpu"), 0)
     for name, p in state.online.encoder.named_parameters():
         assert torch.equal(model.encoder.get_parameter(name), p), name
+    # the same tower written as a reference .pt checkpoint is bridged
+    online = {k: v.detach() for k, v in state.online.state_dict().items()}
+    target = {k: v.detach() for k, v in state.target.state_dict().items()}
+    save_reference_byol_checkpoint(str(tmp_path / "byol.pt"), online, target)
     config["emotion"]["encoder_checkpoint"] = str(tmp_path / "byol.pt")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        build_classifier(config, torch.device("cpu"), 0)
+    model = build_classifier(config, torch.device("cpu"), 0)
+    for name, p in state.online.encoder.named_parameters():
+        assert torch.equal(model.encoder.get_parameter(name), p), name
 
 
 def test_preset_resolves_and_the_card_is_the_default(emo_config, tmp_path):
