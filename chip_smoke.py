@@ -1,7 +1,8 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
 pretraining entry point, its baseline SER evaluator, its SER fine-tune,
-its two-phase SER trainers, its SER classifier server and its bridges to
-the reference's PyTorch files once on one NVIDIA GPU.
+its two-phase SER trainers, its SER classifier server, its bridges to
+the reference's PyTorch files and its data-parallel path once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -233,7 +234,28 @@ not 0:
      ``train_byol`` checkpoint, whose artifact ``ServingModel`` answers
      with the pooled embedding of the checkpoint's encoder run directly,
      and ``utils.profiling.profile_trace`` around one request holds a
-     ``block_attention`` kernel record.
+     ``block_attention`` kernel record;
+ 19. data parallelism on the one card (``nrse_tpu_torch.parallel``) —
+     first gloo's collectives on CUDA tensors at 2 ranks (``all_reduce``
+     sum and max, ``broadcast``, the reduction with a gradient); (a) the
+     BYOL step of phase 9 (full width and depth, batch 36 × 5 s, every
+     random feature on) through the data-parallel path in an NCCL group of
+     one rank against the same steps without a group, from the same
+     weights: metrics and every buffer bit for bit, launches as the layers
+     run imply, s/step of both; (b) two ranks sharing the card over gloo,
+     global batch 36 = 2 × 18: random features off, three steps against
+     one rank's run of the whole batch from the same weights (loss within
+     1e-3, grad_norm within 1e-2, the parameter deltas' cosine ≥ 0.999 and
+     relative distance ≤ 5e-2: the bounds' reasons stand beside
+     ``DP_LOSS_TOL``), then every random feature on, three steps: finite,
+     the replicas bit-equal after every step (``replicas_agree``),
+     launches as the layers run imply; each rank's peak memory beside the
+     one-rank run's, s/step labelled as two ranks sharing one card (no
+     scaling figure); (c) ``train_byol.main`` and ``train_emotion.run``
+     (``--task both``) with two gloo ranks on the card, WavLM-large cut to
+     2 layers, global batch 8, one epoch a phase: the ranks' pooled losses
+     equal and finite, rank 0's checkpoints written, every kernel of the
+     path launched.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
@@ -265,6 +287,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -411,14 +434,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip())  # name, power limit
+    log(card())  # name, power limit
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
@@ -1674,6 +1701,24 @@ def _train_counts() -> dict:
             **_frontend_counts()}
 
 
+def byol_launch_want(cfg, metrics) -> dict:
+    """The kernel launches of the BYOL train steps whose ``metrics`` are
+    given, from the layers each tower ran (dropout on at every site)."""
+    steps = len(metrics)
+    on = sum(m["layers_online"] for m in metrics)
+    tg = sum(m["layers_target"] for m in metrics)
+    return {"fused_ffn_fwd": on + tg, "fused_ffn_bwd_dx": on,
+            "fused_ffn_bwd_dw": on,
+            # encoder site + the hidden site of each layer run; the online
+            # tower's again in its backward (the attention output's site is
+            # inside kernel A and K3)
+            "fused_dropout": 2 * (steps + on) + steps + tg,
+            "fused_adamw_ema": steps, "block_attention_fwd": on + tg,
+            "block_attention_bwd": on,
+            # both towers' frontends, the online tower's backward
+            **frontend_want(cfg, 2 * steps, steps)}
+
+
 def phase_training(cfg=None, device=torch.device("cuda"),
                    batch: int = TRAIN_BATCH,
                    clip_seconds: float = CLIP_SECONDS, warmup: int = 2,
@@ -1739,16 +1784,7 @@ def phase_training(cfg=None, device=torch.device("cuda"),
         check(m, f"at timed step {i}")
     on = sum(m["layers_online"] for m in metrics)
     tg = sum(m["layers_target"] for m in metrics)
-    want = {"fused_ffn_fwd": on + tg, "fused_ffn_bwd_dx": on,
-            "fused_ffn_bwd_dw": on,
-            # encoder site + the hidden site of each layer run; the online
-            # tower's again in its backward (the attention output's site is
-            # inside kernel A and K3)
-            "fused_dropout": 2 * (steps + on) + steps + tg,
-            "fused_adamw_ema": steps, "block_attention_fwd": on + tg,
-            "block_attention_bwd": on,
-            # both towers' frontends, the online tower's backward
-            **frontend_want(cfg, 2 * steps, steps)}
+    want = byol_launch_want(cfg, metrics)
     log(f"[train] {steps} timed steps, layers run online {on}, target {tg}: "
         f"launches {counts} (want {want})")
     if counts != want:
@@ -4312,6 +4348,469 @@ def phase_bridges(cfg=None, device=torch.device("cuda"),
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 19: data parallelism on the one card (the port's ``parallel``
+# package and ``replicas_agree`` are imported in its functions, so that
+# this script still runs the other phases on a commit that predates them,
+# as tools/port_before_after.py does).  19(b) holds two ranks × 18
+# clips against one rank × 36 from the same weights, random features off.
+# The two runs share every per-row computation and differ only where rows
+# are summed (the heads' BatchNorm sums, the loss's sums, the weight
+# gradients of each half batch added by the all_reduce).  At the first
+# step, from the same parameters, a change in the last float32 bit of such
+# a sum moves a bf16 rounding downstream by at most one bf16 ulp (2⁻⁸) in
+# the elements it reaches: the loss stays within 1e-3 and the gradient
+# norm within 1e-2.  Adam (eps 1e-8) then turns every gradient element
+# below that noise into ±lr of either sign, so the later steps start from
+# other parameters and the runs drift apart as any two orders of the same
+# sums do (the deltas' cosine read 0.9928 after three steps on an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md §6).  A
+# control measures that drift on the same card: one rank × 36 on the batch
+# with its rows reversed (the same sums in another order) against the
+# one-rank run; the two ranks may drift at most DP_DRIFT_FACTOR times as
+# far (the loss and gradient norm at every step, and the parameter deltas
+# after the last).
+DP_STEPS = 3
+DP_LOSS_TOL = 1e-3       # |Δloss| / loss at the first step
+DP_GRAD_NORM_TOL = 1e-2  # |Δgrad_norm| / grad_norm at the first step
+DP_DRIFT_FACTOR = 4.0
+
+
+def _quiet(cfg):
+    """``cfg`` with dropout, LayerDrop and SpecAugment off."""
+    return dataclasses.replace(cfg, hidden_dropout=0.0,
+                               activation_dropout=0.0, attention_dropout=0.0,
+                               layerdrop=0.0, mask_time_prob=0.0)
+
+
+def _byol_state(cfg, sd, device, projection_dim, prediction_dim, mesh=None):
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return create_train_state(cfg, sd, projection_dim, prediction_dim,
+                              device, seed=SEED, compute_dtype=dtype,
+                              mesh=mesh)
+
+
+def _timed_steps(state, step, data, steps: int, device, check=None):
+    """``steps + 1`` train steps (the first untimed); returns the metrics
+    of all of them and the s/step of the last ``steps``, each rank waiting
+    for the others around every step; ``check(state)`` after each step
+    runs outside the timed window."""
+    from nrse_tpu_torch.parallel.distributed import barrier
+
+    metrics, dt, extra = [], 0.0, []
+    for i in range(steps + 1):
+        sync(device)
+        barrier()
+        t0 = time.perf_counter()
+        metrics.append(step(state, data))
+        sync(device)
+        barrier()
+        if i:
+            dt += time.perf_counter() - t0
+        if check is not None:
+            extra.append(check(state))
+    return metrics, dt / steps, extra
+
+
+def _tensors_equal(a, b) -> bool:
+    ta, tb = a.tensors(), b.tensors()
+    return ta.keys() == tb.keys() and all(torch.equal(ta[k], tb[k])
+                                          for k in ta)
+
+
+def phase_dp_one_rank(cfg=None, device=torch.device("cuda"),
+                      batch: int = TRAIN_BATCH,
+                      clip_seconds: float = CLIP_SECONDS,
+                      steps: int = DP_STEPS, projection_dim: int = 1024,
+                      prediction_dim: int = 2048) -> dict:
+    """19(a): the BYOL step at full width (the JAX preset's
+    hyper-parameters, every random feature on) through the data-parallel
+    path in a group of one rank over NCCL (gloo on the CPU), against the
+    same steps without a group, from the same weights: the metrics and
+    every buffer bit for bit, the launches the layers run imply, s/step of
+    both.  Its arguments let it be rehearsed at a small width on the
+    CPU."""
+    from nrse_tpu_torch.parallel.distributed import default_backend
+    from nrse_tpu_torch.parallel.launch import free_port
+    from nrse_tpu_torch.parallel.mesh import make_mesh
+    from nrse_tpu_torch.train.byol_trainer import replicas_agree
+
+    cfg = cfg or WavLMConfig.large()
+    sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
+                              torch.Generator().manual_seed(SEED))
+    data = _train_batch(batch, clip_seconds, device)
+    step = make_byol_train_step(_adamw_spec())
+    plain = _byol_state(cfg, sd, device, projection_dim, prediction_dim)
+    plain_metrics, plain_dt, _ = _timed_steps(plain, step, data, steps,
+                                              device)
+    backend = default_backend(device.type)
+    dist.init_process_group(backend,
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=device)
+        dp = _byol_state(cfg, sd, device, projection_dim, prediction_dim,
+                         mesh)
+        sync(device)
+        _reset_counts()
+        dp_metrics, dp_dt, _ = _timed_steps(dp, step, data, steps, device)
+        sync(device)
+        counts = _train_counts()
+        agree = replicas_agree(dp)
+    finally:
+        dist.destroy_process_group()
+    want = byol_launch_want(cfg, dp_metrics)
+    same_metrics = all(torch.equal(a[k], b[k])
+                       for a, b in zip(plain_metrics, dp_metrics)
+                       for k in ("loss", "grad_norm", "valid_fraction"))
+    same_state = _tensors_equal(plain, dp)
+    log(f"[dp one rank] BYOL on WavLM {cfg.num_hidden_layers} x "
+        f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s, "
+        f"{steps + 1} steps, {backend} group of 1 on {mesh.device}: losses "
+        f"{[round(float(m['loss']), 6) for m in dp_metrics]}; metrics equal "
+        f"the step without a group bit for bit: {same_metrics}; every "
+        f"buffer: {same_state}; replicas_agree {agree}; launches {counts} "
+        f"(want {want})")
+    log(f"[dp one rank] {plain_dt:.4f} s/step without a group, {dp_dt:.4f} "
+        f"s/step through the data-parallel path ({backend}, 1 rank): the "
+        f"reductions cost {dp_dt - plain_dt:+.4f} s/step")
+    if (device.type == "cuda" and counts != want) or not (
+            same_metrics and same_state and agree):
+        raise RuntimeError("the data-parallel step at one rank differs "
+                           "from the step without a group")
+    return counts
+
+
+def _drift(metrics, delta, ref) -> dict:
+    """How far a run's per-step losses and grad norms (``metrics``, host
+    floats) and its parameter delta lie from the one-rank run's
+    (``ref``): the largest relative difference of each over the steps,
+    and the deltas' cosine and relative distance (float32 on the card, no
+    copies but one difference)."""
+    out = {f"{k}_drift": max(abs(a - b) / abs(b)
+                             for a, b in zip(metrics[k], ref[k]))
+           for k in ("loss", "grad_norm")}
+    out["first"] = {k: abs(metrics[k][0] - ref[k][0]) / abs(ref[k][0])
+                    for k in ("loss", "grad_norm")}
+    norm = torch.linalg.vector_norm
+    rd = ref["delta"]
+    out["delta_cosine"] = float(torch.dot(delta, rd)
+                                / (norm(delta) * norm(rd)))
+    out["delta_rel"] = float(norm(delta - rd) / norm(rd))
+    return out
+
+
+def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
+                     clip_seconds: float, steps: int, projection_dim: int,
+                     prediction_dim: int) -> dict:
+    """One rank of 19(b), sharing the card with the other over gloo."""
+    from nrse_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from nrse_tpu_torch.train.byol_trainer import replicas_agree
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def peak_gib():
+        if device.type != "cuda":
+            return float("nan")
+        return torch.cuda.max_memory_allocated(device) / 2**30
+
+    def reset_peak():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+
+    out = {"rank": rank}
+    qcfg = _quiet(cfg)
+    qsd = init_byol_state_dict(qcfg, projection_dim, prediction_dim,
+                               torch.Generator().manual_seed(SEED))
+    data = _train_batch(batch, clip_seconds, device)
+    step = make_byol_train_step(_adamw_spec())
+
+    def run(state, rows):
+        p0 = state.params.clone()
+        ms = [step(state, rows) for _ in range(steps)]
+        sync(device)
+        return ({"loss": [float(m["loss"]) for m in ms],
+                 "grad_norm": [float(m["grad_norm"]) for m in ms]},
+                state.params - p0)
+
+    if rank == 0:  # one rank on the global batch, measured first
+        reset_peak()
+        ref, ref["delta"] = run(_byol_state(qcfg, qsd, device,
+                                            projection_dim,
+                                            prediction_dim), data)
+        out["ref_peak_gib"] = peak_gib()
+        out["ref"] = {k: ref[k] for k in ("loss", "grad_norm")}
+        # the control: the same sums in another order
+        backwards = {k: v.flip(0) for k, v in data.items()}
+        control, delta = run(_byol_state(qcfg, qsd, device, projection_dim,
+                                         prediction_dim), backwards)
+        out["control"] = dict(control, **_drift(control, delta, ref))
+        del delta, backwards
+    dist.barrier()
+    mesh = make_mesh(device=device)
+    reset_peak()
+    st = _byol_state(qcfg, qsd, device, projection_dim, prediction_dim,
+                     mesh)
+    local = shard_batch(mesh, data)
+    p0 = st.params.clone()
+    metrics, agree = {"loss": [], "grad_norm": []}, []
+    for _ in range(steps):
+        m = step(st, local)
+        agree.append(replicas_agree(st))
+        metrics["loss"].append(float(m["loss"]))
+        metrics["grad_norm"].append(float(m["grad_norm"]))
+    out["deterministic_peak_gib"] = peak_gib()
+    out["dp"] = metrics
+    out["agree_deterministic"] = agree
+    if rank == 0:
+        out["dp"].update(_drift(metrics, st.params - p0, ref))
+        del ref
+    del st, p0, qsd
+    # the full configuration: every random feature on
+    reset_peak()
+    fsd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
+                               torch.Generator().manual_seed(SEED))
+    st = _byol_state(cfg, fsd, device, projection_dim, prediction_dim, mesh)
+    del fsd
+    _reset_counts()
+    metrics, dt, agree = _timed_steps(st, step, local, steps, device,
+                                      check=replicas_agree)
+    sync(device)
+    out["counts"] = _train_counts()
+    out["want"] = byol_launch_want(cfg, metrics)
+    out["full_loss"] = [float(m["loss"]) for m in metrics]
+    out["full_finite"] = all(bool(m["finite"]) for m in metrics)
+    out["full_layers"] = [(m["layers_online"], m["layers_target"])
+                          for m in metrics]
+    out["agree_full"] = agree
+    out["s_per_step"] = dt
+    out["peak_gib"] = peak_gib()
+    return out
+
+
+def phase_dp_two_ranks(cfg=None, device=torch.device("cuda"),
+                       batch: int = TRAIN_BATCH,
+                       clip_seconds: float = CLIP_SECONDS,
+                       steps: int = DP_STEPS, projection_dim: int = 1024,
+                       prediction_dim: int = 2048) -> list:
+    """19(b): two ranks sharing the one card over gloo, each holding half
+    of the global batch at full width; first the deterministic
+    configuration against one rank's run of the whole batch from the same
+    weights and against the control (rank 0 runs both before the group's
+    steps, the one-rank run's peak memory measured first; bounds:
+    ``DP_LOSS_TOL`` and around), then the full configuration: finite, the
+    replicas bit-equal after every step, launches as the layers run imply,
+    s/step and each rank's peak memory."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cfg = cfg or WavLMConfig.large()
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    ranks = run_ranks(_two_rank_worker, 2,
+                      (cfg, spec, batch, clip_seconds, steps,
+                       projection_dim, prediction_dim), threads=0,
+                      timeout=900)
+    r0 = ranks[0]
+    dp, control = r0["dp"], r0["control"]
+    for name, run in (("two ranks x half", dp),
+                      ("control: one rank, rows reversed", control)):
+        log(f"[dp two ranks] {name} against one rank x {batch}, WavLM "
+            f"{cfg.num_hidden_layers} x {cfg.hidden_size}, {clip_seconds:g} "
+            f"s clips, random features off, {steps} steps: losses "
+            f"{run['loss']} vs {r0['ref']['loss']}, grad norms "
+            f"{run['grad_norm']} vs {r0['ref']['grad_norm']}; at the first "
+            f"step loss {run['first']['loss']:.3e}, grad_norm "
+            f"{run['first']['grad_norm']:.3e} relative")
+    ok_first = dp["first"]["loss"] <= DP_LOSS_TOL and \
+        dp["first"]["grad_norm"] <= DP_GRAD_NORM_TOL
+    ok_drift = all(
+        dp[k] <= max(DP_DRIFT_FACTOR * control[k], tol)
+        for k, tol in (("loss_drift", DP_LOSS_TOL),
+                       ("grad_norm_drift", DP_GRAD_NORM_TOL))
+    ) and dp["delta_rel"] <= DP_DRIFT_FACTOR * control["delta_rel"]
+    log(f"[dp two ranks] first step: loss {dp['first']['loss']:.3e} (bound "
+        f"{DP_LOSS_TOL}), grad_norm {dp['first']['grad_norm']:.3e} (bound "
+        f"{DP_GRAD_NORM_TOL}); drift over {steps} steps, two ranks / "
+        f"control: loss {dp['loss_drift']:.3e} / "
+        f"{control['loss_drift']:.3e}, grad_norm "
+        f"{dp['grad_norm_drift']:.3e} / {control['grad_norm_drift']:.3e}, "
+        f"parameter "
+        f"deltas' relative distance {dp['delta_rel']:.3e} / "
+        f"{control['delta_rel']:.3e} (cosine {dp['delta_cosine']:.6f} / "
+        f"{control['delta_cosine']:.6f}); bound {DP_DRIFT_FACTOR:g} x the "
+        f"control's")
+    log(f"[dp two ranks] one rank x {batch}: peak device memory "
+        f"{r0['ref_peak_gib']:.2f} GiB")
+    for r in ranks:
+        log(f"[dp two ranks] rank {r['rank']}: peak device memory "
+            f"{r['deterministic_peak_gib']:.2f} GiB (random features off), "
+            f"{r['peak_gib']:.2f} GiB (on); full configuration losses "
+            f"{r['full_loss']}, layers run {r['full_layers']}, replicas "
+            f"agree after every step {r['agree_deterministic']} "
+            f"{r['agree_full']}; {r['s_per_step']:.4f} s/step (two ranks "
+            f"sharing one card over gloo, not a scaling figure); launches "
+            f"{r['counts']}")
+    bad = [r["rank"] for r in ranks
+           if not (r["full_finite"] and all(r["agree_deterministic"])
+                   and all(r["agree_full"]) and (
+                       device.type != "cuda" or r["counts"] == r["want"]))]
+    if ranks[0]["full_loss"] != ranks[1]["full_loss"]:
+        bad.append("the ranks' pooled losses differ")
+    if not (ok_first and ok_drift):
+        bad.append("two ranks x half the batch differ from one rank")
+    if bad:
+        raise RuntimeError(f"data parallelism over two ranks: {bad}")
+    return ranks
+
+
+def _dp_entry_worker(rank: int, world: int, device: str, byol_config,
+                     encoder, emotion_config) -> dict:
+    """One rank of 19(c): ``train_byol.main``, then ``train_emotion.run``
+    in the rank's group."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _reset_counts()
+    byol = train_byol.main(byol_config, encoder)
+    emotion = train_emotion.run(emotion_config)
+    sync(dev)
+    keys = ("train_loss", "val_loss", "steps", "s_per_step")
+    return {"rank": rank, "counts": _train_counts(),
+            "byol": [{k: e[k] for k in keys + ("val_avg_similarity",)}
+                     for e in byol["epochs"]],
+            "emotion": {task: [{k: e[k] for k in keys + ("phase",)}
+                               for e in r["epochs"]]
+                        for task, r in emotion.items()}}
+
+
+def phase_dp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
+                   model_name: str = "microsoft/wavlm-large",
+                   clips: int = 24, noise_clips: int = 4, batch: int = 8,
+                   clip_seconds: float = CLIP_SECONDS,
+                   projection_dim: int = 1024, prediction_dim: int = 2048,
+                   emotion_clips=(16, 8), lo: float = 2.0, hi: float = 8.0,
+                   hidden_dim: int = EMO_HIDDEN) -> None:
+    """19(c): ``train_byol.main`` and ``train_emotion.run`` (``--task
+    both``, the ``dim_ft`` preset) with two gloo ranks sharing the card,
+    WavLM at full width cut to ``layers`` deep, global batch ``batch``,
+    one epoch (a phase), on synthetic corpora under ``build/``: both
+    ranks report the same pooled losses, finite; rank 0's checkpoints
+    exist; every kernel of the path ran."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_dp_", dir=cuda_build.BUILD_DIR)
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    try:
+        clean, noise = _write_corpus(os.path.join(root, "byol"), clips,
+                                     noise_clips, clip_seconds)
+        byol_config = {
+            "model": {"name": model_name, "projection_dim": projection_dim,
+                      "prediction_dim": prediction_dim, "ema_decay": 0.997},
+            "training": {"batch_size": batch, "num_workers": 8,
+                         "num_epochs": 1, "learning_rate": 1e-5,
+                         "weight_decay": 1e-5, "seed": SEED,
+                         "checkpoint_dir": os.path.join(root, "byol_ckpt"),
+                         "log_dir": os.path.join(root, "byol_logs")},
+            "data": {"clean_data_path": clean, "noise_data_path": noise,
+                     "sample_rate": SAMPLE_RATE,
+                     "max_audio_length": clip_seconds,
+                     "snr_range": [0, 5, 10, 15, 20],
+                     "validation_ratio": 0.25},
+            "device": spec}
+        msp = os.path.join(root, "msp")
+        os.makedirs(msp)
+        _write_emotion_corpus(msp, *emotion_clips, 2, lo, hi)
+        emotion_config = config_utils.load_config(
+            "default_wavlm-large_emotion_dim_ft")
+        emotion_config["model"].update(name=model_name,
+                                       num_hidden_layers=layers)
+        emotion_config["training"].update(
+            log_dir=os.path.join(root, "emotion_logs"))
+        emotion_config["data"].update(
+            noise_data_path=os.path.join(msp, "noise"),
+            max_audio_length=clip_seconds)
+        emotion_config["emotion"].update(
+            labels_file=os.path.join(msp, "labels_consensus.csv"),
+            audio_dir=os.path.join(msp, "Audios"), encoder_checkpoint=None,
+            checkpoint_dir=os.path.join(root, "emotion_ckpt"),
+            batch_size=batch, hidden_dim=hidden_dim, classifier_epochs=1,
+            fine_tuning_epochs=1)
+        emotion_config = config_utils.validate_config(
+            dict(emotion_config, device=spec, task="both"))
+        encoder = dataclasses.replace(WavLMConfig.from_model_name(
+            model_name), num_hidden_layers=layers)
+        ranks = run_ranks(_dp_entry_worker, 2,
+                          (spec, byol_config, encoder, emotion_config),
+                          threads=0, timeout=900)
+        for r in ranks:
+            for e in r["byol"]:
+                log(f"[dp entry] rank {r['rank']} train_byol: WavLM "
+                    f"{layers} layers (depth cut) x {encoder.hidden_size}, "
+                    f"global batch {batch} = 2 x {batch // 2} on {spec} over "
+                    f"gloo: train loss {e['train_loss']:.6f}, val loss "
+                    f"{e['val_loss']:.6f}, val similarity "
+                    f"{e['val_avg_similarity']:.6f}; {e['steps']} data-fed "
+                    f"steps at {e['s_per_step']:.4f} s/step")
+            for task, records in r["emotion"].items():
+                for e in records:
+                    log(f"[dp entry] rank {r['rank']} train_emotion {task} "
+                        f"{e['phase']}: train loss {e['train_loss']:.6f}, "
+                        f"val loss {e['val_loss']:.6f}; {e['steps']} "
+                        f"data-fed steps at {e['s_per_step']:.4f} s/step")
+            log(f"[dp entry] rank {r['rank']} launches {r['counts']}")
+
+        def pooled(r):
+            return ([(e["train_loss"], e["val_loss"]) for e in r["byol"]],
+                    {t: [(e["train_loss"], e["val_loss"]) for e in rs]
+                     for t, rs in r["emotion"].items()})
+
+        saved = [os.path.isfile(os.path.join(root, *p, "state.pt")) for p in
+                 (("byol_ckpt", "last_model"),
+                  ("emotion_ckpt", "categorical", "best_classifier_model"),
+                  ("emotion_ckpt", "dimensional", "best_fine_tuned_model"))]
+        finite = all(np.isfinite(v) for r in ranks
+                     for pair in pooled(r)[0] for v in pair) and all(
+            np.isfinite(v) for r in ranks for rs in pooled(r)[1].values()
+            for pair in rs for v in pair)
+        ran = device.type != "cuda" or all(
+            n > 0 for r in ranks for n in r["counts"].values())
+        log(f"[dp entry] the ranks' pooled losses equal: "
+            f"{pooled(ranks[0]) == pooled(ranks[1])}; rank 0's checkpoints "
+            f"{saved}")
+        if not (pooled(ranks[0]) == pooled(ranks[1]) and finite
+                and all(saved) and ran):
+            raise RuntimeError("data-parallel entry points: the ranks "
+                               "disagree, a loss is not finite, a "
+                               "checkpoint is missing or a kernel never ran")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
+    """19: data parallelism on the one card, (a) to (c); returns 19(a)'s
+    launches."""
+    from nrse_tpu_torch.parallel.dryrun import collectives_check
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    if device.type == "cuda":
+        log(f"[dp] card: {card()}")
+        probe = run_ranks(collectives_check, 2, ("cuda:0",), threads=0)
+        log(f"[dp] gloo's collectives on CUDA tensors, 2 ranks on one "
+            f"card: {probe}")
+    counts = phase_dp_one_rank(cfg, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    phase_dp_two_ranks(cfg, device)
+    phase_dp_entry(device)
+    return counts
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4336,6 +4835,7 @@ def main() -> int:
     phase_emotion_entry()
     phase_classifier()
     phase_bridges()
+    phase_dp()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""The BYOL data loaders on one process, and a device prefetcher.
+"""The BYOL data loaders, and a device prefetcher.
 
 :class:`HostDataLoader` is the port's copy of ``nrse_tpu/data/loader.py:
 28-114``: a thread pool decodes and assembles fixed-shape numpy batches
@@ -6,9 +6,10 @@
 threads are enough), the train loader drops the last ragged batch and an
 eval loader pads it and reports the true count.
 :func:`create_dataloaders` is ``nrse_tpu/data/noisy_speech_dataset.py:
-172-230`` without its multi-process branch: the seeded random
-train/validation split of the port's ``NoiseRobustSpeechDataset``
-(``data/noisy_speech_dataset.py``).  Batches are numpy: ``clean [B, T]``,
+172-230``: the seeded random train/validation split of the port's
+``NoiseRobustSpeechDataset`` (``data/noisy_speech_dataset.py``), and under
+data parallelism each rank's strided shard of both at the per-rank batch.
+Batches are numpy: ``clean [B, T]``,
 ``noise [B, T]`` float32, ``snr [B]`` float32 and ``__count__``, the number
 of real rows (the validation loader pads its last batch).
 
@@ -30,6 +31,10 @@ import numpy as np
 import torch
 
 from nrse_tpu_torch.data.noisy_speech_dataset import NoiseRobustSpeechDataset
+from nrse_tpu_torch.parallel.distributed import (
+    process_count,
+    process_local_indices,
+)
 from nrse_tpu_torch.runtime.native import native_readahead
 from nrse_tpu_torch.utils.logging_utils import logger
 
@@ -116,7 +121,12 @@ class HostDataLoader:
 
 
 def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:
-    """Seeded random split + train/validation loaders for one process."""
+    """Seeded random split + train/validation loaders.  In a group of
+    ranks (``parallel.distributed``) each rank loads its strided shard of
+    both splits at ``batch_size / ranks`` (the batch must divide), every
+    shard truncated to one length, so that every rank takes the same
+    number of steps (a ragged tail would deadlock the gradient
+    reduction)."""
     data_cfg = config["data"]
     train_cfg = config["training"]
     dataset = NoiseRobustSpeechDataset(
@@ -133,14 +143,23 @@ def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:
                 f"{val_size} validation samples")
     seed = train_cfg.get("seed", 42)
     perm = np.random.default_rng(seed).permutation(n)
+    train_idx, val_idx = perm[:train_size], perm[train_size:]
     num_workers = train_cfg.get("num_workers", 8)
     bs = train_cfg["batch_size"]
-    train_loader = HostDataLoader(dataset, perm[:train_size], bs,
-                                  shuffle=True, seed=seed,
-                                  num_workers=num_workers, drop_last=True)
-    val_loader = HostDataLoader(dataset, perm[train_size:], bs,
-                                shuffle=False, seed=seed,
-                                num_workers=num_workers, drop_last=False)
+    nproc = process_count()
+    if nproc > 1:  # the split above is seeded: every rank agrees on it
+        if bs % nproc != 0:
+            raise ValueError(f"training.batch_size={bs} must be divisible "
+                             f"by the process count ({nproc})")
+        bs //= nproc
+        train_idx = train_idx[process_local_indices(len(train_idx))]
+        val_idx = val_idx[process_local_indices(len(val_idx))]
+    train_loader = HostDataLoader(dataset, train_idx, bs, shuffle=True,
+                                  seed=seed, num_workers=num_workers,
+                                  drop_last=True)
+    val_loader = HostDataLoader(dataset, val_idx, bs, shuffle=False,
+                                seed=seed, num_workers=num_workers,
+                                drop_last=False)
     return train_loader, val_loader
 
 

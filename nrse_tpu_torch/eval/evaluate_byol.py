@@ -10,7 +10,10 @@ pooled clean and noisy embeddings, per SNR of ``data.snr_range``),
 PNG; scikit-learn and matplotlib are imported inside it, and the card's
 machine has neither).  The per-sample outputs stay on the device until the
 pass ends; the means are weighted by the real rows of each batch (the
-validation loader pads its last batch).
+validation loader pads its last batch).  In a group of ranks each rank
+validates its shard and ``validate_model`` pools the sums and counts
+(``train_byol.py:190-215`` of the JAX package), so every rank gets the
+weighted means of the whole validation set.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from nrse_tpu_torch.data.loader import DevicePrefetcher
+from nrse_tpu_torch.parallel.distributed import aggregate_sums, process_count
 from nrse_tpu_torch.train.byol_trainer import (
     BYOLTrainState,
     make_byol_eval_step,
@@ -67,14 +71,31 @@ def validate_model(state: BYOLTrainState, val_loader, config
                    ) -> Tuple[float, Dict]:
     """``(val_loss, metrics)`` with ``metrics`` holding ``val_loss``,
     ``val_avg_similarity`` (the mean over the SNRs that have rows) and
-    ``val_similarities`` (per SNR; SNRs without rows are left out)."""
+    ``val_similarities`` (per SNR; SNRs without rows are left out); in a
+    group of ranks, of every rank's rows (pooled sums and counts, a bin
+    empty here may hold rows elsewhere)."""
     losses, sims, snrs, _ = _run_eval_pass(state, val_loader)
-    avg_loss = float(losses.mean()) if len(losses) else float("inf")
-    similarities = {}
-    for snr in config["data"]["snr_range"]:
-        mask = snrs == float(snr)
-        if mask.any():
-            similarities[snr] = float(sims[mask].mean())
+    snr_range = config["data"]["snr_range"]
+    if process_count() > 1:
+        sums = {"loss_sum": losses.sum(dtype=np.float64),
+                "loss_cnt": len(losses)}
+        for snr in snr_range:
+            mask = snrs == float(snr)
+            sums[f"snr_{snr}_sum"] = sims[mask].sum(dtype=np.float64)
+            sums[f"snr_{snr}_cnt"] = int(mask.sum())
+        totals = aggregate_sums(sums)
+        avg_loss = totals["loss_sum"] / totals["loss_cnt"] \
+            if totals["loss_cnt"] else float("inf")
+        similarities = {snr: totals[f"snr_{snr}_sum"]
+                        / totals[f"snr_{snr}_cnt"] for snr in snr_range
+                        if totals[f"snr_{snr}_cnt"]}
+    else:
+        avg_loss = float(losses.mean()) if len(losses) else float("inf")
+        similarities = {}
+        for snr in snr_range:
+            mask = snrs == float(snr)
+            if mask.any():
+                similarities[snr] = float(sims[mask].mean())
     avg_similarity = (sum(similarities.values()) / len(similarities)
                       if similarities else 0.0)
     return avg_loss, {"val_loss": avg_loss,

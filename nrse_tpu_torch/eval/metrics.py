@@ -12,7 +12,9 @@ card's machine has no scikit-learn, with its semantics and
     labels), :func:`confusion_matrix` and :func:`classification_report`
     (``output_dict=True``) — the SER trainers' and the offline scorer's
     (``nrse_tpu/train/categorical_emotions.py:108-141``,
-    ``nrse_tpu/metrics/categorical_metrics.py:114-134``).
+    ``nrse_tpu/metrics/categorical_metrics.py:114-134``);
+    :func:`macro_f1_from_confusion` and :func:`report_from_confusion`, the same
+    from a confusion matrix, which ranks can pool.
 """
 
 from __future__ import annotations
@@ -100,6 +102,30 @@ def confusion_matrix(y_true, y_pred, labels: Sequence[int]) -> np.ndarray:
     return cm
 
 
+def _confusion_counts(cm: np.ndarray):
+    """``(tp, fp, fn)`` per class of a ``[K, K]`` confusion matrix (row =
+    target, column = prediction), float64."""
+    cm = np.asarray(cm, np.float64)
+    tp = np.diag(cm)
+    return tp, cm.sum(0) - tp, cm.sum(1) - tp
+
+
+def macro_f1_from_confusion(cm: np.ndarray) -> float:
+    """:func:`f1_scores`' macro F1 of the pairs a confusion matrix counts,
+    over the classes that occur as a target or a prediction."""
+    tp, fp, fn = _confusion_counts(cm)
+    present = (tp + fp + fn) > 0
+    tp, fp, fn = tp[present], fp[present], fn[present]
+    return _mean(_ratio(2 * tp, 2 * tp + fp + fn))
+
+
+def report_from_confusion(cm: np.ndarray,
+                          target_names: Sequence[str]) -> Dict:
+    """:func:`classification_report` of the pairs a confusion matrix over
+    every label counts (so ``accuracy``, never ``micro avg``)."""
+    return _report(*_confusion_counts(cm), target_names, True)
+
+
 def classification_report(y_true, y_pred, labels: Sequence[int],
                           target_names: Sequence[str]) -> Dict:
     """scikit-learn's ``classification_report(..., output_dict=True,
@@ -109,7 +135,13 @@ def classification_report(y_true, y_pred, labels: Sequence[int],
     avg``."""
     y_true, y_pred = _labels(y_true, y_pred)
     labels = [int(c) for c in labels]
-    tp, fp, fn = _counts(y_true, y_pred, labels)
+    present = set(np.union1d(y_true, y_pred).tolist())
+    return _report(*_counts(y_true, y_pred, labels), target_names,
+                   present <= set(labels))
+
+
+def _report(tp, fp, fn, target_names: Sequence[str],
+            all_labels: bool) -> Dict:
     precision = _ratio(tp, tp + fp)
     recall = _ratio(tp, tp + fn)
     f1 = _ratio(2 * tp, 2 * tp + fp + fn)
@@ -125,8 +157,7 @@ def classification_report(y_true, y_pred, labels: Sequence[int],
              for d in (tp + fp, tp + fn)]
     micro_f1 = float(_ratio(2 * tp.sum(keepdims=True),
                             (2 * tp + fp + fn).sum(keepdims=True))[0])
-    present = set(np.union1d(y_true, y_pred).tolist())
-    if present <= set(labels):
+    if all_labels:
         report["accuracy"] = micro_f1
     else:
         report["micro avg"] = {"precision": micro[0], "recall": micro[1],

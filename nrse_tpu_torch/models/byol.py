@@ -20,6 +20,7 @@ from torch import nn
 
 from nrse_tpu_torch.models.heads import PredictionHead, ProjectionHead
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig, WavLMModel
+from nrse_tpu_torch.parallel.distributed import all_reduce_sum
 
 ONLINE, TARGET = 0, 1  # TrainRNG towers
 
@@ -97,11 +98,16 @@ def byol_loss_per_sample(online_pred, target_proj) -> torch.Tensor:
     return 2.0 - 2.0 * sim
 
 
-def byol_loss(online_pred, target_proj, weights=None) -> torch.Tensor:
+def byol_loss(online_pred, target_proj, weights=None,
+              mesh=None) -> torch.Tensor:
     """Mean BYOL loss; per-sample ``weights [B]`` (e.g. the views'
-    ``valid`` flags) mask degenerate items out."""
+    ``valid`` flags) mask degenerate items out.  With a ``mesh`` (a
+    ``parallel.mesh.DataMesh``) this rank's part of the global batch's
+    loss: its weighted sum over the weight sum of every rank
+    (``nrse_tpu/models/byol.py:100-107`` on the global batch), so the
+    ranks' parts add up to it whatever ``valid`` holds on each."""
     per_sample = byol_loss_per_sample(online_pred, target_proj)
-    if weights is None:
-        return per_sample.mean()
-    w = weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    w = torch.ones_like(per_sample) if weights is None else \
+        weights.to(per_sample.dtype)
+    total = all_reduce_sum(w.sum().detach(), mesh)
+    return (per_sample * w).sum() / torch.clamp_min(total, 1.0)

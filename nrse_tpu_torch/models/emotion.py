@@ -105,11 +105,15 @@ class EmotionClassifier(nn.Module):
         self.dimensional_out = nn.Linear(hidden_dim, 3, device=device)
 
     def _trunk(self, name: str, x: torch.Tensor,
-               gen: Optional[torch.Generator]) -> torch.Tensor:
+               gen: Optional[torch.Generator],
+               rng: Optional[TrainRNG]) -> torch.Tensor:
         h = getattr(self, f"{name}_norm")(getattr(self, f"{name}_dense")(x))
         h = F.relu(h)
         if gen is not None:  # flax's Dropout: keep with 1 − p, scale 1/(1 − p)
-            keep = torch.rand(h.shape, generator=gen) >= self.dropout
+            # drawn at the global batch, this rank's rows kept
+            u = torch.rand((h.shape[0] * rng.world, h.shape[1]),
+                           generator=gen)
+            keep = rng.rows(u) >= self.dropout
             h = torch.where(keep.to(h.device), h / (1.0 - self.dropout),
                             torch.zeros_like(h))
         return h
@@ -131,14 +135,14 @@ class EmotionClassifier(nn.Module):
         gen = None
         if rng is not None and self.dropout > 0.0:
             gen = rng.generator(STREAM_HEAD_DROPOUT)
-        shared = self._trunk("shared", features, gen)
+        shared = self._trunk("shared", features, gen, rng)
         logits = dims = None
         if task in ("categorical", "both"):
             logits = self.categorical_out(
-                self._trunk("categorical", shared, gen))
+                self._trunk("categorical", shared, gen, rng))
         if task in ("dimensional", "both"):
             dims = self.dimensional_out(
-                self._trunk("dimensional", shared, gen))
+                self._trunk("dimensional", shared, gen, rng))
         return logits, dims
 
 

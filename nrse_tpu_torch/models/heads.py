@@ -13,6 +13,13 @@ The BatchNorm is written by hand because flax's and torch's differ
     36); both normalise with the biased one;
   * flax's ``momentum=0.9`` keeps 0.9 of the running value, which is
     torch's ``momentum=0.1``.
+
+Under data parallelism the batch statistics are the global batch's, as
+GSPMD gives the JAX package (``nrse_tpu/models/heads.py:9-13``): Σx, Σx²
+and the count are summed across the ranks with a gradient
+(``parallel.distributed.all_reduce_sum``), so the running statistics
+advance alike on every rank.  :func:`use_mesh` gives a tower's BatchNorms
+the mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nrse_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 class BatchNorm(nn.Module):
@@ -31,6 +40,7 @@ class BatchNorm(nn.Module):
                  device=None):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.mesh = None  # a parallel.mesh.DataMesh: global statistics
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
@@ -39,8 +49,14 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         x = x.float()
         if self.training:
-            mean = x.mean(0)
-            var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+            d = x.shape[1]
+            count = torch.full((1,), x.shape[0], dtype=x.dtype,
+                               device=x.device)
+            sums = all_reduce_sum(
+                torch.cat([x.sum(0), (x * x).sum(0), count]), self.mesh)
+            mean = sums[:d] / sums[2 * d]
+            var = torch.clamp_min(sums[d:2 * d] / sums[2 * d] - mean * mean,
+                                  0.0)
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean
@@ -84,3 +100,11 @@ class PredictionHead(nn.Module):
         h = F.relu(self.bn_0(self.dense_0(x.float())))
         h = F.relu(self.bn_1(self.dense_1(h)))
         return self.dense_2(h)
+
+
+def use_mesh(module: nn.Module, mesh) -> None:
+    """Every BatchNorm of ``module`` takes its training statistics over
+    the ranks of ``mesh`` (None: its own rows)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh

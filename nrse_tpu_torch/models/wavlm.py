@@ -97,6 +97,9 @@ SITE_ATTN, SITE_HIDDEN, SITE_FFN = 0, 1, 2
 ENCODER = 0xFFFF
 # host streams of a tower's step (the SER head's dropout takes the third)
 STREAM_LAYERDROP, STREAM_SPEC_AUGMENT, STREAM_HEAD_DROPOUT = 0, 1, 2
+# the data index's mixing constant of the JAX kernels' seeds under
+# shard_map (``nrse_tpu/ops/kernel_rng.py:25``)
+MIX_A = 0x85EBCA6B
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,21 +197,48 @@ class TrainRNG:
     target's ``fold_in(·, 1)`` (``nrse_tpu/models/byol.py:206-208``): every
     stream is a Philox seed pair derived on the host from (seed, step,
     tower, layer, site), so no draw ever waits for the device and the same
-    seed gives the same masks on the CPU and on the card."""
+    seed gives the same masks on the CPU and on the card.
+
+    Data parallelism (``rank`` of ``world`` ranks, each holding the rows
+    ``[rank·b, (rank+1)·b)`` of the global batch) follows the JAX
+    package's contract on an N-wide ``data`` mesh: the host draws without
+    a batch axis (LayerDrop) are the same on every rank; the draws over
+    the batch (SpecAugment's spans, the SER trunks' dropout) are made at
+    the global batch and each rank keeps its rows (:meth:`rows`), as
+    ``jax.random`` draws a global array; the kernels' dropout streams mix
+    the rank into the seed (:meth:`dropout_seed`).  At world size 1 every
+    stream is the one-process stream."""
 
     seed: int
     step: int
     tower: int = 0  # 0 online, 1 target
+    rank: int = 0
+    world: int = 1
 
     def dropout_seed(self, layer: int, site: int):
-        return philox.stream_seed(self.seed, self.step, self.tower, layer,
-                                  site)
+        """The seed pair of a kernel's dropout (K1, kernel A, kernel B).
+        With ``world > 1`` each word is XORed with ``MIX_A·(rank + 1) mod
+        2³²``, as the JAX kernels mix the data index into their seed under
+        ``shard_map`` (``nrse_tpu/ops/fused_dropout.py:138-141``,
+        ``fused_ffn.py:428-431``, ``block_attention.py:561-564``)."""
+        k0, k1 = philox.stream_seed(self.seed, self.step, self.tower, layer,
+                                    site)
+        if self.world > 1:
+            mix = (MIX_A * (self.rank + 1)) & philox.MASK32
+            k0, k1 = k0 ^ mix, k1 ^ mix
+        return k0, k1
 
     def generator(self, stream: int) -> torch.Generator:
-        """A CPU generator for a host-side draw (LayerDrop, SpecAugment)."""
+        """A CPU generator for a host-side draw (LayerDrop, SpecAugment);
+        the same on every rank."""
         k0, k1 = philox.stream_seed(self.seed, self.step, self.tower,
                                     0x10000 + stream)
         return torch.Generator().manual_seed((k1 << 32) | k0)
+
+    def rows(self, draw: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a draw made at the global batch."""
+        b = draw.shape[0] // self.world
+        return draw[self.rank * b:(self.rank + 1) * b]
 
 
 def _linear(x: torch.Tensor, module: nn.Linear) -> torch.Tensor:
@@ -589,6 +619,17 @@ class WavLMModel(nn.Module):
         frames = torch.arange(t_frames, device=attention_mask.device)
         return (frames[None, :] < lengths[:, None]).to(torch.int32)
 
+    def time_mask(self, rng: TrainRNG, batch: int,
+                  frames: int) -> torch.Tensor:
+        """SpecAugment's ``[batch, frames]`` spans of this rank's rows:
+        drawn at the global batch (``batch · rng.world``), the rank's rows
+        kept."""
+        cfg = self.config
+        return rng.rows(sample_time_mask(
+            rng.generator(STREAM_SPEC_AUGMENT), batch * rng.world, frames,
+            cfg.mask_time_prob, cfg.mask_time_length,
+            cfg.mask_time_min_masks))
+
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 rng: Optional[TrainRNG] = None):
@@ -609,11 +650,8 @@ class WavLMModel(nn.Module):
             frame_mask = self.frame_mask(attention_mask, feats.shape[1])
         hidden = self.feature_projection(feats)
         if rng is not None and self.config.has_masked_spec_embed:
-            cfg = self.config
-            spans = sample_time_mask(
-                rng.generator(STREAM_SPEC_AUGMENT), hidden.shape[0],
-                hidden.shape[1], cfg.mask_time_prob, cfg.mask_time_length,
-                cfg.mask_time_min_masks).to(hidden.device)
+            spans = self.time_mask(rng, hidden.shape[0],
+                                   hidden.shape[1]).to(hidden.device)
             hidden = torch.where(spans[..., None],
                                  self.masked_spec_embed.to(hidden.dtype),
                                  hidden)

@@ -20,10 +20,19 @@ confusion-matrix plot beside it.  The validation (``_validate``,
 report with ``zero_division=0`` (``eval.metrics``).
 
 One card (``device: cuda``, the encoder computing in bf16) or the CPU
-(float32, the plain paths).  ``model.num_hidden_layers`` in the config
-cuts the encoder's depth (a key of the port's; the evaluator reads the
-same config).  Plots are drawn only where matplotlib (and seaborn, for
-the heatmap) import.
+(float32, the plain paths), or N ranks, one card each, data-parallel
+(``nrse_tpu/train/categorical_emotions.py:218`` places its batches over
+the mesh): the group comes from the ``tpu.distributed`` block or
+torchrun's environment, every rank builds the same seeded global batch
+(``emotion.batch_size``, which must divide over the ranks) and keeps its
+rows (``emotion_trainer.make_batch_placer``); validation pools the
+confusion counts, the CCC's moments and each batch's loss parts, so every
+rank gets one rank's metrics and takes the same plateau, checkpoint and
+stopping decisions.  Rank 0 alone logs to wandb, prints, plots and writes
+checkpoints; every rank waits after a checkpoint.
+``model.num_hidden_layers`` in the config cuts the encoder's depth (a key
+of the port's; the evaluator reads the same config).  Plots are drawn only
+where matplotlib (and seaborn, for the heatmap) import.
 """
 
 from __future__ import annotations
@@ -39,9 +48,9 @@ import torch
 from nrse_tpu_torch.data.emotion_dataset import create_emotion_dataloaders
 from nrse_tpu_torch.data.loader import DevicePrefetcher
 from nrse_tpu_torch.eval.metrics import (
-    classification_report,
     confusion_matrix,
-    f1_scores,
+    macro_f1_from_confusion,
+    report_from_confusion,
 )
 from nrse_tpu_torch.models.convert import (
     init_emotion_state_dict,
@@ -52,6 +61,13 @@ from nrse_tpu_torch.models.emotion import (
     gradually_unfrozen_layers,
 )
 from nrse_tpu_torch.models.wavlm import WavLMConfig
+from nrse_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    barrier,
+    is_primary,
+    maybe_initialize,
+)
+from nrse_tpu_torch.parallel.mesh import DataMesh, mesh_from_config
 from nrse_tpu_torch.runtime.device import resolve_device
 from nrse_tpu_torch.train.checkpoint import (
     load_byol_encoder,
@@ -62,6 +78,7 @@ from nrse_tpu_torch.train.emotion_trainer import (
     ReduceLROnPlateau,
     create_emotion_state,
     load_encoder_into_classifier,
+    make_batch_placer,
     make_emotion_eval_step,
     make_emotion_train_step,
 )
@@ -140,26 +157,43 @@ def load_pretrained_encoder(config, enc_cfg: WavLMConfig
     return load_byol_encoder(path, enc_cfg)
 
 
-def _validate(model, val_loader, eval_step, class_weights, device
+def pooled(values: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
+    """``values`` summed over the ranks (the ranks' parts of a validation
+    pass); itself without a mesh."""
+    return all_reduce_sum(values.to(mesh.device) if mesh else values, mesh)
+
+
+def placed_batches(loader, device, mesh: Optional[DataMesh]):
+    """The loader's batches on ``device``: this rank's rows of each under
+    a distributed mesh, all of them otherwise."""
+    if mesh is not None and mesh.distributed:
+        place_batch, _ = make_batch_placer(mesh, loader.batch_size)
+        loader = map(place_batch, loader)
+    return DevicePrefetcher(loader, device)
+
+
+def _validate(model, val_loader, eval_step, class_weights, device,
+              mesh: Optional[DataMesh] = None
               ) -> Tuple[float, float, np.ndarray, Dict]:
-    """Full validation pass → ``(loss, macro_f1, confusion, report)``."""
-    preds, labels, losses = [], [], []
-    for batch in DevicePrefetcher(val_loader, device):
+    """Full validation pass → ``(loss, macro_f1, confusion, report)``;
+    under a ``mesh``, of every rank's rows (the confusion counts and each
+    batch's loss parts pooled)."""
+    classes = list(range(NUM_EMOTIONS))
+    cm = np.zeros((NUM_EMOTIONS, NUM_EMOTIONS), np.int64)
+    losses = []
+    for batch in placed_batches(val_loader, device, mesh):
         count = batch.pop("__count__")
         logits = eval_step(model, batch)["logits"][:count]
         c = batch["C"][:count]
-        losses.append(ce_weight_category(logits, c, class_weights))
-        preds.append(logits.argmax(-1).cpu().numpy())
-        labels.append(c.cpu().numpy())
-    preds, labels = np.concatenate(preds), np.concatenate(labels)
-    valid = (labels >= 0) & (labels < NUM_EMOTIONS)
-    preds, labels = preds[valid], labels[valid]
-    f1 = f1_scores(labels, preds)["macro"] if len(labels) else 0.0
-    classes = list(range(NUM_EMOTIONS))
-    cm = confusion_matrix(labels, preds, classes)
-    report = classification_report(labels, preds, classes,
-                                   [EMOTION_NAMES[i] for i in classes])
-    return float(torch.stack(losses).mean()), float(f1), cm, report
+        losses.append(ce_weight_category(logits, c, class_weights, mesh))
+        preds, labels = logits.argmax(-1).cpu().numpy(), c.cpu().numpy()
+        valid = (labels >= 0) & (labels < NUM_EMOTIONS)
+        cm += confusion_matrix(labels[valid], preds[valid], classes)
+    cm = pooled(torch.from_numpy(cm), mesh).cpu().numpy()
+    loss = float(pooled(torch.stack(losses), mesh).mean())
+    f1 = macro_f1_from_confusion(cm)
+    report = report_from_confusion(cm, [EMOTION_NAMES[i] for i in classes])
+    return loss, float(f1), cm, report
 
 
 def plot_confusion_matrix(cm, class_names, filename="confusion_matrix.png",
@@ -192,7 +226,7 @@ class TaskRecipe:
     """What the two trainers differ in: the task, the wandb project, the
     metric's name and its start value (below any reading), and three
     callables: ``validate(model, val_loader, eval_step, class_weights,
-    device) → (loss, metric, extras)``, ``report(phase, epoch, epochs,
+    device, mesh) → (loss, metric, extras)``, ``report(phase, epoch, epochs,
     train_loss, val_loss, metric, extras, lr) → (wandb record, line)`` and
     ``on_best(extras, log_dir, wandb)``, which draws the plots of a new
     best."""
@@ -213,14 +247,32 @@ def train_emotion_task(config, recipe: TaskRecipe,
     ``epoch``, ``train_loss``, ``val_loss``, the metric, ``lr``, ``layers``
     (the unfrozen ones), ``steps``, ``s_per_step`` (host clock over the
     epoch's train steps, data loading included) and
-    ``audio_sec_per_sec``."""
+    ``audio_sec_per_sec``.  Joins the group the config or torchrun's
+    environment describes, and leaves it at the end if it joined it
+    here."""
+    joined = maybe_initialize(config)
+    try:
+        return _train_emotion_task(config, recipe, class_weights_fn)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train_emotion_task(config, recipe: TaskRecipe,
+                        class_weights_fn: Optional[Callable]) -> Dict:
     setup_logger(config)
     seed = set_seed(config["training"].get("seed", 42))
     em = config["emotion"]
-    wandb = get_wandb(config["logging"].get("wandb_mode", "disabled"))
-    wandb.init(project=recipe.project, config=config,
-               mode=config["logging"].get("wandb_mode", "disabled"))
-    device = resolve_device(config.get("device", "cuda"))
+    primary = is_primary()
+    wandb_mode = config["logging"].get("wandb_mode", "disabled") \
+        if primary else "disabled"
+    wandb = get_wandb(wandb_mode)
+    wandb.init(project=recipe.project, config=config, mode=wandb_mode)
+    mesh = mesh_from_config(config,
+                            resolve_device(config.get("device", "cuda")))
+    device = mesh.device
+    if device.type == "cuda" and mesh.distributed:
+        torch.cuda.set_device(device)
 
     ckpt_dir = em["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -230,6 +282,11 @@ def train_emotion_task(config, recipe: TaskRecipe,
     train_loader, val_loader = create_emotion_dataloaders(config)
     model = build_classifier(config, device, seed)
     state = create_emotion_state(model, seed)
+    place_state = None
+    if mesh.distributed:
+        _, place_state = make_batch_placer(mesh, train_loader.batch_size)
+        state = place_state(state)
+    dp_mesh = state.mesh
     num_layers = model.encoder_config.num_hidden_layers
 
     weights = None
@@ -262,7 +319,7 @@ def train_emotion_task(config, recipe: TaskRecipe,
             # losses stay on the device until the epoch ends
             step_losses = []
             t0 = time.perf_counter()
-            for batch in DevicePrefetcher(train_loader, device):
+            for batch in placed_batches(train_loader, device, dp_mesh):
                 batch.pop("__count__")
                 step_losses.append(train_step(state, batch, weights, layers,
                                               lr, rest_scale)["loss"])
@@ -271,12 +328,14 @@ def train_emotion_task(config, recipe: TaskRecipe,
             steps = len(step_losses)
             s_per_step = (time.perf_counter() - t0) / max(steps, 1)
             val_loss, metric, extras = recipe.validate(
-                state.model, val_loader, eval_step, weights, device)
+                state.model, val_loader, eval_step, weights, device,
+                dp_mesh)
             lr = plateau.step(metric)
             log, line = recipe.report(phase, epoch, epochs, epoch_loss,
                                       val_loss, metric, extras, lr)
             wandb.log(log)
-            print(line, flush=True)
+            if primary:
+                print(line, flush=True)
             history.append({
                 "phase": phase, "epoch": epoch, "train_loss": epoch_loss,
                 "val_loss": val_loss, recipe.metric: metric, "lr": lr,
@@ -284,18 +343,21 @@ def train_emotion_task(config, recipe: TaskRecipe,
                 "s_per_step": s_per_step,
                 "audio_sec_per_sec": train_loader.batch_size * clip_seconds
                 / s_per_step if steps else 0.0})
-            if metric > best:
+            if metric > best:  # the pooled metric: every rank agrees
                 best = metric
                 patience_left = em.get("patience", 3)
-                save_checkpoint(ckpt_dir, best_name, state,
-                                {"epoch": epoch, recipe.metric: metric,
-                                 "phase": phase})
-                recipe.on_best(extras, log_dir, wandb)
+                if primary:
+                    save_checkpoint(ckpt_dir, best_name, state,
+                                    {"epoch": epoch, recipe.metric: metric,
+                                     "phase": phase})
+                    recipe.on_best(extras, log_dir, wandb)
+                barrier()
             else:
                 patience_left -= 1
                 if patience_left <= 0:
-                    print(f"[{phase}] early stopping at epoch {epoch + 1}",
-                          flush=True)
+                    if primary:
+                        print(f"[{phase}] early stopping at epoch "
+                              f"{epoch + 1}", flush=True)
                     break
         return state, best
 
@@ -310,6 +372,8 @@ def train_emotion_task(config, recipe: TaskRecipe,
     if em.get("unfreeze_encoder", False):
         state, _ = restore_checkpoint(ckpt_dir, "best_classifier_model",
                                       state)
+        if place_state is not None:  # every rank from rank 0's bits
+            state = place_state(state)
         if em.get("gradual_unfreeze", True):
             def schedule(e, total):
                 return gradually_unfrozen_layers(e, total, num_layers)
@@ -349,9 +413,10 @@ def _on_best(extras, log_dir, wandb) -> None:
         wandb.log({"val_confusion_matrix": wandb.Image(path)})
 
 
-def _validate_categorical(model, val_loader, eval_step, weights, device):
+def _validate_categorical(model, val_loader, eval_step, weights, device,
+                          mesh=None):
     loss, f1, cm, report = _validate(model, val_loader, eval_step, weights,
-                                     device)
+                                     device, mesh)
     return loss, f1, (cm, report)
 
 

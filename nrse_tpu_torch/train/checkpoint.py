@@ -48,15 +48,8 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """The tensors a checkpoint holds, by name: ``params``, ``mu``, ``nu``
     and, of a BYOL state, ``target_params`` and each tower's buffers
     (``online.<name>``, ``target.<name>``: the BatchNorm running
-    statistics)."""
-    if isinstance(state, EmotionTrainState):
-        return {k: getattr(state, k) for k in ("params", "mu", "nu")}
-    out = {k: getattr(state, k)
-           for k in ("params", "mu", "nu", "target_params")}
-    for tower, module in (("online", state.online), ("target", state.target)):
-        for name, buf in module.named_buffers():
-            out[f"{tower}.{name}"] = buf
-    return out
+    statistics); the state's ``tensors()``."""
+    return state.tensors()
 
 
 def save_checkpoint(ckpt_dir: str, name: str, state: TrainState,

@@ -4,10 +4,11 @@ Port of ``nrse_tpu/train/dimentional_emotions.py:43-228`` (the file name's
 spelling kept; capability parity with the reference's
 ``src/train/dimentional_emotions.py:18-303``): the categorical trainer's
 two-phase skeleton (``categorical_emotions.train_emotion_task``) with the
-CCC loss, the epoch's CCC per dimension through ``compute_ccc`` and their
-mean as the plateau's and the checkpoints' metric, and a pred-vs-GT
-scatter plot per dimension at each new best (drawn only where matplotlib
-imports).
+CCC loss, the epoch's CCC per dimension (``compute_ccc``'s, from the
+moments ``ccc_moments`` sums, which ranks pool) and their mean as the
+plateau's and the checkpoints' metric, and a pred-vs-GT scatter plot per
+dimension at each new best (drawn only where matplotlib imports; under
+data parallelism rank 0 draws its own rows).
 """
 
 from __future__ import annotations
@@ -18,12 +19,17 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nrse_tpu_torch.data.loader import DevicePrefetcher
 from nrse_tpu_torch.train.categorical_emotions import (
     TaskRecipe,
+    placed_batches,
+    pooled,
     train_emotion_task,
 )
-from nrse_tpu_torch.train.losses import ccc_loss, compute_ccc
+from nrse_tpu_torch.train.losses import (
+    ccc_from_moments,
+    ccc_loss,
+    ccc_moments,
+)
 from nrse_tpu_torch.utils.logging_utils import logger
 
 DIMS = ("arousal", "valence", "dominance")
@@ -55,24 +61,30 @@ def plot_scatter(predictions, targets, filename, title="Scatter Plot",
     return True
 
 
-def _validate(model, val_loader, eval_step, device):
-    """Full validation pass → ``(ccc loss, {dim: ccc}, preds, targets)``."""
+def _validate(model, val_loader, eval_step, device, mesh=None):
+    """Full validation pass → ``(ccc loss, {dim: ccc}, preds, targets)``;
+    under a ``mesh`` the loss and the CCC are of every rank's rows (each
+    batch's loss parts and the moments pooled), ``preds`` and ``targets``
+    this rank's."""
     preds, tgts, losses = [], [], []
-    for batch in DevicePrefetcher(val_loader, device):
+    for batch in placed_batches(val_loader, device, mesh):
         count = batch.pop("__count__")
         dims = eval_step(model, batch)["dims"][:count]
         t = torch.stack([batch[k][:count] for k in ("A", "V", "D")], dim=1)
-        losses.append(ccc_loss(dims, t))
+        losses.append(ccc_loss(dims, t, mesh=mesh))
         preds.append(dims.cpu().numpy())
         tgts.append(t.cpu().numpy())
     preds, tgts = np.concatenate(preds), np.concatenate(tgts)
-    ccc = {name: compute_ccc(preds[:, i], tgts[:, i])
-           for i, name in enumerate(DIMS)}
-    return float(torch.stack(losses).mean()), ccc, preds, tgts
+    moments = pooled(torch.from_numpy(ccc_moments(preds, tgts)), mesh)
+    values = ccc_from_moments(moments.cpu().numpy())
+    ccc = {name: float(values[i]) for i, name in enumerate(DIMS)}
+    return float(pooled(torch.stack(losses), mesh).mean()), ccc, preds, tgts
 
 
-def _validate_dimensional(model, val_loader, eval_step, weights, device):
-    loss, ccc, preds, tgts = _validate(model, val_loader, eval_step, device)
+def _validate_dimensional(model, val_loader, eval_step, weights, device,
+                          mesh=None):
+    loss, ccc, preds, tgts = _validate(model, val_loader, eval_step, device,
+                                       mesh)
     return loss, float(np.mean(list(ccc.values()))), (ccc, preds, tgts)
 
 

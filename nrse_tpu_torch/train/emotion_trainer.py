@@ -33,6 +33,14 @@ that ``task`` does not run has zero gradients and is still decayed, as
 optax decays it.  The encoder stays in training mode when frozen:
 dropout, LayerDrop and SpecAugment draw as in JAX's
 ``deterministic=False``.  The Adam count goes on across the phases.
+
+Data parallelism (a state with a ``parallel.mesh.DataMesh``, placed by
+:func:`make_batch_placer`): every rank builds the same seeded global batch
+and keeps its rows (``nrse_tpu/train/emotion_trainer.py:172-209`` shards
+it over the mesh); the losses take the global batch's denominators and
+moments (``train.losses``), the trunks' dropout masks are drawn at the
+global batch, and after the backward one ``all_reduce`` per trainable
+segment sums the gradients, so every rank takes the same K4 step.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import dataclasses
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from nrse_tpu_torch.audio.features import zero_mean_unit_var
 from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
@@ -49,6 +58,7 @@ from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
 )
+from nrse_tpu_torch.parallel.mesh import DataMesh, broadcast_state, shard_batch
 from nrse_tpu_torch.train.losses import ccc_loss, ce_weight_category
 
 ALIGN = 4  # floats: K4 takes 16-byte aligned buffers
@@ -61,7 +71,8 @@ class EmotionTrainState:
     ``nu`` are AdamW's moments.  ``starts`` holds the first element of each
     group: the encoder's non-layer parameters (0), layer ``i`` (``starts[1
     + i]``), the heads (``starts[-1]``).  ``step`` is the Adam count and the
-    step of the random streams, ``seed`` their root."""
+    step of the random streams, ``seed`` their root; ``mesh`` the data mesh
+    (None: one process)."""
 
     model: EmotionClassifier
     params: torch.Tensor
@@ -72,10 +83,16 @@ class EmotionTrainState:
     step: int = 0
     seed: int = 0
     trainable: Optional[Tuple] = None  # (layers, rest) set last
+    mesh: Optional[DataMesh] = None
 
     @property
     def num_layers(self) -> int:
         return len(self.starts) - 2
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The tensors a checkpoint holds and the replicas share:
+        ``params``, ``mu`` and ``nu``."""
+        return {k: getattr(self, k) for k in ("params", "mu", "nu")}
 
 
 def parameter_groups(model: EmotionClassifier
@@ -168,15 +185,17 @@ def trainable_segments(state: EmotionTrainState, layers: Sequence[int],
 
 
 def emotion_loss(task: str, logits, dims, batch: Mapping,
-                 class_weights: Optional[torch.Tensor]) -> torch.Tensor:
+                 class_weights: Optional[torch.Tensor],
+                 mesh: Optional[DataMesh] = None) -> torch.Tensor:
     """Weighted CE of the logits, CCC loss of A/V/D, or (``both``) their
-    sum."""
+    sum; under a ``mesh`` this rank's part of the global batch's."""
     loss = 0.0
     if task in ("categorical", "both"):
-        loss = loss + ce_weight_category(logits, batch["C"], class_weights)
+        loss = loss + ce_weight_category(logits, batch["C"], class_weights,
+                                         mesh)
     if task in ("dimensional", "both"):
         targets = torch.stack([batch["A"], batch["V"], batch["D"]], dim=1)
-        loss = loss + ccc_loss(dims, targets)
+        loss = loss + ccc_loss(dims, targets, mesh=mesh)
     return loss
 
 
@@ -197,7 +216,9 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
     ``[K]`` (or None); ``layers`` the unfrozen encoder layers (the top
     ones). The metrics ``loss`` and ``grad_norm`` (the global norm of the
     trainable gradients) are device tensors: nothing waits for the card;
-    ``layers_run`` counts the layers LayerDrop kept."""
+    ``layers_run`` counts the layers LayerDrop kept.  Under the state's
+    mesh ``batch`` holds this rank's rows and the metrics are the global
+    batch's."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
 
@@ -205,14 +226,22 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                    class_weights, layers: Sequence[int],
                    learning_rate: float, rest_scale: float = 0.0) -> Dict:
         segments = trainable_segments(state, layers, rest_scale)
+        mesh = state.mesh
+        rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
         state.grads.zero_()
         x = zero_mean_unit_var(batch["input_values"])
         logits, dims = state.model(x, batch["attention_mask"], task,
-                                   TrainRNG(state.seed, state.step))
-        loss = emotion_loss(task, logits, dims, batch, class_weights)
+                                   TrainRNG(state.seed, state.step, 0, rank,
+                                            world))
+        loss = emotion_loss(task, logits, dims, batch, class_weights, mesh)
         loss.backward()
         spec = adamw_spec(learning_rate, weight_decay, clip_norm)
         with torch.no_grad():
+            loss = loss.detach()
+            if mesh is not None and mesh.distributed:
+                for lo, hi in segments:
+                    dist.all_reduce(state.grads[lo:hi], group=mesh.group)
+                dist.all_reduce(loss, group=mesh.group)
             grad_norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(state.grads[lo:hi])
                  for lo, hi in segments]))
@@ -222,10 +251,32 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                     state.mu[lo:hi], state.nu[lo:hi], None, spec,
                     state.step, grad_norm)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
+        return {"loss": loss, "grad_norm": grad_norm,
                 "layers_run": state.model.encoder.encoder.layers_run}
 
     return train_step
+
+
+def make_batch_placer(mesh: DataMesh, batch_size: int
+                      ) -> Tuple[Callable, Callable]:
+    """``(place_batch, place_state)`` for data-parallel SER training, as
+    ``nrse_tpu/train/emotion_trainer.py::make_batch_placer``: raises where
+    the global ``batch_size`` does not divide over the ranks (SER eval
+    loaders pad their last batch, so a divisible batch size always holds);
+    ``place_batch`` keeps this rank's rows of a global host batch (and its
+    share of a padded batch's ``__count__``); ``place_state`` gives a
+    state the mesh and rank 0's parameters and moments."""
+    mesh.local_batch(batch_size)
+
+    def place_batch(batch):
+        return shard_batch(mesh, batch)
+
+    def place_state(state: EmotionTrainState) -> EmotionTrainState:
+        state.mesh = mesh
+        broadcast_state(mesh, state.tensors().values())
+        return state
+
+    return place_batch, place_state
 
 
 def make_emotion_eval_step(task: str) -> Callable:

@@ -16,7 +16,19 @@ reference):
     μt)² + 1e-10)``, averaged over A/V/D; 0 for a batch of one
     (``src/train/dimentional_emotions.py:427-450``);
   * :func:`compute_ccc` — the concordance correlation coefficient in numpy
-    for epoch metrics (``src/train/dimentional_emotions.py:453-465``).
+    for epoch metrics (``src/train/dimentional_emotions.py:453-465``), and
+    :func:`ccc_moments` / :func:`ccc_from_moments`, the same from sums
+    that ranks can pool.
+
+Under data parallelism (a ``mesh``) each rank holds rows of the global
+batch, and the losses are those of the global batch, as GSPMD computes
+JAX's on the sharded batch (``nrse_tpu/train/losses.py:43-62, 81-94``):
+the CE's numerator over the global weight sum; the CCC from the global
+means, variances and covariance (CCC is not a mean of per-rank CCCs),
+this rank's share being the global value over the world size.  Either way
+the ranks' losses add up to the global batch's, and the summed backward
+(``parallel.distributed.all_reduce_sum``) gives each rank its rows'
+gradient of it.
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from nrse_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 def compute_class_weights(label_counts: Dict[int, int], num_classes: int,
@@ -41,10 +55,11 @@ def compute_class_weights(label_counts: Dict[int, int], num_classes: int,
 
 
 def ce_weight_category(logits: torch.Tensor, labels: torch.Tensor,
-                       weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       weights: Optional[torch.Tensor] = None,
+                       mesh=None) -> torch.Tensor:
     """Masked weighted cross-entropy of ``logits [N, K]`` against integer
-    ``labels [N]``; a float32 scalar on the logits' device."""
+    ``labels [N]``; a float32 scalar on the logits' device.  With a
+    ``mesh``, the denominator is every rank's."""
     num_classes = logits.shape[-1]
     labels = labels.to(device=logits.device, dtype=torch.int64)
     valid = (labels >= 0) & (labels < num_classes)
@@ -57,7 +72,7 @@ def ce_weight_category(logits: torch.Tensor, labels: torch.Tensor,
     else:
         w = torch.ones_like(nll)
     w = w * valid.float()
-    denom = w.sum()
+    denom = all_reduce_sum(w.sum(), mesh)
     loss = (nll * w).sum() / denom.clamp_min(1e-9)
     return torch.where(denom > 0, loss, torch.zeros_like(loss))
 
@@ -79,19 +94,48 @@ def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def ccc_loss(predictions: torch.Tensor, targets: torch.Tensor,
-             eps: float = 1e-10) -> torch.Tensor:
+             eps: float = 1e-10, mesh=None) -> torch.Tensor:
     """Mean ``1 − CCC`` over the last axis's dimensions (A, V, D) of
-    ``[N, 3]`` predictions and targets, in float32; 0 for N ≤ 1."""
+    ``[N, 3]`` predictions and targets, in float32; 0 for N ≤ 1.  With a
+    ``mesh``, N and the moments are the global batch's (two passes, each
+    one sum across the ranks), and the result is this rank's share, the
+    global loss over the world size."""
     p = predictions.float()
     t = targets.to(device=p.device, dtype=torch.float32)
-    if p.shape[0] <= 1:
-        return p.sum() * 0.0
-    mean_p, mean_t = p.mean(dim=0), t.mean(dim=0)
-    var_p = p.var(dim=0, unbiased=False)
-    var_t = t.var(dim=0, unbiased=False)
-    covar = ((p - mean_p) * (t - mean_t)).mean(dim=0)
+    d = p.shape[1]
+    count = torch.full((1,), p.shape[0], dtype=torch.float32,
+                       device=p.device)
+    first = all_reduce_sum(torch.cat([p.sum(0), t.sum(0), count]), mesh)
+    n = first[2 * d:].clamp_min(1.0)
+    mean_p, mean_t = first[:d] / n, first[d:2 * d] / n
+    dp, dt = p - mean_p, t - mean_t
+    second = all_reduce_sum(torch.cat([(dp * dp).sum(0), (dt * dt).sum(0),
+                                       (dp * dt).sum(0)]), mesh) / n
+    var_p, var_t, covar = second[:d], second[d:2 * d], second[2 * d:]
     ccc = 2 * covar / (var_p + var_t + (mean_p - mean_t) ** 2 + eps)
-    return (1.0 - ccc).mean()
+    loss = torch.where(first[2 * d] > 1.0, (1.0 - ccc).mean(), 0.0)
+    return loss if mesh is None else loss / mesh.world
+
+
+def ccc_moments(predictions: np.ndarray, targets: np.ndarray
+                ) -> np.ndarray:
+    """``[n, Σp, Σt, Σp², Σt², Σpt]`` per column of ``[N, D]`` arrays (a
+    ``[6, D]`` float64 array): sums that ranks can add up."""
+    p = np.asarray(predictions, np.float64).reshape(len(predictions), -1)
+    t = np.asarray(targets, np.float64).reshape(len(targets), -1)
+    return np.stack([np.full(p.shape[1], float(len(p))), p.sum(0), t.sum(0),
+                     (p * p).sum(0), (t * t).sum(0), (p * t).sum(0)])
+
+
+def ccc_from_moments(moments: np.ndarray, eps: float = 1e-10) -> np.ndarray:
+    """:func:`compute_ccc` per column from :func:`ccc_moments` (pooled
+    across ranks or not): ``2·cov / (σp² + σt² + (μp − μt)² + eps)``."""
+    n, sp, st, spp, stt, spt = np.asarray(moments, np.float64)
+    n = np.maximum(n, 1.0)
+    mp, mt = sp / n, st / n
+    vp, vt = spp / n - mp * mp, stt / n - mt * mt
+    cov = spt / n - mp * mt
+    return 2 * cov / (vp + vt + (mp - mt) ** 2 + eps)
 
 
 def compute_ccc(predictions: np.ndarray, targets: np.ndarray,

@@ -1,7 +1,9 @@
-"""BYOL pretraining on one GPU: the port of ``train_byol.py:27-278``.
+"""BYOL pretraining on one GPU or data-parallel over several: the port of
+``train_byol.py:27-278``.
 
     python -m nrse_tpu_torch.train_byol --config <yaml or preset name> \\
         [--device cuda|cpu] [--batch_size N] [--epochs N] [--lr X] [--resume]
+    torchrun --nproc_per_node=N -m nrse_tpu_torch.train_byol --config ...
 
 A preset name resolves to the port's own copy of the JAX package's BYOL
 presets (``nrse_tpu_torch/config/presets/*.yaml``); ``--config`` also
@@ -29,8 +31,17 @@ says once that the plot is skipped and why, and goes on: the plot is
 host-side.
 
 One process on one card (``device: cuda``, computing in bf16, the type
-the kernels take) or on the CPU (float32, the plain paths).  Not ported
-here: the multi-process path (``ROADMAP.md``, Queue 1).
+the kernels take) or on the CPU (float32, the plain paths), or N ranks,
+one card each (``parallel``): the group is joined from the
+``tpu.distributed`` block or torchrun's environment
+(``parallel.distributed.maybe_initialize``), ``tpu.mesh`` must span every
+rank, ``training.batch_size`` is the global batch and must divide over
+the ranks; each rank loads its shard at the per-rank batch, the step
+reduces gradients and statistics over the global batch, validation pools
+its sums, and rank 0's early-stopping decision is broadcast.  Only rank 0
+logs to wandb, writes checkpoints and prints the epoch lines; every rank
+waits after a checkpoint.  The t-SNE plot is drawn only by a run of one
+process, as in the JAX entry point.
 """
 
 from __future__ import annotations
@@ -57,9 +68,17 @@ from nrse_tpu_torch.eval.evaluate_byol import (
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
+from nrse_tpu_torch.parallel.distributed import (
+    barrier,
+    broadcast_scalar,
+    is_primary,
+    maybe_initialize,
+)
+from nrse_tpu_torch.parallel.mesh import mesh_from_config
 from nrse_tpu_torch.runtime.device import resolve_device
 from nrse_tpu_torch.runtime.native import native_available
 from nrse_tpu_torch.train.byol_trainer import (
+    broadcast_state,
     create_train_state,
     make_byol_train_step,
 )
@@ -93,20 +112,40 @@ def main(config: Dict[str, Any],
     ``val_avg_similarity``, ``val_similarities``, ``steps``, ``s_per_step``
     and ``audio_sec_per_sec`` (host clock over the epoch's train steps,
     data loading included), ``step_time_s`` and
-    ``audio_sec_per_sec_per_chip`` (the epoch's ``ThroughputMeter``, one
-    chip, as the JAX entry point logs them) and ``tsne`` (the plot's path,
-    or None)."""
+    ``audio_sec_per_sec_per_chip`` (the epoch's ``ThroughputMeter`` over
+    the ranks' cards, as the JAX entry point logs them) and ``tsne`` (the
+    plot's path, or None).
+
+    Joins the group the config or torchrun's environment describes, and
+    leaves it at the end if it joined it here."""
     config = with_defaults(config)
+    joined = maybe_initialize(config)
+    try:
+        return _main(config, encoder)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _main(config: Dict[str, Any],
+          encoder: Optional[WavLMConfig]) -> Dict[str, Any]:
     setup_logger(config)
     tr, data_cfg, model_cfg = (config["training"], config["data"],
                                config["model"])
     seed = int(tr["seed"])
     set_seed(seed)
-    device = resolve_device(config["device"])
+    mesh = mesh_from_config(config, resolve_device(config["device"]))
+    device = mesh.device
+    if device.type == "cuda" and mesh.distributed:
+        torch.cuda.set_device(device)
+    batch_size = tr["batch_size"]
+    mesh.local_batch(batch_size)  # the global batch divides over the ranks
+    primary = is_primary()
     ckpt_dir = tr["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)
     os.makedirs(tr["log_dir"], exist_ok=True)
-    wandb_mode = config["logging"]["wandb_mode"]
+    # experiment tracking only on rank 0
+    wandb_mode = config["logging"]["wandb_mode"] if primary else "disabled"
     wandb = get_wandb(wandb_mode)
     wandb.init(project="noise-robust-speech-embeddings", config=config,
                mode=wandb_mode)
@@ -128,7 +167,7 @@ def main(config: Dict[str, Any],
                                   torch.Generator().manual_seed(seed)),
         proj, pred, device, seed=seed,
         compute_dtype=torch.bfloat16 if device.type == "cuda"
-        else torch.float32)
+        else torch.float32, mesh=mesh if mesh.distributed else None)
     spec = FusedAdamWSpec(schedule=schedule,
                           weight_decay=tr["weight_decay"],
                           ema_decay=model_cfg["ema_decay"])
@@ -140,6 +179,7 @@ def main(config: Dict[str, Any],
             state, meta = restore_checkpoint(ckpt_dir, name, state)
             start_epoch = int(meta.get("epoch", -1)) + 1
             resumed_best = meta.get("best", {})
+            broadcast_state(state)  # every rank from rank 0's bits
             logger.info(f"resumed from {name} at epoch {start_epoch}, step "
                         f"{state.step}")
 
@@ -151,7 +191,6 @@ def main(config: Dict[str, Any],
         min_delta=tr["early_stopping_min_delta"])
     best_val_loss = resumed_best.get("val_loss", float("inf"))
     best_val_similarity = resumed_best.get("val_similarity", 0.0)
-    batch_size = tr["batch_size"]
     clip_seconds = data_cfg["max_audio_length"]
     save_ckpts = tr.get("save_checkpoints", True)
     history, stopped, plot = [], False, True
@@ -160,7 +199,7 @@ def main(config: Dict[str, Any],
         # losses stay on the device until the epoch ends: a float() per
         # step would make the host wait for the card every step
         step_losses = []
-        meter = ThroughputMeter(n_chips=1)
+        meter = ThroughputMeter(n_chips=mesh.world)
         t0 = time.perf_counter()
         for batch in DevicePrefetcher(train_loader, device, prefetch):
             batch.pop("__count__")
@@ -190,17 +229,22 @@ def main(config: Dict[str, Any],
                    if k not in ("val_similarities", "tsne")}
                   | {f"val_similarity_snr_{snr}": sim for snr, sim
                      in val_metrics["val_similarities"].items()})
-        print(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: "
-              f"{epoch_loss:.4f}, Val Loss: {val_loss:.4f}, Val Avg "
-              f"Similarity: {val_metrics['val_avg_similarity']:.4f}, "
-              f"{record['audio_sec_per_sec']:.1f} audio-sec/sec", flush=True)
+        if primary:
+            print(f"Epoch {epoch + 1}/{num_epochs} - Train Loss: "
+                  f"{epoch_loss:.4f}, Val Loss: {val_loss:.4f}, Val Avg "
+                  f"Similarity: {val_metrics['val_avg_similarity']:.4f}, "
+                  f"{record['audio_sec_per_sec']:.1f} audio-sec/sec",
+                  flush=True)
 
         stop_value = val_loss if metric == "val_loss" else \
             val_metrics["val_avg_similarity"]
         stop = early_stopping(stop_value)
+        if mesh.world > 1:  # one decision for every rank: rank 0's
+            stop = broadcast_scalar(1.0 if stop else 0.0) > 0.5
 
         viz_every = config["logging"]["visualization_interval"]
-        if plot and (
+        # a single-process plot, as in the JAX entry point
+        if plot and mesh.world == 1 and (
                 (epoch + 1) % viz_every == 0 or epoch == num_epochs - 1):
             try:
                 record["tsne"] = visualize_embeddings(
@@ -220,36 +264,45 @@ def main(config: Dict[str, Any],
                          "val_similarity": max(
                              best_val_similarity,
                              val_metrics["val_avg_similarity"])}}
+        # the replicas are equal and the pooled metrics too: rank 0 saves
+        # what every rank holds
+        saves = []
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            if save_ckpts:
-                save_checkpoint(ckpt_dir, "best_val_loss", state, meta)
-                print(f"Saved best model checkpoint with validation loss: "
-                      f"{best_val_loss:.4f}", flush=True)
+            saves.append(("best_val_loss", "Saved best model checkpoint with "
+                          f"validation loss: {best_val_loss:.4f}"))
         if val_metrics["val_avg_similarity"] > best_val_similarity:
             best_val_similarity = val_metrics["val_avg_similarity"]
-            if save_ckpts:
-                save_checkpoint(ckpt_dir, "best_val_similarity", state, meta)
-                print(f"Saved best model checkpoint with validation "
-                      f"similarity: {best_val_similarity:.4f}", flush=True)
+            saves.append(("best_val_similarity", "Saved best model "
+                          "checkpoint with validation similarity: "
+                          f"{best_val_similarity:.4f}"))
+        saves.append(("last_model", None))
         if save_ckpts:
-            save_checkpoint(ckpt_dir, "last_model", state, meta)
+            for name, line in saves:
+                if primary:
+                    save_checkpoint(ckpt_dir, name, state, meta)
+                    if line:
+                        print(line, flush=True)
+            barrier()
 
         if stop:
-            print(f"Early stopping triggered after epoch {epoch + 1}",
-                  flush=True)
+            if primary:
+                print(f"Early stopping triggered after epoch {epoch + 1}",
+                      flush=True)
             stopped = True
             break
 
     wandb.finish()
-    print("Training complete!", flush=True)
+    if primary:
+        print("Training complete!", flush=True)
     return {"state": state, "epochs": history, "decoder": decoder,
             "stopped_early": stopped}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
-        description="BYOL pretraining of the WavLM encoder on one GPU")
+        description="BYOL pretraining of the WavLM encoder on one GPU, or "
+                    "on several under torchrun")
     parser.add_argument("--config", required=True,
                         help="YAML config file, or a preset name of "
                              "nrse_tpu_torch/config/presets")

@@ -7,7 +7,8 @@ its JAX-free modules; it keeps its own copies of what it needs — and no
 jax, jaxlib, flax, optax, orbax or pandas (the card's machine has no
 pandas).  A fresh interpreter with a ``sys.meta_path`` finder that raises
 on ``nrse_tpu``, ``pandas`` and their submodules imports every module of
-the port and ``chip_smoke``, resolves a BYOL preset through
+the port (the data-parallel ``parallel`` package and its dry run
+included) and ``chip_smoke``, resolves a BYOL preset through
 ``train_byol`` and an emotion preset through ``config.config_utils``, and
 finds ``WavLMEncoder`` in ``nrse_tpu_torch.models``.  The optional
 imports (matplotlib and scikit-learn for the t-SNE plot, demucs, wandb)
@@ -112,6 +113,11 @@ MODULES = [
     "nrse_tpu_torch.data.preprocess",
     "nrse_tpu_torch.data.preprocess.demucs_speech_separation",
     "nrse_tpu_torch.labels.tools",
+    "nrse_tpu_torch.parallel",
+    "nrse_tpu_torch.parallel.distributed",
+    "nrse_tpu_torch.parallel.mesh",
+    "nrse_tpu_torch.parallel.launch",
+    "nrse_tpu_torch.parallel.dryrun",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
