@@ -1,8 +1,8 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
 pretraining entry point, its baseline SER evaluator, its SER fine-tune,
 its two-phase SER trainers, its SER classifier server, its bridges to
-the reference's PyTorch files and its data-parallel path once on one
-NVIDIA GPU.
+the reference's PyTorch files, its data-parallel path and its
+tensor-parallel path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -256,6 +256,27 @@ not 0:
      2 layers, global batch 8, one epoch a phase: the ranks' pooled losses
      equal and finite, rank 0's checkpoints written, every kernel of the
      path launched.
+  20. tensor parallelism on the one card (``tpu.mesh.model > 1``): the
+     kernels at the shard shapes of ``model: 2``, each with its dropout
+     window against its plain version (kernel A and K3 on 8 of 16 heads,
+     kernel B and K2 on 2048 of 4096 columns with b2 left out, K1 on a
+     merged ``[36, 249, 512]`` shard; each shard's mask the slice of the
+     layer's bit for bit); (a) the BYOL step of phase 9 on two ranks at
+     ``{data: 1, model: 2}`` sharing the card over gloo, random features
+     off and then on, three steps each, against one rank at ``model: 1``
+     from the same weights (phase 19's bounds, the drift against a
+     control that sums each projection as two float32 halves), the
+     gathered state at step 0 bit-equal to the one rank's, the
+     replicas agreeing after every step, each rank's launches as phase 9's
+     formula, its peak memory and s/step; (b) the K5 branch: a
+     training-mode encoder forward at 8 × 10 s on two ranks against one,
+     cosine ≥ 0.999; (c) ``train_byol.main`` at ``{data: 2, model: 2}``
+     over 4 ranks on the card, 2 layers, global batch 8, its checkpoint
+     restored by a ``model: 1`` state bit for bit, then
+     ``parallel.dryrun`` over 4 gloo ranks on the CPU; and phase 19(b)'s
+     two-rank step (features on) run twice in fresh processes, compared
+     down to the first tensor that differs (with cuDNN's deterministic
+     algorithms too, where they differ).
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
@@ -4375,6 +4396,28 @@ DP_GRAD_NORM_TOL = 1e-2  # |Δgrad_norm| / grad_norm at the first step
 DP_DRIFT_FACTOR = 4.0
 
 
+def _peak_gib(device) -> float:
+    if device.type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _rank_device(device: str) -> torch.device:
+    """A rank's device, made current, TF32 off (as phase 1 sets it)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def _quiet(cfg):
     """``cfg`` with dropout, LayerDrop and SpecAugment off."""
     return dataclasses.replace(cfg, hidden_dropout=0.0,
@@ -4506,22 +4549,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
     from nrse_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from nrse_tpu_torch.train.byol_trainer import replicas_agree
 
-    device = torch.device(device)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-    def peak_gib():
-        if device.type != "cuda":
-            return float("nan")
-        return torch.cuda.max_memory_allocated(device) / 2**30
-
-    def reset_peak():
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-
+    device = _rank_device(device)
     out = {"rank": rank}
     qcfg = _quiet(cfg)
     qsd = init_byol_state_dict(qcfg, projection_dim, prediction_dim,
@@ -4538,11 +4566,11 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
                 state.params - p0)
 
     if rank == 0:  # one rank on the global batch, measured first
-        reset_peak()
+        _reset_peak(device)
         ref, ref["delta"] = run(_byol_state(qcfg, qsd, device,
                                             projection_dim,
                                             prediction_dim), data)
-        out["ref_peak_gib"] = peak_gib()
+        out["ref_peak_gib"] = _peak_gib(device)
         out["ref"] = {k: ref[k] for k in ("loss", "grad_norm")}
         # the control: the same sums in another order
         backwards = {k: v.flip(0) for k, v in data.items()}
@@ -4552,7 +4580,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
         del delta, backwards
     dist.barrier()
     mesh = make_mesh(device=device)
-    reset_peak()
+    _reset_peak(device)
     st = _byol_state(qcfg, qsd, device, projection_dim, prediction_dim,
                      mesh)
     local = shard_batch(mesh, data)
@@ -4563,7 +4591,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
         agree.append(replicas_agree(st))
         metrics["loss"].append(float(m["loss"]))
         metrics["grad_norm"].append(float(m["grad_norm"]))
-    out["deterministic_peak_gib"] = peak_gib()
+    out["deterministic_peak_gib"] = _peak_gib(device)
     out["dp"] = metrics
     out["agree_deterministic"] = agree
     if rank == 0:
@@ -4571,7 +4599,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
         del ref
     del st, p0, qsd
     # the full configuration: every random feature on
-    reset_peak()
+    _reset_peak(device)
     fsd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
                                torch.Generator().manual_seed(SEED))
     st = _byol_state(cfg, fsd, device, projection_dim, prediction_dim, mesh)
@@ -4588,7 +4616,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
                           for m in metrics]
     out["agree_full"] = agree
     out["s_per_step"] = dt
-    out["peak_gib"] = peak_gib()
+    out["peak_gib"] = _peak_gib(device)
     return out
 
 
@@ -4670,11 +4698,7 @@ def _dp_entry_worker(rank: int, world: int, device: str, byol_config,
                      encoder, emotion_config) -> dict:
     """One rank of 19(c): ``train_byol.main``, then ``train_emotion.run``
     in the rank's group."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    dev = _rank_device(device)
     _reset_counts()
     byol = train_byol.main(byol_config, encoder)
     emotion = train_emotion.run(emotion_config)
@@ -4811,6 +4835,646 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
     return counts
 
 
+# phase 20: tensor parallelism on the one card (imported in its functions,
+# as phase 19's).  NCCL refuses two ranks on one card, so the ranks of a
+# model group share the card over gloo, whose collectives copy through
+# the host: the step's s/step is no scaling figure.  20(a) holds two ranks
+# at {data: 1, model: 2} against one rank at model: 1 from the same
+# weights with phase 19's bounds: the two runs differ only in the order of
+# float sums (the row-parallel products' partial sums, float32, added by
+# the model group's all_reduce and rounded once), and with every random
+# feature on they draw the same masks (the shards' dropout windows), so
+# the same bounds hold there.  The order changes in every element's sum,
+# which phase 19's control (the rows reversed) leaves alone; the control
+# of each configuration here is one rank with each projection summed as
+# two float32 halves of its input (``_split_linear``), and the rows
+# control is printed beside it.
+TP_STEPS = 3
+TP_K5_BATCH, TP_K5_SECONDS = 8, 10.0  # 499 frames: K5 and K1 after it
+TP_COSINE_MIN = 0.999                 # bf16 model: 2 against model: 1
+TP_ENTRY_RANKS = 4                    # {data: 2, model: 2}
+
+
+def _split_linear(x, module):
+    """``models.wavlm._linear`` as two products over the halves of its
+    input, each in float32, summed and rounded once to x's dtype: the same
+    sums, each element's in another order, as the model group's partial
+    sums order them (20(a)'s control)."""
+    w = module.weight.to(x.dtype).float()
+    h = x.shape[-1] // 2
+    y = torch.nn.functional.linear(x[..., :h].float(), w[:, :h]) \
+        + torch.nn.functional.linear(x[..., h:].float(), w[:, h:])
+    if module.bias is not None:
+        y = y + module.bias.to(x.dtype).float()
+    return y.to(x.dtype)
+
+
+def _whole_flat(state, flat: torch.Tensor) -> torch.Tensor:
+    """A flat buffer of the online tower in the ``model: 1`` layout (the
+    model group's shards gathered, in module order)."""
+    whole = state.gathered(flat, "online")
+    return torch.cat([whole[n].reshape(-1)
+                      for n in state.whole_shapes("online")])
+
+
+def _tp_run(state, step, data, steps: int, device):
+    """``steps`` train steps, the replicas compared after each; returns
+    the metrics as host floats, the agreement after each step, s/step of
+    all but the first step, the launches of all of them and the parameter
+    delta in the ``model: 1`` layout."""
+    from nrse_tpu_torch.train.byol_trainer import replicas_agree
+
+    p0 = state.params.clone()
+    metrics = {"loss": [], "grad_norm": [], "layers": []}
+    agree, dt, raw = [], 0.0, []
+    _reset_counts()
+    for i in range(steps):
+        sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = step(state, data)
+        sync(device)
+        dist.barrier()
+        if i:
+            dt += time.perf_counter() - t0
+        agree.append(replicas_agree(state))
+        raw.append(m)
+        metrics["loss"].append(float(m["loss"]))
+        metrics["grad_norm"].append(float(m["grad_norm"]))
+        metrics["layers"].append((m["layers_online"], m["layers_target"]))
+    sync(device)
+    counts = _train_counts()
+    finite = all(bool(m["finite"]) for m in raw)
+    delta = _whole_flat(state, state.params - p0)
+    return metrics, agree, dt / max(steps - 1, 1), counts, raw, finite, delta
+
+
+def _tp_worker(rank: int, world: int, cfg, device: str, batch: int,
+               clip_seconds: float, steps: int, projection_dim: int,
+               prediction_dim: int) -> dict:
+    """One rank of 20(a) at {data: 1, model: world}, sharing the card with
+    the others over gloo; rank 0 first runs the one-rank references (both
+    configurations) and the control."""
+    from nrse_tpu_torch.parallel.mesh import checksum, make_mesh
+
+    device = _rank_device(device)
+    out = {"rank": rank}
+    data = _train_batch(batch, clip_seconds, device)
+    step = make_byol_train_step(_adamw_spec())
+    configs = {"off": _quiet(cfg), "on": cfg}
+    sds = {k: init_byol_state_dict(c, projection_dim, prediction_dim,
+                                   torch.Generator().manual_seed(SEED))
+           for k, c in configs.items()}
+    mesh = make_mesh(model=world, device=device,
+                     heads=cfg.num_attention_heads)
+    refs = {}
+
+    def one_rank(c, sd, rows):
+        """``steps`` steps of one rank; metrics and the parameter delta,
+        kept on the host in float64 (the ranks' peaks stay theirs, and
+        float32 sums on the CPU lose digits over 326 M elements)."""
+        st = _byol_state(c, sd, device, projection_dim, prediction_dim)
+        p0 = st.params.clone()
+        ms = [step(st, rows) for _ in range(steps)]
+        delta = (st.params - p0).cpu().double()
+        return ({"loss": [float(m["loss"]) for m in ms],
+                 "grad_norm": [float(m["grad_norm"]) for m in ms]}, delta)
+
+    if rank == 0:  # the one-rank runs, measured first
+        for name, c in configs.items():
+            _reset_peak(device)
+            if name == "off":
+                st = _byol_state(c, sds[name], device, projection_dim,
+                                 prediction_dim)
+                out["layout"] = {k: tuple(v.shape)
+                                 for k, v in st.tensors().items()}
+                out["start_sum"] = checksum(st.tensors().values()).tolist()
+                del st
+            ref, refs[name] = one_rank(c, sds[name], data)
+            refs[name] = dict(ref, delta=refs[name])
+            out[f"ref_{name}"] = ref
+            out[f"ref_peak_gib_{name}"] = _peak_gib(device)
+            # the control: every element's sums in another order
+            projections = wavlm_module._linear
+            wavlm_module._linear = _split_linear
+            try:
+                control, delta = one_rank(c, sds[name], data)
+            finally:
+                wavlm_module._linear = projections
+            out[f"control_{name}"] = dict(control,
+                                          **_drift(control, delta, refs[name]))
+        backwards = {k: v.flip(0) for k, v in data.items()}
+        control, delta = one_rank(configs["off"], sds["off"], backwards)
+        out["rows_control"] = dict(control,
+                                   **_drift(control, delta, refs["off"]))
+        del backwards, delta
+    dist.barrier()
+    for name, c in configs.items():
+        _reset_peak(device)
+        st = _byol_state(c, sds[name], device, projection_dim,
+                         prediction_dim, mesh)
+        if name == "off":  # the gathered state at step 0: model 1's bits
+            whole = state_tensors(st)
+            out["tp_layout"] = {k: tuple(v.shape) for k, v in whole.items()}
+            out["tp_start_sum"] = checksum(whole.values()).tolist()
+            out["split"] = st.split
+            del whole
+        metrics, agree, dt, counts, raw, finite, delta = _tp_run(
+            st, step, data, steps, device)
+        out[name] = {**metrics, "agree": agree, "s_per_step": dt,
+                     "finite": finite, "counts": counts,
+                     "want": byol_launch_want(c, raw),
+                     "peak_gib": _peak_gib(device)}
+        if rank == 0:
+            out[name].update(_drift(metrics, delta.cpu().double(),
+                                    refs[name]))
+        del st, delta, raw
+    return out
+
+
+def phase_tp_step(cfg=None, device=torch.device("cuda"),
+                  batch: int = TRAIN_BATCH,
+                  clip_seconds: float = CLIP_SECONDS, steps: int = TP_STEPS,
+                  projection_dim: int = 1024,
+                  prediction_dim: int = 2048) -> list:
+    """20(a): the BYOL step at full width on two ranks at {data: 1, model:
+    2} sharing the card over gloo, against one rank at model: 1 from the
+    same weights, random features off and on (phase 19's bounds; the drift
+    against a control that reorders every element's sum), the
+    gathered state at step 0 bit-equal to the one rank's, the replicas
+    agreeing after every step, each rank's launches as the layers run
+    imply, s/step and peak memory per rank."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cfg = cfg or WavLMConfig.large()
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    ranks = run_ranks(_tp_worker, 2, (cfg, spec, batch, clip_seconds, steps,
+                                      projection_dim, prediction_dim),
+                      threads=0, timeout=900)
+    r0 = ranks[0]
+    bad = []
+
+    def drift_line(run, control):
+        return (f"loss {run['loss_drift']:.3e} / {control['loss_drift']:.3e}"
+                f", grad_norm {run['grad_norm_drift']:.3e} / "
+                f"{control['grad_norm_drift']:.3e}, parameter deltas' "
+                f"relative distance {run['delta_rel']:.3e} / "
+                f"{control['delta_rel']:.3e} (cosine "
+                f"{run['delta_cosine']:.6f} / {control['delta_cosine']:.6f})")
+
+    for name in ("off", "on"):
+        tp, ref = r0[name], r0[f"ref_{name}"]
+        control = r0[f"control_{name}"]
+        log(f"[tp step] random features {name}: two ranks at {{data: 1, "
+            f"model: 2}} against one rank x {batch}, WavLM "
+            f"{cfg.num_hidden_layers} x {cfg.hidden_size}, {clip_seconds:g} "
+            f"s clips, {steps} steps: losses {tp['loss']} vs {ref['loss']}, "
+            f"grad norms {tp['grad_norm']} vs {ref['grad_norm']}; first "
+            f"step loss {tp['first']['loss']:.3e} (bound {DP_LOSS_TOL}), "
+            f"grad_norm {tp['first']['grad_norm']:.3e} (bound "
+            f"{DP_GRAD_NORM_TOL}); the control (one rank, the projections as "
+            f"two float32 halves of their inputs) at the first step loss "
+            f"{control['first']['loss']:.3e}, grad_norm "
+            f"{control['first']['grad_norm']:.3e}; drift, two ranks / "
+            f"control: {drift_line(tp, control)}; bound {DP_DRIFT_FACTOR:g} "
+            f"x the control's")
+        ok = tp["first"]["loss"] <= DP_LOSS_TOL and \
+            tp["first"]["grad_norm"] <= DP_GRAD_NORM_TOL and all(
+                tp[k] <= max(DP_DRIFT_FACTOR * control[k], tol)
+                for k, tol in (("loss_drift", DP_LOSS_TOL),
+                               ("grad_norm_drift", DP_GRAD_NORM_TOL))) \
+            and tp["delta_rel"] <= DP_DRIFT_FACTOR * control["delta_rel"]
+        if not ok:
+            bad.append(f"features {name}: two ranks differ from one rank")
+        if ranks[0][name]["loss"] != ranks[1][name]["loss"]:
+            bad.append(f"features {name}: the ranks' losses differ")
+    rows = r0["rows_control"]
+    log(f"[tp step] phase 19's control (one rank, rows reversed, features "
+        f"off) against one rank: {drift_line(rows, rows)}")
+    same_layout = r0["tp_layout"] == r0["layout"]
+    same_start = r0["tp_start_sum"] == r0["start_sum"]
+    log(f"[tp step] the gathered params, mu, nu, target and statistics at "
+        f"step 0: the model: 1 layout {same_layout}, its bits {same_start} "
+        f"({r0['split']} of each rank's flat elements are shards); one "
+        f"rank's peak device memory {r0['ref_peak_gib_off']:.2f} GiB (off), "
+        f"{r0['ref_peak_gib_on']:.2f} GiB (on)")
+    if not (same_layout and same_start):
+        bad.append("the gathered state is not the model: 1 state")
+    for r in ranks:
+        for name in ("off", "on"):
+            run = r[name]
+            log(f"[tp step] rank {r['rank']} features {name}: peak device "
+                f"memory {run['peak_gib']:.2f} GiB, {run['s_per_step']:.4f} "
+                f"s/step (two ranks sharing one card over gloo, not a "
+                f"scaling figure), layers run {run['layers']}, replicas "
+                f"agree after every step {run['agree']}, launches "
+                f"{run['counts']} (want {run['want']})")
+            # the launch formula has dropout on at every site
+            counted = name == "off" or device.type != "cuda"
+            if not (run["finite"] and all(run["agree"]) and (
+                    counted or run["counts"] == run["want"])):
+                bad.append(f"rank {r['rank']} features {name}")
+    if bad:
+        raise RuntimeError(f"tensor parallelism over two ranks: {bad}")
+    return ranks
+
+
+def _tp_k5_worker(rank: int, world: int, cfg, device: str, batch: int,
+                  clip_seconds: float) -> dict:
+    """One rank of 20(b): the encoder's training forward (every random
+    feature on, no graph) at model: world; rank 0 first at model: 1."""
+    from nrse_tpu_torch.parallel.mesh import make_mesh, shard_state_dict
+
+    device = _rank_device(device)
+    sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED))
+    wave = _train_batch(batch, clip_seconds, device)["clean"]
+    rng = TrainRNG(SEED, 1)
+    out = {"rank": rank}
+
+    @torch.no_grad()
+    def forward(mesh):
+        enc = WavLMModel(cfg, device="meta", compute_dtype=torch.bfloat16,
+                         mesh=mesh)
+        enc.load_state_dict({k: v.to(device) for k, v in
+                             shard_state_dict(sd, mesh).items()},
+                            strict=True, assign=True)
+        _reset_counts()
+        seq, pooled = enc.train()(wave, rng=rng)
+        sync(device)
+        return seq.float(), pooled.float(), {
+            "flash_attention_fwd": flash_attention.LAUNCHES,
+            "fused_dropout": fused_dropout.LAUNCHES,
+            "fused_ffn_fwd": fused_ffn.LAUNCHES}, enc.encoder.layers_run
+
+    if rank == 0:
+        ref = forward(None)
+    dist.barrier()
+    mesh = make_mesh(model=world, device=device,
+                     heads=cfg.num_attention_heads)
+    seq, pooled, counts, layers = forward(mesh)
+    out.update(counts=counts, layers=layers, frames=seq.shape[1],
+               finite=bool(torch.isfinite(seq).all()))
+    if rank == 0:
+        out["cosine"] = _cosine_flat(seq, ref[0])
+        out["pooled_cosine"] = _cosine_flat(pooled, ref[1])
+        out["ref_counts"], out["ref_layers"] = ref[2], ref[3]
+    return out
+
+
+def phase_tp_k5(cfg=None, device=torch.device("cuda"),
+                batch: int = TP_K5_BATCH,
+                clip_seconds: float = TP_K5_SECONDS) -> None:
+    """20(b): the K5 branch (T > 384: K5, then K1 over the merged shard
+    with its window) in one training-mode encoder forward at 8 x 10 s on
+    two ranks at model: 2 against one rank at model: 1; bf16 cosine of
+    the sequence ≥ TP_COSINE_MIN."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cfg = cfg or WavLMConfig.large()
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    ranks = run_ranks(_tp_k5_worker, 2, (cfg, spec, batch, clip_seconds),
+                      threads=0, timeout=600)
+    r0 = ranks[0]
+    log(f"[tp k5] encoder forward, training mode, {batch} x "
+        f"{clip_seconds:g} s ({r0['frames']} frames), model: 2 against "
+        f"model: 1: sequence cosine {r0['cosine']:.6f}, pooled cosine "
+        f"{r0['pooled_cosine']:.6f} (bound {TP_COSINE_MIN}); layers run "
+        f"{[r['layers'] for r in ranks]} vs {r0['ref_layers']}; launches "
+        f"per rank {[r['counts'] for r in ranks]} vs {r0['ref_counts']}")
+    ran = device.type != "cuda" or all(
+        r["counts"] == r0["ref_counts"] for r in ranks)
+    if not (r0["cosine"] >= TP_COSINE_MIN and all(r["finite"]
+                                                  for r in ranks)
+            and r0["frames"] > block_attention.MAX_T and ran
+            and all(r["layers"] == r0["ref_layers"] for r in ranks)):
+        raise RuntimeError("the K5 branch at model: 2 differs from model: 1")
+
+
+def _tp_entry_worker(rank: int, world: int, device: str, byol_config,
+                     encoder) -> dict:
+    """One rank of 20(c): ``train_byol.main`` at {data: 2, model: 2}."""
+    _rank_device(device)
+    _reset_counts()
+    byol = train_byol.main(byol_config, encoder)
+    sync(torch.device(device))
+    keys = ("train_loss", "val_loss", "val_avg_similarity", "steps",
+            "s_per_step")
+    return {"rank": rank, "counts": _train_counts(),
+            "byol": [{k: e[k] for k in keys} for e in byol["epochs"]]}
+
+
+def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
+                   model_name: str = "microsoft/wavlm-large",
+                   clips: int = 24, noise_clips: int = 4, batch: int = 8,
+                   clip_seconds: float = CLIP_SECONDS,
+                   projection_dim: int = 1024, prediction_dim: int = 2048,
+                   dryrun_ranks: int = 4) -> None:
+    """20(c): ``train_byol.main`` at ``tpu.mesh {data: 2, model: 2}``, 4
+    gloo ranks sharing the card, WavLM-large cut to ``layers`` deep,
+    global batch ``batch``, one epoch (its steps and validation), on a
+    synthetic corpus under ``build/``: the ranks' pooled losses equal and
+    finite, every kernel of the path launched; its ``last_model``
+    checkpoint, restored by a state at model: 1 on this process, gives
+    the file's bits back; then ``parallel.dryrun``'s two halves over
+    ``dryrun_ranks`` gloo ranks on the CPU."""
+    from nrse_tpu_torch.parallel import dryrun
+    from nrse_tpu_torch.parallel.launch import run_ranks
+    from nrse_tpu_torch.parallel.mesh import checksum
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_tp_", dir=cuda_build.BUILD_DIR)
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    try:
+        clean, noise = _write_corpus(os.path.join(root, "byol"), clips,
+                                     noise_clips, clip_seconds)
+        ckpt = os.path.join(root, "byol_ckpt")
+        byol_config = {
+            "model": {"name": model_name, "projection_dim": projection_dim,
+                      "prediction_dim": prediction_dim, "ema_decay": 0.997},
+            "training": {"batch_size": batch, "num_workers": 8,
+                         "num_epochs": 1, "learning_rate": 1e-5,
+                         "weight_decay": 1e-5, "seed": SEED,
+                         "checkpoint_dir": ckpt,
+                         "log_dir": os.path.join(root, "byol_logs")},
+            "data": {"clean_data_path": clean, "noise_data_path": noise,
+                     "sample_rate": SAMPLE_RATE,
+                     "max_audio_length": clip_seconds,
+                     "snr_range": [0, 5, 10, 15, 20],
+                     "validation_ratio": 0.25},
+            "tpu": {"mesh": {"data": 2, "model": 2}},
+            "device": spec}
+        encoder = dataclasses.replace(WavLMConfig.from_model_name(
+            model_name), num_hidden_layers=layers)
+        ranks = run_ranks(_tp_entry_worker, TP_ENTRY_RANKS,
+                          (spec, byol_config, encoder), threads=0,
+                          timeout=900)
+        for r in ranks:
+            for e in r["byol"]:
+                log(f"[tp entry] rank {r['rank']} train_byol at {{data: 2, "
+                    f"model: 2}}: WavLM {layers} layers (depth cut) x "
+                    f"{encoder.hidden_size}, global batch {batch} on {spec} "
+                    f"over gloo: train loss {e['train_loss']:.6f}, val loss "
+                    f"{e['val_loss']:.6f}, val similarity "
+                    f"{e['val_avg_similarity']:.6f}; {e['steps']} data-fed "
+                    f"steps at {e['s_per_step']:.4f} s/step; launches "
+                    f"{r['counts']}")
+        pooled = [[(e["train_loss"], e["val_loss"]) for e in r["byol"]]
+                  for r in ranks]
+        finite = all(np.isfinite(v) for p in pooled for pair in p
+                     for v in pair)
+        ran = device.type != "cuda" or all(
+            n > 0 for r in ranks for n in r["counts"].values()
+            if n is not None)
+        # the checkpoint in a state at model: 1
+        sd = init_byol_state_dict(encoder, projection_dim, prediction_dim,
+                                  torch.Generator().manual_seed(SEED + 1))
+        state = _byol_state(encoder, sd, device, projection_dim,
+                            prediction_dim)
+        restore_checkpoint(ckpt, "last_model", state)
+        saved = torch.load(os.path.join(ckpt, "last_model", "state.pt"),
+                           map_location="cpu", weights_only=True)["tensors"]
+        got = state_tensors(state)
+        same = got.keys() == saved.keys() and checksum(
+            [got[k].cpu() for k in saved]).tolist() == checksum(
+            saved.values()).tolist()
+        log(f"[tp entry] the ranks' pooled losses equal: "
+            f"{all(p == pooled[0] for p in pooled)}; last_model (written "
+            f"at model: 2) restored at model: 1 bit for bit: {same}")
+        if not (all(p == pooled[0] for p in pooled) and finite and ran
+                and same):
+            raise RuntimeError("tensor-parallel entry point: the ranks "
+                               "disagree, a loss is not finite, a kernel "
+                               "never ran or the checkpoint does not "
+                               "restore at model: 1")
+        t0 = time.perf_counter()
+        dryrun.main(dryrun_ranks)
+        log(f"[tp entry] parallel.dryrun {dryrun_ranks} (gloo, CPU): both "
+            f"halves OK in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
+                     f: int = 4096, heads: int = 16) -> None:
+    """20's kernels at the shard shapes of {model: 2}, each against its
+    plain version with the same window: kernel A and K3 on H/2 = 8 heads
+    from head 8 (the window (C, 512) of C = 1024), kernel B and K2 on F/2
+    = 2048 columns from 2048 of 4096 (b2 left out, as on model index 1),
+    K1 on the merged [B, T, 512] shard from column 512; each shard's
+    masks (K1's dumps) are the slices of the whole layer's bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 20)
+    seed = (0x2468ACE, 0x13579BD)
+    hl, d = heads // 2, c // heads
+    c0 = hl * d
+    bad = []
+    # kernel A and K3
+    q, k, v = (torch.randn(b, hl, t, d, generator=gen).to(dev, torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    gate = (torch.rand(b, hl, t, generator=gen) + 0.5).to(dev)
+    bias = torch.randn(hl, t, t, generator=gen).to(dev)
+    do = torch.randn(b, hl, t, d, generator=gen).to(dev, torch.bfloat16)
+    _reset_counts()
+    out = block_attention.block_gated_attention(
+        q, k, v, gate, bias, p_drop=DROP_P, dropout_seed=seed,
+        dropout_window=(c, c0))
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    keep = block_attention.attention_keep_mask(seed, (b, hl, t, d), DROP_P,
+                                               dev, (c, c0))
+    madd = mask_add(None, b, t, dev)
+    ref, lse = gated_bias_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                        gate, bias, madd, keep)
+    ref_grads = gated_bias_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                         gate, bias, madd, ref, lse, do,
+                                         keep)[:3]
+    errs = {"out": rel_err(out, ref)}
+    errs.update({n: rel_err(g, r) for n, g, r in
+                 zip(("dq", "dk", "dv"), grads, ref_grads)})
+    whole = fused_dropout.dump_dropout_mask(seed, (b, t, c), DROP_P, 0, dev)
+    part = fused_dropout.dump_dropout_mask(seed, (b, t, c0), DROP_P, 0, dev,
+                                           (c, c0))
+    slice_ok = torch.equal(part, whole[..., c0:])
+    ran = (block_attention.LAUNCHES, block_attention.BWD_LAUNCHES)
+    log(f"[tp kernels] kernel A + K3 on {hl} of {heads} heads, B={b} T={t}, "
+        f"dropout window (C={c}, c0={c0}), p={DROP_P}: out, dq, dk, dv vs "
+        f"plain {errs} (bound {GRAD_TOL}); the shard's mask is the slice "
+        f"of the layer's bit for bit: {slice_ok}; launches {ran}")
+    if max(errs.values()) > GRAD_TOL or not slice_ok or ran != (1, 1):
+        bad.append("kernel A / K3 with a window")
+    del q, k, v, gate, bias, do, out, grads, ref, ref_grads, keep, whole
+    # kernel B and K2
+    n, fl = b * t, f // 2
+    x = torch.randn(n, c, generator=gen).to(dev, torch.bfloat16)
+    w1 = (torch.randn(fl, c, generator=gen) * c ** -0.5).to(dev)
+    b1 = (0.02 * torch.randn(fl, generator=gen)).to(dev)
+    w2 = (torch.randn(c, fl, generator=gen) * f ** -0.5).to(dev)
+    b2 = (0.02 * torch.randn(c, generator=gen)).to(dev)
+    dy = torch.randn(n, c, generator=gen).to(dev, torch.bfloat16)
+    leaves = [x.clone().requires_grad_()] + [
+        p.clone().requires_grad_() for p in (w1, b1, w2, b2)]
+    _reset_counts()
+    y = fused_ffn.fused_ffn(*leaves, seed, DROP_P, DROP_P, shard=(f, fl))
+    got = torch.autograd.grad(y, leaves, dy)
+    act, hid = fused_ffn.dump_masks(seed, n, c, fl, DROP_P, DROP_P, dev,
+                                    (f, fl))
+    ref_y, h1, gd = fused_ffn.ffn_plain_fwd(x, w1, b1, w2,
+                                            torch.zeros_like(b2), act, hid,
+                                            torch.float32)
+    ref_g = fused_ffn.ffn_plain_bwd(dy, x, h1, gd, w1, w2, act, hid)
+    errs = {"out": rel_err(y, ref_y)}
+    errs.update({nm: rel_err(g, r) for nm, g, r in
+                 zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref_g)})
+    whole_act = fused_dropout.dump_dropout_mask(seed, (n, f), DROP_P,
+                                                fused_ffn.SITE_ACT, dev)
+    slice_ok = torch.equal(act, whole_act[:, fl:])
+    ran = (fused_ffn.LAUNCHES, fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES)
+    log(f"[tp kernels] kernel B + K2 on {fl} of {f} columns from {fl}, "
+        f"N={n} C={c}, its float32 partial sum (b2 left out), p={DROP_P}: "
+        f"out ({y.dtype}), dx, dw1, db1, dw2, db2 "
+        f"vs plain {errs} (bound {GRAD_TOL}); the activation site's mask is "
+        f"the slice of the layer's bit for bit: {slice_ok}; launches {ran}")
+    if max(errs.values()) > GRAD_TOL or not slice_ok or ran != (1, 1, 1) \
+            or y.dtype != torch.float32:
+        bad.append("kernel B / K2 with a window")
+    del x, w1, b1, w2, b2, dy, leaves, y, got, act, hid, ref_y, h1, gd, ref_g
+    del whole_act
+    # K1 over the merged shard
+    xs = torch.randn(b, t, c0, generator=gen).to(dev, torch.bfloat16)
+    _reset_counts()
+    ys = fused_dropout.hw_dropout(xs, seed, DROP_P, window=(c, c0))
+    mask = philox.dump_mask(seed, 0, (b, t, c0), DROP_P, dev, (c, c0))
+    err = float((ys.float() - fused_dropout.dropout_plain(xs, mask).float())
+                .abs().max())
+    log(f"[tp kernels] K1 on [{b}, {t}, {c0}] from column {c0} of {c}: "
+        f"max|Δ| against the plain version with the Philox twin's window "
+        f"mask {err} (bound 0); launches {fused_dropout.LAUNCHES}")
+    if err != 0.0 or fused_dropout.LAUNCHES != 1:
+        bad.append("K1 with a window")
+    if bad:
+        raise RuntimeError(f"the kernels with dropout windows: {bad}")
+
+
+REPEAT_STEPS = 2
+
+
+def _repeat_worker(rank: int, world: int, cfg, device: str, batch: int,
+                   clip_seconds: float, steps: int, projection_dim: int,
+                   prediction_dim: int, deterministic: bool) -> dict:
+    """One rank of 19(b)'s two-rank step (every random feature on) with
+    a checksum of every tensor on the way, in order: each encoder layer's
+    output and the pooled embedding of both towers, each ``all_reduce``'s
+    input and output, each parameter's gradient before the gradient
+    ``all_reduce``, the parameters after the step."""
+    from nrse_tpu_torch.parallel.mesh import checksum, make_mesh, shard_batch
+
+    device = _rank_device(device)
+    torch.backends.cudnn.deterministic = deterministic
+    mesh = make_mesh(device=device)
+    st = _byol_state(cfg, init_byol_state_dict(
+        cfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED)), device, projection_dim,
+        prediction_dim, mesh)
+    local = shard_batch(mesh, _train_batch(batch, clip_seconds, device))
+    step = make_byol_train_step(_adamw_spec())
+    events = []
+
+    def note(name, t):
+        events.append((name, checksum([t]).tolist()))
+
+    for tower in ("online", "target"):
+        enc = getattr(st, tower).encoder
+        for i, layer in enumerate(enc.encoder.layers):
+            layer.register_forward_hook(
+                lambda m, a, o, n=f"{tower}.layer{i}": note(n, o))
+        enc.register_forward_hook(
+            lambda m, a, o, n=f"{tower}.pooled": note(n, o[1]))
+    named = list(st.online.named_parameters())
+    real = dist.all_reduce
+
+    def spy(t, *args, **kwargs):
+        grads = t is st.grads
+        if grads:
+            for name, p in named:
+                note(f"grad.{name}", p.grad)
+        note(f"all_reduce{list(t.shape)}.in", t)
+        work = real(t, *args, **kwargs)
+        note(f"all_reduce{list(t.shape)}.out", t)
+        return work
+
+    dist.all_reduce = spy
+    try:
+        per_step = []
+        for _ in range(steps):
+            events.clear()
+            m = step(st, local)
+            note("params", st.params)
+            sync(device)
+            per_step.append({"loss": float(m["loss"]),
+                             "events": list(events)})
+    finally:
+        dist.all_reduce = real
+    return {"rank": rank, "steps": per_step}
+
+
+def _first_difference(a: list, b: list):
+    """The first event whose checksums differ between two runs' event
+    lists, or None."""
+    for (na, ca), (nb, cb) in zip(a, b):
+        if na != nb:
+            return f"{na} / {nb} (the runs' events differ)"
+        if ca != cb:
+            return na
+    return None
+
+
+def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
+                    batch: int = TRAIN_BATCH,
+                    clip_seconds: float = CLIP_SECONDS,
+                    steps: int = REPEAT_STEPS, projection_dim: int = 1024,
+                    prediction_dim: int = 2048) -> None:
+    """19(b)'s two-rank step (gloo, the card shared, every random feature
+    on) run twice, each time in fresh processes, compared after each step
+    down to the first tensor that differs; if they differ, twice more with
+    cuDNN held to its deterministic algorithms."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cfg = cfg or WavLMConfig.large()
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+
+    def pair(deterministic):
+        runs = [run_ranks(_repeat_worker, 2, (
+            cfg, spec, batch, clip_seconds, steps, projection_dim,
+            prediction_dim, deterministic), threads=0, timeout=600)
+            for _ in range(2)]
+        found = []
+        for r in range(2):
+            for i, (a, b) in enumerate(zip(runs[0][r]["steps"],
+                                           runs[1][r]["steps"])):
+                where = _first_difference(a["events"], b["events"])
+                found.append((r, i, a["loss"], b["loss"], where,
+                              len(a["events"])))
+        for r, i, la, lb, where, n in found:
+            log(f"[dp repeat] cuDNN deterministic {deterministic}: rank {r} "
+                f"step {i}: losses {la!r} / {lb!r}; of {n} tensors the first "
+                f"that differs between the two calls: {where}")
+        return all(w is None for *_, w, _ in found)
+
+    if not pair(False):
+        pair(True)
+
+
+
+def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
+    """20: tensor parallelism on the one card, the kernels at the shard
+    shapes, (a) to (c), and phase 19(b)'s step run twice."""
+    if device.type == "cuda":
+        phase_tp_kernels()
+        torch.cuda.empty_cache()
+    phase_tp_step(cfg, device)
+    phase_tp_k5(cfg, device)
+    phase_tp_entry(device)
+    phase_dp_repeat(cfg, device)
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -4836,6 +5500,7 @@ def main() -> int:
     phase_classifier()
     phase_bridges()
     phase_dp()
+    phase_tp()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

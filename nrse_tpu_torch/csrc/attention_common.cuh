@@ -39,6 +39,10 @@ struct AttnDrop {
   uint32_t k0, k1;    // Philox key (mode 1)
   float p, scale;     // drop probability and keep scale 1 / (1 - p)
   int mode;           // 0 none, 1 Philox, 2 explicit mask
+  // K1's merged [B, T, cg] layout that mode 1 indexes: this call's heads
+  // are its columns from c0 (cg = H * 64, c0 = 0 unless the heads are a
+  // shard of a wider layer's)
+  uint32_t cg, c0;
 
   // The explicit mask's multiplier of element (b, h, t, d) (mode 2).
   __device__ __forceinline__ float mask_at(int b, int h, int t, int d, int H,
@@ -63,11 +67,9 @@ struct AttnDrop {
     const int t = t0 + 8 * par;
     uint32_t own = 0u;
     if (t < T) {
-      const uint64_t g0 =
-          ((static_cast<uint64_t>(b) * T + t) *
-               (static_cast<uint64_t>(H) * kAttnHeadDim) +
-           static_cast<uint64_t>(h) * kAttnHeadDim + 4 * ((lane & 3) >> 1)) >>
-          2;
+      const uint64_t g0 = (static_cast<uint64_t>(b * T + t) * cg + c0 +
+                           static_cast<uint64_t>(h) * kAttnHeadDim +
+                           4 * ((lane & 3) >> 1)) >> 2;
 #pragma unroll
       for (int jd = 0; jd < kAttnHeadDim / 8; ++jd) {
         own |= philox_keep_bits4(k0, k1, g0 + 2 * jd, 0u, p) << (4 * jd);

@@ -319,15 +319,16 @@ dout_prep_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
     const uint4 ov = *reinterpret_cast<const uint4*>(out + idx);
     float4 ka = make_float4(1.f, 1.f, 1.f, 1.f), kb = ka;
     if (drop.mode == 1) {
-      // the row's elements sit at (b T + t) H 64 + h 64 + d in K1's
-      // merged layout; col is a multiple of 8, so two whole groups
+      // the row's elements sit at (b T + t) cg + c0 + h 64 + d in K1's
+      // merged layout (cg = H 64, c0 = 0 for all of a layer's heads); col
+      // is a multiple of 8, so two whole groups
       const int t = row % T;
       const int bh = row / T;
       const int b = bh / H;
-      const uint64_t g0 =
-          ((static_cast<uint64_t>(b) * T + t) *
-               (static_cast<uint64_t>(H) * kHeadDim) +
-           static_cast<uint64_t>(bh - b * H) * kHeadDim + col) >> 2;
+      const uint64_t g0 = (static_cast<uint64_t>(b * T + t) * drop.cg +
+                           drop.c0 +
+                           static_cast<uint64_t>(bh - b * H) * kHeadDim +
+                           col) >> 2;
       ka = nrse::philox_keep4(drop.k0, drop.k1, g0, 0u, drop.p, drop.scale);
       kb = nrse::philox_keep4(drop.k0, drop.k1, g0 + 1, 0u, drop.p,
                               drop.scale);
@@ -771,26 +772,28 @@ dbias_sum_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
 
 }  // namespace
 
-// Dropout as in nrse_block_attention_fwd: mode 0 none, 1 Philox under
-// (k0, k1) with probability p and keep scale `keep_scale`, 2 the explicit
-// f32 [B, H, T, D] `mask`.  q, k, v, dout, out (kernel A's, after
-// dropout), dq, dk, dv: contiguous bf16 [B, H, T, D], 16-byte aligned;
-// gate, lse, dgate: f32 [B, H, T]; bias, dbias: f32 [H, T, T]; madd: f32
-// [B, T].  Scratch: dop bf16 [B, H, T, D] and delta f32 [B, H, T] (the
-// pre-pass's), and partial, f32 of slices * H * T * T elements, where
+// Dropout as in nrse_block_attention_fwd: mode 0 none, 1 Philox under (k0, k1)
+// with probability p and keep scale `keep_scale` over the merged layout's
+// window (cg, c0), 2 the explicit f32 [B, H, T, D] `mask`.  q, k, v, dout, out
+// (kernel A's, after dropout), dq, dk, dv: contiguous bf16 [B, H, T, D],
+// 16-byte aligned; gate, lse, dgate: f32 [B, H, T]; bias, dbias: f32 [H, T,
+// T]; madd: f32 [B, T].  Scratch: dop bf16 [B, H, T, D] and delta f32 [B, H,
+// T] (the pre-pass's), and partial, f32 of slices * H * T * T elements, where
 // slices = ceil(B / group) on the wgmma route (T_pad <= 256; group >= 4
-// batches, or all of them; no scratch, and partial may be null, for one
-// group) and B on the mma.sync route, which ignores group
+// batches, or all of them; no scratch, and partial may be null, for one group)
+// and B on the mma.sync route, which ignores group
 // (ops/block_attention.py::attention_bwd_plan).
 extern "C" int nrse_block_attention_bwd(
     const void* q, const void* k, const void* v, const void* gate,
     const void* bias, const void* madd, const void* dout, const void* out,
     const void* lse, const void* mask, unsigned k0, unsigned k1, float p,
-    float keep_scale, int mode, void* dq, void* dk, void* dv, void* dgate,
-    void* dbias, void* dop, void* delta, void* partial, int group, int B,
-    int H, int T, int D, float scale, void* stream) {
+    float keep_scale, int mode, unsigned cg, unsigned c0, void* dq, void* dk,
+    void* dv, void* dgate, void* dbias, void* dop, void* delta,
+    void* partial, int group, int B, int H, int T, int D, float scale,
+    void* stream) {
   if (D != kHeadDim || T < 1 || T > kMaxT || B < 1 || H < 1 || mode < 0 ||
-      mode > 2 || (mode == 2 && mask == nullptr))
+      mode > 2 || (mode == 2 && mask == nullptr) ||
+      cg < static_cast<unsigned>(H * kHeadDim) + c0 || c0 % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = B * H * T;
@@ -798,7 +801,7 @@ extern "C" int nrse_block_attention_bwd(
                      kPrepThreads, 0, s>>>(
       static_cast<const bf16*>(dout), static_cast<const bf16*>(out),
       nrse::AttnDrop{static_cast<const float*>(mask), k0, k1, p, keep_scale,
-                     mode},
+                     mode, cg, c0},
       static_cast<bf16*>(dop), static_cast<float*>(delta), H, T, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -429,22 +429,28 @@ block_attention_fwd_kernel(Args args) {
 
 }  // namespace
 
-// Dropout: mode 0 none, 1 Philox under (k0, k1) with probability p and
-// keep scale `keep_scale`, 2 the explicit f32 [B, H, T, D] `mask`.  q, k,
-// v, out: contiguous bf16 [B, H, T, D], 16-byte aligned; gate, lse: f32
-// [B, H, T]; bias: f32 [H, T, T]; madd: f32 [B, T].  T <= 256 after
-// padding to 64 takes the one-pass wgmma route, longer T the two-pass one.
+// Dropout: mode 0 none, 1 Philox under (k0, k1) with probability p and keep
+// scale `keep_scale`, 2 the explicit f32 [B, H, T, D] `mask`.  Mode 1 draws
+// K1's mask over a merged [B, T, cg] layout of which these H heads are the
+// columns from c0: cg = H * 64 and c0 = 0 for all of a layer's heads, a wider
+// cg and c0 = h0 * 64 for a shard of heads from h0 (tensor parallelism), whose
+// mask is then the slice of the whole layer's.  q, k, v, out: contiguous bf16
+// [B, H, T, D], 16-byte aligned; gate, lse: f32 [B, H, T]; bias: f32 [H, T,
+// T]; madd: f32 [B, T].  T <= 256 after padding to 64 takes the one-pass wgmma
+// route, longer T the two-pass one.
 extern "C" int nrse_block_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* gate,
                                         const void* bias, const void* madd,
                                         void* out, void* lse,
                                         const void* mask, unsigned k0,
                                         unsigned k1, float p,
-                                        float keep_scale, int mode, int B,
+                                        float keep_scale, int mode,
+                                        unsigned cg, unsigned c0, int B,
                                         int H, int T, int D, float scale,
                                         void* stream) {
   if (D != kHeadDim || T < 1 || T > kMaxT || B < 1 || H < 1 || mode < 0 ||
-      mode > 2 || (mode == 2 && mask == nullptr))
+      mode > 2 || (mode == 2 && mask == nullptr) ||
+      cg < static_cast<unsigned>(H * kHeadDim) + c0 || c0 % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   Args args;
   args.q = static_cast<const bf16*>(q);
@@ -456,7 +462,7 @@ extern "C" int nrse_block_attention_fwd(const void* q, const void* k,
   args.out = static_cast<bf16*>(out);
   args.lse = static_cast<float*>(lse);
   args.drop = nrse::AttnDrop{static_cast<const float*>(mask), k0, k1, p,
-                             keep_scale, mode};
+                             keep_scale, mode, cg, c0};
   args.H = H;
   args.T = T;
   args.scale = scale;

@@ -39,7 +39,7 @@ template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
                void* __restrict__ out, int64_t n, uint32_t k0, uint32_t k1,
-               uint32_t site, float p, float scale) {
+               uint32_t site, float p, float scale, nrse::Window win) {
   const int64_t base =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kVec;
   if (base >= n) return;
@@ -57,10 +57,13 @@ dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
     }
   } else {
     // base is a multiple of 8: elements base .. base + 7 are groups
-    // base / 4 and base / 4 + 1, whole (past n on a ragged end, unused)
+    // base / 4 and base / 4 + 1, whole (past n on a ragged end, unused),
+    // each within a row of a shard, whose window places it
     const uint64_t g = static_cast<uint64_t>(base) >> 2;
-    const float4 a = nrse::philox_keep4(k0, k1, g, site, p, scale);
-    const float4 b = nrse::philox_keep4(k0, k1, g + 1, site, p, scale);
+    const float4 a =
+        nrse::philox_keep4(k0, k1, win.group(g), site, p, scale);
+    const float4 b =
+        nrse::philox_keep4(k0, k1, win.group(g + 1), site, p, scale);
     keep[0] = a.x; keep[1] = a.y; keep[2] = a.z; keep[3] = a.w;
     keep[4] = b.x; keep[5] = b.y; keep[6] = b.z; keep[7] = b.w;
   }
@@ -102,13 +105,21 @@ dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
 // mode 0: out = dropout(x) under the key (k0, k1) at `site`, x/out bf16;
 // mode 1: out = x * mask (mask f32, the layout of x); mode 2: out (f32)
 // = the keep mask of n elements (x unused).  Every pointer 16-byte
-// aligned; n elements, flat.
+// aligned; n elements, flat.  Modes 0 and 2 draw over the window (wl, wg,
+// c0): x as rows of wl columns holding columns [c0, c0 + wl) of rows wg
+// long (philox.cuh Window; wl = wg = c0 = 0 for a whole tensor).
 extern "C" int nrse_dropout(const void* x, const void* mask, void* out,
                             long long n, unsigned k0, unsigned k1,
                             unsigned site, float p, float scale, int mode,
+                            unsigned wl, unsigned wg, unsigned c0,
                             void* stream) {
-  if (n < 1 || mode < 0 || mode > 2)
+  if (n < 1 || mode < 0 || mode > 2 || wl % 4 || wg % 4 || c0 % 4 ||
+      wg < wl + c0 || (wg != 0 && (wl == 0 || n % wl != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  nrse::Window win;
+  win.wl = wl;
+  win.wg = wg;
+  win.c0 = c0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t threads = (n + kVec - 1) / kVec;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) /
@@ -117,13 +128,13 @@ extern "C" int nrse_dropout(const void* x, const void* mask, void* out,
   const float* m = static_cast<const float*>(mask);
   if (mode == 0) {
     dropout_kernel<0><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
-                                                  site, p, scale);
+                                                  site, p, scale, win);
   } else if (mode == 1) {
     dropout_kernel<1><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
-                                                  site, p, scale);
+                                                  site, p, scale, win);
   } else {
     dropout_kernel<2><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
-                                                  site, p, scale);
+                                                  site, p, scale, win);
   }
   return static_cast<int>(cudaGetLastError());
 }

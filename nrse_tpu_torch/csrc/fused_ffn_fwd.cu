@@ -133,11 +133,13 @@ struct EpiGelu : KeepAux<kTrain, true> {
   }
 };
 
-// GEMM2: out = bf16((acc + b2) * keep_hid)
+// GEMM2: out = bf16((acc + b2) * keep_hid), or the same in f32 into out32
+// (a column shard's partial sum, rounded only after the shards' sum)
 template <bool kTrain>
 struct EpiBias : KeepAux<kTrain, false> {
   const float* bias;
   bf16* out;
+  float* out32;  // non-null: the f32 output instead of out
   int M, ld;
   DropSite drop;
 
@@ -169,7 +171,11 @@ struct EpiBias : KeepAux<kTrain, false> {
             x0 *= k.x;
             x1 *= k.y;
           }
-          store_bf16x2(out + idx, x0, x1);
+          if (out32 != nullptr) {
+            *reinterpret_cast<float2*>(out32 + idx) = make_float2(x0, x1);
+          } else {
+            store_bf16x2(out + idx, x0, x1);
+          }
         }
       }
     }
@@ -182,8 +188,8 @@ bool bad_shape(int N, int C, int F) {
 
 template <bool kTrain>
 int run(const void* x, const void* w1, const void* b1, const void* w2,
-        const void* b2, void* h, void* h1, void* out, DropSite act,
-        DropSite hid, int N, int C, int F, void* stream) {
+        const void* b2, void* h, void* h1, void* out, int out_f32,
+        DropSite act, DropSite hid, int N, int C, int F, void* stream) {
   if (bad_shape(N, C, F)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const EpiGelu<kTrain> e1{{}, static_cast<const float*>(b1),
@@ -191,7 +197,9 @@ int run(const void* x, const void* w1, const void* b1, const void* w2,
   cudaError_t err = nrse::wg::launch(x, w1, nullptr, h, N, F, C, e1, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const EpiBias<kTrain> e2{{}, static_cast<const float*>(b2),
-                           static_cast<bf16*>(out), N, C, hid};
+                           out_f32 ? nullptr : static_cast<bf16*>(out),
+                           out_f32 ? static_cast<float*>(out) : nullptr, N,
+                           C, hid};
   return static_cast<int>(
       nrse::wg::launch(h, w2, nullptr, nullptr, N, C, F, e2, s));
 }
@@ -199,31 +207,43 @@ int run(const void* x, const void* w1, const void* b1, const void* w2,
 }  // namespace
 
 // Serving: x [N, C], w1 [F, C], b1 [F] f32, w2 [C, F], b2 [C] f32; h [N, F]
-// is scratch the caller allocates; out [N, C].  All bf16 unless noted,
+// is scratch the caller allocates; out [N, C], f32 if out_f32 (a column
+// shard's partial sum under tensor parallelism).  All bf16 unless noted,
 // 16-byte aligned.
 extern "C" int nrse_fused_ffn_fwd(const void* x, const void* w1,
                                   const void* b1, const void* w2,
-                                  const void* b2, void* h, void* out, int N,
-                                  int C, int F, void* stream) {
+                                  const void* b2, void* h, void* out,
+                                  int out_f32, int N, int C, int F,
+                                  void* stream) {
   const DropSite none{nullptr, 0u, 0u, 0u, 0.f, 1.f, 0};
-  return run<false>(x, w1, b1, w2, b2, h, nullptr, out, none, none, N, C, F,
-                    stream);
+  return run<false>(x, w1, b1, w2, b2, h, nullptr, out, out_f32, none, none,
+                    N, C, F, stream);
 }
 
-// Training: as above, with h = gd kept by the caller, h1 [N, F] bf16 (or
-// null: nothing saved), and the two dropout sites.  mode 0: no dropout;
-// 1: Philox under the key (k0, k1), site 0 = activation over [N, F],
+// Training: as above (out f32 if out_f32), with h = gd kept by the caller, h1
+// [N, F] bf16 (or null: nothing saved), and the two dropout sites.  Mode 0: no
+// dropout; 1: Philox under the key (k0, k1), site 0 = activation over [N, F],
 // site 1 = hidden over [N, C]; 2: explicit f32 masks mask_act [N, F] and
-// mask_hid [N, C].  A site with p = 0 under mode 1 is not masked.
+// mask_hid [N, C].  A site with p = 0 under mode 1 is not masked.  Under mode
+// 1 the activation site's F columns are columns [f0, f0 + F) of an [N,
+// f_global] layer (a column shard under tensor parallelism; f_global = F and
+// f0 = 0 for a whole layer), whose mask they draw the slice of.
 extern "C" int nrse_fused_ffn_fwd_train(
     const void* x, const void* w1, const void* b1, const void* w2,
-    const void* b2, void* h, void* h1, void* out, const void* mask_act,
-    const void* mask_hid, unsigned k0, unsigned k1, float p_act, float p_hid,
-    float scale_act, float scale_hid, int mode, int N, int C, int F,
-    void* stream) {
-  const DropSite act{static_cast<const float*>(mask_act), k0, k1, 0u, p_act,
-                     scale_act, (mode == 1 && p_act == 0.f) ? 0 : mode};
+    const void* b2, void* h, void* h1, void* out, int out_f32,
+    const void* mask_act, const void* mask_hid, unsigned k0, unsigned k1,
+    float p_act, float p_hid,
+    float scale_act, float scale_hid, int mode, unsigned f_global,
+    unsigned f0, int N, int C, int F, void* stream) {
+  if (f_global < static_cast<unsigned>(F) + f0 || f0 % 4 || f_global % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DropSite act{static_cast<const float*>(mask_act), k0, k1, 0u, p_act,
+               scale_act, (mode == 1 && p_act == 0.f) ? 0 : mode};
+  act.win.wl = static_cast<uint32_t>(F);
+  act.win.wg = f_global;
+  act.win.c0 = f0;
   const DropSite hid{static_cast<const float*>(mask_hid), k0, k1, 1u, p_hid,
                      scale_hid, (mode == 1 && p_hid == 0.f) ? 0 : mode};
-  return run<true>(x, w1, b1, w2, b2, h, h1, out, act, hid, N, C, F, stream);
+  return run<true>(x, w1, b1, w2, b2, h, h1, out, out_f32, act, hid, N, C, F,
+                   stream);
 }

@@ -17,6 +17,11 @@
 // that holds the group's two halves in the accumulator layout: K2's dgd
 // product, kernel B's two products, kernel A's output): one draw per four
 // elements, nothing thrown away.
+//
+// A shard of a tensor split by columns (tensor parallelism) draws the
+// slice of the whole tensor's mask through its Window: its element
+// (row, col) takes the index row * wg + c0 + col of the whole [N, wg]
+// tensor whose columns [c0, c0 + wl) it holds.
 #pragma once
 
 #include <stdint.h>
@@ -48,6 +53,28 @@ __device__ __forceinline__ Philox4 philox4(uint32_t k0, uint32_t k1,
   }
   return Philox4{{c0, c1, c2, c3}};
 }
+
+// A shard's place in the whole tensor's flat index.  The default (wg = 0)
+// and a shard of full width (wl == wg, c0 = 0) keep their own index.  wl,
+// wg and c0 are multiples of 4, so a group of four elements of the shard
+// is one group of the whole.
+struct Window {
+  uint32_t wl = 0, wg = 0, c0 = 0;
+
+  // The index of element (row, col) of a shard whose rows are ld long.
+  __device__ __forceinline__ uint64_t index(uint64_t row, uint32_t col,
+                                            uint32_t ld) const {
+    return wg ? row * wg + c0 + col : row * ld + col;
+  }
+
+  // The group of the whole that the shard's flat group g is.
+  __device__ __forceinline__ uint64_t group(uint64_t g) const {
+    if (wg == wl) return g;
+    const uint64_t per = wl >> 2;
+    const uint64_t row = g / per;
+    return row * (wg >> 2) + (c0 >> 2) + (g - row * per);
+  }
+};
 
 // Whether one output word keeps its element.
 __device__ __forceinline__ bool philox_kept(uint32_t bits, float p) {
@@ -84,11 +111,13 @@ struct DropSite {
   uint32_t k0, k1, site;
   float p, scale;
   int mode;  // 0 none, 1 philox, 2 explicit mask
+  Window win;  // mode 1: the shard's window (default: a whole tensor)
 
   // The multipliers of elements 4 g .. 4 g + 3 (one draw in mode 1; the
   // explicit mask is read as one float4, so it must be 16-byte aligned).
   __device__ __forceinline__ float4 keep4(uint64_t group) const {
-    if (mode == 1) return philox_keep4(k0, k1, group, site, p, scale);
+    if (mode == 1)
+      return philox_keep4(k0, k1, win.group(group), site, p, scale);
     if (mode == 2) return reinterpret_cast<const float4*>(mask)[group];
     return make_float4(1.f, 1.f, 1.f, 1.f);
   }

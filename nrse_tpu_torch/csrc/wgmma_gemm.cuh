@@ -138,7 +138,9 @@ constexpr int kKeepAuxJobs = 256;
 // those two threads hold the two halves of each group of four columns of
 // the contract (philox.cuh), so one draw per group serves both: words 0-1
 // to the even thread (its two columns), 2-3 to the odd one.  Nothing is
-// drawn twice or thrown away.  Only for mode 1 (Philox).
+// drawn twice or thrown away.  Only for mode 1 (Philox); a shard draws
+// its window's groups (the 16 groups of a job are consecutive in the whole
+// tensor's row too).
 __device__ __forceinline__ void keep_bits_job(const DropSite& site, int ld,
                                               int mt, int n0, int job,
                                               uint32_t* words) {
@@ -148,8 +150,8 @@ __device__ __forceinline__ void keep_bits_job(const DropSite& site, int ld,
   const int lane = t & 31;
   const int row = mt * kBM + (t >> 5) * 16 + (lane >> 2) + 64 * (rh >> 1) +
                   8 * (rh & 1);
-  const uint64_t g0 = (static_cast<uint64_t>(row) * ld + n0 +
-                       4 * ((lane & 3) >> 1)) >> 2;
+  const uint64_t g0 =
+      site.win.index(row, n0 + 4 * ((lane & 3) >> 1), ld) >> 2;
   uint32_t even = 0u, odd = 0u;
 #pragma unroll 4
   for (int j = 0; j < 16; ++j) {

@@ -33,6 +33,7 @@ import torch
 from nrse_tpu_torch.data.noisy_speech_dataset import NoiseRobustSpeechDataset
 from nrse_tpu_torch.parallel.distributed import (
     process_count,
+    process_index,
     process_local_indices,
 )
 from nrse_tpu_torch.runtime.native import native_readahead
@@ -120,13 +121,15 @@ class HostDataLoader:
                 yield batch
 
 
-def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:
+def create_dataloaders(config, mesh=None
+                       ) -> Tuple[HostDataLoader, HostDataLoader]:
     """Seeded random split + train/validation loaders.  In a group of
     ranks (``parallel.distributed``) each rank loads its strided shard of
     both splits at ``batch_size / ranks`` (the batch must divide), every
     shard truncated to one length, so that every rank takes the same
     number of steps (a ragged tail would deadlock the gradient
-    reduction)."""
+    reduction).  With a ``mesh`` (a ``parallel.mesh.DataMesh``) the shards
+    are its data axis's: the ranks of a model group load the same rows."""
     data_cfg = config["data"]
     train_cfg = config["training"]
     dataset = NoiseRobustSpeechDataset(
@@ -146,14 +149,17 @@ def create_dataloaders(config) -> Tuple[HostDataLoader, HostDataLoader]:
     train_idx, val_idx = perm[:train_size], perm[train_size:]
     num_workers = train_cfg.get("num_workers", 8)
     bs = train_cfg["batch_size"]
-    nproc = process_count()
+    pid, nproc = ((mesh.data_index, mesh.data) if mesh is not None
+                  else (process_index(), process_count()))
     if nproc > 1:  # the split above is seeded: every rank agrees on it
         if bs % nproc != 0:
             raise ValueError(f"training.batch_size={bs} must be divisible "
-                             f"by the process count ({nproc})")
+                             f"by the data axis's {nproc} ranks")
         bs //= nproc
-        train_idx = train_idx[process_local_indices(len(train_idx))]
-        val_idx = val_idx[process_local_indices(len(val_idx))]
+        train_idx = train_idx[process_local_indices(len(train_idx), None,
+                                                    pid, nproc)]
+        val_idx = val_idx[process_local_indices(len(val_idx), None, pid,
+                                                nproc)]
     train_loader = HostDataLoader(dataset, train_idx, bs, shuffle=True,
                                   seed=seed, num_workers=num_workers,
                                   drop_last=True)

@@ -72,8 +72,8 @@ def validate_model(state: BYOLTrainState, val_loader, config
     """``(val_loss, metrics)`` with ``metrics`` holding ``val_loss``,
     ``val_avg_similarity`` (the mean over the SNRs that have rows) and
     ``val_similarities`` (per SNR; SNRs without rows are left out); in a
-    group of ranks, of every rank's rows (pooled sums and counts, a bin
-    empty here may hold rows elsewhere)."""
+    group of ranks, of every rank's rows (pooled sums and counts over the
+    data axis, a bin empty here may hold rows elsewhere)."""
     losses, sims, snrs, _ = _run_eval_pass(state, val_loader)
     snr_range = config["data"]["snr_range"]
     if process_count() > 1:
@@ -83,7 +83,7 @@ def validate_model(state: BYOLTrainState, val_loader, config
             mask = snrs == float(snr)
             sums[f"snr_{snr}_sum"] = sims[mask].sum(dtype=np.float64)
             sums[f"snr_{snr}_cnt"] = int(mask.sum())
-        totals = aggregate_sums(sums)
+        totals = aggregate_sums(sums, state.mesh)
         avg_loss = totals["loss_sum"] / totals["loss_cnt"] \
             if totals["loss_cnt"] else float("inf")
         similarities = {snr: totals[f"snr_{snr}_sum"]

@@ -8,7 +8,9 @@ the online tower's and then follow it by EMA; the loss
 float32 on ``pooled.float()``.  Submodule names (``encoder``,
 ``projector``, ``predictor``) follow the JAX trees, so the online and the
 target parameters line up in order: the target's are a prefix of the
-online tower's.
+online tower's.  A tower built with a ``parallel.mesh.DataMesh`` whose
+model axis is above 1 holds this rank's shards of the encoder's layers
+(``models.wavlm``); the heads stay whole.
 """
 
 from __future__ import annotations
@@ -29,9 +31,10 @@ class TargetNetwork(nn.Module):
     """Encoder → projector.  Returns ``(proj, pooled)``."""
 
     def __init__(self, config: WavLMConfig, projection_dim: int = 1024,
-                 device=None, compute_dtype: Optional[torch.dtype] = None):
+                 device=None, compute_dtype: Optional[torch.dtype] = None,
+                 mesh=None):
         super().__init__()
-        self.encoder = WavLMModel(config, device, compute_dtype)
+        self.encoder = WavLMModel(config, device, compute_dtype, mesh)
         self.projector = ProjectionHead(config.hidden_size, projection_dim,
                                         projection_dim, device)
 
@@ -46,8 +49,8 @@ class OnlineNetwork(TargetNetwork):
 
     def __init__(self, config: WavLMConfig, projection_dim: int = 1024,
                  prediction_dim: int = 2048, device=None,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(config, projection_dim, device, compute_dtype)
+                 compute_dtype: Optional[torch.dtype] = None, mesh=None):
+        super().__init__(config, projection_dim, device, compute_dtype, mesh)
         self.predictor = PredictionHead(projection_dim, prediction_dim,
                                         projection_dim, device)
 
@@ -68,7 +71,8 @@ def make_target(online: OnlineNetwork) -> TargetNetwork:
     (``nrse_tpu/models/byol.py:163-181``)."""
     enc = online.encoder
     target = TargetNetwork(enc.config, online.projector.bn_1.weight.numel(),
-                           device="meta", compute_dtype=enc.compute_dtype)
+                           device="meta", compute_dtype=enc.compute_dtype,
+                           mesh=enc.mesh)
     sd = {k: v.detach().clone() for k, v in online.state_dict().items()
           if not k.startswith("predictor.")}
     target.load_state_dict(sd, strict=True, assign=True)

@@ -50,6 +50,31 @@ layer per step (the whole batch skips together, never layer 0);
 SpecAugment spans drawn on the host.  Every random choice comes from a
 :class:`TrainRNG` (seed, step, tower), which training mode requires.
 
+Tensor parallelism (a model built with a ``parallel.mesh.DataMesh`` whose
+model axis is ``m > 1``) splits each layer Megatron-style, by
+``parallel.mesh.partition_rule`` (the JAX package's
+``param_partition_spec``): a rank holds the q/k/v rows of its ``H/m``
+heads from ``h0``, ``out_proj``'s columns of them, the FFN's ``F/m``
+columns from ``f0`` (``intermediate_dense``'s rows, ``output_dense``'s
+columns) and the biases of the split rows; everything else is replicated.
+The attention and the FFN each take their input through
+``copy_to_model`` and sum their output over the model group with
+``reduce_from_model``: the partial products of ``out_proj`` and of kernel
+B's second product stay float32 and are rounded once after the sum, as a
+whole layer's are; ``out_proj``'s bias is added after the sum, and
+``output_dense``'s inside kernel B on model index 0 only.  Each rank runs
+kernel A/K3 (or K5) on its heads and kernel B/K2 on its columns; their
+dropout draws the slices of the whole layer's masks (the attention
+output's over the merged ``[B, T, C]`` from column ``h0·D``, the FFN
+activation's over ``[N, F]`` from ``f0``; ``ops/philox.py``'s windows),
+and the replicated sites draw the whole masks, the same on every rank, so
+a run at ``{data: d, model: m}`` computes what one at ``{data: d, model:
+1}`` does up to the order of float sums.  The replicated parameters each
+rank uses for its own heads only (``gru_rel_pos_linear``, this rank's
+entries of ``gru_rel_pos_const`` and columns of ``rel_attn_embed``) go
+through ``copy_to_model`` too, so their gradients are summed over the
+heads of every rank, as GSPMD sums them in JAX.
+
 Parameter names are HF ``WavLMModel``'s state-dict keys, so the layout
 ``nrse_tpu/models/export_torch.py`` writes loads strictly.  Numerics follow
 the JAX module (``dtype=bfloat16, param_dtype=float32`` on the card): the
@@ -65,6 +90,7 @@ the valid frames' values.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -85,6 +111,10 @@ from nrse_tpu_torch.ops.pallas_norm import channel_layernorm
 from nrse_tpu_torch.ops.rel_pos_bias import (
     compute_position_bias,
     rel_bias_vector,
+)
+from nrse_tpu_torch.parallel.distributed import (
+    copy_to_model,
+    reduce_from_model,
 )
 
 # flax GroupNorm's default epsilon, which the JAX frontend keeps
@@ -200,14 +230,15 @@ class TrainRNG:
     seed gives the same masks on the CPU and on the card.
 
     Data parallelism (``rank`` of ``world`` ranks, each holding the rows
-    ``[rank·b, (rank+1)·b)`` of the global batch) follows the JAX
-    package's contract on an N-wide ``data`` mesh: the host draws without
-    a batch axis (LayerDrop) are the same on every rank; the draws over
-    the batch (SpecAugment's spans, the SER trunks' dropout) are made at
-    the global batch and each rank keeps its rows (:meth:`rows`), as
-    ``jax.random`` draws a global array; the kernels' dropout streams mix
-    the rank into the seed (:meth:`dropout_seed`).  At world size 1 every
-    stream is the one-process stream."""
+    ``[rank·b, (rank+1)·b)`` of the global batch: under a two-axis mesh
+    the data coordinate and the data axis's size, never the model index)
+    follows the JAX package's contract on an N-wide ``data`` mesh: the
+    host draws without a batch axis (LayerDrop) are the same on every
+    rank; the draws over the batch (SpecAugment's spans, the SER trunks'
+    dropout) are made at the global batch and each rank keeps its rows
+    (:meth:`rows`), as ``jax.random`` draws a global array; the kernels'
+    dropout streams mix the rank into the seed (:meth:`dropout_seed`).  At
+    world size 1 every stream is the one-process stream."""
 
     seed: int
     step: int
@@ -398,6 +429,45 @@ class _WeightNormConv(nn.Module):
         return (wn.original0.float() * v / norm).to(dtype)
 
 
+class _DeterministicConv1d(torch.autograd.Function):
+    """``F.conv1d`` (stride 1) whose forward and backward run with cuDNN
+    held to its deterministic algorithms: the backward's default ones add
+    in an order that changes from one call to the next, which made two
+    runs of one step differ, and the ranks of a model group (which compute
+    the replicated positional conv each on its own and never sum its
+    gradient) drift apart.  The flag is set around the two calls only."""
+
+    @staticmethod
+    def forward(ctx, x, weight, padding: int, groups: int):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (padding, groups)
+        with _cudnn_deterministic():
+            return F.conv1d(x, weight, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        padding, groups = ctx.conv
+        with _cudnn_deterministic():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad.contiguous(), x, weight, None, [1], [padding], [1],
+                False, [0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic():
+    """``torch.backends.cudnn.deterministic`` on for a block, restored
+    after (the other cuDNN flags untouched)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 class PositionalConvEmbedding(nn.Module):
     """Grouped, weight-normed conv positional embedding (same padding,
     the trailing frame dropped for an even kernel, then GELU)."""
@@ -411,26 +481,46 @@ class PositionalConvEmbedding(nn.Module):
 
     def forward(self, x):  # [B, T, C]
         k = self.kernel
-        out = F.conv1d(x.transpose(1, 2), self.conv.weight(x.dtype),
-                       padding=k // 2, groups=self.conv.groups)
+        out = _DeterministicConv1d.apply(
+            x.transpose(1, 2), self.conv.weight(x.dtype), k // 2,
+            self.conv.groups)
         if k % 2 == 0:
             out = out[:, :, :-1]
         out = out + self.conv.bias.to(x.dtype)[None, :, None]
         return F.gelu(out, approximate="none").transpose(1, 2)
 
 
+def _model_split(mesh, size: int, what: str) -> Tuple[int, int]:
+    """``(size / m, first)``: this rank's share of ``size`` heads or
+    columns under the mesh's model axis ``m`` and the first it holds
+    (``(size, 0)`` without one)."""
+    if mesh is None or not mesh.tp:
+        return size, 0
+    if size % mesh.model:
+        raise ValueError(f"the model axis of {mesh.model} ranks does not "
+                         f"divide the {size} {what}")
+    part = size // mesh.model
+    return part, mesh.model_index * part
+
+
 class GatedAttention(nn.Module):
-    """Self-attention with WavLM's gated relative position bias."""
+    """Self-attention with WavLM's gated relative position bias; under a
+    mesh with a model axis, this rank's heads (see the module
+    docstring)."""
 
     def __init__(self, config: WavLMConfig, has_rel_attn_embed: bool,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         c, h = config.hidden_size, config.num_attention_heads
-        self.num_heads = h
-        self.q_proj = nn.Linear(c, c, device=device)
-        self.k_proj = nn.Linear(c, c, device=device)
-        self.v_proj = nn.Linear(c, c, device=device)
-        self.out_proj = nn.Linear(c, c, device=device)
+        self.mesh = mesh
+        self.num_heads, self.head0 = _model_split(mesh, h, "attention heads")
+        self.head_dim = config.head_dim
+        self.embed_dim = c
+        cl = self.num_heads * self.head_dim
+        self.q_proj = nn.Linear(c, cl, device=device)
+        self.k_proj = nn.Linear(c, cl, device=device)
+        self.v_proj = nn.Linear(c, cl, device=device)
+        self.out_proj = nn.Linear(cl, c, device=device)
         self.gru_rel_pos_linear = nn.Linear(config.head_dim, 8, device=device)
         self.gru_rel_pos_const = nn.Parameter(
             torch.ones(1, h, 1, 1, device=device))
@@ -447,73 +537,107 @@ class GatedAttention(nn.Module):
         K5 (and its dq and dk/dv kernels for the gradient) on the generator
         ``pos_bias [H, 2T]``, then the same dropout through K1 over the
         merged ``[B, T, C]`` output: the same seed, site and flat index, so
-        the same mask kernel A draws inside."""
-        b, t, c = hidden.shape
-        h = self.num_heads
+        the same mask kernel A draws inside.  Under a model axis
+        ``pos_bias`` holds this rank's heads, and the output is summed over
+        the model group."""
+        mesh = self.mesh
+        hidden = copy_to_model(hidden, mesh)
+        b, t, _ = hidden.shape
+        h, d = self.num_heads, self.head_dim
+        c0 = self.head0 * d  # this rank's first merged column
+        cl = h * d
 
         def split_heads(x):
-            return x.view(b, t, h, c // h).transpose(1, 2)  # [B, H, T, D]
+            return x.reshape(b, t, h, d).transpose(1, 2)  # [B, H, T, D]
 
         q = split_heads(_linear(hidden, self.q_proj))
         k = split_heads(_linear(hidden, self.k_proj))
         v = split_heads(_linear(hidden, self.v_proj))
         # per-(batch, head, query) gate from the attention input
-        proj = _linear(split_heads(hidden), self.gru_rel_pos_linear)
+        gate_lin = self.gru_rel_pos_linear
+        proj = F.linear(split_heads(hidden[..., c0:c0 + cl]),
+                        copy_to_model(gate_lin.weight, mesh).to(hidden.dtype),
+                        copy_to_model(gate_lin.bias, mesh).to(hidden.dtype))
         gates = torch.sigmoid(proj.view(b, h, t, 2, 4).sum(-1).float())
-        const = self.gru_rel_pos_const.float().view(1, h, 1)
+        const = copy_to_model(self.gru_rel_pos_const, mesh)[
+            :, self.head0:self.head0 + h].float().reshape(1, h, 1)
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
         p, seed = 0.0, None
         if rng is not None and dropout > 0.0:
             p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
+        window = (self.embed_dim, c0) if cl != self.embed_dim else None
         if t > BLOCK_MAX_T:
             out = flash_gated_attention(q, k, v, gate, pos_bias,
                                         key_padding_mask)
-            out = out.transpose(1, 2).reshape(b, t, c)
+            out = out.transpose(1, 2).reshape(b, t, cl)
             if p > 0.0:  # JAX's _hw_drop after the head merge
-                out = hw_dropout(out, seed, p)
+                out = hw_dropout(out, seed, p, window=window)
         else:
             out = block_gated_attention(q, k, v, gate, pos_bias,
                                         key_padding_mask, p_drop=p,
-                                        dropout_seed=seed)
-            out = out.transpose(1, 2).reshape(b, t, c)
-        return _linear(out, self.out_proj)
+                                        dropout_seed=seed,
+                                        dropout_window=window)
+            out = out.transpose(1, 2).reshape(b, t, cl)
+        if mesh is None or not mesh.tp:
+            return _linear(out, self.out_proj)
+        # the partial product in float32, rounded once after the sum and
+        # the bias, as the whole layer's product is rounded once
+        part = F.linear(out.float(),
+                        self.out_proj.weight.to(out.dtype).float())
+        return (reduce_from_model(part, mesh)
+                + self.out_proj.bias.to(out.dtype).float()).to(out.dtype)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, config: WavLMConfig, device=None):
+    """The FFN through kernel B; under a mesh with a model axis, this
+    rank's columns (see the module docstring)."""
+
+    def __init__(self, config: WavLMConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
-        self.intermediate_dense = nn.Linear(
-            config.hidden_size, config.intermediate_size, device=device)
-        self.output_dense = nn.Linear(
-            config.intermediate_size, config.hidden_size, device=device)
+        self.mesh = mesh
+        f, self.col0 = _model_split(mesh, config.intermediate_size,
+                                    "FFN columns")
+        self.intermediate_dense = nn.Linear(config.hidden_size, f,
+                                            device=device)
+        self.output_dense = nn.Linear(f, config.hidden_size, device=device)
 
     def forward(self, x, rng: Optional[TrainRNG] = None, layer: int = 0):
         """Kernel B; with ``rng`` (training), both dropout sites inside it
-        and K2 as its backward."""
-        cfg = self.config
+        and K2 as its backward.  Under a model axis the partial sums of the
+        ranks' columns are summed over the model group, ``output_dense``'s
+        bias added once (by model index 0)."""
+        cfg, mesh = self.config, self.mesh
         seed, p_act, p_hid = None, 0.0, 0.0
         if rng is not None:
             seed = rng.dropout_seed(layer, SITE_FFN)
             p_act, p_hid = cfg.activation_dropout, cfg.hidden_dropout
-        return fused_ffn(x, self.intermediate_dense.weight,
-                         self.intermediate_dense.bias,
-                         self.output_dense.weight, self.output_dense.bias,
-                         seed, p_act, p_hid)
+        if mesh is None or not mesh.tp:
+            return fused_ffn(x, self.intermediate_dense.weight,
+                             self.intermediate_dense.bias,
+                             self.output_dense.weight,
+                             self.output_dense.bias, seed, p_act, p_hid)
+        out = fused_ffn(copy_to_model(x, mesh), self.intermediate_dense.weight,
+                        self.intermediate_dense.bias,
+                        self.output_dense.weight, self.output_dense.bias,
+                        seed, p_act, p_hid,
+                        shard=(cfg.intermediate_size, self.col0))
+        return reduce_from_model(out, mesh).to(x.dtype)
 
 
 class EncoderLayer(nn.Module):
     """One transformer layer, pre-LN ("stable") or post-LN."""
 
-    def __init__(self, config: WavLMConfig, index: int, device=None):
+    def __init__(self, config: WavLMConfig, index: int, device=None,
+                 mesh=None):
         super().__init__()
         self.config = config
         self.index = index
         self.stable = config.do_stable_layer_norm
-        self.attention = GatedAttention(config, index == 0, device)
+        self.attention = GatedAttention(config, index == 0, device, mesh)
         self.layer_norm = _LayerNorm(config.hidden_size,
                                      eps=config.layer_norm_eps, device=device)
-        self.feed_forward = FeedForward(config, device)
+        self.feed_forward = FeedForward(config, device, mesh)
         self.final_layer_norm = _LayerNorm(
             config.hidden_size, eps=config.layer_norm_eps, device=device)
 
@@ -538,14 +662,15 @@ class EncoderLayer(nn.Module):
 
 
 class WavLMTransformerEncoder(nn.Module):
-    def __init__(self, config: WavLMConfig, device=None):
+    def __init__(self, config: WavLMConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
+        self.mesh = mesh
         self.pos_conv_embed = PositionalConvEmbedding(config, device)
         self.layer_norm = _LayerNorm(config.hidden_size,
                                      eps=config.layer_norm_eps, device=device)
         self.layers = nn.ModuleList(
-            EncoderLayer(config, i, device)
+            EncoderLayer(config, i, device, mesh)
             for i in range(config.num_hidden_layers))
         # layers the last forward ran (fewer than all under LayerDrop)
         self.layers_run = 0
@@ -573,7 +698,11 @@ class WavLMTransformerEncoder(nn.Module):
         hidden = _dropout(hidden, cfg.hidden_dropout, rng, ENCODER,
                           SITE_HIDDEN)
         t = hidden.shape[1]
-        table = self.layers[0].attention.rel_attn_embed.weight
+        attn0 = self.layers[0].attention
+        table = attn0.rel_attn_embed.weight
+        if self.mesh is not None and self.mesh.tp:  # this rank's heads
+            table = copy_to_model(table, self.mesh)[
+                :, attn0.head0:attn0.head0 + attn0.num_heads]
         if t <= BLOCK_MAX_T:
             pos_bias = compute_position_bias(table.float(), t, t,
                                              cfg.num_buckets,
@@ -597,19 +726,22 @@ class WavLMModel(nn.Module):
 
     ``compute_dtype`` (default: the parameters' dtype) is the dtype the
     forward works in; training on the card keeps float32 parameters and
-    computes in bf16."""
+    computes in bf16.  ``mesh``: a ``parallel.mesh.DataMesh`` whose model
+    axis splits the layers (see the module docstring); None or a model
+    axis of 1 keeps them whole."""
 
     def __init__(self, config: WavLMConfig, device=None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__()
         self.config = config
         self.compute_dtype = compute_dtype
+        self.mesh = mesh
         self.feature_extractor = ConvFeatureEncoder(config, device)
         self.feature_projection = FeatureProjection(config, device)
         if config.has_masked_spec_embed:  # SpecAugment's learned mask value
             self.masked_spec_embed = nn.Parameter(
                 torch.empty(config.hidden_size, device=device))
-        self.encoder = WavLMTransformerEncoder(config, device)
+        self.encoder = WavLMTransformerEncoder(config, device, mesh)
 
     def frame_mask(self, attention_mask: torch.Tensor,
                    t_frames: int) -> torch.Tensor:

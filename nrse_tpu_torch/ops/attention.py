@@ -54,13 +54,17 @@ def mask_add(key_padding_mask: Optional[torch.Tensor], b: int, t: int,
 
 
 def attention_keep_mask(seed: Tuple[int, int], shape, p: float,
-                        device=None) -> torch.Tensor:
+                        device=None, window=None) -> torch.Tensor:
     """The float32 ``{0, 1/(1−p)}`` keep mask ``[B, H, T, D]`` of the
     attention output under ``seed``: K1's mask (Philox site 0) over the
-    merged ``[B, T, H·D]`` layout, moved to the head layout."""
+    merged ``[B, T, H·D]`` layout, moved to the head layout.  With
+    ``window = (C_global, c0)`` the H heads are the merged columns from
+    ``c0`` of a ``[B, T, C_global]`` layer (a shard of its heads), and the
+    mask is the slice of that layer's."""
     b, h, t, d = shape
-    return philox.dump_mask(seed, 0, (b, t, h, d), p,
-                            device=device).permute(0, 2, 1, 3)
+    return philox.dump_mask(seed, 0, (b, t, h * d), p, device=device,
+                            window=window).view(b, t, h, d).permute(
+                                0, 2, 1, 3)
 
 
 def _scores(q, k, gate, pos_bias, madd):

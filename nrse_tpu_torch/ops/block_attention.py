@@ -68,11 +68,14 @@ _MODE_NONE, _MODE_SEEDED, _MODE_MASKED = 0, 1, 2
 
 class _Drop:
     """How the output is dropped: not at all, from a seed pair under
-    probability ``p``, or by an explicit mask."""
+    probability ``p`` (over the merged layout's ``window``, ``(C_global,
+    c0)``, when the heads are a shard of a layer's), or by an explicit
+    mask."""
 
-    def __init__(self, seed=None, p: float = 0.0, mask=None):
+    def __init__(self, seed=None, p: float = 0.0, mask=None, window=None):
         self.seed = None if seed is None else (int(seed[0]), int(seed[1]))
         self.p, self.mask = float(p), mask
+        self.window = window
 
     @property
     def mode(self) -> int:
@@ -83,12 +86,14 @@ class _Drop:
     def plain_mask(self, shape, device) -> Optional[torch.Tensor]:
         """The keep mask as a tensor, for the plain versions."""
         if self.mode == _MODE_SEEDED:
-            return attention_keep_mask(self.seed, shape, self.p, device)
+            return attention_keep_mask(self.seed, shape, self.p, device,
+                                       self.window)
         return self.mask
 
     def c_args(self, shape, device):
-        """``(mask pointer, k0, k1, p, keep scale, mode)`` for a C entry;
-        keeps the explicit mask it hands over alive on ``self``."""
+        """``(mask pointer, k0, k1, p, keep scale, mode, C_global, c0)``
+        for a C entry; keeps the explicit mask it hands over alive on
+        ``self``."""
         k0, k1 = self.seed or (0, 0)
         ptr = 0
         if self.mode == _MODE_MASKED:
@@ -100,7 +105,9 @@ class _Drop:
             self._cmask = m.to(torch.float32).contiguous()
             ptr = self._cmask.data_ptr()
         scale = philox.keep_scale(self.p) if self.mode == _MODE_SEEDED else 1.0
-        return ptr, k0, k1, self.p, scale, self.mode
+        _, h, _, d = shape
+        cg, c0 = self.window or (h * d, 0)
+        return ptr, k0, k1, self.p, scale, self.mode, cg, c0
 
 
 def attention_fwd_plan(t: int) -> dict:
@@ -324,7 +331,8 @@ def block_gated_attention_lse(q, k, v, gate, pos_bias,
                               key_padding_mask: Optional[torch.Tensor] = None,
                               *, p_drop: float = 0.0,
                               dropout_seed: Optional[Tuple[int, int]] = None,
-                              dropout_mask: Optional[torch.Tensor] = None
+                              dropout_mask: Optional[torch.Tensor] = None,
+                              dropout_window: Optional[Tuple[int, int]] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, H, T, D], lse [B, H, T] float32)``; see
     :func:`block_gated_attention`.  ``out`` is differentiable; ``lse`` is
@@ -340,7 +348,9 @@ def block_gated_attention_lse(q, k, v, gate, pos_bias,
                              f"{p_drop}")
         if dropout_seed is None:
             raise ValueError("p_drop > 0 requires dropout_seed")
-        drop = _Drop(seed=dropout_seed, p=p_drop)
+        _, h, _, d = q.shape
+        drop = _Drop(seed=dropout_seed, p=p_drop,
+                     window=philox.check_window(dropout_window, h * d))
     else:
         drop = _Drop()
     b, _, t, _ = q.shape
@@ -352,7 +362,8 @@ def block_gated_attention(q, k, v, gate, pos_bias,
                           key_padding_mask: Optional[torch.Tensor] = None,
                           *, p_drop: float = 0.0,
                           dropout_seed: Optional[Tuple[int, int]] = None,
-                          dropout_mask: Optional[torch.Tensor] = None):
+                          dropout_mask: Optional[torch.Tensor] = None,
+                          dropout_window: Optional[Tuple[int, int]] = None):
     """Gated-bias attention at T ≤ 384, differentiable.
 
     Args:
@@ -365,8 +376,13 @@ def block_gated_attention(q, k, v, gate, pos_bias,
         merged ``[B, T, C]`` layout) and drawn again in the backward.
       dropout_mask: an explicit float32 ``{0, 1/(1−p)}`` ``[B, H, T, D]``
         keep mask instead (the tests' path).
+      dropout_window: ``(C_global, c0)`` when the H heads are a shard of
+        a layer's (tensor parallelism): they are the merged columns from
+        ``c0`` (``h0·D``) of that layer's ``[B, T, C_global]``, whose mask
+        they draw the slice of (K3 draws it again).
     Returns ``[B, H, T, D]`` in v's dtype.
     """
     return block_gated_attention_lse(
         q, k, v, gate, pos_bias, key_padding_mask, p_drop=p_drop,
-        dropout_seed=dropout_seed, dropout_mask=dropout_mask)[0]
+        dropout_seed=dropout_seed, dropout_mask=dropout_mask,
+        dropout_window=dropout_window)[0]

@@ -12,11 +12,13 @@ A CUDA tensor goes to the hand-written kernel in
 ``nrse_tpu_torch/csrc/fused_dropout.cu`` (bf16 only); a CPU tensor goes to
 the plain versions here, whose masks come from the Philox twin, so a seed
 gives the same mask on both.  There is no fallback from one to the other.
+A ``window`` (``(W_global, c0)``, ``ops/philox.py``) makes a column shard
+of a tensor draw its slice of the whole tensor's mask.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,16 +39,22 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(mode, x, mask, out, n, seed=(0, 0), site=0, p=0.0):
+def _launch(mode, x, mask, out, n, seed=(0, 0), site=0, p=0.0,
+            window=None):
     require_no_grad(x, mask, what="fused_dropout")
     lib = cuda_build.load()
     dev = out.device
+    wl, wg, c0 = 0, 0, 0
+    window = philox.check_window(window, out.shape[-1])
+    if window is not None:
+        wl, (wg, c0) = out.shape[-1], window
     with cuda_build.on_device(dev):  # the launch goes to that card
         err = lib.nrse_dropout(
             0 if x is None else x.data_ptr(),
             0 if mask is None else mask.data_ptr(), out.data_ptr(), n,
             int(seed[0]), int(seed[1]), int(site), float(p),
-            philox.keep_scale(p), mode, torch.cuda.current_stream().cuda_stream)
+            philox.keep_scale(p), mode, wl, wg, c0,
+            torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "fused_dropout")
 
 
@@ -60,17 +68,17 @@ def dropout_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return (x.float() * mask).to(x.dtype)
 
 
-def _seeded(x, seed, p, site):
+def _seeded(x, seed, p, site, window=None):
     """One dropout pass (forward, or backward on ``dy``)."""
     if x.device.type == "cpu":
-        mask = philox.dump_mask(seed, site, x.shape, p)
+        mask = philox.dump_mask(seed, site, x.shape, p, window=window)
         return dropout_plain(x, mask)
     if x.device.type != "cuda":
         raise ValueError(f"no dropout kernel for device {x.device}")
     _check_cuda(x)
     xc = _aligned(x)
     out = torch.empty_like(xc)
-    _launch(_MODE_SEEDED, xc, None, out, xc.numel(), seed, site, p)
+    _launch(_MODE_SEEDED, xc, None, out, xc.numel(), seed, site, p, window)
     global LAUNCHES
     LAUNCHES += 1
     return out.view(x.shape)
@@ -95,13 +103,13 @@ def _masked(x, mask):
 
 class _HwDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, p, site):
-        ctx.args = (seed, p, site)
-        return _seeded(x, seed, p, site)
+    def forward(ctx, x, seed, p, site, window):
+        ctx.args = (seed, p, site, window)
+        return _seeded(x, seed, p, site, window)
 
     @staticmethod
     def backward(ctx, dy):
-        return _seeded(dy, *ctx.args), None, None, None
+        return _seeded(dy, *ctx.args), None, None, None, None
 
 
 class _HwDropoutMasked(torch.autograd.Function):
@@ -117,18 +125,22 @@ class _HwDropoutMasked(torch.autograd.Function):
 
 
 def hw_dropout(x: torch.Tensor, seed: Tuple[int, int], p: float,
-               site: int = 0) -> torch.Tensor:
+               site: int = 0,
+               window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Bernoulli dropout of ``x`` (any shape) with probability ``p``, the
     mask drawn from Philox under ``seed`` (a pair of 32-bit ints) at
-    ``site`` over the flat element index.  ``p = 0`` returns ``x``."""
+    ``site`` over the flat element index, or with ``window = (W_global,
+    c0)`` over the index of the whole tensor whose columns ``[c0, c0 +
+    x.shape[-1])`` ``x`` holds.  ``p = 0`` returns ``x``."""
     if p == 0.0:
         return x
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout probability must be in [0, 1), got {p}")
     seed = (int(seed[0]), int(seed[1]))
+    window = philox.check_window(window, x.shape[-1])
     if torch.is_grad_enabled() and x.requires_grad:
-        return _HwDropout.apply(x, seed, float(p), int(site))
-    return _seeded(x, seed, float(p), int(site))  # no graph to record
+        return _HwDropout.apply(x, seed, float(p), int(site), window)
+    return _seeded(x, seed, float(p), int(site), window)  # no graph
 
 
 def hw_dropout_masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -138,15 +150,16 @@ def hw_dropout_masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def dump_dropout_mask(seed: Tuple[int, int], shape, p: float, site: int = 0,
-                      device=None) -> torch.Tensor:
+                      device=None, window=None) -> torch.Tensor:
     """The float32 ``{0, 1/(1−p)}`` mask :func:`hw_dropout` applies for
-    this (seed, shape, p, site): from the kernel on a CUDA device, from the
-    Philox twin elsewhere."""
+    this (seed, shape, p, site, window): from the kernel on a CUDA device,
+    from the Philox twin elsewhere."""
     device = torch.device("cpu" if device is None else device)
     if device.type != "cuda":
-        return philox.dump_mask(seed, site, tuple(shape), p, device=device)
+        return philox.dump_mask(seed, site, tuple(shape), p, device=device,
+                                window=window)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    _launch(_MODE_DUMP, None, None, out, out.numel(), seed, site, p)
+    _launch(_MODE_DUMP, None, None, out, out.numel(), seed, site, p, window)
     global DUMP_LAUNCHES
     DUMP_LAUNCHES += 1
     return out

@@ -21,7 +21,20 @@ Which kernel runs where:
 
 Masks follow the Philox contract of ``ops/philox.py``: site 0 is the
 activation site over ``[N, F]``, site 1 the hidden site over ``[N, C]``,
-both under one seed pair.  :func:`fused_ffn_masked` takes explicit float32
+both under one seed pair.
+
+Tensor parallelism splits the FFN by its F columns: a rank holds ``w1``'s
+rows and ``b1``'s entries ``[f0, f0 + F)`` of ``F_global`` and ``w2``'s
+columns of them (``shard = (F_global, f0)``).  Its output is then its
+partial sum over its columns, in float32, which the caller sums across
+the ranks and rounds once, as the whole layer's product is rounded once.
+The activation site draws its slice of the whole layer's ``[N,
+F_global]`` mask; the hidden site, over the output, draws the whole ``[N,
+C]`` mask on every rank, which distributes over the sum (dropout is
+linear in its input under one mask); ``b2`` is in the partial of the
+shard at ``f0 = 0`` only, so that the sum holds it once, while its
+gradient (the column sums of the masked output gradient) is returned on
+every rank alike.  :func:`fused_ffn_masked` takes explicit float32
 masks instead (the tests' path).  A CUDA tensor goes to the kernels; a CPU
 tensor goes to :func:`ffn_plain_fwd` / :func:`ffn_plain_bwd`, whose masks
 come from the Philox twin.  There is no fallback from one to the other.
@@ -72,12 +85,14 @@ def gelu_grad(h: torch.Tensor) -> torch.Tensor:
     return cdf + h * torch.exp(-0.5 * h * h) * 0.3989422804014327
 
 
-def ffn_plain_fwd(x, w1, b1, w2, b2, keep_act=None, keep_hid=None):
+def ffn_plain_fwd(x, w1, b1, w2, b2, keep_act=None, keep_hid=None,
+                  out_dtype=None):
     """Plain PyTorch forward of ``x [N, C]``: products of the
     working-dtype operands accumulated in float32, bias, GELU and masks on
     the float32 sum, the GELU output rounded to x's dtype before the second
-    product.  Returns ``(out, h1, gd)``: ``h1`` the pre-GELU activation and
-    ``gd`` the dropped GELU output, both rounded to x's dtype."""
+    product.  Returns ``(out, h1, gd)``: ``out`` in ``out_dtype`` (x's
+    dtype unless given), ``h1`` the pre-GELU activation and ``gd`` the
+    dropped GELU output, both rounded to x's dtype."""
     dt = x.dtype
     h1 = torch.matmul(x.float(), w1.to(dt).float().t()) + b1.float()
     g = F.gelu(h1, approximate="none")
@@ -87,7 +102,7 @@ def ffn_plain_fwd(x, w1, b1, w2, b2, keep_act=None, keep_hid=None):
     o = torch.matmul(gd.float(), w2.to(dt).float().t()) + b2.float()
     if keep_hid is not None:
         o = o * keep_hid
-    return o.to(dt), h1.to(dt), gd
+    return o.to(out_dtype or dt), h1.to(dt), gd
 
 
 def ffn_plain(x, w1, b1, w2, b2):
@@ -134,10 +149,12 @@ class _Drop:
     """How one call gets its masks: none, Philox under a seed, or
     explicit masks."""
 
-    def __init__(self, seed=None, p_act=0.0, p_hid=0.0, masks=None):
+    def __init__(self, seed=None, p_act=0.0, p_hid=0.0, masks=None,
+                 act_window=None):
         self.seed = (0, 0) if seed is None else (int(seed[0]), int(seed[1]))
         self.p_act, self.p_hid = float(p_act), float(p_hid)
         self.masks = masks
+        self.act_window = act_window  # (F_global, f0) of a column shard
         if masks is not None:
             self.mode = _MASKS
         elif self.p_act > 0.0 or self.p_hid > 0.0:
@@ -155,19 +172,23 @@ class _Drop:
         if self.mode == _PHILOX:
             if self.p_act > 0.0:
                 act = philox.dump_mask(self.seed, SITE_ACT, (n, f),
-                                       self.p_act, device)
+                                       self.p_act, device, self.act_window)
             if self.p_hid > 0.0:
                 hid = philox.dump_mask(self.seed, SITE_HID, (n, c),
                                        self.p_hid, device)
         return act, hid
 
-    def kernel_args(self):
+    def kernel_args(self, f: int):
+        """The C entries' dropout arguments for ``f`` local columns: the
+        masks, the seed, the probabilities and keep scales, the mode and
+        the activation site's window ``(F_global, f0)``."""
         ma = mh = 0
         if self.mode == _MASKS:
             ma, mh = (m.data_ptr() for m in self.masks)
+        f_global, f0 = self.act_window or (f, 0)
         return (ma, mh, self.seed[0], self.seed[1], self.p_act, self.p_hid,
                 philox.keep_scale(self.p_act), philox.keep_scale(self.p_hid),
-                self.mode)
+                self.mode, f_global, f0)
 
 
 def _stream():
@@ -195,9 +216,11 @@ def _bf16(t):
     return t
 
 
-def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
-    """Kernel B.  Returns ``(out, h1, gd)``; ``h1`` is None unless
-    ``save``; ``gd`` is kernel B's h (the dropped GELU output)."""
+def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool,
+                out_f32: bool = False):
+    """Kernel B.  Returns ``(out, h1, gd)``; ``out`` float32 if
+    ``out_f32``, else bf16; ``h1`` is None unless ``save``; ``gd`` is
+    kernel B's h (the dropped GELU output)."""
     require_no_grad(rows, w1, b1, w2, b2, what="fused_ffn_fwd")
     n, c, f = _check_kernel(rows, w1, w2, b1, b2)
     rows, w1, w2 = _bf16(rows), _bf16(w1), _bf16(w2)
@@ -207,20 +230,21 @@ def _kernel_fwd(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
     gd = torch.empty(ffn_fwd_plan(n, c, f, train)["h"], dtype=torch.bfloat16,
                      device=rows.device).view(n, f)
     h1 = torch.empty_like(gd) if save else None
-    out = torch.empty_like(rows)
+    out = torch.empty(n, c, dtype=torch.float32 if out_f32 else rows.dtype,
+                      device=rows.device)
     lib = cuda_build.load()
     with cuda_build.on_device(rows.device):  # launch on x's card
         if not train:
             err = lib.nrse_fused_ffn_fwd(
                 rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                b2.data_ptr(), gd.data_ptr(), out.data_ptr(), n, c, f,
-                _stream())
+                b2.data_ptr(), gd.data_ptr(), out.data_ptr(), int(out_f32),
+                n, c, f, _stream())
         else:
             err = lib.nrse_fused_ffn_fwd_train(
                 rows.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), gd.data_ptr(),
                 0 if h1 is None else h1.data_ptr(), out.data_ptr(),
-                *drop.kernel_args(), n, c, f, _stream())
+                int(out_f32), *drop.kernel_args(f), n, c, f, _stream())
     cuda_build.check(err, "fused_ffn_fwd")
     global LAUNCHES
     LAUNCHES += 1
@@ -313,7 +337,7 @@ def _kernel_bwd_dx(dout, h1, w1, w2, drop: _Drop):
         err = lib.nrse_fused_ffn_bwd_dx(
             dout.data_ptr(), h1.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             w1t.data_ptr(), w2t.data_ptr(),
-            *drop.kernel_args(), dh2.data_ptr(), dh1.data_ptr(),
+            *drop.kernel_args(f), dh2.data_ptr(), dh1.data_ptr(),
             dx.data_ptr(), db1.data_ptr(), db2.data_ptr(), part.data_ptr(),
             n, c, f, _stream())
     cuda_build.check(err, "fused_ffn_bwd_dx")
@@ -343,24 +367,33 @@ def _kernel_bwd_dw(x, gd, dh1, dh2):
     return dw1, dw2
 
 
-def _forward(rows, w1, b1, w2, b2, drop: _Drop, save: bool):
+def _forward(rows, w1, b1, w2, b2, drop: _Drop, save: bool, shard=None):
+    """``(out, h1, gd)``; for a ``shard`` the partial sum in float32, b2
+    in it only at ``f0 = 0``."""
+    if shard is not None and shard[1] != 0:
+        b2 = torch.zeros_like(b2)
     if rows.device.type == "cuda":
-        return _kernel_fwd(rows, w1, b1, w2, b2, drop, save)
+        return _kernel_fwd(rows, w1, b1, w2, b2, drop, save,
+                           out_f32=shard is not None)
     if rows.device.type != "cpu":
         raise ValueError(f"no fused FFN for device {rows.device}")
     n, c = rows.shape
     act, hid = drop.plain_masks(n, c, w1.shape[0], rows.device)
-    return ffn_plain_fwd(rows, w1, b1, w2, b2, act, hid)
+    return ffn_plain_fwd(rows, w1, b1, w2, b2, act, hid,
+                         torch.float32 if shard is not None else None)
 
 
 class FusedFFN(torch.autograd.Function):
     """The FFN pair with its dropout sites; the backward is K2 on the card
     and :func:`ffn_plain_bwd` on the CPU.  Saves ``x``, ``h1`` and ``gd``
-    (bf16 on the card) and the seed or masks, not the masks of a seed."""
+    (bf16 on the card) and the seed or masks, not the masks of a seed.  A
+    ``shard`` (see the module docstring) returns its float32 partial sum,
+    and b2 gets its gradient on every shard."""
 
     @staticmethod
-    def forward(ctx, rows, w1, b1, w2, b2, drop):
-        out, h1, gd = _forward(rows, w1, b1, w2, b2, drop, save=True)
+    def forward(ctx, rows, w1, b1, w2, b2, drop, shard=None):
+        out, h1, gd = _forward(rows, w1, b1, w2, b2, drop, save=True,
+                               shard=shard)
         ctx.save_for_backward(rows, h1, gd, w1, w2)
         ctx.drop = drop
         ctx.dtypes = (w1.dtype, b1.dtype, w2.dtype, b2.dtype)
@@ -379,7 +412,8 @@ class FusedFFN(torch.autograd.Function):
             dx, dw1, db1, dw2, db2 = ffn_plain_bwd(dout, rows, h1, gd, w1,
                                                    w2, act, hid)
         t1, tb1, t2, tb2 = ctx.dtypes
-        return (dx, dw1.to(t1), db1.to(tb1), dw2.to(t2), db2.to(tb2), None)
+        return (dx, dw1.to(t1), db1.to(tb1), dw2.to(t2), db2.to(tb2), None,
+                None)
 
 
 def _check_weights(x, w1, b1, w2, b2):
@@ -393,24 +427,34 @@ def _check_weights(x, w1, b1, w2, b2):
             f"b2 {tuple(b2.shape)}")
 
 
-def _apply(x, w1, b1, w2, b2, drop: _Drop):
+def _apply(x, w1, b1, w2, b2, drop: _Drop, shard=None):
     _check_weights(x, w1, b1, w2, b2)
     rows = x.reshape(-1, x.shape[-1])
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
-        out = FusedFFN.apply(rows, w1, b1, w2, b2, drop)
+        out = FusedFFN.apply(rows, w1, b1, w2, b2, drop, shard)
     else:
-        out = _forward(rows, w1, b1, w2, b2, drop, save=False)[0]
+        out = _forward(rows, w1, b1, w2, b2, drop, save=False,
+                       shard=shard)[0]
     return out.reshape(x.shape)
 
 
 def fused_ffn(x, w1, b1, w2, b2, seed: Optional[Tuple[int, int]] = None,
-              p_act: float = 0.0, p_hid: float = 0.0):
+              p_act: float = 0.0, p_hid: float = 0.0,
+              shard: Optional[Tuple[int, int]] = None):
     """``dropout(dense2(dropout(gelu(dense1(x)))))`` for ``x [..., C]``,
     ``w1 [F, C]``, ``b1 [F]``, ``w2 [C, F]``, ``b2 [C]``; the masks from
     Philox under ``seed`` when ``p_act`` or ``p_hid`` is above 0.  Returns
-    x's shape and dtype; differentiable in x and the weights."""
-    return _apply(x, w1, b1, w2, b2, _Drop(seed, p_act, p_hid))
+    x's shape and dtype; differentiable in x and the weights.  With
+    ``shard = (F_global, f0)`` the weights are the columns ``[f0, f0 + F)``
+    of a layer ``F_global`` wide (tensor parallelism, see the module
+    docstring), and the result is their float32 partial sum."""
+    if shard is not None:
+        shard = (int(shard[0]), int(shard[1]))
+    window = None if shard is None else philox.check_window(shard,
+                                                            w1.shape[0])
+    return _apply(x, w1, b1, w2, b2,
+                  _Drop(seed, p_act, p_hid, act_window=window), shard)
 
 
 def fused_ffn_masked(x, w1, b1, w2, b2, mask_act, mask_hid):
@@ -429,11 +473,11 @@ def fused_ffn_masked(x, w1, b1, w2, b2, mask_act, mask_hid):
 
 
 def dump_masks(seed: Tuple[int, int], n: int, c: int, f: int, p_act: float,
-               p_hid: float, device=None):
+               p_hid: float, device=None, shard=None):
     """``(keep_act [n, f], keep_hid [n, c])``: the float32 masks
-    :func:`fused_ffn` applies for this seed and shape (from the dump
-    kernel on a CUDA device, from the Philox twin elsewhere)."""
+    :func:`fused_ffn` applies for this seed, shape and ``shard`` (from the
+    dump kernel on a CUDA device, from the Philox twin elsewhere)."""
     return (fused_dropout.dump_dropout_mask(seed, (n, f), p_act, SITE_ACT,
-                                            device),
+                                            device, shard),
             fused_dropout.dump_dropout_mask(seed, (n, c), p_hid, SITE_HID,
                                             device))

@@ -20,7 +20,15 @@ on (seed, site, element index):
     ``u24 · 2⁻²⁴ ≥ p``, the kept value scaled by ``1 / (1 − p)`` in
     float32 (:func:`keep_scale`), then cast;
   * seeds: one pair per (step, tower, layer, site), derived on the host
-    from the root seed by :func:`stream_seed`.
+    from the root seed by :func:`stream_seed`;
+  * windows: a shard ``[N, W_local]`` holding columns ``[c0, c0 +
+    W_local)`` of a whole ``[N, W_global]`` tensor (tensor parallelism
+    splits a layer's heads or FFN columns so) gives its element ``(row,
+    col)`` the index ``row·W_global + c0 + col``, so it draws exactly its
+    slice of the whole tensor's mask.  ``window = (W_global, c0)``;
+    ``W_local``, ``W_global`` and ``c0`` are multiples of 4, so a group of
+    four is one group of the whole.  Without a window (or with
+    ``(W_local, 0)``) the index is the tensor's own flat index.
 
 The contract reproduces the distribution of the TPU's dropout, not its
 bits, as the JAX package's own ``rbg`` precedent does; parity tests
@@ -32,7 +40,7 @@ same mask on the CPU and on the card.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +94,22 @@ def keep_scale(p: float) -> float:
     return float(np.float32(1.0) / (np.float32(1.0) - np.float32(p)))
 
 
+def _group_bits(seed: Tuple[int, int], site: int,
+                g: torch.Tensor) -> torch.Tensor:
+    """The four output words of each group index in ``g`` (int64), as
+    ``g``'s shape plus a last axis of 4."""
+    words = philox4x32(int(seed[0]), int(seed[1]), g & MASK32, g >> 32,
+                       torch.full_like(g, int(site)), torch.zeros_like(g))
+    return torch.stack(words, dim=-1)
+
+
+def _keep(bits: torch.Tensor, p: float) -> torch.Tensor:
+    """The keep rule on Philox words: float32 ``{0, 1/(1−p)}``."""
+    u = (bits >> 8).to(torch.float32) * U24
+    keep = u >= torch.tensor(p, dtype=torch.float32)
+    return keep.to(torch.float32) * keep_scale(p)
+
+
 def keep_mask(seed: Tuple[int, int], site: int, p: float, count: int,
               start: int = 0, device=None) -> torch.Tensor:
     """The float32 ``{0, 1/(1−p)}`` mask of the ``count`` elements from
@@ -95,17 +119,42 @@ def keep_mask(seed: Tuple[int, int], site: int, p: float, count: int,
     first = start >> 2
     g = torch.arange(first, ((start + count + 3) >> 2), dtype=torch.int64,
                      device=device)
-    words = philox4x32(int(seed[0]), int(seed[1]), g & MASK32, g >> 32,
-                       torch.full_like(g, int(site)), torch.zeros_like(g))
     off = start - 4 * first
-    bits = torch.stack(words, dim=1).reshape(-1)[off:off + count]
-    u = (bits >> 8).to(torch.float32) * U24
-    keep = u >= torch.tensor(p, dtype=torch.float32)
-    return keep.to(torch.float32) * keep_scale(p)
+    bits = _group_bits(seed, site, g).reshape(-1)[off:off + count]
+    return _keep(bits, p)
+
+
+def check_window(window: Optional[Tuple[int, int]],
+                 width: int) -> Optional[Tuple[int, int]]:
+    """``window`` (``(W_global, c0)``) checked for a shard ``width``
+    columns wide; None for no window or one of the shard's own width.
+    Raises where the shard does not fit or a size is not a multiple of
+    4."""
+    if window is None:
+        return None
+    w_global, c0 = int(window[0]), int(window[1])
+    if w_global % 4 or c0 % 4 or width % 4 or c0 < 0 \
+            or c0 + width > w_global:
+        raise ValueError(f"dropout window (W_global={w_global}, c0={c0}) "
+                         f"does not hold a shard of {width} columns, or a "
+                         "size is not a multiple of 4")
+    return None if w_global == width else (w_global, c0)
 
 
 def dump_mask(seed: Tuple[int, int], site: int, shape, p: float,
-              device=None) -> torch.Tensor:
-    """:func:`keep_mask` over a whole tensor of ``shape``."""
-    n = int(np.prod(shape))
-    return keep_mask(seed, site, p, n, device=device).reshape(shape)
+              device=None, window=None) -> torch.Tensor:
+    """:func:`keep_mask` over a whole tensor of ``shape``; with a
+    ``window`` (``(W_global, c0)``, see the module docstring) over the
+    shard ``shape`` is of, its last axis the shard's columns."""
+    shape = tuple(int(d) for d in shape)
+    window = check_window(window, shape[-1])
+    if window is None:
+        n = int(np.prod(shape))
+        return keep_mask(seed, site, p, n, device=device).reshape(shape)
+    w_global, c0 = window
+    rows = int(np.prod(shape[:-1]))
+    first = (torch.arange(rows, dtype=torch.int64, device=device) * w_global
+             + c0) >> 2
+    g = first[:, None] + torch.arange(shape[-1] >> 2, dtype=torch.int64,
+                                      device=device)[None, :]
+    return _keep(_group_bits(seed, site, g).reshape(shape), p)

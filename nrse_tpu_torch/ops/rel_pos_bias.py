@@ -8,6 +8,13 @@ the ``[num_buckets, H]`` table into the batch-shared ``[H, T, T]`` bias
 ``[H, 2T]`` (the flash attention's form, T > 384): the bucket depends only
 on the offset ``k − q``, so one vector per head determines the whole
 ``[T, T]`` bias.
+
+Both gathers give the table its gradient in a fixed order, so a step
+gives the same bits from one call to the next: the dense bias's gradient
+is summed along its diagonals into the generator's (a sum over one axis
+of a skewed view), and the generator's into the table by a product with
+the buckets' one-hot matrix.  The backward of a plain index
+(``index_put_`` with accumulation) adds in thread order on the CPU.
 """
 
 from __future__ import annotations
@@ -55,7 +62,13 @@ def compute_position_bias(rel_attn_embed: torch.Tensor, query_length: int,
                           key_length: int, num_buckets: int = 320,
                           max_distance: int = 800) -> torch.Tensor:
     """Gather the ``[num_buckets, H]`` table into ``[H, T_q, T_k]`` on the
-    table's device and in its dtype."""
+    table's device and in its dtype.  A square bias goes through the
+    generator (:func:`rel_bias_vector`, then :func:`dense_bias_from_rel`),
+    whose gradients are summed in a fixed order."""
+    if query_length == key_length:
+        return dense_bias_from_rel(rel_bias_vector(
+            rel_attn_embed, query_length, num_buckets, max_distance),
+            query_length)
     buckets = torch.from_numpy(relative_position_buckets(
         query_length, key_length, num_buckets, max_distance).copy())
     values = rel_attn_embed[buckets.to(rel_attn_embed.device)]  # [Tq,Tk,H]
@@ -75,6 +88,49 @@ def bucket_of_relative_position(seq_length: int, num_buckets: int = 320,
     return _buckets(rel, num_buckets, max_distance)
 
 
+class _BucketGather(torch.autograd.Function):
+    """``table[buckets].t()``: ``[num_buckets, H]`` → ``[H, 2T]``; the
+    backward sums the gradient per bucket as one product with the one-hot
+    ``[2T, num_buckets]`` matrix."""
+
+    @staticmethod
+    def forward(ctx, table, buckets):
+        ctx.save_for_backward(buckets)
+        ctx.num_buckets = table.shape[0]
+        return table[buckets].t().contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (buckets,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(buckets, ctx.num_buckets)
+        return torch.matmul(grad, onehot.to(grad.dtype)).t(), None
+
+
+class _ToeplitzExpand(torch.autograd.Function):
+    """``[H, 2T]`` → ``[H, T, T]``, ``out[h, q, k] = g[h, T − 1 + k −
+    q]``; the backward sums each diagonal (:func:`_diagonal_sums`)."""
+
+    @staticmethod
+    def forward(ctx, bias_rel, seq_length):
+        return bias_rel[:, _toeplitz_index(seq_length, bias_rel.device)]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _diagonal_sums(grad), None
+
+
+def _diagonal_sums(dense: torch.Tensor) -> torch.Tensor:
+    """``[H, T, T]`` → ``[H, 2T]``: entry ``T − 1 + k − q`` the sum of
+    ``dense[h, q, k]`` over its diagonal, the last entry 0.  The rows
+    reversed and padded with T zeros, ``[H, T, 2T]``, read as rows of
+    ``2T − 1`` put each diagonal in one column, which one sum over the rows
+    adds in a fixed order."""
+    h, t, _ = dense.shape
+    z = torch.cat([dense.flip(1), torch.zeros_like(dense)], dim=2)
+    z = z.reshape(h, 2 * t * t)[:, :t * (2 * t - 1)].reshape(h, t, 2 * t - 1)
+    return torch.nn.functional.pad(z.sum(1), (0, 1))
+
+
 def rel_bias_vector(rel_attn_embed: torch.Tensor, seq_length: int,
                     num_buckets: int = 320,
                     max_distance: int = 800) -> torch.Tensor:
@@ -83,15 +139,16 @@ def rel_bias_vector(rel_attn_embed: torch.Tensor, seq_length: int,
     ``bias[h, q, k] == rel_bias_vector(...)[h, T − 1 + k − q]``."""
     buckets = torch.from_numpy(bucket_of_relative_position(
         seq_length, num_buckets, max_distance).copy())
-    return rel_attn_embed[buckets.to(rel_attn_embed.device)].t().contiguous()
+    return _BucketGather.apply(rel_attn_embed,
+                               buckets.to(rel_attn_embed.device))
 
 
 def dense_bias_from_rel(bias_rel: torch.Tensor,
                         seq_length: int) -> torch.Tensor:
     """Expand the generator ``[H, 2T]`` to the dense ``[H, T, T]``
-    (``out[h, q, k] = bias_rel[h, T − 1 + k − q]``): the plain flash
-    attention's bias; the K5 kernels never form it."""
-    return bias_rel[:, _toeplitz_index(seq_length, bias_rel.device)]
+    (``out[h, q, k] = bias_rel[h, T − 1 + k − q]``): the block attention's
+    bias and the plain flash attention's; the K5 kernels never form it."""
+    return _ToeplitzExpand.apply(bias_rel, seq_length)
 
 
 def fold_dense_bias(dense: torch.Tensor, seq_length: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Data parallelism over processes: joining the group, and the host-side
-and in-step reductions.
+"""Data and tensor parallelism over processes: joining the group, and the
+host-side and in-step reductions.
 
 Counterpart of ``nrse_tpu/parallel/distributed.py``.  The JAX package runs
 one process per host over a global ``('data','model')`` mesh and lets
@@ -24,18 +24,28 @@ tensors, gloo included).
   * :func:`aggregate_metrics`, :func:`aggregate_sums`,
     :func:`broadcast_scalar` — host-side scalars agreed across ranks
     (validation pools sums, the early-stopping decision is rank 0's).
-  * :func:`all_reduce_sum` — the in-step reduction with a gradient: the
-    forward sums across ranks and so does the backward.  Each rank's loss
-    is its part of a global sum (its numerator over the global
-    denominator), so the backward's sum gives every rank the gradient of
-    the global loss at its own rows.
+  * :func:`all_reduce_sum` — the in-step reduction with a gradient over
+    the mesh's data axis: the forward sums across its ranks and so does
+    the backward.  Each rank's loss is its part of a global sum (its
+    numerator over the global denominator), so the backward's sum gives
+    every rank the gradient of the global loss at its own rows.
+  * :func:`copy_to_model` and :func:`reduce_from_model` — Megatron's two
+    conjugate operators over the mesh's model axis (Shoeybi et al. 2019,
+    §3): the first is the identity forward and sums the gradient across
+    the model group backward, and goes before the products whose weights
+    are split by output rows; the second sums across the model group
+    forward and is the identity backward, and goes after the products
+    whose weights are split by input columns.  Both sum in float32 (the
+    callers keep the row-parallel partial products float32 and round once
+    after the sum and the bias, as one rank's whole product is rounded
+    once; a bf16 gradient is summed in float32 and cast back).
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -163,31 +173,44 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _reduce_scalars(metrics: Mapping[str, Any]) -> Dict[str, float]:
-    """``{key: Σ over ranks}`` of host scalars, in float64."""
+def _reduce_scalars(metrics: Mapping[str, Any],
+                    group=None) -> Dict[str, float]:
+    """``{key: Σ over the ranks of group}`` of host scalars, in float64."""
     keys = sorted(metrics)
     local = torch.tensor([float(metrics[k]) for k in keys],
                          dtype=torch.float64, device=_collective_device())
-    dist.all_reduce(local)
+    dist.all_reduce(local, group=group)
     return {k: float(v) for k, v in zip(keys, local.cpu().tolist())}
 
 
-def aggregate_metrics(metrics: Mapping[str, Any]) -> Dict[str, float]:
-    """The mean over ranks of host-side scalar metrics; alone, each as a
-    float."""
-    if process_count() == 1:
-        return {k: float(v) for k, v in metrics.items()}
-    n = process_count()
-    return {k: v / n for k, v in _reduce_scalars(metrics).items()}
+def _data_axis(mesh) -> Tuple[int, Any]:
+    """``(ranks, group)`` the host-side reductions run over: the mesh's
+    data axis (the ranks of a model group hold the same rows and the same
+    values), or every rank without a mesh."""
+    if mesh is None or not mesh.tp:
+        return process_count(), None
+    return (mesh.data if mesh.data_reduce else 1), mesh.data_group
 
 
-def aggregate_sums(metrics: Mapping[str, Any]) -> Dict[str, float]:
-    """The sum over ranks of host-side scalar metrics: pooled (sum,
-    count) pairs give weighted means, where a mean of per-rank means
-    would let an empty bin's placeholder in."""
-    if process_count() == 1:
+def aggregate_metrics(metrics: Mapping[str, Any],
+                      mesh=None) -> Dict[str, float]:
+    """The mean over the data axis's ranks of host-side scalar metrics;
+    alone, each as a float."""
+    n, group = _data_axis(mesh)
+    if n == 1:
         return {k: float(v) for k, v in metrics.items()}
-    return _reduce_scalars(metrics)
+    return {k: v / n for k, v in _reduce_scalars(metrics, group).items()}
+
+
+def aggregate_sums(metrics: Mapping[str, Any],
+                   mesh=None) -> Dict[str, float]:
+    """The sum over the data axis's ranks of host-side scalar metrics:
+    pooled (sum, count) pairs give weighted means, where a mean of
+    per-rank means would let an empty bin's placeholder in."""
+    n, group = _data_axis(mesh)
+    if n == 1:
+        return {k: float(v) for k, v in metrics.items()}
+    return _reduce_scalars(metrics, group)
 
 
 def broadcast_scalar(value: float, source: int = 0) -> float:
@@ -231,8 +254,57 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """``x`` summed over the ranks of ``mesh`` (a ``parallel.mesh.
+    """``x`` summed over the data axis of ``mesh`` (a ``parallel.mesh.
     DataMesh``), with a gradient; ``x`` itself without a group."""
-    if mesh is None or not mesh.distributed:
+    if mesh is None or not mesh.data_reduce:
         return x
-    return _AllReduceSum.apply(x, mesh.group)
+    return _AllReduceSum.apply(x, mesh.data_group)
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` in float32, cast back to x's dtype (a
+    new tensor: x is not touched)."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_f32(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` forward; its gradient summed over the model group backward.
+    Before a product whose weight is split by output rows, and around a
+    replicated parameter that each rank uses for its own heads only.  The
+    identity without a model axis."""
+    if mesh is None or not mesh.tp:
+        return x
+    return _CopyToModel.apply(x, mesh.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x`` summed over the model group forward (in float32, cast back to
+    x's dtype); the gradient as it is backward.  After a product whose
+    weight is split by input columns.  The identity without a model
+    axis."""
+    if mesh is None or not mesh.tp:
+        return x
+    return _ReduceFromModel.apply(x, mesh.model_group)

@@ -1,16 +1,22 @@
-"""One tiny data-parallel BYOL step over N gloo ranks on the CPU.
+"""One tiny BYOL step over N gloo ranks on the CPU, data-parallel and
+tensor-parallel.
 
-The data-parallel half of ``__graft_entry__.py::dryrun_multichip`` (its
-tensor-parallel half is not ported: ``ROADMAP.md``).
+The port of ``__graft_entry__.py::dryrun_multichip``: its data-parallel
+half (a ``{data: N, model: 1}`` mesh) and its tensor-parallel half (``{data:
+N/2, model: 2}``, for an even N; JAX's runs ``{data: 4, model: 2}`` on 8
+devices, ``MULTICHIP_r05.json``).
 
     python -m nrse_tpu_torch.parallel.dryrun [N]
 
 Each rank builds the tiny BYOL model from one seed with dropout, LayerDrop
-and SpecAugment on, keeps its rows of one global batch of ``2·N`` clips
-and takes one train step; the ranks must report one loss, finite, and
-bit-identical replicas.  :func:`collectives_check` holds the collectives
-the data-parallel path uses (``all_reduce`` sum and max, ``broadcast``)
-to their results on the tensors of a device.
+and SpecAugment on (under the model axis, its shards of every layer),
+keeps its data coordinate's rows of one global batch of ``2·N`` clips and
+takes one train step; the ranks must report one loss, finite, and
+replicas that agree (``train.byol_trainer.replicas_agree``: every rank in
+the replicated state, each data group in its shards).
+:func:`collectives_check` holds the collectives the data-parallel path
+uses (``all_reduce`` sum and max, ``broadcast``) to their results on the
+tensors of a device.
 """
 
 from __future__ import annotations
@@ -49,9 +55,10 @@ def global_batch(n: int, seed: int = 0) -> Dict[str, torch.Tensor]:
             for k, v in (("clean", clean), ("noise", noise), ("snr", snr))}
 
 
-def _rank_step(rank: int, world: int) -> Dict:
+def _rank_step(rank: int, world: int, model: int = 1) -> Dict:
     cfg = WavLMConfig.tiny()  # dropout, LayerDrop, SpecAugment on
-    mesh = make_mesh(device="cpu")
+    mesh = make_mesh(model=model, device="cpu",
+                     heads=cfg.num_attention_heads)
     state = create_train_state(
         cfg, init_byol_state_dict(cfg, PROJ, PRED,
                                   torch.Generator().manual_seed(0)),
@@ -99,19 +106,28 @@ def collectives_check(rank: int, world: int, device: str) -> Dict:
             **got}
 
 
-def dryrun_multiprocess(n: int) -> Dict:
-    """One step of the tiny BYOL model over ``n`` gloo ranks on the CPU;
-    raises unless every rank's loss is one finite value and the replicas
-    agree.  Returns rank 0's report."""
-    reports = run_ranks(_rank_step, n)
+def dryrun_multiprocess(n: int, model: int = 1) -> Dict:
+    """One step of the tiny BYOL model over ``n`` gloo ranks on the CPU at
+    ``{data: n / model, model: model}``; raises unless every rank's loss is
+    one finite value and the replicas agree.  Returns rank 0's report."""
+    reports = run_ranks(_rank_step, n, (model,))
     losses = {r["loss"] for r in reports}
     if len(losses) != 1 or not all(r["finite"] and r["agree"]
                                    for r in reports):
         raise RuntimeError(f"the ranks disagree: {reports}")
-    print(f"dryrun_multiprocess({n}): loss={reports[0]['loss']:.4f} "
-          f"layers run {reports[0]['layers']} OK", flush=True)
+    print(f"dryrun_multiprocess({n}, mesh={{'data': {n // model}, 'model': "
+          f"{model}}}): loss={reports[0]['loss']:.4f} layers run "
+          f"{reports[0]['layers']} OK", flush=True)
     return reports[0]
 
 
+def main(n: int) -> None:
+    """The data-parallel half over ``n`` ranks, then the tensor-parallel
+    half at ``{data: n/2, model: 2}`` where ``n`` is even."""
+    dryrun_multiprocess(n)
+    if n % 2 == 0:
+        dryrun_multiprocess(n, model=2)
+
+
 if __name__ == "__main__":
-    dryrun_multiprocess(int(sys.argv[1]) if len(sys.argv) > 1 else 2)
+    main(int(sys.argv[1]) if len(sys.argv) > 1 else 2)

@@ -33,6 +33,20 @@ the JAX package's GSPMD step computes on an N-wide ``data`` mesh,
 ``DistributedDataParallel``: its buckets would replace the ``.grad`` views
 of the flat buffer K4 reads whole, and its averaging would divide by the
 world size on top of the global denominators.
+
+Tensor parallelism (a mesh whose model axis ``m`` is above 1): the towers
+hold this rank's shards of the encoder's layers (``models.wavlm``,
+``parallel.mesh.partition_rule``), and each flat buffer holds first the
+shards (``split`` elements) and then the replicated parameters, the
+target's buffer being a prefix of the online one as before.  The gradient
+is summed over the data group, the rows' axis; ``grad_norm`` is the global
+norm, ``sqrt(Σ over the model group of Σ shard² + Σ replicated²)``, each
+replicated element counted once, and K4 clips with it on each rank's
+buffers.  The shards are broadcast and compared within the data group,
+the replicated parameters over every rank.  A checkpoint holds the ``model:
+1`` layout: :meth:`BYOLTrainState.checkpoint_tensors` gathers the model
+group's shards into it and :meth:`BYOLTrainState.load_checkpoint_tensors`
+shards it again, so a run resumes at any ``tpu.mesh``.
 """
 
 from __future__ import annotations
@@ -60,16 +74,26 @@ from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
 )
-from nrse_tpu_torch.parallel.mesh import DataMesh
+from nrse_tpu_torch.parallel.mesh import (
+    DataMesh,
+    gather_state_dict,
+    partition_rule,
+    shard_state_dict,
+)
 from nrse_tpu_torch.parallel.mesh import broadcast_state as _broadcast
 from nrse_tpu_torch.parallel.mesh import replicas_agree as _replicas_agree
+
+# the flat buffers of the state, and which tower's parameters each holds
+FLAT = {"params": "online", "mu": "online", "nu": "online",
+        "target_params": "target"}
 
 
 @dataclasses.dataclass
 class BYOLTrainState:
     """Everything the train step carries.  ``step`` is also the Adam step
-    count; ``seed`` is the root of every random stream; ``mesh`` the data
-    mesh (None: one process)."""
+    count; ``seed`` is the root of every random stream; ``mesh`` the mesh
+    (None: one process); ``split`` the flat buffers' leading elements that
+    are this rank's shards under a model axis (0 without one)."""
 
     online: OnlineNetwork
     target: TargetNetwork
@@ -81,6 +105,11 @@ class BYOLTrainState:
     step: int = 0
     seed: int = 0
     mesh: Optional[DataMesh] = None
+    split: int = 0
+
+    @property
+    def tp(self) -> bool:
+        return self.mesh is not None and self.mesh.tp
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """The tensors a checkpoint holds and the replicas share, by name:
@@ -94,6 +123,89 @@ class BYOLTrainState:
             for name, buf in module.named_buffers():
                 out[f"{tower}.{name}"] = buf
         return out
+
+    def _named(self, flat: torch.Tensor,
+               tower: str) -> Dict[str, torch.Tensor]:
+        """A flat buffer of ``tower``'s parameters as views named after
+        them, in the buffer's order."""
+        out, off = {}, 0
+        for name, p in flat_order(getattr(self, tower), self.mesh):
+            out[name] = flat[off:off + p.numel()].view(p.shape)
+            off += p.numel()
+        return out
+
+    def whole_shapes(self, tower: str) -> Dict[str, torch.Size]:
+        """``tower``'s parameter shapes in the ``model: 1`` layout, in
+        module order."""
+        out = {}
+        for n, p in getattr(self, tower).named_parameters():
+            shape = list(p.shape)
+            dim = partition_rule(n, p) if self.tp else None
+            if dim is not None:
+                shape[dim] *= self.mesh.model
+            out[n] = torch.Size(shape)
+        return out
+
+    def gathered(self, flat: torch.Tensor,
+                 tower: str) -> Dict[str, torch.Tensor]:
+        """A flat buffer of ``tower``'s parameters (``params``, ``grads``,
+        ``mu``, ...) as the ``model: 1`` state dict, the model group's
+        shards gathered: a collective over the model group under a model
+        axis (its ranks all call it), views of ``flat`` without one."""
+        return gather_state_dict(self._named(flat, tower), self.mesh)
+
+    def checkpoint_tensors(self) -> Dict[str, torch.Tensor]:
+        """:meth:`tensors` in the ``model: 1`` layout, the flat buffers
+        laid out as one process lays them out (the towers' parameters in
+        module order, whole).  Under a model axis a collective over the
+        model group; without one :meth:`tensors` itself."""
+        out = self.tensors()
+        if not self.tp:
+            return out
+        for key, tower in FLAT.items():
+            whole = self.gathered(out[key], tower)
+            out[key] = torch.cat([whole[n].reshape(-1)
+                                  for n in self.whole_shapes(tower)])
+        return out
+
+    def checkpoint_shapes(self) -> Dict[str, torch.Size]:
+        """The shapes of :meth:`checkpoint_tensors`, without a
+        collective."""
+        out = {k: v.shape for k, v in self.tensors().items()}
+        for key, tower in FLAT.items():
+            out[key] = torch.Size([sum(
+                s.numel() for s in self.whole_shapes(tower).values())])
+        return out
+
+    @torch.no_grad()
+    def load_checkpoint_tensors(self, tensors: Mapping) -> None:
+        """Write ``tensors`` (the ``model: 1`` layout of
+        :meth:`checkpoint_tensors`) into the state in place, each rank
+        keeping its shards."""
+        for key, dst in self.tensors().items():
+            src = tensors[key]
+            if key not in FLAT or not self.tp:
+                dst.copy_(src)
+                continue
+            whole, off = {}, 0
+            for n, shape in self.whole_shapes(FLAT[key]).items():
+                whole[n] = src[off:off + shape.numel()].view(shape)
+                off += shape.numel()
+            local = shard_state_dict(whole, self.mesh)
+            for n, view in self._named(dst, FLAT[key]).items():
+                view.copy_(local[n])
+
+
+def flat_order(module: nn.Module, mesh: Optional[DataMesh]
+               ) -> List[Tuple[str, nn.Parameter]]:
+    """``module``'s named parameters in the order of the flat buffers:
+    under a model axis the ones ``partition_rule`` splits first, then the
+    replicated ones, each in module order; module order otherwise."""
+    named = list(module.named_parameters())
+    if mesh is None or not mesh.tp:
+        return named
+    return ([(n, p) for n, p in named if partition_rule(n, p) is not None]
+            + [(n, p) for n, p in named if partition_rule(n, p) is None])
 
 
 def flatten_params(params: List[nn.Parameter], device) -> torch.Tensor:
@@ -130,20 +242,25 @@ def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
     ``compute_dtype``, default float32), the target a real copy of the
     online encoder and projector unless ``target_state_dict`` is given,
     ``mu = nu = 0``.  With a ``mesh``, the heads' BatchNorms take global
-    statistics, and every rank starts from rank 0's state."""
+    statistics, and every rank starts from rank 0's state; under a model
+    axis the state dicts (``model: 1`` ones) are sharded and each rank
+    keeps its shards."""
     device = torch.device(device)
+    tp_mesh = mesh if mesh is not None and mesh.tp else None
     online = _load(OnlineNetwork(config, projection_dim, prediction_dim,
-                                 device="meta", compute_dtype=compute_dtype),
-                   online_state_dict, device)
+                                 device="meta", compute_dtype=compute_dtype,
+                                 mesh=tp_mesh),
+                   shard_state_dict(online_state_dict, tp_mesh), device)
     if target_state_dict is None:
         target = make_target(online)
     else:
         target = _load(TargetNetwork(config, projection_dim, device="meta",
-                                     compute_dtype=compute_dtype),
-                       target_state_dict, device)
+                                     compute_dtype=compute_dtype,
+                                     mesh=tp_mesh),
+                       shard_state_dict(target_state_dict, tp_mesh), device)
     target.requires_grad_(False)
-    online_params = list(online.named_parameters())
-    target_params = list(target.named_parameters())
+    online_params = flat_order(online, tp_mesh)
+    target_params = flat_order(target, tp_mesh)
     if [(n, p.shape) for n, p in online_params[:len(target_params)]] != \
             [(n, p.shape) for n, p in target_params]:
         raise ValueError("the target's parameters are not a prefix of the "
@@ -159,7 +276,9 @@ def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
         grads=grads, mu=torch.zeros_like(params),
         nu=torch.zeros_like(params),
         target_params=flatten_params([p for _, p in target_params], device),
-        seed=seed, mesh=mesh)
+        seed=seed, mesh=mesh,
+        split=sum(p.numel() for n, p in online_params
+                  if tp_mesh is not None and partition_rule(n, p) is not None))
     if mesh is not None:
         use_mesh(online, mesh)
         use_mesh(target, mesh)
@@ -167,20 +286,58 @@ def create_train_state(config: WavLMConfig, online_state_dict: Mapping,
     return state
 
 
+def _parts(state: BYOLTrainState):
+    """``(shards, replicated)``: the state's tensors split into this
+    rank's shards (the flat buffers' first ``split`` elements) and the
+    rest."""
+    shards, rest = [], []
+    for key, t in state.tensors().items():
+        if key in FLAT and state.split:
+            shards.append(t[:state.split])
+            rest.append(t[state.split:])
+        else:
+            rest.append(t)
+    return shards, rest
+
+
 def broadcast_state(state: BYOLTrainState) -> None:
     """Rank 0's state on every rank of the state's mesh (at the start and
-    after a resume)."""
-    if state.mesh is not None:
-        _broadcast(state.mesh, state.tensors().values())
+    after a resume); under a model axis the shards from the data group's
+    first rank (data index 0, this model index) within the data group."""
+    mesh = state.mesh
+    if mesh is None:
+        return
+    shards, rest = _parts(state)
+    _broadcast(mesh, rest)
+    if shards and mesh.data_reduce:
+        _broadcast(mesh, shards, mesh.data_rank(0), mesh.data_group)
 
 
 def replicas_agree(state: BYOLTrainState) -> bool:
-    """True when every rank of the state's mesh holds the same bits in
-    its flat buffers and BatchNorm statistics (one ``all_reduce`` of their
-    checksums)."""
-    if state.mesh is None:
+    """True when the ranks of the state's mesh hold the same bits where
+    they should: every rank in the replicated parameters, the moments and
+    the BatchNorm statistics, and the ranks of each data group in their
+    shards (an ``all_reduce`` of checksums each)."""
+    mesh = state.mesh
+    if mesh is None:
         return True
-    return _replicas_agree(state.mesh, state.tensors().values())
+    shards, rest = _parts(state)
+    agree = _replicas_agree(mesh, rest)
+    if shards and mesh.data_reduce:
+        agree = _replicas_agree(mesh, shards, mesh.data_group) and agree
+    return agree
+
+
+def grad_norm_of(state: BYOLTrainState) -> torch.Tensor:
+    """The global L2 norm of the online gradients: under a model axis
+    ``sqrt(Σ over the model group of Σ shard² + Σ replicated²)``."""
+    if not state.tp:
+        return torch.linalg.vector_norm(state.grads)
+    shard = torch.linalg.vector_norm(state.grads[:state.split])
+    rest = torch.linalg.vector_norm(state.grads[state.split:])
+    sq = (shard * shard).reshape(1)
+    dist.all_reduce(sq, group=state.mesh.model_group)
+    return torch.sqrt(sq[0] + rest * rest)
 
 
 def make_byol_train_step(spec: FusedAdamWSpec
@@ -192,11 +349,12 @@ def make_byol_train_step(spec: FusedAdamWSpec
     ``valid_fraction`` and ``finite`` are device tensors (nothing waits for
     the card), of the global batch under a mesh; ``layers_online`` and
     ``layers_target`` count the layers each tower ran under LayerDrop.
-    Under a mesh ``batch`` holds this rank's rows."""
+    Under a mesh ``batch`` holds this rank's rows (its data coordinate's:
+    the ranks of a model group take the same rows)."""
 
     def train_step(state: BYOLTrainState, batch: Dict) -> Dict:
         online, target, mesh = state.online, state.target, state.mesh
-        rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
         clean, noisy, valid = make_byol_views(batch["clean"], batch["noise"],
                                               batch["snr"])
         state.grads.zero_()
@@ -212,12 +370,12 @@ def make_byol_train_step(spec: FusedAdamWSpec
         with torch.no_grad():
             loss = loss.detach()
             valid_fraction = valid.float().mean()
-            if mesh is not None and mesh.distributed:
-                dist.all_reduce(state.grads, group=mesh.group)
+            if mesh is not None and mesh.data_reduce:
+                dist.all_reduce(state.grads, group=mesh.data_group)
                 pooled = torch.stack([loss, valid_fraction / world])
-                dist.all_reduce(pooled, group=mesh.group)
+                dist.all_reduce(pooled, group=mesh.data_group)
                 loss, valid_fraction = pooled[0], pooled[1]
-            grad_norm = torch.linalg.vector_norm(state.grads)
+            grad_norm = grad_norm_of(state)
             fused_adamw_ema_update(state.grads, state.params, state.mu,
                                    state.nu, state.target_params, spec,
                                    state.step, grad_norm)

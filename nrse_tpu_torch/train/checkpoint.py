@@ -10,7 +10,12 @@ in place of orbax: the same names (``best_val_loss``,
 BatchNorm running statistics of both towers), ``step`` and ``seed``.  It
 is read back with ``torch.load(weights_only=True)`` and written into the
 existing buffers in place, so the modules' parameters and gradients, which
-are views of the flat buffers, stay valid.  The SER trainers' state
+are views of the flat buffers, stay valid.  A BYOL state under tensor
+parallelism saves the ``model: 1`` layout, its model group's shards
+gathered (``BYOLTrainState.checkpoint_tensors``: params, mu, nu and the
+target), and restores by sharding what it reads, so every ``tpu.mesh``
+writes and reads the same files, as the JAX package's orbax arrays are
+global.  The SER trainers' state
 (``train.emotion_trainer.EmotionTrainState``, the counterpart of the JAX
 ``EmotionTrainState`` these names hold there: ``best_classifier_model``,
 ``best_fine_tuned_model``) is kept the same way: ``params``, ``mu``,
@@ -48,17 +53,25 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """The tensors a checkpoint holds, by name: ``params``, ``mu``, ``nu``
     and, of a BYOL state, ``target_params`` and each tower's buffers
     (``online.<name>``, ``target.<name>``: the BatchNorm running
-    statistics); the state's ``tensors()``."""
+    statistics); the state's ``tensors()`` in the ``model: 1`` layout (a
+    BYOL state under a model axis gathers its shards: a collective over
+    its model group)."""
+    if isinstance(state, BYOLTrainState):
+        return state.checkpoint_tensors()
     return state.tensors()
 
 
 def save_checkpoint(ckpt_dir: str, name: str, state: TrainState,
-                    metadata: Optional[Dict[str, Any]] = None) -> str:
+                    metadata: Optional[Dict[str, Any]] = None,
+                    tensors: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Save ``state`` under ``ckpt_dir/name`` (overwriting it); returns the
-    checkpoint's directory.  The file is written whole and then renamed, so
-    a run cut during a save leaves the previous checkpoint readable."""
-    payload = {"tensors": {k: v.detach().cpu()
-                           for k, v in state_tensors(state).items()},
+    checkpoint's directory.  ``tensors``: the state's
+    :func:`state_tensors`, where the caller gathered them already (on
+    every rank of a model group, to save on one).  The file is written
+    whole and then renamed, so a run cut during a save leaves the previous
+    checkpoint readable."""
+    tensors = state_tensors(state) if tensors is None else tensors
+    payload = {"tensors": {k: v.detach().cpu() for k, v in tensors.items()},
                "step": int(state.step), "seed": int(state.seed)}
     return _write(ckpt_dir, name, payload, metadata)
 
@@ -94,18 +107,24 @@ def restore_checkpoint(ckpt_dir: str, name: str, state: TrainState
     metadata)``.  Raises ``ValueError`` if a tensor's name or shape differs
     from the state's (another model configuration)."""
     saved, metadata = _read(ckpt_dir, name)
-    sources, targets = saved["tensors"], state_tensors(state)
-    if sources.keys() != targets.keys():
+    sources = saved["tensors"]
+    byol = isinstance(state, BYOLTrainState)
+    shapes = state.checkpoint_shapes() if byol else {
+        k: v.shape for k, v in state.tensors().items()}
+    if sources.keys() != shapes.keys():
         raise ValueError(f"checkpoint {name!r} holds other tensors than the "
-                         f"state: {sorted(sources.keys() ^ targets.keys())}")
-    for k, dst in targets.items():
-        if sources[k].shape != dst.shape:
+                         f"state: {sorted(sources.keys() ^ shapes.keys())}")
+    for k, shape in shapes.items():
+        if sources[k].shape != shape:
             raise ValueError(f"checkpoint {name!r}: {k} has shape "
                              f"{tuple(sources[k].shape)}, the state "
-                             f"{tuple(dst.shape)}")
-    with torch.no_grad():
-        for k, dst in targets.items():
-            dst.copy_(sources[k])
+                             f"{tuple(shape)}")
+    if byol:
+        state.load_checkpoint_tensors(sources)
+    else:
+        with torch.no_grad():
+            for k, dst in state.tensors().items():
+                dst.copy_(sources[k])
     state.step = int(saved["step"])
     state.seed = int(saved["seed"])
     return state, metadata

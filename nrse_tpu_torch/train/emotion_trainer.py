@@ -225,8 +225,9 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
     def train_step(state: EmotionTrainState, batch: Mapping,
                    class_weights, layers: Sequence[int],
                    learning_rate: float, rest_scale: float = 0.0) -> Dict:
-        segments = trainable_segments(state, layers, rest_scale)
         mesh = state.mesh
+        refuse_model_axis(mesh)
+        segments = trainable_segments(state, layers, rest_scale)
         rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
         state.grads.zero_()
         x = zero_mean_unit_var(batch["input_values"])
@@ -240,8 +241,8 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
             loss = loss.detach()
             if mesh is not None and mesh.distributed:
                 for lo, hi in segments:
-                    dist.all_reduce(state.grads[lo:hi], group=mesh.group)
-                dist.all_reduce(loss, group=mesh.group)
+                    dist.all_reduce(state.grads[lo:hi], group=mesh.data_group)
+                dist.all_reduce(loss, group=mesh.data_group)
             grad_norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(state.grads[lo:hi])
                  for lo, hi in segments]))
@@ -257,6 +258,17 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
     return train_step
 
 
+def refuse_model_axis(mesh: Optional[DataMesh]) -> None:
+    """Raise for a mesh with a model axis above 1: the SER trainers are
+    data-parallel only in the port (JAX runs them replicated over such a
+    mesh, ``nrse_tpu/train/emotion_trainer.py:172-205``)."""
+    if mesh is not None and mesh.tp:
+        raise ValueError(
+            f"tpu.mesh model={mesh.model}: tensor parallelism is not ported "
+            "to the SER trainers (ROADMAP.md, Queue 1: tensor parallelism "
+            "of the SER trainers and the fine-tune); use model: 1")
+
+
 def make_batch_placer(mesh: DataMesh, batch_size: int
                       ) -> Tuple[Callable, Callable]:
     """``(place_batch, place_state)`` for data-parallel SER training, as
@@ -265,7 +277,9 @@ def make_batch_placer(mesh: DataMesh, batch_size: int
     loaders pad their last batch, so a divisible batch size always holds);
     ``place_batch`` keeps this rank's rows of a global host batch (and its
     share of a padded batch's ``__count__``); ``place_state`` gives a
-    state the mesh and rank 0's parameters and moments."""
+    state the mesh and rank 0's parameters and moments.  Raises for a
+    model axis above 1 (:func:`refuse_model_axis`)."""
+    refuse_model_axis(mesh)
     mesh.local_batch(batch_size)
 
     def place_batch(batch):

@@ -98,8 +98,8 @@ def ccc_loss(predictions: torch.Tensor, targets: torch.Tensor,
     """Mean ``1 − CCC`` over the last axis's dimensions (A, V, D) of
     ``[N, 3]`` predictions and targets, in float32; 0 for N ≤ 1.  With a
     ``mesh``, N and the moments are the global batch's (two passes, each
-    one sum across the ranks), and the result is this rank's share, the
-    global loss over the world size."""
+    one sum across the data axis's ranks), and the result is this rank's
+    share, the global loss over the data axis's size."""
     p = predictions.float()
     t = targets.to(device=p.device, dtype=torch.float32)
     d = p.shape[1]
@@ -114,7 +114,7 @@ def ccc_loss(predictions: torch.Tensor, targets: torch.Tensor,
     var_p, var_t, covar = second[:d], second[d:2 * d], second[2 * d:]
     ccc = 2 * covar / (var_p + var_t + (mean_p - mean_t) ** 2 + eps)
     loss = torch.where(first[2 * d] > 1.0, (1.0 - ccc).mean(), 0.0)
-    return loss if mesh is None else loss / mesh.world
+    return loss if mesh is None else loss / mesh.data
 
 
 def ccc_moments(predictions: np.ndarray, targets: np.ndarray

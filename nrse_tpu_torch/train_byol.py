@@ -34,14 +34,19 @@ One process on one card (``device: cuda``, computing in bf16, the type
 the kernels take) or on the CPU (float32, the plain paths), or N ranks,
 one card each (``parallel``): the group is joined from the
 ``tpu.distributed`` block or torchrun's environment
-(``parallel.distributed.maybe_initialize``), ``tpu.mesh`` must span every
+(``parallel.distributed.maybe_initialize``), ``tpu.mesh`` (``data`` ×
+``model``, ``data: -1`` for the world over ``model``) must span every
 rank, ``training.batch_size`` is the global batch and must divide over
-the ranks; each rank loads its shard at the per-rank batch, the step
-reduces gradients and statistics over the global batch, validation pools
-its sums, and rank 0's early-stopping decision is broadcast.  Only rank 0
-logs to wandb, writes checkpoints and prints the epoch lines; every rank
-waits after a checkpoint.  The t-SNE plot is drawn only by a run of one
-process, as in the JAX entry point.
+the data axis; each rank loads its data coordinate's shard at the
+per-rank batch, the step reduces gradients and statistics over the global
+batch, validation pools its sums over the data axis, and rank 0's
+early-stopping decision is broadcast.  With ``model > 1`` (tensor
+parallelism, which must divide the encoder's heads) the ranks of a model
+group hold the shards of every layer and see the same rows; checkpoints
+gather the shards into the ``model: 1`` layout, so a run resumes at any
+mesh.  Only rank 0 logs to wandb, writes checkpoints and prints the epoch
+lines; every rank waits after a checkpoint.  The t-SNE plot is drawn only
+by a run of one process, as in the JAX entry point.
 """
 
 from __future__ import annotations
@@ -86,6 +91,7 @@ from nrse_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
     save_checkpoint,
+    state_tensors,
 )
 from nrse_tpu_torch.train.early_stopping import EarlyStopping
 from nrse_tpu_torch.train.schedules import cosine_annealing
@@ -134,12 +140,14 @@ def _main(config: Dict[str, Any],
                                config["model"])
     seed = int(tr["seed"])
     set_seed(seed)
-    mesh = mesh_from_config(config, resolve_device(config["device"]))
+    enc = encoder or WavLMConfig.from_model_name(model_cfg["name"])
+    mesh = mesh_from_config(config, resolve_device(config["device"]),
+                            enc.num_attention_heads)
     device = mesh.device
     if device.type == "cuda" and mesh.distributed:
         torch.cuda.set_device(device)
     batch_size = tr["batch_size"]
-    mesh.local_batch(batch_size)  # the global batch divides over the ranks
+    mesh.local_batch(batch_size)  # the global batch divides over 'data'
     primary = is_primary()
     ckpt_dir = tr["checkpoint_dir"]
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -153,10 +161,9 @@ def _main(config: Dict[str, Any],
     # the loaders decode with the native C++ runtime where it loads
     decoder = "native" if native_available() else "python"
     logger.info(f"audio decoder: {decoder}")
-    train_loader, val_loader = create_dataloaders(config)
+    train_loader, val_loader = create_dataloaders(config, mesh)
     prefetch = int(config.get("tpu", {}).get("prefetch_depth", 2))
 
-    enc = encoder or WavLMConfig.from_model_name(model_cfg["name"])
     num_epochs = int(tr["num_epochs"])
     total_steps = len(train_loader) * num_epochs
     lr = tr["learning_rate"]
@@ -265,7 +272,8 @@ def _main(config: Dict[str, Any],
                              best_val_similarity,
                              val_metrics["val_avg_similarity"])}}
         # the replicas are equal and the pooled metrics too: rank 0 saves
-        # what every rank holds
+        # what every rank holds (its model group's shards gathered, which
+        # takes every rank)
         saves = []
         if val_loss < best_val_loss:
             best_val_loss = val_loss
@@ -278,9 +286,10 @@ def _main(config: Dict[str, Any],
                           f"{best_val_similarity:.4f}"))
         saves.append(("last_model", None))
         if save_ckpts:
+            tensors = state_tensors(state)
             for name, line in saves:
                 if primary:
-                    save_checkpoint(ckpt_dir, name, state, meta)
+                    save_checkpoint(ckpt_dir, name, state, meta, tensors)
                     if line:
                         print(line, flush=True)
             barrier()

@@ -271,15 +271,17 @@ def test_lse_is_not_differentiable_and_long_sequences_raise():
 
 def _separate_dropout_attention(q, k, v, gate, pos_bias,
                                 key_padding_mask=None, *, p_drop=0.0,
-                                dropout_seed=None):
+                                dropout_seed=None, dropout_window=None):
     """The separate-dropout route: plain float32 attention under autograd,
-    then K1 over the merged output at the attention-output site."""
+    then K1 over the merged output at the attention-output site (over its
+    window, for a shard of the heads)."""
     out = gated_bias_attention(q, k, v, gate, pos_bias, key_padding_mask)
     if p_drop == 0.0:
         return out
     b, h, t, d = out.shape
     merged = out.transpose(1, 2).reshape(b, t, h * d)
-    merged = fused_dropout.hw_dropout(merged, dropout_seed, p_drop)
+    merged = fused_dropout.hw_dropout(merged, dropout_seed, p_drop,
+                                      window=dropout_window)
     return merged.view(b, t, h, d).transpose(1, 2)
 
 

@@ -7,9 +7,11 @@ against the JAX package's ``nrse_tpu/parallel`` and against one process.
      process (``tests/test_distributed.py::test_single_process_helpers_
      are_identity``), and ``make_mesh`` gives one rank.
   3. ``make_mesh`` refuses a ``data`` other than the world size (a subset
-     of the processes), ``model > 1`` (naming ROADMAP.md's tensor-parallel
-     item) and a batch that does not divide over the ranks; none falls
-     back.  ``shard_batch`` gives rank r rows ``[r·b, (r+1)·b)`` and its
+     of the processes), a ``model`` axis that the ranks do not fill (two
+     ranks for ``model=2``) or that does not divide the 16 heads
+     (``model=3``), and a batch that does not divide over the ranks; none
+     falls back.  In a group of two, ``model=2`` builds the ``1 × 2``
+     mesh.  ``shard_batch`` gives rank r rows ``[r·b, (r+1)·b)`` and its
      share of a padded batch's count.
   4. The differentiable reduction: over 2 gloo ranks, each rank's part
      ``x_r·S`` of the global loss ``S·S`` gets the one-process gradient of
@@ -70,8 +72,10 @@ def test_single_process_helpers_are_identity():
 def test_make_mesh_refuses_alone():
     with pytest.raises(ValueError, match="subset"):
         make_mesh(data=2, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="needs a multiple of 2 ranks"):
         make_mesh(model=2, device="cpu")
+    with pytest.raises(ValueError, match="16 attention heads"):
+        make_mesh(model=3, device="cpu")
     assert make_mesh(data=1, device="cpu").world == 1
 
 
@@ -91,7 +95,8 @@ def mesh_checks():
 def test_make_mesh_refuses_in_a_group(mesh_checks):
     for rank, out in enumerate(mesh_checks):
         assert "subset" in out["subset"]
-        assert "ROADMAP.md" in out["model"]
+        assert "16 attention heads" in out["heads"]
+        assert out["model"] == (1, 2, 0, rank)
         assert "must be divisible" in out["batch"]
         assert out["mesh"] == (2, rank, "cpu", True)
 

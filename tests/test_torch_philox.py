@@ -151,3 +151,104 @@ def test_no_correlation_between_neighbours_in_a_group():
     for e in range(3):
         r = float((z[:, e] * z[:, e + 1]).mean())
         assert abs(r) < 5 / np.sqrt(n // 4), (e, r)
+
+
+# Windows (tensor parallelism): a shard of columns [c0, c0 + w) of a whole
+# [N, W] tensor draws the whole tensor's mask there, bit for bit, through
+# the plain twins of K1, kernel A/K3 and kernel B/K2; the shards' results
+# put together are the whole call's.
+SEED, P = (0x1234, 0xBEEF), 0.3
+
+
+@pytest.mark.parametrize("c0,w", [(0, 8), (8, 8), (4, 12), (12, 4)])
+def test_window_mask_is_the_slice(c0, w):
+    whole = philox.dump_mask(SEED, 1, (3, 5, 16), P)
+    part = philox.dump_mask(SEED, 1, (3, 5, w), P, window=(16, c0))
+    assert torch.equal(part, whole[..., c0:c0 + w])
+    assert torch.equal(philox.dump_mask(SEED, 1, (3, 5, 16), P,
+                                        window=(16, 0)), whole)
+    for bad in ((16, 2), (14, 0), (16, 16 - w + 4)):
+        with pytest.raises(ValueError):
+            philox.dump_mask(SEED, 1, (3, 5, w), P, window=bad)
+
+
+def test_k1_window_is_the_slice():
+    from nrse_tpu_torch.ops.fused_dropout import dump_dropout_mask, hw_dropout
+
+    x = torch.randn(2, 7, 32, requires_grad=True)
+    y = hw_dropout(x, SEED, P)
+    y.backward(torch.ones_like(y))
+    for c0 in (8, 16):
+        xs = x.detach()[..., c0:c0 + 16].clone().requires_grad_()
+        ys = hw_dropout(xs, SEED, P, window=(32, c0))
+        ys.backward(torch.ones_like(ys))
+        assert torch.equal(ys, y[..., c0:c0 + 16])
+        assert torch.equal(xs.grad, x.grad[..., c0:c0 + 16])
+        assert torch.equal(dump_dropout_mask(SEED, (2, 7, 16), P,
+                                             window=(32, c0)),
+                           dump_dropout_mask(SEED, (2, 7, 32), P)[
+                               ..., c0:c0 + 16])
+
+
+def test_kernel_a_window_is_the_slice():
+    from nrse_tpu_torch.ops.attention import attention_keep_mask
+    from nrse_tpu_torch.ops.block_attention import block_gated_attention
+
+    g = torch.Generator().manual_seed(0)
+    b, h, t, d = 2, 4, 37, 16
+    q, k, v = (torch.randn(b, h, t, d, generator=g).requires_grad_()
+               for _ in range(3))
+    gate = torch.rand(b, h, t, generator=g) + 0.5
+    bias = torch.randn(h, t, t, generator=g)
+    out = block_gated_attention(q, k, v, gate, bias, p_drop=P,
+                                dropout_seed=SEED)
+    w = torch.randn(out.shape, generator=g)
+    (out * w).sum().backward()
+    full = attention_keep_mask(SEED, (b, h, t, d), P)
+    for h0 in (1, 2):
+        hs = slice(h0, h0 + 2)
+        assert torch.equal(
+            attention_keep_mask(SEED, (b, 2, t, d), P, window=(h * d, h0 * d)),
+            full[:, hs])
+        qs, ks, vs = (x.detach()[:, hs].clone().requires_grad_()
+                      for x in (q, k, v))
+        part = block_gated_attention(qs, ks, vs, gate[:, hs], bias[hs],
+                                     p_drop=P, dropout_seed=SEED,
+                                     dropout_window=(h * d, h0 * d))
+        (part * w[:, hs]).sum().backward()
+        torch.testing.assert_close(part, out[:, hs], rtol=0, atol=1e-6)
+        for got, x in ((qs, q), (ks, k), (vs, v)):
+            torch.testing.assert_close(got.grad, x.grad[:, hs], rtol=0,
+                                       atol=1e-5)
+
+
+def test_kernel_b_window_is_the_slice():
+    from nrse_tpu_torch.ops.fused_ffn import dump_masks, fused_ffn
+
+    g = torch.Generator().manual_seed(1)
+    n, c, f = 9, 16, 32
+    x = torch.randn(n, c, generator=g)
+    w1, b1 = torch.randn(f, c, generator=g) / 4, torch.randn(f, generator=g)
+    w2, b2 = torch.randn(c, f, generator=g) / 6, torch.randn(c, generator=g)
+    whole = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    out = fused_ffn(*whole, SEED, P, P)
+    dy = torch.randn(out.shape, generator=g)
+    (out * dy).sum().backward()
+    act, hid = dump_masks(SEED, n, c, f, P, P)
+    total = 0.0
+    for f0 in (0, 16):
+        cols = slice(f0, f0 + 16)
+        parts = [t.clone().requires_grad_() for t in
+                 (x, w1[cols], b1[cols], w2[:, cols], b2)]
+        part = fused_ffn(*parts, SEED, P, P, shard=(f, f0))
+        assert part.dtype == torch.float32
+        (part * dy).sum().backward()
+        total = total + part
+        sa, sh = dump_masks(SEED, n, c, 16, P, P, shard=(f, f0))
+        assert torch.equal(sa, act[:, cols]) and torch.equal(sh, hid)
+        for got, ref in ((parts[1].grad, whole[1].grad[cols]),
+                         (parts[2].grad, whole[2].grad[cols]),
+                         (parts[3].grad, whole[3].grad[:, cols]),
+                         (parts[4].grad, whole[4].grad)):
+            torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(total, out, rtol=0, atol=1e-5)

@@ -40,13 +40,33 @@ def _numpy(module) -> Dict[str, np.ndarray]:
             for k, v in module.state_dict().items()}
 
 
+def whole_state_dicts(state):
+    """The towers' state dicts and the flat buffers in the ``model: 1``
+    layout (a tensor-parallel state's shards gathered), as numpy."""
+    full = state.checkpoint_tensors()
+    out = {}
+    for tower, key in (("online", "params"), ("target", "target_params")):
+        sd, off = {}, 0
+        for name, shape in state.whole_shapes(tower).items():
+            sd[name] = full[key][off:off + shape.numel()].view(shape)
+            off += shape.numel()
+        for name, _ in getattr(state, tower).named_buffers():
+            sd[name] = full[f"{tower}.{name}"]
+        out[tower] = {k: v.detach().numpy().copy() for k, v in sd.items()}
+    out["flat"] = {k: v.detach().numpy().copy() for k, v in full.items()}
+    return out
+
+
 def byol_steps(rank, world, cfg_kwargs, online_sd, target_sd, batch,
-               proj, pred, opt, steps):
-    """``steps`` BYOL train steps of this rank's rows of ``batch``; per
-    step the metrics and whether the replicas agree, then the towers'
-    state dicts and the flat buffers."""
+               proj, pred, opt, steps, model=1):
+    """``steps`` BYOL train steps of this rank's rows of ``batch`` on a
+    ``{data: world / model, model: model}`` mesh; per step the metrics and
+    whether the replicas agree, the first step's gradients, then the
+    towers' state dicts and the flat buffers (all in the ``model: 1``
+    layout)."""
     cfg = WavLMConfig.tiny(**cfg_kwargs)
-    mesh = make_mesh(device="cpu")
+    mesh = make_mesh(model=model, device="cpu",
+                     heads=cfg.num_attention_heads)
     state = create_train_state(cfg, online_sd, proj, pred, "cpu", seed=7,
                                target_state_dict=target_sd, mesh=mesh)
     lr, total, wd, eps, ema = opt
@@ -54,19 +74,20 @@ def byol_steps(rank, world, cfg_kwargs, online_sd, target_sd, batch,
         schedule=cosine_annealing(lr, total), weight_decay=wd, eps=eps,
         ema_decay=ema))
     local = _tensors(shard_batch(mesh, batch))
-    metrics = []
+    metrics, grads = [], None
     for _ in range(steps):
         m = step(state, local)
+        if grads is None:
+            grads = {k: v.numpy().copy() for k, v in
+                     state.gathered(state.grads, "online").items()}
         metrics.append({"loss": float(m["loss"]),
                         "grad_norm": float(m["grad_norm"]),
                         "valid_fraction": float(m["valid_fraction"]),
                         "finite": bool(m["finite"]),
                         "layers": (m["layers_online"], m["layers_target"]),
                         "agree": replicas_agree(state)})
-    return {"metrics": metrics, "online": _numpy(state.online),
-            "target": _numpy(state.target),
-            "flat": {k: v.detach().numpy().copy()
-                     for k, v in state.tensors().items()}}
+    return {"metrics": metrics, "grads": grads, "split": state.split,
+            **whole_state_dicts(state)}
 
 
 def emotion_steps(rank, world, state_dict, hidden, task, batches, weights,
@@ -147,9 +168,9 @@ def pooled_validation(rank, world, batches, batch_size, weights):
 def _record_saves(module, saves):
     real = module.save_checkpoint
 
-    def save(ckpt_dir, name, state, meta=None):
+    def save(ckpt_dir, name, state, *args, **kwargs):
         saves.append(name)
-        return real(ckpt_dir, name, state, meta)
+        return real(ckpt_dir, name, state, *args, **kwargs)
 
     module.save_checkpoint = save
 
@@ -180,10 +201,11 @@ def entry_points(rank, world, byol_config, emotion_config):
 
 def mesh_checks(rank, world, batch_size):
     """What ``make_mesh`` and ``shard_batch`` do in a group: the errors
-    raised, the rank's rows and counts."""
+    raised, the rank's rows and counts, and the ``1 × world`` mesh's
+    coordinates."""
     out = {}
     for name, call in (("subset", lambda: make_mesh(data=1, device="cpu")),
-                       ("model", lambda: make_mesh(model=2, device="cpu")),
+                       ("heads", lambda: make_mesh(model=3, device="cpu")),
                        ("batch", lambda: make_mesh(device="cpu")
                         .local_batch(batch_size))):
         try:
@@ -197,6 +219,8 @@ def mesh_checks(rank, world, batch_size):
     out["counts"] = [int(shard_batch(mesh, {"x": x, "__count__": c})
                          ["__count__"]) for c in range(9)]
     out["mesh"] = (mesh.world, mesh.rank, str(mesh.device), mesh.distributed)
+    tp = make_mesh(model=world, device="cpu")
+    out["model"] = (tp.data, tp.model, tp.data_index, tp.model_index)
     return out
 
 
