@@ -50,11 +50,18 @@ not 0:
   5. serving — WavLM-large at full width (24 layers, 1024 wide, 16 heads,
      FFN 4096) with seeded random weights, exported with buckets
      (1, 8, 32) and 5 s clips, loaded by ``ServingModel`` on the card,
-     answers three ragged requests (1 clip; 6 clips; 40 clips chunked
-     32 + 8).  Checks shapes, finiteness, that each kernel ran exactly
-     24 × (bucket forwards) times, and the pooled cosine of one request
+     which captures each bucket as a CUDA graph (a warm-up forward and a
+     captured one a bucket: the wrappers count both), answers three ragged
+     requests (1 clip; 6 clips; 40 clips chunked 32 + 8) from replays.
+     Checks shapes, finiteness, that no wrapper launched during the
+     requests and each bucket forward was one replay (each kernel's
+     launches: 24 × the replays), and the pooled cosine of one request
      against the same weights in float32 on the CPU through the plain
-     path; then prints audio-sec/sec for each bucket;
+     path; then per bucket, on a ragged request filling it, the replay
+     against the eager forward on the same static inputs bit for bit, ms
+     a request replayed and eager (host clock), the replay's and the eager
+     forward's time by CUDA events, the eager forward's peak memory, and
+     the memory the load reserved with graphs;
   6. K1 (dropout, one Philox draw per four elements) at [36·249, 1024]
      and [32·499, 1024] bf16 and at [1 | 127 | 129, 1024] and [3, 333],
      p = 0.1, every buffer inside NaN guard bands: the kernel's mask equals
@@ -156,9 +163,10 @@ not 0:
      copies split by source); the logits of a 10 s and a 15 s clip
      against float32 on the CPU (cosine ≥ 0.99);
  12. serving a long clip — an embedder artifact of 64 s clips (3199
-     frames, bucket 1) served through K5; pooled cosine against the same
-     weights in float32 on the card through the plain versions (≥ 0.99);
-     audio-sec/sec;
+     frames, bucket 1) served through K5 from its captured graph (phase
+     5's launch checks); pooled cosine against the same weights in float32
+     on the card through the plain versions (≥ 0.99); phase 5's replay
+     against eager, times and memory;
  13. the SER fine-tune step — ``BaselineSER`` on WavLM-large at full width
      and depth (seeded weights), batch 32 × 10 s (499 frames; every fourth
      clip shorter and masked), lr 5e-6, k = 4, dropout, LayerDrop,
@@ -211,15 +219,17 @@ not 0:
      ``EmotionClassifier`` (WavLM-large at full width and depth + ASP +
      trunks of 1024, 8 classes and A/V/D, seeded weights), buckets (1, 8,
      32), 5 s clips, ``task="both"``, loaded by ``ServingModel`` on the
-     card, answers phase 5's three ragged requests: kernels A and B
-     launched 24 × (bucket forwards) times, K6 and K7 as the frontend
-     implies, no K5; logits ``[N, 8]`` and A/V/D ``[N, 3]`` finite; one
-     request's outputs against the same artifact in float32 on the CPU
-     (cosine ≥ 0.99); each bucket's outputs equal to a direct forward of
-     the classifier built as the server builds it, bit for bit; ms a
-     request and audio-sec/sec per bucket; then a 10 s artifact (499
-     frames) of bucket 8 serves one ragged request: K5 launched 24 times,
-     kernel A never; its ms a request;
+     card (each bucket captured), answers phase 5's three ragged requests
+     from replays: kernels A and B 24 × the replays, K6 and K7 as the
+     frontend implies, no K5 (phase 5's launch checks); logits ``[N, 8]``
+     and A/V/D ``[N, 3]`` finite; one request's outputs against the same
+     artifact in float32 on the CPU (cosine ≥ 0.99); each bucket's
+     outputs equal to a direct forward of the classifier built as the
+     server builds it, bit for bit; phase 5's replay against eager, times
+     and memory per bucket; the eager bucket forward against the
+     embedder's; then a 10 s artifact (499 frames) of bucket 8 serves one
+     ragged request: K5 24 × the replay, kernel A never; its replay
+     against eager, times and memory;
  18. the bridges and the encoder API — a reference-format
      ``BYOLSpeechModel`` state dict of seeded weights at full width
      (``models.export_torch.byol_state_dicts_to_reference``) through
@@ -273,10 +283,16 @@ not 0:
      cosine ≥ 0.999; (c) ``train_byol.main`` at ``{data: 2, model: 2}``
      over 4 ranks on the card, 2 layers, global batch 8, its checkpoint
      restored by a ``model: 1`` state bit for bit, then
-     ``parallel.dryrun`` over 4 gloo ranks on the CPU; and phase 19(b)'s
-     two-rank step (features on) run twice in fresh processes, compared
-     down to the first tensor that differs (with cuDNN's deterministic
-     algorithms too, where they differ).
+     ``parallel.dryrun`` over 2 gloo ranks on the CPU; (d)
+     ``train_emotion.main --task categorical`` at ``{data: 1, model: 2}``
+     on 2 ranks, 2 layers, global batch 8, one epoch a phase: the classifier
+     replicated as JAX runs it, the replicas checked after every step and
+     their final states equal, equal finite losses, the checkpoints
+     written by rank 0 alone; and phase 19(b)'s two-rank step (features
+     on, 4 layers deep) run twice in fresh processes, compared down to
+     the first tensor that differs (with cuDNN's deterministic algorithms
+     too, where they differ).  Each phase's seconds by the host clock
+     follow it (``[time]``), and the script's at the end.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
@@ -286,7 +302,8 @@ not counted, nor are K7's.  Phases 5, 9–18 also check the frontend's
 launches: each encoder forward runs K6 on layers 1–6 and K7 on layer 0,
 each backward (the BYOL online tower's, the end-to-end fine-tune's, the
 whole-encoder SER step's) K6's and K7's backward as often.  The line before the last is the kernels'
-JSON record (launches: kernels A and B from the serving phase, K1, K2, K3
+JSON record (launches: kernels A and B from the serving phase, counted
+at capture × the replays, K1, K2, K3
 and K4 from the training phase, K5 from the SER evaluation, K5's backward,
 K6 and K7 from the fine-tune step, end to end);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
@@ -922,7 +939,9 @@ def _trace_faults(events: list, event_ms: float):
     a launch whose kernel it lacks (the profiler drops kernel records,
     mostly early in a session), or a span from the first kernel's start to
     the last one's end that disagrees with the events (a trace once read
-    every kernel at about half its time: its clock misconverted)."""
+    every kernel at about half its time: its clock misconverted).  A
+    CUDA graph's replay is one launch (``cudaGraphLaunch``) whose kernels
+    all carry its correlation id."""
     timed = [e for e in events if e.get("cat") == "user_annotation"
              and e.get("name") == TIMED]
     if len(timed) != 1:
@@ -930,12 +949,15 @@ def _trace_faults(events: list, event_ms: float):
     t0, t1 = timed[0]["ts"], timed[0]["ts"] + timed[0]["dur"]
     launches = sorted((e for e in events
                        if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                       and "LaunchKernel" in e.get("name", "")
+                       and ("LaunchKernel" in e.get("name", "")
+                            or "GraphLaunch" in e.get("name", ""))
                        and t0 <= e["ts"] <= t1), key=lambda e: e["ts"])
-    by_corr = {e["args"].get("correlation"): e for e in events
-               if e.get("cat") == "kernel"}
-    kernels = [by_corr[e["args"].get("correlation")] for e in launches
-               if e["args"].get("correlation") in by_corr]
+    by_corr = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_corr.setdefault(e["args"].get("correlation"), []).append(e)
+    kernels = [k for e in launches
+               for k in by_corr.get(e["args"].get("correlation"), ())]
     faults = []
     lost = [i for i, e in enumerate(launches)
             if e["args"].get("correlation") not in by_corr]
@@ -1557,6 +1579,262 @@ def _requests(rng: np.random.Generator, clip_seconds: float):
             (f"40 clips of {clip_seconds:g} s", forty, None)]
 
 
+def _serving_counts() -> dict:
+    """The counts of the kernels a serving forward launches."""
+    return {"block_attention_fwd": block_attention.LAUNCHES,
+            "flash_attention_fwd": flash_attention.LAUNCHES,
+            "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
+
+
+def serving_want(cfg, flash: bool) -> dict:
+    """The launches of one bucket forward: kernel A (``flash`` False) or
+    K5 and kernel B on every layer, the frontend's forward."""
+    layers = cfg.num_hidden_layers
+    return {"block_attention_fwd": 0 if flash else layers,
+            "flash_attention_fwd": layers if flash else 0,
+            "fused_ffn_fwd": layers, **frontend_want(cfg, 1, 0)}
+
+
+def _captured(server) -> bool:
+    """Whether ``server`` answers from captured CUDA graphs (on the card;
+    a server of a commit before them has no bucket programs)."""
+    return any(p.graph is not None
+               for p in getattr(server, "programs", {}).values())
+
+
+def _replays(server) -> int:
+    return sum(p.replays for p in getattr(server, "programs", {}).values())
+
+
+def load_server(art: str, device, per_forward: dict, tag: str):
+    """``ServingModel(art, device)`` with the counts set to 0 just before.
+    Where it captures (the card), each bucket ran one warm-up forward and
+    one captured forward at load: the wrappers' counts must be
+    ``per_forward`` × 2 × buckets; elsewhere none.  Returns ``(server,
+    GiB the load reserved on the card)``."""
+    reserved = 0
+    if device.type == "cuda":
+        sync(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+    _reset_counts()
+    server = ServingModel(art, device)
+    sync(device)
+    counts = _serving_counts()
+    forwards = 2 * len(server.buckets) if _captured(server) else 0
+    want = {k: v * forwards for k, v in per_forward.items()}
+    log(f"[{tag}] loaded, {len(server.buckets) if forwards else 0} buckets "
+        f"captured; launches at load {counts} (want {want})")
+    if counts != want:
+        raise RuntimeError(f"{tag}: launches at load {counts} != {want}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device) - reserved
+    return server, reserved / 2**30
+
+
+# the profile groups (PROFILE_GROUPS) of a serving forward's kernels, by
+# the wrapper count that launches them
+SERVING_GROUPS = {"block_attention_fwd": "kernel A (block attention)",
+                  "flash_attention_fwd": "K5 (flash attention)",
+                  "fused_ffn_fwd": "kernel B and K2 (fused FFN GEMMs)",
+                  "fused_frontend_fwd": "K6 (fused conv frontend)",
+                  "channel_layernorm_fwd": "K7 (channel LayerNorm)"}
+
+
+def _group_records(run) -> dict:
+    """Kernel records of one call of ``run()`` by profile group, from a
+    checked ``torch.profiler`` trace (:func:`traced_kernels`)."""
+    run()
+    torch.cuda.synchronize()
+    _, kernels, _ = traced_kernels(run, 1)
+    out = {}
+    for e in kernels:
+        group = group_of(e["name"])
+        out[group] = out.get(group, 0) + 1
+    return out
+
+
+def replay_launches(server, program) -> dict:
+    """The launches of each serving kernel in one replay of ``program``'s
+    graph, read on the card: a trace of one replay counts each kernel's
+    records (:data:`SERVING_GROUPS`), and a trace of one eager forward on
+    the same static inputs, whose wrapper launches the counts give, says
+    how many records a launch makes.  Raises where the two disagree."""
+    def eager():
+        server.forward(program.audio, program.mask)
+
+    _reset_counts()
+    eager()
+    sync(program.device)
+    counts = _serving_counts()
+    in_eager = _group_records(eager)
+    in_replay = _group_records(program.graph.replay)
+    out = {}
+    for name, group in SERVING_GROUPS.items():
+        c, e, r = counts[name], in_eager.get(group, 0), in_replay.get(group, 0)
+        if (c == 0) != (e == 0) or (e == 0 and r) or (e and r * c % e):
+            raise RuntimeError(
+                f"{name}: {r} kernel records in a replay of bucket "
+                f"{program.batch}, {e} in an eager forward of {c} launches")
+        out[name] = r * c // e if e else 0
+    return out
+
+
+def served(server, device, forwards: int, per_forward: dict, tag: str,
+           run):
+    """``run()``, requests taking ``forwards`` bucket forwards, with the
+    counts set to 0 just before and read just after.  Where the server
+    captured, no wrapper may launch (each forward is its bucket's graph
+    replayed, ``forwards`` replays), and the run's launches are those of
+    one replay of each bucket that ran, read from a trace
+    (:func:`replay_launches`), times its replays; elsewhere the wrappers'
+    counts.  Either must be ``per_forward`` × ``forwards``.  Returns
+    ``(run's result, launches)``."""
+    sync(device)
+    programs = getattr(server, "programs", {})
+    before = {b: p.replays for b, p in programs.items()}
+    _reset_counts()
+    out = run()
+    sync(device)
+    counts = _serving_counts()
+    want = {k: v * forwards for k, v in per_forward.items()}
+    if _captured(server):
+        replayed = {b: p.replays - before[b] for b, p in programs.items()
+                    if p.replays > before[b]}
+        if any(counts.values()) or sum(replayed.values()) != forwards:
+            raise RuntimeError(f"{tag}: wrapper launches {counts} (want "
+                               f"none), replays {replayed} of {forwards} "
+                               f"forwards")
+        launches = dict.fromkeys(per_forward, 0)
+        for b, n in replayed.items():
+            one = replay_launches(server, programs[b])
+            log(f"[{tag}] bucket {b}: a replay's launches by trace {one}, "
+                f"{n} replays")
+            for k, v in one.items():
+                launches[k] += v * n
+        log(f"[{tag}] {forwards} bucket forwards, {sum(replayed.values())} "
+            f"graph replays, wrapper launches {counts} (want none); "
+            f"launches {launches} (want {want})")
+    else:
+        launches = counts
+        log(f"[{tag}] {forwards} bucket forwards; launches {counts} (want "
+            f"{want})")
+    if launches != want:
+        raise RuntimeError(f"{tag}: launches {launches} != {want}")
+    return out, launches
+
+
+def _ragged(bucket: int, clip: int, seed: int):
+    """A seeded request filling ``bucket``: the first row whole, the last
+    half of the clip."""
+    rng = np.random.default_rng(seed)
+    audio = (0.1 * rng.standard_normal((bucket, clip))).astype(np.float32)
+    lengths = (np.linspace(1.0, 0.5, bucket) * clip).astype(np.int64)
+    mask = (np.arange(clip)[None, :] < lengths[:, None]).astype(np.int32)
+    return audio, mask
+
+
+def _host_ms(fn, device, iters: int) -> float:
+    """ms a call of ``fn`` by the host clock, the card synchronised at both
+    ends, after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _eager_request(server, program, audio, mask):
+    """What ``server(audio, mask)`` does for a request that fills
+    ``program``'s bucket, with the eager forward on the static inputs in
+    place of the graph's replay: the yardstick's request."""
+    a = np.zeros((program.batch, program.clip), np.float32)
+    m = np.zeros((program.batch, program.clip), np.int32)
+    a[:], m[:] = audio, mask
+    program.load(a, m)
+    return tuple(r.float().cpu().numpy()
+                 for r in server.forward(program.audio, program.mask))
+
+
+def replay_against_eager(server, device, tag: str, clip_seconds: float,
+                         load_gib: float = 0.0, iters: int = 5) -> dict:
+    """Each bucket of ``server`` on a seeded ragged request that fills it:
+    where it captured, the graph's replay against the eager forward on
+    the same static inputs, every output bit for bit (padding rows
+    included); ms a request replayed and eager by the host clock, in
+    turns (replayed, eager, eager, replayed); on the card the bucket's
+    time by CUDA events (the replay alone: its device time; the eager
+    forward: its stream's time, the host's gaps included) and the eager
+    forward's peak memory above the server's.  Returns ``{bucket: ms a
+    replayed request}``."""
+    clip = server.clip_samples
+    captured = _captured(server)
+    out, peaks = {}, {}
+    for b in server.buckets:
+        audio, mask = _ragged(b, clip, SEED + 31 * b)
+        if not hasattr(server, "programs"):  # a server before them
+            out[b] = _host_ms(lambda: server(audio, mask), device, iters)
+            log(f"[{tag}] bucket {b} x {clip_seconds:g} s: {out[b]:.2f} ms "
+                f"a request (eager)")
+            continue
+        program = server.programs[b]
+        if captured:
+            program.load(audio, mask)
+            got = [o.clone() for o in program.run()]
+            want = server.forward(program.audio, program.mask)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            errs = [rel_err(g.float(), w.float()) for g, w in zip(got, want)]
+            log(f"[{tag}] bucket {b}: the replay = the eager forward bit for "
+                f"bit: {same} (max|d|/max|ref| {errs})")
+            if not same:
+                raise RuntimeError(f"{tag}: bucket {b}'s replay differs from "
+                                   f"its eager forward: {errs}")
+        def replayed():
+            server(audio, mask)
+
+        def eager():
+            _eager_request(server, program, audio, mask)
+
+        turns = (replayed, eager, eager, replayed) if captured else \
+            (replayed,)
+        ms = [_host_ms(fn, device, iters) for fn in turns]
+        kind = "replayed / eager / eager / replayed" if captured else \
+            "(no graph)"
+        line = (f"[{tag}] bucket {b} x {clip_seconds:g} s: ms a request "
+                f"{kind} {' / '.join(f'{t:.2f}' for t in ms)}, "
+                f"{b * clip_seconds / (min(ms[0], ms[-1]) / 1e3):.1f} "
+                f"audio-sec/sec")
+        if device.type == "cuda":
+            replay_ms = cuda_ms(program.graph.replay, iters=10)
+            eager_ms = cuda_ms(lambda: server.forward(program.audio,
+                                                      program.mask), iters=10)
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            server.forward(program.audio, program.mask)
+            sync(device)
+            peaks[b] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+            line += (f"; CUDA events: the replay {replay_ms:.2f} ms, the "
+                     f"eager forward {eager_ms:.2f} ms; the eager forward's "
+                     f"peak {peaks[b]:.3f} GiB above the server")
+        log(line)
+        out[b] = min(ms[0], ms[-1])
+    if peaks:
+        weights = sum(p.numel() * p.element_size()
+                      for p in server.model.parameters()) / 2**30
+        log(f"[{tag}] memory on the card ({card()}): the load reserved "
+            f"{load_gib:.3f} GiB with graphs (weights {weights:.3f}, the "
+            f"pool, static buffers and outputs {load_gib - weights:.3f}); "
+            f"eager forwards' peaks above the server {peaks} GiB: the "
+            f"largest {max(peaks.values()):.3f}, their sum "
+            f"{sum(peaks.values()):.3f}")
+    return out
+
+
 def phase_serving(cfg=None, device=torch.device("cuda"),
                   clip_seconds: float = CLIP_SECONDS,
                   buckets=BUCKETS) -> dict:
@@ -1569,10 +1847,11 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_artifact_",
                            dir=cuda_build.BUILD_DIR)
+    per_forward = serving_want(cfg, flash=False)
     try:
         export_embedder(sd, cfg, art, batch_sizes=buckets,
                         clip_seconds=clip_seconds, sample_rate=SAMPLE_RATE)
-        server = ServingModel(art, device)
+        server, load_gib = load_server(art, device, per_forward, "serve")
         ref_server = ServingModel(art, torch.device("cpu"))  # float32
     finally:
         shutil.rmtree(art)
@@ -1583,30 +1862,21 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
 
     clip = server.clip_samples
     frames = int(cfg.feature_lengths(clip))
-    for bkt in buckets:  # warm-up: cuDNN algorithm choice, allocator
-        server(np.zeros((bkt, clip), np.float32))
-    sync(device)
-
     reqs = _requests(np.random.default_rng(SEED), clip_seconds)
     forwards = sum(len(server.plan(len(a))) for _, a, _ in reqs)
-    _reset_counts()
-    results = []
-    for name, audio, lengths in reqs:
-        mask = None
-        if lengths is not None:
-            mask = (np.arange(audio.shape[1])[None, :]
-                    < np.asarray(lengths)[:, None]).astype(np.int32)
-        results.append(server(audio, mask))
-    sync(device)
-    launches = {"block_attention_fwd": block_attention.LAUNCHES,
-                "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
-    want = {"block_attention_fwd": cfg.num_hidden_layers * forwards,
-            "fused_ffn_fwd": cfg.num_hidden_layers * forwards,
-            **frontend_want(cfg, forwards, 0)}
-    log(f"[serve] {forwards} bucket forwards; launches {launches} "
-        f"(want {want})")
-    if launches != want:
-        raise RuntimeError(f"kernel launches {launches} != {want}")
+
+    def answer():
+        results = []
+        for name, audio, lengths in reqs:
+            mask = None
+            if lengths is not None:
+                mask = (np.arange(audio.shape[1])[None, :]
+                        < np.asarray(lengths)[:, None]).astype(np.int32)
+            results.append(server(audio, mask))
+        return results
+
+    results, launches = served(server, device, forwards, per_forward,
+                               "serve", answer)
 
     for (name, audio, _), (seq, pooled) in zip(reqs, results):
         n = audio.shape[0]
@@ -1633,24 +1903,12 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
     if float(cos.min()) < COSINE_MIN:
         raise RuntimeError(f"pooled cosine {cos.tolist()} < {COSINE_MIN}")
 
-    for bkt in buckets:
-        audio = 0.1 * np.random.default_rng(bkt).standard_normal(
-            (bkt, clip)).astype(np.float32)
-        for _ in range(3):  # warm-up; the card idled during the CPU run
-            server(audio)
-        iters = 10
-        sync(device)
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            server(audio)
-        sync(device)
-        dt = (time.perf_counter() - t0) / iters
-        log(f"[serve] bucket {bkt}: {dt * 1e3:.2f} ms/request, "
-            f"{bkt * clip_seconds / dt:.1f} audio-sec/sec")
+    replay_against_eager(server, device, "serve", clip_seconds, load_gib)
     if device.type == "cuda":
         log(f"[serve] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return {k: launches[k] for k in ("block_attention_fwd",
+                                     "fused_ffn_fwd")}
 
 
 def _train_batch(n: int, clip_seconds: float, device, seed: int = 0):
@@ -3263,38 +3521,30 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
                     clip_seconds: float = LONG_CLIP_SECONDS) -> dict:
     """Serving one clip of ``clip_seconds`` (T > 3072 frames: the TPU's
     streamed regime) through K5, against float32 plain versions on the
-    same device."""
+    same device; on the card from the bucket's captured graph, held to
+    its eager forward."""
     cfg = cfg or WavLMConfig.large()
     sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED + 9))
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_long_", dir=cuda_build.BUILD_DIR)
+    per_forward = serving_want(cfg, flash=True)
     try:
         export_embedder(sd, cfg, art, batch_sizes=(1,),
                         clip_seconds=clip_seconds, sample_rate=SAMPLE_RATE)
-        server = ServingModel(art, device)
+        server, load_gib = load_server(art, device, per_forward, "long")
     finally:
         shutil.rmtree(art)
     clip = server.clip_samples
     frames = int(cfg.feature_lengths(clip))
     audio = (0.1 * np.random.default_rng(SEED + 9).standard_normal(
         (1, clip))).astype(np.float32)
-    server(audio)  # warm-up
-    sync(device)
-    _reset_counts()
-    seq, pooled = server(audio)
-    sync(device)
-    counts = {"flash_attention_fwd": flash_attention.LAUNCHES,
-              "block_attention_fwd": block_attention.LAUNCHES,
-              "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
-    layers = cfg.num_hidden_layers
-    want = {"flash_attention_fwd": layers, "block_attention_fwd": 0,
-            "fused_ffn_fwd": layers, **frontend_want(cfg, 1, 0)}
+    (seq, pooled), launches = served(server, device, 1, per_forward, "long",
+                                     lambda: server(audio))
+    counts = _serving_counts()
     log(f"[long] {clip_seconds:g} s clip, {frames} frames: sequence "
-        f"{seq.shape}, launches {counts} (want {want})")
-    if counts != want or not (np.isfinite(seq).all()
-                              and np.isfinite(pooled).all()):
-        raise RuntimeError(f"long clip: launches {counts}, finite "
-                           f"{np.isfinite(seq).all()}")
+        f"{seq.shape}")
+    if not (np.isfinite(seq).all() and np.isfinite(pooled).all()):
+        raise RuntimeError(f"long clip: finite {np.isfinite(seq).all()}")
 
     ref_model = WavLMModel(cfg, device="meta")
     ref_model.load_state_dict(sd, strict=True, assign=True)
@@ -3305,10 +3555,7 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
                                   torch.ones(1, clip, dtype=torch.int32,
                                              device=device))
     sync(device)
-    if {"flash_attention_fwd": flash_attention.LAUNCHES,
-            "block_attention_fwd": block_attention.LAUNCHES,
-            "fused_ffn_fwd": fused_ffn.LAUNCHES,
-            **_frontend_counts()} != counts:
+    if _serving_counts() != counts:
         raise RuntimeError("long clip: the float32 reference launched a "
                            "kernel")
     cos = _cosine(pooled, ref_pooled.float().cpu().numpy())
@@ -3317,18 +3564,8 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
         f"device {cos:.6f}")
     if cos < COSINE_MIN:
         raise RuntimeError(f"long clip pooled cosine {cos} < {COSINE_MIN}")
-    for _ in range(2):
-        server(audio)
-    iters = 5
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        server(audio)
-    sync(device)
-    dt = (time.perf_counter() - t0) / iters
-    log(f"[long] bucket 1: {dt * 1e3:.2f} ms/request, "
-        f"{clip_seconds / dt:.1f} audio-sec/sec")
-    return counts
+    replay_against_eager(server, device, "long", clip_seconds, load_gib)
+    return launches
 
 
 FT_BATCH = 32          # the fine-tune's batch (train_ft_cat_ser's default)
@@ -3970,27 +4207,6 @@ def _served_model(artifact: str, device):
     return model.to(device).eval()
 
 
-def _serving_rate(server, device, clip_seconds: float, bkt: int,
-                  tag: str) -> float:
-    """ms a request of ``bkt`` full clips after 3 warm-up requests (host
-    clock over 10, the card synchronised at both ends); prints it with
-    audio-sec/sec."""
-    audio = 0.1 * np.random.default_rng(bkt).standard_normal(
-        (bkt, server.clip_samples)).astype(np.float32)
-    for _ in range(3):
-        server(audio)
-    iters = 10
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        server(audio)
-    sync(device)
-    dt = (time.perf_counter() - t0) / iters
-    log(f"[{tag}] bucket {bkt} x {clip_seconds:g} s: {dt * 1e3:.2f} "
-        f"ms/request, {bkt * clip_seconds / dt:.1f} audio-sec/sec")
-    return dt
-
-
 def _forward_ms(fn, device, iters: int = 10) -> float:
     """ms a call of ``fn``: CUDA events on the card, the host clock
     between synchronisations on the CPU."""
@@ -4005,10 +4221,9 @@ def _forward_ms(fn, device, iters: int = 10) -> float:
 
 def _compare_with_embedder(server, sd, cfg, device, clip_seconds: float,
                            buckets) -> None:
-    """The classifier's bucket forward against the embedder's on the same
-    encoder weights, in turns (classifier, embedder, embedder,
-    classifier), on inputs already on the device; then the embedder's
-    request, whose sequence output crosses to the host."""
+    """The classifier's eager bucket forward against the embedder's on the
+    same encoder weights, in turns (classifier, embedder, embedder,
+    classifier), on inputs already on the device."""
     art = tempfile.mkdtemp(prefix="smoke_embedder_",
                            dir=cuda_build.BUILD_DIR)
     try:
@@ -4027,11 +4242,9 @@ def _compare_with_embedder(server, sd, cfg, device, clip_seconds: float,
         order = (server, embedder, embedder, server)
         ms = [_forward_ms(lambda s=srv: s.forward(a, m), device)
               for srv in order]
-        log(f"[classifier] bucket {bkt} forward on the {device.type}, "
-            f"classifier / embedder / embedder / classifier: "
+        log(f"[classifier] bucket {bkt} eager forward on the "
+            f"{device.type}, classifier / embedder / embedder / classifier: "
             f"{' / '.join(f'{t:.2f}' for t in ms)} ms")
-        _serving_rate(embedder, device, clip_seconds, bkt,
-                      "classifier: the embedder")
 
 
 def phase_classifier(cfg=None, device=torch.device("cuda"),
@@ -4041,11 +4254,13 @@ def phase_classifier(cfg=None, device=torch.device("cuda"),
                      long_bucket: int = CLASSIFIER_LONG_BUCKET) -> dict:
     """Phase 17, the SER classifier's server: ``export_classifier`` of a
     seeded ``EmotionClassifier`` (``task="both"``), ``ServingModel`` on
-    the card answering ``_requests``; launches, shapes, the cosine of a
-    request against the artifact served in float32 on the CPU, each
-    bucket's outputs against a direct forward; then a ``long_seconds``
-    artifact of one bucket (K5's length) serving one request.  Its
-    arguments let it be rehearsed at a small width on the CPU."""
+    the card (each bucket captured at load) answering ``_requests``;
+    launches, shapes, the cosine of a request against the artifact
+    served in float32 on the CPU, each bucket's outputs against a direct
+    forward, each bucket's replay against its eager forward; then a
+    ``long_seconds`` artifact of one bucket (K5's length) serving one
+    request.  Its arguments let it be rehearsed at a small width on the
+    CPU."""
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
     sd = init_emotion_state_dict(cfg, torch.Generator().manual_seed(
@@ -4053,11 +4268,13 @@ def phase_classifier(cfg=None, device=torch.device("cuda"),
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_classifier_",
                            dir=cuda_build.BUILD_DIR)
+    per_forward = serving_want(cfg, flash=False)
     try:
         export_classifier(sd, cfg, art, batch_sizes=buckets,
                           clip_seconds=clip_seconds, sample_rate=SAMPLE_RATE,
                           task="both", hidden_dim=hidden_dim)
-        server = ServingModel(art, device)
+        server, load_gib = load_server(art, device, per_forward,
+                                       "classifier")
         ref_server = ServingModel(art, torch.device("cpu"))  # float32
         direct = _served_model(art, device)
     finally:
@@ -4067,32 +4284,21 @@ def phase_classifier(cfg=None, device=torch.device("cuda"),
         f"{sum(v.numel() for v in sd.values()) / 1e6:.1f} M params, task "
         f"both, exported and loaded in {time.perf_counter() - t0:.1f} s")
     clip = server.clip_samples
-    for bkt in buckets:  # warm-up
-        server(np.zeros((bkt, clip), np.float32))
-    sync(device)
-
     reqs = _requests(np.random.default_rng(SEED + 17), clip_seconds)
     forwards = sum(len(server.plan(len(a))) for _, a, _ in reqs)
-    _reset_counts()
-    results = []
-    for _, audio, lengths in reqs:
-        mask = None
-        if lengths is not None:
-            mask = (np.arange(audio.shape[1])[None, :]
-                    < np.asarray(lengths)[:, None]).astype(np.int32)
-        results.append(server(audio, mask))
-    sync(device)
-    layers = cfg.num_hidden_layers
-    launches = {"block_attention_fwd": block_attention.LAUNCHES,
-                "flash_attention_fwd": flash_attention.LAUNCHES,
-                "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
-    want = {"block_attention_fwd": layers * forwards,
-            "flash_attention_fwd": 0, "fused_ffn_fwd": layers * forwards,
-            **frontend_want(cfg, forwards, 0)}
-    log(f"[classifier] {forwards} bucket forwards; launches {launches} "
-        f"(want {want})")
-    if launches != want:
-        raise RuntimeError(f"classifier launches {launches} != {want}")
+
+    def answer():
+        results = []
+        for _, audio, lengths in reqs:
+            mask = None
+            if lengths is not None:
+                mask = (np.arange(audio.shape[1])[None, :]
+                        < np.asarray(lengths)[:, None]).astype(np.int32)
+            results.append(server(audio, mask))
+        return results
+
+    results, launches = served(server, device, forwards, per_forward,
+                               "classifier", answer)
     for (name, audio, _), (logits, dims) in zip(reqs, results):
         n = audio.shape[0]
         ok = (logits.shape == (n, 8) and dims.shape == (n, 3)
@@ -4127,49 +4333,40 @@ def phase_classifier(cfg=None, device=torch.device("cuda"),
             raise RuntimeError(f"classifier bucket {bkt} differs from a "
                                f"direct forward")
     del direct
-    times = {bkt: _serving_rate(server, device, clip_seconds, bkt,
-                                "classifier") for bkt in buckets}
+    replay_against_eager(server, device, "classifier", clip_seconds,
+                         load_gib)
     _compare_with_embedder(server, sd, cfg, device, clip_seconds, buckets)
     del server
 
     art = tempfile.mkdtemp(prefix="smoke_classifier_long_",
                            dir=cuda_build.BUILD_DIR)
+    per_forward = serving_want(cfg, flash=True)
     try:
         export_classifier(sd, cfg, art, batch_sizes=(long_bucket,),
                           clip_seconds=long_seconds,
                           sample_rate=SAMPLE_RATE, task="both",
                           hidden_dim=hidden_dim)
-        server = ServingModel(art, device)
+        server, load_gib = load_server(art, device, per_forward,
+                                       "classifier")
     finally:
         shutil.rmtree(art)
     long_clip = server.clip_samples
     frames = int(cfg.feature_lengths(long_clip))
-    server(np.zeros((long_bucket, long_clip), np.float32))  # warm-up
     lengths = np.linspace(0.5, 1.0, long_bucket) * long_clip
     audio = 0.1 * np.random.default_rng(SEED + 18).standard_normal(
         (long_bucket, long_clip)).astype(np.float32)
     mask = (np.arange(long_clip)[None, :] < lengths[:, None]).astype(
         np.int32)
-    sync(device)
-    _reset_counts()
-    logits, dims = server(audio, mask)
-    sync(device)
-    launches_long = {"block_attention_fwd": block_attention.LAUNCHES,
-                     "flash_attention_fwd": flash_attention.LAUNCHES,
-                     "fused_ffn_fwd": fused_ffn.LAUNCHES,
-                     **_frontend_counts()}
-    want = {"block_attention_fwd": 0, "flash_attention_fwd": layers,
-            "fused_ffn_fwd": layers, **frontend_want(cfg, 1, 0)}
+    (logits, dims), _ = served(server, device, 1, per_forward,
+                               "classifier", lambda: server(audio, mask))
     ok = (logits.shape == (long_bucket, 8) and dims.shape == (long_bucket, 3)
           and np.isfinite(logits).all() and np.isfinite(dims).all())
     log(f"[classifier] {long_seconds:g} s artifact ({frames} frames), one "
-        f"request of {long_bucket} ragged clips: finite={ok}; launches "
-        f"{launches_long} (want {want})")
-    if not ok or launches_long != want:
-        raise RuntimeError(f"long-clip classifier: finite={ok}, launches "
-                           f"{launches_long} != {want}")
-    times[f"{long_bucket} x {long_seconds:g} s"] = _serving_rate(
-        server, device, long_seconds, long_bucket, "classifier")
+        f"request of {long_bucket} ragged clips: finite={ok}")
+    if not ok:
+        raise RuntimeError(f"long-clip classifier: finite={ok}")
+    replay_against_eager(server, device, "classifier", long_seconds,
+                         load_gib)
     if device.type == "cuda":
         log(f"[classifier] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4712,6 +4909,34 @@ def _dp_entry_worker(rank: int, world: int, device: str, byol_config,
                         for task, r in emotion.items()}}
 
 
+def _emotion_entry_config(root: str, model_name: str, layers: int,
+                          batch: int, clip_seconds: float, emotion_clips,
+                          lo: float, hi: float, hidden_dim: int, spec: str,
+                          mesh=None) -> dict:
+    """The ``dim_ft`` preset for ``train_emotion --task both`` on a
+    synthetic MSP-style corpus written under ``root/msp``: WavLM cut to
+    ``layers``, global batch ``batch``, one epoch a phase, checkpoints
+    under ``root/emotion_ckpt``, ``tpu.mesh`` ``mesh`` where given."""
+    msp = os.path.join(root, "msp")
+    os.makedirs(msp)
+    _write_emotion_corpus(msp, *emotion_clips, 2, lo, hi)
+    config = config_utils.load_config("default_wavlm-large_emotion_dim_ft")
+    config["model"].update(name=model_name, num_hidden_layers=layers)
+    config["training"].update(log_dir=os.path.join(root, "emotion_logs"))
+    config["data"].update(noise_data_path=os.path.join(msp, "noise"),
+                          max_audio_length=clip_seconds)
+    config["emotion"].update(
+        labels_file=os.path.join(msp, "labels_consensus.csv"),
+        audio_dir=os.path.join(msp, "Audios"), encoder_checkpoint=None,
+        checkpoint_dir=os.path.join(root, "emotion_ckpt"),
+        batch_size=batch, hidden_dim=hidden_dim, classifier_epochs=1,
+        fine_tuning_epochs=1)
+    if mesh is not None:
+        config["tpu"] = {"mesh": dict(mesh)}
+    return config_utils.validate_config(dict(config, device=spec,
+                                             task="both"))
+
+
 def phase_dp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                    model_name: str = "microsoft/wavlm-large",
                    clips: int = 24, noise_clips: int = 4, batch: int = 8,
@@ -4747,26 +4972,9 @@ def phase_dp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                      "snr_range": [0, 5, 10, 15, 20],
                      "validation_ratio": 0.25},
             "device": spec}
-        msp = os.path.join(root, "msp")
-        os.makedirs(msp)
-        _write_emotion_corpus(msp, *emotion_clips, 2, lo, hi)
-        emotion_config = config_utils.load_config(
-            "default_wavlm-large_emotion_dim_ft")
-        emotion_config["model"].update(name=model_name,
-                                       num_hidden_layers=layers)
-        emotion_config["training"].update(
-            log_dir=os.path.join(root, "emotion_logs"))
-        emotion_config["data"].update(
-            noise_data_path=os.path.join(msp, "noise"),
-            max_audio_length=clip_seconds)
-        emotion_config["emotion"].update(
-            labels_file=os.path.join(msp, "labels_consensus.csv"),
-            audio_dir=os.path.join(msp, "Audios"), encoder_checkpoint=None,
-            checkpoint_dir=os.path.join(root, "emotion_ckpt"),
-            batch_size=batch, hidden_dim=hidden_dim, classifier_epochs=1,
-            fine_tuning_epochs=1)
-        emotion_config = config_utils.validate_config(
-            dict(emotion_config, device=spec, task="both"))
+        emotion_config = _emotion_entry_config(
+            root, model_name, layers, batch, clip_seconds, emotion_clips, lo,
+            hi, hidden_dim, spec)
         encoder = dataclasses.replace(WavLMConfig.from_model_name(
             model_name), num_hidden_layers=layers)
         ranks = run_ranks(_dp_entry_worker, 2,
@@ -4827,11 +5035,11 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
         probe = run_ranks(collectives_check, 2, ("cuda:0",), threads=0)
         log(f"[dp] gloo's collectives on CUDA tensors, 2 ranks on one "
             f"card: {probe}")
-    counts = phase_dp_one_rank(cfg, device)
+    counts = timed(phase_dp_one_rank, cfg, device)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    phase_dp_two_ranks(cfg, device)
-    phase_dp_entry(device)
+    timed(phase_dp_two_ranks, cfg, device)
+    timed(phase_dp_entry, device)
     return counts
 
 
@@ -5168,7 +5376,7 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                    clips: int = 24, noise_clips: int = 4, batch: int = 8,
                    clip_seconds: float = CLIP_SECONDS,
                    projection_dim: int = 1024, prediction_dim: int = 2048,
-                   dryrun_ranks: int = 4) -> None:
+                   dryrun_ranks: int = 2) -> None:
     """20(c): ``train_byol.main`` at ``tpu.mesh {data: 2, model: 2}``, 4
     gloo ranks sharing the card, WavLM-large cut to ``layers`` deep,
     global batch ``batch``, one epoch (its steps and validation), on a
@@ -5250,6 +5458,109 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
         dryrun.main(dryrun_ranks)
         log(f"[tp entry] parallel.dryrun {dryrun_ranks} (gloo, CPU): both "
             f"halves OK in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tp_emotion_worker(rank: int, world: int, device: str,
+                       config_path: str) -> dict:
+    """One rank of 20(d): ``train_emotion.main`` (the categorical
+    trainer) on a YAML config whose ``tpu.mesh`` has a model axis; the
+    checkpoints this rank wrote, the checksum of its final state."""
+    from nrse_tpu_torch.parallel.mesh import checksum
+    from nrse_tpu_torch.train import categorical_emotions
+
+    dev = _rank_device(device)
+    saves = []
+    real = categorical_emotions.save_checkpoint
+
+    def save(ckpt_dir, name, state, *args, **kwargs):
+        saves.append(os.path.join(os.path.basename(ckpt_dir), name))
+        return real(ckpt_dir, name, state, *args, **kwargs)
+
+    categorical_emotions.save_checkpoint = save
+    _reset_counts()
+    results = train_emotion.main(["--config", config_path, "--task",
+                                  "categorical"])
+    sync(dev)
+    keys = ("phase", "train_loss", "val_loss", "steps", "s_per_step",
+            "audio_sec_per_sec_per_chip")
+    return {"rank": rank, "counts": _train_counts(), "saves": saves,
+            "sums": {task: checksum(r["state"].tensors().values()).tolist()
+                     for task, r in results.items()},
+            "emotion": {task: [{k: e[k] for k in keys} for e in r["epochs"]]
+                        for task, r in results.items()}}
+
+
+def phase_tp_emotion_entry(device=torch.device("cuda"),
+                           layers: int = ENTRY_LAYERS,
+                           model_name: str = "microsoft/wavlm-large",
+                           batch: int = 8,
+                           clip_seconds: float = CLIP_SECONDS,
+                           emotion_clips=(16, 8), lo: float = 2.0,
+                           hi: float = 8.0,
+                           hidden_dim: int = EMO_HIDDEN) -> None:
+    """20(d): ``train_emotion.main --task categorical`` at ``tpu.mesh
+    {data: 1, model: 2}``, 2 gloo ranks sharing the card, WavLM-large at
+    full width cut to ``layers``, global batch ``batch``, one epoch a
+    phase (frozen, then fine-tuned): the SER classifier replicated over
+    the model group as JAX runs it.  The step
+    checks the replicas after every step (``replicas_agree`` over the
+    model group, a difference raises); here both ranks' final states have
+    the same checksum, their losses are equal and finite, rank 0 alone
+    wrote the checkpoints, and every kernel of the path ran."""
+    import yaml
+
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_tp_ser_", dir=cuda_build.BUILD_DIR)
+    spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    try:
+        config = _emotion_entry_config(
+            root, model_name, layers, batch, clip_seconds, emotion_clips, lo,
+            hi, hidden_dim, spec, mesh={"data": 1, "model": 2})
+        config_path = os.path.join(root, "emotion.yaml")
+        with open(config_path, "w") as f:
+            yaml.safe_dump(config, f)
+        ranks = run_ranks(_tp_emotion_worker, 2, (spec, config_path),
+                          threads=0, timeout=900)
+        for r in ranks:
+            for task, records in r["emotion"].items():
+                for e in records:
+                    log(f"[tp ser] rank {r['rank']} train_emotion {task} "
+                        f"{e['phase']} at {{data: 1, model: 2}}: WavLM "
+                        f"{layers} layers (depth cut), global batch {batch} "
+                        f"on {spec} over gloo: train loss "
+                        f"{e['train_loss']:.6f}, val loss "
+                        f"{e['val_loss']:.6f}; {e['steps']} data-fed steps "
+                        f"at {e['s_per_step']:.4f} s/step, "
+                        f"{e['audio_sec_per_sec_per_chip']:.1f} "
+                        f"audio-sec/sec a rank")
+            log(f"[tp ser] rank {r['rank']} launches {r['counts']}, "
+                f"checkpoints written {r['saves']}")
+        losses = [{t: [(e["train_loss"], e["val_loss"]) for e in rs]
+                   for t, rs in r["emotion"].items()} for r in ranks]
+        finite = all(np.isfinite(v) for t in losses[0].values()
+                     for pair in t for v in pair)
+        saved = [os.path.isfile(os.path.join(root, "emotion_ckpt", name,
+                                             "state.pt"))
+                 for name in ("best_classifier_model",
+                              "best_fine_tuned_model")]
+        ran = device.type != "cuda" or all(
+            n > 0 for r in ranks for k, n in r["counts"].items()
+            if k != "fused_frontend_bwd" and k != "channel_layernorm_bwd")
+        same = ranks[0]["sums"] == ranks[1]["sums"]
+        log(f"[tp ser] the replicas' final states equal (checksums): "
+            f"{same}; losses equal: {losses[0] == losses[1]}; checkpoints "
+            f"by rank 0 {len(ranks[0]['saves'])}, by rank 1 "
+            f"{len(ranks[1]['saves'])}; written {saved}")
+        if not (same and losses[0] == losses[1] and finite and all(saved)
+                and ranks[0]["saves"] and not ranks[1]["saves"] and ran):
+            raise RuntimeError("SER trainers at {data: 1, model: 2}: the "
+                               "replicas disagree, a loss is not finite, "
+                               "a checkpoint is missing or doubled, or a "
+                               "kernel never ran")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5355,6 +5666,9 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
 
 
 REPEAT_STEPS = 2
+# the repeat checks that a step gives the same bits from call to call,
+# which every layer decides alike: 4 layers keep the script in its time
+REPEAT_LAYERS = 4
 
 
 def _repeat_worker(rank: int, world: int, cfg, device: str, batch: int,
@@ -5431,14 +5745,18 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
                     batch: int = TRAIN_BATCH,
                     clip_seconds: float = CLIP_SECONDS,
                     steps: int = REPEAT_STEPS, projection_dim: int = 1024,
-                    prediction_dim: int = 2048) -> None:
+                    prediction_dim: int = 2048,
+                    layers: int = REPEAT_LAYERS) -> None:
     """19(b)'s two-rank step (gloo, the card shared, every random feature
-    on) run twice, each time in fresh processes, compared after each step
-    down to the first tensor that differs; if they differ, twice more with
-    cuDNN held to its deterministic algorithms."""
+    on; WavLM cut to ``layers``) run twice, each time in fresh processes,
+    compared after each step down to the first tensor that differs; if
+    they differ, twice more with cuDNN held to its deterministic
+    algorithms."""
     from nrse_tpu_torch.parallel.launch import run_ranks
 
     cfg = cfg or WavLMConfig.large()
+    cfg = dataclasses.replace(cfg, num_hidden_layers=min(
+        layers, cfg.num_hidden_layers))
     spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
 
     def pair(deterministic):
@@ -5466,41 +5784,54 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
 
 def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
     """20: tensor parallelism on the one card, the kernels at the shard
-    shapes, (a) to (c), and phase 19(b)'s step run twice."""
+    shapes, (a) to (d), and phase 19(b)'s step run twice."""
     if device.type == "cuda":
-        phase_tp_kernels()
+        timed(phase_tp_kernels)
         torch.cuda.empty_cache()
-    phase_tp_step(cfg, device)
-    phase_tp_k5(cfg, device)
-    phase_tp_entry(device)
-    phase_dp_repeat(cfg, device)
+    timed(phase_tp_step, cfg, device)
+    timed(phase_tp_k5, cfg, device)
+    timed(phase_tp_entry, device)
+    timed(phase_tp_emotion_entry, device)
+    timed(phase_dp_repeat, cfg, device)
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds by the host clock printed after it."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
 
 def main() -> int:
+    t0 = time.perf_counter()
     name = phase_device()
-    phase_build()
-    kernels = [phase_kernel_a(), phase_k3(), phase_kernel_b(), phase_k1(),
-               *phase_k2(), phase_k4(), phase_k5(), *phase_k5_bwd(),
-               *phase_frontend_kernels()]
-    launches = phase_serving()
-    launches.update({k: v for k, v in phase_training().items()
+    timed(phase_build)
+    kernels = [timed(phase_kernel_a), timed(phase_k3),
+               timed(phase_kernel_b), timed(phase_k1), *timed(phase_k2),
+               timed(phase_k4), timed(phase_k5), *timed(phase_k5_bwd),
+               *timed(phase_frontend_kernels)]
+    launches = timed(phase_serving)
+    launches.update({k: v for k, v in timed(phase_training).items()
                      if k not in launches})
-    phase_crosscheck()
-    phase_entry()
-    launches["flash_attention_fwd"] = phase_ser()["flash_attention_fwd"]
-    phase_long_clip()
-    ft = phase_ft_step()
+    timed(phase_crosscheck)
+    timed(phase_entry)
+    launches["flash_attention_fwd"] = timed(phase_ser)["flash_attention_fwd"]
+    timed(phase_long_clip)
+    ft = timed(phase_ft_step)
     # K5's backward and the frontend kernels from the fine-tune's e2e cycle
     for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
               *_frontend_counts()):
         launches[k] = ft[k]
-    phase_ft_crosscheck()
-    phase_ft_entry()
-    phase_emotion_step()
-    phase_emotion_entry()
-    phase_classifier()
-    phase_bridges()
+    timed(phase_ft_crosscheck)
+    timed(phase_ft_entry)
+    timed(phase_emotion_step)
+    timed(phase_emotion_entry)
+    timed(phase_classifier)
+    timed(phase_bridges)
     phase_dp()
     phase_tp()
+    log(f"[time] the script: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)

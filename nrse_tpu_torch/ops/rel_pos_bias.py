@@ -15,6 +15,11 @@ is summed along its diagonals into the generator's (a sum over one axis
 of a skewed view), and the generator's into the table by a product with
 the buckets' one-hot matrix.  The backward of a plain index
 (``index_put_`` with accumulation) adds in thread order on the CPU.
+
+The generator's bucket index is copied to the table's device once per
+length and device, and kept: a copy from the host inside the forward
+would make it wait for the device, and could not be captured into a
+CUDA graph (``runtime.graphs``).
 """
 
 from __future__ import annotations
@@ -137,10 +142,19 @@ def rel_bias_vector(rel_attn_embed: torch.Tensor, seq_length: int,
     """Gather the ``[num_buckets, H]`` table into the Toeplitz generator
     ``[H, 2T]`` on the table's device and in its dtype:
     ``bias[h, q, k] == rel_bias_vector(...)[h, T − 1 + k − q]``."""
-    buckets = torch.from_numpy(bucket_of_relative_position(
-        seq_length, num_buckets, max_distance).copy())
-    return _BucketGather.apply(rel_attn_embed,
-                               buckets.to(rel_attn_embed.device))
+    return _BucketGather.apply(rel_attn_embed, _buckets_on(
+        rel_attn_embed.device, seq_length, num_buckets, max_distance))
+
+
+@lru_cache(maxsize=32)
+def _buckets_on(device: torch.device, seq_length: int, num_buckets: int,
+                max_distance: int) -> torch.Tensor:
+    """:func:`bucket_of_relative_position` on ``device``, made once (it is
+    only read) and outside inference mode, so that a training forward may
+    save it for its backward after a serving forward made it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(bucket_of_relative_position(
+            seq_length, num_buckets, max_distance).copy()).to(device)
 
 
 def dense_bias_from_rel(bias_rel: torch.Tensor,

@@ -7,10 +7,8 @@ Port of ``nrse_tpu/serve/export.py`` (``export_embedder`` :113-180,
     manifest.json   — kind (``embed`` or ``classify``), buckets,
                       with_mask, clip_seconds, sample_rate, outputs,
                       encoder_config, weights (the keys of the JAX
-                      package's unbaked layout; there is no per-bucket
-                      program file, since PyTorch runs the module eagerly),
-                      and for the classifier task, hidden_dim and
-                      num_emotions
+                      package's unbaked layout), and for the classifier
+                      task, hidden_dim and num_emotions
     params.pt       — the state dict (the embedder's in HF ``WavLMModel``
                       layout, the classifier's that of
                       ``models.emotion.EmotionClassifier``), loaded once
@@ -20,6 +18,14 @@ Serving traffic is ragged: :class:`ServingModel` pads each request to the
 clip length with a mask, routes it to the smallest batch bucket that fits,
 chunks requests larger than the biggest bucket, and slices the padding
 rows off the results.
+
+The JAX artifact holds one compiled program per bucket
+(``embed_b{B}.stablehlo``).  Its counterpart here is a CUDA graph per
+bucket (``runtime.graphs.BucketProgram``), captured when the server loads
+on the card, all buckets in one memory pool, and replayed per request; a
+graph holds device addresses and cannot be written to a file, so the
+artifact stays as it is and every load captures anew.  A capture that
+fails raises.  On the CPU each bucket runs the module's forward.
 
     python -m nrse_tpu_torch.serve.export --config <preset or yaml> \\
         --checkpoint <train_byol checkpoint_dir>/best_val_loss \\
@@ -44,6 +50,7 @@ from torch import nn
 from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from nrse_tpu_torch.runtime.device import resolve_device
+from nrse_tpu_torch.runtime.graphs import BucketProgram
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "params.pt"
@@ -121,6 +128,9 @@ class ServingModel:
     ``device``: the encoder in bf16 on a CUDA device (the kernels' type),
     in float32 on the CPU (the plain paths, the reference); the
     classifier's pooling statistics and trunks work in float32 on both.
+    ``programs`` holds each bucket's :class:`~nrse_tpu_torch.runtime.
+    graphs.BucketProgram`: on a CUDA device every bucket is captured here,
+    largest first, into the one pool ``pool``.
     """
 
     def __init__(self, artifact_dir: str, device="cuda"):
@@ -152,6 +162,12 @@ class ServingModel:
         encoder = model if self.kind == "embed" else model.encoder
         encoder.to(dtype=dtype)
         self.model = model.to(self.device).eval()
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
+        self.programs = {
+            b: BucketProgram(self.forward, b, self.clip_samples, self.device,
+                             self.with_mask, self.pool)
+            for b in sorted(self.buckets, reverse=True)}
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -171,8 +187,10 @@ class ServingModel:
 
     def forward(self, audio: torch.Tensor, mask: Optional[torch.Tensor]
                 ) -> Tuple[torch.Tensor, ...]:
-        """One bucket's forward on the device: the embedder's ``(sequence,
-        pooled)`` or the outputs the classifier's task names."""
+        """One bucket's forward on the device, eagerly (what each bucket's
+        graph captures, and the yardstick its replays are held to): the
+        embedder's ``(sequence, pooled)`` or the outputs the classifier's
+        task names."""
         with torch.inference_mode():
             if self.kind == "embed":
                 return self.model(audio, mask)
@@ -184,7 +202,9 @@ class ServingModel:
         is zero-padded and masked) → float32 numpy arrays, N rows each:
         the embedder's ``(sequence [N, T', C], pooled [N, C])``; the
         classifier's logits ``[N, num_emotions]``, A/V/D ``[N, 3]``, or
-        both as a tuple.  N larger than the biggest bucket is chunked."""
+        both as a tuple.  N larger than the biggest bucket is chunked;
+        each chunk is written whole into its bucket's static inputs and
+        its rows copied out before the next replay."""
         audio = np.asarray(audio, np.float32)
         n, t = audio.shape
         if t > self.clip_samples:
@@ -209,10 +229,9 @@ class ServingModel:
             # padding rows keep an all-zero mask; the model's masked
             # pooling/attention ignores them and the rows are sliced off
             m[chunk:, 0] = 1  # avoid fully-empty frame counts downstream
-            res = self.forward(
-                torch.from_numpy(a).to(self.device),
-                torch.from_numpy(m).to(self.device) if self.with_mask
-                else None)
+            program = self.programs[b]
+            program.load(a, m)
+            res = program.run()
             outs.append(tuple(r[:chunk].float().cpu().numpy() for r in res))
             start += chunk
         joined = tuple(np.concatenate(parts) for parts in zip(*outs))

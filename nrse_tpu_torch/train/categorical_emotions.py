@@ -20,16 +20,21 @@ confusion-matrix plot beside it.  The validation (``_validate``,
 report with ``zero_division=0`` (``eval.metrics``).
 
 One card (``device: cuda``, the encoder computing in bf16) or the CPU
-(float32, the plain paths), or N ranks, one card each, data-parallel
-(``nrse_tpu/train/categorical_emotions.py:218`` places its batches over
-the mesh): the group comes from the ``tpu.distributed`` block or
-torchrun's environment, every rank builds the same seeded global batch
-(``emotion.batch_size``, which must divide over the ranks) and keeps its
-rows (``emotion_trainer.make_batch_placer``); validation pools the
-confusion counts, the CCC's moments and each batch's loss parts, so every
-rank gets one rank's metrics and takes the same plateau, checkpoint and
-stopping decisions.  Rank 0 alone logs to wandb, prints, plots and writes
-checkpoints; every rank waits after a checkpoint.
+(float32, the plain paths), or N ranks, one card each, over the
+``tpu.mesh`` ``data × model`` mesh (``nrse_tpu/train/
+categorical_emotions.py:218`` places its batches over it): the group comes
+from the ``tpu.distributed`` block or torchrun's environment, every rank
+builds the same seeded global batch (``emotion.batch_size``, which must
+divide over the data axis) and keeps its data coordinate's rows
+(``emotion_trainer.make_batch_placer``); a model axis above 1 replicates
+the whole classifier over its ranks, as JAX does.  Validation pools the
+confusion counts, the CCC's moments and each batch's loss parts over the
+data group (a model group's replicas hold the same rows, which must count
+once), so every rank gets one rank's metrics and all make the same
+plateau, checkpoint and stopping decisions.  Rank 0 alone logs to wandb,
+prints, plots and writes checkpoints, in the ``model: 1`` layout; every
+rank waits after a checkpoint.  Each epoch's record holds the throughput
+per card (the global batch's audio over the step time, over every rank).
 ``model.num_hidden_layers`` in the config cuts the encoder's depth (a key
 of the port's; the evaluator reads the same config).  Plots are drawn only
 where matplotlib (and seaborn, for the heatmap) import.
@@ -158,8 +163,9 @@ def load_pretrained_encoder(config, enc_cfg: WavLMConfig
 
 
 def pooled(values: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
-    """``values`` summed over the ranks (the ranks' parts of a validation
-    pass); itself without a mesh."""
+    """``values`` summed over the data group (the ranks' parts of a
+    validation pass; the replicas of a model group count once); itself
+    without a mesh."""
     return all_reduce_sum(values.to(mesh.device) if mesh else values, mesh)
 
 
@@ -246,10 +252,10 @@ def train_emotion_task(config, recipe: TaskRecipe,
     "epochs": [per-epoch records], "state"}``; a record holds ``phase``,
     ``epoch``, ``train_loss``, ``val_loss``, the metric, ``lr``, ``layers``
     (the unfrozen ones), ``steps``, ``s_per_step`` (host clock over the
-    epoch's train steps, data loading included) and
-    ``audio_sec_per_sec``.  Joins the group the config or torchrun's
-    environment describes, and leaves it at the end if it joined it
-    here."""
+    epoch's train steps, data loading included), ``audio_sec_per_sec``
+    and ``audio_sec_per_sec_per_chip`` (over every rank).  Joins the
+    group the config or torchrun's environment describes, and leaves it
+    at the end if it joined it here."""
     joined = maybe_initialize(config)
     try:
         return _train_emotion_task(config, recipe, class_weights_fn)
@@ -327,23 +333,29 @@ def _train_emotion_task(config, recipe: TaskRecipe,
                 if step_losses else 0.0
             steps = len(step_losses)
             s_per_step = (time.perf_counter() - t0) / max(steps, 1)
+            rate = train_loader.batch_size * clip_seconds / s_per_step \
+                if steps else 0.0
+            per_chip = rate / mesh.world
             val_loss, metric, extras = recipe.validate(
                 state.model, val_loader, eval_step, weights, device,
                 dp_mesh)
             lr = plateau.step(metric)
             log, line = recipe.report(phase, epoch, epochs, epoch_loss,
                                       val_loss, metric, extras, lr)
+            log[f"{phase}/audio_sec_per_sec_per_chip"] = per_chip
             wandb.log(log)
             if primary:
-                print(line, flush=True)
+                print(f"{line} audio_sec/s/card={per_chip:.1f}", flush=True)
             history.append({
                 "phase": phase, "epoch": epoch, "train_loss": epoch_loss,
                 "val_loss": val_loss, recipe.metric: metric, "lr": lr,
                 "layers": list(layers), "steps": steps,
                 "s_per_step": s_per_step,
-                "audio_sec_per_sec": train_loader.batch_size * clip_seconds
-                / s_per_step if steps else 0.0})
-            if metric > best:  # the pooled metric: every rank agrees
+                "audio_sec_per_sec": rate,
+                "audio_sec_per_sec_per_chip": per_chip})
+            # the pooled metric: every rank agrees (the replicas of a model
+            # group hold the same bits and pool the same rows)
+            if metric > best:
                 best = metric
                 patience_left = em.get("patience", 3)
                 if primary:

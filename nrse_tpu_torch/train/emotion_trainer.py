@@ -36,11 +36,18 @@ dropout, LayerDrop and SpecAugment draw as in JAX's
 
 Data parallelism (a state with a ``parallel.mesh.DataMesh``, placed by
 :func:`make_batch_placer`): every rank builds the same seeded global batch
-and keeps its rows (``nrse_tpu/train/emotion_trainer.py:172-209`` shards
-it over the mesh); the losses take the global batch's denominators and
-moments (``train.losses``), the trunks' dropout masks are drawn at the
-global batch, and after the backward one ``all_reduce`` per trainable
-segment sums the gradients, so every rank takes the same K4 step.
+and keeps its data coordinate's rows (``nrse_tpu/train/emotion_trainer.py:
+172-209`` shards it over the mesh's ``data`` axis and replicates the state
+over both axes); the losses take the global batch's denominators and
+moments (``train.losses``), the random streams are those of the data
+coordinate of the data axis's size, the trunks' dropout masks are drawn at
+the global batch, and after the backward one ``all_reduce`` per trainable
+segment sums the gradients over the data group, so every rank takes the
+same K4 step.  A ``model`` axis above 1 replicates the step, as JAX runs
+it: the encoder stays whole on every rank, the ranks of a model group see
+the same rows and the same draws and compute the same step, and nothing
+is summed over the model group; after each step ``replicas_agree`` checks
+that they hold the same bits, and a difference raises.
 """
 
 from __future__ import annotations
@@ -58,7 +65,12 @@ from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
 )
-from nrse_tpu_torch.parallel.mesh import DataMesh, broadcast_state, shard_batch
+from nrse_tpu_torch.parallel.mesh import (
+    DataMesh,
+    broadcast_state,
+    replicas_agree,
+    shard_batch,
+)
 from nrse_tpu_torch.train.losses import ccc_loss, ce_weight_category
 
 ALIGN = 4  # floats: K4 takes 16-byte aligned buffers
@@ -217,8 +229,10 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
     ones). The metrics ``loss`` and ``grad_norm`` (the global norm of the
     trainable gradients) are device tensors: nothing waits for the card;
     ``layers_run`` counts the layers LayerDrop kept.  Under the state's
-    mesh ``batch`` holds this rank's rows and the metrics are the global
-    batch's."""
+    mesh ``batch`` holds this rank's data coordinate's rows and the
+    metrics are the global batch's; under a model axis the step raises
+    when the replicas of the model group no longer hold the same
+    parameters and moments."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
 
@@ -226,9 +240,8 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                    class_weights, layers: Sequence[int],
                    learning_rate: float, rest_scale: float = 0.0) -> Dict:
         mesh = state.mesh
-        refuse_model_axis(mesh)
         segments = trainable_segments(state, layers, rest_scale)
-        rank, world = (mesh.rank, mesh.world) if mesh else (0, 1)
+        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
         state.grads.zero_()
         x = zero_mean_unit_var(batch["input_values"])
         logits, dims = state.model(x, batch["attention_mask"], task,
@@ -239,7 +252,7 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
         spec = adamw_spec(learning_rate, weight_decay, clip_norm)
         with torch.no_grad():
             loss = loss.detach()
-            if mesh is not None and mesh.distributed:
+            if mesh is not None and mesh.data_reduce:
                 for lo, hi in segments:
                     dist.all_reduce(state.grads[lo:hi], group=mesh.data_group)
                 dist.all_reduce(loss, group=mesh.data_group)
@@ -252,34 +265,39 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                     state.mu[lo:hi], state.nu[lo:hi], None, spec,
                     state.step, grad_norm)
         state.step += 1
+        if mesh is not None and mesh.tp and mesh.distributed:
+            check_replicas(state, segments)
         return {"loss": loss, "grad_norm": grad_norm,
                 "layers_run": state.model.encoder.encoder.layers_run}
 
     return train_step
 
 
-def refuse_model_axis(mesh: Optional[DataMesh]) -> None:
-    """Raise for a mesh with a model axis above 1: the SER trainers are
-    data-parallel only in the port (JAX runs them replicated over such a
-    mesh, ``nrse_tpu/train/emotion_trainer.py:172-205``)."""
-    if mesh is not None and mesh.tp:
-        raise ValueError(
-            f"tpu.mesh model={mesh.model}: tensor parallelism is not ported "
-            "to the SER trainers (ROADMAP.md, Queue 1: tensor parallelism "
-            "of the SER trainers and the fine-tune); use model: 1")
+def check_replicas(state: EmotionTrainState,
+                   segments: Sequence[Tuple[int, int]]) -> None:
+    """Raise unless the ranks of the state's model group hold the same
+    bits in the trainable segments of the parameters and the moments (one
+    ``all_reduce`` of checksums over the model group)."""
+    mesh = state.mesh
+    tensors = [t[lo:hi] for t in (state.params, state.mu, state.nu)
+               for lo, hi in segments]
+    if not replicas_agree(mesh, tensors, group=mesh.model_group):
+        raise RuntimeError(
+            f"SER train step {state.step}: the {mesh.model} replicas of "
+            f"model group {mesh.data_index} hold different parameters or "
+            "moments; a piece of the step is not deterministic")
 
 
 def make_batch_placer(mesh: DataMesh, batch_size: int
                       ) -> Tuple[Callable, Callable]:
-    """``(place_batch, place_state)`` for data-parallel SER training, as
+    """``(place_batch, place_state)`` for SER training over a mesh, as
     ``nrse_tpu/train/emotion_trainer.py::make_batch_placer``: raises where
-    the global ``batch_size`` does not divide over the ranks (SER eval
+    the global ``batch_size`` does not divide over the data axis (SER eval
     loaders pad their last batch, so a divisible batch size always holds);
-    ``place_batch`` keeps this rank's rows of a global host batch (and its
-    share of a padded batch's ``__count__``); ``place_state`` gives a
-    state the mesh and rank 0's parameters and moments.  Raises for a
-    model axis above 1 (:func:`refuse_model_axis`)."""
-    refuse_model_axis(mesh)
+    ``place_batch`` keeps the rows of this rank's data index of a global
+    host batch (and their share of a padded batch's ``__count__``), the
+    same rows on every rank of a model group; ``place_state`` gives a
+    state the mesh and rank 0's parameters and moments on every rank."""
     mesh.local_batch(batch_size)
 
     def place_batch(batch):

@@ -16,8 +16,10 @@ checkpoints under its own subdirectory of ``emotion.checkpoint_dir``
 same directory, where the dimensional run's ``best_classifier_model``
 and ``best_fine_tuned_model`` overwrite the categorical run's.  Under
 torchrun (or with the ``tpu.distributed`` block) the ranks join one group
-for both trainers (``train.categorical_emotions``: data parallelism over
-``emotion.batch_size``, the global batch).
+for both trainers (``train.categorical_emotions``: the ``tpu.mesh`` ``data
+× model`` mesh, ``emotion.batch_size`` the global batch split over
+``data``; ``model: 2`` or more replicates the classifier over each model
+group's ranks, as the JAX trainers run it).
 """
 
 from __future__ import annotations

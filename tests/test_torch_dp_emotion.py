@@ -25,8 +25,16 @@ global batch, and pooled validation against one rank.
      padded, 3 real rows: 2 on rank 0, 1 on rank 1), equal one process's
      on the same batches: the confusion matrix and the report exactly,
      macro-F1, the CCCs and the losses to 1e-6 (pooled float64 moments
-     against one process's).
+     against one process's); and over 4 ranks at ``{data: 2, model: 2}``.
+  5. The step of 2. over 4 ranks at ``{data: 2, model: 2}`` (the model axis
+     replicates the classifier, as JAX runs it) against JAX's step on the
+     batch and state its ``make_batch_placer`` places on a 2 x 2 mesh of
+     the 8 virtual CPU devices, at the same tolerances; all four ranks
+     bit-equal; the one checkpoint rank 0 writes restores into a one-process
+     state.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +56,7 @@ from nrse_tpu_torch.models.convert import emotion_params_to_state_dict
 from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.parallel.launch import run_ranks
+from nrse_tpu_torch.train import checkpoint as trainer_ckpt
 from nrse_tpu_torch.train import emotion_trainer as trainer
 from nrse_tpu_torch.train import losses
 
@@ -99,6 +108,31 @@ def test_losses_and_gradients_match_jax():
 
 @pytest.mark.parametrize("setting", ["frozen", "top_layer"])
 def test_two_dp_train_steps_match_jax(setting):
+    _check_steps_against_jax(setting, data=2, model=1)
+
+
+@pytest.mark.parametrize("setting", ["frozen", "top_layer"])
+def test_two_steps_on_a_model_axis_match_jax(setting, tmp_path):
+    """Four ranks at ``{data: 2, model: 2}``: the classifier replicated
+    over each model group, as JAX's ``make_batch_placer`` replicates the
+    state over a 2 x 2 mesh (the reference's batch and state placed by
+    it); the ranks of each model group bit-equal, and one checkpoint,
+    written by rank 0, restored into a ``model: 1`` state."""
+    ranks, state = _check_steps_against_jax(setting, data=2, model=2,
+                                            ckpt_dir=str(tmp_path))
+    assert sorted(os.listdir(tmp_path)) == ["best_classifier_model"]
+    trainer_ckpt.restore_checkpoint(str(tmp_path), "best_classifier_model",
+                                    state)
+    for k in ("params", "mu", "nu"):
+        np.testing.assert_array_equal(getattr(state, k).numpy(),
+                                      ranks[0][-1][k], k)
+    assert state.step == 2
+
+
+def _check_steps_against_jax(setting, data, model, ckpt_dir=None):
+    """Two SER steps at ``data x model`` gloo ranks against JAX's step on
+    the global batch; returns the ranks' results and the one-process
+    state at step 0 that gave the layout."""
     layers, rest = SETTINGS[setting]
     jcfg = JaxWavLMConfig.tiny(**OFF)
     jmodel = JaxEmotionClassifier(jcfg, hidden_dim=HIDDEN, dropout=0.0)
@@ -109,16 +143,22 @@ def test_two_dp_train_steps_match_jax(setting):
         jax.tree.map(jnp.asarray, batches[0]), opt)
     jstep = jax_trainer.make_emotion_train_step(jmodel, opt, "categorical",
                                                 2)
+    place_batch = lambda b: jax.tree.map(jnp.asarray, b)  # noqa: E731
+    if model > 1:
+        place_batch, place_state = jax_trainer.make_batch_placer(
+            {"tpu": {"mesh": {"data": data, "model": model}}}, 4)
+        jstate = place_state(jstate)
     scale = layer_gradient_scale(2, layers)
     cfg = WavLMConfig.tiny(**OFF)
     sd = emotion_params_to_state_dict(_np_tree(jstate.params), cfg)
-    model = EmotionClassifier(cfg, hidden_dim=HIDDEN, dropout=0.0)
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
-                          strict=True)
-    state = trainer.create_emotion_state(model, seed=5)  # the layout
+    model_t = EmotionClassifier(cfg, hidden_dim=HIDDEN, dropout=0.0)
+    model_t.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                            strict=True)
+    state = trainer.create_emotion_state(model_t, seed=5)  # the layout
     p0 = {k: v.clone() for k, v in _views(state, state.params).items()}
-    ranks = run_ranks(workers.emotion_steps, 2, (
-        sd, HIDDEN, "categorical", batches, WEIGHTS, layers, rest, LRS, WD))
+    ranks = run_ranks(workers.emotion_steps, data * model, (
+        sd, HIDDEN, "categorical", batches, WEIGHTS, layers, rest, LRS, WD,
+        model, ckpt_dir))
 
     trainable = torch.zeros_like(state.params)
     for name, v in _views(state, trainable).items():
@@ -127,13 +167,14 @@ def test_two_dp_train_steps_match_jax(setting):
     ref_p = jnp.array(state.params.numpy(), copy=True)
     ref_opt = opt.init(ref_p)
     for i, (batch, lr) in enumerate(zip(batches, LRS)):
-        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch),
+        jstate, jm = jstep(jstate, place_batch(batch),
                            jnp.asarray(WEIGHTS), scale, jnp.float32(lr),
                            jnp.float32(rest))
         got = ranks[0][i]
-        for k in ("grads", "params", "mu", "nu"):
-            np.testing.assert_array_equal(got[k], ranks[1][i][k], k)
-        assert got["loss"] == ranks[1][i]["loss"]
+        for other in ranks[1:]:  # model replicas and data ranks alike
+            for k in ("grads", "params", "mu", "nu"):
+                np.testing.assert_array_equal(got[k], other[i][k], k)
+            assert got["loss"] == other[i]["loss"]
         assert abs(got["loss"] - float(jm["loss"])) \
             <= 1e-4 * abs(float(jm["loss"]))
         assert abs(got["grad_norm"] - float(jm["grad_norm"])) \
@@ -160,6 +201,7 @@ def test_two_dp_train_steps_match_jax(setting):
                     continue
                 err = np.abs(g - r).max() / max(np.abs(r).max(), floor)
                 assert err <= 1e-4, f"step {i}, {buf} {name}: {err}"
+    return ranks, state
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -200,10 +242,20 @@ def _val_batches():
 
 
 def test_pooled_validation_equals_one_rank():
+    _check_pooled_validation(2, 1)
+
+
+def test_pooled_validation_on_a_model_axis_equals_one_rank():
+    """At ``{data: 2, model: 2}`` the validation pools over the data
+    group: the replicas of a model group count their rows once."""
+    _check_pooled_validation(4, 2)
+
+
+def _check_pooled_validation(world, model):
     batches = _val_batches()
     one = workers.pooled_validation(0, 1, batches, 4, WEIGHTS)
-    outs = run_ranks(workers.pooled_validation, 2,
-                     (batches, 4, WEIGHTS))
+    outs = run_ranks(workers.pooled_validation, world,
+                     (batches, 4, WEIGHTS, model))
     assert one["cm"].sum() == 10  # 11 real rows, one label invalid
     for out in outs:
         np.testing.assert_array_equal(out["cm"], one["cm"])

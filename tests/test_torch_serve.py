@@ -5,7 +5,12 @@ Tiny config, buckets (2, 4), 0.48 s clips (7680 samples, 383 frames: the
 longest the block kernel's T ≤ 384 admits for tiny).  Ragged requests of
 N ∈ {1, 3, 7} rows with ragged lengths; N = 7 is chunked 4 + 3.  Every row
 must equal the JAX forward of the same zero-padded audio and mask to 1e-4
-absolute (float32, summation order only).
+absolute (float32, summation order only).  Requests of 7, 1 and 3 rows in
+turn through one server equal each served alone by a fresh one, bit for
+bit, and JAX's; after each, the bucket program's static inputs hold the
+whole padded request (padding rows zero, their mask 1 at sample 0 only),
+and the program's outputs sliced equal ``ServingModel.forward`` on the
+padded request.
 """
 
 import json
@@ -75,19 +80,66 @@ def test_manifest_layout(served):
     assert server.plan(1) == [(1, 2)]
 
 
-@pytest.mark.parametrize("n", [1, 3, 7])
+@pytest.mark.parametrize("n", [1, 3, 7, pytest.param((7, 1, 3),
+                                                     id="7-then-1-then-3")])
 def test_ragged_requests_match_jax(served, n):
     out, audio, mask, (ref_seq, ref_pooled) = served
     server = ServingModel(out, "cpu")
     launches = (block_attention.LAUNCHES, fused_ffn.LAUNCHES)
 
-    seq, pooled = server(audio[:n], mask[:n])
+    for n in n if isinstance(n, tuple) else (n,):  # one server, in turn
+        seq, pooled = server(audio[:n], mask[:n])
+        assert (block_attention.LAUNCHES, fused_ffn.LAUNCHES) == launches
+        assert seq.shape == (n, 383, 64) and pooled.shape == (n, 64)
+        e_seq = np.abs(seq - ref_seq[:n]).max()
+        e_pooled = np.abs(pooled - ref_pooled[:n]).max()
+        assert e_seq < TOL and e_pooled < TOL, (e_seq, e_pooled)
+        alone = ServingModel(out, "cpu")(audio[:n], mask[:n])
+        for got, want in zip((seq, pooled), alone):
+            np.testing.assert_array_equal(got, want)
+        _check_static_inputs(server, audio[:n], mask[:n])
 
-    assert (block_attention.LAUNCHES, fused_ffn.LAUNCHES) == launches
-    assert seq.shape == (n, 383, 64) and pooled.shape == (n, 64)
-    e_seq = np.abs(seq - ref_seq[:n]).max()
-    e_pooled = np.abs(pooled - ref_pooled[:n]).max()
-    assert e_seq < TOL and e_pooled < TOL, (e_seq, e_pooled)
+
+def _padded(server, audio, mask, rows, bucket):
+    """The ``[bucket, clip]`` audio and mask the server writes for
+    ``rows`` rows of a request: zero padding, the padding rows' mask 1 at
+    sample 0 only."""
+    a = np.zeros((bucket, CLIP), np.float32)
+    m = np.zeros((bucket, CLIP), np.int32)
+    a[:rows, :audio.shape[1]] = audio[:rows]
+    m[:rows, :mask.shape[1]] = mask[:rows]
+    m[rows:, 0] = 1
+    return a, m
+
+
+def _check_static_inputs(server, audio, mask):
+    """The last chunk's bucket program holds that chunk whole."""
+    rows, bucket = server.plan(len(audio))[-1]
+    start = len(audio) - rows
+    a, m = _padded(server, audio[start:], mask[start:], rows, bucket)
+    program = server.programs[bucket]
+    np.testing.assert_array_equal(program.audio.numpy(), a)
+    np.testing.assert_array_equal(program.mask.numpy(), m)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_bucket_program_equals_the_forward(served, n):
+    """On the CPU a bucket program runs the eager forward on its static
+    inputs: its outputs, sliced to the request's rows, are
+    ``ServingModel.forward``'s on the padded request bit for bit, and
+    the program holds no graph."""
+    out, audio, mask, _ = served
+    server = ServingModel(out, "cpu")
+    seq, pooled = server(audio[:n], mask[:n])
+    bucket = server.plan(n)[0][1]
+    program = server.programs[bucket]
+    assert program.graph is None and program.replays == 0
+    a, m = _padded(server, audio, mask, n, bucket)
+    want = server.forward(torch.from_numpy(a), torch.from_numpy(m))
+    for got, w in zip((seq, pooled), want):
+        np.testing.assert_array_equal(got, w[:n].numpy())
+    for got, w in zip(program.run(), want):
+        np.testing.assert_array_equal(got.numpy(), w.numpy())
 
 
 def test_rejects_audio_longer_than_the_clip(served):

@@ -8,9 +8,14 @@ clips (7680 samples, 383 frames: the block path's plain versions).  Ragged
 requests of N ∈ {1, 3, 7} rows (7 chunked 4 + 3) with ragged lengths, for
 ``task`` ∈ {categorical, dimensional, both}: every row within 1e-4 of
 max|ref| of JAX's ``EmotionClassifier.apply(..., deterministic=True)`` on
-the same zero-padded audio and mask, with no kernel launch on the CPU.
-Then the manifest's keys, and ``python -m nrse_tpu_torch.serve.export``'s
-``main`` on a BYOL checkpoint of the port's ``train/checkpoint.py``.
+the same zero-padded audio and mask, with no kernel launch on the CPU;
+requests of 7, 1 and 3 rows in turn through one server equal each served
+alone by a fresh one, bit for bit, and JAX's, and the bucket program's
+static inputs hold the whole padded request after each; a bucket
+program's outputs sliced equal ``ServingModel.forward`` on the padded
+request.  Then the manifest's keys, and ``python -m
+nrse_tpu_torch.serve.export``'s ``main`` on a BYOL checkpoint of the
+port's ``train/checkpoint.py``.
 """
 
 import json
@@ -90,20 +95,61 @@ def served(tmp_path_factory):
 
 
 @pytest.mark.parametrize("task", ["categorical", "dimensional", "both"])
-@pytest.mark.parametrize("n", [1, 3, 7])
+@pytest.mark.parametrize("n", [1, 3, 7, pytest.param((7, 1, 3),
+                                                     id="7-then-1-then-3")])
 def test_ragged_requests_match_jax(served, task, n):
     dirs, audio, mask, ref_logits, ref_dims = served
     server = ServingModel(dirs[task], "cpu")
     launches = _launches()
-    out = server(audio[:n], mask[:n])
-    assert _launches() == launches
     want = {"categorical": (ref_logits,), "dimensional": (ref_dims,),
             "both": (ref_logits, ref_dims)}[task]
+    for n in n if isinstance(n, tuple) else (n,):  # one server, in turn
+        out = server(audio[:n], mask[:n])
+        assert _launches() == launches
+        got = out if task == "both" else (out,)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.shape == (n, w.shape[1]) and g.dtype == np.float32
+            assert _rel(g, w[:n]) < TOL, _rel(g, w[:n])
+        alone = ServingModel(dirs[task], "cpu")(audio[:n], mask[:n])
+        for g, a in zip(got, alone if task == "both" else (alone,)):
+            np.testing.assert_array_equal(g, a)
+        rows, bucket = server.plan(n)[-1]
+        a, m = _padded(audio[n - rows:n], mask[n - rows:n], bucket)
+        np.testing.assert_array_equal(server.programs[bucket].audio.numpy(),
+                                      a)
+        np.testing.assert_array_equal(server.programs[bucket].mask.numpy(),
+                                      m)
+
+
+def _padded(audio, mask, bucket):
+    """The ``[bucket, clip]`` audio and mask the server writes for a
+    chunk: zero padding, the padding rows' mask 1 at sample 0 only."""
+    rows = len(audio)
+    a = np.zeros((bucket, CLIP), np.float32)
+    m = np.zeros((bucket, CLIP), np.int32)
+    a[:rows, :audio.shape[1]] = audio
+    m[:rows, :mask.shape[1]] = mask
+    m[rows:, 0] = 1
+    return a, m
+
+
+@pytest.mark.parametrize("task", ["categorical", "dimensional", "both"])
+def test_bucket_program_equals_the_forward(served, task):
+    """On the CPU a bucket program runs the eager forward on its static
+    inputs (no graph): a request's outputs are ``ServingModel.forward``'s
+    on the padded request, sliced, bit for bit."""
+    dirs, audio, mask, _, _ = served
+    server = ServingModel(dirs[task], "cpu")
+    out = server(audio[:3], mask[:3])
+    program = server.programs[4]
+    assert program.graph is None and program.replays == 0
+    a, m = _padded(audio[:3], mask[:3], 4)
+    want = server.forward(torch.from_numpy(a), torch.from_numpy(m))
     got = out if task == "both" else (out,)
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        assert g.shape == (n, w.shape[1]) and g.dtype == np.float32
-        assert _rel(g, w[:n]) < TOL, _rel(g, w[:n])
+        np.testing.assert_array_equal(g, w[:3].numpy())
 
 
 def test_manifest(served):

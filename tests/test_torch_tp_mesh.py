@@ -134,25 +134,32 @@ def test_partition_rule_matches_jax():
     assert split == 2 * 2 * 10
 
 
-def test_ser_trainers_refuse_a_model_axis():
-    """The SER trainers are data-parallel only in the port: their batch
-    placer and their step raise for a model axis, naming the ROADMAP
-    item (JAX runs them replicated over such a mesh)."""
-    from nrse_tpu_torch.models.emotion import EmotionClassifier
-    from nrse_tpu_torch.parallel.mesh import DataMesh
-    from nrse_tpu_torch.train import emotion_trainer as trainer
+def _ser_batch(seed: int, b: int = 4) -> dict:
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, 3200), np.int32)
+    mask[1, 2000:] = 0
+    return {"input_values": (0.3 * rng.standard_normal((b, 3200))
+                             ).astype(np.float32),
+            "attention_mask": mask,
+            "C": rng.integers(0, 8, b).astype(np.int64),
+            **{k: rng.uniform(1, 7, b).astype(np.float32) for k in "AVD"}}
 
-    mesh = DataMesh(world=2, rank=0, device=torch.device("cpu"),
-                    distributed=True, model=2)
-    with pytest.raises(ValueError, match="ROADMAP.md.*SER trainers"):
-        trainer.make_batch_placer(mesh, 4)
-    model = EmotionClassifier(WavLMConfig.tiny(), hidden_dim=8, dropout=0.0)
-    state = trainer.create_emotion_state(model, seed=0)
-    state.mesh = mesh
-    step = trainer.make_emotion_train_step("categorical")
-    batch = {"input_values": torch.zeros(2, 3200),
-             "attention_mask": torch.ones(2, 3200, dtype=torch.int32),
-             **{k: torch.zeros(2) for k in "AVD"},
-             "C": torch.zeros(2, dtype=torch.int64)}
-    with pytest.raises(ValueError, match="ROADMAP.md.*SER trainers"):
-        step(state, batch, None, [0], 1e-4)
+
+@pytest.mark.parametrize("layers", [[], [1]])
+def test_ser_trainers_replicate_over_a_model_axis(layers):
+    """The SER trainers run a model axis as JAX runs it, replicated
+    (``nrse_tpu/train/emotion_trainer.py::make_batch_placer`` shards the
+    batch over ``data`` and replicates the state): at ``{data: 1, model:
+    2}`` each rank's two steps, with dropout, LayerDrop, SpecAugment and
+    the trunks' dropout on, equal one process's on the same global batch
+    bit for bit (the streams are the data coordinate's, the model index
+    draws nothing of its own), and the step's replica check passes."""
+    batches = [_ser_batch(40 + i) for i in range(2)]
+    one = workers.ser_replicated_steps(0, 1, 1, batches, layers)
+    outs = run_ranks(workers.ser_replicated_steps, 2, (2, batches, layers))
+    for out in outs:
+        assert out["layers_run"] == one["layers_run"]
+        for k in ("params", "mu", "nu"):
+            np.testing.assert_array_equal(out[k], one[k], k)
+        for got, want in zip(out["losses"], one["losses"]):
+            np.testing.assert_array_equal(got, want)

@@ -17,6 +17,7 @@ from nrse_tpu_torch import train_byol, train_emotion
 from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
+from nrse_tpu_torch.parallel.distributed import barrier, is_primary
 from nrse_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from nrse_tpu_torch.train import categorical_emotions, dimentional_emotions
 from nrse_tpu_torch.train import checkpoint as checkpoint_mod
@@ -91,18 +92,20 @@ def byol_steps(rank, world, cfg_kwargs, online_sd, target_sd, batch,
 
 
 def emotion_steps(rank, world, state_dict, hidden, task, batches, weights,
-                  layers, rest, lrs, wd):
+                  layers, rest, lrs, wd, model=1, ckpt_dir=None):
     """The SER train step on this rank's rows of each global batch (every
-    random feature off); per step the loss, grad_norm, the summed flat
-    gradients, parameters and moments."""
+    random feature off) over the ``{data: world / model, model: model}``
+    mesh; per step the loss, grad_norm, the summed flat gradients,
+    parameters and moments.  With ``ckpt_dir``, the trainers' checkpoint
+    after the last step: written by rank 0 alone, every rank waiting."""
     cfg = WavLMConfig.tiny(hidden_dropout=0.0, activation_dropout=0.0,
                            attention_dropout=0.0, layerdrop=0.0,
                            mask_time_prob=0.0)
-    model = EmotionClassifier(cfg, hidden_dim=hidden, dropout=0.0)
-    model.load_state_dict({k: torch.from_numpy(v)
-                           for k, v in state_dict.items()}, strict=True)
-    state = trainer.create_emotion_state(model, seed=5)
-    mesh = make_mesh(device="cpu")
+    classifier = EmotionClassifier(cfg, hidden_dim=hidden, dropout=0.0)
+    classifier.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in state_dict.items()}, strict=True)
+    state = trainer.create_emotion_state(classifier, seed=5)
+    mesh = make_mesh(model=model, device="cpu", heads=cfg.num_attention_heads)
     place_batch, place_state = trainer.make_batch_placer(
         mesh, len(batches[0]["C"]))
     state = place_state(state)
@@ -115,6 +118,11 @@ def emotion_steps(rank, world, state_dict, hidden, task, batches, weights,
                     "grad_norm": float(m["grad_norm"]),
                     **{k: getattr(state, k).numpy().copy()
                        for k in ("grads", "params", "mu", "nu")}})
+    if ckpt_dir is not None:
+        if is_primary():
+            checkpoint_mod.save_checkpoint(ckpt_dir, "best_classifier_model",
+                                           state, {"epoch": 0})
+        barrier()
     return out
 
 
@@ -150,11 +158,12 @@ def _outputs(model, batch):
     return {"logits": batch["logits"], "dims": batch["dims"]}
 
 
-def pooled_validation(rank, world, batches, batch_size, weights):
+def pooled_validation(rank, world, batches, batch_size, weights, model=1):
     """The categorical and dimensional validations of the SER trainers
-    over this rank's rows of ``batches`` (pooled when ``world > 1``; a
+    over this rank's rows of ``batches`` (pooled over the data axis of the
+    ``{data: world / model, model: model}`` mesh when ``world > 1``; a
     process of one group of one runs them without a mesh)."""
-    mesh = make_mesh(device="cpu") if world > 1 else None
+    mesh = make_mesh(model=model, device="cpu") if world > 1 else None
     loader = ListLoader(batches, batch_size)
     w = torch.from_numpy(weights)
     loss, f1, cm, report = categorical_emotions._validate(

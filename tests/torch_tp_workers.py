@@ -11,7 +11,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from nrse_tpu_torch.models.convert import init_byol_state_dict
+from nrse_tpu_torch.models.convert import (
+    init_byol_state_dict,
+    init_emotion_state_dict,
+)
+from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig, WavLMModel
 from nrse_tpu_torch.ops.fused_optimizer import FusedAdamWSpec
 from nrse_tpu_torch.parallel.mesh import (
@@ -21,6 +25,7 @@ from nrse_tpu_torch.parallel.mesh import (
     shard_state_dict,
 )
 from nrse_tpu_torch.train import checkpoint
+from nrse_tpu_torch.train import emotion_trainer
 from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
     make_byol_train_step,
@@ -110,3 +115,33 @@ def tp_checkpoint(rank, world, model, cfg_kwargs, online_sd, batch, src,
     dist.barrier()
     return {"restored_bit_equal": same, "agree": replicas_agree(state),
             "loss": float(metrics["loss"]), "step": state.step}
+
+
+SER_HIDDEN = 16
+
+
+def ser_replicated_steps(rank, world, model, batches, layers) -> Dict:
+    """Two SER train steps (``task="both"``, every random feature of the
+    tiny classifier on) over the ``{data: world / model, model: model}``
+    mesh, from seeded weights; the flat buffers' bits and the losses.  A
+    process alone (``world`` 1) runs them without a group."""
+    cfg = WavLMConfig.tiny()
+    classifier = EmotionClassifier(cfg, hidden_dim=SER_HIDDEN, dropout=0.3)
+    classifier.load_state_dict(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(3), SER_HIDDEN), strict=True)
+    state = emotion_trainer.create_emotion_state(classifier, seed=11)
+    mesh = make_mesh(model=model, device="cpu",
+                     heads=cfg.num_attention_heads)
+    place_batch, place_state = emotion_trainer.make_batch_placer(
+        mesh, len(batches[0]["C"]))
+    state = place_state(state)
+    step = emotion_trainer.make_emotion_train_step("both")
+    losses, runs = [], []
+    for batch in batches:
+        m = step(state, {k: torch.from_numpy(v)
+                         for k, v in place_batch(batch).items()},
+                 None, layers, 1e-3)
+        losses.append(_bits(m["loss"].reshape(1)))
+        runs.append(m["layers_run"])
+    return {"losses": losses, "layers_run": runs,
+            **{k: _bits(getattr(state, k)) for k in ("params", "mu", "nu")}}

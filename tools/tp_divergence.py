@@ -11,14 +11,28 @@ off and then on).  For each configuration it prints:
   * grad_norm of both, ``|Δg|² / |g|²`` over every gradient, the share of
     the gradients that are 0 in exact arithmetic, and the twelve
     parameters whose gradients differ most;
-  * the same against a second one-rank run with cuBLAS's reduced-precision
-    bf16 reductions off, a control of the library's own variation.
+  * the same for three controls, one-rank runs that change only the
+    order of sums: with cuBLAS's reduced-precision bf16 reductions off;
+    with every projection summed as two float32 halves of its input
+    (``chip_smoke._split_linear``, phase 20(a)'s control); and with that
+    and the gate's projection's weight and bias gradients summed as
+    model: 2 sums them, two 8-head halves each rounded to bf16 and added
+    in float32 (:class:`_GateHalves`);
+  * per gradient tensor, ``|Δg| / |g|`` of the sharded step against each
+    of the last two controls': their medians, how many tensors the
+    sharded step moves more than twice as far, and the twelve with the
+    largest ratio (the gradients that are 0 in exact arithmetic left
+    out); and each layer's ``gru_rel_pos_linear`` gradients in the three
+    runs, with the spread of their ratio to the last control over the
+    layers.
 
 Run from the root of a checkout, on a machine with the card:
 
-    python3 tools/tp_divergence.py [layers]
+    python3 tools/tp_divergence.py [layers] [--running-stats]
 
-(``layers`` cuts the encoder's depth; default 24).
+(``layers`` cuts the encoder's depth, default 24; ``--running-stats``
+puts the heads' BatchNorms on their running statistics in every run, as
+phase 9's cross-check against float32 does.)
 """
 
 import os
@@ -29,6 +43,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
+from nrse_tpu_torch.models import wavlm as wavlm_module  # noqa: E402
 from nrse_tpu_torch.models.wavlm import WavLMConfig  # noqa: E402
 from nrse_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from nrse_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
@@ -105,42 +120,159 @@ def _compare(label: str, got: dict, ref: dict) -> None:
                f"rel {(d[k] / max(n[k], 1e-30)) ** 0.5:.3e}")
 
 
-def worker(rank: int, world: int, device: str, layers: int) -> None:
+def _per_tensor(label: str, got: dict, control: dict, ref: dict,
+                name: str) -> None:
+    """Each gradient tensor's ``|Δg| / |g|`` against ``ref``, of ``got``
+    beside ``control``'s (the ``name`` control)."""
+    rel = {}
+    for k, g in ref["grads"].items():
+        if k.endswith(ZERO):
+            continue
+        n = float(g.norm().clamp_min(1e-30))
+        rel[k] = (float((got["grads"][k] - g).norm()) / n,
+                  float((control["grads"][k] - g).norm()) / n)
+    ratio = {k: a / max(b, 1e-30) for k, (a, b) in rel.items()}
+    med = [float(torch.tensor([v[i] for v in rel.values()]).median())
+           for i in (0, 1)]
+    cs.log(f"[tp divergence] {label}: per tensor |Δg|/|g| median "
+           f"{med[0]:.3e} (model: 2) vs {med[1]:.3e} ({name} control), "
+           f"ratio median "
+           f"{float(torch.tensor(list(ratio.values())).median()):.3f}; "
+           f"{sum(r > 2 for r in ratio.values())} of {len(ratio)} tensors "
+           f"moved more than twice the control's")
+    for k in sorted(ratio, key=ratio.get, reverse=True)[:12]:
+        cs.log(f"[tp divergence]   {k}: {rel[k][0]:.3e} vs {rel[k][1]:.3e} "
+               f"({ratio[k]:.2f}x)")
+
+
+def _gate_rows(label: str, got: dict, split: dict, gate: dict,
+               ref: dict) -> None:
+    """``|Δg| / |g|`` of each layer's ``gru_rel_pos_linear`` gradients
+    in the sharded step and the two controls; then, for the weights and
+    for the biases, the ratio of the sharded step's to the last
+    control's over the layers: its median, and how many layers lie above
+    twice and below half of it (layers whose gradient is 0, dropped by
+    LayerDrop, left out)."""
+    ratios = {"weight": [], "bias": []}
+    for k, g in ref["grads"].items():
+        if "gru_rel_pos_linear" not in k:
+            continue
+        n = float(g.norm().clamp_min(1e-30))
+        a, b, c = (float((run["grads"][k] - g).norm()) / n
+                   for run in (got, split, gate))
+        cs.log(f"[tp divergence] {label}: {k}: model: 2 {a:.3e}, split "
+               f"{b:.3e}, split + gate halves {c:.3e}")
+        if float(g.norm()) > 0 and c > 0:
+            ratios[k.rsplit(".", 1)[1]].append(a / c)
+    for kind, r in ratios.items():
+        if r:
+            cs.log(f"[tp divergence] {label}: gru_rel_pos_linear.{kind} "
+                   f"over {len(r)} layers, model: 2 / the gate-halves "
+                   f"control: median {float(torch.tensor(r).median()):.3f}"
+                   f", above 2x in {sum(x > 2 for x in r)}, below 0.5x in "
+                   f"{sum(x < 0.5 for x in r)}")
+
+
+class _GateHalves:
+    """``torch.nn.functional`` as ``models.wavlm`` sees it, with the
+    gate's projection (``F.linear`` of ``[B, H, T, head_dim]`` to 8
+    outputs) taken as two products over the halves of the heads, the
+    weight and bias reaching each through float32: each half's weight and
+    bias gradient is rounded to bf16 and the two are added in float32, as
+    ``copy_to_model`` adds the two ranks' at model: 2 (the sum is rounded
+    to bf16 once more on its way to the float32 parameter, as one rank
+    rounds its own sum once)."""
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    @staticmethod
+    def linear(x, weight, bias=None):
+        linear = torch.nn.functional.linear
+        if x.dim() != 4 or weight.shape[0] != 8 or bias is None:
+            return linear(x, weight, bias)
+        h = x.shape[1] // 2
+        w32, b32 = weight.float(), bias.float()
+        return torch.cat([linear(part, w32.to(x.dtype), b32.to(x.dtype))
+                          for part in (x[:, :h], x[:, h:])], dim=1)
+
+
+def _heads_on_running_stats(state) -> None:
+    for head in (state.online.projector, state.online.predictor,
+                 state.target.projector):
+        head.eval()
+
+
+def _reference(key: str, cfg, sd, device, step, data, running: bool):
+    """One rank's step at ``model: 1``: as it is (``ref``), with cuBLAS's
+    reduced-precision bf16 reductions off (``cublas``), with each
+    projection in two float32 halves (``split``), or with that and the
+    gate's gradients summed over two halves of the heads (``gate``)."""
+    matmul = torch.backends.cuda.matmul
+    linear, functional = wavlm_module._linear, wavlm_module.F
+    matmul.allow_bf16_reduced_precision_reduction = key != "cublas"
+    if key in ("split", "gate"):
+        wavlm_module._linear = cs._split_linear
+    if key == "gate":
+        wavlm_module.F = _GateHalves()
+    try:
+        st = cs._byol_state(cfg, sd, device, 1024, 2048)
+        if running:
+            _heads_on_running_stats(st)
+        return _step(st, step, data)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = True
+        wavlm_module._linear, wavlm_module.F = linear, functional
+
+
+def worker(rank: int, world: int, device: str, layers: int,
+           running: bool) -> None:
     device = cs._rank_device(device)
     data = cs._train_batch(cs.TRAIN_BATCH, cs.CLIP_SECONDS, device)
     step = cs.make_byol_train_step(cs._adamw_spec())
     mesh = make_mesh(model=world, device=device, heads=16)
     full = WavLMConfig.large(num_hidden_layers=layers)
+    heads = "running statistics" if running else "batch statistics"
     for name, cfg in (("off", cs._quiet(full)), ("on", full)):
         sd = cs.init_byol_state_dict(cfg, 1024, 2048,
                                      torch.Generator().manual_seed(cs.SEED))
         refs = {}
         if rank == 0:
-            for reduced in (True, False):
-                torch.backends.cuda.matmul\
-                    .allow_bf16_reduced_precision_reduction = reduced
-                st = cs._byol_state(cfg, sd, device, 1024, 2048)
-                refs[reduced] = _step(st, step, data)
-                del st
-            torch.backends.cuda.matmul\
-                .allow_bf16_reduced_precision_reduction = True
+            for key in ("ref", "cublas", "split", "gate"):
+                refs[key] = _reference(key, cfg, sd, device, step, data,
+                                       running)
         dist.barrier()
         st = cs._byol_state(cfg, sd, device, 1024, 2048, mesh)
+        if running:
+            _heads_on_running_stats(st)
         got = _step(st, step, data)
         if rank == 0:
-            _compare(f"features {name}, {layers} layers, model: 2 against "
-                     "model: 1", got, refs[True])
-            _compare(f"features {name}, the control: model: 1 without "
-                     "reduced-precision bf16 reductions", refs[False],
-                     refs[True])
+            label = f"features {name}, {layers} layers, heads' BN on {heads}"
+            _compare(f"{label}, model: 2 against model: 1", got, refs["ref"])
+            _compare(f"{label}, the control: model: 1 without "
+                     "reduced-precision bf16 reductions", refs["cublas"],
+                     refs["ref"])
+            _compare(f"{label}, the control: model: 1 with each projection "
+                     "in two float32 halves", refs["split"], refs["ref"])
+            _compare(f"{label}, the control: model: 1 with each projection "
+                     "in two float32 halves and the gate's gradients summed "
+                     "over two halves of the heads", refs["gate"],
+                     refs["ref"])
+            _per_tensor(label, got, refs["split"], refs["ref"],
+                        "split-projection")
+            _per_tensor(label, got, refs["gate"], refs["ref"],
+                        "split-projection and gate-halves")
+            _gate_rows(label, got, refs["split"], refs["gate"], refs["ref"])
         del st, got, refs
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    running = "--running-stats" in argv
+    layers = [int(a) for a in argv if not a.startswith("--")]
     cs.phase_device()
     cs.phase_build()
-    run_ranks(worker, 2, ("cuda:0", int(argv[0]) if argv else 24),
+    run_ranks(worker, 2, ("cuda:0", layers[0] if layers else 24, running),
               threads=0, timeout=900)
     return 0
 
