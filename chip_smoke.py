@@ -155,13 +155,21 @@ not 0:
      (seeded weights through ``final_model``), over 256 synthetic WAVs of
      2–11.5 s and 4 of 25–30 s in a temporary directory under ``build/``
      (buckets of 5, 10, 15 and 30 s: 249, 499, 749 and 1499 frames):
-     outputs written, metrics finite, each bucket's logits equal to a
-     direct forward, launches of kernel A and K5 equal to 24 × the batches
-     of the buckets on each side of 384 frames; the warm timed modes
-     (default, prestaged, overlapped copies) in s per audio-second and
-     audio-sec/sec; a ``torch.profiler`` breakdown of one 15 s batch (the
-     copies split by source); the logits of a 10 s and a 15 s clip
-     against float32 on the CPU (cosine ≥ 0.99);
+     each bucket shape from its CUDA graph (``runtime.graphs.
+     ProgramCache``): outputs written, metrics finite, each bucket's
+     logits equal to a direct forward; the wrapper launches of the
+     captures before main's timed loop equal to a warm-up and a captured
+     forward of each bucket shape, none in the loop, one replay a batch;
+     the loop's launches of kernel A, K5, kernel B, K6 and K7 read from a
+     trace of one replay of each bucket (calibrated by an eager forward's
+     trace) times its replays, equal to 24 × the batches on each side of
+     384 frames (the kernels line's K5 launches); each
+     bucket's replay equal to its eager forward on its static inputs bit
+     for bit; the warm timed modes (default, prestaged, overlapped
+     copies) in s per audio-second and audio-sec/sec, replayed and eager
+     in turns; a ``torch.profiler`` breakdown of one 15 s batch replayed
+     and eager (the copies split by source); the logits of a 10 s and a
+     15 s clip against float32 on the CPU (cosine ≥ 0.99);
  12. serving a long clip — an embedder artifact of 64 s clips (3199
      frames, bucket 1) served through K5 from its captured graph (phase
      5's launch checks); pooled cosine against the same weights in float32
@@ -194,23 +202,35 @@ not 0:
      and dimensional trunks of 1024, seeded weights) at the ``dim_ft``
      preset's batch of 36 × 5 s (249 frames; every third clip masked),
      dropout 0.3 in the trunks, the encoder's dropouts, LayerDrop and
-     SpecAugment on, in three runs of 2 warm-up and 3 timed steps: the
-     encoder frozen (lr 1e-4), its top 12 layers unfrozen and the whole
-     encoder (lr 5e-6); each run's losses finite, the frozen prefix of the
-     flat parameters bit-equal after it (``torch.equal``), launches equal
-     to what the layers run imply (kernel A and B on every layer run, K3
-     and K2 on the unfrozen ones LayerDrop kept, K1 forward and on the
-     unfrozen sites backward, K4 once a step over the trainable suffix,
-     K6's and K7's backward only in the whole-encoder run); s/step,
-     audio-sec/sec, peak memory and a ``torch.profiler`` breakdown of a
-     step of each run; then one eval step's logits and A/V/D for 2 clips
-     against float32 on the CPU (cosine ≥ 0.99);
+     SpecAugment on, in three runs: the encoder frozen (lr 1e-4), its top
+     12 layers unfrozen and the whole encoder (lr 5e-6).  In each, the
+     captured step (``train.step_graphs``, captured at the run's first
+     step) and the eager step of a twin given the same bits take 3 steps
+     in lockstep, one thinned by LayerDrop: loss, grad_norm, params, mu
+     and nu equal to the bit after each, K1's dump through each state's
+     seed table equal and new each step; then 3 eager steps (losses
+     finite, the frozen prefix of the flat parameters bit-equal
+     (``torch.equal``), launches equal to what the layers run imply:
+     kernel A and B on every layer run, K3 and K2 on the unfrozen ones
+     LayerDrop kept, K1 forward and on the unfrozen sites backward, K4
+     once a step over the trainable suffix, K6's and K7's backward only
+     in the whole-encoder run) and 3 replayed ones (the frozen prefix
+     bit-equal, no wrapper launch); s/step by the host clock and CUDA
+     events, replayed and eager in turns, audio-sec/sec, the capture's
+     seconds and reserved memory, each form's peak; one replayed step's
+     ``torch.profiler`` trace (kernels A, K3, K1 and K4 launched as its
+     kept layers imply, a dropped layer's none) and a breakdown of a step
+     of each form with its busy share; then one eval step (from its
+     program cache) with logits and A/V/D for 2 clips against float32 on
+     the CPU (cosine ≥ 0.99);
  16. the SER trainers' entry points — ``train_emotion.main --config
      <the dim_ft preset> --task both`` on a synthetic MSP-style corpus
      under ``build/`` (24 train and 8 validation WAVs of 2–8 s, 2 noise
      WAVs, ``labels_consensus.csv``; training noise on), WavLM-large at
      full width cut to 2 layers, batch 8, one epoch frozen and one
-     unfrozen per trainer: finite losses, K4 once a step, no frontend
+     unfrozen per trainer, captured and again eager (``emotion.
+     cuda_graphs: false``): both runs' final params, mu and nu bit for
+     bit; the eager run's losses finite, K4 once a step, no frontend
      backward (the non-layer encoder stays frozen); then
      ``evaluate_emotion.main`` on each trainer's best fine-tuned
      checkpoint, clean and noisy reports finite; prints the data-fed
@@ -631,7 +651,8 @@ def phase_k3() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     h, d = 16, 64
-    seed = TrainRNG(SEED, 0, 0).dropout_seed(3, SITE_ATTN)
+    seed = philox.seed_tensor(TrainRNG(SEED, 0, 0).dropout_seed(3, SITE_ATTN),
+                              dev)
     for pattern in ("bwd_dq_wgmma", "bwd_dkdv_wgmma"):
         check_hgmma(pattern, tag="K3")
     check_no_spills(kernel_resources(("attention_bwd", "dout_prep",
@@ -658,8 +679,7 @@ def phase_k3() -> dict:
         # the seeded kernels' mask is K1's dump over [B, T, C] at the
         # attention site: fed that dump, the explicit-mask entries must
         # give the same bits
-        dump = fused_dropout.dump_dropout_mask(seed, (b, t, h * d), DROP_P,
-                                               device=dev)
+        dump = fused_dropout.dump_dropout_mask(seed, (b, t, h * d), DROP_P)
         keep = dump.view(b, t, h, d).permute(0, 2, 1, 3).contiguous()
         seeded = block_attention._Drop(seed=seed, p=DROP_P)
         # every input, output and scratch buffer of both kernels inside
@@ -809,8 +829,7 @@ def _check_kernel_b(gen, n, weights, train: bool, seed, dev) -> dict:
     drop, masks = fused_ffn._Drop(), (None, None)
     if train:
         drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
-        masks = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
-                                     device=dev)
+        masks = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P)
     with GuardBands(fused_ffn) as guard, torch.no_grad():
         args = [guard.band(t) for t in (x, *weights)]
         got = fused_ffn._kernel_fwd(*args, drop, train)
@@ -883,7 +902,7 @@ def phase_kernel_b() -> dict:
     spills; times beside plain, the library and the bound."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    seed = philox.stream_seed(SEED, 0, 0, 0, 1)
+    seed = philox.seed_tensor(philox.stream_seed(SEED, 0, 0, 0, 1), dev)
     for epilogue in ("EpiGelu", "EpiBias"):
         check_hgmma(epilogue, tag="kernel B")
     check_no_spills(kernel_resources(("EpiGelu", "EpiBias"), tag="kernel B"),
@@ -968,11 +987,15 @@ def _trace_faults(events: list, event_ms: float):
     if kernels:
         span = (max(e["ts"] + e["dur"] for e in kernels)
                 - min(e["ts"] for e in kernels)) / 1e3
-        # the events also count the host's lead-in before the first kernel
-        # and the copy back after the last
-        if not 0.8 * event_ms - 0.2 <= span <= 1.05 * event_ms + 0.05:
+        # the events also count the host's lead-in before the first launch
+        # (read here on the host's clock: a train step's staging is tens of
+        # ms of it on a busy host) and the copy back after the last kernel
+        lead = (launches[0]["ts"] - t0) / 1e3
+        if not 0.8 * (event_ms - lead) - 0.2 <= span \
+                <= 1.05 * event_ms + 0.05:
             faults.append(f"kernels span {span:.3f} ms of the trace against "
-                          f"{event_ms:.3f} ms of CUDA events")
+                          f"{event_ms:.3f} ms of CUDA events, {lead:.3f} ms "
+                          f"of them before the first launch")
     elif not lost:
         faults.append("no kernel launched in the timed range")
     return kernels, faults
@@ -1064,9 +1087,9 @@ def _check_k1(gen, shape, seed, dev) -> float:
     with GuardBands(fused_dropout) as guard, torch.no_grad():
         x = guard.band(torch.randn(shape, generator=gen, device=dev).to(bf))
         dy = guard.band(torch.randn(shape, generator=gen, device=dev).to(bf))
-        mask = fused_dropout.dump_dropout_mask(seed, shape, DROP_P,
-                                               device=dev)
-        twin = philox.dump_mask(seed, 0, shape, DROP_P, device=dev)
+        mask = fused_dropout.dump_dropout_mask(seed, shape, DROP_P)
+        twin = philox.dump_mask(philox.seed_pair(seed), 0, shape, DROP_P,
+                                device=dev)
         y = fused_dropout._seeded(x, seed, DROP_P, 0)
         again = fused_dropout._seeded(x, seed, DROP_P, 0)
         dx = fused_dropout._seeded(dy, seed, DROP_P, 0)
@@ -1089,8 +1112,9 @@ def _time_k1(gen, n, c, seed, dev) -> dict:
     with torch.no_grad():
         ms = cuda_ms(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
         dev_us = device_us(lambda: fused_dropout.hw_dropout(x, seed, DROP_P))
+        pair = philox.seed_pair(seed)
         plain_ms = cuda_ms(lambda: fused_dropout.dropout_plain(
-            x, philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)),
+            x, philox.dump_mask(pair, 0, (n, c), DROP_P, device=dev)),
             iters=5)
         lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(
             x, DROP_P, training=True))
@@ -1112,7 +1136,7 @@ def phase_k1() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     n, c = TRAIN_BATCH * 249, 1024
-    seed = philox.stream_seed(SEED, 0, 0, 0, 0)
+    seed = philox.seed_tensor(philox.stream_seed(SEED, 0, 0, 0, 0), dev)
     kernel_resources(("dropout_kernel",), tag="K1")
     for shape in ((n, c), (FT_ROWS, c), *K1_RAGGED):
         kept = _check_k1(gen, shape, seed, dev)
@@ -1124,7 +1148,8 @@ def phase_k1() -> dict:
     # the autograd Function: forward and backward are the direct calls
     x = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
     dy = torch.randn(n, c, generator=gen, device=dev).to(torch.bfloat16)
-    twin = philox.dump_mask(seed, 0, (n, c), DROP_P, device=dev)
+    twin = philox.dump_mask(philox.seed_pair(seed), 0, (n, c), DROP_P,
+                            device=dev)
     xr = x.clone().requires_grad_()
     y = fused_dropout.hw_dropout(xr, seed, DROP_P)
     y.backward(dy)
@@ -1143,10 +1168,11 @@ def phase_k1() -> dict:
     # call computes it
     shape = (n, 4 * c)
     dump_ms = cuda_ms(lambda: fused_dropout.dump_dropout_mask(
-        seed, shape, DROP_P, device=dev))
+        seed, shape, DROP_P))
     dump_us = device_us(lambda: fused_dropout.dump_dropout_mask(
-        seed, shape, DROP_P, device=dev))
-    twin_ms = cuda_ms(lambda: philox.dump_mask(seed, 0, shape, DROP_P,
+        seed, shape, DROP_P))
+    pair = philox.seed_pair(seed)
+    twin_ms = cuda_ms(lambda: philox.dump_mask(pair, 0, shape, DROP_P,
                                                device=dev), iters=3)
     bd = bound(0.0, 4 * n * 4 * c)
     log(f"[K1] mask dump {list(shape)} f32: the wrapper {dump_ms * 1e3:.1f} "
@@ -1193,8 +1219,7 @@ def _check_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
     h1 = torch.randn(n, f, generator=gen, device=dev).to(bf)
     w1 = torch.randn(f, c, generator=gen, device=dev) * c ** -0.5
     w2 = torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
-    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
-                                              device=dev)
+    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P)
     drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
     with GuardBands(fused_ffn) as guard, torch.no_grad():
         args = [guard.band(t) for t in (dout, h1, w1, w2)]
@@ -1312,8 +1337,7 @@ def _time_k2_dx(gen, n, seed, dev, c=1024, f=4096) -> dict:
     w2 = torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
     b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(c, generator=gen, device=dev)
-    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
-                                              device=dev)
+    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P)
     drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
     with torch.no_grad():
         out = fused_ffn._kernel_bwd_dx(dout, h1, w1, w2, drop)
@@ -1347,7 +1371,7 @@ def phase_k2() -> list:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n, c, f = TRAIN_BATCH * 249, 1024, 4096
-    seed = philox.stream_seed(SEED, 0, 0, 0, 2)
+    seed = philox.seed_tensor(philox.stream_seed(SEED, 0, 0, 0, 2), dev)
     for epilogue in ("EpiDgd", "EpiStoreBf16", "EpiDw"):
         check_hgmma(epilogue)
     check_no_spills(kernel_resources(("EpiDgd", "EpiStoreBf16", "dh2_kernel",
@@ -1362,8 +1386,7 @@ def phase_k2() -> list:
     w2 = torch.randn(c, f, generator=gen, device=dev) * f ** -0.5
     b1 = 0.1 * torch.randn(f, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(c, generator=gen, device=dev)
-    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P,
-                                              device=dev)
+    keep_act, keep_hid = fused_ffn.dump_masks(seed, n, c, f, DROP_P, DROP_P)
     drop = fused_ffn._Drop(seed, DROP_P, DROP_P)
     with torch.no_grad():
         out, h1, gd = fused_ffn._kernel_fwd(x, w1, b1, w2, b2, drop, True)
@@ -1655,14 +1678,15 @@ def _group_records(run) -> dict:
     return out
 
 
-def replay_launches(server, program) -> dict:
+def replay_launches(forward, program) -> dict:
     """The launches of each serving kernel in one replay of ``program``'s
     graph, read on the card: a trace of one replay counts each kernel's
-    records (:data:`SERVING_GROUPS`), and a trace of one eager forward on
-    the same static inputs, whose wrapper launches the counts give, says
-    how many records a launch makes.  Raises where the two disagree."""
+    records (:data:`SERVING_GROUPS`), and a trace of one eager
+    ``forward`` on the same static inputs, whose wrapper launches the
+    counts give, says how many records a launch makes.  Raises where the
+    two disagree."""
     def eager():
-        server.forward(program.audio, program.mask)
+        forward(program.audio, program.mask)
 
     _reset_counts()
     eager()
@@ -1708,7 +1732,7 @@ def served(server, device, forwards: int, per_forward: dict, tag: str,
                                f"forwards")
         launches = dict.fromkeys(per_forward, 0)
         for b, n in replayed.items():
-            one = replay_launches(server, programs[b])
+            one = replay_launches(server.forward, programs[b])
             log(f"[{tag}] bucket {b}: a replay's launches by trace {one}, "
                 f"{n} replays")
             for k, v in one.items():
@@ -3193,26 +3217,47 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             f"{size / 2**20:.1f} MiB final_model written in "
             f"{time.perf_counter() - t0:.1f} s")
 
+        # main's timed loop through a spy: the counts of the captures
+        # before it (a warm-up and a captured forward a bucket shape on the
+        # card) apart from the loop's own, and each program's replays
+        seen = {}
+        timed_loop = eval_cat_ser.bucketed_forward_timed
+
+        def spied(forward, *args, **kwargs):
+            sync(device)
+            seen["load"] = {k: v for k, v in _serving_counts().items()
+                            if k in SERVING_GROUPS}
+            seen["cache"] = forward
+            before = {k: p.replays for k, p in forward.programs.items()}
+            _reset_counts()
+            out = timed_loop(forward, *args, **kwargs)
+            sync(device)
+            seen["loop"] = _serving_counts()
+            seen["replays"] = {k: p.replays - before.get(k, 0)
+                               for k, p in forward.programs.items()}
+            return out
+
         sync(device)
         _reset_counts()
+        eval_cat_ser.bucketed_forward_timed = spied
         t0 = time.perf_counter()
-        metrics, scored = eval_cat_ser.main([
-            "--model_path", model_path, "--audio_list", label_list,
-            "--audio_dir", audio_dir, "--batch_size", str(batch),
-            "--head_dim", str(head_dim), "--model_name", model_name,
-            "--device", device.type])
-        sync(device)
+        try:
+            metrics, scored = eval_cat_ser.main([
+                "--model_path", model_path, "--audio_list", label_list,
+                "--audio_dir", audio_dir, "--batch_size", str(batch),
+                "--head_dim", str(head_dim), "--model_name", model_name,
+                "--device", device.type])
+            sync(device)
+        finally:
+            eval_cat_ser.bucketed_forward_timed = timed_loop
         wall = time.perf_counter() - t0
-        counts = {"block_attention_fwd": block_attention.LAUNCHES,
-                  "flash_attention_fwd": flash_attention.LAUNCHES,
-                  "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
 
         out = os.path.join(model_path, "results")
         files = [os.path.join(out, n) for n in ("metrics.txt",
                                                 "inference_results.csv")]
         finite = all(np.isfinite(v) for v in metrics.values())
         log(f"[ser] eval_cat_ser.main in {wall:.1f} s (cold: loading, "
-            f"decode, first calls): {json.dumps(metrics)}")
+            f"decode, captures, first calls): {json.dumps(metrics)}")
         if not all(os.path.isfile(f) for f in files) or not finite or \
                 metrics["n_files"] != n_clips + long_clips:
             raise RuntimeError(f"SER evaluation: outputs {files}, metrics "
@@ -3223,17 +3268,46 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
         loaded = [(e, stats.apply(eval_cat_ser.load_audio_16k(e.path)))
                   for e, _ in scored]
         plan = _bucket_batches(cfg, loaded, batch)
-        layers = cfg.num_hidden_layers
-        want = {"block_attention_fwd": layers * sum(
-                    n for f, n in plan.values() if f <= block_attention.MAX_T),
-                "flash_attention_fwd": layers * sum(
-                    n for f, n in plan.values() if f > block_attention.MAX_T),
-                "fused_ffn_fwd": layers * sum(n for _, n in plan.values()),
-                **frontend_want(cfg, sum(n for _, n in plan.values()), 0)}
-        log(f"[ser] buckets (samples: frames, batches) {plan}; launches "
-            f"{counts} (want {want})")
-        if counts != want:
-            raise RuntimeError(f"SER evaluation: launches {counts} != {want}")
+
+        def launches_of(runs):  # {frames: forwards} -> launches
+            return {k: sum(serving_want(cfg, f > block_attention.MAX_T)[k]
+                           * n for f, n in runs.items())
+                    for k in SERVING_GROUPS}
+
+        want = launches_of(dict(plan.values()))
+        cache = seen.pop("cache")
+        if device.type == "cuda":
+            # the loop replays a graph a batch and no wrapper launches; its
+            # launches are one replay's of each bucket, read from a trace
+            # (replay_launches), times the bucket's replays
+            load_want = launches_of({f: 2 for f, _ in plan.values()})
+            replays = {plan[k[1]][0]: n for k, n in seen["replays"].items()
+                       if n}
+            if seen["load"] != load_want or any(seen["loop"].values()) or \
+                    replays != {f: n for f, n in plan.values()}:
+                raise RuntimeError(
+                    f"SER evaluation: capture launches {seen['load']} (want "
+                    f"{load_want}), the loop's wrapper launches "
+                    f"{seen['loop']} (want none), replays by frames "
+                    f"{replays} (want {dict(plan.values())})")
+            launches = dict.fromkeys(SERVING_GROUPS, 0)
+            for key, n in seen["replays"].items():
+                if not n:
+                    continue
+                one = replay_launches(cache.forward, cache.programs[key])
+                log(f"[ser] bucket {key[1] / SAMPLE_RATE:g} s: a replay's "
+                    f"launches by trace {one}, {n} replays")
+                for k, v in one.items():
+                    launches[k] += v * n
+        else:  # the CPU's plain versions launch nothing
+            launches = {k: seen["loop"][k] for k in SERVING_GROUPS}
+        log(f"[ser] buckets (samples: frames, batches) {plan}; the captures' "
+            f"launches {seen['load']}; main's timed loop: replays by "
+            f"program {seen['replays']}, launches {launches} (want {want})")
+        if device.type == "cuda" and launches != want:
+            raise RuntimeError(f"SER evaluation: launches {launches} != "
+                               f"{want}")
+        del cache, seen
 
         # each bucket's logits equal a direct forward of its first batch
         model = eval_cat_ser.load_model(model_path, model_name, head_dim,
@@ -3259,16 +3333,51 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
                                    f"differ from a direct forward by {err}")
             picked[blen] = chunk[0]
 
-        # the warm timed modes of the evaluator's hot path
+        # each bucket's replay against the eager forward on its static
+        # inputs, bit for bit
+        programs = make_baseline_forward(model, graphs=True)
+        sync(device)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+        programs.prepare((batch, blen) for blen in plan)
+        for blen in plan:
+            program = programs.program(batch, blen)
+            chunk = [w for e, w in loaded if bucket_length(len(w)) == blen]
+            x = np.zeros((batch, blen), np.float32)
+            m = np.zeros((batch, blen), np.float32)
+            for j, w in enumerate(chunk[-batch:]):  # a ragged last batch
+                x[j, :len(w)], m[j, :len(w)] = w, 1.0
+            program.load(x, m)
+            replayed = program.run()[0].clone()
+            eager = forward(program.audio, program.mask)
+            same = torch.equal(replayed, eager)
+            log(f"[ser] bucket {blen / SAMPLE_RATE:g} s: the replay = the "
+                f"eager forward on its static inputs, bit for bit: {same}")
+            if not same:
+                raise RuntimeError(f"SER evaluation: bucket {blen}'s replay "
+                                   f"differs from its eager forward by "
+                                   f"{float((replayed - eager).abs().max())}")
+        if device.type == "cuda":
+            sync(device)
+            torch.cuda.empty_cache()
+            log(f"[ser] {programs.captured} bucket programs captured, "
+                f"{(torch.cuda.memory_reserved() - reserved) / 2**30:.2f} "
+                "GiB reserved with their pool")
+
+        # the warm timed modes of the evaluator's hot path, replayed and
+        # eager in turns
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         for mode in ({}, {"prestage": True}, {"overlap": True}):
-            _, dt, audio_s = eval_cat_ser.bucketed_forward_timed(
-                forward, loaded, batch, device, warmup_shapes=True, **mode)
             name = next(iter(mode), "default")
-            log(f"[ser] {name}: {dt / audio_s:.6f} s per audio-second, "
-                f"{audio_s / dt:.1f} audio-sec/sec ({audio_s:.1f} s of "
-                f"audio, {dt:.3f} s)")
+            for form, fwd in (("replayed", programs), ("eager", forward),
+                              ("eager", forward), ("replayed", programs)):
+                _, dt, audio_s = eval_cat_ser.bucketed_forward_timed(
+                    fwd, loaded, batch, device, warmup_shapes=True, **mode)
+                log(f"[ser] {name}, {form}: {dt / audio_s:.6f} s per "
+                    f"audio-second, {audio_s / dt:.1f} audio-sec/sec "
+                    f"({audio_s:.1f} s of audio, {dt:.3f} s)")
         if device.type == "cuda":
             log(f"[ser] peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3280,10 +3389,11 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             for j, (_, w) in enumerate(chunk):
                 x[j, :len(w)], m[j, :len(w)] = torch.from_numpy(w), 1.0
             x, m = x.to(device), m.to(device)
-            profile_device(lambda: forward(x, m).cpu(),
-                           f"[ser] 15 s bucket, batch {batch}",
-                           weight_shapes=_param_shapes(model))
-        del model, forward
+            for form, fwd in (("replayed", programs), ("eager", forward)):
+                profile_device(lambda: fwd(x, m).cpu(),
+                               f"[ser] 15 s bucket, batch {batch}, {form}",
+                               weight_shapes=_param_shapes(model))
+        del model, forward, programs
 
         # a 10 s and a 15 s clip against float32 on the CPU
         torch.set_num_threads(os.cpu_count() or 1)
@@ -3304,7 +3414,7 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
                 f"CPU {cos:.6f}")
             if cos < COSINE_MIN:
                 raise RuntimeError(f"SER logits cosine {cos} < {COSINE_MIN}")
-        return counts
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3772,7 +3882,8 @@ def phase_ft_crosscheck(layers: int = 1, batch: int = 2,
         c_step = float(cos(g_card, g_f32, dim=0))
         state.grads.zero_()
         seq, _ = state.model.ssl(data["input_values"], data["attention_mask"],
-                                 TrainRNG(SEED, 0))
+                                 TrainRNG(SEED, 0).with_table(
+                                     cfg.num_hidden_layers, device))
         seq.backward(up.to(device, seq.dtype))
         c_enc = float(cos(state.grads[:n_ssl].double().cpu(), g_f32[:n_ssl],
                           dim=0))
@@ -3955,29 +4066,136 @@ def _cosine_flat(a, b) -> float:
         a.double().flatten(), b.double().flatten(), dim=0))
 
 
+# the wrapper counts whose kernels a replayed SER step's trace is read for,
+# by profile group (PROFILE_GROUPS)
+STEP_GROUPS = {"block_attention_fwd": "kernel A (block attention)",
+               "block_attention_bwd": "K3 (block attention backward)",
+               "fused_dropout": "K1 (dropout)",
+               "fused_adamw_ema": "K4 (AdamW)"}
+
+
+def _sync_state(dst, src) -> None:
+    """``dst`` given ``src``'s parameters, moments and step."""
+    with torch.no_grad():
+        for k in ("params", "mu", "nu"):
+            getattr(dst, k).copy_(getattr(src, k))
+    dst.step = src.step
+
+
+def _differing(a, b) -> list:
+    """The names of the state tensors whose bits differ."""
+    return [k for k in ("params", "mu", "nu")
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+def _k1_dump(state, data, cfg, layer: int) -> torch.Tensor:
+    """K1's mask of ``layer``'s hidden dropout site at the state's last
+    staged step, drawn by the dump kernel from the state's seed table (the
+    row the step's kernels read)."""
+    inputs = emotion_trainer.step_inputs(state, data)
+    rows = data["input_values"].shape[0] * inputs.frames
+    return fused_dropout.dump_dropout_mask(
+        inputs.table.row(0, layer, wavlm_module.SITE_HIDDEN),
+        (rows, cfg.hidden_size), cfg.hidden_dropout)
+
+
+def _step_want(keeps, layers, rest: bool) -> dict:
+    """The launches of the SER steps whose LayerDrop keep lists are given
+    (``layers`` unfrozen): kernel B, A on the layers run, K2 and K3 on the
+    unfrozen ones, K1 at the encoder site and each layer's hidden site
+    (again in the backward), K4 once a step."""
+    steps = len(keeps)
+    run = sum(sum(keep) for keep in keeps)
+    unfrozen = sum(sum(keep[i] for i in layers) for keep in keeps)
+    return {"fused_ffn_fwd": run, "fused_ffn_bwd_dx": unfrozen,
+            "fused_ffn_bwd_dw": unfrozen,
+            # the attention output's site is inside kernel A and K3
+            "fused_dropout": steps + run + unfrozen + (steps if rest else 0),
+            "fused_adamw_ema": steps, "block_attention_fwd": run,
+            "block_attention_bwd": unfrozen}
+
+
+def _traced_step(run, keep_of) -> tuple:
+    """``(kernel records by profile group, LayerDrop keep list, wrapper
+    counts)`` of the traced call of one ``run()`` (a train step) in a
+    checked trace (:func:`traced_kernels`); ``keep_of()`` gives the keep
+    list of the step about to run."""
+    last = {}
+
+    def call():
+        last["keep"] = keep_of()
+        _reset_counts()
+        run()
+        sync(torch.device("cuda"))
+        last["counts"] = _train_counts()
+
+    _, kernels, _ = traced_kernels(call, 1)
+    groups = {}
+    for e in kernels:
+        g = group_of(e["name"])
+        groups[g] = groups.get(g, 0) + 1
+    return groups, last["keep"], last["counts"]
+
+
+def _replayed_launches(replay, eager, keep_of) -> tuple:
+    """The launches of :data:`STEP_GROUPS`' kernels in one replayed step,
+    read from its trace, each group's records a launch taken from a
+    traced eager step (whose wrapper counts give its launches); and the
+    replayed step's keep list.  Raises where a count does not divide."""
+    in_eager, _, counts = _traced_step(eager, keep_of)
+    in_replay, keep, replay_counts = _traced_step(replay, keep_of)
+    if any(replay_counts.values()):
+        raise RuntimeError(f"wrappers launched in a replayed SER step: "
+                           f"{replay_counts}")
+    out = {}
+    for name, group in STEP_GROUPS.items():
+        c, e, r = counts[name], in_eager.get(group, 0), in_replay.get(group,
+                                                                      0)
+        if (c == 0) != (e == 0) or (e == 0 and r) or (e and r * c % e):
+            raise RuntimeError(f"{name}: {r} kernel records in a replayed "
+                               f"SER step, {e} in an eager one of {c} "
+                               "launches")
+        out[name] = r * c // e if e else 0
+    return out, keep
+
+
 def phase_emotion_step(cfg=None, device=torch.device("cuda"),
                        batch: int = EMO_BATCH,
-                       clip_seconds: float = CLIP_SECONDS, warmup: int = 2,
-                       steps: int = 3, hidden_dim: int = EMO_HIDDEN) -> dict:
+                       clip_seconds: float = CLIP_SECONDS, steps: int = 3,
+                       hidden_dim: int = EMO_HIDDEN) -> dict:
     """The SER train step of ``train_emotion`` at full width: WavLM-large
     + ASP + the shared, categorical and dimensional trunks, seeded
     weights, the ``dim_ft`` preset's batch of 36 × 5 s (249 frames: kernel
     A, K3), ``--task both``'s two losses in one step, all dropouts,
-    LayerDrop and SpecAugment on.  Three runs of ``warmup`` + ``steps``
-    steps: the encoder frozen (lr 1e-4), its top half unfrozen and the
-    whole encoder trainable (lr 5e-6): finite losses, the frozen prefix
-    of the flat parameters bit-equal after the run, and launches equal to
-    what the layers run imply (K3 and K2 on the unfrozen layers LayerDrop
-    kept, K4 once a step, K6's and K7's backward only with the whole
-    encoder), and a step's device time by group.  Then one eval step's
-    logits and A/V/D for 2 clips against float32 on the CPU (cosine ≥
-    0.99).  Returns the launches of the whole-encoder run.  Its arguments
-    let it be rehearsed at a small width on the CPU."""
+    LayerDrop and SpecAugment on.  Three runs: the encoder frozen (lr
+    1e-4), its top half unfrozen and the whole encoder trainable (lr
+    5e-6).  In each, from one state the captured step (on the card:
+    ``train.step_graphs``, captured at the run's first step) and the eager
+    step of a twin given the same bits (``graphs=False``) take ``steps``
+    steps in lockstep, one of them thinned by LayerDrop: loss, grad_norm,
+    params, mu and nu equal to the bit after each, and K1's dump through
+    each state's seed table equal, and unequal from one step to the next.
+    Then ``steps`` eager steps (finite losses, the frozen prefix
+    bit-equal, launches equal to what the layers run imply) and ``steps``
+    replayed ones (no wrapper launch); s/step by the host clock and by
+    CUDA events, replayed and eager in turns, the capture's seconds and
+    memory, each form's peak; one replayed step's trace (kernels A, K3,
+    K1 and K4 launched as its layers kept imply, a dropped layer's none)
+    and each form's device time by group and busy share.  Then one eval
+    step's logits and A/V/D for 2 clips against float32 on the CPU
+    (cosine ≥ 0.99).  Returns the eager whole-encoder run's launches.
+    Its arguments let it be rehearsed at a small width on the CPU, where
+    nothing is captured and both forms are eager."""
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
     model = _emotion_model(cfg, device, hidden_dim, EMO_DROPOUT)
     state = emotion_trainer.create_emotion_state(model, SEED)
-    step = emotion_trainer.make_emotion_train_step("both", EMO_WD)
+    twin = emotion_trainer.create_emotion_state(
+        _emotion_model(cfg, device, hidden_dim, EMO_DROPOUT), SEED)
+    step_c = emotion_trainer.make_emotion_train_step("both", EMO_WD)
+    step_e = emotion_trainer.make_emotion_train_step("both", EMO_WD,
+                                                     graphs=False)
+    captures = device.type == "cuda"
     data = _emotion_batch(batch, clip_seconds, device, SEED + 15)
     weights = torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device)
     n = cfg.num_hidden_layers
@@ -3991,63 +4209,162 @@ def phase_emotion_step(cfg=None, device=torch.device("cuda"),
              EMO_FT_LR),
             ("whole encoder", list(range(n)), 1.0, EMO_FT_LR))
     whole = None
+    gib = 2 ** 30
     for name, layers, rest, lr in runs:
-        def run_step():
-            keep = state.model.encoder.encoder.layer_keep(
-                TrainRNG(state.seed, state.step))
-            m = step(state, data, weights, layers, lr, rest)
-            return m, keep
+        def keep_of(st):
+            return st.model.encoder.encoder.layer_keep(
+                TrainRNG(st.seed, st.step))
 
-        for _ in range(warmup):
-            m, _ = run_step()
-            if not bool(torch.isfinite(m["loss"])):
-                raise RuntimeError(f"emotion {name}: non-finite warm-up "
-                                   f"loss {float(m['loss'])}")
+        def captured():
+            return step_c(state, data, weights, layers, lr, rest)
+
+        def eager():
+            return step_e(twin, data, weights, layers, lr, rest)
+
+        # lockstep: the captured step against the eager one, bit for bit
+        _sync_state(twin, state)
+        state.graphs = None  # the previous run's, so that the pool is read
+        sync(device)
+        if captures:
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+        thinned, dumps = False, []
+        for i in range(steps):
+            keep = keep_of(state)
+            thinned |= not all(keep)
+            layer = max(j for j, k in enumerate(keep) if k)
+            mc = captured()
+            dump_c = _k1_dump(state, data, cfg, layer)
+            me = eager()
+            dump_e = _k1_dump(twin, data, cfg, layer)
+            if i == 0 and captures:
+                sync(device)
+                torch.cuda.empty_cache()
+                pool = (torch.cuda.memory_reserved() - reserved) / gib
+                log(f"[emotion] {name}: captured in "
+                    f"{state.graphs.capture_s:.2f} s "
+                    f"({len(state.graphs.graphs)} graphs); the memory it "
+                    f"reserved (pool, static buffers, the staged inputs) "
+                    f"{pool:.2f} GiB")
+            differ = _differing(state, twin) + [
+                k for k in ("loss", "grad_norm")
+                if not torch.equal(mc[k], me[k])]
+            dumps.append(dump_c)
+            same_dump = torch.equal(dump_c, dump_e)
+            moved = i == 0 or not torch.equal(dumps[-2], dump_c)
+            log(f"[emotion] {name} step {state.step - 1}: captured = eager "
+                f"{not differ} (loss {float(mc['loss']):.6f}, grad_norm "
+                f"{float(mc['grad_norm']):.6f}); layers run "
+                f"{mc['layers_run']} of {n}; K1's mask of layer {layer} "
+                f"through the table = eager's {same_dump}, new this step "
+                f"{moved}")
+            if differ or not same_dump or not moved or \
+                    mc["layers_run"] != sum(keep):
+                raise RuntimeError(
+                    f"emotion {name} step {state.step - 1}: captured and "
+                    f"eager differ in {differ}; K1 mask equal {same_dump}, "
+                    f"moved {moved}")
+            del dump_e
+        if not thinned:
+            raise RuntimeError(f"emotion {name}: LayerDrop kept every layer "
+                               f"in {steps} steps; none was thinned")
+        del dumps
+
+        # the eager form: launches and the frozen prefix
         off = emotion_trainer.trainable_segments(state, layers, rest)[0][0]
-        frozen_before = state.params[:off].clone()
+        frozen_before = twin.params[:off].clone()
         sync(device)
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        t0 = time.perf_counter()
-        results = [run_step() for _ in range(steps)]
+        keeps = []
+        for _ in range(steps):
+            keeps.append(keep_of(twin))
+            m = eager()
+            if not bool(torch.isfinite(m["loss"])):
+                raise RuntimeError(f"emotion {name}: non-finite loss "
+                                   f"{float(m['loss'])}")
         sync(device)
-        dt = (time.perf_counter() - t0) / steps
         counts = _train_counts()
-        losses = [float(m["loss"]) for m, _ in results]
-        run = sum(sum(keep) for _, keep in results)
-        unfrozen = sum(sum(keep[i] for i in layers) for _, keep in results)
-        want = {"fused_ffn_fwd": run, "fused_ffn_bwd_dx": unfrozen,
-                "fused_ffn_bwd_dw": unfrozen,
-                # the encoder site and each layer's hidden site; their
-                # backward on the unfrozen layers, the encoder site's with
-                # the whole encoder (the attention output's site is inside
-                # kernel A and K3)
-                "fused_dropout": steps + run + unfrozen
-                + (steps if rest else 0),
-                "fused_adamw_ema": steps, "block_attention_fwd": run,
-                "block_attention_bwd": unfrozen,
+        want = {**_step_want(keeps, layers, bool(rest)),
                 **frontend_want(cfg, steps, steps if rest else 0)}
-        bit_equal = torch.equal(state.params[:off], frozen_before)
-        log(f"[emotion] {name}: {dt:.4f} s/step, "
-            f"{batch * clip_seconds / dt:.1f} audio-sec/sec; losses "
-            f"{[round(x, 6) for x in losses]}; layers run {run}, unfrozen "
-            f"run {unfrozen}; the frozen {off / 1e6:.1f} M params "
+        bit_equal = torch.equal(twin.params[:off], frozen_before)
+        log(f"[emotion] {name}, eager: layers run "
+            f"{sum(map(sum, keeps))}; the frozen {off / 1e6:.1f} M params "
             f"bit-equal: {bit_equal}; launches {counts} (want {want})")
-        if not (all(np.isfinite(losses)) and bit_equal and counts == want):
-            raise RuntimeError(f"emotion step {name}: losses {losses}, "
-                               f"frozen prefix bit-equal {bit_equal}, "
-                               f"launches {counts} != {want}")
-        if device.type == "cuda":
-            log(f"[emotion] {name}: peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        del frozen_before
+        if not (bit_equal and counts == want):
+            raise RuntimeError(f"emotion step {name}: frozen prefix "
+                               f"bit-equal {bit_equal}, launches {counts} "
+                               f"!= {want}")
         if rest:
             whole = counts
-        if device.type == "cuda":  # the step's device time by group
-            profile_device(lambda: (run_step(), sync(device)),
-                           f"[emotion] {name} step, batch {batch}", iters=2,
-                           weight_shapes=_param_shapes(model))
+        # the captured form: no wrapper launches, the frozen prefix
+        frozen_before = state.params[:off].clone()
+        _reset_counts()
+        for _ in range(steps):
+            captured()
+        sync(device)
+        counts = _train_counts()
+        bit_equal = torch.equal(state.params[:off], frozen_before)
+        log(f"[emotion] {name}, captured: the frozen prefix bit-equal "
+            f"{bit_equal}; wrapper launches over {steps} replayed steps "
+            f"{sum(counts.values())}")
+        if not bit_equal or (captures and any(counts.values())):
+            raise RuntimeError(f"emotion step {name}, captured: frozen "
+                               f"prefix bit-equal {bit_equal}, launches "
+                               f"{counts}")
+        del frozen_before
+
+        # s/step in turns, by the host clock and by CUDA events
+        times = {"replayed": [], "eager": []}
+        peaks = {}
+        for form in ("eager", "replayed", "replayed", "eager"):
+            run = captured if form == "replayed" else eager
+            sync(device)
+            if captures:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                run()
+            if captures:
+                end.record()
+            sync(device)
+            host = (time.perf_counter() - t0) / steps
+            ev = start.elapsed_time(end) / steps / 1e3 if captures \
+                else float("nan")
+            times[form].append((host, ev))
+            if captures:
+                peaks[form] = max(peaks.get(form, 0.0), (
+                    torch.cuda.max_memory_allocated() - base) / gib)
+        log(f"[emotion] {name}: s/step by the host clock, in turns, "
+            f"replayed " + ", ".join(f"{h:.4f}" for h, _ in times["replayed"])
+            + ", eager " + ", ".join(f"{h:.4f}" for h, _ in times["eager"])
+            + "; by CUDA events replayed "
+            + ", ".join(f"{e:.4f}" for _, e in times["replayed"])
+            + ", eager " + ", ".join(f"{e:.4f}" for _, e in times["eager"])
+            + f"; {batch * clip_seconds / min(h for h, _ in times['replayed']):.1f}"
+            f" audio-sec/sec replayed; peak allocated above the states "
+            "and graphs " + ", ".join(f"{k} {v:.2f} GiB"
+                                      for k, v in peaks.items()))
+
+        if captures:
+            # one replayed step's trace: a dropped layer launches nothing
+            got, keep = _replayed_launches(
+                captured, eager, lambda: keep_of(state))
+            want = {k: v for k, v in _step_want(
+                [keep], layers, bool(rest)).items() if k in STEP_GROUPS}
+            log(f"[emotion] {name}: a replayed step's launches from its "
+                f"trace {got} (want {want}: {n - sum(keep)} layers dropped)")
+            if got != want:
+                raise RuntimeError(f"emotion {name}: replayed launches "
+                                   f"{got} != {want}")
+            for form, run in (("replayed", captured), ("eager", eager)):
+                profile_device(lambda: (run(), sync(device)),
+                               f"[emotion] {name} step, {form}, batch "
+                               f"{batch}", iters=2,
+                               weight_shapes=_param_shapes(model))
 
     # the eval step on 2 clips against the same weights in float32 on the
     # CPU through the plain versions
@@ -4067,7 +4384,7 @@ def phase_emotion_step(cfg=None, device=torch.device("cuda"),
     if min(cos.values()) < COSINE_MIN or not all(
             torch.isfinite(v).all() for v in got.values()):
         raise RuntimeError(f"emotion eval step against float32: {cos}")
-    del state, model, ref_model
+    del state, twin, model, ref_model
     return whole
 
 
@@ -4120,9 +4437,13 @@ def phase_emotion_entry(device=torch.device("cuda"),
     synthetic MSP-style corpus under ``build/`` with training noise, the
     encoder cut to ``layers`` deep, ``batch`` clips, one epoch a phase:
     each trainer's phase 1 (frozen) and phase 2 (its one epoch unfreezes
-    every layer); then ``evaluate_emotion.main`` on each trainer's best
-    fine-tuned checkpoint, clean and noisy.  Its arguments let it be
-    rehearsed at a small width on the CPU."""
+    every layer), once with the captured steps (the default) and once
+    with ``emotion.cuda_graphs: false``: the two final states bit for bit
+    (params, mu, nu of both trainers), the eager run's launches one a
+    step, the captured run's fewer (its graphs count only at capture);
+    then ``evaluate_emotion.main`` on each trainer's best fine-tuned
+    checkpoint, clean and noisy.  Its arguments let it be rehearsed at a
+    small width on the CPU."""
     import yaml
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -4139,17 +4460,35 @@ def phase_emotion_entry(device=torch.device("cuda"),
             audio_dir=os.path.join(root, "Audios"), encoder_checkpoint=None,
             checkpoint_dir=os.path.join(root, "ckpt"), batch_size=batch,
             hidden_dim=hidden_dim, classifier_epochs=1, fine_tuning_epochs=1)
-        path = os.path.join(root, "emotion.yaml")
-        with open(path, "w") as f:
-            yaml.safe_dump(config, f)
-        sync(device)
-        _reset_counts()
-        results = train_emotion.main(["--config", path, "--task", "both",
-                                      "--device", device.type])
-        sync(device)
-        counts = _train_counts()
+        runs = {}
+        for form in ("captured", "eager"):
+            config["emotion"]["cuda_graphs"] = form == "captured"
+            config["emotion"]["checkpoint_dir"] = os.path.join(root, form)
+            path = os.path.join(root, f"emotion_{form}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(config, f)
+            sync(device)
+            _reset_counts()
+            results = train_emotion.main(["--config", path, "--task",
+                                          "both", "--device", device.type])
+            sync(device)
+            runs[form] = (results, _train_counts())
+        (captured, counts_c), (results, counts) = (runs["captured"],
+                                                   runs["eager"])
+        differ = [f"{task} {k}" for task in results
+                  for k in ("params", "mu", "nu")
+                  if not torch.equal(getattr(results[task]["state"], k),
+                                     getattr(captured[task]["state"], k))]
+        log(f"[emotion entry] the captured run's final states = the eager "
+            f"run's, bit for bit: {not differ} {differ or ''}; the captured "
+            f"run's launches {counts_c}")
         steps = sum(e["steps"] for r in results.values()
                     for e in r["epochs"])
+        if differ or (device.type == "cuda" and not
+                      0 < counts_c["fused_adamw_ema"] < steps):
+            raise RuntimeError(f"emotion entry point: captured and eager "
+                               f"final states differ in {differ}; captured "
+                               f"launches {counts_c}, {steps} steps")
         for task, result in results.items():
             for e in result["epochs"]:
                 log(f"[emotion entry] {task} {e['phase']}: WavLM {layers} "
@@ -4174,7 +4513,8 @@ def phase_emotion_entry(device=torch.device("cuda"),
             raise RuntimeError(f"emotion entry point: launches {counts}, "
                                f"{steps} steps")
         for task in ("categorical", "dimensional"):
-            ckpt = os.path.join(root, "ckpt", task, "best_fine_tuned_model")
+            ckpt = os.path.join(root, "captured", task,
+                                "best_fine_tuned_model")
             report = evaluate_emotion.main([
                 "--config", path, "--checkpoint", ckpt, "--task", task,
                 "--device", device.type])
@@ -5296,7 +5636,7 @@ def _tp_k5_worker(rank: int, world: int, cfg, device: str, batch: int,
     device = _rank_device(device)
     sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED))
     wave = _train_batch(batch, clip_seconds, device)["clean"]
-    rng = TrainRNG(SEED, 1)
+    rng = TrainRNG(SEED, 1).with_table(cfg.num_hidden_layers, device)
     out = {"rank": rank}
 
     @torch.no_grad()
@@ -5575,7 +5915,7 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
     masks (K1's dumps) are the slices of the whole layer's bit for bit."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 20)
-    seed = (0x2468ACE, 0x13579BD)
+    seed = philox.seed_tensor((0x2468ACE, 0x13579BD), dev)
     hl, d = heads // 2, c // heads
     c0 = hl * d
     bad = []
@@ -5590,8 +5930,8 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
         q, k, v, gate, bias, p_drop=DROP_P, dropout_seed=seed,
         dropout_window=(c, c0))
     grads = torch.autograd.grad(out, (q, k, v), do)
-    keep = block_attention.attention_keep_mask(seed, (b, hl, t, d), DROP_P,
-                                               dev, (c, c0))
+    keep = block_attention.attention_keep_mask(
+        philox.seed_pair(seed), (b, hl, t, d), DROP_P, dev, (c, c0))
     madd = mask_add(None, b, t, dev)
     ref, lse = gated_bias_attention_fwd(q.detach(), k.detach(), v.detach(),
                                         gate, bias, madd, keep)
@@ -5601,8 +5941,8 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
     errs = {"out": rel_err(out, ref)}
     errs.update({n: rel_err(g, r) for n, g, r in
                  zip(("dq", "dk", "dv"), grads, ref_grads)})
-    whole = fused_dropout.dump_dropout_mask(seed, (b, t, c), DROP_P, 0, dev)
-    part = fused_dropout.dump_dropout_mask(seed, (b, t, c0), DROP_P, 0, dev,
+    whole = fused_dropout.dump_dropout_mask(seed, (b, t, c), DROP_P, 0)
+    part = fused_dropout.dump_dropout_mask(seed, (b, t, c0), DROP_P, 0,
                                            (c, c0))
     slice_ok = torch.equal(part, whole[..., c0:])
     ran = (block_attention.LAUNCHES, block_attention.BWD_LAUNCHES)
@@ -5626,7 +5966,7 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
     _reset_counts()
     y = fused_ffn.fused_ffn(*leaves, seed, DROP_P, DROP_P, shard=(f, fl))
     got = torch.autograd.grad(y, leaves, dy)
-    act, hid = fused_ffn.dump_masks(seed, n, c, fl, DROP_P, DROP_P, dev,
+    act, hid = fused_ffn.dump_masks(seed, n, c, fl, DROP_P, DROP_P,
                                     (f, fl))
     ref_y, h1, gd = fused_ffn.ffn_plain_fwd(x, w1, b1, w2,
                                             torch.zeros_like(b2), act, hid,
@@ -5636,7 +5976,7 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
     errs.update({nm: rel_err(g, r) for nm, g, r in
                  zip(("dx", "dw1", "db1", "dw2", "db2"), got, ref_g)})
     whole_act = fused_dropout.dump_dropout_mask(seed, (n, f), DROP_P,
-                                                fused_ffn.SITE_ACT, dev)
+                                                fused_ffn.SITE_ACT)
     slice_ok = torch.equal(act, whole_act[:, fl:])
     ran = (fused_ffn.LAUNCHES, fused_ffn.DX_LAUNCHES, fused_ffn.DW_LAUNCHES)
     log(f"[tp kernels] kernel B + K2 on {fl} of {f} columns from {fl}, "
@@ -5653,7 +5993,8 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
     xs = torch.randn(b, t, c0, generator=gen).to(dev, torch.bfloat16)
     _reset_counts()
     ys = fused_dropout.hw_dropout(xs, seed, DROP_P, window=(c, c0))
-    mask = philox.dump_mask(seed, 0, (b, t, c0), DROP_P, dev, (c, c0))
+    mask = philox.dump_mask(philox.seed_pair(seed), 0, (b, t, c0), DROP_P,
+                            dev, (c, c0))
     err = float((ys.float() - fused_dropout.dropout_plain(xs, mask).float())
                 .abs().max())
     log(f"[tp kernels] K1 on [{b}, {t}, {c0}] from column {c0} of {c}: "

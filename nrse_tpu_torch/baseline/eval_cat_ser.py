@@ -15,7 +15,10 @@ reference's ``baseline/eval_cat_ser_weighted_with_list.py``):
   * run ssl → pool → ser with no gradient, the clips grouped into 5 s
     length buckets up to 30 s and batched, timing the reference's
     **inference time per audio second**: buckets of ≤ 7.7 s run the block
-    attention (kernel A), longer ones the flash attention (K5);
+    attention (kernel A), longer ones the flash attention (K5); each
+    bucket shape runs from its own program (``runtime.graphs.
+    ProgramCache``: on the card a CUDA graph captured before the timed
+    loop, as JAX compiles its forward per bucket shape);
   * write ``inference_results.csv`` (Filename, one-hot Label, Prediction)
     and ``metrics.txt``: F1 micro and macro, precision and recall macro,
     the weighted-CE ``inference_loss``, the time per audio second.
@@ -54,6 +57,7 @@ from nrse_tpu_torch.labels.parsing import (
 )
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.runtime.device import resolve_device, sync
+from nrse_tpu_torch.runtime.graphs import ProgramCache
 from nrse_tpu_torch.train.checkpoint import restore_model
 from nrse_tpu_torch.train.losses import ce_weight_category
 
@@ -100,6 +104,10 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
         and every fetch of the logits included.  On the CPU it is the
         default mode.
 
+    ``forward`` may be a ``runtime.graphs.ProgramCache``, which runs each
+    batch from its shape's program; in the overlap mode each batch is
+    then copied on the side stream straight into its program's static
+    inputs, once the bucket's previous replay has read them.
     ``warmup_shapes`` runs one untimed forward per bucket shape first.
     Returns ``(results, inference_time_s, audio_seconds)``; results are
     ``(entry, logits_row)`` in bucket order.
@@ -109,8 +117,8 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
     for e, wav in loaded:
         buckets.setdefault(bucket_length(len(wav)), []).append((e, wav))
 
-    if warmup_shapes:
-        for blen in sorted(buckets):
+    if warmup_shapes:  # largest first, as a program cache captures
+        for blen in sorted(buckets, reverse=True):
             z = torch.zeros(batch_size, blen, device=device)
             forward(z, torch.ones_like(z)).cpu()
 
@@ -143,11 +151,21 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
         pinned = [(x.pin_memory(), m.pin_memory()) for _, x, m in batches]
         copy_stream = torch.cuda.Stream(device)
         compute = torch.cuda.current_stream(device)
+        programs = forward if isinstance(forward, ProgramCache) else None
+        read = {}  # program -> the event after its last replay
 
         def stage(k):
+            x, m = pinned[k]
             with torch.cuda.stream(copy_stream):
-                xs = tuple(t.to(device, non_blocking=True)
-                           for t in pinned[k])
+                if programs is None:
+                    xs = tuple(t.to(device, non_blocking=True)
+                               for t in pinned[k])
+                else:  # into the static inputs, once the last replay is done
+                    xs = programs.program(*x.shape)
+                    if xs in read:
+                        copy_stream.wait_event(read[xs])
+                    xs.audio.copy_(x, non_blocking=True)
+                    xs.mask.copy_(m, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record(copy_stream)
             return xs, event
@@ -155,11 +173,16 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
         t0 = time.perf_counter()
         staged = stage(0) if batches else None  # batch 0's copy is exposed
         for k, (chunk, _, mask) in enumerate(batches):
-            (x, m), event = staged
+            xs, event = staged
             compute.wait_event(event)
-            for t in (x, m):  # freed only after the forward has used them
-                t.record_stream(compute)
-            out = forward(x, m)  # queued on the compute stream
+            if programs is None:
+                for t in xs:  # freed only after the forward has used them
+                    t.record_stream(compute)
+                out = forward(*xs)  # queued on the compute stream
+            else:
+                out = xs.run()[0]
+                read[xs] = torch.cuda.Event()
+                read[xs].record(compute)
             if k + 1 < len(batches):
                 staged = stage(k + 1)  # rides under batch k's compute
             logits = out.float().cpu().numpy()  # fences compute and copy
@@ -213,7 +236,9 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
                   ) -> Tuple[Dict, list]:
     """Evaluate a trained baseline pipeline on a semicolon label list.
     Returns ``(metrics, results)``: what ``metrics.txt`` holds, and the
-    ``(entry, logits)`` of every file that decoded, in bucket order."""
+    ``(entry, logits)`` of every file that decoded, in bucket order.
+    Each bucket shape's program is captured before the timed loop, the
+    largest first, as loading the model is untimed."""
     device = resolve_device(device)
     output_dir = output_dir or os.path.join(model_path, "results")
     os.makedirs(output_dir, exist_ok=True)
@@ -224,13 +249,14 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
     print(f"Loaded {len(entries)} files from list")
     forward = make_baseline_forward(
         load_model(model_path, model_name, head_dim, device,
-                   num_hidden_layers))
+                   num_hidden_layers), graphs=True)
 
     loaded = []
     for e in entries:
         wav = load_audio_16k(e.path)
         if wav is not None:
             loaded.append((e, stats.apply(wav)))
+    forward.prepare((batch_size, bucket_length(len(w))) for _, w in loaded)
 
     scored, inference_time, audio_seconds = bucketed_forward_timed(
         forward, loaded, batch_size, device)

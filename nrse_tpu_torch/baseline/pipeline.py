@@ -21,6 +21,7 @@ from torch import nn
 from nrse_tpu_torch.baseline.net import EmotionRegression
 from nrse_tpu_torch.models.emotion import AttentiveStatisticsPooling
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig, WavLMModel
+from nrse_tpu_torch.runtime.graphs import ProgramCache
 
 
 class BaselineSER(nn.Module):
@@ -52,10 +53,14 @@ class BaselineSER(nn.Module):
         return self.ser(self.pool(seq, attention_mask), rng)
 
 
-def make_baseline_forward(model: BaselineSER) -> Callable:
+def make_baseline_forward(model: BaselineSER,
+                          graphs: bool = False) -> Callable:
     """``(waveforms [B, T], mask [B, T]) → logits [B, K]`` float32 on the
-    model's device, in eval mode with no gradient (the counterpart of the
-    JAX package's jitted forward)."""
+    model's device, in eval mode with no gradient.  With ``graphs`` a
+    ``runtime.graphs.ProgramCache`` of it (the counterpart of the JAX
+    package's forward jitted per shape): one program per ``(B, T)``, on
+    the card a CUDA graph reading the weights in place, so they must keep
+    their addresses."""
     model.eval()
 
     def forward(input_values: torch.Tensor,
@@ -63,7 +68,10 @@ def make_baseline_forward(model: BaselineSER) -> Callable:
         with torch.inference_mode():
             return model(input_values, attention_mask)
 
-    return forward
+    if not graphs:
+        return forward
+    return ProgramCache(forward, next(model.parameters()).device,
+                        mask_dtype=torch.float32)
 
 
 def bucket_length(n: int, bucket_s: float = 5.0, sample_rate: int = 16000,

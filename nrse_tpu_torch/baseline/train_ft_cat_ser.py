@@ -65,7 +65,7 @@ from nrse_tpu_torch.baseline.wavset import WavNormStats
 from nrse_tpu_torch.data.loader import DevicePrefetcher, HostDataLoader
 from nrse_tpu_torch.labels.parsing import BASELINE_EMOTIONS_MAP
 from nrse_tpu_torch.models.convert import init_baseline_state_dict
-from nrse_tpu_torch.models.wavlm import TrainRNG
+from nrse_tpu_torch.models.wavlm import SeedTable, TrainRNG
 from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
@@ -166,7 +166,8 @@ class SERTrainState:
     """The fine-tune's state.  Every parameter of ``model`` is a view of
     ``params`` and its ``.grad`` a view of ``grads`` (one flat float32
     buffer each, ssl's ``n_ssl`` elements first); ``acc`` is MultiSteps'
-    gradient mean, ``mu`` and ``nu`` AdamW's moments; ``mini_step`` counts
+    gradient mean, ``mu`` and ``nu`` AdamW's moments; ``seeds`` the
+    kernels' seed table, staged for each micro-step; ``mini_step`` counts
     the micro-steps since the last update, ``count`` the updates."""
 
     model: BaselineSER
@@ -176,6 +177,7 @@ class SERTrainState:
     mu: torch.Tensor
     nu: torch.Tensor
     n_ssl: int
+    seeds: SeedTable
     mini_step: int = 0
     count: int = 0
 
@@ -195,7 +197,8 @@ def create_train_state(model: BaselineSER) -> SERTrainState:
         model=model.train(), params=flat, grads=grads,
         acc=torch.zeros_like(flat), mu=torch.zeros_like(flat),
         nu=torch.zeros_like(flat),
-        n_ssl=sum(p.numel() for p in model.ssl.parameters()))
+        n_ssl=sum(p.numel() for p in model.ssl.parameters()),
+        seeds=SeedTable(model.ssl.config.num_hidden_layers, 1, device))
 
 
 def adamw_spec(lr: float) -> FusedAdamWSpec:
@@ -221,11 +224,14 @@ def make_train_step(spec: FusedAdamWSpec, accumulation_steps: int,
                     ) -> Callable[[SERTrainState, Dict, TrainRNG],
                                   torch.Tensor]:
     """``train_step(state, batch, rng) → loss`` (a device scalar; nothing
-    waits for the card): one micro-step of MultiSteps(adamw), in place.
-    Every ``accumulation_steps``-th call makes one K4 update."""
+    waits for the card): one micro-step of MultiSteps(adamw), in place,
+    its kernel seeds ``rng``'s, staged in the state's table.  Every
+    ``accumulation_steps``-th call makes one K4 update."""
 
     def train_step(state: SERTrainState, batch: Dict,
                    rng: TrainRNG) -> torch.Tensor:
+        rng = dataclasses.replace(rng, table=state.seeds.stage(
+            rng.seed, rng.step, rng.rank, rng.world))
         state.grads.zero_()
         logits = forward_train(state.model, batch, rng, freeze_ssl)
         loss = ce_weight_category(logits, batch["label"], class_weights)

@@ -36,7 +36,7 @@ constexpr int kAttnHeadDim = 64;
 
 struct AttnDrop {
   const float* mask;  // explicit [B, H, T, 64] mask (mode 2), or null
-  uint32_t k0, k1;    // Philox key (mode 1)
+  const uint2* key;   // Philox key (mode 1): the seed pair in device memory
   float p, scale;     // drop probability and keep scale 1 / (1 - p)
   int mode;           // 0 none, 1 Philox, 2 explicit mask
   // K1's merged [B, T, cg] layout that mode 1 indexes: this call's heads
@@ -67,12 +67,13 @@ struct AttnDrop {
     const int t = t0 + 8 * par;
     uint32_t own = 0u;
     if (t < T) {
+      const uint2 k = __ldg(key);
       const uint64_t g0 = (static_cast<uint64_t>(b * T + t) * cg + c0 +
                            static_cast<uint64_t>(h) * kAttnHeadDim +
                            4 * ((lane & 3) >> 1)) >> 2;
 #pragma unroll
       for (int jd = 0; jd < kAttnHeadDim / 8; ++jd) {
-        own |= philox_keep_bits4(k0, k1, g0 + 2 * jd, 0u, p) << (4 * jd);
+        own |= philox_keep_bits4(k.x, k.y, g0 + 2 * jd, 0u, p) << (4 * jd);
       }
     }
     const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);

@@ -329,9 +329,9 @@ dout_prep_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
                            drop.c0 +
                            static_cast<uint64_t>(bh - b * H) * kHeadDim +
                            col) >> 2;
-      ka = nrse::philox_keep4(drop.k0, drop.k1, g0, 0u, drop.p, drop.scale);
-      kb = nrse::philox_keep4(drop.k0, drop.k1, g0 + 1, 0u, drop.p,
-                              drop.scale);
+      const uint2 key = __ldg(drop.key);
+      ka = nrse::philox_keep4(key.x, key.y, g0, 0u, drop.p, drop.scale);
+      kb = nrse::philox_keep4(key.x, key.y, g0 + 1, 0u, drop.p, drop.scale);
     } else if (drop.mode == 2) {
       const float4* m = reinterpret_cast<const float4*>(drop.mask + idx);
       ka = m[0];
@@ -772,8 +772,8 @@ dbias_sum_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
 
 }  // namespace
 
-// Dropout as in nrse_block_attention_fwd: mode 0 none, 1 Philox under (k0, k1)
-// with probability p and keep scale `keep_scale` over the merged layout's
+// Dropout as in nrse_block_attention_fwd: mode 0 none, 1 Philox under the
+// seed pair at `seed` in device memory with probability p and keep scale `keep_scale` over the merged layout's
 // window (cg, c0), 2 the explicit f32 [B, H, T, D] `mask`.  q, k, v, dout, out
 // (kernel A's, after dropout), dq, dk, dv: contiguous bf16 [B, H, T, D],
 // 16-byte aligned; gate, lse, dgate: f32 [B, H, T]; bias, dbias: f32 [H, T,
@@ -786,13 +786,14 @@ dbias_sum_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
 extern "C" int nrse_block_attention_bwd(
     const void* q, const void* k, const void* v, const void* gate,
     const void* bias, const void* madd, const void* dout, const void* out,
-    const void* lse, const void* mask, unsigned k0, unsigned k1, float p,
+    const void* lse, const void* mask, const void* seed, float p,
     float keep_scale, int mode, unsigned cg, unsigned c0, void* dq, void* dk,
     void* dv, void* dgate, void* dbias, void* dop, void* delta,
     void* partial, int group, int B, int H, int T, int D, float scale,
     void* stream) {
   if (D != kHeadDim || T < 1 || T > kMaxT || B < 1 || H < 1 || mode < 0 ||
       mode > 2 || (mode == 2 && mask == nullptr) ||
+      (mode == 1 && !nrse::seed_ok(seed)) ||
       cg < static_cast<unsigned>(H * kHeadDim) + c0 || c0 % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -800,8 +801,9 @@ extern "C" int nrse_block_attention_bwd(
   dout_prep_kernel<<<(rows * 8 + kPrepThreads - 1) / kPrepThreads,
                      kPrepThreads, 0, s>>>(
       static_cast<const bf16*>(dout), static_cast<const bf16*>(out),
-      nrse::AttnDrop{static_cast<const float*>(mask), k0, k1, p, keep_scale,
-                     mode, cg, c0},
+      nrse::AttnDrop{static_cast<const float*>(mask),
+                     static_cast<const uint2*>(seed), p, keep_scale, mode,
+                     cg, c0},
       static_cast<bf16*>(dop), static_cast<float*>(delta), H, T, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -429,7 +429,8 @@ block_attention_fwd_kernel(Args args) {
 
 }  // namespace
 
-// Dropout: mode 0 none, 1 Philox under (k0, k1) with probability p and keep
+// Dropout: mode 0 none, 1 Philox under the seed pair (k0, k1) at `seed` in
+// device memory (8-byte aligned) with probability p and keep
 // scale `keep_scale`, 2 the explicit f32 [B, H, T, D] `mask`.  Mode 1 draws
 // K1's mask over a merged [B, T, cg] layout of which these H heads are the
 // columns from c0: cg = H * 64 and c0 = 0 for all of a layer's heads, a wider
@@ -442,14 +443,15 @@ extern "C" int nrse_block_attention_fwd(const void* q, const void* k,
                                         const void* v, const void* gate,
                                         const void* bias, const void* madd,
                                         void* out, void* lse,
-                                        const void* mask, unsigned k0,
-                                        unsigned k1, float p,
+                                        const void* mask, const void* seed,
+                                        float p,
                                         float keep_scale, int mode,
                                         unsigned cg, unsigned c0, int B,
                                         int H, int T, int D, float scale,
                                         void* stream) {
   if (D != kHeadDim || T < 1 || T > kMaxT || B < 1 || H < 1 || mode < 0 ||
       mode > 2 || (mode == 2 && mask == nullptr) ||
+      (mode == 1 && !nrse::seed_ok(seed)) ||
       cg < static_cast<unsigned>(H * kHeadDim) + c0 || c0 % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   Args args;
@@ -461,8 +463,9 @@ extern "C" int nrse_block_attention_fwd(const void* q, const void* k,
   args.madd = static_cast<const float*>(madd);
   args.out = static_cast<bf16*>(out);
   args.lse = static_cast<float*>(lse);
-  args.drop = nrse::AttnDrop{static_cast<const float*>(mask), k0, k1, p,
-                             keep_scale, mode, cg, c0};
+  args.drop = nrse::AttnDrop{static_cast<const float*>(mask),
+                             static_cast<const uint2*>(seed), p, keep_scale,
+                             mode, cg, c0};
   args.H = H;
   args.T = T;
   args.scale = scale;

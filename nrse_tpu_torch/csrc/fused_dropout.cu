@@ -38,8 +38,9 @@ constexpr int kThreads = 256;
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
-               void* __restrict__ out, int64_t n, uint32_t k0, uint32_t k1,
-               uint32_t site, float p, float scale, nrse::Window win) {
+               void* __restrict__ out, int64_t n,
+               const uint2* __restrict__ key, uint32_t site, float p,
+               float scale, nrse::Window win) {
   const int64_t base =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kVec;
   if (base >= n) return;
@@ -60,10 +61,11 @@ dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
     // base / 4 and base / 4 + 1, whole (past n on a ragged end, unused),
     // each within a row of a shard, whose window places it
     const uint64_t g = static_cast<uint64_t>(base) >> 2;
+    const uint2 k = __ldg(key);
     const float4 a =
-        nrse::philox_keep4(k0, k1, win.group(g), site, p, scale);
+        nrse::philox_keep4(k.x, k.y, win.group(g), site, p, scale);
     const float4 b =
-        nrse::philox_keep4(k0, k1, win.group(g + 1), site, p, scale);
+        nrse::philox_keep4(k.x, k.y, win.group(g + 1), site, p, scale);
     keep[0] = a.x; keep[1] = a.y; keep[2] = a.z; keep[3] = a.w;
     keep[4] = b.x; keep[5] = b.y; keep[6] = b.z; keep[7] = b.w;
   }
@@ -102,19 +104,23 @@ dropout_kernel(const bf16* __restrict__ x, const float* __restrict__ mask,
 
 }  // namespace
 
-// mode 0: out = dropout(x) under the key (k0, k1) at `site`, x/out bf16;
-// mode 1: out = x * mask (mask f32, the layout of x); mode 2: out (f32)
-// = the keep mask of n elements (x unused).  Every pointer 16-byte
-// aligned; n elements, flat.  Modes 0 and 2 draw over the window (wl, wg,
+// mode 0: out = dropout(x) under the key at `site`, x/out bf16; mode 1:
+// out = x * mask (mask f32, the layout of x); mode 2: out (f32) = the keep
+// mask of n elements (x unused).  The key is the seed pair (k0, k1) in
+// device memory at `seed` (8-byte aligned, read by the kernel, so a
+// captured launch draws whatever pair the table holds when it runs;
+// unused in mode 1).  Every other pointer 16-byte aligned; n elements,
+// flat.  Modes 0 and 2 draw over the window (wl, wg,
 // c0): x as rows of wl columns holding columns [c0, c0 + wl) of rows wg
 // long (philox.cuh Window; wl = wg = c0 = 0 for a whole tensor).
 extern "C" int nrse_dropout(const void* x, const void* mask, void* out,
-                            long long n, unsigned k0, unsigned k1,
+                            long long n, const void* seed,
                             unsigned site, float p, float scale, int mode,
                             unsigned wl, unsigned wg, unsigned c0,
                             void* stream) {
   if (n < 1 || mode < 0 || mode > 2 || wl % 4 || wg % 4 || c0 % 4 ||
-      wg < wl + c0 || (wg != 0 && (wl == 0 || n % wl != 0)))
+      wg < wl + c0 || (wg != 0 && (wl == 0 || n % wl != 0)) ||
+      (mode != 1 && !nrse::seed_ok(seed)))
     return static_cast<int>(cudaErrorInvalidValue);
   nrse::Window win;
   win.wl = wl;
@@ -126,14 +132,15 @@ extern "C" int nrse_dropout(const void* x, const void* mask, void* out,
                                                 kThreads);
   const bf16* xb = static_cast<const bf16*>(x);
   const float* m = static_cast<const float*>(mask);
+  const uint2* key = static_cast<const uint2*>(seed);
   if (mode == 0) {
-    dropout_kernel<0><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
+    dropout_kernel<0><<<blocks, kThreads, 0, s>>>(xb, m, out, n, key,
                                                   site, p, scale, win);
   } else if (mode == 1) {
-    dropout_kernel<1><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
+    dropout_kernel<1><<<blocks, kThreads, 0, s>>>(xb, m, out, n, key,
                                                   site, p, scale, win);
   } else {
-    dropout_kernel<2><<<blocks, kThreads, 0, s>>>(xb, m, out, n, k0, k1,
+    dropout_kernel<2><<<blocks, kThreads, 0, s>>>(xb, m, out, n, key,
                                                   site, p, scale, win);
   }
   return static_cast<int>(cudaGetLastError());

@@ -356,7 +356,8 @@ bool bad_shape(int N, int C, int F) {
 // dx half of the backward.  Inputs: dout [N, C] and h1 [N, F] bf16, the
 // weights in torch's layout, w1 [F, C] and w2 [C, F], f32; the
 // hidden/activation sites as in nrse_fused_ffn_fwd_train (mode 0
-// none, 1 Philox (k0, k1), the activation site over the window (f_global,
+// none, 1 Philox under the seed pair at `seed` in device memory, the
+// activation site over the window (f_global,
 // f0), 2 explicit f32 masks).  Outputs: dh2 [N, C]
 // and dh1 [N, F] bf16 (the dW half reads them), dx [N, C] bf16, db1 [F]
 // and db2 [C] f32.  Scratch: w1t [C, F] and w2t [F, C] bf16 (the weights
@@ -366,20 +367,21 @@ bool bad_shape(int N, int C, int F) {
 extern "C" int nrse_fused_ffn_bwd_dx(
     const void* dout, const void* h1, const void* w1, const void* w2,
     void* w1t, void* w2t, const void* mask_act, const void* mask_hid,
-    unsigned k0, unsigned k1, float p_act, float p_hid,
+    const void* seed, float p_act, float p_hid,
     float scale_act, float scale_hid, int mode, unsigned f_global,
     unsigned f0, void* dh2, void* dh1, void* dx, void* db1, void* db2,
     void* part, int N, int C, int F, void* stream) {
   if (bad_shape(N, C, F) || f_global < static_cast<unsigned>(F) + f0 ||
-      f0 % 4 || f_global % 4)
+      f0 % 4 || f_global % 4 || (mode == 1 && !nrse::seed_ok(seed)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DropSite act{static_cast<const float*>(mask_act), k0, k1, 0u, p_act,
+  const uint2* key = static_cast<const uint2*>(seed);
+  DropSite act{static_cast<const float*>(mask_act), key, 0u, p_act,
                scale_act, (mode == 1 && p_act == 0.f) ? 0 : mode};
   act.win.wl = static_cast<uint32_t>(F);
   act.win.wg = f_global;
   act.win.c0 = f0;
-  const DropSite hid{static_cast<const float*>(mask_hid), k0, k1, 1u, p_hid,
+  const DropSite hid{static_cast<const float*>(mask_hid), key, 1u, p_hid,
                      scale_hid, (mode == 1 && p_hid == 0.f) ? 0 : mode};
   cudaError_t err = transpose_cast(w1, w1t, F, C, s);
   if (err != cudaSuccess) return static_cast<int>(err);

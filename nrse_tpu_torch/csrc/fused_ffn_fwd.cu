@@ -215,14 +215,15 @@ extern "C" int nrse_fused_ffn_fwd(const void* x, const void* w1,
                                   const void* b2, void* h, void* out,
                                   int out_f32, int N, int C, int F,
                                   void* stream) {
-  const DropSite none{nullptr, 0u, 0u, 0u, 0.f, 1.f, 0};
+  const DropSite none{nullptr, nullptr, 0u, 0.f, 1.f, 0};
   return run<false>(x, w1, b1, w2, b2, h, nullptr, out, out_f32, none, none,
                     N, C, F, stream);
 }
 
 // Training: as above (out f32 if out_f32), with h = gd kept by the caller, h1
 // [N, F] bf16 (or null: nothing saved), and the two dropout sites.  Mode 0: no
-// dropout; 1: Philox under the key (k0, k1), site 0 = activation over [N, F],
+// dropout; 1: Philox under the seed pair at `seed` in device memory (8-byte
+// aligned), site 0 = activation over [N, F],
 // site 1 = hidden over [N, C]; 2: explicit f32 masks mask_act [N, F] and
 // mask_hid [N, C].  A site with p = 0 under mode 1 is not masked.  Under mode
 // 1 the activation site's F columns are columns [f0, f0 + F) of an [N,
@@ -231,18 +232,20 @@ extern "C" int nrse_fused_ffn_fwd(const void* x, const void* w1,
 extern "C" int nrse_fused_ffn_fwd_train(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, void* h, void* h1, void* out, int out_f32,
-    const void* mask_act, const void* mask_hid, unsigned k0, unsigned k1,
+    const void* mask_act, const void* mask_hid, const void* seed,
     float p_act, float p_hid,
     float scale_act, float scale_hid, int mode, unsigned f_global,
     unsigned f0, int N, int C, int F, void* stream) {
-  if (f_global < static_cast<unsigned>(F) + f0 || f0 % 4 || f_global % 4)
+  if (f_global < static_cast<unsigned>(F) + f0 || f0 % 4 || f_global % 4 ||
+      (mode == 1 && !nrse::seed_ok(seed)))
     return static_cast<int>(cudaErrorInvalidValue);
-  DropSite act{static_cast<const float*>(mask_act), k0, k1, 0u, p_act,
+  const uint2* key = static_cast<const uint2*>(seed);
+  DropSite act{static_cast<const float*>(mask_act), key, 0u, p_act,
                scale_act, (mode == 1 && p_act == 0.f) ? 0 : mode};
   act.win.wl = static_cast<uint32_t>(F);
   act.win.wg = f_global;
   act.win.c0 = f0;
-  const DropSite hid{static_cast<const float*>(mask_hid), k0, k1, 1u, p_hid,
+  const DropSite hid{static_cast<const float*>(mask_hid), key, 1u, p_hid,
                      scale_hid, (mode == 1 && p_hid == 0.f) ? 0 : mode};
   return run<true>(x, w1, b1, w2, b2, h, h1, out, out_f32, act, hid, N, C, F,
                    stream);

@@ -104,11 +104,21 @@ __device__ __forceinline__ float4 philox_keep4(uint32_t k0, uint32_t k1,
                      philox_kept(r.w[3], p) ? scale : 0.f);
 }
 
+// Whether a kernel can read its seed pair at `seed`: not null, 8-byte
+// aligned (one 64-bit load).
+inline bool seed_ok(const void* seed) {
+  return seed != nullptr && reinterpret_cast<uintptr_t>(seed) % 8 == 0;
+}
+
 // How a kernel gets the keep mask of a dropout site: not at all (p = 0),
-// from Philox, or from an explicit float32 {0, 1/(1-p)} mask.
+// from Philox, or from an explicit float32 {0, 1/(1-p)} mask.  The Philox
+// key is read from device memory, the seed pair (k0, k1) at `key`, when the
+// kernel runs: a launch captured into a CUDA graph draws the pair the
+// table holds at each replay.
 struct DropSite {
   const float* mask;  // explicit mask, same layout as the tensor; or null
-  uint32_t k0, k1, site;
+  const uint2* key;   // mode 1: the seed pair in device memory
+  uint32_t site;
   float p, scale;
   int mode;  // 0 none, 1 philox, 2 explicit mask
   Window win;  // mode 1: the shard's window (default: a whole tensor)
@@ -116,8 +126,10 @@ struct DropSite {
   // The multipliers of elements 4 g .. 4 g + 3 (one draw in mode 1; the
   // explicit mask is read as one float4, so it must be 16-byte aligned).
   __device__ __forceinline__ float4 keep4(uint64_t group) const {
-    if (mode == 1)
-      return philox_keep4(k0, k1, win.group(group), site, p, scale);
+    if (mode == 1) {
+      const uint2 k = __ldg(key);
+      return philox_keep4(k.x, k.y, win.group(group), site, p, scale);
+    }
     if (mode == 2) return reinterpret_cast<const float4*>(mask)[group];
     return make_float4(1.f, 1.f, 1.f, 1.f);
   }

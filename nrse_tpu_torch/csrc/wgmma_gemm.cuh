@@ -153,11 +153,12 @@ __device__ __forceinline__ void keep_bits_job(const DropSite& site, int ld,
   const uint64_t g0 =
       site.win.index(row, n0 + 4 * ((lane & 3) >> 1), ld) >> 2;
   uint32_t even = 0u, odd = 0u;
+  const uint2 k = __ldg(site.key);
 #pragma unroll 4
   for (int j = 0; j < 16; ++j) {
     // column chunk j starts 8 j columns, 2 groups, further on
     const uint32_t bits =
-        philox_keep_bits4(site.k0, site.k1, g0 + 2 * j, site.site, site.p);
+        philox_keep_bits4(k.x, k.y, g0 + 2 * j, site.site, site.p);
     even |= (bits & 3u) << (2 * j);
     odd |= (bits >> 2) << (2 * j);
   }

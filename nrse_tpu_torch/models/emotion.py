@@ -104,46 +104,79 @@ class EmotionClassifier(nn.Module):
                                          device=device)
         self.dimensional_out = nn.Linear(hidden_dim, 3, device=device)
 
+    def head_keep(self, rng: TrainRNG, batch: int, task: str
+                  ) -> torch.Tensor:
+        """The trunks' dropout keep masks of a step, ``[3, batch, H]`` bool
+        on the CPU (shared, categorical, dimensional; a trunk ``task`` does
+        not run stays False), drawn as :meth:`forward` draws them: one
+        generator, the trunks in that order, each at the global batch
+        with this rank's rows kept."""
+        gen = rng.generator(STREAM_HEAD_DROPOUT)
+        keep = torch.zeros(3, batch, self.shared_dense.out_features,
+                           dtype=torch.bool)
+        for i, name in enumerate(("shared", "categorical", "dimensional")):
+            if name == "shared" or task in (name, "both"):
+                u = torch.rand((batch * rng.world, keep.shape[2]),
+                               generator=gen)
+                keep[i] = rng.rows(u) >= self.dropout
+        return keep
+
     def _trunk(self, name: str, x: torch.Tensor,
-               gen: Optional[torch.Generator],
-               rng: Optional[TrainRNG]) -> torch.Tensor:
+               gen: Optional[torch.Generator], rng: Optional[TrainRNG],
+               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = getattr(self, f"{name}_norm")(getattr(self, f"{name}_dense")(x))
         h = F.relu(h)
-        if gen is not None:  # flax's Dropout: keep with 1 − p, scale 1/(1 − p)
-            # drawn at the global batch, this rank's rows kept
-            u = torch.rand((h.shape[0] * rng.world, h.shape[1]),
-                           generator=gen)
-            keep = rng.rows(u) >= self.dropout
-            h = torch.where(keep.to(h.device), h / (1.0 - self.dropout),
+        if rng is not None and self.dropout > 0.0:
+            # flax's Dropout: keep with 1 − p, scale 1/(1 − p)
+            if keep is not None:
+                keep = keep[("shared", "categorical",
+                             "dimensional").index(name)]
+            else:  # drawn at the global batch, this rank's rows kept
+                u = torch.rand((h.shape[0] * rng.world, h.shape[1]),
+                               generator=gen)
+                keep = (rng.rows(u) >= self.dropout).to(h.device)
+            h = torch.where(keep, h / (1.0 - self.dropout),
                             torch.zeros_like(h))
         return h
 
+    def head(self, seq: torch.Tensor, attention_mask: Optional[torch.Tensor],
+             task: str = "both", rng: Optional[TrainRNG] = None,
+             keep: Optional[torch.Tensor] = None
+             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """Pooling and the trunks on the encoder's sequence: what
+        :meth:`forward` returns (``rng`` None in eval mode).  ``keep``:
+        the step's trunk masks as :meth:`head_keep` draws them, already on
+        the device (a trainer's staged buffer), or None to draw them
+        here."""
+        features = self.pooling(seq, attention_mask).float()
+        gen = None
+        if rng is not None and self.dropout > 0.0 and keep is None:
+            gen = rng.generator(STREAM_HEAD_DROPOUT)
+        shared = self._trunk("shared", features, gen, rng, keep)
+        logits = dims = None
+        if task in ("categorical", "both"):
+            logits = self.categorical_out(
+                self._trunk("categorical", shared, gen, rng, keep))
+        if task in ("dimensional", "both"):
+            dims = self.dimensional_out(
+                self._trunk("dimensional", shared, gen, rng, keep))
+        return logits, dims
+
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                task: str = "both", rng: Optional[TrainRNG] = None
+                task: str = "both", rng: Optional[TrainRNG] = None,
+                keep: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
         """``(logits [B, num_emotions] | None, A/V/D [B, 3] | None)``,
         float32.  Training mode needs ``rng`` (the encoder's dropout,
-        LayerDrop and SpecAugment, the trunks' dropout); eval mode ignores
-        it."""
+        LayerDrop and SpecAugment, the trunks' dropout; ``keep`` as
+        :meth:`head` takes it); eval mode ignores both."""
         if task not in TASKS:
             raise ValueError(f"task must be one of {TASKS}, got {task!r}")
         if not self.training:
             rng = None
         seq, _ = self.encoder(input_values, attention_mask, rng)
-        features = self.pooling(seq, attention_mask).float()
-        gen = None
-        if rng is not None and self.dropout > 0.0:
-            gen = rng.generator(STREAM_HEAD_DROPOUT)
-        shared = self._trunk("shared", features, gen, rng)
-        logits = dims = None
-        if task in ("categorical", "both"):
-            logits = self.categorical_out(
-                self._trunk("categorical", shared, gen, rng))
-        if task in ("dimensional", "both"):
-            dims = self.dimensional_out(
-                self._trunk("dimensional", shared, gen, rng))
-        return logits, dims
+        return self.head(seq, attention_mask, task, rng, keep)
 
 
 def gradually_unfrozen_layers(epoch: int, total_epochs: int,

@@ -48,7 +48,14 @@ after the positional embedding through K1 (``ops.fused_dropout``), and at
 the FFN's two sites inside kernel B and K2; LayerDrop as one host draw per
 layer per step (the whole batch skips together, never layer 0);
 SpecAugment spans drawn on the host.  Every random choice comes from a
-:class:`TrainRNG` (seed, step, tower), which training mode requires.
+:class:`TrainRNG` (seed, step, tower), which training mode requires: the
+kernels read their seed pairs from its :class:`SeedTable` on the device,
+and a step whose host draws were written to the device ahead of it
+(:class:`StagedDraws`) reads them there, so a captured CUDA graph of the
+step draws each step's masks.  The forward is :meth:`WavLMModel.front`
+(everything before the first layer), each layer, and
+:meth:`WavLMModel.back`, so that a caller can run the pieces on their
+own (the SER trainers' captured step graphs each one).
 
 Tensor parallelism (a model built with a ``parallel.mesh.DataMesh`` whose
 model axis is ``m > 1``) splits each layer Megatron-style, by
@@ -94,6 +101,7 @@ import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -116,6 +124,7 @@ from nrse_tpu_torch.parallel.distributed import (
     copy_to_model,
     reduce_from_model,
 )
+from nrse_tpu_torch.runtime.staging import Staging
 
 # flax GroupNorm's default epsilon, which the JAX frontend keeps
 GROUP_NORM_EPS = 1e-6
@@ -124,6 +133,7 @@ GROUP_NORM_EPS = 1e-6
 # the FFN's two sites are sites 0 and 1 of the FFN seed inside kernel B);
 # the encoder-level site takes layer ENCODER
 SITE_ATTN, SITE_HIDDEN, SITE_FFN = 0, 1, 2
+SITES = 3
 ENCODER = 0xFFFF
 # host streams of a tower's step (the SER head's dropout takes the third)
 STREAM_LAYERDROP, STREAM_SPEC_AUGMENT, STREAM_HEAD_DROPOUT = 0, 1, 2
@@ -219,6 +229,83 @@ class WavLMConfig:
         return lengths
 
 
+class SeedTable:
+    """The kernels' seed pairs of one step on the device: an int32
+    ``[towers, layers + 1, SITES, 2]`` table whose row ``(tower, layer,
+    site)`` holds :meth:`TrainRNG.dropout_seed` of that tower (the last
+    layer slot is the encoder-level site, ``ENCODER``).  It lives in a slot
+    ``"seeds"`` of a :class:`~nrse_tpu_torch.runtime.staging.Staging` (its
+    own, or one the caller shares with other per-step inputs); the host
+    fills it for each step (:meth:`fill`) and the staging copies it over,
+    so its rows keep their addresses from step to step and a captured
+    kernel reads each step's pair."""
+
+    def __init__(self, layers: int, towers: int = 1, device="cpu",
+                 staging: Optional[Staging] = None):
+        self.layers, self.towers = int(layers), int(towers)
+        self.staging = staging or Staging(device, {"seeds": self.slot(
+            layers, towers)})
+        table = self.staging["seeds"]
+        if tuple(table.shape) != self.slot(layers, towers)[0]:
+            raise ValueError(f"the staging's seed slot is "
+                             f"{tuple(table.shape)}, not "
+                             f"{self.slot(layers, towers)[0]}")
+        self._rows = {(t, i, s): table[t, i, s]
+                      for t in range(self.towers)
+                      for i in range(self.layers + 1) for s in range(SITES)}
+        ids = torch.stack(torch.meshgrid(
+            torch.arange(self.towers), torch.tensor(
+                list(range(self.layers)) + [ENCODER]),
+            torch.arange(SITES), indexing="ij")).to(torch.int64)
+        self._ids = ids  # [3, towers, layers + 1, SITES]: tower, layer, site
+
+    @staticmethod
+    def slot(layers: int, towers: int = 1):
+        """The staging slot ``(shape, dtype)`` of a table."""
+        return (int(towers), int(layers) + 1, SITES, 2), torch.int32
+
+    def fill(self, seed: int, step: int, rank: int = 0,
+             world: int = 1) -> None:
+        """Write step ``step``'s pairs into the host view (the caller
+        pushes the staging), every tower's, all from one vectorised
+        Philox pass: :meth:`TrainRNG.dropout_seed`'s words."""
+        tower, layer, site = self._ids
+        words = philox.philox4x32(
+            int(seed) & philox.MASK32, (int(seed) >> 32) & philox.MASK32,
+            torch.full_like(tower, int(step) & philox.MASK32), tower, layer,
+            site)
+        pairs = torch.stack(words[:2], dim=-1)
+        if world > 1:
+            pairs = pairs ^ ((MIX_A * (rank + 1)) & philox.MASK32)
+        self.staging.host("seeds").copy_(torch.from_numpy(
+            pairs.numpy().astype(np.uint32).view(np.int32)))
+
+    def stage(self, seed: int, step: int, rank: int = 0,
+              world: int = 1) -> "SeedTable":
+        """:meth:`fill` and the copy, for a table with its own staging."""
+        self.staging.begin()
+        self.fill(seed, step, rank, world)
+        self.staging.push()
+        return self
+
+    def row(self, tower: int, layer: int, site: int) -> torch.Tensor:
+        """The device seed tensor of ``(tower, layer, site)``: a view of
+        the table, at the same address every step."""
+        return self._rows[(tower, self.layers if layer == ENCODER else layer,
+                           site)]
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedDraws:
+    """A step's host draws, made as the model makes them and already
+    written to the device: LayerDrop's keep list (read by the host, which
+    picks the layers to run) and SpecAugment's ``[B, T]`` spans of this
+    rank's rows, a static device buffer or None."""
+
+    keep: Tuple[bool, ...]
+    spans: Optional[torch.Tensor] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainRNG:
     """The random streams of one tower's training forward at one step.
@@ -245,6 +332,30 @@ class TrainRNG:
     tower: int = 0  # 0 online, 1 target
     rank: int = 0
     world: int = 1
+    # the device seed pairs of this step (filled for it) and the host
+    # draws already on the device, where a trainer staged them
+    table: Optional[SeedTable] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    draws: Optional[StagedDraws] = dataclasses.field(
+        default=None, compare=False, repr=False)
+
+    def with_table(self, layers: int, device) -> "TrainRNG":
+        """This stream with a table of its own, filled for this step on
+        ``device`` (one copy), unless it has one: for a single training
+        forward.  A trainer owns one table and stages it every step."""
+        if self.table is not None:
+            return self
+        table = SeedTable(layers, self.tower + 1, device).stage(
+            self.seed, self.step, self.rank, self.world)
+        return dataclasses.replace(self, table=table)
+
+    def kernel_seed(self, layer: int, site: int) -> torch.Tensor:
+        """The seed tensor a kernel reads for ``(layer, site)``: this
+        tower's row of :attr:`table`, which holds :meth:`dropout_seed`."""
+        if self.table is None:
+            raise ValueError("TrainRNG.kernel_seed needs a SeedTable "
+                             "(TrainRNG.with_table)")
+        return self.table.row(self.tower, layer, site)
 
     def dropout_seed(self, layer: int, site: int):
         """The seed pair of a kernel's dropout (K1, kernel A, kernel B).
@@ -282,7 +393,7 @@ def _linear(x: torch.Tensor, module: nn.Linear) -> torch.Tensor:
 def _dropout(x, p: float, rng: Optional[TrainRNG], layer: int, site: int):
     if rng is None or p == 0.0:
         return x
-    return hw_dropout(x, rng.dropout_seed(layer, site), p)
+    return hw_dropout(x, rng.kernel_seed(layer, site), p)
 
 
 def sample_time_mask(generator: torch.Generator, batch: int, length: int,
@@ -564,7 +675,7 @@ class GatedAttention(nn.Module):
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0
         p, seed = 0.0, None
         if rng is not None and dropout > 0.0:
-            p, seed = dropout, rng.dropout_seed(layer, SITE_ATTN)
+            p, seed = dropout, rng.kernel_seed(layer, SITE_ATTN)
         window = (self.embed_dim, c0) if cl != self.embed_dim else None
         if t > BLOCK_MAX_T:
             out = flash_gated_attention(q, k, v, gate, pos_bias,
@@ -610,7 +721,7 @@ class FeedForward(nn.Module):
         cfg, mesh = self.config, self.mesh
         seed, p_act, p_hid = None, 0.0, 0.0
         if rng is not None:
-            seed = rng.dropout_seed(layer, SITE_FFN)
+            seed = rng.kernel_seed(layer, SITE_FFN)
             p_act, p_hid = cfg.activation_dropout, cfg.hidden_dropout
         if mesh is None or not mesh.tp:
             return fused_ffn(x, self.intermediate_dense.weight,
@@ -677,17 +788,23 @@ class WavLMTransformerEncoder(nn.Module):
 
     def layer_keep(self, rng: Optional[TrainRNG]):
         """LayerDrop: one host draw per layer per step for the whole
-        batch; layer 0 always runs (``nrse_tpu/models/wavlm.py:826-851``)."""
+        batch; layer 0 always runs (``nrse_tpu/models/wavlm.py:826-851``).
+        A step whose draws were staged keeps their list."""
         n, p = self.config.num_hidden_layers, self.config.layerdrop
         if rng is None or p <= 0.0:
             return [True] * n
+        if rng.draws is not None:
+            return list(rng.draws.keep)
         u = torch.rand(n, generator=rng.generator(STREAM_LAYERDROP))
         keep = (u >= p).tolist()
         keep[0] = True
         return keep
 
-    def forward(self, hidden, attention_mask=None,
+    def prelude(self, hidden, attention_mask=None,
                 rng: Optional[TrainRNG] = None):
+        """What runs before the first layer: ``(hidden, pos_bias)``, the
+        positional embedding and the encoder-level dropout applied, and the
+        relative position bias every layer takes."""
         cfg = self.config
         dt = hidden.dtype
         if attention_mask is not None:
@@ -710,13 +827,23 @@ class WavLMTransformerEncoder(nn.Module):
         else:  # the flash kernel's generator, in the compute dtype
             pos_bias = rel_bias_vector(table.to(dt), t, cfg.num_buckets,
                                        cfg.max_bucket_distance)
+        return hidden, pos_bias
+
+    def finish(self, hidden):
+        """What runs after the last layer (the final LayerNorm of the
+        pre-LN variant)."""
+        if self.config.do_stable_layer_norm:
+            hidden = self.layer_norm(hidden).to(hidden.dtype)
+        return hidden
+
+    def run_layers(self, hidden, pos_bias, attention_mask=None,
+                   rng: Optional[TrainRNG] = None):
+        """The layers LayerDrop keeps, in order."""
         keep = self.layer_keep(rng)
         self.layers_run = sum(keep)
         for layer, run in zip(self.layers, keep):
             if run:
                 hidden = layer(hidden, pos_bias, attention_mask, rng)
-        if cfg.do_stable_layer_norm:
-            hidden = self.layer_norm(hidden).to(dt)
         return hidden
 
 
@@ -762,16 +889,24 @@ class WavLMModel(nn.Module):
             cfg.mask_time_prob, cfg.mask_time_length,
             cfg.mask_time_min_masks))
 
-    def forward(self, input_values: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None,
-                rng: Optional[TrainRNG] = None):
-        """Eval mode ignores ``rng``; training mode needs it."""
-        if self.training and rng is None:
-            raise ValueError("WavLMModel in training mode needs rng (a "
-                             "TrainRNG): dropout, LayerDrop and SpecAugment "
-                             "draw from it")
+    def train_rng(self, rng: Optional[TrainRNG]) -> Optional[TrainRNG]:
+        """The stream the forward draws from: None in eval mode; in
+        training mode ``rng``, which must carry a seed table filled for
+        its step (:meth:`TrainRNG.with_table`, or the trainer's own)."""
         if not self.training:
-            rng = None
+            return None
+        if rng is None or rng.table is None:
+            raise ValueError("WavLMModel in training mode needs rng (a "
+                             "TrainRNG with its SeedTable): dropout, "
+                             "LayerDrop and SpecAugment draw from it")
+        return rng
+
+    def front(self, input_values: torch.Tensor,
+              attention_mask: Optional[torch.Tensor] = None,
+              rng: Optional[TrainRNG] = None):
+        """Everything before the first layer: ``(hidden [B, T', C],
+        pos_bias, frame_mask [B, T'] | None)``.  ``rng`` as
+        :meth:`train_rng` returns it (with a table, or None)."""
         if input_values.dim() == 3:  # [B, 1, T]
             input_values = input_values[:, 0, :]
         dtype = self.compute_dtype or \
@@ -782,15 +917,34 @@ class WavLMModel(nn.Module):
             frame_mask = self.frame_mask(attention_mask, feats.shape[1])
         hidden = self.feature_projection(feats)
         if rng is not None and self.config.has_masked_spec_embed:
-            spans = self.time_mask(rng, hidden.shape[0],
-                                   hidden.shape[1]).to(hidden.device)
+            if rng.draws is not None and rng.draws.spans is not None:
+                spans = rng.draws.spans
+            else:
+                spans = self.time_mask(rng, hidden.shape[0],
+                                       hidden.shape[1]).to(hidden.device)
             hidden = torch.where(spans[..., None],
                                  self.masked_spec_embed.to(hidden.dtype),
                                  hidden)
-        hidden = self.encoder(hidden, frame_mask, rng)
+        hidden, pos_bias = self.encoder.prelude(hidden, frame_mask, rng)
+        return hidden, pos_bias, frame_mask
+
+    def back(self, hidden: torch.Tensor,
+             frame_mask: Optional[torch.Tensor] = None):
+        """After the last layer: ``(sequence, pooled)``."""
+        hidden = self.encoder.finish(hidden)
         if frame_mask is None:
             pooled = hidden.float().mean(dim=1)
         else:
             m = frame_mask[..., None].float()
             pooled = (hidden.float() * m).sum(1) / m.sum(1).clamp_min(1.0)
         return hidden, pooled.to(hidden.dtype)
+
+    def forward(self, input_values: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[TrainRNG] = None):
+        """Eval mode ignores ``rng``; training mode needs it."""
+        rng = self.train_rng(rng)
+        hidden, pos_bias, frame_mask = self.front(input_values,
+                                                  attention_mask, rng)
+        hidden = self.encoder.run_layers(hidden, pos_bias, frame_mask, rng)
+        return self.back(hidden, frame_mask)

@@ -73,7 +73,7 @@ class _Drop:
     mask."""
 
     def __init__(self, seed=None, p: float = 0.0, mask=None, window=None):
-        self.seed = None if seed is None else (int(seed[0]), int(seed[1]))
+        self.seed = seed  # a seed tensor (ops/philox.py), read on the device
         self.p, self.mask = float(p), mask
         self.window = window
 
@@ -86,15 +86,18 @@ class _Drop:
     def plain_mask(self, shape, device) -> Optional[torch.Tensor]:
         """The keep mask as a tensor, for the plain versions."""
         if self.mode == _MODE_SEEDED:
-            return attention_keep_mask(self.seed, shape, self.p, device,
-                                       self.window)
+            return attention_keep_mask(philox.seed_pair(self.seed), shape,
+                                       self.p, device, self.window)
         return self.mask
 
     def c_args(self, shape, device):
-        """``(mask pointer, k0, k1, p, keep scale, mode, C_global, c0)``
-        for a C entry; keeps the explicit mask it hands over alive on
+        """``(mask pointer, seed pointer, p, keep scale, mode, C_global,
+        c0)`` for a C entry; keeps the explicit mask it hands over alive on
         ``self``."""
-        k0, k1 = self.seed or (0, 0)
+        seed = 0
+        if self.mode == _MODE_SEEDED:
+            philox.check_seed(self.seed, device)
+            seed = self.seed.data_ptr()
         ptr = 0
         if self.mode == _MODE_MASKED:
             m = self.mask
@@ -107,7 +110,7 @@ class _Drop:
         scale = philox.keep_scale(self.p) if self.mode == _MODE_SEEDED else 1.0
         _, h, _, d = shape
         cg, c0 = self.window or (h * d, 0)
-        return ptr, k0, k1, self.p, scale, self.mode, cg, c0
+        return ptr, seed, self.p, scale, self.mode, cg, c0
 
 
 def attention_fwd_plan(t: int) -> dict:
@@ -330,7 +333,7 @@ class _BlockAttention(torch.autograd.Function):
 def block_gated_attention_lse(q, k, v, gate, pos_bias,
                               key_padding_mask: Optional[torch.Tensor] = None,
                               *, p_drop: float = 0.0,
-                              dropout_seed: Optional[Tuple[int, int]] = None,
+                              dropout_seed: Optional[torch.Tensor] = None,
                               dropout_mask: Optional[torch.Tensor] = None,
                               dropout_window: Optional[Tuple[int, int]] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -348,6 +351,7 @@ def block_gated_attention_lse(q, k, v, gate, pos_bias,
                              f"{p_drop}")
         if dropout_seed is None:
             raise ValueError("p_drop > 0 requires dropout_seed")
+        philox.check_seed(dropout_seed, q.device)
         _, h, _, d = q.shape
         drop = _Drop(seed=dropout_seed, p=p_drop,
                      window=philox.check_window(dropout_window, h * d))
@@ -361,7 +365,7 @@ def block_gated_attention_lse(q, k, v, gate, pos_bias,
 def block_gated_attention(q, k, v, gate, pos_bias,
                           key_padding_mask: Optional[torch.Tensor] = None,
                           *, p_drop: float = 0.0,
-                          dropout_seed: Optional[Tuple[int, int]] = None,
+                          dropout_seed: Optional[torch.Tensor] = None,
                           dropout_mask: Optional[torch.Tensor] = None,
                           dropout_window: Optional[Tuple[int, int]] = None):
     """Gated-bias attention at T ≤ 384, differentiable.
@@ -372,8 +376,10 @@ def block_gated_attention(q, k, v, gate, pos_bias,
       pos_bias: dense ``[H, T, T]`` (``rel_pos_bias.compute_position_bias``).
       key_padding_mask: optional ``[B, T]`` (1 = valid key).
       p_drop / dropout_seed: dropout of the output inside the kernel, the
-        mask drawn from Philox under the seed pair (K1's mask over the
-        merged ``[B, T, C]`` layout) and drawn again in the backward.
+        mask drawn from Philox under the seed pair the 2-element int32
+        ``dropout_seed`` on q's device holds (``ops/philox.py``; K1's mask
+        over the merged ``[B, T, C]`` layout), read by the kernels when they
+        run, and drawn again in the backward.
       dropout_mask: an explicit float32 ``{0, 1/(1−p)}`` ``[B, H, T, D]``
         keep mask instead (the tests' path).
       dropout_window: ``(C_global, c0)`` when the H heads are a shard of

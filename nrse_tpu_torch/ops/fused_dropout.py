@@ -2,8 +2,9 @@
 
 Port of ``nrse_tpu/ops/fused_dropout.py:68-238``.  :func:`hw_dropout` is a
 ``torch.autograd.Function`` whose backward runs the same kernel on ``dy``
-with the mask regenerated from the saved seed: it saves no mask, only the
-seed pair.  :func:`hw_dropout_masked` takes an explicit ``{0, 1/(1−p)}``
+with the mask regenerated from the seed: it saves no mask, only the seed
+tensor, which the kernel reads on the device (``ops/philox.py``), so the
+backward draws the pair the tensor holds when it runs.  :func:`hw_dropout_masked` takes an explicit ``{0, 1/(1−p)}``
 float32 mask instead (the tests' path), and :func:`dump_dropout_mask`
 returns the mask a seed gives.  Masks follow the Philox contract of
 ``ops/philox.py``.
@@ -39,7 +40,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(mode, x, mask, out, n, seed=(0, 0), site=0, p=0.0,
+def _launch(mode, x, mask, out, n, seed=None, site=0, p=0.0,
             window=None):
     require_no_grad(x, mask, what="fused_dropout")
     lib = cuda_build.load()
@@ -52,7 +53,7 @@ def _launch(mode, x, mask, out, n, seed=(0, 0), site=0, p=0.0,
         err = lib.nrse_dropout(
             0 if x is None else x.data_ptr(),
             0 if mask is None else mask.data_ptr(), out.data_ptr(), n,
-            int(seed[0]), int(seed[1]), int(site), float(p),
+            0 if seed is None else seed.data_ptr(), int(site), float(p),
             philox.keep_scale(p), mode, wl, wg, c0,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "fused_dropout")
@@ -70,8 +71,10 @@ def dropout_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def _seeded(x, seed, p, site, window=None):
     """One dropout pass (forward, or backward on ``dy``)."""
+    philox.check_seed(seed, x.device)
     if x.device.type == "cpu":
-        mask = philox.dump_mask(seed, site, x.shape, p, window=window)
+        mask = philox.dump_mask(philox.seed_pair(seed), site, x.shape, p,
+                                window=window)
         return dropout_plain(x, mask)
     if x.device.type != "cuda":
         raise ValueError(f"no dropout kernel for device {x.device}")
@@ -124,19 +127,20 @@ class _HwDropoutMasked(torch.autograd.Function):
         return _masked(dy, mask), None
 
 
-def hw_dropout(x: torch.Tensor, seed: Tuple[int, int], p: float,
+def hw_dropout(x: torch.Tensor, seed: torch.Tensor, p: float,
                site: int = 0,
                window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Bernoulli dropout of ``x`` (any shape) with probability ``p``, the
-    mask drawn from Philox under ``seed`` (a pair of 32-bit ints) at
-    ``site`` over the flat element index, or with ``window = (W_global,
-    c0)`` over the index of the whole tensor whose columns ``[c0, c0 +
-    x.shape[-1])`` ``x`` holds.  ``p = 0`` returns ``x``."""
+    mask drawn from Philox under ``seed`` (a 2-element int32 tensor on x's
+    device holding the pair, ``philox.seed_tensor``; its words are read
+    when the kernel runs) at ``site`` over the flat element index, or with
+    ``window = (W_global, c0)`` over the index of the whole tensor whose
+    columns ``[c0, c0 + x.shape[-1])`` ``x`` holds.  ``p = 0`` returns
+    ``x``."""
     if p == 0.0:
         return x
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout probability must be in [0, 1), got {p}")
-    seed = (int(seed[0]), int(seed[1]))
     window = philox.check_window(window, x.shape[-1])
     if torch.is_grad_enabled() and x.requires_grad:
         return _HwDropout.apply(x, seed, float(p), int(site), window)
@@ -149,15 +153,17 @@ def hw_dropout_masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return _HwDropoutMasked.apply(x, mask)
 
 
-def dump_dropout_mask(seed: Tuple[int, int], shape, p: float, site: int = 0,
-                      device=None, window=None) -> torch.Tensor:
+def dump_dropout_mask(seed: torch.Tensor, shape, p: float, site: int = 0,
+                      window=None) -> torch.Tensor:
     """The float32 ``{0, 1/(1−p)}`` mask :func:`hw_dropout` applies for
-    this (seed, shape, p, site, window): from the kernel on a CUDA device,
+    this (seed, shape, p, site, window), on the seed tensor's device: from
+    the kernel, which reads the pair the tensor holds, on a CUDA device,
     from the Philox twin elsewhere."""
-    device = torch.device("cpu" if device is None else device)
+    device = seed.device
+    philox.check_seed(seed, device)
     if device.type != "cuda":
-        return philox.dump_mask(seed, site, tuple(shape), p, device=device,
-                                window=window)
+        return philox.dump_mask(philox.seed_pair(seed), site, tuple(shape),
+                                p, device=device, window=window)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     _launch(_MODE_DUMP, None, None, out, out.numel(), seed, site, p, window)
     global DUMP_LAUNCHES

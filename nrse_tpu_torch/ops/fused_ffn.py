@@ -151,7 +151,7 @@ class _Drop:
 
     def __init__(self, seed=None, p_act=0.0, p_hid=0.0, masks=None,
                  act_window=None):
-        self.seed = (0, 0) if seed is None else (int(seed[0]), int(seed[1]))
+        self.seed = seed  # a seed tensor (ops/philox.py), read on the device
         self.p_act, self.p_hid = float(p_act), float(p_hid)
         self.masks = masks
         self.act_window = act_window  # (F_global, f0) of a column shard
@@ -170,23 +170,26 @@ class _Drop:
             return self.masks
         act = hid = None
         if self.mode == _PHILOX:
+            pair = philox.seed_pair(self.seed)
             if self.p_act > 0.0:
-                act = philox.dump_mask(self.seed, SITE_ACT, (n, f),
-                                       self.p_act, device, self.act_window)
+                act = philox.dump_mask(pair, SITE_ACT, (n, f), self.p_act,
+                                       device, self.act_window)
             if self.p_hid > 0.0:
-                hid = philox.dump_mask(self.seed, SITE_HID, (n, c),
-                                       self.p_hid, device)
+                hid = philox.dump_mask(pair, SITE_HID, (n, c), self.p_hid,
+                                       device)
         return act, hid
 
     def kernel_args(self, f: int):
         """The C entries' dropout arguments for ``f`` local columns: the
-        masks, the seed, the probabilities and keep scales, the mode and
-        the activation site's window ``(F_global, f0)``."""
+        masks, the seed tensor's pointer, the probabilities and keep
+        scales, the mode and the activation site's window ``(F_global,
+        f0)``."""
         ma = mh = 0
         if self.mode == _MASKS:
             ma, mh = (m.data_ptr() for m in self.masks)
+        seed = 0 if self.mode != _PHILOX else self.seed.data_ptr()
         f_global, f0 = self.act_window or (f, 0)
-        return (ma, mh, self.seed[0], self.seed[1], self.p_act, self.p_hid,
+        return (ma, mh, seed, self.p_act, self.p_hid,
                 philox.keep_scale(self.p_act), philox.keep_scale(self.p_hid),
                 self.mode, f_global, f0)
 
@@ -439,12 +442,14 @@ def _apply(x, w1, b1, w2, b2, drop: _Drop, shard=None):
     return out.reshape(x.shape)
 
 
-def fused_ffn(x, w1, b1, w2, b2, seed: Optional[Tuple[int, int]] = None,
+def fused_ffn(x, w1, b1, w2, b2, seed: Optional[torch.Tensor] = None,
               p_act: float = 0.0, p_hid: float = 0.0,
               shard: Optional[Tuple[int, int]] = None):
     """``dropout(dense2(dropout(gelu(dense1(x)))))`` for ``x [..., C]``,
     ``w1 [F, C]``, ``b1 [F]``, ``w2 [C, F]``, ``b2 [C]``; the masks from
-    Philox under ``seed`` when ``p_act`` or ``p_hid`` is above 0.  Returns
+    Philox under the pair the seed tensor ``seed`` (2 int32 words on x's
+    device, ``ops/philox.py``) holds when the kernels run, when ``p_act``
+    or ``p_hid`` is above 0.  Returns
     x's shape and dtype; differentiable in x and the weights.  With
     ``shard = (F_global, f0)`` the weights are the columns ``[f0, f0 + F)``
     of a layer ``F_global`` wide (tensor parallelism, see the module
@@ -453,6 +458,8 @@ def fused_ffn(x, w1, b1, w2, b2, seed: Optional[Tuple[int, int]] = None,
         shard = (int(shard[0]), int(shard[1]))
     window = None if shard is None else philox.check_window(shard,
                                                             w1.shape[0])
+    if seed is not None:
+        philox.check_seed(seed, x.device)
     return _apply(x, w1, b1, w2, b2,
                   _Drop(seed, p_act, p_hid, act_window=window), shard)
 
@@ -472,12 +479,12 @@ def fused_ffn_masked(x, w1, b1, w2, b2, mask_act, mask_hid):
     return _apply(x, w1, b1, w2, b2, _Drop(masks=masks))
 
 
-def dump_masks(seed: Tuple[int, int], n: int, c: int, f: int, p_act: float,
-               p_hid: float, device=None, shard=None):
+def dump_masks(seed: torch.Tensor, n: int, c: int, f: int, p_act: float,
+               p_hid: float, shard=None):
     """``(keep_act [n, f], keep_hid [n, c])``: the float32 masks
-    :func:`fused_ffn` applies for this seed, shape and ``shard`` (from the
-    dump kernel on a CUDA device, from the Philox twin elsewhere)."""
+    :func:`fused_ffn` applies for this seed tensor, shape and ``shard``, on
+    the seed's device (from the dump kernel on a CUDA device, from the
+    Philox twin elsewhere)."""
     return (fused_dropout.dump_dropout_mask(seed, (n, f), p_act, SITE_ACT,
-                                            device, shard),
-            fused_dropout.dump_dropout_mask(seed, (n, c), p_hid, SITE_HID,
-                                            device))
+                                            shard),
+            fused_dropout.dump_dropout_mask(seed, (n, c), p_hid, SITE_HID))

@@ -49,25 +49,42 @@ class FusedAdamWSpec:
     ema_decay: float = 0.997
 
 
-def scalars(spec: FusedAdamWSpec, count: int,
-            grad_norm: torch.Tensor) -> torch.Tensor:
-    """The float32 vector ``[clip_scale, lr, b1, b2, 1/bc1, 1/bc2, wd, eps,
-    ema]`` on ``grad_norm``'s device, as ``fused_optimizer.py:274-298``
-    builds it: the LR at the Adam count *before* this update (step 0 on the
-    first), the bias corrections at the count after it.  Nothing here waits
-    for the device."""
+def host_scalars(spec: FusedAdamWSpec, count: int) -> np.ndarray:
+    """The host part of K4's scalar vector, float32 ``[lr, b1, b2, 1/bc1,
+    1/bc2, wd, eps, ema]``, as ``fused_optimizer.py:274-298`` builds it:
+    the LR at the Adam count *before* this update (step 0 on the first),
+    the bias corrections at the count after it.  A trainer that stages it
+    (``runtime/staging.py``) writes it to the device before its step."""
     f32 = np.float32
     lr = spec.schedule(count) if callable(spec.schedule) else spec.schedule
     cf = f32(count + 1)
     ibc1 = f32(1.0) / (f32(1.0) - f32(spec.b1) ** cf)
     ibc2 = f32(1.0) / (f32(1.0) - f32(spec.b2) ** cf)
+    return np.array([lr, spec.b1, spec.b2, ibc1, ibc2, spec.weight_decay,
+                     spec.eps, spec.ema_decay], np.float32)
+
+
+def device_scalars(spec: FusedAdamWSpec, grad_norm: torch.Tensor,
+                   rest: torch.Tensor) -> torch.Tensor:
+    """K4's float32 vector ``[clip_scale, *rest]`` on ``rest``'s device:
+    the clip factor of ``clip_by_global_norm`` computed there from
+    ``grad_norm``, then :func:`host_scalars`' eight values already on the
+    device.  Nothing here copies from the host or waits for the device."""
     gn = grad_norm.to(torch.float32).reshape(1)
     clip = torch.where(gn < spec.clip_norm, torch.ones_like(gn),
                        spec.clip_norm / torch.clamp_min(gn, 1e-30))
-    rest = torch.tensor(np.array(
-        [lr, spec.b1, spec.b2, ibc1, ibc2, spec.weight_decay, spec.eps,
-         spec.ema_decay], np.float32)).to(gn.device, non_blocking=True)
     return torch.cat([clip, rest])
+
+
+def scalars(spec: FusedAdamWSpec, count: int,
+            grad_norm: torch.Tensor) -> torch.Tensor:
+    """The float32 vector ``[clip_scale, lr, b1, b2, 1/bc1, 1/bc2, wd, eps,
+    ema]`` on ``grad_norm``'s device: :func:`device_scalars` with
+    :func:`host_scalars` copied over in the step.  Nothing here waits for
+    the device."""
+    rest = torch.from_numpy(host_scalars(spec, count)).to(
+        grad_norm.device, non_blocking=True)
+    return device_scalars(spec, grad_norm, rest)
 
 
 def adamw_ema_plain(sc: torch.Tensor, g: torch.Tensor, p: torch.Tensor,
@@ -113,12 +130,15 @@ def fused_adamw_ema_update(grads: torch.Tensor, params: torch.Tensor,
                            mu: torch.Tensor, nu: torch.Tensor,
                            target: Optional[torch.Tensor],
                            spec: FusedAdamWSpec, count: int,
-                           grad_norm: Optional[torch.Tensor] = None
+                           grad_norm: Optional[torch.Tensor] = None,
+                           rest: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One AdamW + EMA step over flat 1-D buffers, in place: ``params``,
     ``mu``, ``nu`` (all of ``grads``' length) and ``target`` (the EMA of
     the leading ``len(target)`` params; or None).  ``count`` is the Adam
-    step count before this update.  Returns the scalar vector used."""
+    step count before this update.  ``rest``: :func:`host_scalars` of
+    this count already on the device (a staged slot), else they are
+    copied over here.  Returns the scalar vector used."""
     if not (grads.shape == params.shape == mu.shape == nu.shape) \
             or params.dim() != 1:
         raise ValueError("grads, params, mu and nu must be 1-D of one size")
@@ -127,7 +147,8 @@ def fused_adamw_ema_update(grads: torch.Tensor, params: torch.Tensor,
         raise ValueError("target must be 1-D and no longer than params")
     if grad_norm is None:
         grad_norm = torch.linalg.vector_norm(grads.float())
-    sc = scalars(spec, count, grad_norm)
+    sc = scalars(spec, count, grad_norm) if rest is None else \
+        device_scalars(spec, grad_norm, rest)
     if params.device.type == "cuda":
         _kernel(sc, grads, params, mu, nu, target)
     elif params.device.type == "cpu":

@@ -20,7 +20,11 @@ on (seed, site, element index):
     ``u24 · 2⁻²⁴ ≥ p``, the kept value scaled by ``1 / (1 − p)`` in
     float32 (:func:`keep_scale`), then cast;
   * seeds: one pair per (step, tower, layer, site), derived on the host
-    from the root seed by :func:`stream_seed`;
+    from the root seed by :func:`stream_seed`; the kernels read their pair
+    from device memory (a 2-element int32 tensor holding the two words,
+    :func:`seed_tensor`, in training a row of ``models.wavlm.SeedTable``),
+    so a launch captured into a CUDA graph draws whatever pair the tensor
+    holds when it is replayed;
   * windows: a shard ``[N, W_local]`` holding columns ``[c0, c0 +
     W_local)`` of a whole ``[N, W_global]`` tensor (tensor parallelism
     splits a layer's heads or FFN columns so) gives its element ``(row,
@@ -86,6 +90,35 @@ def stream_seed(root: int, *ids: int) -> Tuple[int, int]:
     c = [int(i) & MASK32 for i in ids] + [0] * (4 - len(ids))
     out = philox4x32(root & MASK32, (root >> 32) & MASK32, *c)
     return int(out[0]), int(out[1])
+
+
+def seed_tensor(pair: Tuple[int, int], device=None) -> torch.Tensor:
+    """A seed pair as the kernels read it: the words ``(k0, k1)`` in a
+    2-element int32 tensor on ``device`` (one copy to a card)."""
+    words = np.array([int(pair[0]) & MASK32, int(pair[1]) & MASK32],
+                     np.uint32).view(np.int32)
+    return torch.from_numpy(words).to(device)
+
+
+def check_seed(seed: torch.Tensor, device) -> None:
+    """Raise unless ``seed`` is a contiguous 2-element int32 tensor on
+    ``device`` (a kernel loads it as one 8-byte word)."""
+    if not isinstance(seed, torch.Tensor) or seed.dtype != torch.int32 \
+            or seed.shape != (2,) or not seed.is_contiguous() \
+            or seed.device != torch.device(device):
+        raise ValueError(
+            "a dropout seed is a contiguous 2-element int32 tensor on the "
+            f"kernel's device {device} (philox.seed_tensor or a SeedTable "
+            f"row), got {seed!r}")
+    if seed.device.type == "cuda" and seed.data_ptr() % 8:
+        raise ValueError("a dropout seed on the card must be 8-byte aligned")
+
+
+def seed_pair(seed: torch.Tensor) -> Tuple[int, int]:
+    """The ``(k0, k1)`` a seed tensor holds, read on the host (the plain
+    versions' key; on a card the read waits for it)."""
+    k0, k1 = (int(w) & MASK32 for w in seed.tolist())
+    return k0, k1
 
 
 @functools.lru_cache(maxsize=64)

@@ -46,10 +46,10 @@ _L = ctypes.c_longlong
 # name -> argtypes of every C entry in csrc/
 _ENTRIES = {
     "nrse_block_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _U, _U, _F, _F, _I, _U, _U,
+                                 _P, _P, _F, _F, _I, _U, _U,
                                  _I, _I, _I, _I, _F, _P],
     "nrse_block_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _U, _U, _F, _F, _I, _U, _U,
+                                 _P, _P, _F, _F, _I, _U, _U,
                                  _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _F, _P],
     "nrse_flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -62,14 +62,13 @@ _ENTRIES = {
                                      _I, _I, _I, _I, _F, _I, _I, _P],
     "nrse_fused_ffn_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "nrse_fused_ffn_fwd_train": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                                 _U, _U, _F, _F, _F, _F, _I, _U, _U,
+                                 _P, _F, _F, _F, _F, _I, _U, _U,
                                  _I, _I, _I, _P],
-    "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _U, _U,
+    "nrse_fused_ffn_bwd_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _F, _F, _F, _F, _I, _U, _U, _P, _P, _P, _P,
                               _P, _P, _I, _I, _I, _P],
     "nrse_fused_ffn_bwd_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "nrse_dropout": [_P, _P, _P, _L, _U, _U, _U, _F, _F, _I, _U, _U, _U,
-                     _P],
+    "nrse_dropout": [_P, _P, _P, _L, _P, _U, _F, _F, _I, _U, _U, _U, _P],
     "nrse_channel_layernorm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "nrse_channel_layernorm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _P],

@@ -21,8 +21,9 @@ rows off the results.
 
 The JAX artifact holds one compiled program per bucket
 (``embed_b{B}.stablehlo``).  Its counterpart here is a CUDA graph per
-bucket (``runtime.graphs.BucketProgram``), captured when the server loads
-on the card, all buckets in one memory pool, and replayed per request; a
+bucket (a ``runtime.graphs.BucketProgram`` of one ``ProgramCache``),
+captured when the server loads on the card, all buckets in the cache's
+one memory pool, and replayed per request; a
 graph holds device addresses and cannot be written to a file, so the
 artifact stays as it is and every load captures anew.  A capture that
 fails raises.  On the CPU each bucket runs the module's forward.
@@ -50,7 +51,7 @@ from torch import nn
 from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from nrse_tpu_torch.runtime.device import resolve_device
-from nrse_tpu_torch.runtime.graphs import BucketProgram
+from nrse_tpu_torch.runtime.graphs import ProgramCache
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "params.pt"
@@ -129,8 +130,9 @@ class ServingModel:
     in float32 on the CPU (the plain paths, the reference); the
     classifier's pooling statistics and trunks work in float32 on both.
     ``programs`` holds each bucket's :class:`~nrse_tpu_torch.runtime.
-    graphs.BucketProgram`: on a CUDA device every bucket is captured here,
-    largest first, into the one pool ``pool``.
+    graphs.BucketProgram` from the :class:`~nrse_tpu_torch.runtime.graphs.
+    ProgramCache` ``cache``: on a CUDA device every bucket is captured
+    here, largest first, into the cache's one pool.
     """
 
     def __init__(self, artifact_dir: str, device="cuda"):
@@ -162,12 +164,10 @@ class ServingModel:
         encoder = model if self.kind == "embed" else model.encoder
         encoder.to(dtype=dtype)
         self.model = model.to(self.device).eval()
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.device.type == "cuda" else None)
-        self.programs = {
-            b: BucketProgram(self.forward, b, self.clip_samples, self.device,
-                             self.with_mask, self.pool)
-            for b in sorted(self.buckets, reverse=True)}
+        self.cache = ProgramCache(self.forward, self.device, self.with_mask)
+        self.cache.prepare((b, self.clip_samples) for b in self.buckets)
+        self.programs = {b: self.cache.program(b, self.clip_samples)
+                         for b in self.buckets}
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:

@@ -69,7 +69,7 @@ from nrse_tpu_torch.models.byol import (
     make_target,
 )
 from nrse_tpu_torch.models.heads import use_mesh
-from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig
+from nrse_tpu_torch.models.wavlm import SeedTable, TrainRNG, WavLMConfig
 from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
@@ -106,6 +106,9 @@ class BYOLTrainState:
     seed: int = 0
     mesh: Optional[DataMesh] = None
     split: int = 0
+    # both towers' kernel seed pairs, filled for each step
+    seeds: Optional[SeedTable] = dataclasses.field(default=None,
+                                                   repr=False)
 
     @property
     def tp(self) -> bool:
@@ -358,12 +361,16 @@ def make_byol_train_step(spec: FusedAdamWSpec
         clean, noisy, valid = make_byol_views(batch["clean"], batch["noise"],
                                               batch["snr"])
         state.grads.zero_()
+        if state.seeds is None:
+            state.seeds = SeedTable(online.encoder.config.num_hidden_layers,
+                                    2, state.params.device)
+        table = state.seeds.stage(state.seed, state.step, rank, world)
         pred, _, _ = online(clean, TrainRNG(state.seed, state.step, ONLINE,
-                                            rank, world))
+                                            rank, world, table=table))
         layers_online = online.encoder.encoder.layers_run
         with torch.no_grad():
             proj, _ = target(noisy, TrainRNG(state.seed, state.step, TARGET,
-                                             rank, world))
+                                             rank, world, table=table))
         layers_target = target.encoder.encoder.layers_run
         loss = byol_loss(pred, proj, weights=valid, mesh=mesh)
         loss.backward()

@@ -301,9 +301,12 @@ def _train_emotion_task(config, recipe: TaskRecipe,
         logger.info(f"class weights: {w}")
         weights = torch.from_numpy(w).to(device)
 
+    # emotion.cuda_graphs: false runs the eager steps (the CPU always does)
+    graphs = bool(em.get("cuda_graphs", True))
     train_step = make_emotion_train_step(
-        recipe.task, weight_decay=em.get("weight_decay", 1e-4))
-    eval_step = make_emotion_eval_step(recipe.task)
+        recipe.task, weight_decay=em.get("weight_decay", 1e-4),
+        graphs=graphs)
+    eval_step = make_emotion_eval_step(recipe.task, graphs=graphs)
     clip_seconds = config["data"]["max_audio_length"]
     history: List[Dict] = []
 

@@ -13,6 +13,18 @@ trainable gradients, and ``clip_by_global_norm(1.0) → adamw(lr, wd)``
 (``ops.fused_optimizer``, no EMA) over the trainable parameters.  The LR
 is the plateau's current value, given to each step.
 
+The step's inputs from the host (the kernels' seed table, LayerDrop's
+keep list, SpecAugment's spans, the trunks' dropout masks and K4's LR and
+bias corrections) are drawn as the model draws them and written to the
+device in one copy before the step (:class:`StepInputs`); the step then
+reads them there.  On a card without a mesh the step runs from CUDA
+graphs (``train.step_graphs``, the counterpart of JAX's jitted step):
+captured at the first step of each trainable key and batch shape,
+replayed after that one copy.  ``emotion.cuda_graphs: false`` in the
+config (``graphs=False`` here) asks for the eager step; the CPU and a
+mesh always run it (gloo cannot be captured, and NCCL runs one rank a
+card).  Both forms give the same bits.
+
 Freezing.  The JAX step gates both the gradients and the updates by a
 per-layer 0/1 scale on the stacked encoder layers and ``rest_scale`` on
 the encoder's other parameters (``emotion_trainer.py:119-139``,
@@ -53,6 +65,7 @@ that they hold the same bits, and a difference raises.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -60,10 +73,11 @@ import torch.distributed as dist
 
 from nrse_tpu_torch.audio.features import zero_mean_unit_var
 from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
-from nrse_tpu_torch.models.wavlm import TrainRNG
+from nrse_tpu_torch.models.wavlm import SeedTable, StagedDraws, TrainRNG
 from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
+    host_scalars,
 )
 from nrse_tpu_torch.parallel.mesh import (
     DataMesh,
@@ -71,9 +85,13 @@ from nrse_tpu_torch.parallel.mesh import (
     replicas_agree,
     shard_batch,
 )
+from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.staging import Staging
 from nrse_tpu_torch.train.losses import ccc_loss, ce_weight_category
 
 ALIGN = 4  # floats: K4 takes 16-byte aligned buffers
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -96,6 +114,10 @@ class EmotionTrainState:
     seed: int = 0
     trainable: Optional[Tuple] = None  # (layers, rest) set last
     mesh: Optional[DataMesh] = None
+    # the step's staged inputs by batch shape, and its graphs
+    # (train.step_graphs.SERStepGraphs) of the current key and shape
+    inputs: Dict = dataclasses.field(default_factory=dict, repr=False)
+    graphs: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def num_layers(self) -> int:
@@ -219,51 +241,121 @@ def adamw_spec(learning_rate: float, weight_decay: float = 1e-4,
                           weight_decay=weight_decay, clip_norm=clip_norm)
 
 
+class StepInputs:
+    """A train step's inputs from the host for one batch shape, in one
+    :class:`~nrse_tpu_torch.runtime.staging.Staging`: the kernels' seed
+    table (one tower), SpecAugment's ``[B, T']`` spans, the trunks' ``[3,
+    B, H]`` keep masks (``trunks``, the classifier head's ``keep``; None
+    without trunk dropout) and K4's eight host scalars (``k4``).
+    :meth:`stage` draws a step's as the model would (the same generators,
+    in the same order), writes them and copies them over once, and returns
+    the step's ``TrainRNG`` reading the table and the encoder's draws."""
+
+    def __init__(self, model: EmotionClassifier, batch: int, samples: int,
+                 device):
+        enc = model.encoder_config
+        self.frames = int(enc.feature_lengths(samples))
+        self.batch = batch
+        slots = {"seeds": SeedTable.slot(enc.num_hidden_layers),
+                 "k4": ((8,), torch.float32)}
+        self.spans = enc.has_masked_spec_embed
+        if self.spans:
+            slots["spans"] = ((batch, self.frames), torch.bool)
+        if model.dropout > 0.0:
+            slots["trunks"] = ((3, batch, model.shared_dense.out_features),
+                               torch.bool)
+        self.staging = Staging(device, slots)
+        self.table = SeedTable(enc.num_hidden_layers,
+                               staging=self.staging)
+        self.trunks = self.staging["trunks"] if "trunks" in slots else None
+        self.k4 = self.staging["k4"]
+
+    def stage(self, state: "EmotionTrainState", task: str,
+              spec: FusedAdamWSpec) -> TrainRNG:
+        mesh = state.mesh
+        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
+        rng = TrainRNG(state.seed, state.step, 0, rank, world)
+        model, st = state.model, self.staging
+        st.begin()
+        self.table.fill(state.seed, state.step, rank, world)
+        keep = model.encoder.encoder.layer_keep(rng)
+        if self.spans:
+            st.host("spans").copy_(model.encoder.time_mask(
+                rng, self.batch, self.frames))
+        if self.trunks is not None:
+            st.host("trunks").copy_(model.head_keep(rng, self.batch, task))
+        st.host("k4").copy_(torch.from_numpy(host_scalars(spec,
+                                                          state.step)))
+        st.push()
+        draws = StagedDraws(tuple(keep),
+                            st["spans"] if self.spans else None)
+        return dataclasses.replace(rng, table=self.table, draws=draws)
+
+
+def step_inputs(state: EmotionTrainState, batch: Mapping) -> StepInputs:
+    """The state's :class:`StepInputs` for this batch's shape."""
+    shape = tuple(batch["input_values"].shape)
+    if shape not in state.inputs:
+        state.inputs[shape] = StepInputs(state.model, shape[0], shape[1],
+                                         state.params.device)
+    return state.inputs[shape]
+
+
 def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
-                            clip_norm: float = 1.0) -> Callable:
+                            clip_norm: float = 1.0,
+                            graphs: bool = True) -> Callable:
     """``train_step(state, batch, class_weights, layers, learning_rate,
     rest_scale=0.0) → metrics``, in place.  ``batch`` holds
     ``input_values`` and ``attention_mask`` ``[B, T]`` and the targets
     ``C``, ``A``, ``V``, ``D`` on the state's device; ``class_weights``
     ``[K]`` (or None); ``layers`` the unfrozen encoder layers (the top
     ones). The metrics ``loss`` and ``grad_norm`` (the global norm of the
-    trainable gradients) are device tensors: nothing waits for the card;
-    ``layers_run`` counts the layers LayerDrop kept.  Under the state's
-    mesh ``batch`` holds this rank's data coordinate's rows and the
-    metrics are the global batch's; under a model axis the step raises
-    when the replicas of the model group no longer hold the same
-    parameters and moments."""
+    trainable gradients) are device tensors of their own: nothing waits
+    for the card; ``layers_run`` counts the layers LayerDrop kept.  Under
+    the state's mesh ``batch`` holds this rank's data coordinate's rows
+    and the metrics are the global batch's; under a model axis the step
+    raises when the replicas of the model group no longer hold the same
+    parameters and moments.
+
+    With ``graphs`` (the default) a state on a card without a mesh runs
+    the captured step (``train.step_graphs``); a capture that fails
+    raises, naming the step and the part."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    logged = set()
 
     def train_step(state: EmotionTrainState, batch: Mapping,
                    class_weights, layers: Sequence[int],
                    learning_rate: float, rest_scale: float = 0.0) -> Dict:
         mesh = state.mesh
         segments = trainable_segments(state, layers, rest_scale)
-        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
-        state.grads.zero_()
-        x = zero_mean_unit_var(batch["input_values"])
-        logits, dims = state.model(x, batch["attention_mask"], task,
-                                   TrainRNG(state.seed, state.step, 0, rank,
-                                            world))
-        loss = emotion_loss(task, logits, dims, batch, class_weights, mesh)
-        loss.backward()
         spec = adamw_spec(learning_rate, weight_decay, clip_norm)
-        with torch.no_grad():
-            loss = loss.detach()
-            if mesh is not None and mesh.data_reduce:
-                for lo, hi in segments:
-                    dist.all_reduce(state.grads[lo:hi], group=mesh.data_group)
-                dist.all_reduce(loss, group=mesh.data_group)
-            grad_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(state.grads[lo:hi])
-                 for lo, hi in segments]))
-            for lo, hi in segments:
-                fused_adamw_ema_update(
-                    state.grads[lo:hi], state.params[lo:hi],
-                    state.mu[lo:hi], state.nu[lo:hi], None, spec,
-                    state.step, grad_norm)
+        inputs = step_inputs(state, batch)
+        rng = inputs.stage(state, task, spec)
+        captured = graphs and mesh is None \
+            and state.params.device.type == "cuda"
+        form = "captured" if captured else "eager"
+        if form not in logged:
+            logged.add(form)
+            logger.info(f"SER train step: the {form} form"
+                        + ("" if captured or mesh is None else
+                           " (a mesh: gloo cannot be captured and NCCL "
+                           "runs one rank a card)"))
+        if captured:
+            # step_graphs imports this module
+            from nrse_tpu_torch.train.step_graphs import SERStepGraphs
+            key = (state.trainable, tuple(batch["input_values"].shape),
+                   task, class_weights is not None)
+            if state.graphs is None or state.graphs.key != key:
+                state.graphs = None  # the previous key's graphs go first
+                state.graphs = SERStepGraphs(
+                    state, task, spec, segments, batch, class_weights, rng,
+                    inputs, key)
+            loss, grad_norm = state.graphs.run(batch, class_weights, rng)
+        else:
+            loss, grad_norm = _eager_step(state, task, spec, segments,
+                                          batch, class_weights, rng, inputs)
+        state.model.encoder.encoder.layers_run = sum(rng.draws.keep)
         state.step += 1
         if mesh is not None and mesh.tp and mesh.distributed:
             check_replicas(state, segments)
@@ -271,6 +363,40 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                 "layers_run": state.model.encoder.encoder.layers_run}
 
     return train_step
+
+
+def _eager_step(state: EmotionTrainState, task: str, spec: FusedAdamWSpec,
+                segments, batch: Mapping, class_weights, rng: TrainRNG,
+                inputs: StepInputs):
+    """The step dispatched op by op, the trunks' masks and K4's host
+    scalars read from the staged ``inputs``: ``(loss, grad_norm)``."""
+    mesh = state.mesh
+    state.grads.zero_()
+    x = zero_mean_unit_var(batch["input_values"])
+    logits, dims = state.model(x, batch["attention_mask"], task, rng,
+                               inputs.trunks)
+    loss = emotion_loss(task, logits, dims, batch, class_weights, mesh)
+    loss.backward()
+    with torch.no_grad():
+        loss = loss.detach()
+        if mesh is not None and mesh.data_reduce:
+            for lo, hi in segments:
+                dist.all_reduce(state.grads[lo:hi], group=mesh.data_group)
+            dist.all_reduce(loss, group=mesh.data_group)
+        grad_norm = global_norm(state.grads, segments)
+        for lo, hi in segments:
+            fused_adamw_ema_update(
+                state.grads[lo:hi], state.params[lo:hi], state.mu[lo:hi],
+                state.nu[lo:hi], None, spec, state.step, grad_norm,
+                rest=inputs.k4)
+    return loss, grad_norm
+
+
+def global_norm(grads: torch.Tensor,
+                segments: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The global norm of the trainable segments of ``grads``."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(grads[lo:hi]) for lo, hi in segments]))
 
 
 def check_replicas(state: EmotionTrainState,
@@ -311,28 +437,53 @@ def make_batch_placer(mesh: DataMesh, batch_size: int
     return place_batch, place_state
 
 
-def make_emotion_eval_step(task: str) -> Callable:
+def make_emotion_eval_step(task: str, graphs: bool = True) -> Callable:
     """``eval_step(model, batch) → {"logits": [B, K], "dims": [B, 3]}``
     (the branches ``task`` runs) in eval mode without a graph; the model's
-    modes are restored after."""
+    modes are restored after.  With ``graphs`` each model's forward runs
+    from a ``runtime.graphs.ProgramCache`` (one program per ``(B, T)``,
+    on the card a CUDA graph reading the parameters in place from the
+    state's flat buffer, so a train step needs no recapture of it); the
+    outputs are copies either way."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
+    caches: Dict[int, Tuple[EmotionClassifier, Callable]] = {}
+
+    def forward_of(model: EmotionClassifier) -> Callable:
+        @torch.no_grad()
+        def forward(audio: torch.Tensor, mask: torch.Tensor):
+            logits, dims = model(zero_mean_unit_var(audio), mask, task)
+            return tuple(t for t in (logits, dims) if t is not None)
+
+        return forward
+
+    def run(model: EmotionClassifier, batch: Mapping):
+        if not graphs:
+            return forward_of(model)(batch["input_values"],
+                                     batch["attention_mask"])
+        entry = caches.get(id(model))
+        if entry is None or entry[0] is not model:
+            entry = (model, ProgramCache(
+                forward_of(model), batch["input_values"].device,
+                mask_dtype=batch["attention_mask"].dtype))
+            caches[id(model)] = entry
+        out = entry[1](batch["input_values"], batch["attention_mask"])
+        return out if isinstance(out, tuple) else (out,)
 
     @torch.no_grad()
     def eval_step(model: EmotionClassifier, batch: Mapping) -> Dict:
         modes = [(m, m.training) for m in model.modules()]
         model.eval()
         try:
-            x = zero_mean_unit_var(batch["input_values"])
-            logits, dims = model(x, batch["attention_mask"], task)
+            outs = list(run(model, batch))
         finally:
             for m, training in modes:
                 m.training = training
         out = {}
-        if logits is not None:
-            out["logits"] = logits
-        if dims is not None:
-            out["dims"] = dims
+        if task in ("categorical", "both"):
+            out["logits"] = outs.pop(0)
+        if task in ("dimensional", "both"):
+            out["dims"] = outs.pop(0)
         return out
 
     return eval_step

@@ -24,7 +24,7 @@ from nrse_tpu.ops.block_attention import (
 from nrse_tpu_torch.models import wavlm
 from nrse_tpu_torch.models.convert import init_byol_state_dict
 from nrse_tpu_torch.models.wavlm import SITE_ATTN, TrainRNG, WavLMConfig
-from nrse_tpu_torch.ops import block_attention, fused_dropout
+from nrse_tpu_torch.ops import block_attention, fused_dropout, philox
 from nrse_tpu_torch.ops.attention import (
     attention_keep_mask,
     gated_bias_attention,
@@ -230,9 +230,10 @@ def test_seeded_mask_is_k1_mask_at_the_attention_site():
     backward regenerates that mask."""
     t = 37
     (q, k, v, gate, bias), mask, _, cot = make_inputs(t, seed=5)
-    seed = TrainRNG(11, 3, 0).dropout_seed(2, SITE_ATTN)
+    pair = TrainRNG(11, 3, 0).dropout_seed(2, SITE_ATTN)
+    seed = philox.seed_tensor(pair)
     dump = fused_dropout.dump_dropout_mask(seed, (B, t, H * D), P_DROP)
-    keep = attention_keep_mask(seed, (B, H, t, D), P_DROP)
+    keep = attention_keep_mask(pair, (B, H, t, D), P_DROP)
     assert torch.equal(keep, dump.view(B, t, H, D).permute(0, 2, 1, 3))
 
     arrays = (q, k, v, gate, bias)
@@ -256,7 +257,8 @@ def test_lse_is_not_differentiable_and_long_sequences_raise():
     tensors = [torch.from_numpy(a).requires_grad_() for a in
                (q, k, v, gate, bias)]
     out, lse = block_attention.block_gated_attention_lse(
-        *tensors, torch.from_numpy(mask), p_drop=0.1, dropout_seed=(1, 2))
+        *tensors, torch.from_numpy(mask), p_drop=0.1,
+        dropout_seed=philox.seed_tensor((1, 2)))
     assert out.requires_grad and not lse.requires_grad
     with pytest.raises(ValueError, match="dropout_seed"):
         block_attention.block_gated_attention(*tensors, p_drop=0.1)

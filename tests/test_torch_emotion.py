@@ -117,7 +117,8 @@ def test_forward_matches_jax_for_every_task(pair, samples, frames):
     for task in ("categorical", "dimensional", "both"):
         with torch.no_grad():
             logits, dims = model(torch.from_numpy(x), torch.from_numpy(mask),
-                                 task, TrainRNG(7, 0))
+                                 task, TrainRNG(7, 0).with_table(
+                                     cfg.num_hidden_layers, "cpu"))
         assert (logits is None) == (task == "dimensional")
         assert (dims is None) == (task == "categorical")
         if logits is not None:
@@ -147,7 +148,8 @@ def test_losses_and_gradients_match_jax(pair, samples, frames):
     model.zero_grad()
     before = _counts()
     logits, dims = model(torch.from_numpy(x), torch.from_numpy(mask), "both",
-                         TrainRNG(7, 1))
+                         TrainRNG(7, 1).with_table(cfg.num_hidden_layers,
+                                                   "cpu"))
     loss = ce_weight_category(logits, torch.from_numpy(labels),
                               torch.from_numpy(WEIGHTS)) \
         + ccc_loss(dims, torch.from_numpy(avd))
@@ -195,7 +197,7 @@ def test_trunk_dropout_draws_from_the_head_stream(task):
         cfg, torch.Generator().manual_seed(1), HIDDEN))
     x, mask, _, _ = _batch(7680, 6)
     x, mask = torch.from_numpy(x), torch.from_numpy(mask)
-    rng = TrainRNG(7, 3)
+    rng = TrainRNG(7, 3).with_table(cfg.num_hidden_layers, "cpu")
     with torch.no_grad():
         logits, dims = model.train()(x, mask, task, rng)
         seq, _ = model.encoder(x, mask, rng)

@@ -16,6 +16,7 @@ import torch
 
 from nrse_tpu.ops.fused_dropout import hw_dropout_masked as jax_masked
 from nrse_tpu_torch.ops import fused_dropout as port
+from nrse_tpu_torch.ops import philox
 
 torch.set_num_threads(1)
 
@@ -52,7 +53,7 @@ def test_masked_matches_jax(dtype):
 
 def test_seeded_grad_is_dy_times_dumped_mask():
     x, dy, _ = _inputs((2, 37, 96), seed=1)
-    seed = (0xDEAD, 0xBEEF)
+    seed = philox.seed_tensor((0xDEAD, 0xBEEF))
     tx = torch.from_numpy(x).requires_grad_()
     out = port.hw_dropout(tx, seed, P)
     out.backward(torch.from_numpy(dy))
@@ -66,9 +67,10 @@ def test_seeded_grad_is_dy_times_dumped_mask():
 def test_zero_p_is_identity_and_cpu_launches_nothing():
     x = torch.randn(4, 8)
     before = (port.LAUNCHES, port.DUMP_LAUNCHES)
-    assert port.hw_dropout(x, (1, 2), 0.0) is x
-    port.hw_dropout(x, (1, 2), 0.5)
-    port.dump_dropout_mask((1, 2), (4, 8), 0.5)
+    seed = philox.seed_tensor((1, 2))
+    assert port.hw_dropout(x, seed, 0.0) is x
+    port.hw_dropout(x, seed, 0.5)
+    port.dump_dropout_mask(seed, (4, 8), 0.5)
     assert (port.LAUNCHES, port.DUMP_LAUNCHES) == before
     with pytest.raises(ValueError):
-        port.hw_dropout(x, (1, 2), 1.0)
+        port.hw_dropout(x, seed, 1.0)

@@ -21,6 +21,7 @@ from nrse_tpu.ops.fused_ffn import ROW_BLOCK
 from nrse_tpu.ops.fused_ffn import fused_ffn as jax_fused_ffn
 from nrse_tpu.ops.fused_ffn import fused_ffn_masked as jax_fused_ffn_masked
 from nrse_tpu_torch.ops import fused_ffn as port
+from nrse_tpu_torch.ops import philox
 
 torch.set_num_threads(1)
 
@@ -116,7 +117,7 @@ def test_seeded_grads_equal_masked_with_dumped_masks():
     x, w1, b1, w2, b2 = _params(c, f, n, seed=6)
     dout = torch.from_numpy(
         np.random.default_rng(7).standard_normal((n, c)).astype(np.float32))
-    seed = (11, 22)
+    seed = philox.seed_tensor((11, 22))
     grads = []
     for masked in (False, True):
         args = [torch.from_numpy(a).requires_grad_()

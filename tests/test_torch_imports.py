@@ -52,6 +52,7 @@ MODULES = [
     "nrse_tpu_torch.runtime.device",
     "nrse_tpu_torch.runtime.graphs",
     "nrse_tpu_torch.runtime.native",
+    "nrse_tpu_torch.runtime.staging",
     "nrse_tpu_torch.ops.rel_pos_bias",
     "nrse_tpu_torch.ops.attention",
     "nrse_tpu_torch.ops.block_attention",
@@ -80,6 +81,7 @@ MODULES = [
     "nrse_tpu_torch.train.checkpoint",
     "nrse_tpu_torch.train.early_stopping",
     "nrse_tpu_torch.train.losses",
+    "nrse_tpu_torch.train.step_graphs",
     "nrse_tpu_torch.data.loader",
     "nrse_tpu_torch.data.noisy_speech_dataset",
     "nrse_tpu_torch.eval.evaluate_byol",

@@ -157,19 +157,20 @@ def test_no_correlation_between_neighbours_in_a_group():
 # [N, W] tensor draws the whole tensor's mask there, bit for bit, through
 # the plain twins of K1, kernel A/K3 and kernel B/K2; the shards' results
 # put together are the whole call's.
-SEED, P = (0x1234, 0xBEEF), 0.3
+PAIR, P = (0x1234, 0xBEEF), 0.3
+SEED = philox.seed_tensor(PAIR)  # the kernels' form of the pair
 
 
 @pytest.mark.parametrize("c0,w", [(0, 8), (8, 8), (4, 12), (12, 4)])
 def test_window_mask_is_the_slice(c0, w):
-    whole = philox.dump_mask(SEED, 1, (3, 5, 16), P)
-    part = philox.dump_mask(SEED, 1, (3, 5, w), P, window=(16, c0))
+    whole = philox.dump_mask(PAIR, 1, (3, 5, 16), P)
+    part = philox.dump_mask(PAIR, 1, (3, 5, w), P, window=(16, c0))
     assert torch.equal(part, whole[..., c0:c0 + w])
-    assert torch.equal(philox.dump_mask(SEED, 1, (3, 5, 16), P,
+    assert torch.equal(philox.dump_mask(PAIR, 1, (3, 5, 16), P,
                                         window=(16, 0)), whole)
     for bad in ((16, 2), (14, 0), (16, 16 - w + 4)):
         with pytest.raises(ValueError):
-            philox.dump_mask(SEED, 1, (3, 5, w), P, window=bad)
+            philox.dump_mask(PAIR, 1, (3, 5, w), P, window=bad)
 
 
 def test_k1_window_is_the_slice():
@@ -204,11 +205,11 @@ def test_kernel_a_window_is_the_slice():
                                 dropout_seed=SEED)
     w = torch.randn(out.shape, generator=g)
     (out * w).sum().backward()
-    full = attention_keep_mask(SEED, (b, h, t, d), P)
+    full = attention_keep_mask(PAIR, (b, h, t, d), P)
     for h0 in (1, 2):
         hs = slice(h0, h0 + 2)
         assert torch.equal(
-            attention_keep_mask(SEED, (b, 2, t, d), P, window=(h * d, h0 * d)),
+            attention_keep_mask(PAIR, (b, 2, t, d), P, window=(h * d, h0 * d)),
             full[:, hs])
         qs, ks, vs = (x.detach()[:, hs].clone().requires_grad_()
                       for x in (q, k, v))

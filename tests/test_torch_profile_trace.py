@@ -76,3 +76,22 @@ def test_trace_without_one_timed_range_or_kernels_is_at_fault(ranges, fault):
     kernels, faults = chip_smoke._trace_faults(
         _trace(SPANS, ranges=ranges), 10.3)
     assert kernels == [] and faults == [fault]
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("event_ms,faults", [
+    (30.3, []),          # 20 ms of host work before the first launch: fine
+    (40.6, ["span"]),    # the same lead-in, every kernel at half its time
+])
+def test_host_lead_in_before_the_first_launch(event_ms, faults):
+    """The host's time from the timed range's start to its first launch
+    (a train step's staging) is read from the trace and not held against
+    the kernels' span."""
+    events = _trace([(ts + 20000.0, dur) for ts, dur in SPANS],
+                    ranges=((50.0, 40000.0),))
+    for e in events:
+        if e["cat"] in ("cuda_runtime", "cuda_driver"):
+            e["ts"] += 20000.0
+    kernels, got = chip_smoke._trace_faults(events, event_ms)
+    assert [k["name"] for k in kernels] == ["k0", "k1", "k2"]
+    assert ["span" for msg in got if "of CUDA events" in msg] == faults

@@ -127,7 +127,7 @@ def test_loss_and_gradients_match_jax_at_t_over_384(tiny_pair):
     model.zero_grad()
     before = (flash_attention.LAUNCHES, flash_attention.DQ_LAUNCHES)
     logits = model(torch.from_numpy(x), torch.from_numpy(mask),
-                   TrainRNG(7, 0))
+                   TrainRNG(7, 0).with_table(cfg.num_hidden_layers, "cpu"))
     loss = ce_weight_category(logits, torch.from_numpy(labels),
                               torch.from_numpy(WEIGHTS))
     loss.backward()

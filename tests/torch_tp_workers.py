@@ -77,7 +77,9 @@ def encoder_k5(rank, world, model, state_dict, waves, seed):
     enc.train()
     rows = shard_batch(mesh, {"x": waves})["x"]
     seq, _ = enc(torch.from_numpy(rows),
-                 rng=TrainRNG(seed, 3, 0, mesh.data_index, mesh.data))
+                 rng=TrainRNG(seed, 3, 0, mesh.data_index,
+                              mesh.data).with_table(cfg.num_hidden_layers,
+                                                    "cpu"))
     w = torch.linspace(-1.0, 1.0, seq.numel()).view(seq.shape)
     (seq * w).sum().backward()
     grads = gather_state_dict({k: p.grad for k, p in enc.named_parameters()},

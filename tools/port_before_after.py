@@ -19,7 +19,8 @@ the newer commit:
 
 (``chip_smoke.py`` is copied because the newer one holds both halves to
 the same checks and timings; the earlier package provides every module it
-imports).  On the newer tree itself, ``python3 -c "import sys;
+imports, so it must take the same arguments: since the kernels read their
+dropout seeds from device tensors, an earlier commit must have them too).  On the newer tree itself, ``python3 -c "import sys;
 sys.path.insert(0, 'tools'); import port_before_after;
 sys.exit(port_before_after.main())"`` runs the same phases, for a parent,
 tree, tree, parent comparison in one call.  Phase names on the command
