@@ -138,7 +138,11 @@ not 0:
      the layers each tower ran imply (attention on kernel A in both towers
      and K3 in the online tower's backward); prints s/step,
      audio-sec/sec, peak memory and a ``torch.profiler`` breakdown of a
-     step's device time; then the eval step once; then a
+     step's device time; then the eval step once, and the eval and embed
+     steps from their programs (``runtime.graphs.ProgramCache`` of
+     ``(clean, noise, snr)``, captured at their first call) against the
+     eager steps: every output bit for bit, no wrapper launch in a replay,
+     the towers' modes kept, ms a batch in turns; then a
      cross-check at 4 layers and batch 2, random features off, bf16 on the
      card against float32 on the CPU (loss, grad_norm ratio, gradient
      cosine ≥ 0.99);
@@ -179,13 +183,24 @@ not 0:
      and depth (seeded weights), batch 32 × 10 s (499 frames; every fourth
      clip shorter and masked), lr 5e-6, k = 4, dropout, LayerDrop,
      SpecAugment and the head's dropout on, end to end and with the
-     encoder frozen: a warm-up cycle of 4 micro-steps and one K4 update,
-     then a timed one (s per micro-step, audio-sec/sec, peak memory)
-     whose launches must equal what the layers run imply (K5's forward,
-     dq and dk/dv on every layer run end to end, no K5 backward frozen);
-     frozen, the encoder's weights must equal p·(1 − lr·wd) after the
-     update; a ``torch.profiler`` breakdown of one e2e micro-step (the
-     copies group split by source); then a cross-check at 1 layer and
+     encoder frozen: an eager twin (``graphs=False``) runs two cycles of 4
+     micro-steps and a K4 update each, the second's launches equal to
+     what the layers run imply (K5's forward, dq and dk/dv on every layer
+     run end to end, no K5 backward frozen), s per micro-step and peak
+     memory; frozen, the encoder's weights equal p·(1 − lr·wd) after the
+     update; its memory freed, a state from the same weights runs the
+     captured micro-step (``train.step_graphs``, captured at its first
+     micro-step: K5's backward inside end to end, the apply part on every
+     fourth) over the same two cycles: every loss, the gradient mean
+     mid-cycle and at the end, params, mu and nu equal to the twin's bit
+     for bit, with layers dropped among them; a replayed cycle launches no
+     wrapper; s per micro-step by the host clock and CUDA events, replayed
+     and eager in turns on one state, each form's peak, the capture's
+     seconds and reserved memory; a replayed cycle's launches of K5 (its
+     forward, dq, dk/dv), K6, K7, K1 and K4 read from its trace
+     (calibrated by an eager cycle's), as the kept layers imply; both
+     forms' device time by group (the copies split by source) and busy
+     share; then a cross-check at 1 layer and
      batch 2, dropout off, at 5 seeds, bf16 on the card against float32
      on the CPU: the card's encoder, given float32's loss gradient at its
      output, gives a parameter gradient of cosine ≥ 0.99 with float32's
@@ -193,9 +208,12 @@ not 0:
  14. the fine-tune's entry point — ``train_ft_cat_ser.main`` on a
      synthetic corpus under ``build/`` (24 train and 8 dev WAVs of
      3–12 s, a one-hot CSV), WavLM-large at full width cut to 2 layers,
-     batch 8, k = 2: one epoch frozen, one end to end, then
-     ``eval_cat_ser.main`` on the ``final_model`` it wrote: every dev file
-     scored; prints the data-fed s per micro-step;
+     batch 8, k = 2: one epoch frozen, one end to end, captured (the
+     default) and again eager (``graphs=False``): both runs' dev losses
+     and ``final_model`` bit for bit, the captured run's dev batch replayed
+     from the program its run built; the eager run's launches as the
+     layers imply; then ``eval_cat_ser.main`` on the ``final_model`` it
+     wrote: every dev file scored; prints the data-fed s per micro-step;
  15. the SER trainers' step — ``train.emotion_trainer.
      make_emotion_train_step("both")`` on an ``EmotionClassifier``
      (WavLM-large at full width and depth + ASP + the shared, categorical
@@ -254,9 +272,13 @@ not 0:
      ``BYOLSpeechModel`` state dict of seeded weights at full width
      (``models.export_torch.byol_state_dicts_to_reference``) through
      ``models.convert.reference_byol_to_state_dicts``: the weights back
-     bit for bit; ``WavLMEncoder`` on the bridged online encoder equal to
-     ``WavLMModel`` loaded directly on the card, bit for bit, its launches
-     and ms a batch at 8 × 5 s; at 2 layers, ``save_reference_byol_
+     bit for bit; ``WavLMEncoder`` on the bridged online encoder, its
+     forward from its programs (one a shape and mask kind), equal to
+     ``WavLMModel`` loaded directly and run eagerly on the card, hidden
+     state and pooled, with the mask and without, bit for bit; no wrapper
+     launch in a replay, the eager forward's launches, ms a batch in turns
+     at 8 × 5 s, a replay's launches from its trace; at 2 layers,
+     ``save_reference_byol_
      checkpoint`` writes a ``.pt`` under ``build/`` that
      ``train_emotion.main`` (``emotion.encoder_checkpoint``) trains from
      for one step, its frozen encoder equal to the ``.pt``'s; then
@@ -325,7 +347,8 @@ whole-encoder SER step's) K6's and K7's backward as often.  The line before the 
 JSON record (launches: kernels A and B from the serving phase, counted
 at capture × the replays, K1, K2, K3
 and K4 from the training phase, K5 from the SER evaluation, K5's backward,
-K6 and K7 from the fine-tune step, end to end);
+K6 and K7 from the trace of a replayed end-to-end cycle of the fine-tune
+step);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.
 """
@@ -2111,7 +2134,56 @@ def phase_training(cfg=None, device=torch.device("cuda"),
         raise RuntimeError("bad eval step output")
     log(f"[eval] loss {float(loss.mean()):.6f}, clean-noisy cosine "
         f"{float(sim.mean()):.6f} (mean over {batch})")
+    byol_eval_replays(state, data, device)
     return counts
+
+
+def byol_eval_replays(state, data, device) -> None:
+    """The BYOL eval step and its embed form (``make_byol_eval_step(
+    embeddings=True)``) from their programs (captured at their first call
+    on the card) against the eager step (``graphs=False``) on the same
+    batch: every output bit for bit, no wrapper launch in a replay, the
+    towers' modes as before; the eval step's ms a batch by the host clock,
+    replayed and eager in turns."""
+    captures = device.type == "cuda"
+    modes = [m.training for tower in (state.online, state.target)
+             for m in tower.modules()]
+    for embeddings in (False, True):
+        replayed = make_byol_eval_step(embeddings)
+        eager = make_byol_eval_step(embeddings, graphs=False)
+        replayed(state, data)  # the capture
+        sync(device)
+        _reset_counts()
+        got = replayed(state, data)
+        sync(device)
+        counts = _train_counts()
+        want = eager(state, data)
+        same = len(got) == len(want) and all(
+            torch.equal(g, w) for g, w in zip(got, want))
+        cache = state.programs[embeddings]
+        timing = ""
+        if not embeddings:
+            ms = {"replayed": [], "eager": []}
+            for form in ("eager", "replayed", "replayed", "eager"):
+                ms[form].append(_host_ms(
+                    lambda: (replayed if form == "replayed" else eager)(
+                        state, data), device, 3))
+            timing = ("; ms a batch in turns, replayed "
+                      + ", ".join(f"{t:.1f}" for t in ms["replayed"])
+                      + ", eager " + ", ".join(f"{t:.1f}" for t in ms["eager"]))
+        log(f"[eval] the {'embed' if embeddings else 'eval'} step's replay "
+            f"= its eager form bit for bit ({len(got)} outputs): {same}; "
+            f"programs captured {cache.captured}; wrapper launches in a "
+            f"replay {sum(counts.values())}" + timing)
+        if not same or (captures and (any(counts.values())
+                                      or cache.captured != 1)):
+            raise RuntimeError(f"BYOL eval step (embeddings {embeddings}): "
+                               f"replay = eager {same}, launches {counts}, "
+                               f"captured {cache.captured}")
+    after = [m.training for tower in (state.online, state.target)
+             for m in tower.modules()]
+    if after != modes:
+        raise RuntimeError("the BYOL eval step changed the towers' modes")
 
 
 def _crosscheck_step(cfg, sd, batch: int, heads_on_batch_stats: bool):
@@ -3281,7 +3353,7 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             # launches are one replay's of each bucket, read from a trace
             # (replay_launches), times the bucket's replays
             load_want = launches_of({f: 2 for f, _ in plan.values()})
-            replays = {plan[k[1]][0]: n for k, n in seen["replays"].items()
+            replays = {plan[k[0][1]][0]: n for k, n in seen["replays"].items()
                        if n}
             if seen["load"] != load_want or any(seen["loop"].values()) or \
                     replays != {f: n for f, n in plan.values()}:
@@ -3295,7 +3367,7 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
                 if not n:
                     continue
                 one = replay_launches(cache.forward, cache.programs[key])
-                log(f"[ser] bucket {key[1] / SAMPLE_RATE:g} s: a replay's "
+                log(f"[ser] bucket {key[0][1] / SAMPLE_RATE:g} s: a replay's "
                     f"launches by trace {one}, {n} replays")
                 for k, v in one.items():
                     launches[k] += v * n
@@ -3340,9 +3412,9 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
         if device.type == "cuda":
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-        programs.prepare((batch, blen) for blen in plan)
+        programs.prepare(((batch, blen),) * 2 for blen in plan)
         for blen in plan:
-            program = programs.program(batch, blen)
+            program = programs.program((batch, blen), (batch, blen))
             chunk = [w for e, w in loaded if bucket_length(len(w)) == blen]
             x = np.zeros((batch, blen), np.float32)
             m = np.zeros((batch, blen), np.float32)
@@ -3556,15 +3628,18 @@ def check_group(times: dict, group: str) -> None:
 
 
 def profile_device(run, label: str, iters: int = 3,
-                   weight_shapes=frozenset()) -> None:
+                   weight_shapes=frozenset(), sources: bool = True) -> list:
     """Device time of ``run()`` (which ends waiting for the card) by kernel
     group, from the CUDA kernels of a checked ``torch.profiler`` trace over
     ``iters`` calls after one warm-up (:func:`traced_kernels`); and the
-    card's busy share of the host clock over them.  The copies group is
-    also split by source (``copy_sources``; ``weight_shapes`` are the
-    model's parameter shapes)."""
+    card's busy share of the host clock over them.  With ``sources`` the
+    copies group is also split by source (``copy_sources``;
+    ``weight_shapes`` are the model's parameter shapes; a replay runs no
+    host op to attribute them to, so its trace goes without).  Returns the
+    traced calls' kernels."""
     run()
-    events, kernels, wall = traced_kernels(run, iters, _CopySources)
+    events, kernels, wall = traced_kernels(run, iters,
+                                           _CopySources if sources else None)
     groups, copies = {}, []
     for e in kernels:
         name = group_of(e["name"])
@@ -3577,6 +3652,8 @@ def profile_device(run, label: str, iters: int = 3,
         f"(busy {busy / (wall / iters * 1e3):.3f}); by group: " + ", ".join(
             f"{g} {t:.1f} ms ({t / busy:.1%})" for g, t in
             sorted(groups.items(), key=lambda kv: -kv[1])))
+    if not sources:
+        return kernels
     sources = copy_sources(events, copies, weight_shapes)
     split = {}
     for e in copies:
@@ -3585,6 +3662,7 @@ def profile_device(run, label: str, iters: int = 3,
     log(f"{label}: {COPIES} by source: " + ", ".join(
         f"{s} {t:.1f} ms ({t / busy:.1%} of device time)"
         for s, t in sorted(split.items(), key=lambda kv: -kv[1])))
+    return kernels
 
 
 class _PlainVersions:
@@ -3725,6 +3803,49 @@ def _ft_counts() -> dict:
             **_train_counts()}
 
 
+# the wrapper counts a replayed fine-tune cycle's trace is read for: each
+# by the kernels only its entry launches (first match; the dq entry's
+# pre-pass and fold come with its dq kernel, K6's backward row LayerNorm
+# and fold with its dx kernel)
+FT_TRACED = (("flash_attention_bwd_dq", "flash_attention_bwd_dq"),
+             ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv"),
+             ("flash_attention_fwd", "flash_attention_fwd"),
+             ("fused_frontend_fwd", "k6_fwd"),
+             ("fused_frontend_bwd", "k6_dx"),
+             ("channel_layernorm_fwd", "ln_row_fwd"),
+             ("channel_layernorm_bwd", "K7RowSource"),
+             ("fused_dropout", "dropout_kernel"),
+             ("fused_adamw_ema", "adamw_ema"))
+
+
+def _ft_kernel(name: str) -> str:
+    """The wrapper of :data:`FT_TRACED` whose kernels ``name`` is one of
+    (first match), else "other"."""
+    import re
+
+    return next((w for w, pat in FT_TRACED if re.search(pat, name)),
+                "other")
+
+
+def _ft_want(cfg, keeps, freeze: bool) -> dict:
+    """The launches of fine-tune micro-steps whose LayerDrop keep lists are
+    given: K5's forward and kernel B on every layer run, K5's dq and dk/dv
+    and K2 on them end to end, K1 at the encoder site and each layer's
+    attention-output and hidden sites (again in the backward end to end),
+    K4 on the k-th, the frontend's forward (and backward end to end)."""
+    steps, layers = len(keeps), sum(sum(k) for k in keeps)
+    backward = 0 if freeze else layers
+    return {"flash_attention_fwd": layers,
+            "flash_attention_bwd_dq": backward,
+            "flash_attention_bwd_dkv": backward,
+            "block_attention_fwd": 0, "block_attention_bwd": 0,
+            "fused_ffn_fwd": layers, "fused_ffn_bwd_dx": backward,
+            "fused_ffn_bwd_dw": backward,
+            "fused_dropout": (1 if freeze else 2) * (steps + 2 * layers),
+            "fused_adamw_ema": 1,
+            **frontend_want(cfg, steps, 0 if freeze else steps)}
+
+
 def phase_ft_step(cfg=None, device=torch.device("cuda"),
                   batch: int = FT_BATCH,
                   clip_seconds: float = FT_CLIP_SECONDS,
@@ -3732,76 +3853,109 @@ def phase_ft_step(cfg=None, device=torch.device("cuda"),
                   head_dim: int = 1024) -> dict:
     """The SER fine-tune's micro-step at full width with the JAX defaults
     (lr 5e-6, k = 4, the encoder's dropout, LayerDrop and SpecAugment, the
-    head's dropout 0.5), end to end and frozen: a warm-up cycle of ``k``
-    micro-steps and one K4 update, then a timed one whose launches must
-    equal what the layers run imply.  Frozen, the encoder's weights must
-    move by the decay alone.  Returns the end-to-end cycle's launches.
-    Its arguments let it be rehearsed at a small width on the CPU."""
+    head's dropout 0.5), end to end and frozen.  First the eager form
+    (``graphs=False``) runs two cycles of ``k`` micro-steps (two K4
+    updates): the second's launches must equal what the layers run imply,
+    and frozen, the encoder's weights must move by the decay alone; its
+    losses, its gradient mean mid-cycle and its final parameters, mean and
+    moments are kept, and its activations freed.  Then the same state, put
+    back at step 0, runs the captured micro-step (``train.step_graphs``:
+    captured at its first micro-step, K5's backward inside end to end, the
+    apply part replayed on every k-th) over the same two cycles: every
+    loss, the mean mid-cycle and at the end, the moments and the
+    parameters equal the eager form's bit for bit, with a layer dropped
+    among them.  Then a replayed cycle launches no wrapper; s per
+    micro-step by the host clock and CUDA events, replayed and eager in
+    turns, each form's peak above the state, the capture's seconds and the
+    memory it reserved; a replayed cycle's launches read from its trace
+    (calibrated by an eager cycle's), whose profiles give both forms'
+    device time by group and busy share.  Returns the e2e run's launches:
+    on the card those of the replayed cycle's trace, elsewhere the eager
+    form's counts.  Its arguments let it be rehearsed at a small width on
+    the CPU, where nothing is captured and both forms are eager."""
     cfg = cfg or WavLMConfig.large()
     weights = torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device)
     data = _ft_batches(accumulation, batch, clip_seconds, device, SEED + 12)
     frames = int(cfg.feature_lengths(data[0]["input_values"].shape[1]))
     spec = train_ft_cat_ser.adamw_spec(FT_LR)
-    e2e_counts = None
+    captures = device.type == "cuda"
+    k, gib = accumulation, 2 ** 30
+    e2e = None
+    # one state for every run, put back at step 0 before each: the weights
+    # it started from, the mean and the moments zero, no graphs
+    state = _ft_state(cfg, device, SEED + 12, head_dim)
+    p0 = state.params.clone()
+
+    def restart():
+        state.graphs = None
+        with torch.no_grad():
+            state.params.copy_(p0)
+            for t in (state.grads, state.acc, state.mu, state.nu):
+                t.zero_()
+        state.count = state.mini_step = 0
+        sync(device)
+        if captures:
+            torch.cuda.empty_cache()
+
     for freeze in (False, True):
         mode = "frozen" if freeze else "e2e"
-        state = _ft_state(cfg, device, SEED + 12, head_dim)
-        step = train_ft_cat_ser.make_train_step(spec, accumulation, freeze,
-                                                weights)
-        micro = [0]
 
-        def cycle():
-            losses, layers = [], 0
-            for b in data:
-                losses.append(step(state, b, TrainRNG(SEED, micro[0])))
-                micro[0] += 1
-                layers += state.model.ssl.encoder.layers_run
-            return losses, layers
+        def keeps_of(st, first):
+            return [st.model.ssl.encoder.layer_keep(TrainRNG(SEED, first + j))
+                    for j in range(k)]
 
-        losses, _ = cycle()  # warm-up, one K4 update
-        if not all(bool(torch.isfinite(x)) for x in losses):
+        def cycle(st, step, first, mid=None):
+            """One cycle of ``k`` micro-steps from micro-step ``first``:
+            the losses; ``mid[0]`` the mean before the last one (a copy
+            on the card: a copy to the host would wait inside the timed
+            cycle)."""
+            losses = []
+            for j, b in enumerate(data):
+                losses.append(step(st, b, TrainRNG(SEED, first + j)))
+                if mid is not None and j == k - 2:
+                    mid.append(st.acc.clone())
+            return losses
+
+        # the eager form: two cycles, the second's launches counted
+        restart()
+        twin = state
+        step_e = train_ft_cat_ser.make_train_step(spec, k, freeze, weights,
+                                                  graphs=False)
+        keeps = keeps_of(twin, 0) + keeps_of(twin, k)
+        want_losses = [x.cpu() for x in cycle(twin, step_e, 0)]
+        if not all(bool(torch.isfinite(x)) for x in want_losses):
             raise RuntimeError(f"fine-tune {mode}: non-finite warm-up loss")
-        ssl_before = state.params[:state.n_ssl].clone() if freeze else None
+        ssl_before = twin.params[:twin.n_ssl].clone() if freeze else None
         sync(device)
-        if device.type == "cuda":
+        if captures:
             torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        losses, layers = cycle()
+        want_mid = []
+        losses = cycle(twin, step_e, k, want_mid)
         sync(device)
-        dt = (time.perf_counter() - t0) / accumulation
+        dt = (time.perf_counter() - t0) / k
         counts = _ft_counts()
-        losses = [float(x) for x in losses]
-        backward = 0 if freeze else layers
-        want = {"flash_attention_fwd": layers,
-                "flash_attention_bwd_dq": backward,
-                "flash_attention_bwd_dkv": backward,
-                "block_attention_fwd": 0, "block_attention_bwd": 0,
-                "fused_ffn_fwd": layers, "fused_ffn_bwd_dx": backward,
-                "fused_ffn_bwd_dw": backward,
-                # the encoder site and each layer's attention-output and
-                # hidden sites, again in the backward end to end
-                "fused_dropout": (1 if freeze else 2) * (accumulation
-                                                         + 2 * layers),
-                "fused_adamw_ema": 1,
-                **frontend_want(cfg, accumulation,
-                                0 if freeze else accumulation)}
-        log(f"[ft] {mode}: {cfg.num_hidden_layers} layers x "
+        want_losses += [x.cpu() for x in losses]
+        want = _ft_want(cfg, keeps[k:], freeze)
+        layers = sum(sum(kp) for kp in keeps[k:])
+        log(f"[ft] {mode}, eager: {cfg.num_hidden_layers} layers x "
             f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s "
-            f"({frames} frames), k = {accumulation}: {dt:.4f} s per "
-            f"micro-step, {batch * clip_seconds / dt:.1f} audio-sec/sec; "
-            f"losses {[round(x, 6) for x in losses]}; layers run {layers}; "
+            f"({frames} frames), k = {k}: {dt:.4f} s per micro-step, "
+            f"{batch * clip_seconds / dt:.1f} audio-sec/sec; losses "
+            f"{[round(float(x), 6) for x in losses]}; layers run {layers}; "
             f"launches {counts} (want {want})")
-        if not all(np.isfinite(losses)) or counts != want:
+        if not all(bool(torch.isfinite(x)) for x in losses) or \
+                counts != want:
             raise RuntimeError(f"fine-tune {mode}: losses {losses}, "
                                f"launches {counts} != {want}")
-        if device.type == "cuda":
-            log(f"[ft] {mode}: peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if captures:
+            log(f"[ft] {mode}, eager: peak device memory "
+                f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB")
         if freeze:  # AdamW's decoupled decay alone: p · (1 − lr · wd)
             with torch.no_grad():
                 want_p = ssl_before * (1.0 - FT_LR * spec.weight_decay)
-                err = float((state.params[:state.n_ssl] - want_p).abs().max()
+                err = float((twin.params[:twin.n_ssl] - want_p).abs().max()
                             / want_p.abs().max())
             log(f"[ft] frozen: ssl after the update vs p·(1 − lr·wd): "
                 f"max|Δ|/max|p| {err:.3e}")
@@ -3809,17 +3963,138 @@ def phase_ft_step(cfg=None, device=torch.device("cuda"),
                 raise RuntimeError(f"frozen ssl weights moved by more than "
                                    f"the decay: {err}")
             del ssl_before, want_p
-        else:
-            e2e_counts = counts
-            if device.type == "cuda":
-                profile_device(lambda: (step(state, data[0],
-                                             TrainRNG(SEED, micro[0])),
-                                        sync(device)),
-                               f"[ft] e2e micro-step, batch {batch}",
-                               iters=2,
-                               weight_shapes=_param_shapes(state.model))
-        del state, step
-    return e2e_counts
+        final = {name: getattr(twin, name).clone()
+                 for name in ("params", "acc", "mu", "nu")}
+        del twin, step_e, losses
+        restart()  # the eager form's memory goes before the capture
+        if captures:
+            reserved = torch.cuda.memory_reserved()
+
+        # the captured micro-step over the same two cycles, bit for bit
+        step_c = train_ft_cat_ser.make_train_step(spec, k, freeze, weights)
+        got_losses = [step_c(state, data[0], TrainRNG(SEED, 0))]
+        if captures:
+            sync(device)
+            torch.cuda.empty_cache()
+            pool = (torch.cuda.memory_reserved() - reserved) / gib
+            graphs = state.graphs
+            log(f"[ft] {mode}: captured in {graphs.capture_s:.2f} s "
+                f"({len(graphs.graphs)} graphs); the memory it reserved "
+                f"(pool, static buffers, the staged inputs) {pool:.2f} GiB")
+            if len(graphs.graphs) != 2 + cfg.num_hidden_layers * (
+                    1 if freeze else 2) + (0 if freeze else 1) + 2:
+                raise RuntimeError(f"fine-tune {mode}: {len(graphs.graphs)} "
+                                   f"parts captured")
+        for j, b in enumerate(data[1:], 1):
+            got_losses.append(step_c(state, b, TrainRNG(SEED, j)))
+        got_mid = []
+        sync(device)
+        _reset_counts()  # the second cycle replays: no wrapper launches
+        got_losses += cycle(state, step_c, k, got_mid)
+        sync(device)
+        counts = _ft_counts()
+        differ = [i for i, (g, w) in enumerate(zip(got_losses, want_losses))
+                  if not torch.equal(g.cpu(), w)]
+        differ += [name for name, w in final.items()
+                   if not torch.equal(getattr(state, name), w)]
+        if not torch.equal(got_mid[0], want_mid[0]):
+            differ.append("acc mid-cycle")
+        dropped = sum(len(kp) - sum(kp) for kp in keeps)
+        log(f"[ft] {mode}: captured = eager over {2 * k} micro-steps (2 K4 "
+            f"updates; {dropped} layers dropped by LayerDrop): every loss, "
+            f"the mean mid-cycle, params, acc, mu, nu bit for bit: "
+            f"{not differ}; wrapper launches over the second, replayed "
+            f"cycle {sum(counts.values())}")
+        if differ or not dropped or (captures and any(counts.values())):
+            raise RuntimeError(f"fine-tune {mode}: captured and eager differ "
+                               f"in {differ}; {dropped} layers dropped; "
+                               f"launches in a replayed cycle {counts}")
+        del final, want_mid, got_mid
+
+        # s per micro-step in turns on one state, by the host clock and by
+        # CUDA events, each form's peak above the state and its graphs
+        step_t = train_ft_cat_ser.make_train_step(spec, k, freeze, weights,
+                                                  graphs=False)
+        first = [2 * k]
+        times, peaks = {"replayed": [], "eager": []}, {}
+        for form in ("eager", "replayed", "replayed", "eager"):
+            run = step_c if form == "replayed" else step_t
+            sync(device)
+            if captures:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            cycle(state, run, first[0])
+            if captures:
+                end.record()
+            sync(device)
+            first[0] += k
+            host = (time.perf_counter() - t0) / k
+            ev = start.elapsed_time(end) / k / 1e3 if captures \
+                else float("nan")
+            times[form].append((host, ev))
+            if captures:
+                peaks[form] = max(peaks.get(form, 0.0), (
+                    torch.cuda.max_memory_allocated() - base) / gib)
+        log(f"[ft] {mode}: s per micro-step by the host clock, in turns, "
+            f"replayed " + ", ".join(f"{h:.4f}" for h, _ in times["replayed"])
+            + ", eager " + ", ".join(f"{h:.4f}" for h, _ in times["eager"])
+            + "; by CUDA events replayed "
+            + ", ".join(f"{e:.4f}" for _, e in times["replayed"])
+            + ", eager " + ", ".join(f"{e:.4f}" for _, e in times["eager"])
+            + f"; {batch * clip_seconds / min(h for h, _ in times['replayed']):.1f}"
+            f" audio-sec/sec replayed; peak allocated above the state "
+            "and graphs " + ", ".join(f"{f} {v:.2f} GiB"
+                                      for f, v in peaks.items()))
+
+        traced = counts
+        if captures:
+            # a replayed cycle's launches from its trace, calibrated by an
+            # eager cycle's trace
+            def at():
+                return first[0]
+
+            def replay():
+                cycle(state, step_c, at())
+                first[0] += k
+
+            def eager():
+                cycle(state, step_t, at())
+                first[0] += k
+
+            shapes = _param_shapes(state.model)
+
+            def profile(call, form):  # its breakdown and busy share too
+                return profile_device(
+                    call, f"[ft] {mode} cycle of {k} micro-steps, {form}, "
+                    f"batch {batch}", iters=1, weight_shapes=shapes,
+                    sources=form == "eager")
+
+            traced, cycle_keeps = _replayed_launches(
+                replay, eager, lambda: keeps_of(state, at()),
+                {w: w for w, _ in FT_TRACED}, _ft_kernel, _ft_counts,
+                "fine-tune cycle", profile)
+            want = {w: v for w, v in _ft_want(cfg, cycle_keeps,
+                                              freeze).items()
+                    if w in traced}
+            log(f"[ft] {mode}: a replayed cycle's launches from its trace "
+                f"{traced} (want {want}: "
+                f"{sum(len(kp) - sum(kp) for kp in cycle_keeps)} layers "
+                f"dropped)")
+            if traced != want:
+                raise RuntimeError(f"fine-tune {mode}: replayed launches "
+                                   f"{traced} != {want}")
+        if not freeze:
+            e2e = traced
+        del step_c, step_t
+    del state, p0
+    sync(device)
+    if captures:
+        torch.cuda.empty_cache()
+    return e2e
 
 
 FT_CROSSCHECK_SEEDS = (13, 21, 22, 23, 24)
@@ -3834,9 +4109,11 @@ def _ft_crosscheck_step(cfg, device, seed: int, batch: int):
                        SEED + seed)[0]
     data = {k: v.to(device) for k, v in data.items()}
     state = _ft_state(cfg, device, SEED + seed, dropout=0.0)
+    # the eager step: its forward hooks see the encoder's output
     step = train_ft_cat_ser.make_train_step(
         train_ft_cat_ser.adamw_spec(FT_LR), 1, False,
-        torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device))
+        torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device),
+        graphs=False)
     seqs = []
 
     def keep(module, inputs, out):
@@ -3940,6 +4217,12 @@ def _write_ft_corpus(root: str, n_train: int, n_dev: int, lo: float,
     return config, label_list
 
 
+def _final_model(model_path: str) -> dict:
+    """The tensors a fine-tune saved as ``final_model``."""
+    return torch.load(os.path.join(model_path, "final_model", "state.pt"),
+                      map_location="cpu", weights_only=True)["tensors"]
+
+
 def phase_ft_entry(device=torch.device("cuda"),
                    model_name: str = "microsoft/wavlm-large",
                    layers: int = ENTRY_LAYERS, n_train: int = 24,
@@ -3949,62 +4232,97 @@ def phase_ft_entry(device=torch.device("cuda"),
                    head_dim: int = 1024) -> None:
     """``train_ft_cat_ser.main`` on a synthetic corpus under ``build/``,
     one epoch frozen, then one end to end into the same model directory,
-    then ``eval_cat_ser.main`` on the ``final_model`` it wrote.  Its
-    arguments let it be rehearsed at a small width on the CPU."""
+    captured (the default) and again eager (``graphs=False``) into a
+    second: both ``final_model``s and dev losses equal bit for bit, the
+    captured run's dev batches replayed from one program built for the
+    run; then ``eval_cat_ser.main`` on the captured run's
+    ``final_model``.  Its arguments let it be rehearsed at a small width on
+    the CPU."""
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke_ft_", dir=cuda_build.BUILD_DIR)
+    captures = device.type == "cuda"
     try:
         config, label_list = _write_ft_corpus(root, n_train, n_dev, lo, hi)
-        model_path = os.path.join(root, "model")
-        args = ["--config", config, "--model_path", model_path,
-                "--epochs", "1", "--batch_size", str(batch),
-                "--accumulation_steps", str(accumulation),
-                "--head_dim", str(head_dim), "--model_name", model_name,
-                "--num_hidden_layers", str(layers),
-                "--max_seconds", str(max_seconds),
-                "--device", device.type]
-        for freeze in ("true", "false"):
-            sync(device)
-            _reset_counts()
-            result = train_ft_cat_ser.main(args + ["--freeze_ssl", freeze])
-            sync(device)
-            counts = _ft_counts()
-            (epoch,) = result["epochs"]
-            width = result["state"].model.encoder_config.hidden_size
-            log(f"[ft entry] --freeze_ssl {freeze}: WavLM {layers} layers "
-                f"(depth cut) x {width}, batch {batch}, k = {accumulation}: "
-                f"train loss {epoch['train_loss']:.6f}, dev loss "
-                f"{epoch['dev_loss']:.6f}; "
-                f"{epoch['steps']} data-fed micro-steps at "
-                f"{epoch['s_per_step']:.4f} s each "
-                f"({epoch['audio_sec_per_sec']:.1f} audio-sec/sec); "
-                f"launches {counts}")
-            backward = counts["flash_attention_bwd_dq"]
-            frontend = counts["fused_frontend_bwd"]
-            # K6 and K7 per encoder backward
-            per = frontend_want(result["state"].model.encoder_config, 1, 1)
-            ok = (np.isfinite(epoch["train_loss"])
-                  and np.isfinite(epoch["dev_loss"])
-                  and counts["flash_attention_fwd"] > 0
-                  and counts["fused_frontend_fwd"] > 0
-                  and counts["channel_layernorm_fwd"] > 0
-                  and counts["fused_adamw_ema"] == epoch["steps"]
-                  // accumulation
-                  and backward == counts["flash_attention_bwd_dkv"]
-                  and (backward == 0) == (freeze == "true")
-                  and (frontend == 0) == (freeze == "true")
-                  and counts["channel_layernorm_bwd"]
-                  * per["fused_frontend_bwd"]
-                  == frontend * per["channel_layernorm_bwd"])
-            if not ok:
-                raise RuntimeError(f"fine-tune entry point: {epoch}, "
-                                   f"launches {counts}")
-            del result
-        for path in ("train_norm_stat.pkl", "final_model/state.pt"):
-            if not os.path.isfile(os.path.join(model_path, path)):
-                raise RuntimeError(f"fine-tune entry point: no {path}")
+        paths = {form: os.path.join(root, f"model_{form}")
+                 for form in ("captured", "eager")}
+        dev_losses = {}
+        for form, model_path in paths.items():
+            args = ["--config", config, "--model_path", model_path,
+                    "--epochs", "1", "--batch_size", str(batch),
+                    "--accumulation_steps", str(accumulation),
+                    "--head_dim", str(head_dim), "--model_name", model_name,
+                    "--num_hidden_layers", str(layers),
+                    "--max_seconds", str(max_seconds),
+                    "--device", device.type]
+            for freeze in ("true", "false"):
+                sync(device)
+                _reset_counts()
+                result = train_ft_cat_ser.main(
+                    args + ["--freeze_ssl", freeze],
+                    graphs=form == "captured")
+                sync(device)
+                counts = _ft_counts()
+                (epoch,) = result["epochs"]
+                dev_losses[form, freeze] = epoch["dev_loss"]
+                width = result["state"].model.encoder_config.hidden_size
+                dev = result["dev_forward"]
+                replays = sum(p.replays for p in getattr(
+                    dev, "programs", {}).values())
+                log(f"[ft entry] {form}, --freeze_ssl {freeze}: WavLM "
+                    f"{layers} layers (depth cut) x {width}, batch {batch}, "
+                    f"k = {accumulation}: train loss "
+                    f"{epoch['train_loss']:.6f}, dev loss "
+                    f"{epoch['dev_loss']:.6f}; {epoch['steps']} data-fed "
+                    f"micro-steps at {epoch['s_per_step']:.4f} s each "
+                    f"({epoch['audio_sec_per_sec']:.1f} audio-sec/sec); "
+                    f"dev programs captured "
+                    f"{getattr(dev, 'captured', 0)}, replays {replays}; "
+                    f"launches {counts}")
+                ok = (np.isfinite(epoch["train_loss"])
+                      and np.isfinite(epoch["dev_loss"]))
+                if form == "eager" or not captures:
+                    backward = counts["flash_attention_bwd_dq"]
+                    frontend = counts["fused_frontend_bwd"]
+                    # K6 and K7 per encoder backward
+                    per = frontend_want(
+                        result["state"].model.encoder_config, 1, 1)
+                    ok = ok and (
+                        counts["flash_attention_fwd"] > 0
+                        and counts["fused_frontend_fwd"] > 0
+                        and counts["channel_layernorm_fwd"] > 0
+                        and counts["fused_adamw_ema"] == epoch["steps"]
+                        // accumulation
+                        and backward == counts["flash_attention_bwd_dkv"]
+                        and (backward == 0) == (freeze == "true")
+                        and (frontend == 0) == (freeze == "true")
+                        and counts["channel_layernorm_bwd"]
+                        * per["fused_frontend_bwd"]
+                        == frontend * per["channel_layernorm_bwd"])
+                else:  # the captures' launches; the replays launch none
+                    ok = ok and dev.captured == 1 and replays == -(
+                        -n_dev // batch) and result["state"].graphs \
+                        is not None
+                if not ok:
+                    raise RuntimeError(f"fine-tune entry point, {form}: "
+                                       f"{epoch}, launches {counts}")
+                del result, dev
+            for path in ("train_norm_stat.pkl", "final_model/state.pt"):
+                if not os.path.isfile(os.path.join(model_path, path)):
+                    raise RuntimeError(f"fine-tune entry point: no {path}")
+        got, want = (_final_model(paths[f]) for f in ("captured", "eager"))
+        same = got.keys() == want.keys() and all(
+            torch.equal(got[name], want[name]) for name in want)
+        same_dev = all(dev_losses["captured", f] == dev_losses["eager", f]
+                       for f in ("true", "false"))
+        log(f"[ft entry] the captured run's final_model = the eager run's "
+            f"bit for bit ({len(want)} tensors): {same}; dev losses equal: "
+            f"{same_dev}")
+        if not (same and same_dev):
+            raise RuntimeError(f"fine-tune entry point: captured and eager "
+                               f"final_model equal {same}, dev losses "
+                               f"{dev_losses}")
         metrics, scored = eval_cat_ser.main([
-            "--model_path", model_path, "--audio_list", label_list,
+            "--model_path", paths["captured"], "--audio_list", label_list,
             "--audio_dir", root, "--batch_size", str(batch),
             "--head_dim", str(head_dim), "--model_name", model_name,
             "--num_hidden_layers", str(layers), "--device", device.type])
@@ -4115,11 +4433,13 @@ def _step_want(keeps, layers, rest: bool) -> dict:
             "block_attention_bwd": unfrozen}
 
 
-def _traced_step(run, keep_of) -> tuple:
-    """``(kernel records by profile group, LayerDrop keep list, wrapper
-    counts)`` of the traced call of one ``run()`` (a train step) in a
-    checked trace (:func:`traced_kernels`); ``keep_of()`` gives the keep
-    list of the step about to run."""
+def _traced_step(run, keep_of, classify=group_of, counts=_train_counts,
+                 trace=None) -> tuple:
+    """``(kernel records by ``classify`` of their names, LayerDrop keep
+    list, wrapper ``counts()``)`` of the traced call of one ``run()`` (a
+    train step, or a cycle of them) in a checked trace: ``trace(call)``'s
+    kernels of the last call (a profile's), or :func:`traced_kernels`'s;
+    ``keep_of()`` gives the keep list of what is about to run."""
     last = {}
 
     def call():
@@ -4127,33 +4447,43 @@ def _traced_step(run, keep_of) -> tuple:
         _reset_counts()
         run()
         sync(torch.device("cuda"))
-        last["counts"] = _train_counts()
+        last["counts"] = counts()
 
-    _, kernels, _ = traced_kernels(call, 1)
+    kernels = trace(call) if trace else traced_kernels(call, 1)[1]
     groups = {}
     for e in kernels:
-        g = group_of(e["name"])
+        g = classify(e["name"])
         groups[g] = groups.get(g, 0) + 1
     return groups, last["keep"], last["counts"]
 
 
-def _replayed_launches(replay, eager, keep_of) -> tuple:
-    """The launches of :data:`STEP_GROUPS`' kernels in one replayed step,
-    read from its trace, each group's records a launch taken from a
-    traced eager step (whose wrapper counts give its launches); and the
-    replayed step's keep list.  Raises where a count does not divide."""
-    in_eager, _, counts = _traced_step(eager, keep_of)
-    in_replay, keep, replay_counts = _traced_step(replay, keep_of)
+def _replayed_launches(replay, eager, keep_of, groups=STEP_GROUPS,
+                       classify=group_of, counts=_train_counts,
+                       what: str = "SER step", trace=None) -> tuple:
+    """The launches of the wrappers of ``groups`` (wrapper count → the
+    ``classify`` class of its kernels) in one replayed step, read from its
+    trace, each class's records a launch taken from a traced eager step
+    (whose wrapper counts give its launches); and the replayed step's
+    keep list.  ``trace(call, form)``: the kernels of a trace of
+    ``call`` (a profile's), or None for :func:`traced_kernels`'s.  Raises
+    where a count does not divide."""
+    def traced(form):
+        return None if trace is None else (lambda call: trace(call, form))
+
+    in_eager, _, launched = _traced_step(eager, keep_of, classify, counts,
+                                         traced("eager"))
+    in_replay, keep, replay_counts = _traced_step(replay, keep_of, classify,
+                                                  counts, traced("replayed"))
     if any(replay_counts.values()):
-        raise RuntimeError(f"wrappers launched in a replayed SER step: "
+        raise RuntimeError(f"wrappers launched in a replayed {what}: "
                            f"{replay_counts}")
     out = {}
-    for name, group in STEP_GROUPS.items():
-        c, e, r = counts[name], in_eager.get(group, 0), in_replay.get(group,
-                                                                      0)
+    for name, group in groups.items():
+        c, e, r = launched[name], in_eager.get(group, 0), \
+            in_replay.get(group, 0)
         if (c == 0) != (e == 0) or (e == 0 and r) or (e and r * c % e):
             raise RuntimeError(f"{name}: {r} kernel records in a replayed "
-                               f"SER step, {e} in an eager one of {c} "
+                               f"{what}, {e} in an eager one of {c} "
                                "launches")
         out[name] = r * c // e if e else 0
     return out, keep
@@ -4724,6 +5054,70 @@ def _newest_trace_records(log_dir: str, category: str, pattern: str) -> int:
                and pattern in e.get("name", ""))
 
 
+def encoder_replays(enc, direct, audio, mask, cfg, device,
+                    iters: int = 10) -> None:
+    """``WavLMEncoder``'s forward from its programs (``enc``) against the
+    eager forward of ``direct``, a ``WavLMModel`` loaded directly from the
+    same weights: the hidden state and the pooled embedding, with the mask
+    and without, bit for bit; no wrapper launch in ``iters`` replays and
+    the eager forward's launches what its layers imply; ms a batch in
+    turns, replayed and eager; on the card a replay's launches read from
+    its trace (:func:`replay_launches`)."""
+    captures = device.type == "cuda"
+
+    def eager(x, m):
+        with torch.inference_mode():
+            return direct(x[:, 0], m)
+
+    same = all(torch.equal(enc(audio, m), want[0])
+               and torch.equal(enc.encode_pooled(audio, m), want[1])
+               for m in (mask, None) for want in (eager(audio, m),))
+    times, counts = {"replayed": [], "eager": []}, {}
+    for form in ("eager", "replayed", "replayed", "eager"):
+        run = enc if form == "replayed" else eager
+        for _ in range(2):
+            run(audio, mask)
+        sync(device)
+        _reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run(audio, mask)
+        sync(device)
+        times[form].append((time.perf_counter() - t0) / iters)
+        counts[form] = {"block_attention_fwd": block_attention.LAUNCHES,
+                        "fused_ffn_fwd": fused_ffn.LAUNCHES,
+                        **_frontend_counts()}
+    want = {"block_attention_fwd": cfg.num_hidden_layers * iters,
+            "fused_ffn_fwd": cfg.num_hidden_layers * iters,
+            **frontend_want(cfg, iters, 0)}
+    batch, clip = audio.shape[0], audio.shape[-1]
+    dt = min(times["replayed"])
+    log(f"[bridges] WavLMEncoder on the bridged online encoder, {batch} x "
+        f"{clip / SAMPLE_RATE:g} s, from its programs = WavLMModel loaded "
+        f"directly, run eagerly, bit for bit (hidden state and pooled, with "
+        f"and without the mask): {same}; output_dim {enc.output_dim}; "
+        f"ms/batch in turns, "
+        f"replayed " + ", ".join(f"{t * 1e3:.2f}" for t in times["replayed"])
+        + ", eager " + ", ".join(f"{t * 1e3:.2f}" for t in times["eager"])
+        + f"; {batch * clip / SAMPLE_RATE / dt:.1f} audio-sec/sec replayed; "
+        f"launches over {iters} replays {counts['replayed']}, over {iters} "
+        f"eager calls {counts['eager']} (want {want})")
+    if not same or counts["eager"] != want or (
+            captures and any(counts["replayed"].values())):
+        raise RuntimeError(f"WavLMEncoder: replay = WavLMModel {same}, "
+                           f"launches {counts} (eager want {want})")
+    if captures:
+        cache = enc.programs[mask.dtype]
+        one = replay_launches(cache.forward,
+                              cache.program((batch, clip), mask.shape))
+        want = {k: v for k, v in serving_want(cfg, False).items()
+                if k in one}
+        log(f"[bridges] WavLMEncoder: a replay's launches by trace {one} "
+            f"(want {want})")
+        if one != want:
+            raise RuntimeError(f"WavLMEncoder replay launches {one}")
+
+
 def phase_bridges(cfg=None, device=torch.device("cuda"),
                   model_name: str = "microsoft/wavlm-large",
                   layers: int = ENTRY_LAYERS, batch: int = 8,
@@ -4778,37 +5172,8 @@ def phase_bridges(cfg=None, device=torch.device("cuda"),
         np.float32)).to(device)
     mask = torch.ones(batch, clip, dtype=torch.int32, device=device)
     mask[1, clip // 2:] = 0
-    got = enc(audio, mask)
-    with torch.inference_mode():
-        want_seq, _ = direct(audio[:, 0], mask)
-    same = torch.equal(got, want_seq)
-    log(f"[bridges] WavLMEncoder on the bridged online encoder = WavLMModel "
-        f"loaded directly, on the {device.type}: {same}; output_dim "
-        f"{enc.output_dim}, hidden state {tuple(got.shape)}")
-    if not same:
-        raise RuntimeError("WavLMEncoder differs from WavLMModel")
-    del direct
-    for _ in range(3):
-        enc(audio, mask)
-    sync(device)
-    _reset_counts()
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        enc(audio, mask)
-    sync(device)
-    dt = (time.perf_counter() - t0) / iters
-    calls = {"block_attention_fwd": block_attention.LAUNCHES,
-             "fused_ffn_fwd": fused_ffn.LAUNCHES, **_frontend_counts()}
-    want = {"block_attention_fwd": cfg.num_hidden_layers * iters,
-            "fused_ffn_fwd": cfg.num_hidden_layers * iters,
-            **frontend_want(cfg, iters, 0)}
-    log(f"[bridges] WavLMEncoder {batch} x {clip_seconds:g} s: "
-        f"{dt * 1e3:.2f} ms/batch, {batch * clip_seconds / dt:.1f} "
-        f"audio-sec/sec; launches {calls} (want {want})")
-    if calls != want:
-        raise RuntimeError(f"WavLMEncoder launches {calls} != {want}")
-    del enc, online, encoder_sd
+    encoder_replays(enc, direct, audio, mask, cfg, device)
+    del enc, direct, online, encoder_sd
 
     shallow = dataclasses.replace(cfg, num_hidden_layers=layers)
     root = tempfile.mkdtemp(prefix="smoke_bridges_", dir=cuda_build.BUILD_DIR)
@@ -6160,7 +6525,8 @@ def main() -> int:
     launches["flash_attention_fwd"] = timed(phase_ser)["flash_attention_fwd"]
     timed(phase_long_clip)
     ft = timed(phase_ft_step)
-    # K5's backward and the frontend kernels from the fine-tune's e2e cycle
+    # K5's backward and the frontend kernels from the trace of a replayed
+    # end-to-end cycle of the fine-tune
     for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
               *_frontend_counts()):
         launches[k] = ft[k]

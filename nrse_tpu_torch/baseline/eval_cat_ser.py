@@ -161,7 +161,7 @@ def bucketed_forward_timed(forward, loaded, batch_size: int,
                     xs = tuple(t.to(device, non_blocking=True)
                                for t in pinned[k])
                 else:  # into the static inputs, once the last replay is done
-                    xs = programs.program(*x.shape)
+                    xs = programs.program(x.shape, m.shape)
                     if xs in read:
                         copy_stream.wait_event(read[xs])
                     xs.audio.copy_(x, non_blocking=True)
@@ -256,7 +256,8 @@ def run_inference(model_path: str, audio_list: str, audio_dir: str,
         wav = load_audio_16k(e.path)
         if wav is not None:
             loaded.append((e, stats.apply(wav)))
-    forward.prepare((batch_size, bucket_length(len(w))) for _, w in loaded)
+    forward.prepare(((batch_size, bucket_length(len(w))),) * 2
+                    for _, w in loaded)
 
     scored, inference_time, audio_seconds = bucketed_forward_timed(
         forward, loaded, batch_size, device)

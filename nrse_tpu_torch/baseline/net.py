@@ -31,6 +31,7 @@ class EmotionRegression(nn.Module):
                  dropout: float = 0.5, device=None):
         super().__init__()
         self.num_layers = num_layers
+        self.hidden_dim = hidden_dim
         self.dropout = dropout
         dims = [input_dim] + [hidden_dim] * num_layers
         for i in range(num_layers):
@@ -40,21 +41,39 @@ class EmotionRegression(nn.Module):
                 hidden_dim, eps=LAYER_NORM_EPS, device=device))
         self.out = nn.Linear(dims[-1], output_dim, device=device)
 
-    def forward(self, x: torch.Tensor,
-                rng: Optional[TrainRNG] = None) -> torch.Tensor:
+    def head_keep(self, rng: TrainRNG, batch: int) -> torch.Tensor:
+        """The dropout keep masks of a training forward on ``batch`` rows,
+        ``[num_layers, batch, hidden_dim]`` bool on the CPU, drawn as
+        :meth:`forward` draws them: ``rng``'s head stream, one draw a
+        layer, in order."""
+        gen = rng.generator(STREAM_HEAD_DROPOUT)
+        keep = torch.zeros(self.num_layers, batch, self.hidden_dim,
+                           dtype=torch.bool)
+        for i in range(self.num_layers):
+            keep[i] = torch.rand((batch, self.hidden_dim),
+                                 generator=gen) >= self.dropout
+        return keep
+
+    def forward(self, x: torch.Tensor, rng: Optional[TrainRNG] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """In training mode with ``dropout`` > 0, the masks come from
         ``rng``'s head stream (a seeded CPU generator, never torch's
-        global one), which training mode then requires."""
+        global one), which training mode then requires; ``keep``: those
+        masks as :meth:`head_keep` draws them, already on the device (a
+        trainer's staged buffer), or None to draw them here."""
         drop = self.training and self.dropout > 0.0
         if drop and rng is None:
             raise ValueError("EmotionRegression in training mode needs rng "
                              "(a TrainRNG) for its dropout")
-        gen = rng.generator(STREAM_HEAD_DROPOUT) if drop else None
+        gen = rng.generator(STREAM_HEAD_DROPOUT) \
+            if drop and keep is None else None
         h = x.float()
         for i in range(self.num_layers):
             h = F.relu(getattr(self, f"norm_{i}")(getattr(self, f"fc_{i}")(h)))
             if drop:  # flax's Dropout: keep with 1 − p, scale by 1/(1 − p)
-                keep = torch.rand(h.shape, generator=gen) >= self.dropout
-                h = torch.where(keep.to(h.device), h / (1.0 - self.dropout),
+                k = keep[i] if keep is not None else (
+                    torch.rand(h.shape, generator=gen) >= self.dropout
+                ).to(h.device)
+                h = torch.where(k, h / (1.0 - self.dropout),
                                 torch.zeros_like(h))
         return self.out(h)

@@ -21,7 +21,7 @@ from torch import nn
 from nrse_tpu_torch.baseline.net import EmotionRegression
 from nrse_tpu_torch.models.emotion import AttentiveStatisticsPooling
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig, WavLMModel
-from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 
 
 class BaselineSER(nn.Module):
@@ -43,14 +43,17 @@ class BaselineSER(nn.Module):
 
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                rng: Optional[TrainRNG] = None) -> torch.Tensor:
+                rng: Optional[TrainRNG] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """In training mode ``rng`` drives the encoder's dropout, LayerDrop
         and SpecAugment and the head's dropout (``deterministic=False`` in
-        the JAX module); eval mode ignores it."""
+        the JAX module; ``keep``: the head's masks as ``EmotionRegression.
+        head_keep`` draws them, already on the device); eval mode ignores
+        both."""
         if not self.training:
             rng = None
         seq, _ = self.ssl(input_values, attention_mask, rng)
-        return self.ser(self.pool(seq, attention_mask), rng)
+        return self.ser(self.pool(seq, attention_mask), rng, keep)
 
 
 def make_baseline_forward(model: BaselineSER,
@@ -71,7 +74,7 @@ def make_baseline_forward(model: BaselineSER,
     if not graphs:
         return forward
     return ProgramCache(forward, next(model.parameters()).device,
-                        mask_dtype=torch.float32)
+                        audio_inputs(mask_dtype=torch.float32))
 
 
 def bucket_length(n: int, bucket_s: float = 5.0, sample_rate: int = 16000,

@@ -39,6 +39,20 @@ the reference's ``baseline/train_ft_cat_ser_weighted_checkpoint.py``):
     save_model``, metadata ``epoch``, ``dev_loss``, ``freeze_ssl``) saved
     whenever it improves, for ``baseline.eval_cat_ser``.
 
+A micro-step's inputs from the host (the kernels' seed table, LayerDrop's
+keep list, SpecAugment's spans, the head's dropout masks, K4's LR and bias
+corrections and MultiSteps' divisor ``n + 1``) are drawn as the model
+draws them and written to the device in one copy before it
+(:class:`StepInputs`); the micro-step reads them there.  On the card the
+micro-step runs from CUDA graphs (``train.step_graphs``, the counterpart
+of JAX's jitted ``train_step``), captured at the first micro-step of the
+trainable key (end to end or frozen) and batch shape, the AdamW apply a
+part of its own that the host replays on every k-th micro-step; the dev
+step runs from one ``runtime.graphs.ProgramCache`` program a shape
+(JAX's jitted ``dev_step``), built once per run.  ``graphs=False`` (a
+function argument, no flag) asks for the eager forms; the CPU always runs
+them.  Both forms give the same bits.
+
 On the card (``--device cuda``, the default) the encoder computes in bf16;
 on the CPU in float32 through the kernels' plain versions.
 ``--num_hidden_layers`` cuts the encoder's depth (the evaluator takes the
@@ -60,20 +74,26 @@ import numpy as np
 import torch
 
 from nrse_tpu_torch.baseline.eval_cat_ser import encoder_config, load_audio_16k
-from nrse_tpu_torch.baseline.pipeline import BaselineSER
+from nrse_tpu_torch.baseline.pipeline import BaselineSER, make_baseline_forward
 from nrse_tpu_torch.baseline.wavset import WavNormStats
 from nrse_tpu_torch.data.loader import DevicePrefetcher, HostDataLoader
 from nrse_tpu_torch.labels.parsing import BASELINE_EMOTIONS_MAP
 from nrse_tpu_torch.models.convert import init_baseline_state_dict
-from nrse_tpu_torch.models.wavlm import SeedTable, TrainRNG
+from nrse_tpu_torch.models.wavlm import SeedTable, StagedDraws, TrainRNG
 from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
+    host_scalars,
 )
 from nrse_tpu_torch.runtime.device import resolve_device
+from nrse_tpu_torch.runtime.staging import Staging
 from nrse_tpu_torch.train.byol_trainer import flatten_params
 from nrse_tpu_torch.train.checkpoint import load_byol_encoder, save_model
 from nrse_tpu_torch.train.losses import ce_weight_category
+from nrse_tpu_torch.train.step_graphs import (
+    StepGraphs,
+    encoder_parameter_groups,
+)
 
 ONE_HOT_COLUMNS = list(BASELINE_EMOTIONS_MAP.keys())  # A,S,H,U,F,D,C,N
 SAMPLE_RATE = 16000
@@ -166,8 +186,7 @@ class SERTrainState:
     """The fine-tune's state.  Every parameter of ``model`` is a view of
     ``params`` and its ``.grad`` a view of ``grads`` (one flat float32
     buffer each, ssl's ``n_ssl`` elements first); ``acc`` is MultiSteps'
-    gradient mean, ``mu`` and ``nu`` AdamW's moments; ``seeds`` the
-    kernels' seed table, staged for each micro-step; ``mini_step`` counts
+    gradient mean, ``mu`` and ``nu`` AdamW's moments; ``mini_step`` counts
     the micro-steps since the last update, ``count`` the updates."""
 
     model: BaselineSER
@@ -177,9 +196,13 @@ class SERTrainState:
     mu: torch.Tensor
     nu: torch.Tensor
     n_ssl: int
-    seeds: SeedTable
     mini_step: int = 0
     count: int = 0
+    # the micro-step's staged inputs by batch shape, and its graphs
+    # (train.step_graphs.StepGraphs) of the current key and shape
+    inputs: Dict = dataclasses.field(default_factory=dict, repr=False)
+    graphs: Optional[StepGraphs] = dataclasses.field(default=None,
+                                                     repr=False)
 
 
 def create_train_state(model: BaselineSER) -> SERTrainState:
@@ -197,8 +220,7 @@ def create_train_state(model: BaselineSER) -> SERTrainState:
         model=model.train(), params=flat, grads=grads,
         acc=torch.zeros_like(flat), mu=torch.zeros_like(flat),
         nu=torch.zeros_like(flat),
-        n_ssl=sum(p.numel() for p in model.ssl.parameters()),
-        seeds=SeedTable(model.ssl.config.num_hidden_layers, 1, device))
+        n_ssl=sum(p.numel() for p in model.ssl.parameters()))
 
 
 def adamw_spec(lr: float) -> FusedAdamWSpec:
@@ -208,61 +230,199 @@ def adamw_spec(lr: float) -> FusedAdamWSpec:
 
 
 def forward_train(model: BaselineSER, batch: Dict, rng: TrainRNG,
-                  freeze_ssl: bool) -> torch.Tensor:
+                  freeze_ssl: bool,
+                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Training-mode logits; with ``freeze_ssl`` the encoder runs without
-    a graph, so its gradients stay zero."""
+    a graph, so its gradients stay zero.  ``keep``: the head's staged
+    dropout masks (or None: drawn in the forward)."""
     x, mask = batch["input_values"], batch["attention_mask"]
     if not freeze_ssl:
-        return model(x, mask, rng)
+        return model(x, mask, rng, keep)
     with torch.no_grad():
         seq, _ = model.ssl(x, mask, rng)
-    return model.ser(model.pool(seq, mask), rng)
+    return model.ser(model.pool(seq, mask), rng, keep)
+
+
+class StepInputs:
+    """A micro-step's inputs from the host for one batch shape, in one
+    :class:`~nrse_tpu_torch.runtime.staging.Staging`: the kernels' seed
+    table, SpecAugment's ``[B, T']`` spans, the head's ``[layers, B, H]``
+    dropout keep masks (``head``; None without head dropout), K4's eight
+    host scalars (``k4``) and MultiSteps' divisor ``n + 1`` as a float32
+    scalar (``divisor``: exact, and a true division, as optax divides; on
+    the CPU the bits of dividing by the integer, while CUDA's kernel
+    multiplies by a host scalar's reciprocal, which can differ in the last
+    bit).  :meth:`stage` draws a micro-step's as the model
+    would (the same generators, in the same order), writes them and copies
+    them over once, and returns the micro-step's ``TrainRNG`` reading the
+    table and the encoder's draws."""
+
+    def __init__(self, model: BaselineSER, batch: int, samples: int,
+                 device):
+        enc = model.encoder_config
+        self.frames = int(enc.feature_lengths(samples))
+        self.batch = batch
+        slots = {"seeds": SeedTable.slot(enc.num_hidden_layers),
+                 "k4": ((8,), torch.float32),
+                 "divisor": ((), torch.float32)}
+        self.spans = enc.has_masked_spec_embed
+        if self.spans:
+            slots["spans"] = ((batch, self.frames), torch.bool)
+        head = model.ser
+        if head.dropout > 0.0 and head.num_layers:
+            slots["head"] = ((head.num_layers, batch, head.hidden_dim),
+                             torch.bool)
+        self.staging = Staging(device, slots)
+        self.table = SeedTable(enc.num_hidden_layers, staging=self.staging)
+        self.head = self.staging["head"] if "head" in slots else None
+        self.k4, self.divisor = self.staging["k4"], self.staging["divisor"]
+
+    def stage(self, state: "SERTrainState", rng: TrainRNG,
+              spec: FusedAdamWSpec) -> TrainRNG:
+        model, st = state.model, self.staging
+        st.begin()
+        self.table.fill(rng.seed, rng.step, rng.rank, rng.world)
+        keep = model.ssl.encoder.layer_keep(rng)
+        if self.spans:
+            st.host("spans").copy_(model.ssl.time_mask(rng, self.batch,
+                                                       self.frames))
+        if self.head is not None:
+            st.host("head").copy_(model.ser.head_keep(rng, self.batch))
+        st.host("k4").copy_(torch.from_numpy(host_scalars(spec,
+                                                          state.count)))
+        st.host("divisor").fill_(state.mini_step + 1)
+        st.push()
+        draws = StagedDraws(tuple(keep),
+                            st["spans"] if self.spans else None)
+        return dataclasses.replace(rng, table=self.table, draws=draws)
+
+
+def step_inputs(state: SERTrainState, batch: Dict) -> StepInputs:
+    """The state's :class:`StepInputs` for this batch's shape."""
+    shape = tuple(batch["input_values"].shape)
+    if shape not in state.inputs:
+        state.inputs[shape] = StepInputs(state.model, shape[0], shape[1],
+                                         state.params.device)
+    return state.inputs[shape]
+
+
+def _accumulate(state: SERTrainState, inputs: StepInputs) -> None:
+    """MultiSteps' mean of the micro-steps' gradients, in place: ``acc +=
+    (g − acc) / (n + 1)``, the divisor read from its staged slot."""
+    state.acc.add_((state.grads - state.acc) / inputs.divisor)
+
+
+def _apply(state: SERTrainState, spec: FusedAdamWSpec,
+           inputs: StepInputs) -> None:
+    """The k-th micro-step's AdamW update over the mean (K4, its host
+    scalars read from the staged slot), then the mean zeroed."""
+    fused_adamw_ema_update(state.acc, state.params, state.mu, state.nu,
+                           None, spec, state.count, rest=inputs.k4)
+    state.acc.zero_()
+
+
+def ft_step_graphs(state: SERTrainState, spec: FusedAdamWSpec,
+                   freeze_ssl: bool, class_weights: torch.Tensor,
+                   batch: Dict, rng: TrainRNG, inputs: StepInputs,
+                   key) -> StepGraphs:
+    """The micro-step of ``state`` for one ``key`` as ``train.step_graphs.
+    StepGraphs``, captured on ``batch`` with ``rng`` (the micro-step's
+    staged stream) and ``inputs`` (its ``StepInputs``): the front is the
+    encoder's own (the dataset z-normed the waveform), the head ASP,
+    ``EmotionRegression`` and the weighted CE, then the ``accumulate``
+    part (every micro-step) and the ``apply`` part (every k-th).  Frozen,
+    nothing of the encoder takes part in the backward, as its eager
+    micro-step runs it under ``no_grad``."""
+    model = state.model
+    layers = model.encoder_config.num_hidden_layers
+
+    def front(x, rng):
+        return model.ssl.front(x["input_values"], x["attention_mask"], rng)
+
+    def head(seq, x, rng):
+        logits = model.ser(model.pool(seq, x["attention_mask"]), rng,
+                           inputs.head)
+        return ce_weight_category(logits, x["label"], class_weights)
+
+    return StepGraphs(
+        model.ssl, encoder_parameter_groups(model, "ssl", layers),
+        (layers, False) if freeze_ssl else (0, True), front, head,
+        [("accumulate", lambda: _accumulate(state, inputs)),
+         ("apply", lambda: _apply(state, spec, inputs))],
+        batch, rng, state.grads, key,
+        f"the fine-tune's micro-step {state.mini_step} after update "
+        f"{state.count} ({'frozen' if freeze_ssl else 'end to end'})")
 
 
 def make_train_step(spec: FusedAdamWSpec, accumulation_steps: int,
-                    freeze_ssl: bool, class_weights: torch.Tensor
+                    freeze_ssl: bool, class_weights: torch.Tensor,
+                    graphs: bool = True
                     ) -> Callable[[SERTrainState, Dict, TrainRNG],
                                   torch.Tensor]:
     """``train_step(state, batch, rng) → loss`` (a device scalar; nothing
     waits for the card): one micro-step of MultiSteps(adamw), in place,
-    its kernel seeds ``rng``'s, staged in the state's table.  Every
-    ``accumulation_steps``-th call makes one K4 update."""
+    its host draws those of ``rng`` (staged in the state's
+    :class:`StepInputs`).  Every ``accumulation_steps``-th call makes one
+    K4 update.  With ``graphs`` (the default) a state on a card runs the
+    captured micro-step (:func:`ft_step_graphs`); a capture that fails
+    raises, naming the micro-step and the part."""
+    token = object()  # this step's spec, k and weights: one key of graphs
 
     def train_step(state: SERTrainState, batch: Dict,
                    rng: TrainRNG) -> torch.Tensor:
-        rng = dataclasses.replace(rng, table=state.seeds.stage(
-            rng.seed, rng.step, rng.rank, rng.world))
-        state.grads.zero_()
-        logits = forward_train(state.model, batch, rng, freeze_ssl)
-        loss = ce_weight_category(logits, batch["label"], class_weights)
-        loss.backward()
-        with torch.no_grad():
-            n = state.mini_step
-            state.acc.add_((state.grads - state.acc) / (n + 1))
-            if n == accumulation_steps - 1:
-                fused_adamw_ema_update(state.acc, state.params, state.mu,
-                                       state.nu, None, spec, state.count)
-                state.count += 1
-                state.acc.zero_()
-            state.mini_step = (n + 1) % accumulation_steps
-        return loss.detach()
+        inputs = step_inputs(state, batch)
+        rng = inputs.stage(state, rng, spec)
+        n = state.mini_step
+        apply = n == accumulation_steps - 1
+        if graphs and state.params.device.type == "cuda":
+            key = (token, freeze_ssl, tuple(batch["input_values"].shape))
+            if state.graphs is None or state.graphs.key != key:
+                state.graphs = None  # the previous key's graphs go first
+                state.graphs = ft_step_graphs(
+                    state, spec, freeze_ssl, class_weights, batch, rng,
+                    inputs, key)
+            loss, _ = state.graphs.run(
+                batch, rng, ("accumulate", "apply") if apply
+                else ("accumulate",))
+        else:
+            state.grads.zero_()
+            logits = forward_train(state.model, batch, rng, freeze_ssl,
+                                   inputs.head)
+            loss = ce_weight_category(logits, batch["label"], class_weights)
+            loss.backward()
+            loss = loss.detach()
+            with torch.no_grad():
+                _accumulate(state, inputs)
+                if apply:
+                    _apply(state, spec, inputs)
+        state.model.ssl.encoder.layers_run = sum(rng.draws.keep)
+        if apply:
+            state.count += 1
+        state.mini_step = (n + 1) % accumulation_steps
+        return loss
 
     return train_step
 
 
 @torch.no_grad()
 def dev_loss(model: BaselineSER, loader, device,
-             class_weights: torch.Tensor) -> float:
+             class_weights: torch.Tensor,
+             forward: Optional[Callable] = None) -> float:
     """The mean over the dev batches of each whole batch's weighted CE in
     eval mode (the padding rows of the last batch included, as the JAX
-    trainer takes it)."""
+    trainer takes it).  ``forward``: the logits of ``(waveforms, mask)``
+    in eval mode, ``baseline.pipeline.make_baseline_forward``'s (its
+    program cache on the card), or None for the eager forward."""
+    forward = forward or make_baseline_forward(model)
     model.eval()
     losses = []
-    for batch in DevicePrefetcher(loader, device):
-        logits = model(batch["input_values"], batch["attention_mask"])
-        losses.append(ce_weight_category(logits, batch["label"],
-                                         class_weights))
-    model.train()
+    try:
+        for batch in DevicePrefetcher(loader, device):
+            logits = forward(batch["input_values"], batch["attention_mask"])
+            losses.append(ce_weight_category(logits, batch["label"],
+                                             class_weights))
+    finally:
+        model.train()
     return float(torch.stack(losses).mean()) if losses else 0.0
 
 
@@ -277,13 +437,17 @@ def train(config_path: str = "config_cat_noisy.json",
           max_seconds: float = 10.0,
           train_split: str = "Train", dev_split: str = "Development",
           num_workers: int = 8, seed: int = 7, device="cuda",
-          num_hidden_layers: Optional[int] = None) -> Dict:
+          num_hidden_layers: Optional[int] = None,
+          graphs: bool = True) -> Dict:
     """Fine-tune and save ``final_model`` under ``model_path``.  Returns
     ``{"best_dev_loss", "best_epoch", "epochs": [per-epoch metrics],
-    "state"}``; each epoch's metrics hold ``epoch``, ``train_loss``,
-    ``dev_loss``, ``steps`` (micro-steps), ``s_per_step`` (host clock over
-    the epoch's micro-steps, data loading included) and
-    ``audio_sec_per_sec``."""
+    "state", "dev_forward"}``; each epoch's metrics hold ``epoch``,
+    ``train_loss``, ``dev_loss``, ``steps`` (micro-steps), ``s_per_step``
+    (host clock over the epoch's micro-steps, data loading included) and
+    ``audio_sec_per_sec``.  ``dev_forward`` is the dev step's forward: a
+    ``runtime.graphs.ProgramCache`` with ``graphs`` (on the card one
+    captured program a dev batch shape, built once for every epoch), else
+    the eager forward; ``graphs=False`` also runs the eager micro-step."""
     if pooling_type != "AttentiveStatisticsPooling":
         raise ValueError(f"pooling {pooling_type!r}: only "
                          "AttentiveStatisticsPooling is ported")
@@ -323,7 +487,11 @@ def train(config_path: str = "config_cat_noisy.json",
     state = create_train_state(model.to(device))
     w = torch.from_numpy(weights).to(device)
     train_step = make_train_step(adamw_spec(lr), accumulation_steps,
-                                 freeze_ssl, w)
+                                 freeze_ssl, w, graphs)
+    # one program a dev batch shape, reading the weights K4 updates in
+    # place; building it puts the model in eval mode
+    dev_forward = make_baseline_forward(state.model, graphs)
+    state.model.train()
 
     train_ds = BaselineWavDataset(wav_dir, train_files, train_labels, stats,
                                   max_seconds)
@@ -348,7 +516,7 @@ def train(config_path: str = "config_cat_noisy.json",
             step += 1
         train_loss = float(torch.stack(losses).mean()) if losses else 0.0
         dt = time.perf_counter() - t0
-        dev = dev_loss(state.model, dev_loader, device, w)
+        dev = dev_loss(state.model, dev_loader, device, w, dev_forward)
         s_per_step = dt / max(len(losses), 1)
         history.append({
             "epoch": epoch, "train_loss": train_loss, "dev_loss": dev,
@@ -365,10 +533,12 @@ def train(config_path: str = "config_cat_noisy.json",
                         "freeze_ssl": freeze_ssl})
             print(f"saved final_model (dev_loss={dev:.4f})", flush=True)
     return {"best_dev_loss": best_dev, "best_epoch": best_epoch,
-            "epochs": history, "state": state}
+            "epochs": history, "state": state, "dev_forward": dev_forward}
 
 
-def main(argv=None) -> Dict:
+def main(argv=None, graphs: bool = True) -> Dict:
+    """The command line; ``graphs=False`` (no flag: JAX has none) runs
+    the eager micro-step and dev step, the captured forms' yardstick."""
     parser = argparse.ArgumentParser(
         description="Fine-tune the baseline SER pipeline (WavLM + ASP + "
                     "head) on a one-hot label CSV")
@@ -395,7 +565,7 @@ def main(argv=None) -> Dict:
                  args.accumulation_steps, args.lr, args.freeze_ssl,
                  args.head_dim, args.pooling_type, args.byol_checkpoint,
                  args.model_name, args.max_seconds, device=args.device,
-                 num_hidden_layers=args.num_hidden_layers)
+                 num_hidden_layers=args.num_hidden_layers, graphs=graphs)
 
 
 if __name__ == "__main__":

@@ -8,12 +8,16 @@ written against it that surface on one card (bf16, the kernels' type) or
 on the CPU (float32, the plain paths), under ``torch.inference_mode()``;
 new code uses :class:`~nrse_tpu_torch.models.wavlm.WavLMModel` directly.
 Unlike the reference, which takes and ignores the mask in the BYOL path
-(``encoder.py:23-25``), the mask is honoured.
+(``encoder.py:23-25``), the mask is honoured.  The forward runs from a
+``runtime.graphs.ProgramCache`` (the counterpart of the JAX module's
+jitted ``_forward``): one program a ``(B, T)`` shape and mask dtype, or
+without a mask, on the card a CUDA graph reading the weights in place;
+the outputs are copies.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ import torch
 from nrse_tpu_torch.models.convert import init_state_dict, load_hf_wavlm
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from nrse_tpu_torch.runtime.device import resolve_device
+from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 
 
 class WavLMEncoder:
@@ -49,6 +54,8 @@ class WavLMEncoder:
         dtype = (torch.bfloat16 if self.device.type == "cuda"
                  else torch.float32)
         self.model = model.to(device=self.device, dtype=dtype).eval()
+        # the program caches by the mask's dtype (None: no mask)
+        self.programs: Dict[Optional[torch.dtype], ProgramCache] = {}
 
     @classmethod
     def from_hf_checkpoint(cls, path: str,
@@ -60,12 +67,22 @@ class WavLMEncoder:
         return cls(path, state_dict=load_hf_wavlm(path, cfg), config=cfg,
                    device=device)
 
-    def _forward(self, input_values, attention_mask):
-        x = torch.as_tensor(input_values, dtype=torch.float32).to(self.device)
-        m = None if attention_mask is None else \
-            torch.as_tensor(attention_mask).to(self.device)
+    def _eager(self, x: torch.Tensor, m: Optional[torch.Tensor]):
         with torch.inference_mode():
             return self.model(x, m)
+
+    def _forward(self, input_values, attention_mask):
+        x = torch.as_tensor(input_values, dtype=torch.float32).to(self.device)
+        if x.dim() == 3:  # [B, 1, T]
+            x = x[:, 0, :]
+        m = None if attention_mask is None else \
+            torch.as_tensor(attention_mask).to(self.device)
+        dtype = None if m is None else m.dtype
+        if dtype not in self.programs:
+            self.programs[dtype] = ProgramCache(
+                self._eager, self.device, audio_inputs(m is not None,
+                                                       dtype or torch.int32))
+        return self.programs[dtype](x, m)
 
     def __call__(self, input_values, attention_mask=None) -> torch.Tensor:
         """``[B, T]`` or ``[B, 1, T]`` waveforms (and a ``[B, T]`` mask) →

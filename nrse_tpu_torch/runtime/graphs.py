@@ -1,4 +1,4 @@
-"""A serving bucket as one captured CUDA graph.
+"""A forward as one captured CUDA graph per shape of its inputs.
 
 The JAX package serves each batch bucket as one compiled program: its
 export writes ``embed_b{B}.stablehlo`` per bucket and its ``ServingModel``
@@ -29,15 +29,19 @@ of the forward dispatched from Python.
     outside the graph after capture.  Work the forward does per call, such
     as a kernel's weight layout, is captured with it and redone on each
     replay.
-  * :meth:`BucketProgram.load` rewrites the whole of both inputs on every
+  * :meth:`BucketProgram.load` rewrites the whole of every input on each
     request, padding rows included, so a smaller request never sees a
     larger one's rows.
 
-A :class:`ProgramCache` holds the programs of one forward keyed by
-``(batch, samples)`` in one pool, captured when a shape first comes (or
-ahead, :meth:`ProgramCache.prepare`): the SER trainers' eval step and the
-SER evaluator's buckets, the counterpart of JAX compiling its jitted
-forward once per shape.
+A :class:`ProgramCache` holds the programs of one forward keyed by the
+shapes of its inputs, in one pool, captured when a shape first comes (or
+ahead, :meth:`ProgramCache.prepare`): the counterpart of JAX compiling
+its jitted forward once per shape.  Its inputs are a tuple of static
+tensors with their dtypes (:data:`AUDIO_MASK`, ``(audio [B, T], mask [B,
+T])``, for serving, the SER trainers' eval step, the SER evaluator's
+buckets and the fine-tune's dev step; ``(clean, noise, snr)`` for the BYOL
+eval step; an input may be absent, None, as a server without masks or an
+encoder called without one has it).
 
 On the CPU there is no graph: :meth:`BucketProgram.run` calls the forward
 on the static buffers.
@@ -45,67 +49,102 @@ on the static buffers.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+# an input of a program: its dtype and the value its static buffer starts
+# with (what the warm-up and the capture read), or None for an input that
+# is always absent
+Input = Optional[Tuple[torch.dtype, float]]
+Shape = Optional[Tuple[int, ...]]
+
+
+def audio_inputs(with_mask: bool = True,
+                 mask_dtype: torch.dtype = torch.int32
+                 ) -> Tuple[Input, Input]:
+    """``(audio float32 zeros, mask of ones | absent)``: the inputs of a
+    forward of ``(waveforms [B, T], mask [B, T])``."""
+    return (torch.float32, 0.0), ((mask_dtype, 1) if with_mask else None)
+
+
+AUDIO_MASK = audio_inputs()
+
 
 class BucketProgram:
-    """One bucket of ``batch`` rows of ``clip`` samples: the static inputs
-    and, on a CUDA device, the graph of ``forward(audio, mask)`` on them
-    (``mask`` None where ``with_mask`` is False; int32 unless
-    ``mask_dtype`` says otherwise), captured into ``pool``.  ``replays``
-    counts the graph's replays."""
+    """One program of ``forward(*inputs)`` on static inputs of ``shapes``
+    (one shape per entry of ``specs``; None for an absent input, passed
+    to ``forward`` as None) and, on a CUDA device, the graph of one call
+    on them, captured into ``pool``.  ``replays`` counts the graph's
+    replays."""
 
     def __init__(self, forward: Callable[..., Tuple[torch.Tensor, ...]],
-                 batch: int, clip: int, device, with_mask: bool = True,
-                 pool=None, mask_dtype: torch.dtype = torch.int32):
+                 specs: Sequence[Input], shapes: Sequence[Shape], device,
+                 pool=None):
         self.forward = forward
-        self.batch, self.clip = int(batch), int(clip)
         self.device = torch.device(device)
-        self.audio = torch.zeros(self.batch, self.clip, dtype=torch.float32,
-                                 device=self.device)
-        self.mask = torch.ones(self.batch, self.clip, dtype=mask_dtype,
-                               device=self.device) if with_mask else None
+        self.inputs = tuple(
+            None if spec is None else torch.full(
+                shape, spec[1], dtype=spec[0], device=self.device)
+            for spec, shape in zip(specs, shapes))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self.replays = 0
         if self.device.type == "cuda":
             self._capture(pool)
 
+    @property
+    def audio(self) -> torch.Tensor:
+        """The first input: an audio program's ``[batch, clip]`` waveforms."""
+        return self.inputs[0]
+
+    @property
+    def mask(self) -> Optional[torch.Tensor]:
+        """The second input: an audio program's mask (None: absent)."""
+        return self.inputs[1]
+
+    @property
+    def batch(self) -> int:
+        return self.inputs[0].shape[0]
+
+    @property
+    def clip(self) -> int:
+        return self.inputs[0].shape[1]
+
     def _capture(self, pool) -> None:
         with torch.cuda.device(self.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):  # warm-up
-                self.forward(self.audio, self.mask)
+                self.forward(*self.inputs)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, pool=pool):
-                    outputs = self.forward(self.audio, self.mask)
+                    outputs = self.forward(*self.inputs)
             except Exception as e:
+                shapes = [None if x is None else tuple(x.shape)
+                          for x in self.inputs]
                 raise RuntimeError(
-                    f"capturing the serving bucket of {self.batch} x "
-                    f"{self.clip} samples into a CUDA graph failed: {e}"
-                ) from e
+                    f"capturing the program of inputs {shapes} into a CUDA "
+                    f"graph failed: {e}") from e
         self.graph, self.outputs = graph, tuple(outputs)
 
-    def load(self, audio, mask) -> None:
-        """Write a whole ``[batch, clip]`` request (numpy arrays or
-        tensors) into the static inputs, padding rows included (``mask`` is
-        ignored where the program has none)."""
-        self.audio.copy_(_tensor(audio))
-        if self.mask is not None:
-            self.mask.copy_(_tensor(mask))
+    def load(self, *inputs) -> None:
+        """Write a whole request (numpy arrays or tensors, one per input)
+        into the static inputs, padding rows included (an input the
+        program has not is ignored)."""
+        for buf, x in zip(self.inputs, inputs):
+            if buf is not None:
+                buf.copy_(_tensor(x))
 
     def run(self) -> Tuple[torch.Tensor, ...]:
         """The forward's outputs on the static inputs: the graph replayed
-        (its static outputs, valid until the next replay of any bucket of
+        (its static outputs, valid until the next replay of any program of
         the pool), or on the CPU the forward called."""
         if self.graph is None:
-            return tuple(self.forward(self.audio, self.mask))
+            return tuple(self.forward(*self.inputs))
         self.graph.replay()
         self.replays += 1
         return self.outputs
@@ -117,50 +156,59 @@ def _tensor(x) -> torch.Tensor:
 
 
 class ProgramCache:
-    """The :class:`BucketProgram` of ``forward`` for each ``(batch,
-    samples)`` shape, in one pool: called like ``forward(audio, mask)``
-    (tensors or arrays of one shape), it writes them into that shape's
-    static inputs and runs the program, returning copies of its outputs
-    (a tensor, or a tuple where ``forward`` returns one), so that a later
-    replay of any shape leaves them alone.  A program is captured when its
-    shape first comes, or ahead by :meth:`prepare`; ``captured`` counts
-    them."""
+    """The :class:`BucketProgram` of ``forward`` for each tuple of input
+    shapes, in one pool.  ``inputs`` gives each input's dtype and start
+    value (:data:`AUDIO_MASK` by default; None for an input that is always
+    absent).  Called like ``forward(*inputs)`` (tensors or arrays), it
+    writes them into that shape's static inputs and runs the program,
+    returning copies of its outputs (a tensor, or a tuple where
+    ``forward`` returns one), so that a later replay of any shape leaves
+    them alone.  A program is captured when its shapes first come, or
+    ahead by :meth:`prepare`; ``captured`` counts them."""
 
-    def __init__(self, forward: Callable, device, with_mask: bool = True,
-                 mask_dtype: torch.dtype = torch.int32):
+    def __init__(self, forward: Callable, device,
+                 inputs: Sequence[Input] = AUDIO_MASK):
         self.device = torch.device(device)
         self.forward = forward
-        self.with_mask, self.mask_dtype = with_mask, mask_dtype
+        self.specs = tuple(inputs)
         self.pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
-        self.programs: Dict[Tuple[int, int], BucketProgram] = {}
+        self.programs: Dict[Tuple[Shape, ...], BucketProgram] = {}
         self._single = None
         self.captured = 0
 
-    def _outputs(self, audio, mask):
-        out = self.forward(audio, mask)
+    def _outputs(self, *inputs):
+        out = self.forward(*inputs)
         self._single = not isinstance(out, tuple)
         return (out,) if self._single else out
 
-    def program(self, batch: int, samples: int) -> BucketProgram:
-        """The program of this shape, captured on its first call."""
-        key = (int(batch), int(samples))
+    def program(self, *shapes: Shape) -> BucketProgram:
+        """The program of these input shapes, captured on its first
+        call."""
+        key = tuple(None if spec is None or shape is None
+                    else tuple(int(d) for d in shape)
+                    for spec, shape in zip(self.specs, shapes))
         if key not in self.programs:
             self.programs[key] = BucketProgram(
-                self._outputs, key[0], key[1], self.device, self.with_mask,
-                self.pool, self.mask_dtype)
+                self._outputs, self.specs, key, self.device, self.pool)
             self.captured += self.device.type == "cuda"
         return self.programs[key]
 
-    def prepare(self, shapes: Iterable[Tuple[int, int]]) -> None:
-        """Capture the programs of ``shapes``, largest first, so that the
-        pool holds about the largest one's activations."""
-        for b, n in sorted(shapes, key=lambda k: k[0] * k[1], reverse=True):
-            self.program(b, n)
+    def prepare(self, keys: Iterable[Tuple[Shape, ...]]) -> None:
+        """Capture the programs of ``keys`` (tuples of input shapes),
+        largest first, so that the pool holds about the largest one's
+        activations."""
+        def size(key):
+            return sum(int(np.prod(s)) for s in key if s is not None)
 
-    def __call__(self, audio, mask=None
+        for key in sorted(keys, key=size, reverse=True):
+            self.program(*key)
+
+    def __call__(self, *inputs
                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        program = self.program(*audio.shape)
-        program.load(audio, mask)
+        inputs = inputs + (None,) * (len(self.specs) - len(inputs))
+        program = self.program(*(None if x is None else x.shape
+                                 for x in inputs))
+        program.load(*inputs)
         out = tuple(None if t is None else t.clone() for t in program.run())
         return out[0] if self._single else out

@@ -51,7 +51,7 @@ from torch import nn
 from nrse_tpu_torch.models.emotion import TASKS, EmotionClassifier
 from nrse_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 from nrse_tpu_torch.runtime.device import resolve_device
-from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 
 _MANIFEST = "manifest.json"
 _WEIGHTS = "params.pt"
@@ -164,9 +164,11 @@ class ServingModel:
         encoder = model if self.kind == "embed" else model.encoder
         encoder.to(dtype=dtype)
         self.model = model.to(self.device).eval()
-        self.cache = ProgramCache(self.forward, self.device, self.with_mask)
-        self.cache.prepare((b, self.clip_samples) for b in self.buckets)
-        self.programs = {b: self.cache.program(b, self.clip_samples)
+        self.cache = ProgramCache(self.forward, self.device,
+                                  audio_inputs(self.with_mask))
+        self.cache.prepare(((b, self.clip_samples),) * 2
+                           for b in self.buckets)
+        self.programs = {b: self.cache.program(*((b, self.clip_samples),) * 2)
                          for b in self.buckets}
 
     def _bucket_for(self, n: int) -> int:

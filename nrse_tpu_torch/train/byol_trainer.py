@@ -52,6 +52,7 @@ shards it again, so a run resumes at any ``tpu.mesh``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -82,6 +83,9 @@ from nrse_tpu_torch.parallel.mesh import (
 )
 from nrse_tpu_torch.parallel.mesh import broadcast_state as _broadcast
 from nrse_tpu_torch.parallel.mesh import replicas_agree as _replicas_agree
+from nrse_tpu_torch.runtime.graphs import ProgramCache
+
+logger = logging.getLogger(__name__)
 
 # the flat buffers of the state, and which tower's parameters each holds
 FLAT = {"params": "online", "mu": "online", "nu": "online",
@@ -109,6 +113,9 @@ class BYOLTrainState:
     # both towers' kernel seed pairs, filled for each step
     seeds: Optional[SeedTable] = dataclasses.field(default=None,
                                                    repr=False)
+    # the eval step's program caches (runtime.graphs.ProgramCache), by
+    # whether they return the embeddings
+    programs: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def tp(self) -> bool:
@@ -396,40 +403,73 @@ def make_byol_train_step(spec: FusedAdamWSpec
     return train_step
 
 
-def make_byol_eval_step(embeddings: bool = False
+def make_byol_eval_step(embeddings: bool = False, graphs: bool = True
                         ) -> Callable[[BYOLTrainState, Dict], Tuple]:
     """``eval_step(state, batch) → (loss [B], similarity [B])``: the BYOL
     loss per sample and the clean↔noisy cosine of the online encoder's
     pooled embeddings, from three encoder forwards in eval mode
-    (``byol_trainer.py:183-235``).  With ``embeddings``, also those pooled
-    clean and noisy embeddings ``[B, C]`` in float32, which JAX's
-    ``make_byol_embed_step`` (``:238-261``) computes in a pass of its
-    own."""
+    (``byol_trainer.py:183-235``); the towers' modes are restored after.
+    With ``embeddings``, also those pooled clean and noisy embeddings
+    ``[B, C]`` in float32, which JAX's ``make_byol_embed_step``
+    (``:238-261``) computes in a pass of its own.
+
+    With ``graphs`` (the default) a state without a mesh runs the step
+    from a ``runtime.graphs.ProgramCache`` of ``(clean, noise, snr)`` kept
+    on the state (the counterpart of JAX's jitted ``eval_step`` and
+    ``embed_step``: one program a batch shape, on the card a CUDA graph
+    reading both towers' parameters and the heads' running statistics in
+    place, so a train step needs no recapture of it); a state under a
+    mesh runs it eagerly.  The outputs are copies either way."""
+    logged = set()
+
+    def forward_of(state: BYOLTrainState) -> Callable:
+        online, target = state.online, state.target
+
+        @torch.no_grad()
+        def forward(clean, noise, snr):
+            clean, noisy, _ = make_byol_views(clean, noise, snr)
+            clean_emb = online.encoder(clean)[1].float()
+            noisy_emb = online.encoder(noisy)[1].float()
+            pred, _ = online.heads(clean_emb)
+            proj = target.projector(target.encoder(noisy)[1].float())
+            loss = byol_loss_per_sample(pred, proj)
+
+            def unit(e):
+                return e / torch.clamp_min(
+                    torch.linalg.vector_norm(e, dim=1, keepdim=True), 1e-10)
+
+            sim = (unit(clean_emb) * unit(noisy_emb)).sum(1)
+            if embeddings:
+                return loss, sim, clean_emb, noisy_emb
+            return loss, sim
+
+        return forward
 
     @torch.no_grad()
     def eval_step(state: BYOLTrainState, batch: Dict):
         online, target = state.online, state.target
+        captured = graphs and state.mesh is None
+        form = "captured" if captured else "eager"
+        if form not in logged:
+            logged.add(form)
+            logger.info(f"BYOL eval step: the {form} form"
+                        + ("" if captured or not graphs else " (a mesh)"))
         modes = [(m, m.training) for m in online.modules()] + \
             [(m, m.training) for m in target.modules()]
         online.eval()
         target.eval()
-        clean, noisy, _ = make_byol_views(batch["clean"], batch["noise"],
-                                          batch["snr"])
-        clean_emb = online.encoder(clean)[1].float()
-        noisy_emb = online.encoder(noisy)[1].float()
-        pred, _ = online.heads(clean_emb)
-        proj = target.projector(target.encoder(noisy)[1].float())
-        loss = byol_loss_per_sample(pred, proj)
-        for m, training in modes:  # the train step finds its modes again
-            m.training = training
-
-        def unit(e):
-            return e / torch.clamp_min(
-                torch.linalg.vector_norm(e, dim=1, keepdim=True), 1e-10)
-
-        sim = (unit(clean_emb) * unit(noisy_emb)).sum(1)
-        if embeddings:
-            return loss, sim, clean_emb, noisy_emb
-        return loss, sim
+        try:
+            inputs = (batch["clean"], batch["noise"], batch["snr"])
+            if not captured:
+                return forward_of(state)(*inputs)
+            cache = state.programs.get(embeddings)
+            if cache is None:
+                cache = state.programs[embeddings] = ProgramCache(
+                    forward_of(state), state.params.device,
+                    tuple((x.dtype, 0.0) for x in inputs))
+            return cache(*inputs)
+        finally:  # the train step finds its modes again
+            for m, training in modes:
+                m.training = training
 
     return eval_step

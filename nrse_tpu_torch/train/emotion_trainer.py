@@ -85,9 +85,13 @@ from nrse_tpu_torch.parallel.mesh import (
     replicas_agree,
     shard_batch,
 )
-from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 from nrse_tpu_torch.runtime.staging import Staging
 from nrse_tpu_torch.train.losses import ccc_loss, ce_weight_category
+from nrse_tpu_torch.train.step_graphs import (
+    StepGraphs,
+    encoder_parameter_groups,
+)
 
 ALIGN = 4  # floats: K4 takes 16-byte aligned buffers
 
@@ -115,7 +119,7 @@ class EmotionTrainState:
     trainable: Optional[Tuple] = None  # (layers, rest) set last
     mesh: Optional[DataMesh] = None
     # the step's staged inputs by batch shape, and its graphs
-    # (train.step_graphs.SERStepGraphs) of the current key and shape
+    # (train.step_graphs.StepGraphs) of the current key and shape
     inputs: Dict = dataclasses.field(default_factory=dict, repr=False)
     graphs: Optional[object] = dataclasses.field(default=None, repr=False)
 
@@ -132,18 +136,8 @@ class EmotionTrainState:
 def parameter_groups(model: EmotionClassifier
                      ) -> List[List[torch.nn.Parameter]]:
     """The encoder's non-layer parameters, each layer's, the heads'."""
-    layers = [[] for _ in range(model.encoder_config.num_hidden_layers)]
-    rest, heads = [], []
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] != "encoder":
-            heads.append(p)
-        elif parts[1:3] == ["encoder", "layers"] \
-                and not name.endswith("rel_attn_embed.weight"):
-            layers[int(parts[3])].append(p)
-        else:
-            rest.append(p)
-    return [rest] + layers + [heads]
+    return encoder_parameter_groups(model, "encoder",
+                                    model.encoder_config.num_hidden_layers)
 
 
 def create_emotion_state(model: EmotionClassifier, seed: int = 0
@@ -342,16 +336,16 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                            " (a mesh: gloo cannot be captured and NCCL "
                            "runs one rank a card)"))
         if captured:
-            # step_graphs imports this module
-            from nrse_tpu_torch.train.step_graphs import SERStepGraphs
             key = (state.trainable, tuple(batch["input_values"].shape),
                    task, class_weights is not None)
             if state.graphs is None or state.graphs.key != key:
                 state.graphs = None  # the previous key's graphs go first
-                state.graphs = SERStepGraphs(
+                state.graphs = ser_step_graphs(
                     state, task, spec, segments, batch, class_weights, rng,
                     inputs, key)
-            loss, grad_norm = state.graphs.run(batch, class_weights, rng)
+            loss, out = state.graphs.run(
+                _step_inputs(batch, class_weights), rng, ("optimizer",))
+            grad_norm = out["optimizer"]
         else:
             loss, grad_norm = _eager_step(state, task, spec, segments,
                                           batch, class_weights, rng, inputs)
@@ -363,6 +357,52 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                 "layers_run": state.model.encoder.encoder.layers_run}
 
     return train_step
+
+
+def _step_inputs(batch: Mapping, class_weights) -> Dict:
+    """What the captured step reads per step: the batch, and the class
+    weights where there are any."""
+    if class_weights is None:
+        return dict(batch)
+    return {**batch, "class_weights": class_weights}
+
+
+def ser_step_graphs(state: EmotionTrainState, task: str,
+                    spec: FusedAdamWSpec, segments, batch: Mapping,
+                    class_weights: Optional[torch.Tensor], rng: TrainRNG,
+                    inputs: StepInputs, key) -> StepGraphs:
+    """The SER train step of ``state`` for one ``key`` (the trainable
+    key, the batch shape, the task, whether class weights are given) as
+    ``train.step_graphs.StepGraphs``, captured on ``batch`` with ``rng``
+    (the step's staged stream) and ``inputs`` (the ``StepInputs`` staged
+    for it: the trunks' masks, K4's host scalars): the front z-norms the
+    waveform, the head runs ASP, the trunks and :func:`emotion_loss`, and
+    one ``optimizer`` part takes the global norm and the K4 launches."""
+    model = state.model
+
+    def front(x, rng):
+        return model.encoder.front(zero_mean_unit_var(x["input_values"]),
+                                   x["attention_mask"], rng)
+
+    def head(seq, x, rng):
+        logits, dims = model.head(seq, x["attention_mask"], task, rng,
+                                  inputs.trunks)
+        return emotion_loss(task, logits, dims, x,
+                            x.get("class_weights"))
+
+    def optimizer():
+        gn = global_norm(state.grads, segments)
+        for lo, hi in segments:
+            fused_adamw_ema_update(
+                state.grads[lo:hi], state.params[lo:hi], state.mu[lo:hi],
+                state.nu[lo:hi], None, spec, state.step, gn, rest=inputs.k4)
+        return gn
+
+    return StepGraphs(
+        model.encoder, parameter_groups(model), state.trainable, front,
+        head, [("optimizer", optimizer)],
+        _step_inputs(batch, class_weights), rng, state.grads, key,
+        f"the SER train step {state.step} (trainable {state.trainable})")
 
 
 def _eager_step(state: EmotionTrainState, task: str, spec: FusedAdamWSpec,
@@ -465,7 +505,7 @@ def make_emotion_eval_step(task: str, graphs: bool = True) -> Callable:
         if entry is None or entry[0] is not model:
             entry = (model, ProgramCache(
                 forward_of(model), batch["input_values"].device,
-                mask_dtype=batch["attention_mask"].dtype))
+                audio_inputs(mask_dtype=batch["attention_mask"].dtype)))
             caches[id(model)] = entry
         out = entry[1](batch["input_values"], batch["attention_mask"])
         return out if isinstance(out, tuple) else (out,)

@@ -1,24 +1,32 @@
-"""The SER trainers' train step as CUDA graphs, one per part of the step.
+"""A training step on the WavLM encoder as CUDA graphs, one per part.
 
-The JAX package runs the step as one jitted program
-(``nrse_tpu/train/emotion_trainer.py:149``), and skips a layer that
-LayerDrop drops inside it (``nrse_tpu/models/wavlm.py:826-851``,
-``nn.cond``).  LayerDrop draws a new keep set every step (with p = 0.1
-over 23 droppable layers, about 91% of steps drop one), so one graph of
-the whole step would need a capture per keep set.  Here the step is cut
-into parts, each captured once per trainable key and batch shape, and the
-host replays the parts of the layers the step keeps, so a dropped layer
-launches nothing:
+The JAX package runs each training step as one jitted program: the SER
+trainers' step (``nrse_tpu/train/emotion_trainer.py:149``) and the baseline
+fine-tune's micro-step (``nrse_tpu/baseline/train_ft_cat_ser.py:205``,
+MultiSteps' accumulate and, on every k-th micro-step, its AdamW apply).
+It skips a layer that LayerDrop drops inside the program
+(``nrse_tpu/models/wavlm.py:826-851``, ``nn.cond``).  LayerDrop draws a new
+keep set every step (with p = 0.1 over 23 droppable layers, about 91% of
+steps drop one), so one graph of the whole step would need a capture per
+keep set.  Here the step is cut into parts, each captured once per
+trainable key and batch shape, and the host replays the parts of the
+layers the step keeps, so a dropped layer launches nothing.  One class,
+:class:`StepGraphs`, holds the parts of every such step; what differs
+between models comes from the caller:
 
-  * ``front``: the flat gradient buffer zeroed, the waveform's z-norm, the
-    frontend, the projection, SpecAugment, the positional conv, the
-    encoder-level dropout and the relative position bias;
+  * ``front``: the flat gradient buffer zeroed, then the caller's front
+    (the SER step z-norms the waveform first, the fine-tune's dataset
+    already did) ending in ``WavLMModel.front``: the frontend, the
+    projection, SpecAugment, the positional conv, the encoder-level
+    dropout and the relative position bias;
   * ``layer i forward``, for each layer: with autograd where the layer
     takes part in the backward (its parameters train, or the encoder's
     other parameters do, which needs its input's gradient), under
-    ``no_grad`` otherwise, so the frozen prefix runs with no graph and no
-    K3 or K2 for it;
-  * ``head``: the final LayerNorm, the pooling, the trunks and the loss,
+    ``no_grad`` otherwise, so a frozen layer runs with no graph and no K3,
+    K2 or K5 backward for it;
+  * ``head``: ``WavLMModel.back`` (with autograd where the encoder trains),
+    then the caller's head and loss (the SER trunks and ``emotion_loss``;
+    the fine-tune's ASP, ``EmotionRegression`` and ``ce_weight_category``),
     and their backward (the head's parameter gradients and the last
     layer's output gradient);
   * ``layer i backward``, for each layer that takes part, from the top
@@ -27,89 +35,92 @@ launches nothing:
     makes), its input gradient, and its position-bias gradient added into
     one accumulator in the order autograd sums it;
   * ``front backward``, where the encoder's other parameters train;
-  * ``optimizer``: the global norm of the trainable segments and the K4
-    launches, with the LR and bias corrections read from the staged slot.
+  * the caller's optimizer parts, in order, each replayed only on the
+    steps the caller names: the SER step's ``optimizer`` (the global norm
+    and K4) every step; the fine-tune's ``accumulate`` every micro-step and
+    ``apply`` (K4 over the mean, the mean zeroed) on every k-th.
 
-Each part reads static buffers: the batch (copied in before the front), the
-staged inputs of ``emotion_trainer.StepInputs`` (the seed table, the spans,
-the trunks' masks, K4's scalars; written before the replay in one copy),
-its input hidden state or gradient (copied from the part the host ran
-before it), and the parameters and their gradients in the state's flat
+Each part reads static buffers: the batch (copied in before the front),
+the step's staged inputs (the seed table, the spans, the head's dropout
+masks, K4's scalars, MultiSteps' divisor; written before the replay in one
+copy), its input hidden state or gradient (copied from the part the host
+ran before it), and the parameters and their gradients in the state's flat
 buffers.  The copies between the parts are the only launches outside the
 graphs, one a kept layer each way; no kernel wrapper launches outside
 them.  The parts share one memory pool and are captured in the order they
-replay (forwards from the bottom, the head, backwards from the top), so a
-part only reuses memory of a part that runs before it in every step.
+replay (forwards from the bottom, the head, backwards from the top, the
+optimizer parts), so a part only reuses memory of a part that runs before
+it in every step.
 
 A capture warms every part up once on a side stream first (cuBLAS's
-workspace, cuDNN's choice for the positional conv); the optimizer is not
-warmed up, since it would update the state.  A capture that fails raises,
-naming the step and the part; there is no eager fallback.
+workspace, cuDNN's choice for the positional conv); the optimizer parts
+are not warmed up, since they would update the state.  A capture that
+fails raises, naming the step and the part; there is no eager fallback.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
-from nrse_tpu_torch.audio.features import zero_mean_unit_var
-from nrse_tpu_torch.models.wavlm import TrainRNG
-from nrse_tpu_torch.ops.fused_optimizer import (
-    FusedAdamWSpec,
-    fused_adamw_ema_update,
-)
-from nrse_tpu_torch.train.emotion_trainer import (
-    emotion_loss,
-    global_norm,
-    parameter_groups,
-)
+from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMModel
 
 
-class SERStepGraphs:
-    """The captured train step of ``state`` for one ``key`` (the trainable
-    key, the batch shape, the task, whether class weights are given):
-    built by capturing the parts on ``batch`` with ``rng`` (the step's
-    staged stream) and ``inputs`` (the ``emotion_trainer.StepInputs``
-    staged for it: the trunks' masks, K4's host scalars), then
-    :meth:`run` per step.  ``capture_s`` is the
-    capture's seconds by the host clock, warm-up included."""
+class StepGraphs:
+    """The captured train step of one ``key`` (the caller's: the trainable
+    key, the batch shape, ...).
 
-    def __init__(self, state, task: str, spec: FusedAdamWSpec,
-                 segments: Sequence[Tuple[int, int]], batch: Mapping,
-                 class_weights: Optional[torch.Tensor], rng: TrainRNG,
-                 inputs, key: Tuple):
-        self.key = key
-        self.state, self.task, self.spec = state, task, spec
-        self.segments = list(segments)
-        self.k4, self.trunks = inputs.k4, inputs.trunks
-        model = state.model
-        wavlm = model.encoder
+    ``wavlm`` is the model's encoder and ``groups`` its parameters as
+    ``[the encoder's non-layer parameters, layer 0, ..., layer L − 1, the
+    head's]``; ``trainable`` is ``(first, rest)``: the layers from
+    ``first`` up train, and with ``rest`` the encoder's other parameters
+    do too.  ``front(inputs, rng)`` returns ``WavLMModel.front``'s
+    ``(hidden, pos_bias, frame_mask)``; ``head(seq, inputs, rng)`` the
+    loss of the encoder's sequence; ``optimizer`` the ``(name, fn)``
+    parts after the backward, each ``fn()`` returning a tensor or None.
+    ``inputs`` (a mapping of tensors: the batch and whatever else the
+    step reads per step) gives the static inputs' shapes and the first
+    step's values; ``rng`` is that step's staged stream (its table and its
+    draws, which every later step writes in place); ``grads`` the flat
+    gradient buffer the front zeroes.  On a card the parts are captured
+    here; ``capture_s`` is the capture's seconds by the host clock,
+    warm-up included.  ``label`` names the step in a capture's error."""
+
+    def __init__(self, wavlm: WavLMModel,
+                 groups: Sequence[Sequence[torch.nn.Parameter]],
+                 trainable: Tuple[int, bool],
+                 front: Callable, head: Callable,
+                 optimizer: Sequence[Tuple[str, Callable[[], Any]]],
+                 inputs: Mapping[str, torch.Tensor], rng: TrainRNG,
+                 grads: torch.Tensor, key: Any = None, label: str = ""):
+        self.key, self.label = key, label
+        self.wavlm, self.front_fn, self.head_fn = wavlm, front, head
+        self.optimizer = list(optimizer)
+        self.grads = grads
         self.layers = list(wavlm.encoder.layers)
         n = len(self.layers)
-        first, rest = state.trainable
+        first, rest = trainable
         self.rest = bool(rest)
         # a layer takes part in the backward where its parameters train or
         # the encoder's other parameters need its input's gradient
         self.trains = [self.rest or i >= first for i in range(n)]
         self.encoder_grad = any(self.trains)
-        groups = [[p for p in g if p.requires_grad]
-                  for g in parameter_groups(model)]
+        groups = [[p for p in g if p.requires_grad] for g in groups]
         self.front_params, self.layer_params = groups[0], groups[1:-1]
-        self.head_params = groups[0] + groups[-1]
-        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.weights = None if class_weights is None \
-            else torch.empty_like(class_weights)
+        self.head_params = (groups[0] if self.rest else []) + groups[-1]
+        self.inputs = {k: torch.empty_like(v) for k, v in inputs.items()}
         self.rng = rng
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.outputs: Dict[str, Any] = {}
         self.capture_s = None
-        self._load(batch, class_weights)
-        if state.params.device.type == "cuda":
-            self._capture(state.params.device)
+        self._load(inputs)
+        if grads.device.type == "cuda":
+            self._capture(grads.device)
 
     def warm_up(self) -> None:
-        """Every part but the optimizer once, eagerly, every layer run (a
+        """Every part but the optimizer's once, eagerly, every layer run (a
         capture's warm-up; on the CPU, where nothing is captured, the
         parts' arithmetic against the eager step)."""
         self._build(None)
@@ -138,8 +149,7 @@ class SERStepGraphs:
                 out = fn()
         except Exception as e:
             raise RuntimeError(
-                f"capturing the SER train step {self.state.step} (trainable "
-                f"{self.state.trainable}, batch "
+                f"capturing {self.label} (batch "
                 f"{tuple(self.inputs['input_values'].shape)}) failed in "
                 f"part {name!r}: {e}") from e
         self.graphs[name] = graph
@@ -147,18 +157,14 @@ class SERStepGraphs:
 
     def _build(self, pool) -> None:
         """Run (``pool`` None) or capture every part in replay order."""
-        state, part, rest, rng = self.state, self._part, self.rest, self.rng
-        inputs, weights = self.inputs, self.weights
-        model = state.model
-        wavlm = model.encoder
-        front_params, head_params = self.front_params, self.head_params
+        part, rest, rng, inputs = self._part, self.rest, self.rng, self.inputs
+        wavlm, front_params = self.wavlm, self.front_params
         warm = pool is None
 
         def front():
-            state.grads.zero_()
+            self.grads.zero_()
             with torch.set_grad_enabled(rest):
-                x = zero_mean_unit_var(inputs["input_values"])
-                return wavlm.front(x, inputs["attention_mask"], rng)
+                return self.front_fn(inputs, rng)
 
         h0, pos_bias, frame_mask = part("front", front, pool)
         self.h0 = h0
@@ -190,16 +196,14 @@ class SERStepGraphs:
         def head():
             if rest:  # the layers' bias gradients add up from here
                 self.dpos.zero_()
-            with torch.enable_grad():
+            with torch.set_grad_enabled(self.encoder_grad):
                 seq, _ = wavlm.back(self.h_last, frame_mask)
-                logits, dims = model.head(seq, inputs["attention_mask"],
-                                          self.task, rng, self.trunks)
-                loss = emotion_loss(self.task, logits, dims, inputs,
-                                    weights)
+            with torch.enable_grad():
+                loss = self.head_fn(seq, inputs, rng)
                 wrt = [self.h_last] if self.encoder_grad else []
-                grads = torch.autograd.grad(loss, wrt + head_params,
+                grads = torch.autograd.grad(loss, wrt + self.head_params,
                                             allow_unused=True)
-            _accumulate(head_params, grads[len(wrt):])
+            _accumulate(self.head_params, grads[len(wrt):])
             return loss.detach(), grads[0] if wrt else None
 
         self.loss, g = part("head", head, pool)
@@ -244,32 +248,24 @@ class SERStepGraphs:
 
         if warm:  # the optimizer would update the state
             return
-
-        def optimizer():
+        for name, fn in self.optimizer:
             with torch.no_grad():
-                gn = global_norm(state.grads, self.segments)
-                for lo, hi in self.segments:
-                    fused_adamw_ema_update(
-                        state.grads[lo:hi], state.params[lo:hi],
-                        state.mu[lo:hi], state.nu[lo:hi], None, self.spec,
-                        state.step, gn, rest=self.k4)
-                return gn
+                self.outputs[name] = part(name, fn, pool)
 
-        self.grad_norm = part("optimizer", optimizer, pool)
-
-    def _load(self, batch: Mapping, class_weights) -> None:
+    def _load(self, inputs: Mapping[str, torch.Tensor]) -> None:
         with torch.no_grad():
             for k, v in self.inputs.items():
-                v.copy_(batch[k])
-            if self.weights is not None:
-                self.weights.copy_(class_weights)
+                v.copy_(inputs[k])
 
-    def run(self, batch: Mapping, class_weights,
-            rng: TrainRNG) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One step on ``batch`` whose inputs ``rng`` says were staged:
-        the batch copied in, the parts of the layers ``rng.draws.keep``
-        keeps replayed.  Returns copies of ``(loss, grad_norm)``."""
-        self._load(batch, class_weights)
+    def run(self, inputs: Mapping[str, torch.Tensor], rng: TrainRNG,
+            optimizer: Sequence[str]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One step on ``inputs`` whose staged values ``rng`` says were
+        written: the inputs copied in, the parts of the layers
+        ``rng.draws.keep`` keeps replayed, then the ``optimizer`` parts
+        named.  Returns copies of the loss and of those parts' outputs
+        (the ones that return a tensor)."""
+        self._load(inputs)
         graphs = self.graphs
         graphs["front"].replay()
         h, kept = self.h0, []
@@ -293,8 +289,11 @@ class SERStepGraphs:
             if self.rest:
                 self.g_h0.copy_(g)
                 graphs["front backward"].replay()
-            graphs["optimizer"].replay()
-            return self.loss.clone(), self.grad_norm.clone()
+            for name in optimizer:
+                graphs[name].replay()
+            return self.loss.clone(), {
+                name: self.outputs[name].clone() for name in optimizer
+                if isinstance(self.outputs[name], torch.Tensor)}
 
 
 def _accumulate(params: List[torch.nn.Parameter], grads) -> None:
@@ -304,3 +303,25 @@ def _accumulate(params: List[torch.nn.Parameter], grads) -> None:
         for p, g in zip(params, grads):
             if g is not None:
                 p.grad.add_(g)
+
+
+def encoder_parameter_groups(model: torch.nn.Module, encoder: str,
+                             layers: int
+                             ) -> List[List[torch.nn.Parameter]]:
+    """``model``'s parameters as :class:`StepGraphs` takes them: those of
+    its WavLM ``encoder`` (the submodule's name) outside the layers (the
+    relative-position table, which the front uses for every layer,
+    included), each of its ``layers`` layers', and the rest (the head's)."""
+    groups: List[List[torch.nn.Parameter]] = [[] for _ in range(layers)]
+    rest, heads = [], []
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != encoder:
+            heads.append(p)
+        elif parts[1:3] == ["encoder", "layers"] \
+                and not name.endswith("rel_attn_embed.weight"):
+            groups[int(parts[3])].append(p)
+        else:
+            rest.append(p)
+    return [rest] + groups + [heads]
+

@@ -13,12 +13,23 @@
      model's own draws (a copy of the step before staging, here) bit for
      bit over 3 steps with LayerDrop, SpecAugment and every dropout on,
      frozen / top / whole, with a dropped layer among them.
-  5. The captured step's parts (``train.step_graphs.SERStepGraphs``) run
-     eagerly in their order give the eager step's loss and gradients bit
-     for bit, frozen / top / whole.
+  5. The captured step's parts (``train.step_graphs.StepGraphs`` as
+     ``emotion_trainer.ser_step_graphs`` builds them) run eagerly in their
+     order give the eager step's loss and gradients bit for bit, frozen /
+     top / whole.
   6. ``runtime.graphs.ProgramCache``: one program per shape, a smaller
      request rewrites the padding rows a larger one left, and the outputs
      are copies; the eval step through it equals the eager one.
+  7. The same class holds the fine-tune's micro-step
+     (``train_ft_cat_ser.ft_step_graphs``): its parts run eagerly in their
+     order, then its ``accumulate`` and (on the k-th micro-step) ``apply``
+     parts, give the eager micro-step's loss, gradients, mean, moments and
+     parameters bit for bit over two micro-steps at k = 2, end to end and
+     frozen.
+  8. ``ProgramCache`` with three inputs, one of them of another rank,
+     rewrites every row of each; the BYOL eval and embed steps and
+     ``WavLMEncoder`` through their programs equal their eager forms bit
+     for bit, and the towers' modes are restored.
 """
 
 import dataclasses
@@ -28,7 +39,15 @@ import pytest
 import torch
 
 from nrse_tpu_torch.audio.features import zero_mean_unit_var
-from nrse_tpu_torch.models.convert import init_emotion_state_dict
+from nrse_tpu_torch.baseline import train_ft_cat_ser as ft
+from nrse_tpu_torch.baseline.pipeline import BaselineSER
+from nrse_tpu_torch.models.convert import (
+    init_baseline_state_dict,
+    init_byol_state_dict,
+    init_emotion_state_dict,
+    init_state_dict,
+)
+from nrse_tpu_torch.models.encoder import WavLMEncoder
 from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import (
     ENCODER,
@@ -46,10 +65,13 @@ from nrse_tpu_torch.ops.fused_optimizer import (
     fused_adamw_ema_update,
     host_scalars,
 )
-from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 from nrse_tpu_torch.runtime.staging import Staging
 from nrse_tpu_torch.train import emotion_trainer as et
-from nrse_tpu_torch.train.step_graphs import SERStepGraphs
+from nrse_tpu_torch.train.byol_trainer import (
+    create_train_state,
+    make_byol_eval_step,
+)
 
 torch.set_num_threads(1)
 
@@ -279,9 +301,9 @@ def test_graphed_parts_give_the_eager_gradients(layers, rest, lr):
     loss = et.emotion_loss("both", logits, dims, batch, weights)
     loss.backward()
     p_inputs = et.step_inputs(parts, batch)
-    graphs = SERStepGraphs(parts, "both", spec, segments, batch, weights,
-                           p_inputs.stage(parts, "both", spec),
-                           p_inputs, key=None)
+    graphs = et.ser_step_graphs(parts, "both", spec, segments, batch,
+                                weights, p_inputs.stage(parts, "both", spec),
+                                p_inputs, key=None)
     assert not graphs.graphs  # nothing is captured on the CPU
     graphs.warm_up()
     assert torch.equal(graphs.loss, loss.detach())
@@ -296,20 +318,22 @@ def test_program_cache_one_program_a_shape_padding_rewritten():
         calls.append(tuple(audio.shape))
         return audio.sum(-1) * 2.0, mask.sum(-1)
 
-    cache = ProgramCache(forward, "cpu", mask_dtype=torch.float32)
+    cache = ProgramCache(forward, "cpu",
+                         audio_inputs(mask_dtype=torch.float32))
     big = torch.arange(12.0).reshape(3, 4)
     out = cache(big, torch.ones(3, 4))
     assert torch.equal(out[0], big.sum(-1) * 2.0)
     small = torch.zeros(3, 4)
     small[0] = 1.0
     out2 = cache(small, torch.zeros(3, 4))
-    program = cache.programs[(3, 4)]
+    program = cache.programs[((3, 4), (3, 4))]
     assert torch.equal(program.audio, small)  # the padding rows rewritten
     assert torch.equal(out2[0], small.sum(-1) * 2.0)
     assert torch.equal(out[0], big.sum(-1) * 2.0)  # a copy, untouched
     cache(torch.zeros(2, 8), torch.zeros(2, 8))
-    cache.prepare([(3, 4), (2, 8), (1, 4)])
-    assert sorted(cache.programs) == [(1, 4), (2, 8), (3, 4)]
+    cache.prepare([((3, 4),) * 2, ((2, 8),) * 2, ((1, 4),) * 2])
+    assert sorted(cache.programs) == [((1, 4),) * 2, ((2, 8),) * 2,
+                                      ((3, 4),) * 2]
     single = ProgramCache(lambda a, m: a * 3.0, "cpu")
     assert torch.equal(single(big, torch.ones(3, 4)), big * 3.0)
 
@@ -324,3 +348,146 @@ def test_eval_step_through_programs_is_the_eager_one():
     for k in outs[0]:
         assert torch.equal(outs[0][k], outs[1][k])
     assert state.model.training  # the modes are restored
+
+
+def _ft_state(freeze_ssl):
+    cfg = dataclasses.replace(WavLMConfig.tiny(), num_hidden_layers=LAYERS,
+                              layerdrop=0.0)  # the warm-up runs every layer
+    model = BaselineSER(cfg, head_dim=32)
+    model.load_state_dict(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(6), head_dim=32))
+    return ft.create_train_state(model)
+
+
+def _ft_batch(seed, samples=8000):  # 399 frames: K5's plain versions
+    rng = np.random.default_rng(seed)
+    x = (0.3 * rng.standard_normal((2, samples))).astype(np.float32)
+    mask = np.ones((2, samples), np.float32)
+    mask[1, samples * 3 // 4:] = 0.0
+    return {"input_values": torch.from_numpy(x),
+            "attention_mask": torch.from_numpy(mask),
+            "label": torch.from_numpy(rng.integers(0, 8, 2).astype(
+                np.int32))}
+
+
+@pytest.mark.parametrize("freeze_ssl", [False, True], ids=["e2e", "frozen"])
+def test_fine_tune_parts_give_the_eager_micro_step(freeze_ssl):
+    k, spec = 2, ft.adamw_spec(1e-3)
+    weights = torch.linspace(0.5, 1.5, 8)
+    parts, eager = _ft_state(freeze_ssl), _ft_state(freeze_ssl)
+    step = ft.make_train_step(spec, k, freeze_ssl, weights)
+    for i in range(k):
+        batch = _ft_batch(30 + i)
+        loss = step(eager, batch, TrainRNG(4, i))
+        inputs = ft.step_inputs(parts, batch)
+        rng = inputs.stage(parts, TrainRNG(4, i), spec)
+        graphs = ft.ft_step_graphs(parts, spec, freeze_ssl, weights, batch,
+                                   rng, inputs, key=None)
+        assert not graphs.graphs  # nothing is captured on the CPU
+        graphs.warm_up()
+        assert [name for name, _ in graphs.optimizer] == ["accumulate",
+                                                          "apply"]
+        optimizer = dict(graphs.optimizer)
+        with torch.no_grad():
+            optimizer["accumulate"]()
+            if i == k - 1:
+                optimizer["apply"]()
+        assert torch.equal(graphs.loss, loss), i
+        for name in ("grads", "acc", "mu", "nu", "params"):
+            assert torch.equal(getattr(parts, name), getattr(eager, name)), \
+                (i, name)
+        parts.mini_step = eager.mini_step
+        parts.count = eager.count
+    ssl = slice(0, eager.n_ssl)
+    assert (float(eager.grads[ssl].abs().max()) == 0.0) == freeze_ssl
+    assert bool(eager.grads[eager.n_ssl:].abs().sum() > 0)
+    assert eager.count == 1 and float(eager.acc.abs().max()) == 0.0
+
+
+def test_program_cache_three_inputs_every_row_rewritten():
+    calls = []
+
+    def forward(clean, noise, snr):
+        calls.append(1)
+        return clean.sum(-1) + noise.sum(-1) * snr, snr * 2.0
+
+    specs = ((torch.float32, 0.0), (torch.float32, 0.0),
+             (torch.float32, 0.0))
+    cache = ProgramCache(forward, "cpu", specs)
+    g = torch.Generator().manual_seed(0)
+    clean, noise = torch.randn(3, 5, generator=g), torch.randn(3, 5,
+                                                               generator=g)
+    snr = torch.tensor([2.0, 5.0, 10.0])
+    out = cache(clean, noise, snr)
+    program = cache.programs[((3, 5), (3, 5), (3,))]
+    again = cache(torch.zeros(3, 5), torch.ones(3, 5), torch.ones(3))
+    for buf, want in zip(program.inputs, (torch.zeros(3, 5),
+                                          torch.ones(3, 5), torch.ones(3))):
+        assert torch.equal(buf, want)  # every row of every input
+    assert torch.equal(out[0], clean.sum(-1) + noise.sum(-1) * snr)
+    assert torch.equal(out[1], snr * 2.0)  # copies, left alone
+    assert torch.equal(again[0], torch.full((3,), 5.0))
+    cache(torch.zeros(2, 5), torch.zeros(2, 5), torch.zeros(2))
+    assert sorted(cache.programs) == [((2, 5), (2, 5), (2,)),
+                                      ((3, 5), (3, 5), (3,))]
+    assert len(calls) == 3 and cache.captured == 0
+    unmasked = ProgramCache(lambda a, m: a * 2.0 if m is None else a, "cpu",
+                            audio_inputs(with_mask=False))
+    assert torch.equal(unmasked(clean, torch.ones(3, 5)), clean * 2.0)
+    assert list(unmasked.programs) == [((3, 5), None)]
+
+
+def _byol_batch(seed=3, t=3200):
+    rng = np.random.default_rng(seed)
+    ax = np.arange(t) / 16000.0
+    clean = np.stack([np.sin(2 * np.pi * f * ax) for f in (150, 400, 900)])
+    clean = clean + 0.05 * rng.standard_normal((3, t))
+    return {"clean": torch.from_numpy(clean.astype(np.float32)),
+            "noise": torch.from_numpy(
+                (0.2 * rng.standard_normal((3, t))).astype(np.float32)),
+            "snr": torch.tensor([2.0, 10.0, 20.0])}
+
+
+@pytest.mark.parametrize("embeddings", [False, True])
+def test_byol_eval_step_through_programs_is_the_eager_one(embeddings):
+    cfg = WavLMConfig.tiny()
+    state = create_train_state(
+        cfg, init_byol_state_dict(cfg, 16, 32,
+                                  torch.Generator().manual_seed(8)),
+        16, 32, "cpu")
+    state.target.projector.bn_0.training = False  # a mode to restore
+    modes = [m.training for m in state.online.modules()] + \
+        [m.training for m in state.target.modules()]
+    batch = _byol_batch()
+    got = make_byol_eval_step(embeddings)(state, batch)
+    want = make_byol_eval_step(embeddings, graphs=False)(state, batch)
+    assert len(got) == len(want) == (4 if embeddings else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and bool(torch.isfinite(g).all())
+    assert modes == [m.training for m in state.online.modules()] + \
+        [m.training for m in state.target.modules()]
+    assert list(state.programs) == [embeddings]
+    assert list(state.programs[embeddings].programs) == [
+        ((3, 3200), (3, 3200), (3,))]
+    again = make_byol_eval_step(embeddings)(state, _byol_batch(4))
+    assert list(state.programs[embeddings].programs) == [
+        ((3, 3200), (3, 3200), (3,))]  # the state's cache, reused
+    assert not torch.equal(again[0], got[0])
+
+
+def test_wavlm_encoder_through_programs_is_the_eager_one():
+    cfg = WavLMConfig.tiny()
+    sd = init_state_dict(cfg, torch.Generator().manual_seed(5))
+    enc = WavLMEncoder(config=cfg, state_dict=sd, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 1, 4000, generator=g)
+    mask = torch.ones(2, 4000, dtype=torch.int32)
+    mask[1, 3000:] = 0
+    for m in (None, mask):
+        with torch.inference_mode():  # the eager forward
+            seq, pooled = enc.model(x, m)
+        assert torch.equal(enc(x, m), seq)
+        assert torch.equal(enc.encode_pooled(x, m), pooled)
+    assert set(enc.programs) == {None, torch.int32}
+    assert list(enc.programs[None].programs) == [((2, 4000), None)]
+    assert not enc.model.training

@@ -25,6 +25,13 @@ train_ft_cat_ser``) against the JAX package's
      ``--device`` it asks for the card and raises where there is none.
   5. ``--byol_checkpoint`` starts the encoder from a BYOL checkpoint of
      the port's ``train_byol``.
+  6. The staged micro-step (its host draws, K4's scalars and MultiSteps'
+     divisor written to one staging first) equals the micro-step before
+     staging (a copy of its code here) bit for bit over 8 micro-steps at
+     k = 4 (two K4 updates), end to end and frozen, with every random
+     feature on and a layer dropped among them; the staged head masks are
+     ``EmotionRegression``'s own draw; the dev loss through the dev
+     step's program cache equals the eager one.
 """
 
 import csv
@@ -56,6 +63,7 @@ from nrse_tpu_torch.models.convert import (
 )
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig
 from nrse_tpu_torch.ops import flash_attention
+from nrse_tpu_torch.ops.fused_optimizer import fused_adamw_ema_update
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.checkpoint import load_byol_encoder, save_checkpoint
 from nrse_tpu_torch.train.losses import ce_weight_category
@@ -316,3 +324,106 @@ def test_byol_checkpoint_starts_the_encoder(corpus, tmp_path):
         max_seconds=1.0, num_workers=2, device="cpu")
     ssl = result["state"].model.ssl.state_dict()
     assert all(torch.equal(ssl[k], want[k]) for k in want)
+
+
+FEATURES = dict(num_hidden_layers=4, layerdrop=0.3)  # drops a layer in 8
+
+
+def _features_state():
+    """A tiny fine-tune state with every random feature on: the encoder's
+    dropouts, LayerDrop over 4 layers, SpecAugment, the head's dropout."""
+    cfg = dataclasses.replace(WavLMConfig.tiny(), **FEATURES)
+    model = BaselineSER(cfg, head_dim=HEAD_DIM)
+    model.load_state_dict(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(2), head_dim=HEAD_DIM))
+    return trainer.create_train_state(model)
+
+
+def _micro_step_before(state, batch, rng, spec, k, freeze_ssl, weights):
+    """The micro-step as it ran before staging: the model draws inline
+    from a TrainRNG with a table of its own, MultiSteps divides by the
+    integer n + 1 and K4 builds its scalars from the count."""
+    rng = rng.with_table(state.model.encoder_config.num_hidden_layers,
+                         "cpu")
+    state.grads.zero_()
+    logits = trainer.forward_train(state.model, batch, rng, freeze_ssl)
+    loss = ce_weight_category(logits, batch["label"], weights)
+    loss.backward()
+    with torch.no_grad():
+        n = state.mini_step
+        state.acc.add_((state.grads - state.acc) / (n + 1))
+        if n == k - 1:
+            fused_adamw_ema_update(state.acc, state.params, state.mu,
+                                   state.nu, None, spec, state.count)
+            state.count += 1
+            state.acc.zero_()
+        state.mini_step = (n + 1) % k
+    return loss.detach()
+
+
+@pytest.mark.parametrize("freeze_ssl", [False, True],
+                         ids=["e2e", "frozen"])
+def test_staged_micro_step_is_the_micro_step_before_staging(freeze_ssl):
+    k, spec = 4, trainer.adamw_spec(1e-3)
+    staged, before = _features_state(), _features_state()
+    weights = torch.from_numpy(WEIGHTS)
+    step = trainer.make_train_step(spec, k, freeze_ssl, weights)
+    dropped = False
+    for i in range(2 * k):
+        x, mask, labels = _batch(20 + i)
+        batch = {"input_values": torch.from_numpy(x),
+                 "attention_mask": torch.from_numpy(mask),
+                 "label": torch.from_numpy(labels)}
+        keep = staged.model.ssl.encoder.layer_keep(TrainRNG(9, i))
+        dropped |= not all(keep)
+        loss = step(staged, batch, TrainRNG(9, i))
+        want = _micro_step_before(before, batch, TrainRNG(9, i), spec, k,
+                                  freeze_ssl, weights)
+        assert staged.model.ssl.encoder.layers_run == sum(keep)
+        assert torch.equal(loss, want), i
+        for name in ("params", "grads", "acc", "mu", "nu"):
+            assert torch.equal(getattr(staged, name),
+                               getattr(before, name)), (i, name)
+        assert (staged.mini_step, staged.count) == \
+            (before.mini_step, before.count)
+    assert dropped and staged.count == 2
+    assert float(staged.acc.abs().max()) == 0.0  # zeroed by the update
+
+
+def test_staged_head_masks_are_the_heads_own_draw():
+    cfg = WavLMConfig.tiny()
+    model = BaselineSER(cfg, head_dim=HEAD_DIM, head_layers=2)
+    head = model.ser.train()
+    x = torch.randn(3, 2 * cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(0))
+    rng = TrainRNG(11, 5)
+    keep = head.head_keep(rng, 3)
+    assert keep.shape == (2, 3, HEAD_DIM) and keep.dtype == torch.bool
+    assert 0 < int(keep.sum()) < keep.numel()
+    with torch.no_grad():
+        assert torch.equal(head(x, rng, keep), head(x, rng))
+        assert not torch.equal(head(x, rng, keep), head(x, TrainRNG(11, 6)))
+
+
+def test_dev_loss_through_its_program_is_the_eager_one(corpus):
+    cfg = WavLMConfig.tiny()
+    model = BaselineSER(cfg, head_dim=HEAD_DIM)
+    model.load_state_dict(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(3), head_dim=HEAD_DIM))
+    files, labels = trainer.load_onehot_labels(
+        str(corpus / "labels_onehot.csv"), "Development")
+    stats = trainer.corpus_norm_stats(str(corpus / "Audios"), files, 7)
+    # 2 s: no clip is cropped, so both passes see the same batches
+    ds = trainer.BaselineWavDataset(str(corpus / "Audios"), files, labels,
+                                    stats, 2.0)
+    loader = trainer.HostDataLoader(ds, np.arange(len(ds)), 4,
+                                    shuffle=False, seed=7, num_workers=0,
+                                    drop_last=False)
+    w = torch.from_numpy(WEIGHTS)
+    programs = trainer.make_baseline_forward(model, graphs=True)
+    model.train()
+    got = trainer.dev_loss(model, loader, "cpu", w, programs)
+    assert model.training  # the train step finds its mode again
+    assert got == trainer.dev_loss(model, loader, "cpu", w)
+    assert np.isfinite(got)
+    assert list(programs.programs) == [((4, 32000), (4, 32000))]

@@ -103,9 +103,10 @@ def gradients(seeds=(13, 21, 22, 23, 24, 25, 31)) -> None:
                 o.register_hook(lambda g: grads.__setitem__(
                     n, g.detach().double().cpu()))
             mods[n].register_forward_hook(hook)
-        run = train_ft_cat_ser.make_train_step(
+        run = train_ft_cat_ser.make_train_step(  # eager: the hooks fire
             train_ft_cat_ser.adamw_spec(c.FT_LR), 1, False, torch.tensor(
-                c.FT_WEIGHTS, dtype=torch.float32, device=device))
+                c.FT_WEIGHTS, dtype=torch.float32, device=device),
+            graphs=False)
         run(state, {k: v.to(device) for k, v in data.items()},
             TrainRNG(c.SEED, 0))
         return state.grads.double().cpu(), acts, grads
