@@ -133,12 +133,19 @@ not 0:
      1024, prediction 2048, seeded weights) with the JAX preset's
      hyper-parameters (lr 1e-5 cosine, wd 1e-5, clip 1.0, EMA 0.997,
      dropout 0.1, LayerDrop 0.1, SpecAugment 0.05/10/2) on 36 synthetic
-     5 s clips: 2 warm-up steps (the target checked to move by exactly the
-     EMA), then 5 timed steps whose kernel launches must equal the counts
-     the layers each tower ran imply (attention on kernel A in both towers
-     and K3 in the online tower's backward); prints s/step,
-     audio-sec/sec, peak memory and a ``torch.profiler`` breakdown of a
-     step's device time; then the eval step once, and the eval and embed
+     5 s clips, from CUDA graphs captured at the first step (the target a
+     forward-only tower) against an eager twin given the same bits: 7
+     steps in lockstep, every metric, flat buffer and BatchNorm statistic
+     equal to the bit after each, both towers dropping a layer, no wrapper
+     launch in a replay, the target checked to move by exactly the EMA;
+     5 eager steps whose kernel launches must equal the counts the layers
+     each tower ran imply (attention on kernel A in both towers and K3 in
+     the online tower's backward); s/step by the host clock and CUDA
+     events and the main thread's CPU s a step, replayed and eager in
+     turns, the capture's seconds and memory; 5 replayed steps' trace
+     (kernels A, B, K1–K4, K6, K7 as the kept layers imply) and a
+     ``torch.profiler`` breakdown of each form's device time; then the
+     eval step once, and the eval and embed
      steps from their programs (``runtime.graphs.ProgramCache`` of
      ``(clean, noise, snr)``, captured at their first call) against the
      eager steps: every output bit for bit, no wrapper launch in a replay,
@@ -149,11 +156,13 @@ not 0:
  10. the entry point — ``nrse_tpu_torch.train_byol.main`` on a synthetic
      corpus written to a temporary directory (32 clean 5 s clips, 4 noise
      clips), WavLM-large at full width cut to 2 layers (so that a
-     checkpoint stays under 1 GB), batch 8: 2 epochs, then a resumed third;
-     checks finite losses, the three checkpoints, that the restored state
-     equals the saved one bit for bit and that the resumed run continues
-     at epoch 2; prints the audio decoder that ran, whether PyYAML is
-     installed and the data-fed s/step of each epoch;
+     checkpoint stays under 1 GB), batch 8: 2 epochs (the train step
+     captured), the same 2 epochs with ``training.cuda_graphs: false`` to
+     the same state bits and losses, then a resumed third; checks finite
+     losses, the three checkpoints, that the restored state equals the
+     saved one bit for bit and that the resumed run continues at epoch 2;
+     prints the audio decoder that ran, whether PyYAML is installed and
+     the data-fed s/step of each epoch;
  11. SER evaluation — ``nrse_tpu_torch.baseline.eval_cat_ser.main`` at
      batch 32 on WavLM-large at full width and depth + ASP + the head
      (seeded weights through ``final_model``), over 256 synthetic WAVs of
@@ -197,7 +206,7 @@ not 0:
      wrapper; s per micro-step by the host clock and CUDA events, replayed
      and eager in turns on one state, each form's peak, the capture's
      seconds and reserved memory; a replayed cycle's launches of K5 (its
-     forward, dq, dk/dv), K6, K7, K1 and K4 read from its trace
+     forward, dq, dk/dv), B, K2, K6, K7, K1 and K4 read from its trace
      (calibrated by an eager cycle's), as the kept layers imply; both
      forms' device time by group (the copies split by source) and busy
      share; then a cross-check at 1 layer and
@@ -287,7 +296,8 @@ not 0:
      with the pooled embedding of the checkpoint's encoder run directly,
      and ``utils.profiling.profile_trace`` around one request holds a
      ``block_attention`` kernel record;
- 19. data parallelism on the one card (``nrse_tpu_torch.parallel``) —
+ 19. data parallelism on the one card (``nrse_tpu_torch.parallel``; the
+     train steps eager under a mesh, their one-rank references too) —
      first gloo's collectives on CUDA tensors at 2 ranks (``all_reduce``
      sum and max, ``broadcast``, the reduction with a gradient); (a) the
      BYOL step of phase 9 (full width and depth, batch 36 × 5 s, every
@@ -308,7 +318,8 @@ not 0:
      2 layers, global batch 8, one epoch a phase: the ranks' pooled losses
      equal and finite, rank 0's checkpoints written, every kernel of the
      path launched.
-  20. tensor parallelism on the one card (``tpu.mesh.model > 1``): the
+  20. tensor parallelism on the one card (``tpu.mesh.model > 1``; the
+     train steps eager, as in 19): the
      kernels at the shard shapes of ``model: 2``, each with its dropout
      window against its plain version (kernel A and K3 on 8 of 16 heads,
      kernel B and K2 on 2048 of 4096 columns with b2 left out, K1 on a
@@ -343,12 +354,12 @@ the elementwise kernels (K1, K4) are bound by bytes, their operations are
 not counted, nor are K7's.  Phases 5, 9–18 also check the frontend's
 launches: each encoder forward runs K6 on layers 1–6 and K7 on layer 0,
 each backward (the BYOL online tower's, the end-to-end fine-tune's, the
-whole-encoder SER step's) K6's and K7's backward as often.  The line before the last is the kernels'
-JSON record (launches: kernels A and B from the serving phase, counted
-at capture × the replays, K1, K2, K3
-and K4 from the training phase, K5 from the SER evaluation, K5's backward,
-K6 and K7 from the trace of a replayed end-to-end cycle of the fine-tune
-step);
+whole-encoder SER step's) K6's and K7's backward as often.  The line
+before the last is the kernels' JSON record (launches: kernels A and B
+from the serving phase, counted at capture × the replays, K1, K2, K3 and
+K4 from the trace of 5 replayed BYOL steps (phase 9), K5 from the SER
+evaluation, K5's backward, K6 and K7 from the trace of a replayed
+end-to-end cycle of the fine-tune step);
 the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.
 """
@@ -357,6 +368,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -2045,6 +2057,64 @@ def byol_launch_want(cfg, metrics) -> dict:
             **frontend_want(cfg, 2 * steps, steps)}
 
 
+# the wrapper counts of kernel B and K2 in a trace: their products all run
+# the one wgmma GEMM, told apart by its epilogue (a template argument, kept
+# in the kernel's name): B's first product by EpiGelu, K2 dW's one launch
+# by EpiDw; K2 dx by its dh2 pass (its transposes, folds and two products
+# come with it)
+FFN_TRACED = (("fused_ffn_fwd", "EpiGelu"),
+              ("fused_ffn_bwd_dx", "dh2_kernel"),
+              ("fused_ffn_bwd_dw", "EpiDw"))
+
+# the wrapper counts a replayed BYOL step's trace is read for: each by the
+# kernels only its entry launches (first match; K3's pre-pass, dq, dk/dv
+# and dbias sum come with its launch; K6's backward row LayerNorm and fold
+# with its dx kernel)
+BYOL_TRACED = FFN_TRACED + (
+    ("block_attention_bwd",
+     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum|dout_prep"),
+    ("block_attention_fwd", "block_attention_fwd"),
+    ("fused_frontend_fwd", "k6_fwd"),
+    ("fused_frontend_bwd", "k6_dx"),
+    ("channel_layernorm_fwd", "ln_row_fwd"),
+    ("channel_layernorm_bwd", "K7RowSource"),
+    ("fused_dropout", "dropout_kernel"),
+    ("fused_adamw_ema", "adamw_ema"))
+
+
+def _byol_kernel(name: str) -> str:
+    """The wrapper of :data:`BYOL_TRACED` whose kernels ``name`` is one
+    of (first match), else "other"."""
+    import re
+
+    return next((w for w, pat in BYOL_TRACED if re.search(pat, name)),
+                "other")
+
+
+def _byol_keeps(state, steps: int) -> list:
+    """The ``(online, target)`` LayerDrop keep lists of the state's next
+    ``steps`` train steps."""
+    enc = state.online.encoder.encoder
+    return [tuple(enc.layer_keep(TrainRNG(state.seed, state.step + i, t))
+                  for t in (0, 1)) for i in range(steps)]
+
+
+def _byol_differing(a, b) -> list:
+    """The names of the BYOL state tensors whose bits differ (the flat
+    buffers and both towers' BatchNorm statistics)."""
+    ta, tb = a.tensors(), b.tensors()
+    return [k for k in ta if not torch.equal(ta[k], tb[k])]
+
+
+def _sync_byol(dst, src) -> None:
+    """``dst`` given ``src``'s tensors and step."""
+    out = dst.tensors()
+    with torch.no_grad():
+        for k, t in src.tensors().items():
+            out[k].copy_(t)
+    dst.step = src.step
+
+
 def phase_training(cfg=None, device=torch.device("cuda"),
                    batch: int = TRAIN_BATCH,
                    clip_seconds: float = CLIP_SECONDS, warmup: int = 2,
@@ -2052,80 +2122,214 @@ def phase_training(cfg=None, device=torch.device("cuda"),
                    prediction_dim: int = 2048) -> dict:
     """The BYOL train step at full width with the JAX preset's
     hyper-parameters (dropout 0.1 at every site, LayerDrop 0.1,
-    SpecAugment 0.05/10/2: ``WavLMConfig``'s defaults); its arguments let
-    it be rehearsed at a small width on the CPU, with the wrappers' plain
-    paths standing in."""
+    SpecAugment 0.05/10/2: ``WavLMConfig``'s defaults), from captured
+    graphs (``train.step_graphs``, captured at the first step; the
+    target a forward-only tower) against an eager twin (``graphs=False``)
+    given the same bits: ``warmup + steps`` steps in lockstep, loss,
+    grad_norm, valid_fraction, finite, params, mu, nu, the target and both
+    towers' BatchNorm statistics equal to the bit after each, both towers
+    dropping a layer among them; the target moved by exactly the EMA at
+    the last warm-up step; the eager twin's launches over ``steps`` steps
+    equal to the counts the layers each tower ran imply (attention on
+    kernel A in both towers and K3 in the online tower's backward); no
+    wrapper launch over ``steps`` replayed steps; s/step by the host clock
+    and CUDA events and the main thread's CPU seconds a step, eager and
+    replayed in turns; the capture's seconds, graphs and reserved memory
+    against the eager peak; ``steps`` replayed steps' trace (every
+    kernel of the step launched as the kept layers imply, calibrated by
+    the eager twin's trace) and each form's device time by group and busy
+    share.  Then the eval step, and the eval and embed steps from their
+    programs against their eager forms.  Returns the traced replay's
+    launches, the kernels line's.  Its arguments let it be rehearsed at a
+    small width on the CPU, where nothing is captured, both forms are
+    eager and the eager twin's counts are returned."""
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
     sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
                               torch.Generator().manual_seed(SEED))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    state = create_train_state(cfg, sd, projection_dim, prediction_dim,
-                               device, seed=SEED, compute_dtype=dtype)
+    state, twin = (create_train_state(
+        cfg, sd, projection_dim, prediction_dim, device, seed=SEED,
+        compute_dtype=dtype) for _ in range(2))
     del sd
-    step = make_byol_train_step(_adamw_spec())
+    step_c = make_byol_train_step(_adamw_spec())
+    step_e = make_byol_train_step(_adamw_spec(), graphs=False)
+    captures = device.type == "cuda"
     data = _train_batch(batch, clip_seconds, device)
-    log(f"[train] BYOL on WavLM {cfg.num_hidden_layers} x "
+    n = cfg.num_hidden_layers
+    gib = 2 ** 30
+    log(f"[train] BYOL on WavLM {n} x "
         f"{cfg.hidden_size}, projection {projection_dim}, prediction "
         f"{prediction_dim}: {state.params.numel() / 1e6:.1f} M online "
         f"params, {state.target_params.numel() / 1e6:.1f} M target; batch "
-        f"{batch} x {clip_seconds:g} s; set up in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{batch} x {clip_seconds:g} s; the state and its eager twin set "
+        f"up in {time.perf_counter() - t0:.1f} s")
 
     def check(m, when):
         if not bool(m["finite"]):
             raise RuntimeError(f"non-finite loss or grad norm {when}: "
                                f"{float(m['loss'])} {float(m['grad_norm'])}")
 
-    for i in range(warmup):
+    def captured():
+        return step_c(state, data)
+
+    def eager():
+        return step_e(twin, data)
+
+    # lockstep: the captured step (captured at the first) against the
+    # eager twin, bit for bit after every step
+    sync(device)
+    if captures:
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+    dropped, replay_launches = [0, 0], 0
+    for i in range(warmup + steps):
+        keep = _byol_keeps(state, 1)[0]
+        for t in (0, 1):
+            dropped[t] += n - sum(keep[t])
         if i == warmup - 1:  # the EMA of this step is checked exactly
             target_before = state.target_params.clone()
-        m = step(state, data)
-        check(m, f"at warm-up step {i}")
-        log(f"[train] warm-up step {i}: loss {float(m['loss']):.6f}, "
-            f"grad_norm {float(m['grad_norm']):.4f}, layers run "
-            f"{m['layers_online']}/{m['layers_target']}")
-    with torch.no_grad():  # in float32, as K4 rounds it
-        ema = torch.tensor(_adamw_spec().ema_decay, dtype=torch.float32,
-                           device=device)
-        want = (ema * target_before
-                + (1.0 - ema) * state.params[:target_before.numel()])
-        ema_err = float((state.target_params - want).abs().max())
-    del target_before, want
-    log(f"[train] target after a step vs ema·target + (1−ema)·online: "
-        f"max|Δ| {ema_err:.3e}")
-    if ema_err != 0.0:
-        raise RuntimeError(f"the target did not move by the EMA: {ema_err}")
+        _reset_counts()
+        mc = captured()
+        if i:  # a replay launches no wrapper
+            replay_launches += sum(_train_counts().values())
+        if i == 0 and captures:
+            sync(device)
+            torch.cuda.empty_cache()
+            pool = (torch.cuda.memory_reserved() - reserved) / gib
+            graphs = state.graphs
+            log(f"[train] captured in {graphs.capture_s:.2f} s "
+                f"({len(graphs.graphs)} graphs); the memory it reserved "
+                f"(pool, static buffers, the staged inputs) {pool:.2f} GiB")
+            if len(graphs.graphs) != 3 * n + 5:
+                raise RuntimeError(f"BYOL step: {len(graphs.graphs)} parts "
+                                   f"captured, not {3 * n + 5}")
+        me = eager()
+        check(mc, f"at step {i}")
+        check(me, f"at step {i} (eager)")
+        differ = _byol_differing(state, twin) + [
+            k for k in ("loss", "grad_norm", "valid_fraction", "finite")
+            if not torch.equal(mc[k], me[k])] + [
+            k for k, kept in (("layers_online", keep[0]),
+                              ("layers_target", keep[1]))
+            if not mc[k] == me[k] == sum(kept)]
+        log(f"[train] step {state.step - 1}: captured = eager "
+            f"{not differ} (loss {float(mc['loss']):.6f}, grad_norm "
+            f"{float(mc['grad_norm']):.4f}); layers run online "
+            f"{mc['layers_online']}, target {mc['layers_target']} of {n}")
+        if differ:
+            raise RuntimeError(f"BYOL step {state.step - 1}: captured and "
+                               f"eager differ in {differ}")
+        if i == warmup - 1:
+            with torch.no_grad():  # in float32, as K4 rounds it
+                ema = torch.tensor(_adamw_spec().ema_decay,
+                                   dtype=torch.float32, device=device)
+                want = (ema * target_before
+                        + (1.0 - ema) * state.params[:target_before.numel()])
+                ema_err = float((state.target_params - want).abs().max())
+            del target_before, want
+            log(f"[train] the captured step's target after a step vs "
+                f"ema·target + (1−ema)·online: max|Δ| {ema_err:.3e}")
+            if ema_err != 0.0:
+                raise RuntimeError(f"the target did not move by the EMA: "
+                                   f"{ema_err}")
+    log(f"[train] {warmup + steps} steps in lockstep, every one bit for "
+        f"bit; layers dropped online {dropped[0]}, target {dropped[1]}; "
+        f"wrapper launches over {warmup + steps - 1} replayed steps "
+        f"{replay_launches}")
+    if not all(dropped):
+        raise RuntimeError(f"BYOL step: a tower dropped no layer in "
+                           f"{warmup + steps} steps: {dropped}")
+    if captures and replay_launches:
+        raise RuntimeError(f"wrappers launched {replay_launches} times in "
+                           f"replayed BYOL steps")
 
+    # the eager form's launches, as the layers each tower ran imply
     sync(device)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    t0 = time.perf_counter()
-    metrics = [step(state, data) for _ in range(steps)]
+    metrics = [eager() for _ in range(steps)]
     sync(device)
-    dt = (time.perf_counter() - t0) / steps
     counts = _train_counts()
     for i, m in enumerate(metrics):
-        check(m, f"at timed step {i}")
-    on = sum(m["layers_online"] for m in metrics)
-    tg = sum(m["layers_target"] for m in metrics)
+        check(m, f"at eager step {i}")
     want = byol_launch_want(cfg, metrics)
-    log(f"[train] {steps} timed steps, layers run online {on}, target {tg}: "
-        f"launches {counts} (want {want})")
+    log(f"[train] {steps} eager steps, layers run online "
+        f"{sum(m['layers_online'] for m in metrics)}, target "
+        f"{sum(m['layers_target'] for m in metrics)}: launches {counts} "
+        f"(want {want})")
     if counts != want:
         raise RuntimeError(f"kernel launches {counts} != {want}")
     log(f"[train] losses {[round(float(m['loss']), 6) for m in metrics]}, "
         f"grad norms {[round(float(m['grad_norm']), 4) for m in metrics]}")
-    log(f"[train] {dt:.4f} s/step, {batch * clip_seconds / dt:.1f} "
-        f"audio-sec/sec")
-    if device.type == "cuda":
+    _sync_byol(twin, state)
+
+    # s/step in turns, by the host clock, by CUDA events and by the main
+    # thread's CPU time; each form's peak above the states (and graphs)
+    times = {"replayed": [], "eager": []}
+    peaks = {}
+    for form in ("eager", "replayed", "replayed", "eager"):
+        run = captured if form == "replayed" else eager
+        sync(device)
+        if captures:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0, cpu0 = time.perf_counter(), time.thread_time()
+        for _ in range(steps):
+            run()
+        cpu = (time.thread_time() - cpu0) / steps
+        if captures:
+            end.record()
+        sync(device)
+        host = (time.perf_counter() - t0) / steps
+        ev = start.elapsed_time(end) / steps / 1e3 if captures \
+            else float("nan")
+        times[form].append((host, ev, cpu))
+        if captures:
+            peaks[form] = max(peaks.get(form, 0.0), (
+                torch.cuda.max_memory_allocated() - base) / gib)
+
+    def col(form, j):
+        return ", ".join(f"{x[j]:.4f}" for x in times[form])
+
+    best = min(h for h, _, _ in times["replayed"])
+    log(f"[train] s/step by the host clock, in turns, replayed "
+        f"{col('replayed', 0)}, eager {col('eager', 0)}; by CUDA events "
+        f"replayed {col('replayed', 1)}, eager {col('eager', 1)}; the main "
+        f"thread's CPU s a step replayed {col('replayed', 2)}, eager "
+        f"{col('eager', 2)}; {batch * clip_seconds / best:.1f} "
+        f"audio-sec/sec replayed; peak allocated above the states and "
+        f"graphs " + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()))
+
+    traced = counts
+    if captures:
+        # steps replayed steps' trace, calibrated by the eager twin's:
+        # a dropped layer launches nothing
+        shapes = _param_shapes(state.online)
+
+        def profile(call, form):  # its breakdown and busy share too
+            return profile_device(
+                call, f"[train] BYOL {steps} steps, {form}, batch {batch}",
+                iters=1, weight_shapes=shapes, sources=form == "eager")
+
+        traced, keeps = _replayed_launches(
+            lambda: [captured() for _ in range(steps)],
+            lambda: [eager() for _ in range(steps)],
+            lambda: _byol_keeps(state, steps),
+            lambda keeps: byol_launch_want(cfg, [
+                {"layers_online": sum(on), "layers_target": sum(tg)}
+                for on, tg in keeps]),
+            {w: w for w, _ in BYOL_TRACED}, _byol_kernel, _train_counts,
+            "BYOL step", profile)
+        log(f"[train] {steps} replayed steps' launches from their trace "
+            f"{traced} = the want of their layers (dropped online "
+            f"{sum(n - sum(on) for on, _ in keeps)}, target "
+            f"{sum(n - sum(tg) for _, tg in keeps)})")
         log(f"[train] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        # the step's device time by kernel group (PERF.md §5): the host
-        # clock above also counts the host's gaps between launches
-        profile_device(lambda: (step(state, data), sync(device)),
-                       "[train] BYOL step", iters=2)
+    del twin
 
     loss, sim = make_byol_eval_step()(state, data)
     sync(device)
@@ -2135,7 +2339,8 @@ def phase_training(cfg=None, device=torch.device("cuda"),
     log(f"[eval] loss {float(loss.mean()):.6f}, clean-noisy cosine "
         f"{float(sim.mean()):.6f} (mean over {batch})")
     byol_eval_replays(state, data, device)
-    return counts
+    del state  # its graphs and programs with it
+    return traced
 
 
 def byol_eval_replays(state, data, device) -> None:
@@ -2160,7 +2365,7 @@ def byol_eval_replays(state, data, device) -> None:
         want = eager(state, data)
         same = len(got) == len(want) and all(
             torch.equal(g, w) for g, w in zip(got, want))
-        cache = state.programs[embeddings]
+        cache = state.programs[embeddings, True]
         timing = ""
         if not embeddings:
             ms = {"replayed": [], "eager": []}
@@ -2280,8 +2485,10 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
                 projection_dim: int = 1024,
                 prediction_dim: int = 2048) -> dict:
     """BYOL pretraining through ``train_byol.main`` on a synthetic corpus:
-    2 epochs, the checkpoints, then a resumed third epoch.  Its arguments
-    let it be rehearsed at a small width on the CPU."""
+    2 epochs (the train step from captured graphs on the card), the
+    checkpoints, the same 2 epochs with ``training.cuda_graphs: false``
+    to the same bits, then a resumed third epoch.  Its arguments let it
+    be rehearsed at a small width on the CPU."""
     import importlib.util
 
     cfg = cfg or WavLMConfig.large(num_hidden_layers=ENTRY_LAYERS)
@@ -2348,7 +2555,33 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
             raise RuntimeError("entry point: the restored state differs from "
                                "the saved one")
         step_after_two = first["state"].step
-        del fresh, saved, got, first
+        del fresh, got
+
+        # the same two epochs with the eager step: the same bits
+        eager = train_byol.main(dict(config, training=dict(
+            config["training"], cuda_graphs=False, save_checkpoints=False,
+            checkpoint_dir=os.path.join(root, "ckpt_eager"))), cfg)
+        sync(device)
+        got = state_tensors(eager["state"])
+        same = got.keys() == saved.keys() and all(
+            torch.equal(got[k], saved[k]) for k in saved) and \
+            eager["state"].step == step_after_two and all(
+                (a["train_loss"], a["val_loss"]) == (b["train_loss"],
+                                                     b["val_loss"])
+                for a, b in zip(epochs, eager["epochs"]))
+        log(f"[entry] captured run (the train step from graphs: "
+            f"{first['state'].graphs is not None}) = the run with "
+            f"training.cuda_graphs: false, its last checkpoint's tensors "
+            f"and every epoch's losses bit for bit: {same}; data-fed "
+            f"s/step captured "
+            + ", ".join(f"{e['s_per_step']:.4f}" for e in epochs)
+            + ", eager " + ", ".join(f"{e['s_per_step']:.4f}"
+                                     for e in eager["epochs"]))
+        if not same or (device.type == "cuda"
+                        and first["state"].graphs is None):
+            raise RuntimeError("entry point: the captured run differs from "
+                               "the eager one")
+        del saved, got, first, eager
 
         second = train_byol.main(dict(config, resume=True, training=dict(
             config["training"], num_epochs=3)), cfg)
@@ -3807,15 +4040,16 @@ def _ft_counts() -> dict:
 # by the kernels only its entry launches (first match; the dq entry's
 # pre-pass and fold come with its dq kernel, K6's backward row LayerNorm
 # and fold with its dx kernel)
-FT_TRACED = (("flash_attention_bwd_dq", "flash_attention_bwd_dq"),
-             ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv"),
-             ("flash_attention_fwd", "flash_attention_fwd"),
-             ("fused_frontend_fwd", "k6_fwd"),
-             ("fused_frontend_bwd", "k6_dx"),
-             ("channel_layernorm_fwd", "ln_row_fwd"),
-             ("channel_layernorm_bwd", "K7RowSource"),
-             ("fused_dropout", "dropout_kernel"),
-             ("fused_adamw_ema", "adamw_ema"))
+FT_TRACED = FFN_TRACED + (
+    ("flash_attention_bwd_dq", "flash_attention_bwd_dq"),
+    ("flash_attention_bwd_dkv", "flash_attention_bwd_dkv"),
+    ("flash_attention_fwd", "flash_attention_fwd"),
+    ("fused_frontend_fwd", "k6_fwd"),
+    ("fused_frontend_bwd", "k6_dx"),
+    ("channel_layernorm_fwd", "ln_row_fwd"),
+    ("channel_layernorm_bwd", "K7RowSource"),
+    ("fused_dropout", "dropout_kernel"),
+    ("fused_adamw_ema", "adamw_ema"))
 
 
 def _ft_kernel(name: str) -> str:
@@ -4075,18 +4309,13 @@ def phase_ft_step(cfg=None, device=torch.device("cuda"),
 
             traced, cycle_keeps = _replayed_launches(
                 replay, eager, lambda: keeps_of(state, at()),
+                lambda keeps: _ft_want(cfg, keeps, freeze),
                 {w: w for w, _ in FT_TRACED}, _ft_kernel, _ft_counts,
-                "fine-tune cycle", profile)
-            want = {w: v for w, v in _ft_want(cfg, cycle_keeps,
-                                              freeze).items()
-                    if w in traced}
+                f"fine-tune {mode} cycle", profile)
             log(f"[ft] {mode}: a replayed cycle's launches from its trace "
-                f"{traced} (want {want}: "
-                f"{sum(len(kp) - sum(kp) for kp in cycle_keeps)} layers "
+                f"{traced} = the want of its layers "
+                f"({sum(len(kp) - sum(kp) for kp in cycle_keeps)} "
                 f"dropped)")
-            if traced != want:
-                raise RuntimeError(f"fine-tune {mode}: replayed launches "
-                                   f"{traced} != {want}")
         if not freeze:
             e2e = traced
         del step_c, step_t
@@ -4457,36 +4686,58 @@ def _traced_step(run, keep_of, classify=group_of, counts=_train_counts,
     return groups, last["keep"], last["counts"]
 
 
-def _replayed_launches(replay, eager, keep_of, groups=STEP_GROUPS,
-                       classify=group_of, counts=_train_counts,
-                       what: str = "SER step", trace=None) -> tuple:
+def _replayed_launches(replay, eager, keep_of, want_of,
+                       groups=STEP_GROUPS, classify=group_of,
+                       counts=_train_counts, what: str = "SER step",
+                       trace=None) -> tuple:
     """The launches of the wrappers of ``groups`` (wrapper count → the
     ``classify`` class of its kernels) in one replayed step, read from its
     trace, each class's records a launch taken from a traced eager step
-    (whose wrapper counts give its launches); and the replayed step's
-    keep list.  ``trace(call, form)``: the kernels of a trace of
-    ``call`` (a profile's), or None for :func:`traced_kernels`'s.  Raises
-    where a count does not divide."""
+    (whose wrapper counts give its launches), held to ``want_of(keep)``
+    (the launches the replayed step's keep list implies; its other
+    wrappers left out).  ``trace(call, form)``: the kernels of a trace of
+    ``call`` (a profile's), or None for :func:`traced_kernels`'s.  The
+    profiler drops a kernel record now and then, and a replay's kernels
+    all share its graph's one launch, so :func:`_trace_faults` cannot see
+    a lost one there: a replay read short of the want in some classes and
+    above it in none is logged and both traces taken again, up to
+    :data:`TRACE_ATTEMPTS` times in all.  Raises where a read is above
+    the want, where a class launched in one form only, or where no read
+    equals the want.  Returns ``(launches, keep list)``."""
     def traced(form):
         return None if trace is None else (lambda call: trace(call, form))
 
-    in_eager, _, launched = _traced_step(eager, keep_of, classify, counts,
-                                         traced("eager"))
-    in_replay, keep, replay_counts = _traced_step(replay, keep_of, classify,
-                                                  counts, traced("replayed"))
-    if any(replay_counts.values()):
-        raise RuntimeError(f"wrappers launched in a replayed {what}: "
-                           f"{replay_counts}")
-    out = {}
-    for name, group in groups.items():
-        c, e, r = launched[name], in_eager.get(group, 0), \
-            in_replay.get(group, 0)
-        if (c == 0) != (e == 0) or (e == 0 and r) or (e and r * c % e):
-            raise RuntimeError(f"{name}: {r} kernel records in a replayed "
-                               f"{what}, {e} in an eager one of {c} "
-                               "launches")
-        out[name] = r * c // e if e else 0
-    return out, keep
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        in_eager, _, launched = _traced_step(eager, keep_of, classify,
+                                             counts, traced("eager"))
+        in_replay, keep, replay_counts = _traced_step(
+            replay, keep_of, classify, counts, traced("replayed"))
+        if any(replay_counts.values()):
+            raise RuntimeError(f"wrappers launched in a replayed {what}: "
+                               f"{replay_counts}")
+        want = {k: v for k, v in want_of(keep).items() if k in groups}
+        out, short = {}, []
+        for name, group in groups.items():
+            c, e, r = launched[name], in_eager.get(group, 0), \
+                in_replay.get(group, 0)
+            w = want.get(name, 0)
+            # the replay's records against the want's, as the eager step
+            # has them a launch
+            if (c == 0) != (e == 0) or (e == 0 and r) or r * c > w * e:
+                raise RuntimeError(f"{what}: {name}: {r} kernel records in "
+                                   f"a replay that should launch it {w} "
+                                   f"times, {e} in an eager one of {c} "
+                                   "launches")
+            out[name] = r * c // e if e else 0
+            if r * c < w * e:
+                short.append(f"{name} {r * c / e:g} of {w}")
+        if not short:
+            return out, keep
+        log(f"[profile] a replayed {what}'s trace {attempt} reads fewer "
+            f"launches than its keep list implies ({', '.join(short)}): "
+            f"kernel records lost; both traces taken again")
+    raise RuntimeError(f"{what}: replayed launches {out} != {want} in "
+                       f"{TRACE_ATTEMPTS} traces")
 
 
 def phase_emotion_step(cfg=None, device=torch.device("cuda"),
@@ -4682,14 +4933,12 @@ def phase_emotion_step(cfg=None, device=torch.device("cuda"),
         if captures:
             # one replayed step's trace: a dropped layer launches nothing
             got, keep = _replayed_launches(
-                captured, eager, lambda: keep_of(state))
-            want = {k: v for k, v in _step_want(
-                [keep], layers, bool(rest)).items() if k in STEP_GROUPS}
+                captured, eager, lambda: keep_of(state),
+                lambda keep: _step_want([keep], layers, bool(rest)),
+                what=f"SER step, {name}")
             log(f"[emotion] {name}: a replayed step's launches from its "
-                f"trace {got} (want {want}: {n - sum(keep)} layers dropped)")
-            if got != want:
-                raise RuntimeError(f"emotion {name}: replayed launches "
-                                   f"{got} != {want}")
+                f"trace {got} = the want of its layers ({n - sum(keep)} "
+                f"dropped)")
             for form, run in (("replayed", captured), ("eager", eager)):
                 profile_device(lambda: (run(), sync(device)),
                                f"[emotion] {name} step, {form}, batch "
@@ -5383,7 +5632,7 @@ def phase_dp_one_rank(cfg=None, device=torch.device("cuda"),
     sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
                               torch.Generator().manual_seed(SEED))
     data = _train_batch(batch, clip_seconds, device)
-    step = make_byol_train_step(_adamw_spec())
+    step = make_byol_train_step(_adamw_spec(), graphs=False)
     plain = _byol_state(cfg, sd, device, projection_dim, prediction_dim)
     plain_metrics, plain_dt, _ = _timed_steps(plain, step, data, steps,
                                               device)
@@ -5457,7 +5706,7 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
     qsd = init_byol_state_dict(qcfg, projection_dim, prediction_dim,
                                torch.Generator().manual_seed(SEED))
     data = _train_batch(batch, clip_seconds, device)
-    step = make_byol_train_step(_adamw_spec())
+    step = make_byol_train_step(_adamw_spec(), graphs=False)
 
     def run(state, rows):
         p0 = state.params.clone()
@@ -5735,6 +5984,9 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
     from nrse_tpu_torch.parallel.dryrun import collectives_check
     from nrse_tpu_torch.parallel.launch import run_ranks
 
+    log("[dp] the BYOL and SER train steps run eagerly under a mesh (gloo "
+        "cannot be captured, NCCL runs one rank a card); the one-rank "
+        "references here run eagerly too (graphs=False)")
     if device.type == "cuda":
         log(f"[dp] card: {card()}")
         probe = run_ranks(collectives_check, 2, ("cuda:0",), threads=0)
@@ -5833,7 +6085,7 @@ def _tp_worker(rank: int, world: int, cfg, device: str, batch: int,
     device = _rank_device(device)
     out = {"rank": rank}
     data = _train_batch(batch, clip_seconds, device)
-    step = make_byol_train_step(_adamw_spec())
+    step = make_byol_train_step(_adamw_spec(), graphs=False)
     configs = {"off": _quiet(cfg), "on": cfg}
     sds = {k: init_byol_state_dict(c, projection_dim, prediction_dim,
                                    torch.Generator().manual_seed(SEED))
@@ -6395,7 +6647,7 @@ def _repeat_worker(rank: int, world: int, cfg, device: str, batch: int,
         torch.Generator().manual_seed(SEED)), device, projection_dim,
         prediction_dim, mesh)
     local = shard_batch(mesh, _train_batch(batch, clip_seconds, device))
-    step = make_byol_train_step(_adamw_spec())
+    step = make_byol_train_step(_adamw_spec(), graphs=False)
     events = []
 
     def note(name, t):
@@ -6491,6 +6743,8 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
 def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
     """20: tensor parallelism on the one card, the kernels at the shard
     shapes, (a) to (d), and phase 19(b)'s step run twice."""
+    log("[tp] the BYOL and SER train steps run eagerly under a mesh; the "
+        "one-rank references here run eagerly too (graphs=False)")
     if device.type == "cuda":
         timed(phase_tp_kernels)
         torch.cuda.empty_cache()
@@ -6502,10 +6756,21 @@ def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
 
 
 def timed(phase, *args):
-    """``phase(*args)``, its seconds by the host clock printed after it."""
+    """``phase(*args)``, its seconds by the host clock printed after it.
+    Then what the phase left in cycles is collected and the card's cache
+    emptied, so that the next phase starts from the card's memory alone:
+    a frame kept by a cycle (an exception's traceback) holds its locals,
+    a full-width state and its graphs among them, until the collector
+    runs; the device memory still allocated is printed."""
     t0 = time.perf_counter()
     out = phase(*args)
-    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    left = ""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        left = (f" (device memory allocated after it "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s{left}")
     return out
 
 

@@ -339,8 +339,8 @@ def ft_step_graphs(state: SERTrainState, spec: FusedAdamWSpec,
     def front(x, rng):
         return model.ssl.front(x["input_values"], x["attention_mask"], rng)
 
-    def head(seq, x, rng):
-        logits = model.ser(model.pool(seq, x["attention_mask"]), rng,
+    def head(back, x, rng):
+        logits = model.ser(model.pool(back[0], x["attention_mask"]), rng,
                            inputs.head)
         return ce_weight_category(logits, x["label"], class_weights)
 

@@ -12,7 +12,9 @@ the same slots, so both forms see the same bits.
 
 Protocol, once a step: :meth:`Staging.begin` (waits until the previous
 step's copy has left the pinned buffer, so the host never overwrites bytes
-still in flight), write the slots through :meth:`Staging.host`, then
+still in flight; the thread sleeps there rather than spin, since a host
+that runs a step ahead of the card waits here for most of a step), write
+the slots through :meth:`Staging.host`, then
 :meth:`Staging.push` (one asynchronous copy on the current stream, ordered
 after the previous step's kernels, which read the device buffer, and
 before this step's).  On the CPU the host and device views are one
@@ -74,7 +76,7 @@ class Staging:
         if self._dev_buf is self._host_buf:
             return
         self._dev_buf.copy_(self._host_buf, non_blocking=True)
-        self._copied = torch.cuda.Event()
+        self._copied = torch.cuda.Event(blocking=True)
         self._copied.record()
 
 

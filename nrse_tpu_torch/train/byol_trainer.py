@@ -16,6 +16,23 @@ fused optimizer (``fused_optimizer: FusedAdamWSpec``).  One train step:
      online parameter and the EMA of the target over the encoder and
      projector, in that order (``byol_trainer.py:129-144``).
 
+With ``on_device_mixing=False`` (JAX's host-side parity path,
+``byol_trainer.py:79-107``) the views come in the batch, as
+``clean_input_values`` and ``noisy_input_values`` (``data.
+noisy_speech_dataset`` with ``featurize``), every row valid.
+
+The step's inputs from the host (both towers' kernel seed pairs, each
+tower's LayerDrop keep list and SpecAugment spans, K4's LR, bias
+corrections and EMA decay) are drawn as the towers draw them and written
+to the device in one copy before the step (:class:`BYOLStepInputs`).  On
+a card without a mesh the step runs from CUDA graphs (``train.
+step_graphs``, the counterpart of JAX's jitted step): captured at the
+first step of each batch shape and form, the target a forward-only tower
+beside the online encoder, replayed after that one copy.  ``graphs=
+False`` (``training.cuda_graphs: false`` in ``train_byol``) asks for the
+eager step; the CPU and a mesh always run it (gloo cannot be captured,
+and NCCL runs one rank a card).  Both forms give the same bits.
+
 The state keeps the online parameters, their gradients, ``mu``, ``nu`` and
 the target's parameters as flat float32 buffers, the modules' parameters
 and ``.grad`` being views into them; online order encoder, projector,
@@ -70,10 +87,16 @@ from nrse_tpu_torch.models.byol import (
     make_target,
 )
 from nrse_tpu_torch.models.heads import use_mesh
-from nrse_tpu_torch.models.wavlm import SeedTable, TrainRNG, WavLMConfig
+from nrse_tpu_torch.models.wavlm import (
+    SeedTable,
+    StagedDraws,
+    TrainRNG,
+    WavLMConfig,
+)
 from nrse_tpu_torch.ops.fused_optimizer import (
     FusedAdamWSpec,
     fused_adamw_ema_update,
+    host_scalars,
 )
 from nrse_tpu_torch.parallel.mesh import (
     DataMesh,
@@ -84,12 +107,21 @@ from nrse_tpu_torch.parallel.mesh import (
 from nrse_tpu_torch.parallel.mesh import broadcast_state as _broadcast
 from nrse_tpu_torch.parallel.mesh import replicas_agree as _replicas_agree
 from nrse_tpu_torch.runtime.graphs import ProgramCache
+from nrse_tpu_torch.runtime.staging import Staging
+from nrse_tpu_torch.train.step_graphs import (
+    ForwardTower,
+    StepGraphs,
+    encoder_parameter_groups,
+)
 
 logger = logging.getLogger(__name__)
 
 # the flat buffers of the state, and which tower's parameters each holds
 FLAT = {"params": "online", "mu": "online", "nu": "online",
         "target_params": "target"}
+# the batch keys of each form of the views (on_device_mixing True, False)
+VIEW_KEYS = {True: ("clean", "noise", "snr"),
+             False: ("clean_input_values", "noisy_input_values")}
 
 
 @dataclasses.dataclass
@@ -110,11 +142,12 @@ class BYOLTrainState:
     seed: int = 0
     mesh: Optional[DataMesh] = None
     split: int = 0
-    # both towers' kernel seed pairs, filled for each step
-    seeds: Optional[SeedTable] = dataclasses.field(default=None,
-                                                   repr=False)
+    # the step's staged inputs by batch shape (BYOLStepInputs), and its
+    # graphs (train.step_graphs.StepGraphs) of the current shape and form
+    inputs: Dict = dataclasses.field(default_factory=dict, repr=False)
+    graphs: Optional[object] = dataclasses.field(default=None, repr=False)
     # the eval step's program caches (runtime.graphs.ProgramCache), by
-    # whether they return the embeddings
+    # (whether they return the embeddings, whether they mix the views)
     programs: Dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -350,60 +383,230 @@ def grad_norm_of(state: BYOLTrainState) -> torch.Tensor:
     return torch.sqrt(sq[0] + rest * rest)
 
 
-def make_byol_train_step(spec: FusedAdamWSpec
+class BYOLStepInputs:
+    """A BYOL train step's inputs from the host for one batch shape, in one
+    :class:`~nrse_tpu_torch.runtime.staging.Staging`: both towers' seed
+    table, each tower's SpecAugment ``[B, T']`` spans (where the encoder
+    has a masked embedding) and K4's eight host scalars (``k4``).
+    :meth:`stage` draws a step's as the towers would (the same
+    generators, ``TrainRNG(seed, step, ONLINE | TARGET, rank, world)``,
+    in the same order), writes them and copies them over once, and
+    returns each tower's ``TrainRNG`` reading the table and its draws (its
+    keep list stays on the host, which picks the layers to run)."""
+
+    def __init__(self, config: WavLMConfig, batch: int, samples: int,
+                 device):
+        self.frames = int(config.feature_lengths(samples))
+        self.batch = batch
+        slots = {"seeds": SeedTable.slot(config.num_hidden_layers, 2),
+                 "k4": ((8,), torch.float32)}
+        self.spans = config.has_masked_spec_embed
+        if self.spans:
+            for tower in (ONLINE, TARGET):
+                slots[f"spans {tower}"] = ((batch, self.frames), torch.bool)
+        self.staging = Staging(device, slots)
+        self.table = SeedTable(config.num_hidden_layers, 2,
+                               staging=self.staging)
+        self.k4 = self.staging["k4"]
+
+    def stage(self, state: BYOLTrainState, spec: FusedAdamWSpec
+              ) -> Tuple[TrainRNG, TrainRNG]:
+        mesh = state.mesh
+        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
+        st = self.staging
+        st.begin()
+        self.table.fill(state.seed, state.step, rank, world)
+        draws = []
+        for tower, module in ((ONLINE, state.online),
+                              (TARGET, state.target)):
+            rng = TrainRNG(state.seed, state.step, tower, rank, world)
+            encoder = module.encoder
+            # an encoder in eval mode draws nothing and runs every layer
+            keep = encoder.encoder.layer_keep(
+                rng if encoder.training else None)
+            spans = None
+            if self.spans:
+                spans = st[f"spans {tower}"]
+                st.host(f"spans {tower}").copy_(encoder.time_mask(
+                    rng, self.batch, self.frames))
+            draws.append((rng, StagedDraws(tuple(keep), spans)))
+        st.host("k4").copy_(torch.from_numpy(host_scalars(spec,
+                                                          state.step)))
+        st.push()
+        return tuple(dataclasses.replace(rng, table=self.table, draws=d)
+                     for rng, d in draws)
+
+
+def step_inputs(state: BYOLTrainState, batch: Mapping,
+                on_device_mixing: bool = True) -> BYOLStepInputs:
+    """The state's :class:`BYOLStepInputs` for this batch's shape."""
+    shape = tuple(batch[VIEW_KEYS[on_device_mixing][0]].shape)
+    if shape not in state.inputs:
+        state.inputs[shape] = BYOLStepInputs(
+            state.online.encoder.config, shape[0], shape[1],
+            state.params.device)
+    return state.inputs[shape]
+
+
+def byol_views(batch: Mapping, on_device_mixing: bool = True):
+    """``(clean_views, noisy_views, valid)`` of a batch: mixed on the
+    device from ``clean``, ``noise`` and ``snr``, or the batch's
+    ``clean_input_values`` and ``noisy_input_values``, every row valid
+    (``nrse_tpu/train/byol_trainer.py:100-107``)."""
+    if on_device_mixing:
+        return make_byol_views(batch["clean"], batch["noise"], batch["snr"])
+    clean = batch["clean_input_values"]
+    return (clean, batch["noisy_input_values"],
+            torch.ones(clean.shape[0], dtype=torch.bool,
+                       device=clean.device))
+
+
+def make_byol_train_step(spec: FusedAdamWSpec, graphs: bool = True,
+                         on_device_mixing: bool = True
                          ) -> Callable[[BYOLTrainState, Dict], Dict]:
     """``train_step(state, batch) → metrics`` for ``batch = {"clean":
-    [B, T], "noise": [B, T], "snr": [B]}`` on the state's device.  Updates
-    the state in place.  The towers run in the modes they are in (the
-    state is made in training mode).  The metrics ``loss``, ``grad_norm``,
-    ``valid_fraction`` and ``finite`` are device tensors (nothing waits for
-    the card), of the global batch under a mesh; ``layers_online`` and
-    ``layers_target`` count the layers each tower ran under LayerDrop.
-    Under a mesh ``batch`` holds this rank's rows (its data coordinate's:
-    the ranks of a model group take the same rows)."""
+    [B, T], "noise": [B, T], "snr": [B]}`` (with ``on_device_mixing``
+    False, ``{"clean_input_values": [B, T], "noisy_input_values": [B,
+    T]}``) on the state's device.  Updates the state in place.  The towers
+    run in the modes they are in (the state is made in training mode).
+    The metrics ``loss``, ``grad_norm``, ``valid_fraction`` and
+    ``finite`` are device tensors (nothing waits for the card), of the
+    global batch under a mesh; ``layers_online`` and ``layers_target``
+    count the layers each tower ran under LayerDrop.  Under a mesh
+    ``batch`` holds this rank's rows (its data coordinate's: the ranks of
+    a model group take the same rows).
+
+    With ``graphs`` (the default) a state on a card without a mesh runs
+    the captured step (:func:`byol_step_graphs`), captured at the first
+    step of each batch shape and form; a capture that fails raises,
+    naming the step and the part."""
+    token = object()  # this step's spec and form: one key of graphs
+    logged = set()
 
     def train_step(state: BYOLTrainState, batch: Dict) -> Dict:
-        online, target, mesh = state.online, state.target, state.mesh
-        rank, world = (mesh.data_index, mesh.data) if mesh else (0, 1)
-        clean, noisy, valid = make_byol_views(batch["clean"], batch["noise"],
-                                              batch["snr"])
-        state.grads.zero_()
-        if state.seeds is None:
-            state.seeds = SeedTable(online.encoder.config.num_hidden_layers,
-                                    2, state.params.device)
-        table = state.seeds.stage(state.seed, state.step, rank, world)
-        pred, _, _ = online(clean, TrainRNG(state.seed, state.step, ONLINE,
-                                            rank, world, table=table))
-        layers_online = online.encoder.encoder.layers_run
-        with torch.no_grad():
-            proj, _ = target(noisy, TrainRNG(state.seed, state.step, TARGET,
-                                             rank, world, table=table))
-        layers_target = target.encoder.encoder.layers_run
-        loss = byol_loss(pred, proj, weights=valid, mesh=mesh)
-        loss.backward()
-        with torch.no_grad():
-            loss = loss.detach()
-            valid_fraction = valid.float().mean()
-            if mesh is not None and mesh.data_reduce:
-                dist.all_reduce(state.grads, group=mesh.data_group)
-                pooled = torch.stack([loss, valid_fraction / world])
-                dist.all_reduce(pooled, group=mesh.data_group)
-                loss, valid_fraction = pooled[0], pooled[1]
-            grad_norm = grad_norm_of(state)
-            fused_adamw_ema_update(state.grads, state.params, state.mu,
-                                   state.nu, state.target_params, spec,
-                                   state.step, grad_norm)
+        mesh = state.mesh
+        inputs = step_inputs(state, batch, on_device_mixing)
+        rngs = inputs.stage(state, spec)
+        captured = graphs and mesh is None \
+            and state.params.device.type == "cuda"
+        form = "captured" if captured else "eager"
+        if form not in logged:
+            logged.add(form)
+            logger.info(f"BYOL train step: the {form} form"
+                        + ("" if captured or mesh is None else
+                           " (a mesh: gloo cannot be captured and NCCL "
+                           "runs one rank a card)"))
+        if captured:
+            views = {k: batch[k] for k in VIEW_KEYS[on_device_mixing]}
+            key = (token, tuple(v.shape for v in views.values()))
+            if state.graphs is None or state.graphs.key != key:
+                state.graphs = None  # the previous key's graphs go first
+                state.graphs = byol_step_graphs(
+                    state, spec, views, rngs, inputs, on_device_mixing, key)
+            loss, out = state.graphs.run(views, rngs[0], ("optimizer",),
+                                         rngs[1])
+            grad_norm, valid_fraction, finite = out["optimizer"]
+        else:
+            loss, grad_norm, valid_fraction = _eager_step(
+                state, spec, batch, rngs, inputs, on_device_mixing)
+            finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
+        layers = []
+        for module, rng in zip((state.online, state.target), rngs):
+            module.encoder.encoder.layers_run = sum(rng.draws.keep)
+            layers.append(module.encoder.encoder.layers_run)
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm,
-                "valid_fraction": valid_fraction,
-                "finite": torch.isfinite(loss) & torch.isfinite(grad_norm),
-                "layers_online": layers_online,
-                "layers_target": layers_target}
+                "valid_fraction": valid_fraction, "finite": finite,
+                "layers_online": layers[0], "layers_target": layers[1]}
 
     return train_step
 
 
-def make_byol_eval_step(embeddings: bool = False, graphs: bool = True
+def _eager_step(state: BYOLTrainState, spec: FusedAdamWSpec, batch: Dict,
+                rngs: Tuple[TrainRNG, TrainRNG], inputs: BYOLStepInputs,
+                on_device_mixing: bool):
+    """The step dispatched op by op, the towers' draws and K4's host
+    scalars read from the staged ``inputs``: ``(loss, grad_norm,
+    valid_fraction)``."""
+    online, target, mesh = state.online, state.target, state.mesh
+    clean, noisy, valid = byol_views(batch, on_device_mixing)
+    state.grads.zero_()
+    pred, _, _ = online(clean, rngs[0])
+    with torch.no_grad():
+        proj, _ = target(noisy, rngs[1])
+    loss = byol_loss(pred, proj, weights=valid, mesh=mesh)
+    loss.backward()
+    with torch.no_grad():
+        loss = loss.detach()
+        valid_fraction = valid.float().mean()
+        if mesh is not None and mesh.data_reduce:
+            dist.all_reduce(state.grads, group=mesh.data_group)
+            pooled = torch.stack([loss, valid_fraction / mesh.data])
+            dist.all_reduce(pooled, group=mesh.data_group)
+            loss, valid_fraction = pooled[0], pooled[1]
+        grad_norm = grad_norm_of(state)
+        fused_adamw_ema_update(state.grads, state.params, state.mu,
+                               state.nu, state.target_params, spec,
+                               state.step, grad_norm, rest=inputs.k4)
+    return loss, grad_norm, valid_fraction
+
+
+def byol_step_graphs(state: BYOLTrainState, spec: FusedAdamWSpec,
+                     views: Mapping, rngs: Tuple[TrainRNG, TrainRNG],
+                     inputs: BYOLStepInputs, on_device_mixing: bool,
+                     key) -> StepGraphs:
+    """The BYOL train step of ``state`` for one ``key`` (the step's spec
+    and form, the batch's shapes) as ``train.step_graphs.StepGraphs``,
+    captured on ``views`` (the batch's tensors of its form) with ``rngs``
+    (both towers' staged streams) and ``inputs`` (K4's staged scalars):
+    the front zeroes the gradients, makes the views and runs the online
+    front on the clean one; the target is a forward-only tower on the
+    noisy one; the head runs the online heads, the target's projector and
+    ``byol_loss``; one ``optimizer`` part takes the global norm and the
+    K4 launch (AdamW and the target's EMA) and returns ``(grad_norm,
+    valid_fraction, finite)``.  The heads' BatchNorm statistics are the
+    buffers the warm-up puts back.  No part holds the state itself (it
+    holds its graphs), so a state dropped with its graphs frees their
+    memory at once, without waiting for the cycle collector."""
+    online, target = state.online, state.target
+    grads, params, mu, nu, target_params = (
+        state.grads, state.params, state.mu, state.nu, state.target_params)
+    static = {}  # the views, valid and the loss, made inside the parts
+
+    def front(x, rng):
+        clean, static["noisy"], static["valid"] = byol_views(
+            x, on_device_mixing)
+        return online.encoder.front(clean, None, rng)
+
+    def target_front(x, rng):
+        return target.encoder.front(static["noisy"], None, rng)
+
+    def head(back, x, rng, target_back):
+        pred, _ = online.heads(back[1].float())
+        with torch.no_grad():
+            proj = target.projector(target_back[1].float())
+        loss = byol_loss(pred, proj, weights=static["valid"])
+        static["loss"] = loss.detach()
+        return loss
+
+    def optimizer():  # without a mesh: grad_norm_of's norm of one buffer
+        gn = torch.linalg.vector_norm(grads)
+        fused_adamw_ema_update(grads, params, mu, nu, target_params, spec,
+                               0, gn, rest=inputs.k4)
+        finite = torch.isfinite(static["loss"]) & torch.isfinite(gn)
+        return gn, static["valid"].float().mean(), finite
+
+    layers = online.encoder.config.num_hidden_layers
+    return StepGraphs(
+        online.encoder, encoder_parameter_groups(online, "encoder", layers),
+        (0, True), front, head, [("optimizer", optimizer)], views, rngs[0],
+        state.grads, key, f"the BYOL train step {state.step}",
+        tower=ForwardTower(target.encoder, target_front, rngs[1]),
+        buffers=[b for m in (online, target) for b in m.buffers()])
+
+
+def make_byol_eval_step(embeddings: bool = False, graphs: bool = True,
+                        on_device_mixing: bool = True
                         ) -> Callable[[BYOLTrainState, Dict], Tuple]:
     """``eval_step(state, batch) → (loss [B], similarity [B])``: the BYOL
     loss per sample and the clean↔noisy cosine of the online encoder's
@@ -411,23 +614,27 @@ def make_byol_eval_step(embeddings: bool = False, graphs: bool = True
     (``byol_trainer.py:183-235``); the towers' modes are restored after.
     With ``embeddings``, also those pooled clean and noisy embeddings
     ``[B, C]`` in float32, which JAX's ``make_byol_embed_step``
-    (``:238-261``) computes in a pass of its own.
+    (``:238-261``) computes in a pass of its own.  ``on_device_mixing``
+    as :func:`make_byol_train_step` takes it: False reads the batch's
+    ``clean_input_values`` and ``noisy_input_values``.
 
     With ``graphs`` (the default) a state without a mesh runs the step
-    from a ``runtime.graphs.ProgramCache`` of ``(clean, noise, snr)`` kept
-    on the state (the counterpart of JAX's jitted ``eval_step`` and
+    from a ``runtime.graphs.ProgramCache`` of the form's inputs kept on
+    the state (the counterpart of JAX's jitted ``eval_step`` and
     ``embed_step``: one program a batch shape, on the card a CUDA graph
     reading both towers' parameters and the heads' running statistics in
     place, so a train step needs no recapture of it); a state under a
     mesh runs it eagerly.  The outputs are copies either way."""
     logged = set()
+    keys = VIEW_KEYS[on_device_mixing]
 
     def forward_of(state: BYOLTrainState) -> Callable:
         online, target = state.online, state.target
 
         @torch.no_grad()
-        def forward(clean, noise, snr):
-            clean, noisy, _ = make_byol_views(clean, noise, snr)
+        def forward(*inputs):
+            clean, noisy, _ = byol_views(dict(zip(keys, inputs)),
+                                         on_device_mixing)
             clean_emb = online.encoder(clean)[1].float()
             noisy_emb = online.encoder(noisy)[1].float()
             pred, _ = online.heads(clean_emb)
@@ -459,12 +666,13 @@ def make_byol_eval_step(embeddings: bool = False, graphs: bool = True
         online.eval()
         target.eval()
         try:
-            inputs = (batch["clean"], batch["noise"], batch["snr"])
+            inputs = tuple(batch[k] for k in keys)
             if not captured:
                 return forward_of(state)(*inputs)
-            cache = state.programs.get(embeddings)
+            name = (embeddings, on_device_mixing)
+            cache = state.programs.get(name)
             if cache is None:
-                cache = state.programs[embeddings] = ProgramCache(
+                cache = state.programs[name] = ProgramCache(
                     forward_of(state), state.params.device,
                     tuple((x.dtype, 0.0) for x in inputs))
             return cache(*inputs)

@@ -384,8 +384,8 @@ def ser_step_graphs(state: EmotionTrainState, task: str,
         return model.encoder.front(zero_mean_unit_var(x["input_values"]),
                                    x["attention_mask"], rng)
 
-    def head(seq, x, rng):
-        logits, dims = model.head(seq, x["attention_mask"], task, rng,
+    def head(back, x, rng):
+        logits, dims = model.head(back[0], x["attention_mask"], task, rng,
                                   inputs.trunks)
         return emotion_loss(task, logits, dims, x,
                             x.get("class_weights"))

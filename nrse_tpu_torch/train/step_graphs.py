@@ -24,11 +24,16 @@ between models comes from the caller:
     other parameters do, which needs its input's gradient), under
     ``no_grad`` otherwise, so a frozen layer runs with no graph and no K3,
     K2 or K5 backward for it;
-  * ``head``: ``WavLMModel.back`` (with autograd where the encoder trains),
-    then the caller's head and loss (the SER trunks and ``emotion_loss``;
-    the fine-tune's ASP, ``EmotionRegression`` and ``ce_weight_category``),
-    and their backward (the head's parameter gradients and the last
-    layer's output gradient);
+  * where the caller gives a second, forward-only tower
+    (:class:`ForwardTower`: the BYOL target): its ``front`` and its
+    ``layer i forward``, under ``no_grad``, replayed by that tower's own
+    keep list;
+  * ``head``: ``WavLMModel.back`` (with autograd where the encoder trains;
+    the forward-only tower's under ``no_grad``), then the caller's head
+    and loss (the SER trunks and ``emotion_loss``; the fine-tune's ASP,
+    ``EmotionRegression`` and ``ce_weight_category``; BYOL's online heads,
+    the target's projector and ``byol_loss``), and their backward (the
+    head's parameter gradients and the last layer's output gradient);
   * ``layer i backward``, for each layer that takes part, from the top
     down: the layer's parameter gradients added into their ``.grad``
     views of the flat buffer (the ``+=`` autograd's ``AccumulateGrad``
@@ -36,9 +41,10 @@ between models comes from the caller:
     one accumulator in the order autograd sums it;
   * ``front backward``, where the encoder's other parameters train;
   * the caller's optimizer parts, in order, each replayed only on the
-    steps the caller names: the SER step's ``optimizer`` (the global norm
-    and K4) every step; the fine-tune's ``accumulate`` every micro-step and
-    ``apply`` (K4 over the mean, the mean zeroed) on every k-th.
+    steps the caller names: the SER step's and BYOL's ``optimizer`` (the
+    global norm and K4, BYOL's with the target's EMA) every step; the
+    fine-tune's ``accumulate`` every micro-step and ``apply`` (K4 over the
+    mean, the mean zeroed) on every k-th.
 
 Each part reads static buffers: the batch (copied in before the front),
 the step's staged inputs (the seed table, the spans, the head's dropout
@@ -48,24 +54,50 @@ ran before it), and the parameters and their gradients in the state's flat
 buffers.  The copies between the parts are the only launches outside the
 graphs, one a kept layer each way; no kernel wrapper launches outside
 them.  The parts share one memory pool and are captured in the order they
-replay (forwards from the bottom, the head, backwards from the top, the
-optimizer parts), so a part only reuses memory of a part that runs before
-it in every step.
+replay (forwards from the bottom, the forward-only tower's, the head,
+backwards from the top, the optimizer parts), so a part only reuses
+memory of a part that runs before it in every step.
 
 A capture warms every part up once on a side stream first (cuBLAS's
 workspace, cuDNN's choice for the positional conv); the optimizer parts
-are not warmed up, since they would update the state.  A capture that
-fails raises, naming the step and the part; there is no eager fallback.
+are not warmed up, since they would update the state, and the buffers
+the parts change in place (the BYOL heads' BatchNorm statistics) are put
+back after it, so the first replayed step advances them once.  A capture
+that fails raises, naming the step and the part; there is no eager
+fallback.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import torch
 
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMModel
+
+
+@dataclasses.dataclass
+class ForwardTower:
+    """A second encoder that a step runs forward only, under ``no_grad``
+    (the BYOL target; its parts are named ``target ...``):
+    ``front(inputs, rng)`` returns its ``WavLMModel.front`` triple;
+    ``rng`` is the first step's staged stream of this tower (its table and
+    draws, written in place every later step)."""
+
+    wavlm: WavLMModel
+    front: Callable
+    rng: TrainRNG
 
 
 class StepGraphs:
@@ -77,16 +109,22 @@ class StepGraphs:
     head's]``; ``trainable`` is ``(first, rest)``: the layers from
     ``first`` up train, and with ``rest`` the encoder's other parameters
     do too.  ``front(inputs, rng)`` returns ``WavLMModel.front``'s
-    ``(hidden, pos_bias, frame_mask)``; ``head(seq, inputs, rng)`` the
-    loss of the encoder's sequence; ``optimizer`` the ``(name, fn)``
-    parts after the backward, each ``fn()`` returning a tensor or None.
+    ``(hidden, pos_bias, frame_mask)``; ``head(back, inputs, rng)`` the
+    loss of the encoder's ``WavLMModel.back`` output ``(sequence,
+    pooled)`` (with a ``tower``, ``head(back, inputs, rng, tower_back)``,
+    the last the tower's, without a graph); ``optimizer`` the ``(name,
+    fn)`` parts after the backward, each ``fn()`` returning a tensor, a
+    tuple of tensors or None.
     ``inputs`` (a mapping of tensors: the batch and whatever else the
     step reads per step) gives the static inputs' shapes and the first
     step's values; ``rng`` is that step's staged stream (its table and its
     draws, which every later step writes in place); ``grads`` the flat
     gradient buffer the front zeroes.  On a card the parts are captured
     here; ``capture_s`` is the capture's seconds by the host clock,
-    warm-up included.  ``label`` names the step in a capture's error."""
+    warm-up included.  ``label`` names the step in a capture's error.
+    ``tower``: a :class:`ForwardTower` run beside the encoder; ``buffers``
+    the tensors the parts change in place besides the gradients (the
+    BatchNorm statistics), which the warm-up puts back."""
 
     def __init__(self, wavlm: WavLMModel,
                  groups: Sequence[Sequence[torch.nn.Parameter]],
@@ -94,11 +132,15 @@ class StepGraphs:
                  front: Callable, head: Callable,
                  optimizer: Sequence[Tuple[str, Callable[[], Any]]],
                  inputs: Mapping[str, torch.Tensor], rng: TrainRNG,
-                 grads: torch.Tensor, key: Any = None, label: str = ""):
+                 grads: torch.Tensor, key: Any = None, label: str = "",
+                 tower: Optional[ForwardTower] = None,
+                 buffers: Sequence[torch.Tensor] = ()):
         self.key, self.label = key, label
         self.wavlm, self.front_fn, self.head_fn = wavlm, front, head
         self.optimizer = list(optimizer)
         self.grads = grads
+        self.tower = tower
+        self.buffers = list(buffers)
         self.layers = list(wavlm.encoder.layers)
         n = len(self.layers)
         first, rest = trainable
@@ -120,10 +162,15 @@ class StepGraphs:
             self._capture(grads.device)
 
     def warm_up(self) -> None:
-        """Every part but the optimizer's once, eagerly, every layer run (a
-        capture's warm-up; on the CPU, where nothing is captured, the
-        parts' arithmetic against the eager step)."""
+        """Every part but the optimizer's once, eagerly, every layer run,
+        then ``buffers`` put back (a capture's warm-up; on the CPU, where
+        nothing is captured, the parts' arithmetic against the eager
+        step)."""
+        saved = [b.clone() for b in self.buffers]
         self._build(None)
+        with torch.no_grad():
+            for b, s in zip(self.buffers, saved):
+                b.copy_(s)
 
     def _capture(self, device) -> None:
         t0 = time.perf_counter()
@@ -133,7 +180,7 @@ class StepGraphs:
             with torch.cuda.stream(side):
                 self.warm_up()
             torch.cuda.current_stream().wait_stream(side)
-            self._build(torch.cuda.graph_pool_handle())
+            self._build(torch.cuda.graph_pool_handle(), optimizer=True)
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
 
@@ -150,21 +197,24 @@ class StepGraphs:
         except Exception as e:
             raise RuntimeError(
                 f"capturing {self.label} (batch "
-                f"{tuple(self.inputs['input_values'].shape)}) failed in "
-                f"part {name!r}: {e}") from e
+                f"{tuple(next(iter(self.inputs.values())).shape)}) failed "
+                f"in part {name!r}: {e}") from e
         self.graphs[name] = graph
         return out
 
-    def _build(self, pool) -> None:
-        """Run (``pool`` None) or capture every part in replay order."""
+    def _build(self, pool, optimizer: bool = False) -> None:
+        """Run (``pool`` None) or capture every part in replay order, the
+        optimizer parts with ``optimizer`` (run eagerly with them, every
+        layer run and ``buffers`` advanced: the step the graphs hold)."""
         part, rest, rng, inputs = self._part, self.rest, self.rng, self.inputs
         wavlm, front_params = self.wavlm, self.front_params
+        enc_rng = wavlm.train_rng(rng)  # None where the encoder evaluates
         warm = pool is None
 
         def front():
             self.grads.zero_()
             with torch.set_grad_enabled(rest):
-                return self.front_fn(inputs, rng)
+                return self.front_fn(inputs, enc_rng)
 
         h0, pos_bias, frame_mask = part("front", front, pool)
         self.h0 = h0
@@ -172,34 +222,18 @@ class StepGraphs:
         pb = pos_bias.detach().requires_grad_(rest)
         self.dpos = torch.zeros_like(pos_bias) if rest else None
 
-        self.h_in, self.h_out = [], []
-        h = h0
-        for i, layer in enumerate(self.layers):
-            h_in = torch.empty_like(h0).requires_grad_(self.trains[i])
-            if warm:  # real values for the warm-up
-                with torch.no_grad():
-                    h_in.copy_(h)
-
-            def fwd(layer=layer, h_in=h_in, grad=self.trains[i]):
-                with torch.set_grad_enabled(grad):
-                    return layer(h_in, pb, frame_mask, rng)
-
-            h = part(f"layer {i} forward", fwd, pool)
-            self.h_in.append(h_in)
-            self.h_out.append(h)
-
-        self.h_last = torch.empty_like(h0).requires_grad_(self.encoder_grad)
-        if warm:
-            with torch.no_grad():
-                self.h_last.copy_(h)
+        self.h_in, self.h_out, self.h_last = self._forwards(
+            "", self.layers, self.trains, h0, pb, frame_mask, enc_rng, pool)
+        tower_back = self._build_tower(pool) if self.tower else None
 
         def head():
             if rest:  # the layers' bias gradients add up from here
                 self.dpos.zero_()
             with torch.set_grad_enabled(self.encoder_grad):
-                seq, _ = wavlm.back(self.h_last, frame_mask)
+                back = wavlm.back(self.h_last, frame_mask)
+            extra = (tower_back(),) if tower_back else ()
             with torch.enable_grad():
-                loss = self.head_fn(seq, inputs, rng)
+                loss = self.head_fn(back, inputs, rng, *extra)
                 wrt = [self.h_last] if self.encoder_grad else []
                 grads = torch.autograd.grad(loss, wrt + self.head_params,
                                             allow_unused=True)
@@ -246,11 +280,78 @@ class StepGraphs:
 
             part("front backward", front_bwd, pool)
 
-        if warm:  # the optimizer would update the state
+        if not optimizer:  # a warm-up: the optimizer would update the state
             return
         for name, fn in self.optimizer:
             with torch.no_grad():
                 self.outputs[name] = part(name, fn, pool)
+
+    def _forwards(self, prefix: str, layers, grad: Sequence[bool], h0,
+                  pos_bias, frame_mask, rng, pool) -> Tuple[list, list,
+                                                            torch.Tensor]:
+        """Run or capture each of ``layers``' forwards as a part
+        ``{prefix}layer i forward``, with autograd where ``grad[i]``, each
+        on a static input the host fills with the layer below's output
+        (run: with real values); returns the static inputs, the outputs
+        and the static input of what follows the last layer."""
+        h_in, h_out, h = [], [], h0
+        for i, layer in enumerate(layers):
+            x = torch.empty_like(h0).requires_grad_(grad[i])
+            if pool is None:
+                with torch.no_grad():
+                    x.copy_(h)
+
+            def fwd(layer=layer, x=x, grad=grad[i]):
+                with torch.set_grad_enabled(grad):
+                    return layer(x, pos_bias, frame_mask, rng)
+
+            h = self._part(f"{prefix}layer {i} forward", fwd, pool)
+            h_in.append(x)
+            h_out.append(h)
+        last = torch.empty_like(h0).requires_grad_(any(grad))
+        if pool is None:
+            with torch.no_grad():
+                last.copy_(h)
+        return h_in, h_out, last
+
+    def _replay_forwards(self, prefix: str, h, keep: Sequence[bool],
+                         h_in, h_out, last) -> List[int]:
+        """Replay the forwards of :meth:`_forwards`' parts ``prefix`` that
+        ``keep`` keeps, from ``h``, into ``last``; returns the layers
+        run."""
+        kept = []
+        for i, k in enumerate(keep):
+            if k:
+                h_in[i].copy_(h)
+                self.graphs[f"{prefix}layer {i} forward"].replay()
+                h = h_out[i]
+                kept.append(i)
+        last.copy_(h)
+        return kept
+
+    def _build_tower(self, pool) -> Callable:
+        """Run or capture the forward-only tower's front and layers (after
+        the encoder's forwards, before the head); returns the head's call
+        of the tower's ``back`` on its last layer's output."""
+        tower = self.tower
+        rng = tower.wavlm.train_rng(tower.rng)
+
+        def front():
+            with torch.no_grad():
+                return tower.front(self.inputs, rng)
+
+        h0, pos_bias, frame_mask = self._part("target front", front, pool)
+        layers = tower.wavlm.encoder.layers
+        self.t_h0 = h0
+        self.t_h_in, self.t_h_out, self.t_last = self._forwards(
+            "target ", layers, [False] * len(layers), h0, pos_bias,
+            frame_mask, rng, pool)
+
+        def back():
+            with torch.no_grad():
+                return tower.wavlm.back(self.t_last, frame_mask)
+
+        return back
 
     def _load(self, inputs: Mapping[str, torch.Tensor]) -> None:
         with torch.no_grad():
@@ -258,26 +359,25 @@ class StepGraphs:
                 v.copy_(inputs[k])
 
     def run(self, inputs: Mapping[str, torch.Tensor], rng: TrainRNG,
-            optimizer: Sequence[str]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """One step on ``inputs`` whose staged values ``rng`` says were
-        written: the inputs copied in, the parts of the layers
-        ``rng.draws.keep`` keeps replayed, then the ``optimizer`` parts
-        named.  Returns copies of the loss and of those parts' outputs
-        (the ones that return a tensor)."""
+            optimizer: Sequence[str], tower_rng: Optional[TrainRNG] = None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One step on ``inputs`` whose staged values ``rng`` (and
+        ``tower_rng``, the forward-only tower's) says were written: the
+        inputs copied in, the parts of the layers ``rng.draws.keep`` keeps
+        replayed (the tower's by its own list), then the ``optimizer``
+        parts named.  Returns copies of the loss and of those parts'
+        outputs (the ones that return a tensor or a tuple of them)."""
         self._load(inputs)
         graphs = self.graphs
         graphs["front"].replay()
-        h, kept = self.h0, []
         with torch.no_grad():
-            for i, keep in enumerate(rng.draws.keep):
-                if not keep:
-                    continue
-                self.h_in[i].copy_(h)
-                graphs[f"layer {i} forward"].replay()
-                h = self.h_out[i]
-                kept.append(i)
-            self.h_last.copy_(h)
+            kept = self._replay_forwards("", self.h0, rng.draws.keep,
+                                         self.h_in, self.h_out, self.h_last)
+            if self.tower:
+                graphs["target front"].replay()
+                self._replay_forwards("target ", self.t_h0,
+                                      tower_rng.draws.keep, self.t_h_in,
+                                      self.t_h_out, self.t_last)
             graphs["head"].replay()
             g = self.g_last
             for i in reversed(kept):
@@ -292,8 +392,15 @@ class StepGraphs:
             for name in optimizer:
                 graphs[name].replay()
             return self.loss.clone(), {
-                name: self.outputs[name].clone() for name in optimizer
-                if isinstance(self.outputs[name], torch.Tensor)}
+                name: _copy(self.outputs[name]) for name in optimizer
+                if self.outputs[name] is not None}
+
+
+def _copy(out):
+    """A copy of a part's output: a tensor or a tuple of tensors."""
+    if isinstance(out, tuple):
+        return tuple(t.clone() for t in out)
+    return out.clone()
 
 
 def _accumulate(params: List[torch.nn.Parameter], grads) -> None:

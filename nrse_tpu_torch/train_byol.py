@@ -31,7 +31,9 @@ says once that the plot is skipped and why, and goes on: the plot is
 host-side.
 
 One process on one card (``device: cuda``, computing in bf16, the type
-the kernels take) or on the CPU (float32, the plain paths), or N ranks,
+the kernels take; the train step replayed from CUDA graphs captured at
+its first step, ``training.cuda_graphs: false`` for the eager step) or
+on the CPU (float32, the plain paths, eagerly), or N ranks (eagerly),
 one card each (``parallel``): the group is joined from the
 ``tpu.distributed`` block or torchrun's environment
 (``parallel.distributed.maybe_initialize``), ``tpu.mesh`` (``data`` ×
@@ -190,7 +192,10 @@ def _main(config: Dict[str, Any],
             logger.info(f"resumed from {name} at epoch {start_epoch}, step "
                         f"{state.step}")
 
-    train_step = make_byol_train_step(spec)
+    # training.cuda_graphs: false runs the eager step (the CPU and a mesh
+    # always do)
+    train_step = make_byol_train_step(
+        spec, graphs=bool(tr.get("cuda_graphs", True)))
     metric = tr["early_stopping_metric"]
     early_stopping = EarlyStopping(
         patience=tr["early_stopping_patience"],

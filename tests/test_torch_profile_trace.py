@@ -95,3 +95,84 @@ def test_host_lead_in_before_the_first_launch(event_ms, faults):
     kernels, got = chip_smoke._trace_faults(events, event_ms)
     assert [k["name"] for k in kernels] == ["k0", "k1", "k2"]
     assert ["span" for msg in got if "of CUDA events" in msg] == faults
+
+
+# a product of the wgmma GEMM as the profiler names it: demangled, with
+# its template arguments (the epilogue, the MN-major flag)
+GEMM = ("void nrse::wg::gemm_tn_kernel<(anonymous namespace)::{0}, {1}>("
+        "CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, int, int, int, "
+        "(anonymous namespace)::{0})")
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("name,wrapper", [
+    (GEMM.format("EpiGelu<true>", "false"), "fused_ffn_fwd"),
+    (GEMM.format("EpiGelu<false>", "false"), "fused_ffn_fwd"),
+    (GEMM.format("EpiBias<true>", "false"), "other"),
+    (GEMM.format("EpiDgd", "false"), "other"),
+    (GEMM.format("EpiStoreBf16", "false"), "other"),
+    (GEMM.format("EpiDw", "true"), "fused_ffn_bwd_dw"),
+    ("(anonymous namespace)::dh2_kernel(__nv_bfloat16 const*, "
+     "nrse::DropSite, __nv_bfloat16*, float*, int, int)", "fused_ffn_bwd_dx"),
+    ("(anonymous namespace)::transpose_cast_kernel(float const*, "
+     "__nv_bfloat16*, int, int)", "other"),
+    ("(anonymous namespace)::colsum_fold_kernel(float const*, int, int, "
+     "float*)", "other"),
+])
+def test_ffn_kernels_told_apart_in_a_trace(name, wrapper):
+    """Kernel B's and K2's launches are read from a trace by the kernels
+    only their entries launch: B's first product (its GELU epilogue), K2
+    dx's dh2 pass, K2 dW's product (its dW epilogue); their other
+    kernels count for no wrapper, in the BYOL step's and the fine-tune's
+    tables alike."""
+    assert chip_smoke._byol_kernel(name) == wrapper
+    assert chip_smoke._ft_kernel(name) == wrapper
+
+
+# an eager step's kernel records: wrapper "a" launched twice, two kernels
+# a launch, wrapper "b" once, one kernel
+EAGER = ["a0", "a1", "a0", "a1", "b0"]
+FULL = ["a0", "a1", "a0", "a1", "b0"]
+
+
+@pytest.mark.fast
+@pytest.mark.parametrize("reads,launches,retakes", [
+    ([FULL], {"a": 2, "b": 1}, 0),
+    ([FULL[1:], FULL], {"a": 2, "b": 1}, 1),        # a record lost
+    ([FULL[:-1], FULL[:-2], FULL], {"a": 2, "b": 1}, 2),
+    ([FULL + ["b0"]], "b: 2 kernel records", 0),     # above the want
+    ([FULL[1:]] * chip_smoke.TRACE_ATTEMPTS,
+     f"in {chip_smoke.TRACE_ATTEMPTS} traces",
+     chip_smoke.TRACE_ATTEMPTS),
+])
+def test_replayed_launches_retake_a_trace_that_lost_records(
+        monkeypatch, reads, launches, retakes):
+    """A replay's kernels share one launch, so a lost record shows only
+    as a read short of what the keep list implies: both traces are taken
+    again (logged); a read above it fails at once, as does a shortfall in
+    every one of the attempts."""
+    logged = []
+    monkeypatch.setattr(chip_smoke, "sync", lambda device: None)
+    monkeypatch.setattr(chip_smoke, "log", logged.append)
+    counts = {}
+    replays = iter(reads)
+
+    def trace(call, form):
+        call()
+        return [{"name": n}
+                for n in (EAGER if form == "eager" else next(replays))]
+
+    def read():
+        return chip_smoke._replayed_launches(
+            lambda: counts.update(a=0, b=0), lambda: counts.update(a=2, b=1),
+            lambda: [True], lambda keep: {"a": 2, "b": 1, "c": 5},
+            {"a": "a", "b": "b"}, lambda name: name[0], lambda: dict(counts),
+            "step", trace)
+
+    if isinstance(launches, dict):
+        assert read() == (launches, [True])
+    else:
+        with pytest.raises(RuntimeError, match=launches):
+            read()
+    assert len(logged) == retakes
+    assert all("kernel records lost" in m for m in logged)

@@ -30,14 +30,33 @@
      rewrites every row of each; the BYOL eval and embed steps and
      ``WavLMEncoder`` through their programs equal their eager forms bit
      for bit, and the towers' modes are restored.
+  9. The staged BYOL step (``byol_trainer.BYOLStepInputs``: both towers'
+     table, draws and K4's scalars written first) equals the step before
+     staging (a copy of its code here) bit for bit over 3 steps with
+     dropout, LayerDrop and SpecAugment on, the towers keeping different
+     layers and a layer dropped: loss, grad_norm, params, mu, nu, the
+     target and both towers' BatchNorm statistics.
+     The pre-mixed form on the views the device mixing makes is the
+     device-mixed form, bit for bit, train step and eval/embed step.
+     A state dropped with its graphs frees them without the cycle
+     collector.
+ 10. ``StepGraphs`` as ``byol_trainer.byol_step_graphs`` builds it (the
+     target a forward-only tower), on device-mixed and pre-mixed views:
+     the warm-up leaves the BatchNorm statistics where they were and gives
+     the eager step's loss and gradients; the parts run in replay order
+     with the optimizer's give its loss, grad_norm, K4 update, EMA and
+     statistics, bit for bit.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
+from nrse_tpu_torch.audio.augment import make_byol_views
 from nrse_tpu_torch.audio.features import zero_mean_unit_var
 from nrse_tpu_torch.baseline import train_ft_cat_ser as ft
 from nrse_tpu_torch.baseline.pipeline import BaselineSER
@@ -67,6 +86,8 @@ from nrse_tpu_torch.ops.fused_optimizer import (
 )
 from nrse_tpu_torch.runtime.graphs import ProgramCache, audio_inputs
 from nrse_tpu_torch.runtime.staging import Staging
+from nrse_tpu_torch.models.byol import ONLINE, TARGET, byol_loss
+from nrse_tpu_torch.train import byol_trainer as bt
 from nrse_tpu_torch.train import emotion_trainer as et
 from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
@@ -466,11 +487,11 @@ def test_byol_eval_step_through_programs_is_the_eager_one(embeddings):
         assert torch.equal(g, w) and bool(torch.isfinite(g).all())
     assert modes == [m.training for m in state.online.modules()] + \
         [m.training for m in state.target.modules()]
-    assert list(state.programs) == [embeddings]
-    assert list(state.programs[embeddings].programs) == [
+    assert list(state.programs) == [(embeddings, True)]
+    assert list(state.programs[embeddings, True].programs) == [
         ((3, 3200), (3, 3200), (3,))]
     again = make_byol_eval_step(embeddings)(state, _byol_batch(4))
-    assert list(state.programs[embeddings].programs) == [
+    assert list(state.programs[embeddings, True].programs) == [
         ((3, 3200), (3, 3200), (3,))]  # the state's cache, reused
     assert not torch.equal(again[0], got[0])
 
@@ -491,3 +512,161 @@ def test_wavlm_encoder_through_programs_is_the_eager_one():
     assert set(enc.programs) == {None, torch.int32}
     assert list(enc.programs[None].programs) == [((2, 4000), None)]
     assert not enc.model.training
+
+
+def _byol_state(cfg, seed=0):
+    return create_train_state(
+        cfg, init_byol_state_dict(cfg, 16, 32,
+                                  torch.Generator().manual_seed(8)),
+        16, 32, "cpu", seed=seed)
+
+
+def _byol_spec():
+    return FusedAdamWSpec(schedule=lambda c: 1e-3 / (c + 1),
+                          weight_decay=1e-5, ema_decay=0.99)
+
+
+def _byol_step_before(state, batch, spec, table):
+    """The BYOL step as it ran before staging: the towers draw inline
+    from their TrainRNGs over a two-tower table staged for the step, K4's
+    scalars are built in the step."""
+    online, target = state.online, state.target
+    clean, noisy, valid = make_byol_views(batch["clean"], batch["noise"],
+                                          batch["snr"])
+    state.grads.zero_()
+    table.stage(state.seed, state.step, 0, 1)
+    pred, _, _ = online(clean, TrainRNG(state.seed, state.step, ONLINE,
+                                        0, 1, table=table))
+    layers_online = online.encoder.encoder.layers_run
+    with torch.no_grad():
+        proj, _ = target(noisy, TrainRNG(state.seed, state.step, TARGET,
+                                         0, 1, table=table))
+    layers_target = target.encoder.encoder.layers_run
+    loss = byol_loss(pred, proj, weights=valid)
+    loss.backward()
+    with torch.no_grad():
+        loss = loss.detach()
+        grad_norm = torch.linalg.vector_norm(state.grads)
+        fused_adamw_ema_update(state.grads, state.params, state.mu,
+                               state.nu, state.target_params, spec,
+                               state.step, grad_norm)
+    state.step += 1
+    return loss, grad_norm, layers_online, layers_target
+
+
+def _byol_tensors(state):
+    """Every tensor a BYOL step changes, by name."""
+    return {**state.tensors(), "grads": state.grads}
+
+
+def test_staged_byol_step_is_the_step_before_staging():
+    cfg = _config()  # dropout 0.1, LayerDrop 0.3, SpecAugment on
+    staged, before = _byol_state(cfg), _byol_state(cfg)
+    spec, batch = _byol_spec(), _byol_batch()
+    step = bt.make_byol_train_step(spec)
+    table = SeedTable(LAYERS, 2)
+    differ = dropped = False
+    for _ in range(3):
+        keeps = [staged.online.encoder.encoder.layer_keep(
+            TrainRNG(staged.seed, staged.step, tower))
+            for tower in (ONLINE, TARGET)]
+        differ |= keeps[0] != keeps[1]
+        dropped |= not all(keeps[0] + keeps[1])
+        m = step(staged, batch)
+        loss, grad_norm, on, tg = _byol_step_before(before, batch, spec,
+                                                    table)
+        assert (m["layers_online"], m["layers_target"]) == (
+            on, tg) == tuple(map(sum, keeps))
+        assert torch.equal(m["loss"], loss)
+        assert torch.equal(m["grad_norm"], grad_norm)
+        assert bool(m["finite"]) and float(m["valid_fraction"]) > 0
+        want = _byol_tensors(before)
+        for k, v in _byol_tensors(staged).items():
+            assert torch.equal(v, want[k]), k
+    assert differ and dropped
+    assert staged.step == before.step == 3
+
+
+def test_byol_step_graphs_free_with_their_state():
+    cfg = _config(layerdrop=0.0)
+    state, spec, batch = _byol_state(cfg), _byol_spec(), _byol_batch()
+    inputs = bt.step_inputs(state, batch)
+    views = {k: batch[k] for k in bt.VIEW_KEYS[True]}
+    state.graphs = bt.byol_step_graphs(state, spec, views,
+                                       inputs.stage(state, spec), inputs,
+                                       True, key=None)
+    refs = [weakref.ref(x) for x in (state, state.graphs)]
+    gc.disable()  # freed by their counts alone: no cycle holds them
+    try:
+        del state
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
+def _premixed(batch):
+    clean, noisy, _ = make_byol_views(batch["clean"], batch["noise"],
+                                      batch["snr"])
+    return {"clean_input_values": clean, "noisy_input_values": noisy}
+
+
+def test_byol_pre_mixed_views_are_the_device_mixed_step():
+    cfg = _config()
+    mixed, premixed = _byol_state(cfg, 2), _byol_state(cfg, 2)
+    batch = _byol_batch()
+    steps = {form: bt.make_byol_train_step(_byol_spec(),
+                                           on_device_mixing=form)
+             for form in (True, False)}
+    for _ in range(2):
+        a = steps[True](mixed, batch)
+        b = steps[False](premixed, _premixed(batch))
+        for k in a:
+            assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])), k
+        want = _byol_tensors(mixed)
+        for k, v in _byol_tensors(premixed).items():
+            assert torch.equal(v, want[k]), k
+    for embeddings in (False, True):
+        got = make_byol_eval_step(embeddings, on_device_mixing=False)(
+            premixed, _premixed(batch))
+        want = make_byol_eval_step(embeddings)(mixed, batch)
+        assert len(got) == len(want) == (4 if embeddings else 2)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert sorted(premixed.programs) == [(False, False), (True, False)]
+
+
+@pytest.mark.parametrize("mixing", [True, False],
+                         ids=["on_device", "pre_mixed"])
+def test_byol_graphed_parts_give_the_eager_step(mixing):
+    cfg = _config(layerdrop=0.0)  # the parts' warm-up runs every layer
+    parts, eager = _byol_state(cfg, 3), _byol_state(cfg, 3)
+    spec = _byol_spec()
+    batch = _byol_batch()
+    if not mixing:
+        batch = _premixed(batch)
+    for _ in range(2):  # the second step's statistics start moved
+        m = bt.make_byol_train_step(spec, on_device_mixing=mixing)(eager,
+                                                                   batch)
+        inputs = bt.step_inputs(parts, batch, mixing)
+        rngs = inputs.stage(parts, spec)
+        views = {k: batch[k] for k in bt.VIEW_KEYS[mixing]}
+        graphs = bt.byol_step_graphs(parts, spec, views, rngs, inputs,
+                                     mixing, key=None)
+        assert not graphs.graphs  # nothing is captured on the CPU
+        stats = [b.clone() for b in graphs.buffers]
+        assert len(stats) == 12  # both towers' BatchNorm statistics
+        graphs.warm_up()
+        assert all(torch.equal(b, s) for b, s in zip(graphs.buffers, stats))
+        assert torch.equal(graphs.loss, m["loss"])
+        assert torch.equal(parts.grads, eager.grads)
+        graphs._build(None, optimizer=True)  # the parts in replay order
+        grad_norm, valid_fraction, finite = graphs.outputs["optimizer"]
+        assert torch.equal(graphs.loss, m["loss"])
+        assert torch.equal(grad_norm, m["grad_norm"])
+        assert torch.equal(valid_fraction, m["valid_fraction"])
+        assert bool(finite) and bool(m["finite"])
+        want = _byol_tensors(eager)
+        for k, v in _byol_tensors(parts).items():
+            assert torch.equal(v, want[k]), k
+        assert not all(torch.equal(b, s) for b, s in zip(graphs.buffers,
+                                                         stats))
+        parts.step += 1

@@ -19,6 +19,13 @@ The same comparison runs a second time with JAX's
 block kernel (forward and backward in interpret mode), the kernel pair the
 port's attention (kernel A and K3, plain versions here) was ported from.
 
+A third run feeds JAX's pre-mixed form (``on_device_mixing=False``: the
+views ``clean_input_values`` and ``noisy_input_values`` in the batch,
+every row valid) the same numpy views on both sides, through the train
+step, the eval step and the embed step (the port's eval step with
+``embeddings``), at the same tolerances (the embeddings to 1e-4
+relative), with Adam's eps at ``PREMIXED_EPS`` (see there).
+
 A last test turns dropout, LayerDrop and SpecAugment on and checks the
 port alone: the run is finite, the same seed gives the same result twice,
 and another step draws other masks.
@@ -30,10 +37,12 @@ import numpy as np
 import pytest
 import torch
 
+from nrse_tpu.audio.augment import make_byol_views as jax_views
 from nrse_tpu.models.byol import BYOLSpeechModel
 from nrse_tpu.models.wavlm import WavLMConfig as JaxConfig
 from nrse_tpu.ops.fused_optimizer import FusedAdamWSpec as JaxSpec
 from nrse_tpu.train.byol_trainer import create_train_state as jax_state
+from nrse_tpu.train.byol_trainer import make_byol_embed_step as jax_embed
 from nrse_tpu.train.byol_trainer import make_byol_eval_step as jax_eval
 from nrse_tpu.train.byol_trainer import make_byol_train_step as jax_step
 from nrse_tpu.train.schedules import cosine_annealing as jax_cosine
@@ -70,6 +79,19 @@ EPS = 1e-3
 # of ~1e-7 absolute by Adam's eps), so the port is held to 3e-4 there and
 # to REL_TOL everywhere else.
 BLOCK_UPDATE_TOL = 3e-4
+# The pre-mixed run compares its updates where they are not chaotic: at
+# eps = 1e-3 an update normalises gradients of the order of eps, so the
+# updates carry float32 noise far above 1e-4 of the step's scale (JAX's
+# own step moves its updates by 1.7e-4 to 6.9e-3 of it when its views
+# move by one float32 ulp, over batch seeds 0-7, and the port's gap to
+# JAX reads 1.9e-4 to 1.3e-2 with either form of the views).  At eps =
+# 0.1, above every gradient, Adam's first steps are nearly linear in the
+# gradient, and the updates are held to REL_TOL, each parameter given
+# PREMIXED_SPACINGS float32 spacings of its value (one rounding of the
+# parameter a step: a unit-valued weight's spacing is 0.9e-4 of the
+# step's scale here).
+PREMIXED_EPS = 0.1
+PREMIXED_SPACINGS = 2
 QUIET = dict(hidden_dropout=0.0, activation_dropout=0.0,
              attention_dropout=0.0, layerdrop=0.0, mask_time_prob=0.0)
 
@@ -104,9 +126,21 @@ def _rel(got, ref):
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-def _runs(use_flash_attention: bool):
+def _premixed(batch):
+    """The batch's views as JAX's device mixing makes them (so that JAX's
+    pre-mixed step is its device-mixed step on them), fed to both sides
+    as the same numpy arrays."""
+    clean, noisy, _ = jax_views(
+        *(jnp.asarray(batch[k]) for k in ("clean", "noise", "snr")))
+    return {"clean_input_values": np.array(clean),
+            "noisy_input_values": np.array(noisy)}
+
+
+def _runs(use_flash_attention: bool, on_device_mixing: bool = True,
+          eps: float = EPS):
     """Two steps of each side from the same start, and the eval step of
-    each after them."""
+    each after them (with pre-mixed views, the embed step's embeddings
+    too)."""
     jcfg = JaxConfig.tiny(ffn_impl="fused", dropout_impl="kernel",
                           use_flash_attention=use_flash_attention, **QUIET)
     model = BYOLSpeechModel({"model": {"projection_dim": PROJ,
@@ -115,18 +149,23 @@ def _runs(use_flash_attention: bool):
                             encoder_config=jcfg)
     optimizer = make_byol_optimizer(LR, 1e-5, total_steps=STEPS_TOTAL)
     batch = _batch()
+    if not on_device_mixing:
+        batch = _premixed(batch)
     state = jax_state(model, jax.random.PRNGKey(0),
                       jnp.zeros((4, 3200)), optimizer)
     start = _np(state.variables)
-    step = jax_step(model, optimizer, fused_optimizer=JaxSpec(
-        schedule=jax_cosine(LR, STEPS_TOTAL), weight_decay=1e-5, eps=EPS,
-        ema_decay=0.997))
+    step = jax_step(model, optimizer, on_device_mixing=on_device_mixing,
+                    fused_optimizer=JaxSpec(
+                        schedule=jax_cosine(LR, STEPS_TOTAL),
+                        weight_decay=1e-5, eps=eps, ema_decay=0.997))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jmetrics = []
     for _ in range(2):
         state, m = step(state, jbatch)
         jmetrics.append(_np(m))
-    jeval = _np(jax_eval(model)(state, jbatch))
+    jeval = _np(jax_eval(model, on_device_mixing)(state, jbatch))
+    if not on_device_mixing:
+        jeval = jeval + _np(jax_embed(model, False)(state, jbatch))
 
     cfg = WavLMConfig.tiny(**QUIET)
     online_sd, target_sd = byol_variables_to_state_dicts(start, cfg)
@@ -134,10 +173,12 @@ def _runs(use_flash_attention: bool):
                                 target_state_dict=target_sd)
     pstep = make_byol_train_step(FusedAdamWSpec(
         schedule=cosine_annealing(LR, STEPS_TOTAL), weight_decay=1e-5,
-        eps=EPS, ema_decay=0.997))
+        eps=eps, ema_decay=0.997), on_device_mixing=on_device_mixing)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     pmetrics = [pstep(pstate, tbatch) for _ in range(2)]
-    peval = make_byol_eval_step()(pstate, tbatch)
+    peval = make_byol_eval_step(not on_device_mixing,
+                                on_device_mixing=on_device_mixing)(
+        pstate, tbatch)
     return (start, _np(state.variables), jmetrics, jeval, online_sd,
             pstate, pmetrics, peval, cfg)
 
@@ -154,12 +195,22 @@ def block_runs():
     return _runs(True)
 
 
+@pytest.fixture(scope="module")
+def premixed_runs():
+    """Both sides fed the same pre-mixed views."""
+    return _runs(False, on_device_mixing=False, eps=PREMIXED_EPS)
+
+
 def test_loss_and_grad_norm_match_jax(runs):
     _check_loss_and_grad_norm(runs)
 
 
 def test_loss_and_grad_norm_match_jax_block_kernel(block_runs):
     _check_loss_and_grad_norm(block_runs)
+
+
+def test_loss_and_grad_norm_match_jax_pre_mixed(premixed_runs):
+    _check_loss_and_grad_norm(premixed_runs)
 
 
 def _check_loss_and_grad_norm(runs):
@@ -179,13 +230,19 @@ def test_params_ema_and_bn_stats_match_jax_block_kernel(block_runs):
     _check_params_ema_and_bn_stats(block_runs, BLOCK_UPDATE_TOL)
 
 
-def _check_params_ema_and_bn_stats(runs, update_tol=REL_TOL):
+def test_params_ema_and_bn_stats_match_jax_pre_mixed(premixed_runs):
+    _check_params_ema_and_bn_stats(premixed_runs,
+                                   spacings=PREMIXED_SPACINGS)
+
+
+def _check_params_ema_and_bn_stats(runs, update_tol=REL_TOL, spacings=0):
     """The online parameters' updates, the target's values (after two
     EMA steps) and the BatchNorm statistics, each held to 1e-4 of the
     largest reference value of its group (for the updates the step's
     scale, ~lr): a tensor whose exact gradient is 0 moves by weight decay
     and noise alone and has no scale of its own, and a bias that starts
-    at 0 has none either."""
+    at 0 has none either.  Each parameter's update may also differ by
+    ``spacings`` float32 spacings of the parameter's value."""
     start, end, _, _, online0, pstate, _, _, cfg = runs
     want_online, want_target = byol_variables_to_state_dicts(end, cfg)
     got_online = {k: v.detach().numpy()
@@ -201,15 +258,19 @@ def _check_params_ema_and_bn_stats(runs, update_tol=REL_TOL):
             if "running" in k:
                 groups["bn_stats"][f"{tower}:{k}"] = (got[k], want)
             elif tower == "update":
-                groups[tower][k] = (got[k] - online0[k], want - online0[k])
+                groups[tower][k] = (got[k] - online0[k], want - online0[k],
+                                    spacings * np.spacing(np.abs(want)))
             else:
                 groups[tower][k] = (got[k], want)
     bad = {}
     for name, pairs in groups.items():
-        scale = max(np.abs(ref).max() for _, ref in pairs.values())
+        scale = max(np.abs(pair[1]).max() for pair in pairs.values())
         assert scale > 0, name
-        for k, (got, ref) in pairs.items():
-            err = float(np.abs(got - ref).max()) / scale
+        for k, (got, ref, *rounding) in pairs.items():
+            diff = np.abs(got - ref)
+            if rounding:
+                diff = np.maximum(diff - rounding[0], 0.0)
+            err = float(diff.max()) / scale
             if err > (update_tol if name == "update" else REL_TOL):
                 bad[f"{name}:{k}"] = err
     assert not bad, bad
@@ -223,9 +284,16 @@ def test_eval_step_matches_jax_block_kernel(block_runs):
     _check_eval_step(block_runs)
 
 
+def test_eval_and_embed_steps_match_jax_pre_mixed(premixed_runs):
+    _check_eval_step(premixed_runs)
+    for got, want in zip(premixed_runs[7][2:], premixed_runs[3][2:]):
+        assert got.shape == want.shape
+        assert _rel(got.numpy(), want) < REL_TOL
+
+
 def _check_eval_step(runs):
-    jloss, jsim = runs[3]
-    ploss, psim = runs[7]
+    jloss, jsim = runs[3][:2]
+    ploss, psim = runs[7][:2]
     assert np.abs(ploss.numpy() - jloss).max() < LOSS_TOL
     assert np.abs(psim.numpy() - jsim).max() < LOSS_TOL
 
