@@ -245,8 +245,9 @@ not 0:
      bit-equal, no wrapper launch); s/step by the host clock and CUDA
      events, replayed and eager in turns, audio-sec/sec, the capture's
      seconds and reserved memory, each form's peak; one replayed step's
-     ``torch.profiler`` trace (kernels A, K3, K1 and K4 launched as its
-     kept layers imply, a dropped layer's none) and a breakdown of a step
+     ``torch.profiler`` trace (kernels A, B, K3, K2 dx and dW, K1, K4, K6
+     and K7 forward and backward launched as its kept layers imply, a
+     dropped layer's none) and a breakdown of a step
      of each form with its busy share; then one eval step (from its
      program cache) with logits and A/V/D for 2 clips against float32 on
      the CPU (cosine ≥ 0.99);
@@ -297,14 +298,18 @@ not 0:
      and ``utils.profiling.profile_trace`` around one request holds a
      ``block_attention`` kernel record;
  19. data parallelism on the one card (``nrse_tpu_torch.parallel``; the
-     train steps eager under a mesh, their one-rank references too) —
-     first gloo's collectives on CUDA tensors at 2 ranks (``all_reduce``
-     sum and max, ``broadcast``, the reduction with a gradient); (a) the
-     BYOL step of phase 9 (full width and depth, batch 36 × 5 s, every
-     random feature on) through the data-parallel path in an NCCL group of
-     one rank against the same steps without a group, from the same
-     weights: metrics and every buffer bit for bit, launches as the layers
-     run imply, s/step of both; (b) two ranks sharing the card over gloo,
+     train steps captured under NCCL, eager under gloo) — first gloo's
+     collectives on CUDA tensors at 2 ranks (``all_reduce`` sum and max,
+     ``broadcast``, the reduction with a gradient); (a) the BYOL step of
+     phase 9 (full width and depth, batch 36 × 5 s, every random feature
+     on) and the SER step of phase 15 (the whole encoder) each in four
+     forms over 4 steps from the same weights: alone eager and captured,
+     and through the data-parallel path in an NCCL group of one rank
+     (whose ``all_reduce``s run and are captured) eager and captured:
+     metrics and every buffer bit for bit at every step, a layer dropped
+     by each tower, the replicas agreeing, no wrapper launch in a replay,
+     a replayed step's launches from its trace as its kept layers imply,
+     s/step of each form in turns; (b) two ranks sharing the card over gloo,
      global batch 36 = 2 × 18: random features off, three steps against
      one rank's run of the whole batch from the same weights (loss within
      1e-3, grad_norm within 1e-2, the parameter deltas' cosine ≥ 0.999 and
@@ -319,7 +324,7 @@ not 0:
      equal and finite, rank 0's checkpoints written, every kernel of the
      path launched.
   20. tensor parallelism on the one card (``tpu.mesh.model > 1``; the
-     train steps eager, as in 19): the
+     train steps eager over gloo, as in 19(b)): the
      kernels at the shard shapes of ``model: 2``, each with its dropout
      window against its plain version (kernel A and K3 on 8 of 16 heads,
      kernel B and K2 on 2048 of 4096 columns with b2 left out, K1 on a
@@ -985,7 +990,7 @@ TRACE_WARM_S = 0.05
 TRACE_ATTEMPTS = 4
 
 
-def _trace_faults(events: list, event_ms: float):
+def _trace_faults(events: list, event_ms: float, empty: int = 0):
     """``(kernels, faults)`` of a ``torch.profiler`` trace whose calls inside
     the :data:`TIMED` range CUDA events timed at ``event_ms``: the kernels
     of the launches made on the host inside that range (runtime or driver
@@ -995,7 +1000,9 @@ def _trace_faults(events: list, event_ms: float):
     the last one's end that disagrees with the events (a trace once read
     every kernel at about half its time: its clock misconverted).  A
     CUDA graph's replay is one launch (``cudaGraphLaunch``) whose kernels
-    all carry its correlation id."""
+    all carry its correlation id; ``empty`` graph launches may hold no
+    kernel (a part whose only work is an in-place collective of a group of
+    one rank, which NCCL makes no kernel of)."""
     timed = [e for e in events if e.get("cat") == "user_annotation"
              and e.get("name") == TIMED]
     if len(timed) != 1:
@@ -1015,6 +1022,9 @@ def _trace_faults(events: list, event_ms: float):
     faults = []
     lost = [i for i, e in enumerate(launches)
             if e["args"].get("correlation") not in by_corr]
+    kernelless = [i for i in lost if "GraphLaunch" in launches[i]["name"]]
+    if len(kernelless) <= empty and len(kernelless) == len(lost):
+        lost = []
     if lost:
         faults.append(f"{len(lost)} of {len(launches)} kernel launches have "
                       f"no kernel in the trace (launches {lost[:8]} in host "
@@ -1036,7 +1046,77 @@ def _trace_faults(events: list, event_ms: float):
     return kernels, faults
 
 
-def traced_kernels(run, iters: int, context=None):
+def _trace_events(prof) -> list:
+    """The events of a finished ``torch.profiler`` session, from its
+    Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def kernelless_parts(step, graphs, traces: int = 2) -> list:
+    """The parts of a captured step (``StepGraphs`` ``graphs``) whose
+    replay launches no kernel (an in-place collective of a group of one
+    rank, which NCCL makes no kernel of): ``step()`` replayed twice under
+    the profiler, in ``traces`` sessions, each part's replay in a range
+    of its own; the parts whose launch in the second step has no kernel
+    record in every session (the profiler drops records now and then, a
+    part's work never)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    class Named:
+        def __init__(self, name, graph):
+            self.name, self.graph = name, graph
+
+        def replay(self):
+            with record_function(f"part {self.name}"):
+                self.graph.replay()
+
+    saved = dict(graphs.graphs)
+    found = None
+    try:
+        graphs.graphs.update({n: Named(n, g) for n, g in saved.items()})
+        for _ in range(traces):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+                with record_function(TIMED):
+                    step()
+                torch.cuda.synchronize()
+            events = _trace_events(prof)
+            timed = [e for e in events if e.get("name") == TIMED
+                     and e.get("cat") == "user_annotation"][0]
+            t0, t1 = timed["ts"], timed["ts"] + timed["dur"]
+            kernels = {e["args"].get("correlation") for e in events
+                       if e.get("cat") == "kernel"}
+            launches = [e for e in events
+                        if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                        and "GraphLaunch" in e.get("name", "")]
+            empty = set()
+            for e in events:
+                if e.get("cat") != "user_annotation" or not e.get(
+                        "name", "").startswith("part ") \
+                        or not t0 <= e["ts"] <= t1:
+                    continue
+                inside = [x for x in launches if e["ts"] <= x["ts"]
+                          <= e["ts"] + e["dur"]]
+                if not any(x["args"].get("correlation") in kernels
+                           for x in inside):
+                    empty.add(e["name"][len("part "):])
+            found = empty if found is None else found & empty
+    finally:
+        graphs.graphs.clear()
+        graphs.graphs.update(saved)
+    return sorted(found)
+
+
+def traced_kernels(run, iters: int, context=None, empty: int = 0):
     """``(events, kernels, host seconds)`` of a ``torch.profiler`` trace
     (host and card) over ``iters`` calls of ``run()``, which ends waiting
     for the card or is followed by a synchronize here: ``kernels`` are
@@ -1045,7 +1125,8 @@ def traced_kernels(run, iters: int, context=None):
     (one at least) run traced before them: the profiler lost the kernels
     of a session's first milliseconds most often.  A trace at fault is
     logged and taken again, up to :data:`TRACE_ATTEMPTS` times in all; then
-    the phase fails."""
+    the phase fails.  ``empty``: graph launches of the timed calls that
+    hold no kernel (:func:`_trace_faults`)."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1068,15 +1149,9 @@ def traced_kernels(run, iters: int, context=None):
             end.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        fd, path = tempfile.mkstemp(suffix=".json", dir=cuda_build.BUILD_DIR)
-        os.close(fd)
-        try:
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        finally:
-            os.remove(path)
-        kernels, faults = _trace_faults(events, start.elapsed_time(end))
+        events = _trace_events(prof)
+        kernels, faults = _trace_faults(events, start.elapsed_time(end),
+                                        empty)
         if not faults:
             return events, kernels, wall
         log(f"[profile] trace {attempt} at fault: {'; '.join(faults)}")
@@ -4613,14 +4688,6 @@ def _cosine_flat(a, b) -> float:
         a.double().flatten(), b.double().flatten(), dim=0))
 
 
-# the wrapper counts whose kernels a replayed SER step's trace is read for,
-# by profile group (PROFILE_GROUPS)
-STEP_GROUPS = {"block_attention_fwd": "kernel A (block attention)",
-               "block_attention_bwd": "K3 (block attention backward)",
-               "fused_dropout": "K1 (dropout)",
-               "fused_adamw_ema": "K4 (AdamW)"}
-
-
 def _sync_state(dst, src) -> None:
     """``dst`` given ``src``'s parameters, moments and step."""
     with torch.no_grad():
@@ -4686,13 +4753,14 @@ def _traced_step(run, keep_of, classify=group_of, counts=_train_counts,
     return groups, last["keep"], last["counts"]
 
 
-def _replayed_launches(replay, eager, keep_of, want_of,
-                       groups=STEP_GROUPS, classify=group_of,
-                       counts=_train_counts, what: str = "SER step",
-                       trace=None) -> tuple:
+def _replayed_launches(replay, eager, keep_of, want_of, groups=None,
+                       classify=_byol_kernel, counts=_train_counts,
+                       what: str = "SER step", trace=None) -> tuple:
     """The launches of the wrappers of ``groups`` (wrapper count → the
-    ``classify`` class of its kernels) in one replayed step, read from its
-    trace, each class's records a launch taken from a traced eager step
+    ``classify`` class of its kernels; by default every wrapper of
+    :data:`BYOL_TRACED`, classed by its kernels) in one replayed step,
+    read from its trace, each class's records a launch taken from a
+    traced eager step
     (whose wrapper counts give its launches), held to ``want_of(keep)``
     (the launches the replayed step's keep list implies; its other
     wrappers left out).  ``trace(call, form)``: the kernels of a trace of
@@ -4704,6 +4772,8 @@ def _replayed_launches(replay, eager, keep_of, want_of,
     :data:`TRACE_ATTEMPTS` times in all.  Raises where a read is above
     the want, where a class launched in one form only, or where no read
     equals the want.  Returns ``(launches, keep list)``."""
+    groups = groups or {w: w for w, _ in BYOL_TRACED}
+
     def traced(form):
         return None if trace is None else (lambda call: trace(call, form))
 
@@ -4931,10 +5001,12 @@ def phase_emotion_step(cfg=None, device=torch.device("cuda"),
                                       for k, v in peaks.items()))
 
         if captures:
-            # one replayed step's trace: a dropped layer launches nothing
+            # one replayed step's trace: a dropped layer launches nothing;
+            # every kernel read by the names BYOL's trace is read by
             got, keep = _replayed_launches(
                 captured, eager, lambda: keep_of(state),
-                lambda keep: _step_want([keep], layers, bool(rest)),
+                lambda keep: {**_step_want([keep], layers, bool(rest)),
+                              **frontend_want(cfg, 1, 1 if rest else 0)},
                 what=f"SER step, {name}")
             log(f"[emotion] {name}: a replayed step's launches from its "
                 f"trace {got} = the want of its layers ({n - sum(keep)} "
@@ -5611,67 +5683,252 @@ def _tensors_equal(a, b) -> bool:
                                           for k in ta)
 
 
-def phase_dp_one_rank(cfg=None, device=torch.device("cuda"),
-                      batch: int = TRAIN_BATCH,
-                      clip_seconds: float = CLIP_SECONDS,
-                      steps: int = DP_STEPS, projection_dim: int = 1024,
-                      prediction_dim: int = 2048) -> dict:
-    """19(a): the BYOL step at full width (the JAX preset's
-    hyper-parameters, every random feature on) through the data-parallel
-    path in a group of one rank over NCCL (gloo on the CPU), against the
-    same steps without a group, from the same weights: the metrics and
-    every buffer bit for bit, the launches the layers run imply, s/step of
-    both.  Its arguments let it be rehearsed at a small width on the
-    CPU."""
-    from nrse_tpu_torch.parallel.distributed import default_backend
-    from nrse_tpu_torch.parallel.launch import free_port
-    from nrse_tpu_torch.parallel.mesh import make_mesh
-    from nrse_tpu_torch.train.byol_trainer import replicas_agree
+def _in_turns(forms: dict, steps: int, device) -> dict:
+    """s/step of each of ``forms`` (name → one step) by the host clock and
+    by CUDA events (nan on the CPU), ``steps`` steps a turn, in turns:
+    the forms in their order, then in the reverse order."""
+    out = {name: [] for name in forms}
+    for name in list(forms) + list(reversed(forms)):
+        sync(device)
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            forms[name]()
+        if device.type == "cuda":
+            end.record()
+        sync(device)
+        host = (time.perf_counter() - t0) / steps
+        ev = start.elapsed_time(end) / steps / 1e3 \
+            if device.type == "cuda" else float("nan")
+        out[name].append((host, ev))
+    return out
 
-    cfg = cfg or WavLMConfig.large()
-    sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
-                              torch.Generator().manual_seed(SEED))
-    data = _train_batch(batch, clip_seconds, device)
-    step = make_byol_train_step(_adamw_spec(), graphs=False)
-    plain = _byol_state(cfg, sd, device, projection_dim, prediction_dim)
-    plain_metrics, plain_dt, _ = _timed_steps(plain, step, data, steps,
-                                              device)
+
+def _turns_line(times: dict) -> str:
+    return "; ".join(
+        f"{name} " + ", ".join(f"{h:.4f}" for h, _ in t) + " (events "
+        + ", ".join(f"{e:.4f}" for _, e in t) + ")"
+        for name, t in times.items())
+
+
+def _differ(ma: dict, mb: dict, ta: dict, tb: dict, keys) -> list:
+    """The metrics of ``keys`` and the tensors whose bits differ between
+    two steps' metrics ``ma``, ``mb`` and two states' tensors ``ta``,
+    ``tb``."""
+    return [k for k in keys if not torch.equal(torch.as_tensor(ma[k]),
+                                               torch.as_tensor(mb[k]))] + \
+        [k for k in ta if not torch.equal(ta[k], tb[k])]
+
+
+def _one_rank_forms(what: str, make, step_c, step_e, keys, tensors, keep_of,
+                    want_of, agree, steps: int, device) -> dict:
+    """A train step ``what`` in four forms from one seeded state over
+    ``steps`` steps: alone eager (the reference) and alone captured, in
+    lockstep; then in a group of one rank (NCCL on the card, gloo on the
+    CPU) eager and captured, in lockstep.  ``make(mesh)`` gives a state
+    (``mesh`` None: alone), ``step_c(state)`` and ``step_e(state)`` take
+    one step of each form and return its metrics, of which ``keys`` are
+    compared; ``tensors(state)`` every tensor a step changes, by name;
+    ``keep_of(state)`` the keep lists (a tuple, one a tower) of its next
+    step, ``want_of(keeps)`` the launches a list of them implies;
+    ``agree(state, mesh)`` whether the group's replicas agree.  Checks
+    every step's metrics and tensors bit for bit: the alone pair against
+    each other, each group form against its twin and against the
+    reference (the tensors by their ``checksum`` at each step, and whole
+    after the last); the eager group steps' wrapper launches against
+    ``want_of`` of their keep lists; no wrapper launch in a replay; a
+    tower dropping a layer in the run; the group's replicas agree.  A
+    replayed step's trace may hold graph launches without a kernel as
+    many as the step's parts that :func:`kernelless_parts` finds.  Times
+    each pair in turns.  Returns the launches of a replayed step in the
+    group read from its trace (the eager group step's counts on the
+    CPU)."""
+    from nrse_tpu_torch.parallel.distributed import default_backend, leave
+    from nrse_tpu_torch.parallel.launch import free_port
+    from nrse_tpu_torch.parallel.mesh import checksum, make_mesh
+
+    captures = device.type == "cuda"
+    bad = []
+    ref, alone = make(None), make(None)
+    record, keeps = [], []
+    for i in range(steps):
+        keeps.append(keep_of(ref))
+        me, mc = step_e(ref), step_c(alone)
+        d = _differ(me, mc, tensors(ref), tensors(alone), keys)
+        if d:
+            bad.append(f"alone, captured against eager at step {i}: {d}")
+        record.append(({k: me[k] for k in keys},
+                       {k: checksum([t]) for k, t in tensors(ref).items()}))
+    final = {k: t.clone() for k, t in tensors(ref).items()}
+    dropped = [sum(len(k[t]) - sum(k[t]) for k in keeps)
+               for t in range(len(keeps[0]))]
+    times = _in_turns({"alone captured": lambda: step_c(alone),
+                       "alone eager": lambda: step_e(ref)}, steps, device)
+    del ref, alone
+    if captures:
+        torch.cuda.empty_cache()
     backend = default_backend(device.type)
     dist.init_process_group(backend,
                             init_method=f"tcp://127.0.0.1:{free_port()}",
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(device=device)
-        dp = _byol_state(cfg, sd, device, projection_dim, prediction_dim,
-                         mesh)
-        sync(device)
-        _reset_counts()
-        dp_metrics, dp_dt, _ = _timed_steps(dp, step, data, steps, device)
-        sync(device)
-        counts = _train_counts()
-        agree = replicas_agree(dp)
+        eager, graphed = make(mesh), make(mesh)
+        replay_launches, group_keeps, launched = 0, [], {}
+        for i in range(steps):
+            _reset_counts()
+            mc = step_c(graphed)
+            if i:
+                replay_launches += sum(_train_counts().values())
+            group_keeps.append(keep_of(eager))
+            _reset_counts()
+            me = step_e(eager)
+            for k, v in _train_counts().items():
+                launched[k] = launched.get(k, 0) + v
+            d = _differ(me, mc, tensors(eager), tensors(graphed), keys)
+            rec_m, rec_c = record[i]
+            d += [f"{k} (reference)" for k in keys if not torch.equal(
+                torch.as_tensor(me[k]), torch.as_tensor(rec_m[k]))]
+            d += [f"{k} (reference)" for k, t in tensors(graphed).items()
+                  if not torch.equal(checksum([t]), rec_c[k])]
+            if d:
+                bad.append(f"{backend} group of 1, captured against eager "
+                           f"and the reference at step {i}: {d}")
+        for name, st in (("eager", eager), ("captured", graphed)):
+            d = [k for k, t in tensors(st).items()
+                 if not torch.equal(t, final[k])]
+            if d:
+                bad.append(f"{backend} group of 1, {name}, after {steps} "
+                           f"steps against the reference: {d}")
+        agrees = agree(eager, mesh) and agree(graphed, mesh)
+        want = want_of(group_keeps)
+        if captures and launched != want:
+            bad.append(f"{backend} group of 1, eager: wrapper launches "
+                       f"{launched} against {want}")
+        del final
+        empty = []
+        if captures:
+            empty = kernelless_parts(lambda: step_c(graphed),
+                                     graphed.graphs)
+            traced, _ = _replayed_launches(
+                lambda: step_c(graphed), lambda: step_e(eager),
+                lambda: [keep_of(graphed)], want_of,
+                what=f"{what} in an NCCL group of 1",
+                trace=lambda call, form: traced_kernels(
+                    call, 1,
+                    empty=len(empty) if form == "replayed" else 0)[1])
+        else:
+            _reset_counts()
+            step_e(eager)
+            traced = _train_counts()
+        times.update(_in_turns({"group captured": lambda: step_c(graphed),
+                                "group eager": lambda: step_e(eager)},
+                               steps, device))
+        del eager, graphed
     finally:
-        dist.destroy_process_group()
-    want = byol_launch_want(cfg, dp_metrics)
-    same_metrics = all(torch.equal(a[k], b[k])
-                       for a, b in zip(plain_metrics, dp_metrics)
-                       for k in ("loss", "grad_norm", "valid_fraction"))
-    same_state = _tensors_equal(plain, dp)
+        leave()
+    log(f"[dp one rank] {what}, {steps} steps from one state: alone "
+        f"captured = alone eager, and in a {backend} group of 1 on "
+        f"{mesh.device} captured = eager = alone, every metric and tensor "
+        f"bit for bit at every step: {not bad}; layers dropped by tower "
+        f"{dropped}; replicas_agree {agrees}; the eager group steps' "
+        f"launches {launched} (want {want}); wrapper launches over "
+        f"{steps - 1} replayed steps in the group {replay_launches}; parts "
+        f"without a kernel {empty}; a replayed step's launches in the "
+        f"group from its trace {traced}")
+    log(f"[dp one rank] {what}: s/step in turns, host clock (CUDA events) "
+        f"{_turns_line(times)}")
+    if bad or not agrees or not all(dropped) or (captures
+                                                 and replay_launches):
+        raise RuntimeError(f"{what} in a group of one rank: {bad}; replicas "
+                           f"agree {agrees}; dropped {dropped}; wrapper "
+                           f"launches in replays {replay_launches}")
+    return traced
+
+
+def phase_dp_one_rank(cfg=None, device=torch.device("cuda"),
+                      batch: int = TRAIN_BATCH,
+                      clip_seconds: float = CLIP_SECONDS,
+                      steps: int = DP_STEPS, projection_dim: int = 1024,
+                      prediction_dim: int = 2048) -> dict:
+    """19(a): the BYOL step at full width (the JAX preset's
+    hyper-parameters, every random feature on) in four forms over ``steps
+    + 1`` steps from the same weights (:func:`_one_rank_forms`): alone
+    eager and captured, and through the data-parallel path in a group of
+    one rank over NCCL (gloo on the CPU), whose ``all_reduce``s run and
+    are captured, eager and captured; a replayed step's launches from its
+    trace against the layers it kept.  Its arguments let it be rehearsed
+    at a small width on the CPU, where nothing is captured."""
+    from nrse_tpu_torch.train.byol_trainer import replicas_agree
+
+    cfg = cfg or WavLMConfig.large()
+    sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
+                              torch.Generator().manual_seed(SEED))
+    data = _train_batch(batch, clip_seconds, device)
+    step_c = make_byol_train_step(_adamw_spec())
+    step_e = make_byol_train_step(_adamw_spec(), graphs=False)
     log(f"[dp one rank] BYOL on WavLM {cfg.num_hidden_layers} x "
-        f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s, "
-        f"{steps + 1} steps, {backend} group of 1 on {mesh.device}: losses "
-        f"{[round(float(m['loss']), 6) for m in dp_metrics]}; metrics equal "
-        f"the step without a group bit for bit: {same_metrics}; every "
-        f"buffer: {same_state}; replicas_agree {agree}; launches {counts} "
-        f"(want {want})")
-    log(f"[dp one rank] {plain_dt:.4f} s/step without a group, {dp_dt:.4f} "
-        f"s/step through the data-parallel path ({backend}, 1 rank): the "
-        f"reductions cost {dp_dt - plain_dt:+.4f} s/step")
-    if (device.type == "cuda" and counts != want) or not (
-            same_metrics and same_state and agree):
-        raise RuntimeError("the data-parallel step at one rank differs "
-                           "from the step without a group")
-    return counts
+        f"{cfg.hidden_size}, batch {batch} x {clip_seconds:g} s")
+    return _one_rank_forms(
+        "BYOL step",
+        lambda mesh: _byol_state(cfg, sd, device, projection_dim,
+                                 prediction_dim, mesh),
+        lambda st: step_c(st, data), lambda st: step_e(st, data),
+        ("loss", "grad_norm", "valid_fraction", "finite", "layers_online",
+         "layers_target"),
+        lambda st: {**st.tensors(), "grads": st.grads},
+        lambda st: _byol_keeps(st, 1)[0],
+        lambda keeps: byol_launch_want(cfg, [
+            {"layers_online": sum(on), "layers_target": sum(tg)}
+            for on, tg in keeps]),
+        lambda st, mesh: replicas_agree(st), steps + 1, device)
+
+
+def phase_dp_one_rank_ser(cfg=None, device=torch.device("cuda"),
+                          batch: int = EMO_BATCH,
+                          clip_seconds: float = CLIP_SECONDS,
+                          steps: int = DP_STEPS,
+                          hidden_dim: int = EMO_HIDDEN) -> dict:
+    """19(a) for the SER trainers' step (phase 15's whole-encoder run:
+    ``--task both``, every random feature on) in the same four forms over
+    ``steps + 1`` steps (:func:`_one_rank_forms`), the group's per-segment
+    and loss ``all_reduce``s run and captured."""
+    from nrse_tpu_torch.parallel.mesh import replicas_agree
+
+    cfg = cfg or WavLMConfig.large()
+    n = cfg.num_hidden_layers
+    layers = list(range(n))
+    data = _emotion_batch(batch, clip_seconds, device, SEED + 19)
+    weights = torch.tensor(FT_WEIGHTS, dtype=torch.float32, device=device)
+    step_c = emotion_trainer.make_emotion_train_step("both", EMO_WD)
+    step_e = emotion_trainer.make_emotion_train_step("both", EMO_WD,
+                                                     graphs=False)
+
+    def make(mesh):
+        st = emotion_trainer.create_emotion_state(
+            _emotion_model(cfg, device, hidden_dim, EMO_DROPOUT), SEED)
+        if mesh is None:
+            return st
+        return emotion_trainer.make_batch_placer(mesh, batch)[1](st)
+
+    log(f"[dp one rank] the SER step on WavLM {n} x {cfg.hidden_size} + "
+        f"ASP + trunks of {hidden_dim}, the whole encoder, batch {batch} x "
+        f"{clip_seconds:g} s")
+    return _one_rank_forms(
+        "SER step", make,
+        lambda st: step_c(st, data, weights, layers, EMO_FT_LR, 1.0),
+        lambda st: step_e(st, data, weights, layers, EMO_FT_LR, 1.0),
+        ("loss", "grad_norm", "layers_run"),
+        lambda st: {**st.tensors(), "grads": st.grads},
+        lambda st: (st.model.encoder.encoder.layer_keep(
+            TrainRNG(st.seed, st.step)),),
+        lambda keeps: {**_step_want([k for k, in keeps], layers, True),
+                       **frontend_want(cfg, len(keeps), len(keeps))},
+        lambda st, mesh: replicas_agree(mesh, st.tensors().values()),
+        steps + 1, device)
 
 
 def _drift(metrics, delta, ref) -> dict:
@@ -5984,17 +6241,17 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
     from nrse_tpu_torch.parallel.dryrun import collectives_check
     from nrse_tpu_torch.parallel.launch import run_ranks
 
-    log("[dp] the BYOL and SER train steps run eagerly under a mesh (gloo "
-        "cannot be captured, NCCL runs one rank a card); the one-rank "
-        "references here run eagerly too (graphs=False)")
+    log("[dp] the BYOL and SER train steps run captured under an NCCL "
+        "mesh and eagerly under a gloo one; 19(a) holds both forms at one "
+        "NCCL rank to both forms alone, 19(b) and (c) share the card over "
+        "gloo (eager), their one-rank references eager too (graphs=False)")
     if device.type == "cuda":
         log(f"[dp] card: {card()}")
         probe = run_ranks(collectives_check, 2, ("cuda:0",), threads=0)
         log(f"[dp] gloo's collectives on CUDA tensors, 2 ranks on one "
             f"card: {probe}")
     counts = timed(phase_dp_one_rank, cfg, device)
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    timed(phase_dp_one_rank_ser, cfg, device)
     timed(phase_dp_two_ranks, cfg, device)
     timed(phase_dp_entry, device)
     return counts
@@ -6332,17 +6589,16 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                    model_name: str = "microsoft/wavlm-large",
                    clips: int = 24, noise_clips: int = 4, batch: int = 8,
                    clip_seconds: float = CLIP_SECONDS,
-                   projection_dim: int = 1024, prediction_dim: int = 2048,
-                   dryrun_ranks: int = 2) -> None:
+                   projection_dim: int = 1024,
+                   prediction_dim: int = 2048) -> None:
     """20(c): ``train_byol.main`` at ``tpu.mesh {data: 2, model: 2}``, 4
     gloo ranks sharing the card, WavLM-large cut to ``layers`` deep,
     global batch ``batch``, one epoch (its steps and validation), on a
     synthetic corpus under ``build/``: the ranks' pooled losses equal and
     finite, every kernel of the path launched; its ``last_model``
     checkpoint, restored by a state at model: 1 on this process, gives
-    the file's bits back; then ``parallel.dryrun``'s two halves over
-    ``dryrun_ranks`` gloo ranks on the CPU."""
-    from nrse_tpu_torch.parallel import dryrun
+    the file's bits back.  (``parallel.dryrun``'s two halves, on the CPU,
+    are the CPU tests'.)"""
     from nrse_tpu_torch.parallel.launch import run_ranks
     from nrse_tpu_torch.parallel.mesh import checksum
 
@@ -6411,10 +6667,6 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                                "disagree, a loss is not finite, a kernel "
                                "never ran or the checkpoint does not "
                                "restore at model: 1")
-        t0 = time.perf_counter()
-        dryrun.main(dryrun_ranks)
-        log(f"[tp entry] parallel.dryrun {dryrun_ranks} (gloo, CPU): both "
-            f"halves OK in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6743,8 +6995,9 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
 def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
     """20: tensor parallelism on the one card, the kernels at the shard
     shapes, (a) to (d), and phase 19(b)'s step run twice."""
-    log("[tp] the BYOL and SER train steps run eagerly under a mesh; the "
-        "one-rank references here run eagerly too (graphs=False)")
+    log("[tp] the ranks share the card over gloo, under which the BYOL "
+        "and SER train steps run eagerly; the one-rank references here run "
+        "eagerly too (graphs=False)")
     if device.type == "cuda":
         timed(phase_tp_kernels)
         torch.cuda.empty_cache()

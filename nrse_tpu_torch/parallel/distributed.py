@@ -15,6 +15,8 @@ tensors, gloo included).
     ``MASTER_ADDR``, ``MASTER_PORT``); NCCL for ``cuda``, gloo for ``cpu``
     unless the block or the caller names a backend.  A rank that cannot
     join raises: nothing falls back to one process.
+  * :func:`leave` — leave the group, every captured CUDA graph of the
+    process freed first.
   * :func:`process_count`, :func:`process_index`, :func:`is_primary`,
     :func:`local_device` — the rank's place, and its card
     (``cuda:LOCAL_RANK``).
@@ -50,6 +52,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from nrse_tpu_torch.runtime.graphs import release_graphs
 
 # how long a rank waits for the others to join or to reach a collective
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -115,6 +119,15 @@ def maybe_initialize(config: Mapping[str, Any]) -> bool:
                            "coordinator_address, and torchrun's WORLD_SIZE "
                            "and RANK are not set")
     return False
+
+
+def leave() -> None:
+    """Destroy the group, after freeing every CUDA graph this process
+    captured (``runtime.graphs.release_graphs``), on every path out of a
+    run, a raised one included: NCCL's end of a group waits for every
+    graph that holds its collectives."""
+    release_graphs()
+    dist.destroy_process_group()
 
 
 def process_count() -> int:

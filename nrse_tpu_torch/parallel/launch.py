@@ -23,7 +23,7 @@ from typing import Any, Callable, List, Sequence
 import torch
 import torch.distributed as dist
 
-from nrse_tpu_torch.parallel.distributed import TIMEOUT
+from nrse_tpu_torch.parallel.distributed import TIMEOUT, leave
 
 
 def free_port() -> int:
@@ -43,7 +43,7 @@ def _rank_main(fn, rank: int, world: int, port: int, backend: str,
         try:
             out = fn(rank, world, *args)
         finally:
-            dist.destroy_process_group()
+            leave()
         results.put((rank, True, out))
     except BaseException:  # reported to the launcher, which raises
         results.put((rank, False, traceback.format_exc()))

@@ -23,7 +23,11 @@ hold the shards of one layer and see the same rows).
     1`` state dict to this rank's shards and back, bit for bit;
   * :func:`broadcast_state` copies a source rank's tensors over a group and
     :func:`replicas_agree` checks that the ranks of a group hold the same
-    bits.
+    bits;
+  * :func:`capturable` says whether a step under a mesh runs from captured
+    CUDA graphs: on a card, with no group or an NCCL one.  Every group a
+    step uses has its NCCL communicator made by :func:`make_mesh`, with one
+    eager collective each, so that no capture creates one.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ class DataMesh:
     then run.  ``data_group`` holds the ranks with this rank's model index
     (None: the default group, every rank, which it is when ``model`` is
     1); ``model_group`` the ranks with this rank's data index (None when
-    ``model`` is 1)."""
+    ``model`` is 1); ``backend`` the group's (None without one)."""
 
     world: int
     rank: int
@@ -62,6 +66,7 @@ class DataMesh:
     model: int = 1
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    backend: Optional[str] = None
 
     @property
     def data(self) -> int:
@@ -152,8 +157,50 @@ def make_mesh(data: int = -1, model: int = 1, device="cuda",
             g = dist.new_group([i * model + j for j in range(model)])
             if i == rank // model:
                 groups["model_group"] = g
-    return DataMesh(world=world, rank=rank, device=local_device(device),
-                    distributed=dist.is_initialized(), model=model, **groups)
+    mesh = DataMesh(world=world, rank=rank, device=local_device(device),
+                    distributed=dist.is_initialized(), model=model,
+                    backend=dist.get_backend() if dist.is_initialized()
+                    else None, **groups)
+    if mesh.backend == "nccl" and mesh.device.type == "cuda":
+        _make_communicators(mesh)
+    return mesh
+
+
+def _make_communicators(mesh: DataMesh) -> None:
+    """One eager ``all_reduce`` over the world and over each of the rank's
+    groups: NCCL makes a group's communicator at its first collective, and
+    that must not be inside a CUDA graph's capture (the optimizer parts of
+    a captured step are captured without a warm-up)."""
+    x = torch.zeros(1, device=mesh.device)
+    for group in [None] + [g for g in (mesh.data_group, mesh.model_group)
+                           if g is not None]:
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize(mesh.device)
+
+
+def capturable(mesh: Optional[DataMesh], device) -> bool:
+    """Whether a train step on ``device`` under ``mesh`` runs from
+    captured CUDA graphs: on a card, alone or in an NCCL group, whose
+    collectives a graph holds.  A gloo group's collectives copy through
+    the host and cannot be captured, and nothing is captured on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    return mesh is None or not mesh.distributed or mesh.backend == "nccl"
+
+
+def form_note(graphs: bool, captured: bool,
+              mesh: Optional[DataMesh]) -> str:
+    """What a step's log line adds to the form it names (``captured`` or
+    eager): the group it ran in, or why it ran eagerly."""
+    if not graphs:
+        return " (graphs off)"
+    if mesh is None or not mesh.distributed:
+        return ""
+    return (f" (a {mesh.backend} mesh of {mesh.world} ranks, data "
+            f"{mesh.data} x model {mesh.model}"
+            + ("" if captured else
+               ": a gloo group's collectives cannot be captured") + ")")
 
 
 def mesh_from_config(config: Mapping, device,

@@ -45,10 +45,18 @@ encoder called without one has it).
 
 On the CPU there is no graph: :meth:`BucketProgram.run` calls the forward
 on the static buffers.
+
+Every holder of captured graphs (a :class:`ProgramCache` on a card, a
+train step's ``train.step_graphs.StepGraphs``) registers itself with
+:func:`hold`, and :func:`release_graphs` frees the graphs of all that are
+alive, however they are still referenced: NCCL's end of a group waits
+for every graph holding its collectives, so ``parallel.distributed.
+leave`` calls it before it destroys the group.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -70,6 +78,25 @@ def audio_inputs(with_mask: bool = True,
 
 
 AUDIO_MASK = audio_inputs()
+
+# the live holders of captured graphs in this process
+_HOLDERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def hold(holder) -> None:
+    """Register ``holder`` as holding captured graphs: its ``release()``
+    frees them and returns how many."""
+    _HOLDERS.add(holder)
+
+
+def release_graphs() -> int:
+    """Free the graphs of every live holder (a state the caller keeps, a
+    traceback's frames, a half-built step's), then wait for the card;
+    returns the graphs freed.  A holder captures anew when next used."""
+    n = sum(holder.release() for holder in list(_HOLDERS))
+    if n:
+        torch.cuda.synchronize()
+    return n
 
 
 class BucketProgram:
@@ -121,7 +148,11 @@ class BucketProgram:
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=pool):
+                # thread-local: NCCL's watchdog thread queries events while
+                # a program holding a tensor-parallel encoder's collectives
+                # is captured
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
                     outputs = self.forward(*self.inputs)
             except Exception as e:
                 shapes = [None if x is None else tuple(x.shape)
@@ -176,6 +207,18 @@ class ProgramCache:
         self.programs: Dict[Tuple[Shape, ...], BucketProgram] = {}
         self._single = None
         self.captured = 0
+        if self.pool is not None:
+            hold(self)
+
+    def release(self) -> int:
+        """Free every program's graph (:func:`release_graphs`; each shape
+        captured again when it next comes); returns how many."""
+        graphs = [p.graph for p in self.programs.values()
+                  if p.graph is not None]
+        for graph in graphs:
+            graph.reset()
+        self.programs.clear()
+        return len(graphs)
 
     def _outputs(self, *inputs):
         out = self.forward(*inputs)

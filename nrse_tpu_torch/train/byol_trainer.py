@@ -25,13 +25,15 @@ The step's inputs from the host (both towers' kernel seed pairs, each
 tower's LayerDrop keep list and SpecAugment spans, K4's LR, bias
 corrections and EMA decay) are drawn as the towers draw them and written
 to the device in one copy before the step (:class:`BYOLStepInputs`).  On
-a card without a mesh the step runs from CUDA graphs (``train.
-step_graphs``, the counterpart of JAX's jitted step): captured at the
-first step of each batch shape and form, the target a forward-only tower
-beside the online encoder, replayed after that one copy.  ``graphs=
-False`` (``training.cuda_graphs: false`` in ``train_byol``) asks for the
-eager step; the CPU and a mesh always run it (gloo cannot be captured,
-and NCCL runs one rank a card).  Both forms give the same bits.
+a card, alone or under an NCCL mesh (``parallel.mesh.capturable``), the
+step runs from CUDA graphs (``train.step_graphs``, the counterpart of
+JAX's jitted step, GSPMD's collectives included): captured at the first
+step of each batch shape and form, the target a forward-only tower beside
+the online encoder, the mesh's reductions in the parts, replayed after
+that one copy.  ``graphs=False`` (``training.cuda_graphs: false`` in
+``train_byol``) asks for the eager step; the CPU and a gloo mesh always
+run it (gloo's collectives cannot be captured).  Both forms give the same
+bits.
 
 The state keeps the online parameters, their gradients, ``mu``, ``nu`` and
 the target's parameters as flat float32 buffers, the modules' parameters
@@ -100,6 +102,8 @@ from nrse_tpu_torch.ops.fused_optimizer import (
 )
 from nrse_tpu_torch.parallel.mesh import (
     DataMesh,
+    capturable,
+    form_note,
     gather_state_dict,
     partition_rule,
     shard_state_dict,
@@ -371,16 +375,33 @@ def replicas_agree(state: BYOLTrainState) -> bool:
     return agree
 
 
-def grad_norm_of(state: BYOLTrainState) -> torch.Tensor:
-    """The global L2 norm of the online gradients: under a model axis
-    ``sqrt(Σ over the model group of Σ shard² + Σ replicated²)``."""
-    if not state.tp:
-        return torch.linalg.vector_norm(state.grads)
-    shard = torch.linalg.vector_norm(state.grads[:state.split])
-    rest = torch.linalg.vector_norm(state.grads[state.split:])
+def grad_norm_of(grads: torch.Tensor, split: int,
+                 mesh: Optional[DataMesh]) -> torch.Tensor:
+    """The global L2 norm of the online gradients ``grads`` (a state's
+    flat buffer, its first ``split`` elements this rank's shards): under
+    a model axis ``sqrt(Σ over the model group of Σ shard² + Σ
+    replicated²)``."""
+    if mesh is None or not mesh.tp:
+        return torch.linalg.vector_norm(grads)
+    shard = torch.linalg.vector_norm(grads[:split])
+    rest = torch.linalg.vector_norm(grads[split:])
     sq = (shard * shard).reshape(1)
-    dist.all_reduce(sq, group=state.mesh.model_group)
+    dist.all_reduce(sq, group=mesh.model_group)
     return torch.sqrt(sq[0] + rest * rest)
+
+
+def _pool(grads: torch.Tensor, loss: torch.Tensor,
+          valid_fraction: torch.Tensor, mesh: Optional[DataMesh]):
+    """The step's sums over the mesh's data axis, in place on ``grads``:
+    the flat gradients, then the loss (each rank's part of the global
+    batch's) and the mean of the ranks' ``valid_fraction``.  Returns
+    ``(loss, valid_fraction)``, themselves where nothing is summed."""
+    if mesh is None or not mesh.data_reduce:
+        return loss, valid_fraction
+    dist.all_reduce(grads, group=mesh.data_group)
+    pooled = torch.stack([loss, valid_fraction / mesh.data])
+    dist.all_reduce(pooled, group=mesh.data_group)
+    return pooled[0], pooled[1]
 
 
 class BYOLStepInputs:
@@ -476,10 +497,11 @@ def make_byol_train_step(spec: FusedAdamWSpec, graphs: bool = True,
     ``batch`` holds this rank's rows (its data coordinate's: the ranks of
     a model group take the same rows).
 
-    With ``graphs`` (the default) a state on a card without a mesh runs
-    the captured step (:func:`byol_step_graphs`), captured at the first
-    step of each batch shape and form; a capture that fails raises,
-    naming the step and the part."""
+    With ``graphs`` (the default) a state on a card, alone or under an
+    NCCL mesh, runs the captured step (:func:`byol_step_graphs`),
+    captured at the first step of each batch shape and form (by every
+    rank at the same step: the ranks' batches share one shape); a capture
+    that fails raises, naming the step and the part."""
     token = object()  # this step's spec and form: one key of graphs
     logged = set()
 
@@ -487,15 +509,12 @@ def make_byol_train_step(spec: FusedAdamWSpec, graphs: bool = True,
         mesh = state.mesh
         inputs = step_inputs(state, batch, on_device_mixing)
         rngs = inputs.stage(state, spec)
-        captured = graphs and mesh is None \
-            and state.params.device.type == "cuda"
+        captured = graphs and capturable(mesh, state.params.device)
         form = "captured" if captured else "eager"
         if form not in logged:
             logged.add(form)
             logger.info(f"BYOL train step: the {form} form"
-                        + ("" if captured or mesh is None else
-                           " (a mesh: gloo cannot be captured and NCCL "
-                           "runs one rank a card)"))
+                        + form_note(graphs, captured, mesh))
         if captured:
             views = {k: batch[k] for k in VIEW_KEYS[on_device_mixing]}
             key = (token, tuple(v.shape for v in views.values()))
@@ -506,6 +525,8 @@ def make_byol_train_step(spec: FusedAdamWSpec, graphs: bool = True,
             loss, out = state.graphs.run(views, rngs[0], ("optimizer",),
                                          rngs[1])
             grad_norm, valid_fraction, finite = out["optimizer"]
+            if "reduce" in out:  # the data group's
+                loss = out["reduce"][0]
         else:
             loss, grad_norm, valid_fraction = _eager_step(
                 state, spec, batch, rngs, inputs, on_device_mixing)
@@ -520,6 +541,7 @@ def make_byol_train_step(spec: FusedAdamWSpec, graphs: bool = True,
                 "layers_online": layers[0], "layers_target": layers[1]}
 
     return train_step
+
 
 
 def _eager_step(state: BYOLTrainState, spec: FusedAdamWSpec, batch: Dict,
@@ -537,14 +559,9 @@ def _eager_step(state: BYOLTrainState, spec: FusedAdamWSpec, batch: Dict,
     loss = byol_loss(pred, proj, weights=valid, mesh=mesh)
     loss.backward()
     with torch.no_grad():
-        loss = loss.detach()
-        valid_fraction = valid.float().mean()
-        if mesh is not None and mesh.data_reduce:
-            dist.all_reduce(state.grads, group=mesh.data_group)
-            pooled = torch.stack([loss, valid_fraction / mesh.data])
-            dist.all_reduce(pooled, group=mesh.data_group)
-            loss, valid_fraction = pooled[0], pooled[1]
-        grad_norm = grad_norm_of(state)
+        loss, valid_fraction = _pool(state.grads, loss.detach(),
+                                     valid.float().mean(), mesh)
+        grad_norm = grad_norm_of(state.grads, state.split, mesh)
         fused_adamw_ema_update(state.grads, state.params, state.mu,
                                state.nu, state.target_params, spec,
                                state.step, grad_norm, rest=inputs.k4)
@@ -562,13 +579,18 @@ def byol_step_graphs(state: BYOLTrainState, spec: FusedAdamWSpec,
     the front zeroes the gradients, makes the views and runs the online
     front on the clean one; the target is a forward-only tower on the
     noisy one; the head runs the online heads, the target's projector and
-    ``byol_loss``; one ``optimizer`` part takes the global norm and the
-    K4 launch (AdamW and the target's EMA) and returns ``(grad_norm,
-    valid_fraction, finite)``.  The heads' BatchNorm statistics are the
-    buffers the warm-up puts back.  No part holds the state itself (it
-    holds its graphs), so a state dropped with its graphs frees their
-    memory at once, without waiting for the cycle collector."""
-    online, target = state.online, state.target
+    ``byol_loss``; where the mesh's data axis sums, a ``reduce`` part
+    sums what :func:`_eager_step` sums (the flat gradients, the loss and
+    ``valid_fraction`` over the data group) and returns ``(loss,
+    valid_fraction)``; one ``optimizer`` part takes the global norm (over
+    the model group under a model axis) and the K4 launch (AdamW and the
+    target's EMA) and returns ``(grad_norm, valid_fraction, finite)``.
+    The heads' BatchNorm statistics are the buffers the warm-up puts back.
+    No part holds the state itself (it holds its graphs), so a state
+    dropped with its graphs frees their memory at once, without waiting
+    for the cycle collector."""
+    online, target, mesh, split = (state.online, state.target, state.mesh,
+                                   state.split)
     grads, params, mu, nu, target_params = (
         state.grads, state.params, state.mu, state.nu, state.target_params)
     static = {}  # the views, valid and the loss, made inside the parts
@@ -585,16 +607,24 @@ def byol_step_graphs(state: BYOLTrainState, spec: FusedAdamWSpec,
         pred, _ = online.heads(back[1].float())
         with torch.no_grad():
             proj = target.projector(target_back[1].float())
-        loss = byol_loss(pred, proj, weights=static["valid"])
+        loss = byol_loss(pred, proj, weights=static["valid"], mesh=mesh)
         static["loss"] = loss.detach()
         return loss
 
-    def optimizer():  # without a mesh: grad_norm_of's norm of one buffer
-        gn = torch.linalg.vector_norm(grads)
+    pools = mesh is not None and mesh.data_reduce
+
+    def reduce(loss):
+        static["pooled"] = _pool(grads, loss, static["valid"].float().mean(),
+                                 mesh)
+        return static["pooled"]
+
+    def optimizer():
+        gn = grad_norm_of(grads, split, mesh)
         fused_adamw_ema_update(grads, params, mu, nu, target_params, spec,
                                0, gn, rest=inputs.k4)
-        finite = torch.isfinite(static["loss"]) & torch.isfinite(gn)
-        return gn, static["valid"].float().mean(), finite
+        loss, valid_fraction = static["pooled"] if pools else (
+            static["loss"], static["valid"].float().mean())
+        return gn, valid_fraction, torch.isfinite(loss) & torch.isfinite(gn)
 
     layers = online.encoder.config.num_hidden_layers
     return StepGraphs(
@@ -602,7 +632,8 @@ def byol_step_graphs(state: BYOLTrainState, spec: FusedAdamWSpec,
         (0, True), front, head, [("optimizer", optimizer)], views, rngs[0],
         state.grads, key, f"the BYOL train step {state.step}",
         tower=ForwardTower(target.encoder, target_front, rngs[1]),
-        buffers=[b for m in (online, target) for b in m.buffers()])
+        buffers=[b for m in (online, target) for b in m.buffers()],
+        reduce=reduce if pools else None, mesh=mesh)
 
 
 def make_byol_eval_step(embeddings: bool = False, graphs: bool = True,
@@ -618,13 +649,17 @@ def make_byol_eval_step(embeddings: bool = False, graphs: bool = True,
     as :func:`make_byol_train_step` takes it: False reads the batch's
     ``clean_input_values`` and ``noisy_input_values``.
 
-    With ``graphs`` (the default) a state without a mesh runs the step
-    from a ``runtime.graphs.ProgramCache`` of the form's inputs kept on
-    the state (the counterpart of JAX's jitted ``eval_step`` and
-    ``embed_step``: one program a batch shape, on the card a CUDA graph
-    reading both towers' parameters and the heads' running statistics in
-    place, so a train step needs no recapture of it); a state under a
-    mesh runs it eagerly.  The outputs are copies either way."""
+    With ``graphs`` (the default) a state alone or under an NCCL mesh
+    runs the step from a ``runtime.graphs.ProgramCache`` of the form's
+    inputs kept on the state (the counterpart of JAX's jitted
+    ``eval_step`` and ``embed_step``: one program a batch shape, on the
+    card a CUDA graph reading both towers' parameters and the heads'
+    running statistics in place, so a train step needs no recapture of
+    it; a tensor-parallel encoder's ``reduce_from_model`` inside it); a
+    state under a gloo mesh runs it eagerly.  Under a mesh every rank
+    meets each batch shape at the same step (the loaders give every rank
+    one batch size and pad the last batch), so the ranks of a model group
+    capture it together.  The outputs are copies either way."""
     logged = set()
     keys = VIEW_KEYS[on_device_mixing]
 
@@ -654,13 +689,14 @@ def make_byol_eval_step(embeddings: bool = False, graphs: bool = True,
 
     @torch.no_grad()
     def eval_step(state: BYOLTrainState, batch: Dict):
-        online, target = state.online, state.target
-        captured = graphs and state.mesh is None
+        online, target, mesh = state.online, state.target, state.mesh
+        captured = graphs and (mesh is None or capturable(
+            mesh, state.params.device))
         form = "captured" if captured else "eager"
         if form not in logged:
             logged.add(form)
             logger.info(f"BYOL eval step: the {form} form"
-                        + ("" if captured or not graphs else " (a mesh)"))
+                        + form_note(graphs, captured, mesh))
         modes = [(m, m.training) for m in online.modules()] + \
             [(m, m.training) for m in target.modules()]
         online.eval()

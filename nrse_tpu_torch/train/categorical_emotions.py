@@ -70,6 +70,7 @@ from nrse_tpu_torch.parallel.distributed import (
     all_reduce_sum,
     barrier,
     is_primary,
+    leave,
     maybe_initialize,
 )
 from nrse_tpu_torch.parallel.mesh import DataMesh, mesh_from_config
@@ -255,13 +256,14 @@ def train_emotion_task(config, recipe: TaskRecipe,
     epoch's train steps, data loading included), ``audio_sec_per_sec``
     and ``audio_sec_per_sec_per_chip`` (over every rank).  Joins the
     group the config or torchrun's environment describes, and leaves it
-    at the end if it joined it here."""
+    at the end if it joined it here, on a raised path too
+    (``parallel.distributed.leave``: every captured graph freed first)."""
     joined = maybe_initialize(config)
     try:
         return _train_emotion_task(config, recipe, class_weights_fn)
     finally:
         if joined:
-            torch.distributed.destroy_process_group()
+            leave()
 
 
 def _train_emotion_task(config, recipe: TaskRecipe,
@@ -301,7 +303,8 @@ def _train_emotion_task(config, recipe: TaskRecipe,
         logger.info(f"class weights: {w}")
         weights = torch.from_numpy(w).to(device)
 
-    # emotion.cuda_graphs: false runs the eager steps (the CPU always does)
+    # emotion.cuda_graphs: false runs the eager steps (the CPU and a gloo
+    # mesh always do; an NCCL mesh captures them as one card does)
     graphs = bool(em.get("cuda_graphs", True))
     train_step = make_emotion_train_step(
         recipe.task, weight_decay=em.get("weight_decay", 1e-4),

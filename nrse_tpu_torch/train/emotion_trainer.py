@@ -17,13 +17,14 @@ The step's inputs from the host (the kernels' seed table, LayerDrop's
 keep list, SpecAugment's spans, the trunks' dropout masks and K4's LR and
 bias corrections) are drawn as the model draws them and written to the
 device in one copy before the step (:class:`StepInputs`); the step then
-reads them there.  On a card without a mesh the step runs from CUDA
-graphs (``train.step_graphs``, the counterpart of JAX's jitted step):
-captured at the first step of each trainable key and batch shape,
-replayed after that one copy.  ``emotion.cuda_graphs: false`` in the
-config (``graphs=False`` here) asks for the eager step; the CPU and a
-mesh always run it (gloo cannot be captured, and NCCL runs one rank a
-card).  Both forms give the same bits.
+reads them there.  On a card, alone or under an NCCL mesh
+(``parallel.mesh.capturable``), the step runs from CUDA graphs
+(``train.step_graphs``, the counterpart of JAX's jitted step): captured
+at the first step of each trainable key and batch shape, the mesh's sums
+in its parts, replayed after that one copy.  ``emotion.cuda_graphs:
+false`` in the config (``graphs=False`` here) asks for the eager step;
+the CPU and a gloo mesh always run it (gloo's collectives cannot be
+captured).  Both forms give the same bits.
 
 Freezing.  The JAX step gates both the gradients and the updates by a
 per-layer 0/1 scale on the stacked encoder layers and ``rest_scale`` on
@@ -82,6 +83,8 @@ from nrse_tpu_torch.ops.fused_optimizer import (
 from nrse_tpu_torch.parallel.mesh import (
     DataMesh,
     broadcast_state,
+    capturable,
+    form_note,
     replicas_agree,
     shard_batch,
 )
@@ -311,9 +314,10 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
     raises when the replicas of the model group no longer hold the same
     parameters and moments.
 
-    With ``graphs`` (the default) a state on a card without a mesh runs
-    the captured step (``train.step_graphs``); a capture that fails
-    raises, naming the step and the part."""
+    With ``graphs`` (the default) a state on a card, alone or under an
+    NCCL mesh, runs the captured step (``train.step_graphs``); a capture
+    that fails raises, naming the step and the part.  Under a model axis
+    the replicas are checked after the replay, on the host."""
     if task not in TASKS:
         raise ValueError(f"task must be one of {TASKS}, got {task!r}")
     logged = set()
@@ -326,15 +330,12 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
         spec = adamw_spec(learning_rate, weight_decay, clip_norm)
         inputs = step_inputs(state, batch)
         rng = inputs.stage(state, task, spec)
-        captured = graphs and mesh is None \
-            and state.params.device.type == "cuda"
+        captured = graphs and capturable(mesh, state.params.device)
         form = "captured" if captured else "eager"
         if form not in logged:
             logged.add(form)
             logger.info(f"SER train step: the {form} form"
-                        + ("" if captured or mesh is None else
-                           " (a mesh: gloo cannot be captured and NCCL "
-                           "runs one rank a card)"))
+                        + form_note(graphs, captured, mesh))
         if captured:
             key = (state.trainable, tuple(batch["input_values"].shape),
                    task, class_weights is not None)
@@ -345,7 +346,7 @@ def make_emotion_train_step(task: str, weight_decay: float = 1e-4,
                     inputs, key)
             loss, out = state.graphs.run(
                 _step_inputs(batch, class_weights), rng, ("optimizer",))
-            grad_norm = out["optimizer"]
+            loss, grad_norm = out.get("reduce", loss), out["optimizer"]
         else:
             loss, grad_norm = _eager_step(state, task, spec, segments,
                                           batch, class_weights, rng, inputs)
@@ -376,9 +377,17 @@ def ser_step_graphs(state: EmotionTrainState, task: str,
     ``train.step_graphs.StepGraphs``, captured on ``batch`` with ``rng``
     (the step's staged stream) and ``inputs`` (the ``StepInputs`` staged
     for it: the trunks' masks, K4's host scalars): the front z-norms the
-    waveform, the head runs ASP, the trunks and :func:`emotion_loss`, and
-    one ``optimizer`` part takes the global norm and the K4 launches."""
-    model = state.model
+    waveform, the head runs ASP, the trunks and :func:`emotion_loss` (this
+    rank's part of the global batch's under the state's mesh), a
+    ``reduce`` part where the mesh's data axis sums (each trainable
+    segment's gradients, then the loss, as :func:`_eager_step`; it
+    returns the loss), and one ``optimizer`` part takes the global norm
+    and the K4 launches.  No part holds the state (it holds its graphs):
+    a state dropped with its graphs frees them at once, and an NCCL
+    group's end, which waits for every graph holding its collectives,
+    need not wait for the cycle collector."""
+    model, mesh = state.model, state.mesh
+    grads, params, mu, nu = state.grads, state.params, state.mu, state.nu
 
     def front(x, rng):
         return model.encoder.front(zero_mean_unit_var(x["input_values"]),
@@ -388,21 +397,40 @@ def ser_step_graphs(state: EmotionTrainState, task: str,
         logits, dims = model.head(back[0], x["attention_mask"], task, rng,
                                   inputs.trunks)
         return emotion_loss(task, logits, dims, x,
-                            x.get("class_weights"))
+                            x.get("class_weights"), mesh)
 
-    def optimizer():
-        gn = global_norm(state.grads, segments)
+    def reduce(loss):
+        return _pool(grads, segments, loss, mesh)
+
+    def optimizer():  # K4's count is the staged one (rest)
+        gn = global_norm(grads, segments)
         for lo, hi in segments:
-            fused_adamw_ema_update(
-                state.grads[lo:hi], state.params[lo:hi], state.mu[lo:hi],
-                state.nu[lo:hi], None, spec, state.step, gn, rest=inputs.k4)
+            fused_adamw_ema_update(grads[lo:hi], params[lo:hi], mu[lo:hi],
+                                   nu[lo:hi], None, spec, 0, gn,
+                                   rest=inputs.k4)
         return gn
 
     return StepGraphs(
         model.encoder, parameter_groups(model), state.trainable, front,
         head, [("optimizer", optimizer)],
         _step_inputs(batch, class_weights), rng, state.grads, key,
-        f"the SER train step {state.step} (trainable {state.trainable})")
+        f"the SER train step {state.step} (trainable {state.trainable})",
+        reduce=reduce if mesh is not None and mesh.data_reduce else None,
+        mesh=mesh)
+
+
+def _pool(grads: torch.Tensor, segments, loss: torch.Tensor,
+          mesh: Optional[DataMesh]) -> torch.Tensor:
+    """The step's sums over the mesh's data axis: each trainable segment
+    of ``grads`` in place, then ``loss`` (each rank's part of the global
+    batch's); returns the loss (``loss`` itself where nothing is
+    summed)."""
+    if mesh is None or not mesh.data_reduce:
+        return loss
+    for lo, hi in segments:
+        dist.all_reduce(grads[lo:hi], group=mesh.data_group)
+    dist.all_reduce(loss, group=mesh.data_group)
+    return loss
 
 
 def _eager_step(state: EmotionTrainState, task: str, spec: FusedAdamWSpec,
@@ -418,11 +446,7 @@ def _eager_step(state: EmotionTrainState, task: str, spec: FusedAdamWSpec,
     loss = emotion_loss(task, logits, dims, batch, class_weights, mesh)
     loss.backward()
     with torch.no_grad():
-        loss = loss.detach()
-        if mesh is not None and mesh.data_reduce:
-            for lo, hi in segments:
-                dist.all_reduce(state.grads[lo:hi], group=mesh.data_group)
-            dist.all_reduce(loss, group=mesh.data_group)
+        loss = _pool(state.grads, segments, loss.detach(), mesh)
         grad_norm = global_norm(state.grads, segments)
         for lo, hi in segments:
             fused_adamw_ema_update(

@@ -40,11 +40,25 @@ between models comes from the caller:
     makes), its input gradient, and its position-bias gradient added into
     one accumulator in the order autograd sums it;
   * ``front backward``, where the encoder's other parameters train;
+  * ``reduce``, where the caller gives one: what sums the step over a
+    mesh's data axis (the gradients, the loss), every step;
   * the caller's optimizer parts, in order, each replayed only on the
     steps the caller names: the SER step's and BYOL's ``optimizer`` (the
     global norm and K4, BYOL's with the target's EMA) every step; the
     fine-tune's ``accumulate`` every micro-step and ``apply`` (K4 over the
     mean, the mean zeroed) on every k-th.
+
+Under an NCCL mesh the parts hold the step's collectives as the eager step
+runs them (the heads' global BatchNorm statistics and the loss's global
+denominator in ``head``, a tensor-parallel layer's ``copy_to_model`` and
+``reduce_from_model`` in its forward and backward, the forward-only
+tower's included, the data axis's sums in ``reduce``, the model group's
+norm in ``optimizer``), and every rank replays them in one order: the
+host picks the parts from LayerDrop's keep lists, drawn without a batch
+axis and so the same on every rank, which the capture checks (one
+``all_reduce`` of their checksum; a rank whose lists differ raises, where
+a replay would hang).  The groups' NCCL communicators exist before any
+capture (``parallel.mesh.make_mesh``).
 
 Each part reads static buffers: the batch (copied in before the front),
 the step's staged inputs (the seed table, the spans, the head's dropout
@@ -59,8 +73,9 @@ backwards from the top, the optimizer parts), so a part only reuses
 memory of a part that runs before it in every step.
 
 A capture warms every part up once on a side stream first (cuBLAS's
-workspace, cuDNN's choice for the positional conv); the optimizer parts
-are not warmed up, since they would update the state, and the buffers
+workspace, cuDNN's choice for the positional conv); ``reduce`` is warmed
+up too (it sums gradients the next front zeroes), the optimizer parts
+are not, since they would update the state, and the buffers
 the parts change in place (the BYOL heads' BatchNorm statistics) are put
 back after it, so the first replayed step advances them once.  A capture
 that fails raises, naming the step and the part; there is no eager
@@ -85,6 +100,8 @@ from typing import (
 import torch
 
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMModel
+from nrse_tpu_torch.parallel.mesh import DataMesh, replicas_agree
+from nrse_tpu_torch.runtime.graphs import hold
 
 
 @dataclasses.dataclass
@@ -114,7 +131,8 @@ class StepGraphs:
     pooled)`` (with a ``tower``, ``head(back, inputs, rng, tower_back)``,
     the last the tower's, without a graph); ``optimizer`` the ``(name,
     fn)`` parts after the backward, each ``fn()`` returning a tensor, a
-    tuple of tensors or None.
+    tuple of tensors or None; ``reduce(loss)`` (or None) the part between
+    the backward and the optimizer parts, given the head's loss.
     ``inputs`` (a mapping of tensors: the batch and whatever else the
     step reads per step) gives the static inputs' shapes and the first
     step's values; ``rng`` is that step's staged stream (its table and its
@@ -124,7 +142,9 @@ class StepGraphs:
     warm-up included.  ``label`` names the step in a capture's error.
     ``tower``: a :class:`ForwardTower` run beside the encoder; ``buffers``
     the tensors the parts change in place besides the gradients (the
-    BatchNorm statistics), which the warm-up puts back."""
+    BatchNorm statistics), which the warm-up puts back; ``mesh`` the
+    step's (None: one process), whose ranks' keep lists a capture checks
+    with :func:`check_keep_lists`."""
 
     def __init__(self, wavlm: WavLMModel,
                  groups: Sequence[Sequence[torch.nn.Parameter]],
@@ -134,10 +154,13 @@ class StepGraphs:
                  inputs: Mapping[str, torch.Tensor], rng: TrainRNG,
                  grads: torch.Tensor, key: Any = None, label: str = "",
                  tower: Optional[ForwardTower] = None,
-                 buffers: Sequence[torch.Tensor] = ()):
+                 buffers: Sequence[torch.Tensor] = (),
+                 reduce: Optional[Callable[[torch.Tensor], Any]] = None,
+                 mesh: Optional[DataMesh] = None):
         self.key, self.label = key, label
         self.wavlm, self.front_fn, self.head_fn = wavlm, front, head
         self.optimizer = list(optimizer)
+        self.reduce = reduce
         self.grads = grads
         self.tower = tower
         self.buffers = list(buffers)
@@ -159,20 +182,35 @@ class StepGraphs:
         self.capture_s = None
         self._load(inputs)
         if grads.device.type == "cuda":
+            keeps = [rng.draws.keep] + ([tower.rng.draws.keep] if tower
+                                        else [])
+            check_keep_lists(mesh, keeps, label)
             self._capture(grads.device)
 
     def warm_up(self) -> None:
         """Every part but the optimizer's once, eagerly, every layer run,
         then ``buffers`` put back (a capture's warm-up; on the CPU, where
         nothing is captured, the parts' arithmetic against the eager
-        step)."""
+        step, ``reduce`` included)."""
         saved = [b.clone() for b in self.buffers]
         self._build(None)
         with torch.no_grad():
             for b, s in zip(self.buffers, saved):
                 b.copy_(s)
 
+    def release(self) -> int:
+        """Free the captured parts (``runtime.graphs.release_graphs``);
+        returns how many.  The step's key goes with them, so its trainer
+        captures anew when it next runs."""
+        for graph in self.graphs.values():
+            graph.reset()
+        n = len(self.graphs)
+        self.graphs.clear()
+        self.key = object()
+        return n
+
     def _capture(self, device) -> None:
+        hold(self)  # a capture that fails leaves its parts to release
         t0 = time.perf_counter()
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
@@ -202,10 +240,13 @@ class StepGraphs:
         self.graphs[name] = graph
         return out
 
-    def _build(self, pool, optimizer: bool = False) -> None:
+    def _build(self, pool, optimizer: bool = False,
+               keep: Optional[Tuple[Sequence[bool], ...]] = None) -> None:
         """Run (``pool`` None) or capture every part in replay order, the
-        optimizer parts with ``optimizer`` (run eagerly with them, every
-        layer run and ``buffers`` advanced: the step the graphs hold)."""
+        optimizer parts with ``optimizer`` (run eagerly with them and
+        ``buffers`` advanced: the step the graphs hold).  Every layer runs,
+        or (run only) those that ``keep``, the encoder's keep list and the
+        tower's, keeps: the parts a replay of that step runs."""
         part, rest, rng, inputs = self._part, self.rest, self.rng, self.inputs
         wavlm, front_params = self.wavlm, self.front_params
         enc_rng = wavlm.train_rng(rng)  # None where the encoder evaluates
@@ -222,9 +263,12 @@ class StepGraphs:
         pb = pos_bias.detach().requires_grad_(rest)
         self.dpos = torch.zeros_like(pos_bias) if rest else None
 
+        keep = keep or (None, None)
         self.h_in, self.h_out, self.h_last = self._forwards(
-            "", self.layers, self.trains, h0, pb, frame_mask, enc_rng, pool)
-        tower_back = self._build_tower(pool) if self.tower else None
+            "", self.layers, self.trains, h0, pb, frame_mask, enc_rng, pool,
+            keep[0])
+        tower_back = self._build_tower(pool, keep[-1]) if self.tower \
+            else None
 
         def head():
             if rest:  # the layers' bias gradients add up from here
@@ -245,7 +289,7 @@ class StepGraphs:
 
         self.g_out, self.d_in = {}, {}
         for i in reversed(range(len(self.layers))):
-            if not self.trains[i]:
+            if not self.trains[i] or self.h_out[i] is None:  # or dropped
                 continue
             g_out = torch.empty_like(self.h_out[i])
             if warm:
@@ -280,6 +324,11 @@ class StepGraphs:
 
             part("front backward", front_bwd, pool)
 
+        if self.reduce is not None:
+            with torch.no_grad():
+                self.outputs["reduce"] = part(
+                    "reduce", lambda: self.reduce(self.loss), pool)
+
         if not optimizer:  # a warm-up: the optimizer would update the state
             return
         for name, fn in self.optimizer:
@@ -287,15 +336,21 @@ class StepGraphs:
                 self.outputs[name] = part(name, fn, pool)
 
     def _forwards(self, prefix: str, layers, grad: Sequence[bool], h0,
-                  pos_bias, frame_mask, rng, pool) -> Tuple[list, list,
-                                                            torch.Tensor]:
+                  pos_bias, frame_mask, rng, pool,
+                  keep: Optional[Sequence[bool]] = None
+                  ) -> Tuple[list, list, torch.Tensor]:
         """Run or capture each of ``layers``' forwards as a part
         ``{prefix}layer i forward``, with autograd where ``grad[i]``, each
         on a static input the host fills with the layer below's output
-        (run: with real values); returns the static inputs, the outputs
+        (run: with real values; a layer ``keep`` drops is not run, its
+        input and output None); returns the static inputs, the outputs
         and the static input of what follows the last layer."""
         h_in, h_out, h = [], [], h0
         for i, layer in enumerate(layers):
+            if keep is not None and not keep[i]:
+                h_in.append(None)
+                h_out.append(None)
+                continue
             x = torch.empty_like(h0).requires_grad_(grad[i])
             if pool is None:
                 with torch.no_grad():
@@ -329,10 +384,12 @@ class StepGraphs:
         last.copy_(h)
         return kept
 
-    def _build_tower(self, pool) -> Callable:
+    def _build_tower(self, pool, keep: Optional[Sequence[bool]] = None
+                     ) -> Callable:
         """Run or capture the forward-only tower's front and layers (after
-        the encoder's forwards, before the head); returns the head's call
-        of the tower's ``back`` on its last layer's output."""
+        the encoder's forwards, before the head; run, those ``keep``
+        keeps); returns the head's call of the tower's ``back`` on its
+        last layer's output."""
         tower = self.tower
         rng = tower.wavlm.train_rng(tower.rng)
 
@@ -345,7 +402,7 @@ class StepGraphs:
         self.t_h0 = h0
         self.t_h_in, self.t_h_out, self.t_last = self._forwards(
             "target ", layers, [False] * len(layers), h0, pos_bias,
-            frame_mask, rng, pool)
+            frame_mask, rng, pool, keep)
 
         def back():
             with torch.no_grad():
@@ -364,9 +421,10 @@ class StepGraphs:
         """One step on ``inputs`` whose staged values ``rng`` (and
         ``tower_rng``, the forward-only tower's) says were written: the
         inputs copied in, the parts of the layers ``rng.draws.keep`` keeps
-        replayed (the tower's by its own list), then the ``optimizer``
-        parts named.  Returns copies of the loss and of those parts'
-        outputs (the ones that return a tensor or a tuple of them)."""
+        replayed (the tower's by its own list), ``reduce`` where there is
+        one, then the ``optimizer`` parts named.  Returns copies of the
+        head's loss and of those parts' outputs (the ones that return a
+        tensor or a tuple of them), ``reduce``'s under its name."""
         self._load(inputs)
         graphs = self.graphs
         graphs["front"].replay()
@@ -389,11 +447,32 @@ class StepGraphs:
             if self.rest:
                 self.g_h0.copy_(g)
                 graphs["front backward"].replay()
-            for name in optimizer:
+            parts = list(optimizer)
+            if self.reduce is not None:
+                parts.insert(0, "reduce")
+            for name in parts:
                 graphs[name].replay()
             return self.loss.clone(), {
-                name: _copy(self.outputs[name]) for name in optimizer
+                name: _copy(self.outputs[name]) for name in parts
                 if self.outputs[name] is not None}
+
+
+def check_keep_lists(mesh: Optional[DataMesh],
+                     keeps: Sequence[Sequence[bool]], label: str) -> None:
+    """Raise unless every rank of ``mesh`` holds the same LayerDrop keep
+    lists ``keeps`` (one ``all_reduce`` of their checksum over the world;
+    nothing alone): the ranks' replays pick their parts from them, and a
+    rank that replays another layer's collectives than the others hangs
+    them all."""
+    if mesh is None or not mesh.distributed:
+        return
+    bits = torch.tensor([int(k) for keep in keeps for k in keep],
+                        dtype=torch.int32, device=mesh.device)
+    if not replicas_agree(mesh, [bits]):
+        raise RuntimeError(
+            f"{label}: the ranks' LayerDrop keep lists differ (rank "
+            f"{mesh.rank}'s: {[list(map(int, k)) for k in keeps]}); every "
+            "rank must replay the same layers' collectives")
 
 
 def _copy(out):

@@ -33,8 +33,10 @@ host-side.
 One process on one card (``device: cuda``, computing in bf16, the type
 the kernels take; the train step replayed from CUDA graphs captured at
 its first step, ``training.cuda_graphs: false`` for the eager step) or
-on the CPU (float32, the plain paths, eagerly), or N ranks (eagerly),
-one card each (``parallel``): the group is joined from the
+on the CPU (float32, the plain paths, eagerly), or N ranks, one card
+each (``parallel``; over NCCL the step captured as on one card, its
+collectives inside the graphs; over gloo eagerly): the group is joined
+from the
 ``tpu.distributed`` block or torchrun's environment
 (``parallel.distributed.maybe_initialize``), ``tpu.mesh`` (``data`` ×
 ``model``, ``data: -1`` for the world over ``model``) must span every
@@ -79,6 +81,7 @@ from nrse_tpu_torch.parallel.distributed import (
     barrier,
     broadcast_scalar,
     is_primary,
+    leave,
     maybe_initialize,
 )
 from nrse_tpu_torch.parallel.mesh import mesh_from_config
@@ -125,14 +128,15 @@ def main(config: Dict[str, Any],
     plot's path, or None).
 
     Joins the group the config or torchrun's environment describes, and
-    leaves it at the end if it joined it here."""
+    leaves it at the end if it joined it here, on a raised path too
+    (``parallel.distributed.leave``: every captured graph freed first)."""
     config = with_defaults(config)
     joined = maybe_initialize(config)
     try:
         return _main(config, encoder)
     finally:
         if joined:
-            torch.distributed.destroy_process_group()
+            leave()
 
 
 def _main(config: Dict[str, Any],
@@ -192,8 +196,8 @@ def _main(config: Dict[str, Any],
             logger.info(f"resumed from {name} at epoch {start_epoch}, step "
                         f"{state.step}")
 
-    # training.cuda_graphs: false runs the eager step (the CPU and a mesh
-    # always do)
+    # training.cuda_graphs: false runs the eager step (the CPU and a gloo
+    # mesh always do; an NCCL mesh captures it as one card does)
     train_step = make_byol_train_step(
         spec, graphs=bool(tr.get("cuda_graphs", True)))
     metric = tr["early_stopping_metric"]

@@ -19,7 +19,10 @@ torchrun (or with the ``tpu.distributed`` block) the ranks join one group
 for both trainers (``train.categorical_emotions``: the ``tpu.mesh`` ``data
 × model`` mesh, ``emotion.batch_size`` the global batch split over
 ``data``; ``model: 2`` or more replicates the classifier over each model
-group's ranks, as the JAX trainers run it).
+group's ranks, as the JAX trainers run it).  Over NCCL each rank's train
+step runs from CUDA graphs as on one card, the mesh's sums inside them;
+over gloo eagerly; ``emotion.cuda_graphs: false`` asks for the eager
+step.
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ import copy
 import os
 from typing import Dict
 
-import torch
-
 from nrse_tpu_torch.config.config_utils import get_config
-from nrse_tpu_torch.parallel.distributed import is_primary, maybe_initialize
+from nrse_tpu_torch.parallel.distributed import (
+    is_primary,
+    leave,
+    maybe_initialize,
+)
 from nrse_tpu_torch.train.categorical_emotions import (
     train_categorical_emotions,
 )
@@ -47,13 +52,14 @@ def run(config: Dict) -> Dict:
     """Train what ``config["task"]`` (default ``both``) names; returns
     ``{task: the trainer's result}``.  Joins the group the config or
     torchrun's environment describes for both trainers, and leaves it at
-    the end if it joined it here."""
+    the end if it joined it here, on a raised path too
+    (``parallel.distributed.leave``: every captured graph freed first)."""
     joined = maybe_initialize(config)
     try:
         return _run(config)
     finally:
         if joined:
-            torch.distributed.destroy_process_group()
+            leave()
 
 
 def _run(config: Dict) -> Dict:

@@ -8,7 +8,8 @@ tiny corpus of ``data/synthetic.py``: 12 clean and 2 noise clips of ~0.5
 s cropped to 0.3 s for BYOL, 8 + 4 labelled clips cropped to 0.48 s for
 the SER trainers.  Both ranks report the same pooled losses and metrics
 and the same stop decision; only rank 0 writes checkpoints; the BYOL
-replicas end bit-equal.  ``dryrun_multiprocess(2)`` passes.
+replicas end bit-equal.  ``dryrun_multiprocess(2)`` passes, at ``{data: 2}``
+and at ``{data: 1, model: 2}``.
 """
 
 import numpy as np
@@ -108,4 +109,9 @@ def test_byol_replicas_end_bit_equal(ranks):
 
 def test_dryrun_multiprocess():
     report = dryrun_multiprocess(2)
+    assert report["finite"] and report["agree"]
+
+
+def test_dryrun_multiprocess_tensor_parallel():
+    report = dryrun_multiprocess(2, model=2)
     assert report["finite"] and report["agree"]

@@ -1,9 +1,11 @@
 """Where the tensor-parallel BYOL step departs from one rank's, on one card.
 
 Two ranks share the card over gloo at ``{data: 1, model: 2}``; rank 0
-first runs the same first step at ``model: 1`` from the same weights
+first runs the same steps at ``model: 1`` from the same weights
 (WavLM-large, ``chip_smoke.py``'s batch of 36 × 5 s, random features
-off and then on).  For each configuration it prints:
+off and then on), ``STEPS`` steps each: from the second step on each run
+starts from its own parameters, so a step's difference holds the drift
+of the steps before it.  For each configuration and step it prints:
 
   * the relative distance ``|a − b| / |b|`` of each encoder layer's
     output, the pooled embeddings, the projector's and the predictor's
@@ -24,7 +26,12 @@ off and then on).  For each configuration it prints:
     largest ratio (the gradients that are 0 in exact arithmetic left
     out); and each layer's ``gru_rel_pos_linear`` gradients in the three
     runs, with the spread of their ratio to the last control over the
-    layers.
+    layers;
+  * the cancellation in each layer's gate bias gradient in the one-rank
+    run: ``|g| / Σ|terms|``, where ``g`` is the sum over the batch, the
+    heads and the frames of the gradient at the gate projection's output
+    (in float64) and the terms are its elements; beside it the model: 2
+    run's error of that bias against the gate-halves control's.
 
 Run from the root of a checkout, on a machine with the card:
 
@@ -32,9 +39,10 @@ Run from the root of a checkout, on a machine with the card:
 
 (``layers`` cuts the encoder's depth, default 24; ``--running-stats``
 puts the heads' BatchNorms on their running statistics in every run, as
-phase 9's cross-check against float32 does.)
+phase 9's cross-check against float32 does; ``--steps N``, default 3.)
 """
 
+import argparse
 import os
 import sys
 
@@ -47,6 +55,8 @@ from nrse_tpu_torch.models import wavlm as wavlm_module  # noqa: E402
 from nrse_tpu_torch.models.wavlm import WavLMConfig  # noqa: E402
 from nrse_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from nrse_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+
+STEPS = 3
 
 # gradients that are 0 in exact arithmetic (a Dense bias feeding a
 # BatchNorm, the key bias under the softmax, the final LayerNorm's bias
@@ -89,9 +99,12 @@ def _record(state, rec: dict) -> list:
     return hooks
 
 
-def _step(state, step, data) -> dict:
+def _step(state, step, data, layers: bool = True) -> dict:
+    """One step's record: with ``layers`` each layer's output and the
+    gradient at it, the pooled embeddings and the heads' outputs; always
+    grad_norm and every gradient in the ``model: 1`` layout."""
     rec = {}
-    hooks = _record(state, rec)
+    hooks = _record(state, rec) if layers else []
     m = step(state, data)
     for h in hooks:
         h.remove()
@@ -105,7 +118,7 @@ def _compare(label: str, got: dict, ref: dict) -> None:
     cs.log(f"[tp divergence] {label}: grad_norm {got['grad_norm']} vs "
            f"{ref['grad_norm']}")
     for k in ref:
-        if k not in ("grad_norm", "grads") and k in got:
+        if k not in ("grad_norm", "grads", "cancel") and k in got:
             cs.log(f"[tp divergence]   {k}: {_rel(got[k], ref[k]):.3e}")
     d = {k: float(((got["grads"][k] - g) ** 2).sum())
          for k, g in ref["grads"].items()}
@@ -152,8 +165,11 @@ def _gate_rows(label: str, got: dict, split: dict, gate: dict,
     for the biases, the ratio of the sharded step's to the last
     control's over the layers: its median, and how many layers lie above
     twice and below half of it (layers whose gradient is 0, dropped by
-    LayerDrop, left out)."""
+    LayerDrop, left out); then each layer's gate bias cancellation (the
+    one-rank run's) beside that ratio, and the ratio's median over the
+    more cancelled half of the layers and over the rest."""
     ratios = {"weight": [], "bias": []}
+    bias = {}
     for k, g in ref["grads"].items():
         if "gru_rel_pos_linear" not in k:
             continue
@@ -164,6 +180,8 @@ def _gate_rows(label: str, got: dict, split: dict, gate: dict,
                f"{b:.3e}, split + gate halves {c:.3e}")
         if float(g.norm()) > 0 and c > 0:
             ratios[k.rsplit(".", 1)[1]].append(a / c)
+            if k.endswith(".bias"):
+                bias[_layer_of(k)] = a / c
     for kind, r in ratios.items():
         if r:
             cs.log(f"[tp divergence] {label}: gru_rel_pos_linear.{kind} "
@@ -171,6 +189,56 @@ def _gate_rows(label: str, got: dict, split: dict, gate: dict,
                    f"control: median {float(torch.tensor(r).median()):.3f}"
                    f", above 2x in {sum(x > 2 for x in r)}, below 0.5x in "
                    f"{sum(x < 0.5 for x in r)}")
+    cancel = {i: c for i, c in ref.get("cancel", {}).items() if i in bias}
+    if not cancel:
+        return
+    for i in sorted(cancel):
+        cs.log(f"[tp divergence] {label}: layer {i} gate bias: |g| / "
+               f"Σ|terms| {cancel[i]:.3e}, model: 2 / gate-halves control "
+               f"{bias[i]:.3f}")
+    order = sorted(cancel, key=cancel.get)
+    half = len(order) // 2
+    med = [float(torch.tensor([bias[i] for i in part]).median())
+           for part in (order[:max(half, 1)], order[half:])]
+    cs.log(f"[tp divergence] {label}: the gate bias's ratio to the "
+           f"gate-halves control, median over the {max(half, 1)} layers of "
+           f"most cancellation (|g| / Σ|terms| {cancel[order[0]]:.2e}–"
+           f"{cancel[order[max(half, 1) - 1]]:.2e}) {med[0]:.3f}, over the "
+           f"other {len(order) - half} {med[1]:.3f}")
+
+
+def _layer_of(name: str) -> int:
+    """The encoder layer of a parameter name (``...layers.<i>....``)."""
+    parts = name.split(".")
+    return int(parts[parts.index("layers") + 1])
+
+
+class _GateTerms:
+    """``torch.nn.functional`` as ``models.wavlm`` sees it, recording the
+    cancellation in each online layer's gate bias gradient: the gradient
+    at the gate projection's output ``[B, H, T, 8]`` summed over ``B, H,
+    T`` (the bias's gradient) against the sum of its elements' magnitudes,
+    in float64, as ``|g| / Σ|terms|`` over the 8 outputs; ``layer`` holds
+    the index of the layer running (a forward pre-hook sets it)."""
+
+    def __init__(self, out: dict):
+        self.out, self.layer = out, None
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def linear(self, x, weight, bias=None):
+        y = torch.nn.functional.linear(x, weight, bias)
+        if x.dim() == 4 and weight.shape[0] == 8 and y.requires_grad:
+            layer = self.layer
+
+            def hook(g):
+                g = g.double()
+                total = g.sum((0, 1, 2)).norm()
+                terms = g.abs().sum((0, 1, 2)).norm()
+                self.out[layer] = float(total / terms.clamp_min(1e-300))
+            y.register_hook(hook)
+        return y
 
 
 class _GateHalves:
@@ -203,8 +271,10 @@ def _heads_on_running_stats(state) -> None:
         head.eval()
 
 
-def _reference(key: str, cfg, sd, device, step, data, running: bool):
-    """One rank's step at ``model: 1``: as it is (``ref``), with cuBLAS's
+def _reference(key: str, cfg, sd, device, step, data, running: bool,
+               steps: int) -> list:
+    """``steps`` steps of one rank at ``model: 1``: as it is (``ref``,
+    with each layer's gate bias cancellation), with cuBLAS's
     reduced-precision bf16 reductions off (``cublas``), with each
     projection in two float32 halves (``split``), or with that and the
     gate's gradients summed over two halves of the heads (``gate``)."""
@@ -215,21 +285,35 @@ def _reference(key: str, cfg, sd, device, step, data, running: bool):
         wavlm_module._linear = cs._split_linear
     if key == "gate":
         wavlm_module.F = _GateHalves()
+    cancel = {}
+    if key == "ref":
+        wavlm_module.F = terms = _GateTerms(cancel)
     try:
         st = cs._byol_state(cfg, sd, device, 1024, 2048)
         if running:
             _heads_on_running_stats(st)
-        return _step(st, step, data)
+        if key == "ref":
+            for i, layer in enumerate(st.online.encoder.encoder.layers):
+                layer.register_forward_pre_hook(
+                    lambda m, a, i=i: setattr(terms, "layer", i))
+        out = []
+        for k in range(steps):
+            cancel.clear()
+            rec = _step(st, step, data, layers=k == 0)
+            rec["cancel"] = dict(cancel)
+            out.append(rec)
+        return out
     finally:
         matmul.allow_bf16_reduced_precision_reduction = True
         wavlm_module._linear, wavlm_module.F = linear, functional
 
 
 def worker(rank: int, world: int, device: str, layers: int,
-           running: bool) -> None:
+           running: bool, steps: int) -> None:
     device = cs._rank_device(device)
     data = cs._train_batch(cs.TRAIN_BATCH, cs.CLIP_SECONDS, device)
-    step = cs.make_byol_train_step(cs._adamw_spec())
+    # eager: the runs hook the modules, which a replay does not call
+    step = cs.make_byol_train_step(cs._adamw_spec(), graphs=False)
     mesh = make_mesh(model=world, device=device, heads=16)
     full = WavLMConfig.large(num_hidden_layers=layers)
     heads = "running statistics" if running else "batch statistics"
@@ -240,40 +324,46 @@ def worker(rank: int, world: int, device: str, layers: int,
         if rank == 0:
             for key in ("ref", "cublas", "split", "gate"):
                 refs[key] = _reference(key, cfg, sd, device, step, data,
-                                       running)
+                                       running, steps)
         dist.barrier()
         st = cs._byol_state(cfg, sd, device, 1024, 2048, mesh)
         if running:
             _heads_on_running_stats(st)
-        got = _step(st, step, data)
-        if rank == 0:
-            label = f"features {name}, {layers} layers, heads' BN on {heads}"
-            _compare(f"{label}, model: 2 against model: 1", got, refs["ref"])
+        runs = [_step(st, step, data, layers=k == 0) for k in range(steps)]
+        for k, got in enumerate(runs):
+            if rank != 0:
+                break
+            ref = {key: r[k] for key, r in refs.items()}
+            label = (f"features {name}, {layers} layers, heads' BN on "
+                     f"{heads}, step {k + 1} of {steps}")
+            _compare(f"{label}, model: 2 against model: 1", got, ref["ref"])
             _compare(f"{label}, the control: model: 1 without "
-                     "reduced-precision bf16 reductions", refs["cublas"],
-                     refs["ref"])
+                     "reduced-precision bf16 reductions", ref["cublas"],
+                     ref["ref"])
             _compare(f"{label}, the control: model: 1 with each projection "
-                     "in two float32 halves", refs["split"], refs["ref"])
+                     "in two float32 halves", ref["split"], ref["ref"])
             _compare(f"{label}, the control: model: 1 with each projection "
                      "in two float32 halves and the gate's gradients summed "
-                     "over two halves of the heads", refs["gate"],
-                     refs["ref"])
-            _per_tensor(label, got, refs["split"], refs["ref"],
+                     "over two halves of the heads", ref["gate"],
+                     ref["ref"])
+            _per_tensor(label, got, ref["split"], ref["ref"],
                         "split-projection")
-            _per_tensor(label, got, refs["gate"], refs["ref"],
+            _per_tensor(label, got, ref["gate"], ref["ref"],
                         "split-projection and gate-halves")
-            _gate_rows(label, got, refs["split"], refs["gate"], refs["ref"])
-        del st, got, refs
+            _gate_rows(label, got, ref["split"], ref["gate"], ref["ref"])
+        del st, runs, refs
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    running = "--running-stats" in argv
-    layers = [int(a) for a in argv if not a.startswith("--")]
+    parser = argparse.ArgumentParser()
+    parser.add_argument("layers", type=int, nargs="?", default=24)
+    parser.add_argument("--running-stats", action="store_true")
+    parser.add_argument("--steps", type=int, default=STEPS)
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     cs.phase_device()
     cs.phase_build()
-    run_ranks(worker, 2, ("cuda:0", layers[0] if layers else 24, running),
-              threads=0, timeout=900)
+    run_ranks(worker, 2, ("cuda:0", args.layers, args.running_stats,
+                          args.steps), threads=0, timeout=1500)
     return 0
 
 
