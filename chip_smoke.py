@@ -1,8 +1,9 @@
 """Drive the port's embedding server, its BYOL train step, its BYOL
 pretraining entry point, its baseline SER evaluator, its SER fine-tune,
 its two-phase SER trainers, its SER classifier server, its bridges to
-the reference's PyTorch files, its data-parallel path and its
-tensor-parallel path once on one NVIDIA GPU.
+the reference's PyTorch files, its BYOL→SER transfer report and
+quickstart, its data-parallel path and its tensor-parallel path once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -314,15 +315,16 @@ not 0:
      one rank's run of the whole batch from the same weights (loss within
      1e-3, grad_norm within 1e-2, the parameter deltas' cosine ≥ 0.999 and
      relative distance ≤ 5e-2: the bounds' reasons stand beside
-     ``DP_LOSS_TOL``), then every random feature on, three steps: finite,
-     the replicas bit-equal after every step (``replicas_agree``),
+     ``DP_LOSS_TOL``), then every random feature on, 4 layers deep, three
+     steps: finite, the replicas bit-equal after every step
+     (``replicas_agree``),
      launches as the layers run imply; each rank's peak memory beside the
      one-rank run's, s/step labelled as two ranks sharing one card (no
      scaling figure); (c) ``train_byol.main`` and ``train_emotion.run``
      (``--task both``) with two gloo ranks on the card, WavLM-large cut to
      2 layers, global batch 8, one epoch a phase: the ranks' pooled losses
      equal and finite, rank 0's checkpoints written, every kernel of the
-     path launched.
+     path launched (run last, at once with 20(b)–(d) and the repeat).
   20. tensor parallelism on the one card (``tpu.mesh.model > 1``; the
      train steps eager over gloo, as in 19(b)): the
      kernels at the shard shapes of ``model: 2``, each with its dropout
@@ -338,19 +340,34 @@ not 0:
      replicas agreeing after every step, each rank's launches as phase 9's
      formula, its peak memory and s/step; (b) the K5 branch: a
      training-mode encoder forward at 8 × 10 s on two ranks against one,
-     cosine ≥ 0.999; (c) ``train_byol.main`` at ``{data: 2, model: 2}``
-     over 4 ranks on the card, 2 layers, global batch 8, its checkpoint
-     restored by a ``model: 1`` state bit for bit, then
-     ``parallel.dryrun`` over 2 gloo ranks on the CPU; (d)
+     cosine ≥ 0.999, 4 layers deep; (c) ``train_byol.main`` at ``{data: 2,
+     model: 2}`` over 4 ranks on the card, 2 layers, global batch 8, its
+     checkpoint restored by a ``model: 1`` state bit for bit; (d)
      ``train_emotion.main --task categorical`` at ``{data: 1, model: 2}``
      on 2 ranks, 2 layers, global batch 8, one epoch a phase: the classifier
      replicated as JAX runs it, the replicas checked after every step and
      their final states equal, equal finite losses, the checkpoints
      written by rank 0 alone; and phase 19(b)'s two-rank step (features
-     on, 4 layers deep) run twice in fresh processes, compared down to
-     the first tensor that differs (with cuDNN's deterministic algorithms
-     too, where they differ).  Each phase's seconds by the host clock
-     follow it (``[time]``), and the script's at the end.
+     on, 2 layers deep) run twice in fresh processes, the two at once,
+     compared down to the first tensor that differs (with cuDNN's
+     deterministic algorithms too, where they differ).  (b), (c), (d) and
+     the repeat run last, at once with 19(c), one torch thread a rank.
+  21. the BYOL→SER transfer report (``tools/port_transfer_report.py``'s
+     ``main``) at full width, 2 layers deep, on 72 + 36 synthetic clips of
+     5 s: BYOL one epoch, six SER legs (categorical frozen and end to end,
+     dimensional frozen; each from BYOL's encoder and from random
+     weights), each readout clean / snr8 / snr4: each BYOL leg's encoder
+     started as BYOL's online encoder bit for bit and each random leg's
+     did not, every train step one replay of its captured graphs and
+     every evaluation batch a program's replay, the readouts mixing the
+     held-out noise alone, every metric finite, every kernel of the path
+     launched.
+  22. the quickstart (``examples/quickstart_torch.py``'s ``main``) at
+     WavLM-large: BYOL 2 epochs, the categorical trainer from its
+     encoder, the clean-vs-noisy report; finite, every step a replay,
+     every kernel of the path launched.
+  Each phase's seconds by the host clock follow it (``[time]``), and the
+  script's at the end.
 
 Each kernel's bound is the larger of its operations over the bf16 tensor
 cores' 989 TFLOP/s and the bytes it must move (each input read once,
@@ -382,6 +399,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -469,7 +487,11 @@ from nrse_tpu_torch.serve.export import (  # noqa: E402
     export_classifier,
     export_embedder,
 )
-from nrse_tpu_torch.utils.profiling import profile_trace  # noqa: E402
+from nrse_tpu_torch.utils.profiling import (  # noqa: E402
+    COPIES,
+    group_of,
+    profile_trace,
+)
 
 SEED = 0
 CLIP_SECONDS = 5.0
@@ -1766,8 +1788,8 @@ def load_server(art: str, device, per_forward: dict, tag: str):
     return server, reserved / 2**30
 
 
-# the profile groups (PROFILE_GROUPS) of a serving forward's kernels, by
-# the wrapper count that launches them
+# the profile groups (utils.profiling.PROFILE_GROUPS) of a serving
+# forward's kernels, by the wrapper count that launches them
 SERVING_GROUPS = {"block_attention_fwd": "kernel A (block attention)",
                   "flash_attention_fwd": "K5 (flash attention)",
                   "fused_ffn_fwd": "kernel B and K2 (fused FFN GEMMs)",
@@ -3799,34 +3821,6 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
         shutil.rmtree(root, ignore_errors=True)
 
 
-COPIES = "dtype/layout copies"
-# kernel name patterns → the groups PERF.md §5 reports, first match wins
-# (the fold of reduction partials, ln_fold_kernel, is shared by K6's and
-# K7's backward and counts as K7's)
-PROFILE_GROUPS = (
-    ("K6 (fused conv frontend)", "k6_|K6RowSource"),
-    ("K7 (channel LayerNorm)", "ln_row_|ln_fold"),
-    # flash_attention_fwd_wgmma_kernel
-    ("K5 (flash attention)", "flash_attention_fwd"),
-    # flash_attention_bwd_{delta,dq_wgmma,dkv_wgmma}_kernel and the fold
-    ("K5 backward (delta, dq, dk/dv, dbias fold)",
-     "flash_attention_bwd|flash_dbias_fold"),
-    ("kernel A (block attention)", "block_attention_fwd"),
-    ("K3 (block attention backward)",
-     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum|dout_prep"),
-    ("kernel B and K2 (fused FFN GEMMs)",
-     "nrse::gemm|nrse::wg|dh2_kernel|colsum|transpose_cast"),
-    ("K1 (dropout)", "dropout_kernel"),
-    ("K4 (AdamW)", "adamw_ema"),
-    ("cuDNN convs", "conv|cudnn|implicit|winograd|fft"),
-    ("cuBLAS (projections, heads)", "gemm|cutlass|xmma|nvjet|cublas"),
-    ("LayerNorm", "layer_norm|LayerNorm"),
-    (COPIES, "copy|Copy|cast"),
-    ("reductions", "reduce|Reduce|softmax|Softmax"),
-    ("elementwise", "elementwise|Elementwise|vectorized"),
-)
-
-
 # the sources the copies group is split into (PERF.md §5)
 SRC_LN = "float32 LayerNorm inputs"
 SRC_WEIGHT = "per-use weight casts"
@@ -3916,14 +3910,6 @@ def copy_sources(events, copy_kernels, weight_shapes) -> dict:
 def _param_shapes(model) -> frozenset:
     return frozenset(tuple(p.shape) for p in model.parameters()
                      if p.numel() > 1)
-
-
-def group_of(name: str) -> str:
-    """The :data:`PROFILE_GROUPS` group of a kernel name (first match)."""
-    import re
-
-    return next((g for g, pat in PROFILE_GROUPS if re.search(pat, name)),
-                "other")
 
 
 def check_group(times: dict, group: str) -> None:
@@ -5613,7 +5599,244 @@ def phase_bridges(cfg=None, device=torch.device("cuda"),
 # one-rank run; the two ranks may drift at most DP_DRIFT_FACTOR times as
 # far (the loss and gradient norm at every step, and the parameter deltas
 # after the last).
+# the evidence phase's tiny corpus: a BYOL step of 36 clips, SER steps of
+# 16, one evaluation batch of 64 (the readouts' batch on the card)
+TRANSFER_CLIPS = (72, 36)
+TRANSFER_NOISE = (8, 4)
+
+
+class _EvidenceSpy:
+    """Within the block, what each stage of the evidence path ran: per
+    stage (``report_utils.run_byol``, ``train_ser``,
+    ``robustness_readout``), the captured steps replayed
+    (``StepGraphs.run``), the programs run (``BucketProgram.run``) and
+    those run without a graph on a card, and the noise files the emotion
+    loaders read."""
+
+    def __init__(self):
+        from nrse_tpu_torch.data.emotion_dataset import EmotionDataset
+        from nrse_tpu_torch.runtime.graphs import BucketProgram
+        from nrse_tpu_torch.train.step_graphs import StepGraphs
+        from nrse_tpu_torch.utils import report_utils
+
+        # what runs outside the three stages (the quickstart's steps)
+        self.outside = {"kind": "outside", "replays": 0, "programs": 0,
+                        "graphless": 0, "noise": set()}
+        self.stages = []
+        self.current = self.outside
+        spy = self
+        real_step, real_program = StepGraphs.run, BucketProgram.run
+        real_load = EmotionDataset._load_with_length
+
+        def step_run(graphs, *args, **kwargs):
+            spy.current["replays"] += 1
+            return real_step(graphs, *args, **kwargs)
+
+        def program_run(program):
+            spy.current["programs"] += 1
+            spy.current["graphless"] += (program.device.type == "cuda"
+                                         and program.graph is None)
+            return real_program(program)
+
+        def load(dataset, path, rng):
+            if dataset.noise_files and path in dataset.noise_files:
+                spy.current["noise"].add(os.path.dirname(path))
+            return real_load(dataset, path, rng)
+
+        def stage(kind, fn):
+            def run(*args, **kwargs):
+                spy.current = {"kind": kind, "replays": 0, "programs": 0,
+                               "graphless": 0, "noise": set()}
+                spy.stages.append(spy.current)
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    spy.current, stage_of = spy.outside, spy.current
+                stage_of["out"] = out
+                return out
+            return run
+
+        self.saved = [(StepGraphs, "run", real_step, step_run),
+                      (BucketProgram, "run", real_program, program_run),
+                      (EmotionDataset, "_load_with_length", real_load, load)]
+        self.saved += [(report_utils, name, getattr(report_utils, name),
+                        stage(name, getattr(report_utils, name)))
+                       for name in ("run_byol", "train_ser",
+                                    "robustness_readout")]
+
+    def __enter__(self):
+        for obj, attr, _, fn in self.saved:
+            setattr(obj, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn, _ in self.saved:
+            setattr(obj, attr, fn)
+
+
+def phase_transfer(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
+                   clips=TRANSFER_CLIPS, smoke: bool = False) -> dict:
+    """21: the BYOL→SER transfer report (``tools/port_transfer_report.py``)
+    through its ``main`` at full width, cut to ``layers`` layers, on a
+    tiny corpus of 5 s clips: BYOL one epoch, each of the six SER legs one
+    epoch a phase, each readout clean / snr8 / snr4.  Checks: each BYOL
+    leg's encoder started as BYOL's online encoder bit for bit and each
+    random leg's did not; every trainer's step ran from its captured
+    graphs, each train step one replay, and every evaluation batch from a
+    program's graph; the readouts mixed in the held-out noise alone (and
+    the e2e legs' training the training noise alone); every metric
+    finite; every kernel of the path launched.  ``smoke`` rehearses it on
+    the CPU (``--smoke``: wavlm-tiny, eagerly)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import port_transfer_report
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_transfer_",
+                            dir=cuda_build.BUILD_DIR)
+    argv = ["--corpus", root, "--out", os.path.join(root, "out")]
+    if smoke:
+        argv.append("--smoke")
+    else:
+        argv += ["--train", str(clips[0]), "--dev", str(clips[1]),
+                 "--byol-epochs", "1", "--ser-epochs", "1",
+                 "--ft-epochs", "1", "--layers", str(layers),
+                 "--noise-files", *map(str, TRANSFER_NOISE)]
+    captured = device.type == "cuda"
+    try:
+        sync(device)
+        _reset_counts()
+        with _EvidenceSpy() as spy:
+            out = port_transfer_report.main(argv)
+        sync(device)
+        counts = _train_counts()
+        results, checks = out["results"], out["checks"]
+        noise_eval = os.path.join(root, "noise_eval", "noise")
+        noise_train = os.path.join(root, "noise_train", "noise")
+        bad = []
+        legs = [k for k in checks if k != "byol"]
+        if len(legs) != 6 or sorted(results) != sorted(legs):
+            bad.append(f"legs {sorted(results)}")
+        for leg in legs:
+            if checks[leg]["encoder_is_byol"] != ("_byol" in leg):
+                bad.append(f"{leg}'s starting encoder")
+            for part, metrics in results[leg].items():
+                if not all(np.isfinite(v) for v in metrics.values()):
+                    bad.append(f"{leg} {part} {metrics}")
+            if sorted(results[leg]) != ["clean", "snr4", "snr8"]:
+                bad.append(f"{leg}'s readouts {sorted(results[leg])}")
+        for st in spy.stages:
+            info = st.get("out")
+            if st["kind"] in ("run_byol", "train_ser"):
+                if info["captured"] != captured or (
+                        captured and st["replays"] != info["steps"]):
+                    bad.append(f"{st['kind']} ran {info['steps']} steps, "
+                               f"{st['replays']} replayed")
+            if st["kind"] == "robustness_readout" and (
+                    not st["programs"] or st["noise"] != {noise_eval}):
+                bad.append(f"a readout: {st['programs']} programs run, "
+                           f"{st['graphless']} without a graph, noise "
+                           f"read from {sorted(st['noise'])}")
+            if st["graphless"]:
+                bad.append(f"{st['kind']} ran {st['graphless']} programs "
+                           "without a graph")
+            if st["kind"] == "train_ser" and not st["noise"] <= {
+                    noise_train}:
+                bad.append(f"a SER leg read noise from "
+                           f"{sorted(st['noise'])}")
+        kinds = [st["kind"] for st in spy.stages]
+        if kinds.count("run_byol") != 1 or kinds.count("train_ser") != 6 \
+                or kinds.count("robustness_readout") != 6:
+            bad.append(f"stages {kinds}")
+        if captured and not all(n > 0 for n in counts.values()):
+            bad.append(f"a kernel of the path never ran: {counts}")
+        byol = checks["byol"]
+        log(f"[transfer] "
+            + ("wavlm-tiny, --smoke's corpus" if smoke else
+               f"WavLM-large {layers} layers (depth cut) x 1024, {clips[0]} "
+               f"Train + {clips[1]} Development clips of 5 s")
+            + f": BYOL "
+            f"{byol['steps']} steps (captured {byol['captured']}), epochs "
+            f"{byol['epochs']}; launches {counts}")
+        for leg in legs:
+            c = checks[leg]
+            log(f"[transfer] {leg}: the encoder started as BYOL's online "
+                f"encoder bit for bit: {c['encoder_is_byol']}; {c['steps']} "
+                f"steps (captured {c['captured']}), best {c['best']:.4f}; "
+                + "; ".join(f"{part} " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in m.items())
+                    for part, m in results[leg].items()))
+        log("[transfer] stages (replayed steps, programs run, without a "
+            "graph, noise read): " + "; ".join(
+                f"{st['kind']} {st['replays']}, {st['programs']}, "
+                f"{st['graphless']}, "
+                f"{sorted(os.path.relpath(n, root) for n in st['noise'])}"
+                for st in spy.stages))
+        log(f"[transfer] seconds by stage {out['seconds']}")
+        if bad:
+            raise RuntimeError(f"the transfer report: {bad}")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_quickstart(device=torch.device("cuda"),
+                     model: str = "microsoft/wavlm-large") -> dict:
+    """22: ``examples/quickstart_torch.py``'s ``main`` on the card at
+    ``model`` (the mock corpus, BYOL 2 epochs, the categorical trainer from
+    its encoder, the clean-vs-noisy report): finite losses and metrics,
+    the BYOL and SER steps from their captured graphs, every kernel of
+    the path launched."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import quickstart_torch
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_quickstart_",
+                            dir=cuda_build.BUILD_DIR)
+    try:
+        sync(device)
+        _reset_counts()
+        with _EvidenceSpy() as spy:
+            out = quickstart_torch.main(root, device.type, model)
+        sync(device)
+        counts = _train_counts()
+        byol, report, ran = out["byol"], out["report"], spy.outside
+        steps = sum(e["steps"] for e in byol + out["emotion_epochs"])
+        log(f"[quickstart] {model} on {device.type}: BYOL epochs "
+            + "; ".join(f"train {e['train_loss']:.4f} val {e['val_loss']:.4f}"
+                        f" ({e['steps']} steps)" for e in byol)
+            + f"; SER best macro-F1 {out['emotion']:.4f}; report "
+            f"{report}; {steps} train steps, {ran['replays']} replayed; "
+            f"{ran['programs']} programs run, {ran['graphless']} without a "
+            f"graph; launches {counts}")
+        bad = []
+        if device.type == "cuda" and (ran["replays"] != steps
+                                      or not ran["programs"]
+                                      or ran["graphless"]):
+            bad.append("a step or an evaluation ran eagerly")
+        if len(byol) != 2 or not all(
+                np.isfinite([e["train_loss"], e["val_loss"]]).all()
+                for e in byol):
+            bad.append(f"BYOL epochs {byol}")
+        for part in ("clean", "noisy"):
+            if not all(np.isfinite(v) for v in report[part].values()):
+                bad.append(f"the report's {part} metrics")
+        if device.type == "cuda" and not all(n > 0 for n in counts.values()):
+            bad.append(f"a kernel of the path never ran: {counts}")
+        if bad:
+            raise RuntimeError(f"the quickstart: {bad}")
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 DP_STEPS = 3
+# torch's threads a rank in the phases run at once (14 processes on the
+# card's host): their work is the card's and gloo's copies
+GROUP_THREADS = 1
+# 19(b)'s full configuration (every random feature on) runs this deep; its
+# deterministic configuration, whose drift the bounds hold, runs at full
+# depth
+DP_FULL_LAYERS = 4
 DP_LOSS_TOL = 1e-3       # |Δloss| / loss at the first step
 DP_GRAD_NORM_TOL = 1e-2  # |Δgrad_norm| / grad_norm at the first step
 DP_DRIFT_FACTOR = 4.0
@@ -6006,18 +6229,23 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
         out["dp"].update(_drift(metrics, st.params - p0, ref))
         del ref
     del st, p0, qsd
-    # the full configuration: every random feature on
+    # the full configuration: every random feature on, cut in depth (its
+    # checks, finite steps, replicas bit-equal after each, launches as the
+    # kept layers imply, hold layer by layer)
+    fcfg = dataclasses.replace(cfg, num_hidden_layers=min(
+        DP_FULL_LAYERS, cfg.num_hidden_layers))
     _reset_peak(device)
-    fsd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
+    fsd = init_byol_state_dict(fcfg, projection_dim, prediction_dim,
                                torch.Generator().manual_seed(SEED))
-    st = _byol_state(cfg, fsd, device, projection_dim, prediction_dim, mesh)
+    st = _byol_state(fcfg, fsd, device, projection_dim, prediction_dim,
+                     mesh)
     del fsd
     _reset_counts()
     metrics, dt, agree = _timed_steps(st, step, local, steps, device,
                                       check=replicas_agree)
     sync(device)
     out["counts"] = _train_counts()
-    out["want"] = byol_launch_want(cfg, metrics)
+    out["want"] = byol_launch_want(fcfg, metrics)
     out["full_loss"] = [float(m["loss"]) for m in metrics]
     out["full_finite"] = all(bool(m["finite"]) for m in metrics)
     out["full_layers"] = [(m["layers_online"], m["layers_target"])
@@ -6083,7 +6311,8 @@ def phase_dp_two_ranks(cfg=None, device=torch.device("cuda"),
     for r in ranks:
         log(f"[dp two ranks] rank {r['rank']}: peak device memory "
             f"{r['deterministic_peak_gib']:.2f} GiB (random features off), "
-            f"{r['peak_gib']:.2f} GiB (on); full configuration losses "
+            f"{r['peak_gib']:.2f} GiB (on, {DP_FULL_LAYERS} layers); full "
+            f"configuration ({DP_FULL_LAYERS} layers) losses "
             f"{r['full_loss']}, layers run {r['full_layers']}, replicas "
             f"agree after every step {r['agree_deterministic']} "
             f"{r['agree_full']}; {r['s_per_step']:.4f} s/step (two ranks "
@@ -6190,7 +6419,7 @@ def phase_dp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
             model_name), num_hidden_layers=layers)
         ranks = run_ranks(_dp_entry_worker, 2,
                           (spec, byol_config, encoder, emotion_config),
-                          threads=0, timeout=900)
+                          threads=GROUP_THREADS, timeout=900)
         for r in ranks:
             for e in r["byol"]:
                 log(f"[dp entry] rank {r['rank']} train_byol: WavLM "
@@ -6236,8 +6465,8 @@ def phase_dp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
 
 
 def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
-    """19: data parallelism on the one card, (a) to (c); returns 19(a)'s
-    launches."""
+    """19: data parallelism on the one card, (a) and (b) ((c) runs in
+    :func:`phase_gloo_group`); returns 19(a)'s launches."""
     from nrse_tpu_torch.parallel.dryrun import collectives_check
     from nrse_tpu_torch.parallel.launch import run_ranks
 
@@ -6253,7 +6482,6 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
     counts = timed(phase_dp_one_rank, cfg, device)
     timed(phase_dp_one_rank_ser, cfg, device)
     timed(phase_dp_two_ranks, cfg, device)
-    timed(phase_dp_entry, device)
     return counts
 
 
@@ -6273,6 +6501,7 @@ def phase_dp(cfg=None, device=torch.device("cuda")) -> dict:
 # control is printed beside it.
 TP_STEPS = 3
 TP_K5_BATCH, TP_K5_SECONDS = 8, 10.0  # 499 frames: K5 and K1 after it
+TP_K5_LAYERS = 4  # the branch is each layer's: a few layers hold it
 TP_COSINE_MIN = 0.999                 # bf16 model: 2 against model: 1
 TP_ENTRY_RANKS = 4                    # {data: 2, model: 2}
 
@@ -6553,11 +6782,14 @@ def phase_tp_k5(cfg=None, device=torch.device("cuda"),
     from nrse_tpu_torch.parallel.launch import run_ranks
 
     cfg = cfg or WavLMConfig.large()
+    cfg = dataclasses.replace(cfg, num_hidden_layers=min(
+        TP_K5_LAYERS, cfg.num_hidden_layers))
     spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
     ranks = run_ranks(_tp_k5_worker, 2, (cfg, spec, batch, clip_seconds),
-                      threads=0, timeout=600)
+                      threads=GROUP_THREADS, timeout=600)
     r0 = ranks[0]
-    log(f"[tp k5] encoder forward, training mode, {batch} x "
+    log(f"[tp k5] encoder forward ({cfg.num_hidden_layers} layers), "
+        f"training mode, {batch} x "
         f"{clip_seconds:g} s ({r0['frames']} frames), model: 2 against "
         f"model: 1: sequence cosine {r0['cosine']:.6f}, pooled cosine "
         f"{r0['pooled_cosine']:.6f} (bound {TP_COSINE_MIN}); layers run "
@@ -6627,8 +6859,8 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
         encoder = dataclasses.replace(WavLMConfig.from_model_name(
             model_name), num_hidden_layers=layers)
         ranks = run_ranks(_tp_entry_worker, TP_ENTRY_RANKS,
-                          (spec, byol_config, encoder), threads=0,
-                          timeout=900)
+                          (spec, byol_config, encoder),
+                          threads=GROUP_THREADS, timeout=900)
         for r in ranks:
             for e in r["byol"]:
                 log(f"[tp entry] rank {r['rank']} train_byol at {{data: 2, "
@@ -6733,7 +6965,7 @@ def phase_tp_emotion_entry(device=torch.device("cuda"),
         with open(config_path, "w") as f:
             yaml.safe_dump(config, f)
         ranks = run_ranks(_tp_emotion_worker, 2, (spec, config_path),
-                          threads=0, timeout=900)
+                          threads=GROUP_THREADS, timeout=900)
         for r in ranks:
             for task, records in r["emotion"].items():
                 for e in records:
@@ -6877,8 +7109,8 @@ def phase_tp_kernels(b: int = TRAIN_BATCH, t: int = 249, c: int = 1024,
 
 REPEAT_STEPS = 2
 # the repeat checks that a step gives the same bits from call to call,
-# which every layer decides alike: 4 layers keep the script in its time
-REPEAT_LAYERS = 4
+# which every layer decides alike: 2 layers keep the script in its time
+REPEAT_LAYERS = 2
 
 
 def _repeat_worker(rank: int, world: int, cfg, device: str, batch: int,
@@ -6958,10 +7190,10 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
                     prediction_dim: int = 2048,
                     layers: int = REPEAT_LAYERS) -> None:
     """19(b)'s two-rank step (gloo, the card shared, every random feature
-    on; WavLM cut to ``layers``) run twice, each time in fresh processes,
-    compared after each step down to the first tensor that differs; if
-    they differ, twice more with cuDNN held to its deterministic
-    algorithms."""
+    on; WavLM cut to ``layers``) run twice, each time in fresh processes
+    (the two groups at once), compared after each step down to the first
+    tensor that differs; if they differ, twice more with cuDNN held to its
+    deterministic algorithms."""
     from nrse_tpu_torch.parallel.launch import run_ranks
 
     cfg = cfg or WavLMConfig.large()
@@ -6970,10 +7202,13 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
     spec = f"{device.type}:0" if device.type == "cuda" else "cpu"
 
     def pair(deterministic):
-        runs = [run_ranks(_repeat_worker, 2, (
-            cfg, spec, batch, clip_seconds, steps, projection_dim,
-            prediction_dim, deterministic), threads=0, timeout=600)
-            for _ in range(2)]
+        # the two calls' groups run side by side, each in its processes
+        with ThreadPoolExecutor(2) as pool:
+            runs = list(pool.map(lambda _: run_ranks(_repeat_worker, 2, (
+                cfg, spec, batch, clip_seconds, steps, projection_dim,
+                prediction_dim, deterministic), threads=GROUP_THREADS,
+                timeout=600),
+                range(2)))
         found = []
         for r in range(2):
             for i, (a, b) in enumerate(zip(runs[0][r]["steps"],
@@ -6994,7 +7229,8 @@ def phase_dp_repeat(cfg=None, device=torch.device("cuda"),
 
 def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
     """20: tensor parallelism on the one card, the kernels at the shard
-    shapes, (a) to (d), and phase 19(b)'s step run twice."""
+    shapes and (a) ((b) to (d) and the repeat of 19(b)'s step run in
+    :func:`phase_gloo_group`)."""
     log("[tp] the ranks share the card over gloo, under which the BYOL "
         "and SER train steps run eagerly; the one-rank references here run "
         "eagerly too (graphs=False)")
@@ -7002,10 +7238,20 @@ def phase_tp(cfg=None, device=torch.device("cuda")) -> None:
         timed(phase_tp_kernels)
         torch.cuda.empty_cache()
     timed(phase_tp_step, cfg, device)
-    timed(phase_tp_k5, cfg, device)
-    timed(phase_tp_entry, device)
-    timed(phase_tp_emotion_entry, device)
-    timed(phase_dp_repeat, cfg, device)
+
+
+def phase_gloo_group(cfg=None, device=torch.device("cuda")) -> None:
+    """20(b), 19(c), 20(c), 20(d) and the repeat of 19(b)'s step, the
+    phases whose ranks share the card over gloo and whose checks read no
+    time (their s/step lines are no scaling figure), run at once, each in
+    its own processes and directories: none reads a time or a count of
+    another's, and each keeps its checks."""
+    phases = ((phase_tp_k5, cfg, device), (phase_dp_repeat, cfg, device),
+              (phase_dp_entry, device), (phase_tp_entry, device),
+              (phase_tp_emotion_entry, device))
+    with ThreadPoolExecutor(len(phases)) as pool:
+        for future in [pool.submit(timed, *phase) for phase in phases]:
+            future.result()
 
 
 def timed(phase, *args):
@@ -7054,8 +7300,11 @@ def main() -> int:
     timed(phase_emotion_entry)
     timed(phase_classifier)
     timed(phase_bridges)
+    timed(phase_transfer)
+    timed(phase_quickstart)
     phase_dp()
     phase_tp()
+    timed(phase_gloo_group)
     log(f"[time] the script: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]

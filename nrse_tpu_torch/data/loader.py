@@ -174,7 +174,17 @@ class DevicePrefetcher:
     thread keeping ``depth`` batches ahead.  On a CUDA device each batch is
     pinned and copied on a side stream, and the current stream waits on
     the copy's event when the batch is handed out; on the CPU the batches
-    are only converted.  ``__count__`` is handed out as an int."""
+    are only converted.  ``__count__`` is handed out as an int.
+
+    The side stream comes from torch's high-priority pool.  The streams a
+    CUDA graph is captured on (``torch.cuda.graph``'s capture stream, the
+    warm-up side streams of ``runtime.graphs`` and ``train.step_graphs``)
+    come from the normal-priority pool, which hands its 32 streams out in
+    turn: a side stream of that pool is, every so often, the very stream
+    the main thread is capturing on, and a copy or an event the thread
+    enqueues there during a capture (a program's first batch, a train
+    step's first step) joins the graph; waiting on that event then
+    fails."""
 
     def __init__(self, loader, device, depth: int = 2):
         self.loader = loader
@@ -198,7 +208,8 @@ class DevicePrefetcher:
         cuda = self.device.type == "cuda"
         if cuda and self.device.index is None:  # the caller's current card
             self.device = torch.device("cuda", torch.cuda.current_device())
-        stream = torch.cuda.Stream(self.device) if cuda else None
+        stream = torch.cuda.Stream(self.device, priority=-1) if cuda \
+            else None
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         done = object()
         err: list = []

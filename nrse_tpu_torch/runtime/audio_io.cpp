@@ -286,9 +286,9 @@ void nrse_load_batch(const char** paths, int32_t batch, int32_t target_sr,
 
 // Cold-cache readahead: advise the kernel that these files are about to
 // be read (POSIX_FADV_WILLNEED queues async page-cache readahead).  The
-// first epoch over a cold corpus is disk-latency-bound (round-3 measured
-// 328.5 vs 453.7 audio-sec/sec warm); advising a few batches ahead of the
-// decode pool overlaps that latency with compute.  Open+advise+close per
+// first epoch over a cold corpus is bound by the disk's latency; advising
+// a few batches ahead of the decode pool overlaps that latency with
+// compute.  Open+advise+close per
 // file is a handful of syscalls (~µs) — callers may still run it off the
 // hot thread.
 void nrse_readahead(const char** paths, int32_t n) {

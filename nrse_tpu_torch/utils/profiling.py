@@ -5,13 +5,17 @@ audio-seconds-per-second-per-chip counter (:class:`ThroughputMeter`), a
 smoothed step timer (:class:`StepTimer`), and :func:`profile_trace`, which
 writes a Chrome trace of what runs inside it through ``torch.profiler``
 (the JAX package's ``jax.profiler.trace``), with the card's activity
-where there is a card.
+where there is a card.  :data:`PROFILE_GROUPS` and :func:`group_of` sort
+the card's kernels by name into the groups the profiles report (the
+port's kernels, the libraries', copies), for ``chip_smoke.py`` and
+``tools/port_analyze_profile.py``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Optional
 
@@ -96,3 +100,38 @@ class StepTimer:
             )
         self._last = now
         return dt
+
+
+COPIES = "dtype/layout copies"
+# kernel name patterns → the groups the profiles report, first match wins
+# (the fold of reduction partials, ln_fold_kernel, is shared by K6's and
+# K7's backward and counts as K7's)
+PROFILE_GROUPS = (
+    ("K6 (fused conv frontend)", "k6_|K6RowSource"),
+    ("K7 (channel LayerNorm)", "ln_row_|ln_fold"),
+    # flash_attention_fwd_wgmma_kernel
+    ("K5 (flash attention)", "flash_attention_fwd"),
+    # flash_attention_bwd_{delta,dq_wgmma,dkv_wgmma}_kernel and the fold
+    ("K5 backward (delta, dq, dk/dv, dbias fold)",
+     "flash_attention_bwd|flash_dbias_fold"),
+    ("kernel A (block attention)", "block_attention_fwd"),
+    ("K3 (block attention backward)",
+     "attention_bwd_dkdv|attention_bwd_dq|dbias_sum|dout_prep"),
+    ("kernel B and K2 (fused FFN GEMMs)",
+     "nrse::gemm|nrse::wg|dh2_kernel|colsum|transpose_cast"),
+    ("K1 (dropout)", "dropout_kernel"),
+    ("K4 (AdamW)", "adamw_ema"),
+    ("cuDNN convs", "conv|cudnn|implicit|winograd|fft"),
+    ("cuBLAS (projections, heads)", "gemm|cutlass|xmma|nvjet|cublas"),
+    ("LayerNorm", "layer_norm|LayerNorm"),
+    (COPIES, "copy|Copy|cast"),
+    ("reductions", "reduce|Reduce|softmax|Softmax"),
+    ("elementwise", "elementwise|Elementwise|vectorized"),
+)
+
+
+def group_of(name: str) -> str:
+    """The :data:`PROFILE_GROUPS` group of a kernel name (first match), or
+    ``other``."""
+    return next((g for g, pat in PROFILE_GROUPS if re.search(pat, name)),
+                "other")

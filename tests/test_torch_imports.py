@@ -12,7 +12,9 @@ included) and ``chip_smoke``, resolves a BYOL preset through
 ``train_byol`` and an emotion preset through ``config.config_utils``, and
 finds ``WavLMEncoder`` in ``nrse_tpu_torch.models``.  The optional
 imports (matplotlib and scikit-learn for the t-SNE plot, demucs, wandb)
-sit inside the functions that need them."""
+sit inside the functions that need them.  The port's scripts outside the
+package (:data:`SCRIPTS`: the quickstart, the evidence reports, the
+profile summary) import in the same interpreter."""
 
 import json
 import subprocess
@@ -121,6 +123,17 @@ MODULES = [
     "nrse_tpu_torch.parallel.mesh",
     "nrse_tpu_torch.parallel.launch",
     "nrse_tpu_torch.parallel.dryrun",
+    "nrse_tpu_torch.utils.report_utils",
+]
+# the port's scripts outside the package: the quickstart, the evidence
+# reports and the profile summary (each runs its main only as a script)
+SCRIPTS = [
+    "examples/quickstart_torch.py",
+    "tools/port_transfer_report.py",
+    "tools/port_convergence_report.py",
+    "tools/port_ser_report.py",
+    "tools/port_ccc_report.py",
+    "tools/port_analyze_profile.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
@@ -183,6 +196,23 @@ def test_port_imports_no_jax():
     assert not sorted(m for m in loaded if _top(m) == "nrse_tpu")
     assert not sorted(m for m in loaded if _top(m) in FORBIDDEN)
     assert set(MODULES) | {"chip_smoke"} <= loaded
+
+
+def test_port_scripts_import_no_jax():
+    loaded = _imported_modules(
+        [],
+        "import importlib.util\n"
+        f"for path in {SCRIPTS!r}:\n"
+        "    name = path.rsplit('/', 1)[-1][:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    module = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(module)\n"
+        "    sys.modules[name] = module\n"
+        "    assert callable(module.main), path\n")
+    assert not sorted(m for m in loaded if _top(m) == "nrse_tpu")
+    assert not sorted(m for m in loaded if _top(m) in FORBIDDEN)
+    assert {p.rsplit("/", 1)[-1][:-3] for p in SCRIPTS} <= loaded
+    assert "nrse_tpu_torch.utils.report_utils" in loaded
 
 
 def test_blocker_refuses_the_jax_package():
