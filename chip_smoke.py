@@ -494,6 +494,25 @@ from nrse_tpu_torch.utils.profiling import (  # noqa: E402
 )
 
 SEED = 0
+# the seeded weights' biases in the kernel and capture checks: the port's
+# init draws every bias zero, as JAX's initialisers do, and these checks
+# need signal on the bias paths (kernel B's b1 and b2, the projections')
+BIAS_STD = 0.02
+
+
+def with_random_biases(sd, seed: int):
+    """A copy of ``sd`` whose biases (every key ending in ``bias``) are
+    drawn normal(0, 0.02), in the dict's order, from a generator seeded
+    with ``seed``: the copy of ``tests/torch_init.py::with_random_biases``."""
+    generator = torch.Generator().manual_seed(seed)
+    out = dict(sd)
+    for name, t in sd.items():
+        if name.endswith("bias"):
+            out[name] = BIAS_STD * torch.randn(
+                tuple(t.shape), generator=generator).to(t.dtype)
+    return out
+
+
 CLIP_SECONDS = 5.0
 SAMPLE_RATE = 16000
 BUCKETS = (1, 8, 32)
@@ -1999,7 +2018,8 @@ def phase_serving(cfg=None, device=torch.device("cuda"),
 
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
-    sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED))
+    sd = with_random_biases(init_state_dict(
+        cfg, torch.Generator().manual_seed(SEED)), SEED)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_artifact_",
                            dir=cuda_build.BUILD_DIR)
@@ -2242,8 +2262,9 @@ def phase_training(cfg=None, device=torch.device("cuda"),
     eager and the eager twin's counts are returned."""
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
-    sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
-                              torch.Generator().manual_seed(SEED))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED)), SEED)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     state, twin = (create_train_state(
         cfg, sd, projection_dim, prediction_dim, device, seed=SEED,
@@ -2525,8 +2546,8 @@ def phase_crosscheck(layers: int = 4, batch: int = 2) -> None:
     cfg = WavLMConfig.large(num_hidden_layers=layers, hidden_dropout=0.0,
                             activation_dropout=0.0, attention_dropout=0.0,
                             layerdrop=0.0, mask_time_prob=0.0)
-    sd = init_byol_state_dict(cfg, 1024, 2048,
-                              torch.Generator().manual_seed(SEED + 5))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, 1024, 2048, torch.Generator().manual_seed(SEED + 5)), SEED + 5)
     torch.set_num_threads(os.cpu_count() or 1)
     for on_batch_stats in (False, True):
         ((loss_c, gn_c), (loss_f, gn_f)), cos, cos_enc = _crosscheck_step(
@@ -2640,8 +2661,9 @@ def phase_entry(cfg=None, device=torch.device("cuda"), clips: int = 32,
         # the checkpoint restores into a state made from other weights
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         fresh = create_train_state(
-            cfg, init_byol_state_dict(cfg, projection_dim, prediction_dim,
-                                      torch.Generator().manual_seed(SEED + 7)),
+            cfg, with_random_biases(init_byol_state_dict(
+                cfg, projection_dim, prediction_dim,
+                torch.Generator().manual_seed(SEED + 7)), SEED + 7),
             projection_dim, prediction_dim, device, seed=SEED + 7,
             compute_dtype=dtype)
         fresh, meta = restore_checkpoint(ckpt, "last_model", fresh)
@@ -3461,8 +3483,9 @@ def phase_frontend_kernels() -> list:
     worst6 = max(worst6, _check_k6_serving(gen, 1, *long_t, dev))
 
     # layer 0 of the fine-tune on z-normed noise, seeded layer-0 weights
-    sd = init_state_dict(WavLMConfig.large(num_hidden_layers=1),
-                         torch.Generator().manual_seed(SEED + 15))
+    sd = with_random_biases(init_state_dict(
+        WavLMConfig.large(num_hidden_layers=1),
+        torch.Generator().manual_seed(SEED + 15)), SEED + 15)
     pre = "feature_extractor.conv_layers.0."
     bf = torch.bfloat16
     w0 = sd[pre + "conv.weight"].to(dev, bf)
@@ -3608,9 +3631,9 @@ def phase_ser(cfg=None, device=torch.device("cuda"),
             os.path.join(model_path, "train_norm_stat.pkl"))
         del waves
         model = BaselineSER(cfg, head_dim=head_dim, device="meta")
-        model.load_state_dict(init_baseline_state_dict(
-            cfg, torch.Generator().manual_seed(SEED + 10), head_dim=head_dim),
-            strict=True, assign=True)
+        model.load_state_dict(with_random_biases(init_baseline_state_dict(
+            cfg, torch.Generator().manual_seed(SEED + 10),
+            head_dim=head_dim), SEED + 10), strict=True, assign=True)
         save_model(model_path, "final_model", model)
         size = os.path.getsize(os.path.join(model_path, "final_model",
                                             "state.pt"))
@@ -4006,7 +4029,8 @@ def phase_long_clip(cfg=None, device=torch.device("cuda"),
     same device; on the card from the bucket's captured graph, held to
     its eager forward."""
     cfg = cfg or WavLMConfig.large()
-    sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED + 9))
+    sd = with_random_biases(init_state_dict(
+        cfg, torch.Generator().manual_seed(SEED + 9)), SEED + 9)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_long_", dir=cuda_build.BUILD_DIR)
     per_forward = serving_want(cfg, flash=True)
@@ -4084,8 +4108,8 @@ def _ft_state(cfg, device, seed: int, head_dim: int = 1024,
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = BaselineSER(cfg, head_dim=head_dim, dropout=dropout,
                         device="meta", compute_dtype=dtype)
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(seed), head_dim=head_dim),
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(seed), head_dim=head_dim), seed),
         strict=True, assign=True)
     return train_ft_cat_ser.create_train_state(model.to(device))
 
@@ -4663,9 +4687,9 @@ def _emotion_model(cfg, device, hidden_dim: int, dropout: float):
         cfg, hidden_dim, dropout=dropout, device="meta",
         compute_dtype=torch.bfloat16 if device.type == "cuda"
         else torch.float32)
-    model.load_state_dict(init_emotion_state_dict(
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
         cfg, torch.Generator().manual_seed(SEED + 15), hidden_dim),
-        strict=True, assign=True)
+        SEED + 15), strict=True, assign=True)
     return model.to(device)
 
 
@@ -5240,8 +5264,8 @@ def phase_classifier(cfg=None, device=torch.device("cuda"),
     CPU."""
     cfg = cfg or WavLMConfig.large()
     t0 = time.perf_counter()
-    sd = init_emotion_state_dict(cfg, torch.Generator().manual_seed(
-        SEED + 17), hidden_dim)
+    sd = with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(SEED + 17), hidden_dim), SEED + 17)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     art = tempfile.mkdtemp(prefix="smoke_classifier_",
                            dir=cuda_build.BUILD_DIR)
@@ -5447,8 +5471,9 @@ def phase_bridges(cfg=None, device=torch.device("cuda"),
 
     cfg = cfg or WavLMConfig.from_model_name(model_name)
     t0 = time.perf_counter()
-    online = init_byol_state_dict(cfg, projection_dim, prediction_dim,
-                                  torch.Generator().manual_seed(SEED + 18))
+    online = with_random_biases(init_byol_state_dict(
+        cfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED + 18)), SEED + 18)
     target = {k: v for k, v in online.items()
               if not k.startswith("predictor.")}
     reference = byol_state_dicts_to_reference(online, target)
@@ -5485,8 +5510,9 @@ def phase_bridges(cfg=None, device=torch.device("cuda"),
     shallow = dataclasses.replace(cfg, num_hidden_layers=layers)
     root = tempfile.mkdtemp(prefix="smoke_bridges_", dir=cuda_build.BUILD_DIR)
     try:
-        tower = init_byol_state_dict(shallow, projection_dim, prediction_dim,
-                                     torch.Generator().manual_seed(SEED + 19))
+        tower = with_random_biases(init_byol_state_dict(
+            shallow, projection_dim, prediction_dim,
+            torch.Generator().manual_seed(SEED + 19)), SEED + 19)
         pt = os.path.join(root, "byol_reference.pt")
         save_reference_byol_checkpoint(
             pt, tower, {k: v for k, v in tower.items()
@@ -5611,9 +5637,10 @@ class _EvidenceSpy:
     ``robustness_readout``), the captured steps replayed
     (``StepGraphs.run``), the programs run (``BucketProgram.run``) and
     those run without a graph on a card, and the noise files the emotion
-    loaders read."""
+    loaders read; and the BYOL entry's seeded starts (``starts``)."""
 
     def __init__(self):
+        from nrse_tpu_torch import train_byol
         from nrse_tpu_torch.data.emotion_dataset import EmotionDataset
         from nrse_tpu_torch.runtime.graphs import BucketProgram
         from nrse_tpu_torch.train.step_graphs import StepGraphs
@@ -5656,9 +5683,19 @@ class _EvidenceSpy:
                 return out
             return run
 
+        # the BYOL entry's seeded start
+        self.starts = []
+        real_init = train_byol.init_byol_state_dict
+
+        def init(*args, **kwargs):
+            sd = real_init(*args, **kwargs)
+            spy.starts.append({k: v.clone() for k, v in sd.items()})
+            return sd
+
         self.saved = [(StepGraphs, "run", real_step, step_run),
                       (BucketProgram, "run", real_program, program_run),
-                      (EmotionDataset, "_load_with_length", real_load, load)]
+                      (EmotionDataset, "_load_with_length", real_load, load),
+                      (train_byol, "init_byol_state_dict", real_init, init)]
         self.saved += [(report_utils, name, getattr(report_utils, name),
                         stage(name, getattr(report_utils, name)))
                        for name in ("run_byol", "train_ser",
@@ -5672,6 +5709,66 @@ class _EvidenceSpy:
     def __exit__(self, *exc):
         for obj, attr, fn, _ in self.saved:
             setattr(obj, attr, fn)
+
+
+# flax's truncated normal: N(0, 1) cut at ±2, scaled by 1 / its std
+TRUNCATED_STD = 0.87962566103423978
+# a validation reading against the float64 mean of its per-sample values
+READOUT_TOL = 1e-9
+
+
+def _seeded_start_faults(spy) -> list:
+    """What departs from JAX's initialisers in the BYOL entry's seeded
+    starts: a bias that is not exactly zero, or a LeCun weight (a Dense
+    or conv weight; not the positional conv's ``weight_v`` nor the bucket
+    table) outside the truncation, |w| > 2·√(1/fan_in)/0.8796."""
+    bad = []
+    if not spy.starts:
+        bad.append("the BYOL entry drew no seeded start")
+    for sd in spy.starts:
+        for name, t in sd.items():
+            if name.endswith("bias") and bool(t.any()):
+                bad.append(f"{name} not zero")
+            elif (t.dim() >= 2 and name.endswith(".weight")
+                  and "rel_attn_embed" not in name):
+                fan_in = int(np.prod(t.shape[1:]))
+                bound = 2.0 * fan_in ** -0.5 / TRUNCATED_STD
+                if float(t.abs().max()) > bound * (1 + 1e-6):
+                    bad.append(f"{name} max|w| {float(t.abs().max()):.6g} "
+                               f"> {bound:.6g}")
+    return bad
+
+
+def _readout_faults(epochs) -> list:
+    """Each BYOL epoch record's validation loss and per-SNR similarity
+    against the float64 mean of the per-sample values it holds
+    (``val_samples``)."""
+    bad = []
+    if not epochs:
+        bad.append("no BYOL validation ran")
+    for e in epochs:
+        samples = e["val_samples"]
+        losses, sims, snrs = (samples[k] for k in ("loss", "similarity",
+                                                   "snr"))
+        want = np.asarray(losses, np.float64)
+        if abs(e["val_loss"] - want.sum() / len(want)) > READOUT_TOL:
+            bad.append(f"val loss {e['val_loss']!r} against "
+                       f"{want.mean()!r}")
+        for snr, sim in e["val_similarities"].items():
+            rows = np.asarray(sims, np.float64)[snrs == float(snr)]
+            if abs(sim - rows.sum() / len(rows)) > READOUT_TOL:
+                bad.append(f"similarity at {snr} dB {sim!r} against "
+                           f"{rows.sum() / len(rows)!r}")
+    return bad
+
+
+def _log_start_and_readouts(tag: str, spy, epochs) -> None:
+    biases = sum(k.endswith("bias") for sd in spy.starts for k in sd)
+    log(f"[{tag}] the BYOL entry's seeded start{'s' * (len(spy.starts) > 1)}"
+        f": {biases} biases, every one zero; LeCun weights inside "
+        f"2·√(1/fan_in)/{TRUNCATED_STD:.4f}; {len(epochs)} "
+        f"validations, each reading the float64 mean of its per-sample "
+        f"values within {READOUT_TOL:g}")
 
 
 def phase_transfer(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
@@ -5749,6 +5846,9 @@ def phase_transfer(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
             bad.append(f"stages {kinds}")
         if captured and not all(n > 0 for n in counts.values()):
             bad.append(f"a kernel of the path never ran: {counts}")
+        validated = [e for st in spy.stages if st["kind"] == "run_byol"
+                     for e in st["out"]["epochs"]]
+        bad += _seeded_start_faults(spy) + _readout_faults(validated)
         byol = checks["byol"]
         log(f"[transfer] "
             + ("wavlm-tiny, --smoke's corpus" if smoke else
@@ -5772,6 +5872,7 @@ def phase_transfer(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
                 f"{sorted(os.path.relpath(n, root) for n in st['noise'])}"
                 for st in spy.stages))
         log(f"[transfer] seconds by stage {out['seconds']}")
+        _log_start_and_readouts("transfer", spy, validated)
         if bad:
             raise RuntimeError(f"the transfer report: {bad}")
         return counts
@@ -5822,6 +5923,8 @@ def phase_quickstart(device=torch.device("cuda"),
                 bad.append(f"the report's {part} metrics")
         if device.type == "cuda" and not all(n > 0 for n in counts.values()):
             bad.append(f"a kernel of the path never ran: {counts}")
+        bad += _seeded_start_faults(spy) + _readout_faults(byol)
+        _log_start_and_readouts("quickstart", spy, byol)
         if bad:
             raise RuntimeError(f"the quickstart: {bad}")
         return counts
@@ -6088,8 +6191,9 @@ def phase_dp_one_rank(cfg=None, device=torch.device("cuda"),
     from nrse_tpu_torch.train.byol_trainer import replicas_agree
 
     cfg = cfg or WavLMConfig.large()
-    sd = init_byol_state_dict(cfg, projection_dim, prediction_dim,
-                              torch.Generator().manual_seed(SEED))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED)), SEED)
     data = _train_batch(batch, clip_seconds, device)
     step_c = make_byol_train_step(_adamw_spec())
     step_e = make_byol_train_step(_adamw_spec(), graphs=False)
@@ -6183,8 +6287,9 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
     device = _rank_device(device)
     out = {"rank": rank}
     qcfg = _quiet(cfg)
-    qsd = init_byol_state_dict(qcfg, projection_dim, prediction_dim,
-                               torch.Generator().manual_seed(SEED))
+    qsd = with_random_biases(init_byol_state_dict(
+        qcfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED)), SEED)
     data = _train_batch(batch, clip_seconds, device)
     step = make_byol_train_step(_adamw_spec(), graphs=False)
 
@@ -6235,8 +6340,9 @@ def _two_rank_worker(rank: int, world: int, cfg, device: str, batch: int,
     fcfg = dataclasses.replace(cfg, num_hidden_layers=min(
         DP_FULL_LAYERS, cfg.num_hidden_layers))
     _reset_peak(device)
-    fsd = init_byol_state_dict(fcfg, projection_dim, prediction_dim,
-                               torch.Generator().manual_seed(SEED))
+    fsd = with_random_biases(init_byol_state_dict(
+        fcfg, projection_dim, prediction_dim,
+        torch.Generator().manual_seed(SEED)), SEED)
     st = _byol_state(fcfg, fsd, device, projection_dim, prediction_dim,
                      mesh)
     del fsd
@@ -6573,8 +6679,9 @@ def _tp_worker(rank: int, world: int, cfg, device: str, batch: int,
     data = _train_batch(batch, clip_seconds, device)
     step = make_byol_train_step(_adamw_spec(), graphs=False)
     configs = {"off": _quiet(cfg), "on": cfg}
-    sds = {k: init_byol_state_dict(c, projection_dim, prediction_dim,
-                                   torch.Generator().manual_seed(SEED))
+    sds = {k: with_random_biases(init_byol_state_dict(
+               c, projection_dim, prediction_dim,
+               torch.Generator().manual_seed(SEED)), SEED)
            for k, c in configs.items()}
     mesh = make_mesh(model=world, device=device,
                      heads=cfg.num_attention_heads)
@@ -6737,7 +6844,8 @@ def _tp_k5_worker(rank: int, world: int, cfg, device: str, batch: int,
     from nrse_tpu_torch.parallel.mesh import make_mesh, shard_state_dict
 
     device = _rank_device(device)
-    sd = init_state_dict(cfg, torch.Generator().manual_seed(SEED))
+    sd = with_random_biases(init_state_dict(
+        cfg, torch.Generator().manual_seed(SEED)), SEED)
     wave = _train_batch(batch, clip_seconds, device)["clean"]
     rng = TrainRNG(SEED, 1).with_table(cfg.num_hidden_layers, device)
     out = {"rank": rank}
@@ -6879,8 +6987,9 @@ def phase_tp_entry(device=torch.device("cuda"), layers: int = ENTRY_LAYERS,
             n > 0 for r in ranks for n in r["counts"].values()
             if n is not None)
         # the checkpoint in a state at model: 1
-        sd = init_byol_state_dict(encoder, projection_dim, prediction_dim,
-                                  torch.Generator().manual_seed(SEED + 1))
+        sd = with_random_biases(init_byol_state_dict(
+            encoder, projection_dim, prediction_dim,
+            torch.Generator().manual_seed(SEED + 1)), SEED + 1)
         state = _byol_state(encoder, sd, device, projection_dim,
                             prediction_dim)
         restore_checkpoint(ckpt, "last_model", state)
@@ -7126,9 +7235,9 @@ def _repeat_worker(rank: int, world: int, cfg, device: str, batch: int,
     device = _rank_device(device)
     torch.backends.cudnn.deterministic = deterministic
     mesh = make_mesh(device=device)
-    st = _byol_state(cfg, init_byol_state_dict(
+    st = _byol_state(cfg, with_random_biases(init_byol_state_dict(
         cfg, projection_dim, prediction_dim,
-        torch.Generator().manual_seed(SEED)), device, projection_dim,
+        torch.Generator().manual_seed(SEED)), SEED), device, projection_dim,
         prediction_dim, mesh)
     local = shard_batch(mesh, _train_batch(batch, clip_seconds, device))
     step = make_byol_train_step(_adamw_spec(), graphs=False)

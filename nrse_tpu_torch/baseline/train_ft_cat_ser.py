@@ -27,8 +27,10 @@ the reference's ``baseline/train_ft_cat_ser_weighted_checkpoint.py``):
   * optax's ``MultiSteps(adamw(lr), every_k_schedule=k)``: the micro-steps'
     gradients averaged as optax does (``acc += (g − acc) / (n + 1)``) and
     one AdamW update on every k-th, with adamw's defaults (weight decay
-    1e-4, eps outside √v̂, no clipping), through K4 (``ops.fused_optimizer``)
-    over one flat float32 buffer of every parameter, ssl first;
+    1e-4, eps outside √v̂, no clipping) and its rounding of the moments'
+    rates (``FusedAdamWSpec.optax_rates``), through K4
+    (``ops.fused_optimizer``) over one flat float32 buffer of every
+    parameter, ssl first;
   * ``--freeze_ssl true`` keeps the JAX trainer's semantics: the ssl
     gradients are zero (the encoder runs under ``torch.no_grad()``, in
     training mode), and AdamW's decoupled decay still scales the ssl
@@ -225,8 +227,10 @@ def create_train_state(model: BaselineSER) -> SERTrainState:
 
 def adamw_spec(lr: float) -> FusedAdamWSpec:
     """optax ``adamw(lr)``'s defaults as K4's spec: b1 0.9, b2 0.999, eps
-    1e-8 outside √v̂, weight decay 1e-4, no clipping."""
-    return FusedAdamWSpec(schedule=lr, weight_decay=1e-4, clip_norm=math.inf)
+    1e-8 outside √v̂, weight decay 1e-4, no clipping, the moments' rates
+    rounded as optax rounds them."""
+    return FusedAdamWSpec(schedule=lr, weight_decay=1e-4, clip_norm=math.inf,
+                          optax_rates=True)
 
 
 def forward_train(model: BaselineSER, batch: Dict, rng: TrainRNG,
@@ -423,7 +427,8 @@ def dev_loss(model: BaselineSER, loader, device,
                                              class_weights))
     finally:
         model.train()
-    return float(torch.stack(losses).mean()) if losses else 0.0
+    # the batches' losses averaged in float64, as JAX's LogManager does
+    return float(torch.stack(losses).double().mean()) if losses else 0.0
 
 
 def train(config_path: str = "config_cat_noisy.json",
@@ -514,7 +519,8 @@ def train(config_path: str = "config_cat_noisy.json",
             batch.pop("__count__")
             losses.append(train_step(state, batch, TrainRNG(seed, step)))
             step += 1
-        train_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        train_loss = float(torch.stack(losses).double().mean()) \
+            if losses else 0.0
         dt = time.perf_counter() - t0
         dev = dev_loss(state.model, dev_loader, device, w, dev_forward)
         s_per_step = dt / max(len(losses), 1)

@@ -10,7 +10,11 @@ pooled clean and noisy embeddings, per SNR of ``data.snr_range``),
 PNG; scikit-learn and matplotlib are imported inside it, and the card's
 machine has neither).  The per-sample outputs stay on the device until the
 pass ends; the means are weighted by the real rows of each batch (the
-validation loader pads its last batch).  In a group of ranks each rank
+validation loader pads its last batch) and taken in float64 over the
+float32 per-sample values.  (JAX's ``validate_model`` takes numpy's mean
+of the similarities in the compute dtype, bf16 on the TPU, whose
+accumulator rounds: its per-SNR readings there sit above the mean.)  In
+a group of ranks each rank
 validates its shard and ``validate_model`` pools the sums and counts
 (``train_byol.py:190-215`` of the JAX package), so every rank gets the
 weighted means of the whole validation set.
@@ -63,7 +67,8 @@ def evaluate_embedding_similarity(state: BYOLTrainState, dataloader, config
     out = {}
     for snr in config["data"]["snr_range"]:
         mask = snrs == float(snr)
-        out[snr] = float(sims[mask].mean()) if mask.any() else 0.0
+        out[snr] = float(sims[mask].mean(dtype=np.float64)) if mask.any() \
+            else 0.0
     return out
 
 
@@ -73,7 +78,9 @@ def validate_model(state: BYOLTrainState, val_loader, config
     ``val_avg_similarity`` (the mean over the SNRs that have rows) and
     ``val_similarities`` (per SNR; SNRs without rows are left out); in a
     group of ranks, of every rank's rows (pooled sums and counts over the
-    data axis, a bin empty here may hold rows elsewhere)."""
+    data axis, a bin empty here may hold rows elsewhere).  ``val_samples``
+    holds what they were taken from: this rank's real rows' ``loss``,
+    ``similarity`` and ``snr``, float32 numpy arrays in loader order."""
     losses, sims, snrs, _ = _run_eval_pass(state, val_loader)
     snr_range = config["data"]["snr_range"]
     if process_count() > 1:
@@ -90,17 +97,20 @@ def validate_model(state: BYOLTrainState, val_loader, config
                         / totals[f"snr_{snr}_cnt"] for snr in snr_range
                         if totals[f"snr_{snr}_cnt"]}
     else:
-        avg_loss = float(losses.mean()) if len(losses) else float("inf")
+        avg_loss = float(losses.mean(dtype=np.float64)) if len(losses) \
+            else float("inf")
         similarities = {}
         for snr in snr_range:
             mask = snrs == float(snr)
             if mask.any():
-                similarities[snr] = float(sims[mask].mean())
+                similarities[snr] = float(sims[mask].mean(dtype=np.float64))
     avg_similarity = (sum(similarities.values()) / len(similarities)
                       if similarities else 0.0)
     return avg_loss, {"val_loss": avg_loss,
                       "val_avg_similarity": avg_similarity,
-                      "val_similarities": similarities}
+                      "val_similarities": similarities,
+                      "val_samples": {"loss": losses, "similarity": sims,
+                                      "snr": snrs}}
 
 
 def visualize_embeddings(state: BYOLTrainState, dataloader, log_dir: str,

@@ -138,17 +138,35 @@ def jax_params_to_state_dict(params_np: Mapping[str, Any],
     return sd
 
 
+# flax's ``lecun_normal``: ``variance_scaling(1.0, "fan_in",
+# "truncated_normal")`` draws a normal truncated at ±2 and divides the
+# scale by the truncated normal's std, so that the weights' std is
+# √(1 / fan_in)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal(shape, fan_in: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """LeCun truncated-normal weights, as ``jax.nn.initializers.
+    lecun_normal`` draws them: ``N(0, 1)`` truncated at ±2, times
+    ``√(1 / fan_in) / 0.8796``."""
+    t = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+    return t * (fan_in ** -0.5 / TRUNCATED_NORMAL_STD)
+
+
 def init_state_dict(config: WavLMConfig,
                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights on the CPU, at the config's full
     width, in the port's state-dict layout.
 
-    Distributions after the JAX module's initialisers: LeCun-normal
-    weights (std 1/√fan_in), normal(0, 0.02) biases (zeros in JAX; random
-    here so that every bias path carries signal), unit norm scales,
-    ``weight_g`` of ones and ``weight_v`` normal with std √(4 / (k·C)),
-    a normal(0, 0.02) bucket table, unit ``gru_rel_pos_const`` and a
-    uniform [0, 1) ``masked_spec_embed``.
+    Distributions of the JAX module's initialisers
+    (``nrse_tpu/models/wavlm.py``): Dense and conv weights LeCun truncated
+    normal (:func:`lecun_normal`; ``fan_in`` the input width, ``C_in·k``
+    for a conv), every bias zero, unit norm scales, ``weight_g`` of ones
+    and ``weight_v`` normal with std √(4 / (k·C)), a normal(0, 0.02)
+    bucket table, unit ``gru_rel_pos_const`` and a uniform [0, 1)
+    ``masked_spec_embed``.
     """
     shapes = {k: v.shape for k, v in
               WavLMModel(config, device="meta").state_dict().items()}
@@ -161,13 +179,14 @@ def init_state_dict(config: WavLMConfig,
             t = torch.ones(shape)
         elif name.endswith("parametrizations.weight.original1"):
             t = torch.randn(shape, generator=generator) * (4.0 / (k * c)) ** .5
-        elif name.endswith("rel_attn_embed.weight") or name.endswith(".bias"):
+        elif name.endswith("rel_attn_embed.weight"):
             t = 0.02 * torch.randn(shape, generator=generator)
+        elif name.endswith(".bias"):
+            t = torch.zeros(shape)
         elif name == "masked_spec_embed":
             t = torch.rand(shape, generator=generator)
         elif name.endswith(".weight") and len(shape) >= 2:
-            fan_in = int(np.prod(shape[1:]))
-            t = torch.randn(shape, generator=generator) * fan_in ** -0.5
+            t = lecun_normal(shape, int(np.prod(shape[1:])), generator)
         else:
             raise KeyError(f"no initialiser for {name} {tuple(shape)}")
         sd[name] = t
@@ -211,9 +230,10 @@ def init_byol_state_dict(config: WavLMConfig, projection_dim: int,
                          ) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights of the online tower on the CPU at the
     config's full width: the encoder as :func:`init_state_dict`, the heads'
-    Dense weights LeCun-normal with normal(0, 0.02) biases, BatchNorm
-    scales 1 and biases 0, running mean 0 and variance 1.  The target is
-    made from it by ``models.byol.make_target``."""
+    Dense weights LeCun truncated normal with zero biases, BatchNorm
+    scales 1 and biases 0, running mean 0 and variance 1
+    (``nrse_tpu/models/heads.py``).  The target is made from it by
+    ``models.byol.make_target``."""
     sd = {f"encoder.{k}": v
           for k, v in init_state_dict(config, generator).items()}
     shapes = OnlineNetwork(config, projection_dim, prediction_dim,
@@ -222,13 +242,10 @@ def init_byol_state_dict(config: WavLMConfig, projection_dim: int,
         if name.startswith("encoder."):
             continue
         if ".dense_" in name and name.endswith(".weight"):
-            sd[name] = torch.randn(t.shape, generator=generator) \
-                * t.shape[1] ** -0.5
-        elif ".dense_" in name:
-            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+            sd[name] = lecun_normal(t.shape, t.shape[1], generator)
         elif name.endswith((".weight", ".running_var")):
             sd[name] = torch.ones(t.shape)
-        else:  # BatchNorm bias, running_mean
+        else:  # the biases, BatchNorm's running_mean
             sd[name] = torch.zeros(t.shape)
     return sd
 
@@ -258,10 +275,11 @@ def init_baseline_state_dict(config: WavLMConfig,
                              head_layers: int = 1
                              ) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights of :class:`BaselineSER` on the CPU:
-    the encoder as :func:`init_state_dict`; after the JAX initialisers,
-    the pooling's projection LeCun-normal and its attention vector
-    normal(0, 1), the head's Dense weights LeCun-normal and LayerNorm
-    scales 1; every bias normal(0, 0.02)."""
+    the encoder as :func:`init_state_dict`; as the JAX initialisers draw
+    them (``nrse_tpu/models/emotion.py:42-53``, ``nrse_tpu/baseline/
+    net.py``), the pooling's projection LeCun truncated normal and its
+    attention vector normal(0, 1), the head's Dense weights LeCun
+    truncated normal and LayerNorm scales 1; every bias zero."""
     sd = {f"ssl.{k}": v for k, v in init_state_dict(config, generator).items()}
     shapes = BaselineSER(config, head_dim, num_classes, head_layers,
                          device="meta").state_dict()
@@ -271,15 +289,13 @@ def init_baseline_state_dict(config: WavLMConfig,
         if name == "pool.attention":
             sd[name] = torch.randn(t.shape, generator=generator)
         elif name == "pool.sap_linear_kernel":  # [in, out]
-            sd[name] = torch.randn(t.shape, generator=generator) \
-                * t.shape[0] ** -0.5
+            sd[name] = lecun_normal(t.shape, t.shape[0], generator)
         elif "bias" in name:
-            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+            sd[name] = torch.zeros(t.shape)
         elif ".norm_" in name:
             sd[name] = torch.ones(t.shape)
         else:  # Linear [out, in]
-            sd[name] = torch.randn(t.shape, generator=generator) \
-                * t.shape[1] ** -0.5
+            sd[name] = lecun_normal(t.shape, t.shape[1], generator)
     return sd
 
 
@@ -306,10 +322,11 @@ def init_emotion_state_dict(config: WavLMConfig, generator: torch.Generator,
                             hidden_dim: int = 1024, num_emotions: int = 8
                             ) -> Dict[str, torch.Tensor]:
     """Seeded random float32 weights of :class:`EmotionClassifier` on the
-    CPU: the encoder as :func:`init_state_dict`; after the JAX
-    initialisers, the pooling's projection LeCun-normal and its attention
-    vector normal(0, 1), the Dense weights LeCun-normal and the LayerNorm
-    scales 1; every bias normal(0, 0.02)."""
+    CPU: the encoder as :func:`init_state_dict`; as the JAX initialisers
+    draw them (``nrse_tpu/models/emotion.py:42-107``), the pooling's
+    projection LeCun truncated normal and its attention vector normal(0,
+    1), the Dense weights LeCun truncated normal and the LayerNorm scales
+    1; every bias zero."""
     sd = {f"encoder.{k}": v
           for k, v in init_state_dict(config, generator).items()}
     shapes = EmotionClassifier(config, hidden_dim, num_emotions=num_emotions,
@@ -320,15 +337,13 @@ def init_emotion_state_dict(config: WavLMConfig, generator: torch.Generator,
         if name == "pooling.attention":
             sd[name] = torch.randn(t.shape, generator=generator)
         elif name == "pooling.sap_linear_kernel":  # [in, out]
-            sd[name] = torch.randn(t.shape, generator=generator) \
-                * t.shape[0] ** -0.5
+            sd[name] = lecun_normal(t.shape, t.shape[0], generator)
         elif "bias" in name:
-            sd[name] = 0.02 * torch.randn(t.shape, generator=generator)
+            sd[name] = torch.zeros(t.shape)
         elif "_norm." in name:
             sd[name] = torch.ones(t.shape)
         else:  # Linear [out, in]
-            sd[name] = torch.randn(t.shape, generator=generator) \
-                * t.shape[1] ** -0.5
+            sd[name] = lecun_normal(t.shape, t.shape[1], generator)
     return sd
 
 

@@ -38,7 +38,12 @@ LAUNCHES = 0
 @dataclasses.dataclass(frozen=True)
 class FusedAdamWSpec:
     """Hyper-parameters of the fused optimizer + EMA step.  ``schedule``
-    is the LR as a function of the Adam step count, or a constant."""
+    is the LR as a function of the Adam step count, or a constant.
+    ``optax_rates``: the moments' rates as ``optax.adamw`` with Python
+    float betas rounds them, ``float32(1 − b)`` (K4 computes ``1 − b``
+    from ``float32(b)``: 1.3e-5 smaller for b2 0.999), for a trainer whose
+    JAX counterpart runs plain ``optax.adamw``; ``inject_hyperparams``
+    and JAX's K4 hold the betas in float32 and round as K4 does."""
 
     schedule: Any
     weight_decay: float = 1e-5
@@ -47,6 +52,7 @@ class FusedAdamWSpec:
     b2: float = 0.999
     eps: float = 1e-8
     ema_decay: float = 0.997
+    optax_rates: bool = False
 
 
 def host_scalars(spec: FusedAdamWSpec, count: int) -> np.ndarray:
@@ -54,13 +60,22 @@ def host_scalars(spec: FusedAdamWSpec, count: int) -> np.ndarray:
     1/bc2, wd, eps, ema]``, as ``fused_optimizer.py:274-298`` builds it:
     the LR at the Adam count *before* this update (step 0 on the first),
     the bias corrections at the count after it.  A trainer that stages it
-    (``runtime/staging.py``) writes it to the device before its step."""
+    (``runtime/staging.py``) writes it to the device before its step.
+    With ``spec.optax_rates`` each moment's rate ratio ``float32(1 − b) /
+    (1 − float32(b))`` is folded into its bias correction: a moment is
+    linear in its rate, so the kernel's moments times it are optax's."""
     f32 = np.float32
     lr = spec.schedule(count) if callable(spec.schedule) else spec.schedule
     cf = f32(count + 1)
-    ibc1 = f32(1.0) / (f32(1.0) - f32(spec.b1) ** cf)
-    ibc2 = f32(1.0) / (f32(1.0) - f32(spec.b2) ** cf)
-    return np.array([lr, spec.b1, spec.b2, ibc1, ibc2, spec.weight_decay,
+    ibc = []
+    for b in (spec.b1, spec.b2):
+        bc = f32(1.0) - f32(b) ** cf
+        if spec.optax_rates:
+            ibc.append(float(f32(1 - b)) / float(f32(1.0) - f32(b))
+                       / float(bc))
+        else:
+            ibc.append(f32(1.0) / bc)
+    return np.array([lr, spec.b1, spec.b2, *ibc, spec.weight_decay,
                      spec.eps, spec.ema_decay], np.float32)
 
 

@@ -197,7 +197,9 @@ def _validate(model, val_loader, eval_step, class_weights, device,
         valid = (labels >= 0) & (labels < NUM_EMOTIONS)
         cm += confusion_matrix(labels[valid], preds[valid], classes)
     cm = pooled(torch.from_numpy(cm), mesh).cpu().numpy()
-    loss = float(pooled(torch.stack(losses), mesh).mean())
+    # the mean of the batches' losses in float64, as JAX's numpy mean of
+    # Python floats takes it
+    loss = float(pooled(torch.stack(losses), mesh).double().mean())
     f1 = macro_f1_from_confusion(cm)
     report = report_from_confusion(cm, [EMOTION_NAMES[i] for i in classes])
     return loss, float(f1), cm, report

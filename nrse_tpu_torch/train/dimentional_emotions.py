@@ -78,7 +78,9 @@ def _validate(model, val_loader, eval_step, device, mesh=None):
     moments = pooled(torch.from_numpy(ccc_moments(preds, tgts)), mesh)
     values = ccc_from_moments(moments.cpu().numpy())
     ccc = {name: float(values[i]) for i, name in enumerate(DIMS)}
-    return float(pooled(torch.stack(losses), mesh).mean()), ccc, preds, tgts
+    # the batches' losses averaged in float64, as JAX's numpy mean
+    loss = float(pooled(torch.stack(losses), mesh).double().mean())
+    return loss, ccc, preds, tgts
 
 
 def _validate_dimensional(model, val_loader, eval_step, weights, device,

@@ -14,10 +14,13 @@ is read), with the JAX loader's defaults for the keys used here;
 orchestration is the JAX entry point's, in its order: seeds, loaders
 (``data.loader``), the train state (seeded random weights,
 ``models.convert.init_byol_state_dict``) with AdamW + EMA
-(``ops.fused_optimizer.FusedAdamWSpec``) on a cosine schedule over
-``len(train_loader) × num_epochs`` steps, resume from the latest
-checkpoint, then per epoch: the train step fed by the device prefetcher
-(losses kept on the device until the epoch ends), validation
+(``ops.fused_optimizer.FusedAdamWSpec``; the moments' rates rounded as
+optax's ``adamw`` rounds them unless ``tpu.optimizer_impl`` is
+``fused``, as JAX's entry point picks optax or its fused kernel) on a
+cosine schedule over ``len(train_loader) × num_epochs`` steps, resume
+from the latest checkpoint, then per epoch: the train step fed by the
+device prefetcher (losses kept on the device until the epoch ends),
+validation
 (``eval.evaluate_byol.validate_model``), early stopping, and the
 ``best_val_loss``, ``best_val_similarity`` and ``last_model`` checkpoints
 (``train.checkpoint``; ``training.save_checkpoints: false`` skips them),
@@ -120,7 +123,9 @@ def main(config: Dict[str, Any],
     Returns ``{"state": the BYOLTrainState, "epochs": [per-epoch metrics],
     "decoder": "native" or "python", "stopped_early": bool}``; each epoch's
     metrics hold ``epoch``, ``train_loss``, ``val_loss``,
-    ``val_avg_similarity``, ``val_similarities``, ``steps``, ``s_per_step``
+    ``val_avg_similarity``, ``val_similarities``, ``val_samples`` (the
+    per-sample values they were taken from, ``eval.evaluate_byol.
+    validate_model``'s), ``steps``, ``s_per_step``
     and ``audio_sec_per_sec`` (host clock over the epoch's train steps,
     data loading included), ``step_time_s`` and
     ``audio_sec_per_sec_per_chip`` (the epoch's ``ThroughputMeter`` over
@@ -181,9 +186,10 @@ def _main(config: Dict[str, Any],
         proj, pred, device, seed=seed,
         compute_dtype=torch.bfloat16 if device.type == "cuda"
         else torch.float32, mesh=mesh if mesh.distributed else None)
-    spec = FusedAdamWSpec(schedule=schedule,
-                          weight_decay=tr["weight_decay"],
-                          ema_decay=model_cfg["ema_decay"])
+    spec = FusedAdamWSpec(
+        schedule=schedule, weight_decay=tr["weight_decay"],
+        ema_decay=model_cfg["ema_decay"], optax_rates=config.get(
+            "tpu", {}).get("optimizer_impl", "xla") != "fused")
 
     start_epoch, resumed_best = 0, {}
     if config.get("resume"):
@@ -232,6 +238,7 @@ def _main(config: Dict[str, Any],
                   "val_loss": val_loss,
                   "val_avg_similarity": val_metrics["val_avg_similarity"],
                   "val_similarities": val_metrics["val_similarities"],
+                  "val_samples": val_metrics["val_samples"],
                   "steps": steps, "s_per_step": s_per_step,
                   "audio_sec_per_sec":
                       batch_size * clip_seconds / s_per_step if steps
@@ -240,9 +247,10 @@ def _main(config: Dict[str, Any],
                       meter.audio_sec_per_sec_per_chip,
                   "step_time_s": meter.step_time, "tsne": None}
         history.append(record)
-        logger.info(f"epoch {epoch}: {record}")
+        logger.info(f"epoch {epoch}: " + str({
+            k: v for k, v in record.items() if k != "val_samples"}))
         wandb.log({k: v for k, v in record.items()
-                   if k not in ("val_similarities", "tsne")}
+                   if k not in ("val_similarities", "val_samples", "tsne")}
                   | {f"val_similarity_snr_{snr}": sim for snr, sim
                      in val_metrics["val_similarities"].items()})
         if primary:

@@ -29,11 +29,37 @@ import os
 import subprocess
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from nrse_tpu_torch.config.config_utils import PRESET_DIR, validate_config
 
 EVAL_SNRS = (8, 4)
+
+
+def to_bf16(x) -> np.ndarray:
+    """float32 values rounded to the nearest bfloat16 (ties to even), as
+    float32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    bits = bits.astype(np.uint64)
+    bits = ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16) << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def bf16_numpy_mean(values) -> float:
+    """The mean JAX's ``validate_model`` reads of per-sample similarities
+    its bf16 eval step returned (``nrse_tpu/eval/evaluate_byol.py:100``):
+    each value rounded to bfloat16, then numpy's mean of a bfloat16 array,
+    which adds the values one after another in bfloat16, rounding every
+    partial sum, and divides in bfloat16.  Past a sum of a few dozen the
+    rounding of each addition no longer averages out, so the reading
+    drifts from the mean (up, then down as the sum outgrows the values'
+    spacing)."""
+    v = to_bf16(np.asarray(values, np.float32).reshape(-1))
+    acc = np.zeros(1, np.float32)
+    for x in v:
+        acc = to_bf16(acc + x)
+    return float(to_bf16(acc / np.float32(len(v)))[0])
 
 
 def card_line() -> str:

@@ -38,6 +38,7 @@ from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
     make_byol_train_step,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -291,7 +292,8 @@ def _train_step():
     """One tiny BYOL step with every random feature on (attention dropout
     0.1, hidden/FFN dropout, LayerDrop, SpecAugment): ``(loss, grads)``."""
     cfg = WavLMConfig.tiny()
-    sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, 16, 32, torch.Generator().manual_seed(0)), 0)
     state = create_train_state(cfg, sd, 16, 32, "cpu", seed=9)
     rng = np.random.default_rng(4)
     t = 3200

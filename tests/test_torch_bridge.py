@@ -68,6 +68,7 @@ from tests.test_checkpoint_bridge import (  # noqa: F401
 from tests.test_export_torch import _TorchASP, _TorchEmotionRegression
 from tests.test_torch_train_emotion import emo_config  # noqa: F401
 from tests.test_wavlm_golden import make_hf_tiny
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -209,8 +210,8 @@ def test_reference_checkpoint_out_and_back(bridged, tmp_path):
 
 
 def test_baseline_final_pt(tmp_path):
-    sd = init_baseline_state_dict(CFG, torch.Generator().manual_seed(4),
-                                  head_dim=48, head_layers=2)
+    sd = with_random_biases(init_baseline_state_dict(
+        CFG, torch.Generator().manual_seed(4), head_dim=48, head_layers=2), 4)
     save_baseline_final_pt(str(tmp_path), sd)
     load = (lambda name: torch.load(str(tmp_path / f"final_{name}.pt"),
                                     map_location="cpu", weights_only=True))

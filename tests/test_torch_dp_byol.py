@@ -81,6 +81,7 @@ from test_torch_train_step import (
     _np,
     _rel,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -202,8 +203,8 @@ def test_host_draws_follow_the_global_batch():
 def test_random_features_on_two_ranks():
     cfg_kwargs = {}  # dropout 0.1 everywhere, LayerDrop 0.1, SpecAugment on
     cfg = WavLMConfig.tiny()
-    sd = init_byol_state_dict(cfg, PROJ, PRED,
-                              torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, PROJ, PRED, torch.Generator().manual_seed(0)), 0)
     online = {k: v.numpy() for k, v in sd.items()}
     ranks = run_ranks(workers.byol_steps, 2, (
         cfg_kwargs, online, None, _batch(), PROJ, PRED,

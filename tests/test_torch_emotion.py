@@ -46,6 +46,7 @@ from nrse_tpu_torch.models.emotion import EmotionClassifier
 from nrse_tpu_torch.models.wavlm import TrainRNG, WavLMConfig
 from nrse_tpu_torch.ops import block_attention, flash_attention
 from nrse_tpu_torch.train.losses import ccc_loss, ce_weight_category
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -173,8 +174,8 @@ def test_losses_and_gradients_match_jax(pair, samples, frames):
 def test_seeded_weights_load_and_run():
     cfg = WavLMConfig.tiny()
     model = EmotionClassifier(cfg, hidden_dim=HIDDEN)
-    model.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(0), HIDDEN), strict=True)
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(0), HIDDEN), 0), strict=True)
     model.eval()
     x, mask, _, _ = _batch(7680, 5)
     with torch.no_grad():
@@ -193,8 +194,8 @@ def test_trunk_dropout_draws_from_the_head_stream(task):
 
     cfg = WavLMConfig.tiny(**OFF)
     model = EmotionClassifier(cfg, hidden_dim=HIDDEN, dropout=0.5)
-    model.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(1), HIDDEN))
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(1), HIDDEN), 1))
     x, mask, _, _ = _batch(7680, 6)
     x, mask = torch.from_numpy(x), torch.from_numpy(mask)
     rng = TrainRNG(7, 3).with_table(cfg.num_hidden_layers, "cpu")

@@ -42,6 +42,7 @@ from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.checkpoint import load_byol_encoder, save_checkpoint
 from nrse_tpu_torch.utils import report_utils
 from nrse_tpu_torch.utils.profiling import COPIES, profile_trace
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -205,8 +206,8 @@ def test_ser_stage_configs_equal_jax(preset, categorical, e2e, smoke):
 def test_byol_leg_starts_from_the_checkpoints_online_encoder(tmp_path):
     cfg = WavLMConfig.tiny()
     state = create_train_state(
-        cfg, init_byol_state_dict(cfg, 32, 64,
-                                  torch.Generator().manual_seed(3)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, 32, 64, torch.Generator().manual_seed(3)), 3),
         32, 64, "cpu")
     byol_best = save_checkpoint(str(tmp_path / "byol"), "best_val_loss",
                                 state)

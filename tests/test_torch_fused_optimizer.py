@@ -17,7 +17,9 @@ adamw)`` + the EMA lerp, which computes its own norm and divides by the
 bias corrections where the fused kernels multiply by their inverses.
 Against optax ``nu`` alone is held to 2e-5: optax rounds ``1 − b2`` from
 double precision (float32(0.001)), the fused kernels of both packages
-compute it in float32 (0.00099998713), 1.3e-5 apart.
+compute it in float32 (0.00099998713), 1.3e-5 apart; a spec with
+``optax_rates`` folds that ratio into the bias corrections, and its
+updates are plain ``optax.adamw``'s to 1e-6 of the largest update.
 """
 
 import jax
@@ -161,3 +163,35 @@ def test_cpu_buffers_launch_nothing():
     port.fused_adamw_ema_update(x.clone(), x.clone(), x * 0, x * 0, None,
                                 port.FusedAdamWSpec(schedule=1e-3), 0)
     assert port.LAUNCHES == before
+
+
+@pytest.mark.parametrize("optax_rates", [True, False])
+def test_optax_rates_give_optax_adamw_updates(optax_rates):
+    """``FusedAdamWSpec.optax_rates`` (the fine-tune's AdamW): three
+    updates of plain ``optax.adamw`` (Python float betas, no clip) to 1e-6
+    of the largest update.  K4's own rounding of the rates (``1 − b2``
+    from float32 ``b2``) is 6.4e-6 of an update off at the first step."""
+    rng = np.random.default_rng(1)
+    # parameters of the updates' size, so that p' − p resolves the update
+    p0 = (LR * rng.standard_normal(4096)).astype(np.float32)
+    grads = [rng.standard_normal(4096).astype(np.float32) for _ in range(3)]
+    opt = optax.adamw(LR, weight_decay=1e-4)
+    op, want = jnp.asarray(p0), []
+    state = opt.init(op)
+    for g in grads:
+        upd, state = opt.update(jnp.asarray(g), state, op)
+        op = optax.apply_updates(op, upd)
+        want.append(np.asarray(upd))
+    spec = port.FusedAdamWSpec(schedule=LR, weight_decay=1e-4,
+                               clip_norm=float("inf"),
+                               optax_rates=optax_rates)
+    p = torch.from_numpy(p0.copy())
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    worst = 0.0
+    for count, (g, w) in enumerate(zip(grads, want)):
+        before = p.clone()
+        port.fused_adamw_ema_update(torch.from_numpy(g), p, mu, nu, None,
+                                    spec, count, torch.tensor(1.0))
+        got = (p - before).numpy()
+        worst = max(worst, float(np.abs(got - w).max() / np.abs(w).max()))
+    assert (worst < TOL) == optax_rates, worst

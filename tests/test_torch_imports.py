@@ -44,6 +44,7 @@ from nrse_tpu_torch.train.byol_trainer import (
     make_byol_eval_step,
     make_byol_train_step,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -134,6 +135,7 @@ SCRIPTS = [
     "tools/port_ser_report.py",
     "tools/port_ccc_report.py",
     "tools/port_analyze_profile.py",
+    "tools/port_transfer_seeds.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 
@@ -257,7 +259,8 @@ def test_cpu_tensors_launch_no_kernel():
 def test_cpu_train_step_launches_no_kernel():
     before = _counts()
     cfg = WavLMConfig.tiny()  # dropout, LayerDrop and SpecAugment on
-    sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, 16, 32, torch.Generator().manual_seed(0)), 0)
     state = create_train_state(cfg, sd, 16, 32, "cpu")
     g = torch.Generator().manual_seed(1)
     batch = {"clean": torch.randn(2, 2400, generator=g),
@@ -277,8 +280,8 @@ def test_cpu_ser_forward_launches_no_kernel():
     before = _counts()
     cfg = WavLMConfig.tiny()
     model = BaselineSER(cfg, head_dim=16)
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(0), head_dim=16))
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(0), head_dim=16), 0))
     forward = make_baseline_forward(model)
     for n in (16000, 7680):
         logits = forward(torch.zeros(1, n), torch.ones(1, n))

@@ -60,6 +60,7 @@ from nrse_tpu_torch.train import categorical_emotions
 from nrse_tpu_torch.train import emotion_trainer as et
 
 import torch_mesh_graph_workers as workers
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -139,8 +140,9 @@ def test_keep_list_check_raises_where_ranks_differ():
 def _ser_graphs():
     cfg = workers.config()
     model = EmotionClassifier(cfg, workers.HIDDEN, dropout=0.3)
-    model.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(3), workers.HIDDEN), strict=True)
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(3), workers.HIDDEN), 3),
+        strict=True)
     state = et.create_emotion_state(model, seed=11)
     batch = {k: torch.from_numpy(v) for k, v in _ser_batch().items()}
     segments = et.trainable_segments(state, [2, 3], 0.0)

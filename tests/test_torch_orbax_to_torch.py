@@ -55,6 +55,7 @@ from nrse_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     restore_model,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -115,8 +116,8 @@ def test_byol_state_converts(converted):
     assert kind == "byol"
     cfg = WavLMConfig.tiny()
     fresh = create_train_state(
-        cfg, init_byol_state_dict(cfg, PROJ, PRED,
-                                  torch.Generator().manual_seed(99)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, PROJ, PRED, torch.Generator().manual_seed(99)), 99),
         PROJ, PRED, "cpu")
     state, meta = restore_checkpoint(str(root / "port"), "last_model", fresh)
     assert meta == {"epoch": 4} and (state.step, state.seed) == (7, 11)
@@ -198,8 +199,8 @@ def test_emotion_state_converts(tmp_path):
     assert kind == "emotion"
     cfg = WavLMConfig.tiny()
     fresh = EmotionClassifier(cfg, 16, device="meta")
-    fresh.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(8), 16), assign=True)
+    fresh.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(8), 16), 8), assign=True)
     state, _ = restore_checkpoint(str(tmp_path / "port"), "best",
                                   create_emotion_state(fresh))
     assert state.step == 0 and not bool(state.mu.any())

@@ -36,6 +36,7 @@ from nrse_tpu_torch.models.convert import (
 from nrse_tpu_torch.models.emotion import AttentiveStatisticsPooling
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.ops import asp_pooling, block_attention, flash_attention
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -186,13 +187,13 @@ def test_tiny_baseline_matches_jax(tiny_pair, monkeypatch, samples, frames,
 
 def test_seeded_init_loads_and_buckets():
     cfg = WavLMConfig.tiny()
-    sd = init_baseline_state_dict(cfg, torch.Generator().manual_seed(0),
-                                  head_dim=HEAD_DIM)
+    sd = with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(0), head_dim=HEAD_DIM), 0)
     model = BaselineSER(cfg, head_dim=HEAD_DIM)
     model.load_state_dict(sd, strict=True)
     assert torch.equal(sd["ser.norm_0.weight"], torch.ones(HEAD_DIM))
-    again = init_baseline_state_dict(cfg, torch.Generator().manual_seed(0),
-                                     head_dim=HEAD_DIM)
+    again = with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(0), head_dim=HEAD_DIM), 0)
     assert all(torch.equal(sd[k], again[k]) for k in sd)
     # 5 s buckets capped at 30 s (nrse_tpu/baseline/pipeline.py:58-66)
     assert [bucket_length(n) for n in (1, 80000, 80001, 175000, 10 ** 7)] \

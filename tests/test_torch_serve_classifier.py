@@ -45,6 +45,7 @@ from nrse_tpu_torch.serve import export
 from nrse_tpu_torch.serve.export import ServingModel, export_classifier
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.checkpoint import load_byol_encoder, save_checkpoint
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -185,7 +186,8 @@ def test_rejects_a_bad_task_or_state_dict(served, tmp_path):
 
 def _byol_checkpoint(root):
     cfg = WavLMConfig.tiny()
-    sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(5))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, 16, 32, torch.Generator().manual_seed(5)), 5)
     state = create_train_state(cfg, sd, 16, 32, "cpu")
     return save_checkpoint(str(root), "best_val_loss", state)
 

@@ -93,6 +93,7 @@ from nrse_tpu_torch.train.byol_trainer import (
     create_train_state,
     make_byol_eval_step,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -237,8 +238,8 @@ def _config(layerdrop: float = 0.3):
 def _state(cfg, seed=0):
     model = EmotionClassifier(cfg, 32, dropout=0.3, device="meta",
                               compute_dtype=torch.float32)
-    model.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(15), 32), strict=True,
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(15), 32), 15), strict=True,
         assign=True)
     return et.create_emotion_state(model, seed)
 
@@ -375,8 +376,8 @@ def _ft_state(freeze_ssl):
     cfg = dataclasses.replace(WavLMConfig.tiny(), num_hidden_layers=LAYERS,
                               layerdrop=0.0)  # the warm-up runs every layer
     model = BaselineSER(cfg, head_dim=32)
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(6), head_dim=32))
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(6), head_dim=32), 6))
     return ft.create_train_state(model)
 
 
@@ -473,8 +474,8 @@ def _byol_batch(seed=3, t=3200):
 def test_byol_eval_step_through_programs_is_the_eager_one(embeddings):
     cfg = WavLMConfig.tiny()
     state = create_train_state(
-        cfg, init_byol_state_dict(cfg, 16, 32,
-                                  torch.Generator().manual_seed(8)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, 16, 32, torch.Generator().manual_seed(8)), 8),
         16, 32, "cpu")
     state.target.projector.bn_0.training = False  # a mode to restore
     modes = [m.training for m in state.online.modules()] + \
@@ -498,7 +499,8 @@ def test_byol_eval_step_through_programs_is_the_eager_one(embeddings):
 
 def test_wavlm_encoder_through_programs_is_the_eager_one():
     cfg = WavLMConfig.tiny()
-    sd = init_state_dict(cfg, torch.Generator().manual_seed(5))
+    sd = with_random_biases(init_state_dict(
+        cfg, torch.Generator().manual_seed(5)), 5)
     enc = WavLMEncoder(config=cfg, state_dict=sd, device="cpu")
     g = torch.Generator().manual_seed(1)
     x = torch.randn(2, 1, 4000, generator=g)
@@ -516,8 +518,8 @@ def test_wavlm_encoder_through_programs_is_the_eager_one():
 
 def _byol_state(cfg, seed=0):
     return create_train_state(
-        cfg, init_byol_state_dict(cfg, 16, 32,
-                                  torch.Generator().manual_seed(8)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, 16, 32, torch.Generator().manual_seed(8)), 8),
         16, 32, "cpu", seed=seed)
 
 

@@ -39,6 +39,7 @@ from nrse_tpu_torch.parallel.launch import run_ranks
 from nrse_tpu_torch.parallel.mesh import partition_rule
 
 import torch_tp_workers as workers
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -73,8 +74,9 @@ def test_groups_hold_the_axes_ranks(layout):
 
 def test_shard_then_gather_is_bit_equal(layout):
     data, model, ranks = layout
-    sd = init_byol_state_dict(WavLMConfig.tiny(), workers.PROJ, workers.PRED,
-                              torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(
+        WavLMConfig.tiny(), workers.PROJ, workers.PRED,
+        torch.Generator().manual_seed(0)), 0)
     for out in ranks:
         assert out["round_trip"]
         for k, v in sd.items():

@@ -34,6 +34,7 @@ from nrse_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     state_tensors,
 )
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -100,8 +101,8 @@ def _restore(ckpt):
     """``last_model`` restored into a state made from other weights."""
     cfg = WavLMConfig.tiny()
     fresh = create_train_state(
-        cfg, init_byol_state_dict(cfg, PROJ, PRED,
-                                  torch.Generator().manual_seed(99)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, PROJ, PRED, torch.Generator().manual_seed(99)), 99),
         PROJ, PRED, "cpu", seed=0)
     return restore_checkpoint(str(ckpt), "last_model", fresh)
 

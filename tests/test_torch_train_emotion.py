@@ -37,6 +37,7 @@ from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.categorical_emotions import build_classifier
 from nrse_tpu_torch.train.checkpoint import save_checkpoint
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -135,7 +136,8 @@ def test_evaluate_reports_clean_and_noisy(emo_config, trained, tmp_path,
 
 def test_encoder_from_a_byol_checkpoint(emo_config, tmp_path):
     cfg = WavLMConfig.tiny()
-    sd = init_byol_state_dict(cfg, 16, 32, torch.Generator().manual_seed(9))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, 16, 32, torch.Generator().manual_seed(9)), 9)
     state = create_train_state(cfg, sd, 16, 32, "cpu")
     save_checkpoint(str(tmp_path), "best_val_similarity", state)
     config = copy.deepcopy(emo_config)

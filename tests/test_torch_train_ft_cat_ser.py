@@ -67,6 +67,7 @@ from nrse_tpu_torch.ops.fused_optimizer import fused_adamw_ema_update
 from nrse_tpu_torch.train.byol_trainer import create_train_state
 from nrse_tpu_torch.train.checkpoint import load_byol_encoder, save_checkpoint
 from nrse_tpu_torch.train.losses import ce_weight_category
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -166,8 +167,8 @@ def test_two_micro_steps_match_optax_multisteps(freeze_ssl):
     lr, k = 0.1, 2  # a large lr: the frozen decay 1 − lr·wd shows at 1e-5
     cfg = WavLMConfig.tiny(**OFF)
     model = BaselineSER(cfg, head_dim=HEAD_DIM)  # head dropout 0.5, seeded
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(0), head_dim=HEAD_DIM))
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(0), head_dim=HEAD_DIM), 0))
     state = trainer.create_train_state(model)
     step = trainer.make_train_step(trainer.adamw_spec(lr), k, freeze_ssl,
                                    torch.from_numpy(WEIGHTS))
@@ -306,8 +307,8 @@ def test_main_defaults_to_the_card(corpus, monkeypatch):
 def test_byol_checkpoint_starts_the_encoder(corpus, tmp_path):
     cfg = WavLMConfig.tiny()
     byol = create_train_state(
-        cfg, init_byol_state_dict(cfg, 16, 32,
-                                  torch.Generator().manual_seed(4)),
+        cfg, with_random_biases(init_byol_state_dict(
+            cfg, 16, 32, torch.Generator().manual_seed(4)), 4),
         16, 32, "cpu")
     save_checkpoint(str(tmp_path), "best_val_loss", byol)
     path = str(tmp_path / "best_val_loss")
@@ -334,8 +335,8 @@ def _features_state():
     dropouts, LayerDrop over 4 layers, SpecAugment, the head's dropout."""
     cfg = dataclasses.replace(WavLMConfig.tiny(), **FEATURES)
     model = BaselineSER(cfg, head_dim=HEAD_DIM)
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(2), head_dim=HEAD_DIM))
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(2), head_dim=HEAD_DIM), 2))
     return trainer.create_train_state(model)
 
 
@@ -408,8 +409,8 @@ def test_staged_head_masks_are_the_heads_own_draw():
 def test_dev_loss_through_its_program_is_the_eager_one(corpus):
     cfg = WavLMConfig.tiny()
     model = BaselineSER(cfg, head_dim=HEAD_DIM)
-    model.load_state_dict(init_baseline_state_dict(
-        cfg, torch.Generator().manual_seed(3), head_dim=HEAD_DIM))
+    model.load_state_dict(with_random_biases(init_baseline_state_dict(
+        cfg, torch.Generator().manual_seed(3), head_dim=HEAD_DIM), 3))
     files, labels = trainer.load_onehot_labels(
         str(corpus / "labels_onehot.csv"), "Development")
     stats = trainer.corpus_norm_stats(str(corpus / "Audios"), files, 7)

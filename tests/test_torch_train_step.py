@@ -64,6 +64,7 @@ from nrse_tpu_torch.train.byol_trainer import (
     make_byol_train_step,
 )
 from nrse_tpu_torch.train.schedules import cosine_annealing
+from torch_init import with_random_biases
 
 torch.set_num_threads(1)
 
@@ -363,8 +364,8 @@ def _check_eval_step(runs):
 
 def _noisy_run(step_index=0):
     cfg = WavLMConfig.tiny()  # dropout 0.1 everywhere, LayerDrop 0.1,
-    sd = init_byol_state_dict(cfg, PROJ, PRED,  # SpecAugment 0.05 / 10 / 2
-                              torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(  # SpecAugment 0.05 / 10 / 2
+        cfg, PROJ, PRED, torch.Generator().manual_seed(0)), 0)
     state = create_train_state(cfg, sd, PROJ, PRED, "cpu", seed=7)
     state.step = step_index
     step = make_byol_train_step(FusedAdamWSpec(

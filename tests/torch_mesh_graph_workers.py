@@ -26,6 +26,7 @@ from nrse_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from nrse_tpu_torch.train import byol_trainer as bt
 from nrse_tpu_torch.train import emotion_trainer as et
 from nrse_tpu_torch.train.step_graphs import check_keep_lists
+from torch_init import with_random_biases
 
 LAYERS = 4
 PROJ, PRED, HIDDEN = 16, 32, 16
@@ -60,8 +61,8 @@ def byol_parts(rank: int, world: int, model: int,
     cfg = config()
     mesh = make_mesh(model=model, device="cpu",
                      heads=cfg.num_attention_heads)
-    sd = init_byol_state_dict(cfg, PROJ, PRED,
-                              torch.Generator().manual_seed(8))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, PROJ, PRED, torch.Generator().manual_seed(8)), 8)
     eager, parts = (bt.create_train_state(cfg, sd, PROJ, PRED, "cpu",
                                           seed=5, mesh=mesh)
                     for _ in range(2))
@@ -106,8 +107,8 @@ SER_KEYS = (("frozen", [], 0.0, 1e-4), ("whole", list(range(LAYERS)), 1.0,
 
 def _ser_state(cfg, mesh, batch_size: int):
     model = EmotionClassifier(cfg, HIDDEN, dropout=0.3)
-    model.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(3), HIDDEN), strict=True)
+    model.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(3), HIDDEN), 3), strict=True)
     state = et.create_emotion_state(model, seed=11)
     _, place_state = et.make_batch_placer(mesh, batch_size)
     return place_state(state)

@@ -31,6 +31,7 @@ from nrse_tpu_torch.train.byol_trainer import (
     make_byol_train_step,
     replicas_agree,
 )
+from torch_init import with_random_biases
 
 PROJ, PRED = 32, 64
 
@@ -51,8 +52,8 @@ def mesh_layout(rank, world, model) -> Dict:
     dist.all_reduce(over_data, group=mesh.data_group)
     dist.all_reduce(over_model, group=mesh.model_group)
     cfg = WavLMConfig.tiny()
-    sd = init_byol_state_dict(cfg, PROJ, PRED,
-                              torch.Generator().manual_seed(0))
+    sd = with_random_biases(init_byol_state_dict(
+        cfg, PROJ, PRED, torch.Generator().manual_seed(0)), 0)
     local = shard_state_dict(sd, mesh)
     whole = gather_state_dict(local, mesh)
     return {"coords": (mesh.data_index, mesh.model_index),
@@ -129,8 +130,8 @@ def ser_replicated_steps(rank, world, model, batches, layers) -> Dict:
     process alone (``world`` 1) runs them without a group."""
     cfg = WavLMConfig.tiny()
     classifier = EmotionClassifier(cfg, hidden_dim=SER_HIDDEN, dropout=0.3)
-    classifier.load_state_dict(init_emotion_state_dict(
-        cfg, torch.Generator().manual_seed(3), SER_HIDDEN), strict=True)
+    classifier.load_state_dict(with_random_biases(init_emotion_state_dict(
+        cfg, torch.Generator().manual_seed(3), SER_HIDDEN), 3), strict=True)
     state = emotion_trainer.create_emotion_state(classifier, seed=11)
     mesh = make_mesh(model=model, device="cpu",
                      heads=cfg.num_attention_heads)

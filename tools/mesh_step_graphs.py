@@ -212,8 +212,9 @@ def byol_case(rank: int, world: int, device: str, cpu: bool,
     cfg, z = _config(cpu), _sizes(cpu)
     mesh = make_mesh(model=model, device=device,
                      heads=cfg.num_attention_heads)
-    sd = cs.init_byol_state_dict(cfg, z["proj"], z["pred"],
-                                 torch.Generator().manual_seed(cs.SEED))
+    sd = cs.with_random_biases(cs.init_byol_state_dict(
+        cfg, z["proj"], z["pred"], torch.Generator().manual_seed(cs.SEED)),
+        cs.SEED)
     state_c, state_e = (cs._byol_state(cfg, sd, device, z["proj"],
                                        z["pred"], mesh) for _ in range(2))
     step_c = cs.make_byol_train_step(cs._adamw_spec())
@@ -277,8 +278,9 @@ def _one_rank_record(r: _Rank, cfg, mesh, z, device) -> dict:
     same weights: the first step's and the largest relative differences
     of loss and grad_norm, the parameter deltas' cosine and distance."""
     quiet = cs._quiet(cfg)
-    sd = cs.init_byol_state_dict(quiet, z["proj"], z["pred"],
-                                 torch.Generator().manual_seed(cs.SEED))
+    sd = cs.with_random_biases(cs.init_byol_state_dict(
+        quiet, z["proj"], z["pred"], torch.Generator().manual_seed(cs.SEED)),
+        cs.SEED)
     steps = cs.DP_STEPS + 1
     step = cs.make_byol_train_step(cs._adamw_spec(), graphs=False)
     batch = cs._train_batch(z["clips"] * mesh.data, z["seconds"], device)

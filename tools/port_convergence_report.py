@@ -11,6 +11,14 @@ captured graphs → validation with per-SNR similarity, WavLM-large at full
 width.  It writes the per-epoch CSV, a table (``README.md``) and, where
 matplotlib imports, the curves, under ``--out``.
 
+Beside each per-SNR similarity (the port's mean, in float64, of its
+per-sample similarities) the CSV holds, as ``..._jax_bf16``, the reading
+JAX's arithmetic gives for the same per-sample similarities: each rounded
+to bfloat16, then numpy's bfloat16 mean (``report_utils.
+bf16_numpy_mean``), which is how JAX's ``validate_model`` reads the bf16
+similarities of its eval step on the TPU.  That column, not the mean, is
+the one to set beside ``docs/convergence/convergence.csv``.
+
     python3 tools/port_convergence_report.py [--files 6000] [--epochs 8] \\
         [--batch 36] [--out docs/port_convergence] [--device cuda|cpu]
 """
@@ -49,12 +57,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def records_of(epochs) -> list:
     """The epoch records of ``train_byol.main`` as the CSV's rows: the
-    columns, then ``val_similarity_snr_<snr>`` by SNR."""
+    columns, then ``val_similarity_snr_<snr>`` by SNR and, where an
+    epoch's record holds its validation's per-sample values
+    (``val_samples``), ``val_similarity_snr_<snr>_jax_bf16``."""
     rows = []
     for e in epochs:
         row = {k: e[k] for k in COLUMNS}
         row.update({f"val_similarity_snr_{snr}": sim
                     for snr, sim in e["val_similarities"].items()})
+        samples = e.get("val_samples")
+        if samples is not None:
+            sims, snrs = samples["similarity"], samples["snr"]
+            row.update({f"val_similarity_snr_{snr}_jax_bf16":
+                        report_utils.bf16_numpy_mean(sims[snrs == float(snr)])
+                        for snr in e["val_similarities"]})
         rows.append(row)
     return rows
 
@@ -100,9 +116,11 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.out, exist_ok=True)
     snr_keys = sorted((k for k in records[0]
-                       if k.startswith("val_similarity_snr_")),
+                       if k.startswith("val_similarity_snr_")
+                       and not k.endswith("_jax_bf16")),
                       key=lambda k: float(k.rsplit("_", 1)[1]))
-    cols = list(COLUMNS) + snr_keys
+    cols = list(COLUMNS) + [c for k in snr_keys
+                            for c in (k, f"{k}_jax_bf16")]
     with open(os.path.join(args.out, "convergence.csv"), "w") as f:
         f.write(",".join(cols) + "\n")
         for r in records:
@@ -115,6 +133,12 @@ def main(argv=None) -> dict:
         f"| epoch {r['epoch'] + 1} | {r['train_loss']:.4f} | "
         f"{r['val_loss']:.4f} | {r['val_avg_similarity']:.4f} | "
         f"{r['s_per_step']:.4f} |" for r in records)
+    snrs, nan = [k.rsplit("_", 1)[1] for k in snr_keys], float("nan")
+    per_snr = "\n".join(
+        f"| epoch {r['epoch'] + 1} | " + " | ".join(
+            f"{r.get(k, nan):.4f} / {r.get(k + '_jax_bf16', nan):.4f}"
+            for k in snr_keys)
+        + " |" for r in (first, last))
     with open(os.path.join(args.out, "README.md"), "w") as f:
         f.write(f"""# BYOL convergence evidence on the port (synthetic corpus, one card)
 
@@ -144,6 +168,16 @@ similarity.
 | epoch | train loss | val loss | val similarity | s/step |
 |---|---|---|---|---|
 {table}
+
+Per SNR, the port's float64 mean of its per-sample similarities / the
+reading of JAX's arithmetic (bfloat16 values, numpy's bfloat16 mean, as
+JAX's `validate_model` reads them on the TPU).  The TPU run's similarities
+in `docs/convergence/` are such bf16-accumulated readings, not means: set
+them beside the second figure.
+
+| epoch | {' | '.join(f'{s} dB' for s in snrs)} |
+|---|{'---|' * len(snrs)}
+{per_snr}
 
 Per-epoch data: [convergence.csv](convergence.csv)\
 {'; curves: ![convergence](convergence.png)' if plotted else
@@ -177,7 +211,7 @@ def plot(records, snr_keys, path: str) -> bool:
     ax1.legend()
     ax1.grid(alpha=0.3)
     for k in snr_keys:
-        ax2.plot(epochs, [r[k] for r in records], "-o",
+        ax2.plot(epochs, [r.get(k, float("nan")) for r in records], "-o",
                  label=f"SNR {k.rsplit('_', 1)[1]} dB")
     ax2.plot(epochs, [r["val_avg_similarity"] for r in records], "-k",
              lw=2, label="mean")

@@ -34,7 +34,11 @@ no quality claim):
 
 Every stage runs in this process, its state and graphs freed after it;
 ``--stage byol`` or ``--stage <task>:<variant>`` runs one stage (with
-``--reuse``, what is cached on disk is taken, not rerun).  A leg's
+``--reuse``, what is cached on disk is taken, not rerun).  ``--ser-seed``
+sets the SER legs' ``training.seed`` (the preset's 42 otherwise) and keys
+their checkpoints and cached readouts by it, so that one BYOL checkpoint
+serves legs of several seeds (``tools/port_transfer_seeds.py`` sums them
+up).  A leg's
 checkpoints are removed once its readout is cached (a checkpoint of the
 24-layer classifier with its moments is 3.9 GB).
 """
@@ -95,6 +99,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="tiny-encoder CPU pipeline check (no quality claim)")
     p.add_argument("--stage", default=None,
                    help="run one stage, 'byol' or '<task>:<variant>'")
+    p.add_argument("--ser-seed", type=int, default=None,
+                   help="the SER legs' training.seed (default: the "
+                        "preset's)")
     args = p.parse_args(argv)
     if args.corpus is None:
         args.corpus = os.path.join(ROOT, "build", "port_transfer"
@@ -198,7 +205,9 @@ def main(argv=None) -> dict:
             key = f"{task}_{variant}"
             if args.stage is not None and args.stage != stage:
                 continue
-            cache = os.path.join(args.corpus, f"readout_{key}.json")
+            run = key if args.ser_seed is None else \
+                f"{key}_seed{args.ser_seed}"
+            cache = os.path.join(args.corpus, f"readout_{run}.json")
             if args.reuse and os.path.exists(cache):
                 with open(cache) as f:
                     cached = json.load(f)
@@ -211,13 +220,15 @@ def main(argv=None) -> dict:
                       flush=True)
                 continue
             t = time.perf_counter()
-            ckpt_dir = os.path.join(args.corpus, f"ser_{key}")
+            ckpt_dir = os.path.join(args.corpus, f"ser_{run}")
             config = _stage_config(report_utils.ser_config(
                 preset, labels_csv, audio_dir, noise_train, enc, ckpt_dir,
                 args.ser_epochs, args.ser_batch, args.ser_lr, cat_only,
                 log_dir, smoke=args.smoke, e2e=e2e,
                 ft_epochs=args.ft_epochs, ft_lr=args.ft_lr,
                 snr_range=args.byol_snr), args)
+            if args.ser_seed is not None:
+                config["training"]["seed"] = args.ser_seed
             best = os.path.join(
                 ckpt_dir,
                 "best_fine_tuned_model" if e2e else "best_classifier_model")
@@ -290,6 +301,8 @@ def readme_lines(args, results, card: str, seconds_of: dict) -> list:
         f"--ser-epochs {args.ser_epochs} --ft-epochs {args.ft_epochs}"
         + (f" --layers {args.layers}" if args.layers else "")
         + (f" --legs {args.legs}" if args.legs else "")
+        + (" --skip-dimensional" if args.skip_dimensional else "")
+        + ("" if args.ser_seed is None else f" --ser-seed {args.ser_seed}")
         + ("" if args.noise_files == [600, 300] or args.smoke else
            f" --noise-files {args.noise_files[0]} {args.noise_files[1]}")
         + ("`" if not args.smoke else " --smoke`") + f" on {card}, "

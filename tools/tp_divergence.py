@@ -318,8 +318,9 @@ def worker(rank: int, world: int, device: str, layers: int,
     full = WavLMConfig.large(num_hidden_layers=layers)
     heads = "running statistics" if running else "batch statistics"
     for name, cfg in (("off", cs._quiet(full)), ("on", full)):
-        sd = cs.init_byol_state_dict(cfg, 1024, 2048,
-                                     torch.Generator().manual_seed(cs.SEED))
+        sd = cs.with_random_biases(cs.init_byol_state_dict(
+            cfg, 1024, 2048, torch.Generator().manual_seed(cs.SEED)),
+            cs.SEED)
         refs = {}
         if rank == 0:
             for key in ("ref", "cublas", "split", "gate"):
