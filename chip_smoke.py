@@ -2,8 +2,8 @@
 pretraining entry point, its baseline SER evaluator, its SER fine-tune,
 its two-phase SER trainers, its SER classifier server, its bridges to
 the reference's PyTorch files, its BYOL→SER transfer report and
-quickstart, its data-parallel path and its tensor-parallel path once on
-one NVIDIA GPU.
+quickstart, the training entry points' repeat, its data-parallel path
+and its tensor-parallel path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -366,6 +366,24 @@ not 0:
      WavLM-large: BYOL 2 epochs, the categorical trainer from its
      encoder, the clean-vs-noisy report; finite, every step a replay,
      every kernel of the path launched.
+  23. entry repeat: three processes at once on the card over one small
+     synthetic corpus (48 + 16 clips of 5 s, 4 noise clips), WavLM-large
+     at full width, 2 layers deep: (a) BYOL's entry
+     (``report_utils.run_byol``) for a few steps, then the random-init
+     e2e leg (``report_utils.train_ser``, both phases); (b) the leg
+     alone, after bytes 0xFF (NaN in every float type) were written over
+     24 GiB of the card's memory and handed back, so that an op reading
+     memory it never wrote shows; (c) as (a) on copies of the BYOL clean
+     and noise directories written in reverse order, ``os.walk``
+     yielding each directory's files reversed.  Each train step's
+     checksums are taken from its captured graphs' buffers (the batch,
+     each layer's output, the loss, each group's gradient, the
+     parameters after it).  BYOL's per-step
+     losses, its epoch records and its final state's checksum must be
+     equal in (a) and (c), the leg's in (a), (b) and (c), each process's
+     listings sorted, no AccumulateGrad stream warning raised, every
+     kernel of the path launched in each process; a difference is named
+     by its first differing event.
   Each phase's seconds by the host clock follow it (``[time]``), and the
   script's at the end.
 
@@ -5932,6 +5950,341 @@ def phase_quickstart(device=torch.device("cuda"),
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 23's corpus: Train and Development clips of 5 s, noise clips; the
+# BYOL and SER steps at batch 8 (BYOL 5 steps on the Train split's 90%,
+# the leg 6 steps a phase)
+REPEAT_CLIPS = (48, 16)
+REPEAT_NOISE = 4
+REPEAT_BATCH = 8
+STREAM_WARNING = "AccumulateGrad node's stream"
+
+
+def _entry_repeat_corpus(root: str, clips, noise: int,
+                         seconds: float) -> dict:
+    """Phase 23's corpus under ``root``: the emotion corpus, its training
+    noise, BYOL's clean directory (symlinks to the Train split), and
+    copies of BYOL's clean and noise directories whose files are written
+    in reverse order."""
+    from nrse_tpu_torch.data.synthetic import (
+        generate_corpus,
+        generate_emotion_corpus,
+    )
+    from nrse_tpu_torch.utils.report_utils import symlink_split
+
+    audio_dir, labels = generate_emotion_corpus(
+        os.path.join(root, "emotion"), clips[0], clips[1], seconds=seconds,
+        verbose=False)
+    _, noise_dir = generate_corpus(os.path.join(root, "noise_train"), 0,
+                                   noise, seconds=seconds, seed=0,
+                                   verbose=False)
+    clean = symlink_split(audio_dir, os.path.join(root, "byol_clean"),
+                          "MSP-SYN_Tr_")
+    copies = {}
+    for name, src in (("clean", clean), ("noise", noise_dir)):
+        dst = os.path.join(root, f"reversed_{name}")
+        os.makedirs(dst)
+        for f in sorted(os.listdir(src), reverse=True):
+            shutil.copyfile(os.path.join(src, f), os.path.join(dst, f))
+        copies[name] = dst
+    return {"audio_dir": audio_dir, "labels": labels, "clean": clean,
+            "noise": noise_dir, "reversed": copies}
+
+
+def _fill_card(byte: int, gib: int) -> None:
+    """Write ``byte`` over ``gib`` GiB of the card's memory and hand it
+    back to the driver (``torch.cuda.empty_cache``), where the process's
+    later allocations, its graphs' pools too, draw from."""
+    chunks = [torch.full((2**30,), byte, dtype=torch.uint8, device="cuda")
+              for _ in range(gib)]
+    torch.cuda.synchronize()
+    del chunks
+    torch.cuda.empty_cache()
+
+
+def _fs_type(path: str) -> str:
+    """The type of the filesystem ``path`` lies on, from ``/proc/mounts``."""
+    path, best = os.path.realpath(path), ("", "unknown")
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                _, mount, kind = line.split()[:3]
+                if (path == mount or path.startswith(mount.rstrip("/") + "/")
+                        ) and len(mount) > len(best[0]):
+                    best = (mount, kind)
+    except OSError:
+        pass
+    return best[1]
+
+
+def _step_events(graphs, rng, tower_rng) -> list:
+    """The checksums of a captured step's buffers after its replay, in
+    order: the batch, each kept layer's output (and the forward-only
+    tower's), the loss, each parameter group's gradient, the parameters
+    after the step."""
+    from nrse_tpu_torch.parallel.mesh import checksum
+
+    events = [("batch", list(graphs.inputs.values()))]
+    for prefix, outs, keep in (("", graphs.h_out, rng.draws.keep),
+                               ("target ", getattr(graphs, "t_h_out", ()),
+                                tower_rng.draws.keep if tower_rng
+                                else ())):
+        events += [(f"{prefix}layer {i}", [h]) for i, (h, k)
+                   in enumerate(zip(outs, keep)) if k and h is not None]
+    events.append(("loss", [graphs.loss]))
+    groups = [("front", graphs.front_params)] + [
+        (f"layer {i}", ps) for i, ps in enumerate(graphs.layer_params)] + [
+        ("head", graphs.head_params)]
+    events += [(f"grad {name}", [p.grad for p in ps]) for name, ps in groups
+               if ps and all(p.grad is not None for p in ps)]
+    events.append(("params", [p for _, ps in groups for p in ps]))
+    return [(name, checksum(ts).tolist()) for name, ts in events]
+
+
+# os.walk as the filesystem gives it (phase 23's run (c) replaces it)
+_FS_WALK = os.walk
+
+
+def _listing(directory: str) -> dict:
+    """The file names of ``directory`` in the filesystem's order, as
+    ``os.walk`` yields them and as the port's ``get_audio_files`` lists
+    them."""
+    from nrse_tpu_torch.audio.io import get_audio_files
+
+    return {key: [os.path.basename(p) for p in paths] for key, paths in (
+        ("fs", [f for _, _, fs in _FS_WALK(directory) for f in fs]),
+        ("walked", [f for _, _, fs in os.walk(directory) for f in fs]),
+        ("listed", get_audio_files(directory)))}
+
+
+def _entry_repeat_worker(rank: int, world: int, runs, corpus: dict,
+                         device: str, layers: int, smoke: bool) -> dict:
+    """One process of phase 23, ``run = runs[rank]``: ``run["byol"]``
+    BYOL's entry first, ``run["reversed"]`` on the reversed copies with
+    ``os.walk`` yielding each directory's files reversed, ``run["fill"]``
+    (a byte or None) written over the card's memory first; then the
+    random-init e2e leg.  Returns the listings, each train step's loss
+    (and, from captured graphs, its checksums), each stage's epoch records
+    and final state's checksum, the AccumulateGrad stream warnings and the
+    launches."""
+    import traceback
+    import warnings
+
+    from nrse_tpu_torch.parallel.mesh import checksum
+    from nrse_tpu_torch.train import categorical_emotions
+    from nrse_tpu_torch.train.step_graphs import StepGraphs
+    from nrse_tpu_torch.utils import report_utils
+
+    run = runs[rank]
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+        if run.get("fill") is not None:
+            _fill_card(run["fill"], 24)
+    if run.get("reversed"):
+        walk = os.walk
+
+        def reversed_walk(top, *args, **kwargs):
+            for root, dirs, files in walk(top, *args, **kwargs):
+                yield root, dirs, files[::-1]
+        os.walk = reversed_walk
+    clean, noise = ((corpus["reversed"]["clean"], corpus["reversed"]["noise"])
+                    if run.get("reversed") else
+                    (corpus["clean"], corpus["noise"]))
+    out = {"name": run["name"], "listing": {
+        "clean": _listing(clean), "noise": _listing(noise)},
+        "steps": [], "stages": {}, "warnings": []}
+    stage = {"name": None}
+
+    # every train step's loss, and a captured step's buffers
+    real_run = StepGraphs.run
+
+    def graphs_run(graphs, inputs, rng, optimizer, tower_rng=None):
+        got = real_run(graphs, inputs, rng, optimizer, tower_rng)
+        out["steps"][-1]["events"] = _step_events(graphs, rng, tower_rng)
+        return got
+
+    def counted(make):
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def run_step(*a, **k):
+                out["steps"].append({"stage": stage["name"], "events": []})
+                metrics = step(*a, **k)
+                out["steps"][-1]["loss"] = float(metrics["loss"])
+                return metrics
+            return run_step
+        return make_step
+
+    def final(name, entry, result_of):
+        def run_entry(*args, **kwargs):
+            got = entry(*args, **kwargs)
+            result = result_of(got)
+            out["stages"][name] = {
+                "final": checksum(list(state_tensors(
+                    result["state"]).values())).tolist(),
+                "epochs": report_utils.records(result["epochs"])}
+            return got
+        return run_entry
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if STREAM_WARNING in str(message):
+            frame, part = sys._getframe(), None
+            while frame is not None and part is None:
+                if frame.f_code.co_name == "_part":
+                    part = frame.f_locals.get("name")
+                frame = frame.f_back
+            out["warnings"].append({
+                "stage": stage["name"], "part": part,
+                "stack": "".join(traceback.format_stack(limit=14)[:-1])})
+        else:
+            real_show(message, category, filename, lineno, file, line)
+
+    real_show = warnings.showwarning
+    warnings.showwarning = show
+    warnings.filterwarnings("always", message=f".*{STREAM_WARNING}")
+    StepGraphs.run = graphs_run
+    train_byol.make_byol_train_step = counted(train_byol.make_byol_train_step)
+    categorical_emotions.make_emotion_train_step = counted(
+        categorical_emotions.make_emotion_train_step)
+    train_byol.main = final("byol", train_byol.main, lambda o: o)
+    train_emotion.run = final("leg", train_emotion.run,
+                              lambda o: o["categorical"])
+    _reset_counts()
+    work = os.path.join(corpus["root"], run["name"])
+    log_dir = os.path.join(work, "logs")
+    enc = None if smoke else dataclasses.replace(
+        WavLMConfig.large(), num_hidden_layers=layers)
+    batch = 4 if smoke else REPEAT_BATCH
+
+    def cut(config):
+        if smoke:
+            config["data"]["max_audio_length"] = 0.48
+        else:
+            config["model"]["num_hidden_layers"] = layers
+        return config
+
+    if run.get("byol"):
+        stage["name"] = "byol"
+        report_utils.run_byol(cut(report_utils.byol_config(
+            clean, noise, os.path.join(work, "byol_ckpt"), 1, batch, log_dir,
+            smoke=smoke)), enc)
+    stage["name"] = "leg"
+    config = cut(report_utils.ser_config(
+        "dev_wavlm-large_emotion_cat.yaml", corpus["labels"],
+        corpus["audio_dir"], noise, None, os.path.join(work, "ser"), 1,
+        batch, 1e-3, True, log_dir, smoke=smoke, e2e=True,
+        ft_epochs=1, ft_lr=2e-5))
+    report_utils.train_ser(config, "categorical")
+    out["counts"] = _train_counts()
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _stage_difference(a: dict, b: dict, stage: str):
+    """Where two runs of phase 23 part in ``stage``: the first step whose
+    loss or checksums differ (and its first differing event), else the
+    epoch records or the final state's checksum; None where they agree."""
+    sa = [s for s in a["steps"] if s["stage"] == stage]
+    sb = [s for s in b["steps"] if s["stage"] == stage]
+    if len(sa) != len(sb):
+        return f"{len(sa)} / {len(sb)} steps"
+    for i, (x, y) in enumerate(zip(sa, sb)):
+        where = _first_difference(x["events"], y["events"])
+        if where or x["loss"] != y["loss"]:
+            return (f"step {i}: loss {x['loss']!r} / {y['loss']!r}, first "
+                    f"differing event {where}")
+    if a["stages"][stage]["epochs"] != b["stages"][stage]["epochs"]:
+        return "the epoch records"
+    if a["stages"][stage]["final"] != b["stages"][stage]["final"]:
+        return "the final state's checksum"
+    return None
+
+
+REPEAT_RUNS = ({"name": "a", "byol": True},
+               {"name": "b", "fill": 0xFF},
+               {"name": "c", "byol": True, "reversed": True})
+
+
+def phase_entry_repeat(device=torch.device("cuda"),
+                       layers: int = ENTRY_LAYERS, smoke: bool = False,
+                       runs=REPEAT_RUNS, clips=REPEAT_CLIPS,
+                       noise: int = REPEAT_NOISE) -> list:
+    """23: the training entry points repeat to the bit in fresh processes,
+    after an earlier stage and under another listing order: ``runs`` at
+    once.  Every run's leg must equal the first run's, and every BYOL
+    run's BYOL the first BYOL run's; the runs are returned."""
+    from nrse_tpu_torch.parallel.launch import run_ranks
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_entry_repeat_",
+                            dir=cuda_build.BUILD_DIR)
+    spec = "cuda" if device.type == "cuda" else "cpu"
+    try:
+        corpus = _entry_repeat_corpus(root, clips, noise,
+                                      1.0 if smoke else CLIP_SECONDS)
+        corpus["root"] = root
+        log(f"[entry repeat] the corpus under {root}, on a "
+            f"{_fs_type(root)} filesystem")
+        got = run_ranks(_entry_repeat_worker, len(runs), (
+            runs, corpus, spec, layers, smoke), backend=None,
+            threads=GROUP_THREADS, timeout=900)
+        bad = []
+        ref = got[0]
+        byol_ref = next(g for g, r in zip(got, runs) if r.get("byol"))
+        for g in got:
+            steps = {s: [x["loss"] for x in g["steps"] if x["stage"] == s]
+                     for s in ("byol", "leg")}
+            events = sum(len(x["events"]) for x in g["steps"])
+            byol = g["stages"].get("byol", {})
+            log(f"[entry repeat] run {g['name']}: BYOL losses "
+                f"{steps['byol']}, final {byol.get('final')}; "
+                f"the leg's losses {steps['leg']}, final "
+                f"{g['stages']['leg']['final']}; {events} step checksums; "
+                f"launches {g['counts']}")
+            for d in ("clean", "noise"):
+                fs, walked, listed = (g["listing"][d][k] for k in (
+                    "fs", "walked", "listed"))
+                log(f"[entry repeat] run {g['name']} {d}: the filesystem "
+                    f"gives {fs[:3]}... (sorted: {fs == sorted(fs)}), "
+                    f"os.walk yields {walked[:3]}..., get_audio_files "
+                    f"lists {listed[:3]}... (sorted: "
+                    f"{listed == sorted(listed)})")
+                if listed != sorted(listed):
+                    bad.append(f"run {g['name']}'s {d} listing unsorted")
+            for w in g["warnings"]:
+                log(f"[entry repeat] run {g['name']}: AccumulateGrad stream "
+                    f"warning in stage {w['stage']}, part {w['part']!r}:\n"
+                    f"{w['stack']}")
+            if g["warnings"]:
+                bad.append(f"run {g['name']}: {len(g['warnings'])} "
+                           "AccumulateGrad stream warnings")
+            if device.type == "cuda" and not all(
+                    n > 0 for n in g["counts"].values()):
+                bad.append(f"run {g['name']}: a kernel of the path never "
+                           f"ran: {g['counts']}")
+            if not steps["leg"] or not np.isfinite(steps["leg"]).all():
+                bad.append(f"run {g['name']}: the leg's losses")
+            where = _stage_difference(ref, g, "leg")
+            log(f"[entry repeat] the leg, run {ref['name']} against "
+                f"{g['name']}: {where or 'equal to the bit'}")
+            if where:
+                bad.append(f"the leg, {ref['name']} / {g['name']}: {where}")
+            if "byol" in g["stages"]:
+                where = _stage_difference(byol_ref, g, "byol")
+                log(f"[entry repeat] BYOL, run {byol_ref['name']} against "
+                    f"{g['name']}: {where or 'equal to the bit'}")
+                if where:
+                    bad.append(f"BYOL, {byol_ref['name']} / {g['name']}: "
+                               f"{where}")
+        if device.type == "cuda" and not all(x["events"] for g in got
+                                             for x in g["steps"]):
+            bad.append("a train step ran without its captured graphs")
+        if bad:
+            raise RuntimeError(f"the entry repeat: {bad}")
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 DP_STEPS = 3
 # torch's threads a rank in the phases run at once (14 processes on the
 # card's host): their work is the card's and gloo's copies
@@ -7411,6 +7764,7 @@ def main() -> int:
     timed(phase_bridges)
     timed(phase_transfer)
     timed(phase_quickstart)
+    timed(phase_entry_repeat)
     phase_dp()
     phase_tp()
     timed(phase_gloo_group)

@@ -4,9 +4,10 @@ The port's copy of ``nrse_tpu/audio/io.py`` (capability parity with the
 reference's ``src/utils/audio_utils.py:9-74``: ``load_and_process_audio``
 decodes, downmixes to mono, resamples, crops or pads to a fixed length and
 returns None on NaN or silent output; ``get_audio_files`` scans a directory
-recursively).  Decode runs in the port's native C++ runtime
-(``runtime/native.py``) where it builds; the pure-Python WAV parser here is
-the fallback and the single source of truth for semantics.
+recursively, its paths sorted where JAX's keep the filesystem's order).
+Decode runs in the port's native C++ runtime (``runtime/native.py``) where
+it builds; the pure-Python WAV parser here is the fallback and the single
+source of truth for semantics.
 """
 
 from __future__ import annotations
@@ -27,13 +28,24 @@ AUDIO_EXTENSIONS = {".wav", ".flac", ".mp3"}
 
 
 def get_audio_files(directory: str) -> List[str]:
-    """Recursively list audio files (reference ``audio_utils.py:67-74``)."""
-    return [
+    """Recursively list audio files (reference ``audio_utils.py:67-74``),
+    their paths sorted.
+
+    A recorded deviation from the JAX package and the reference, which
+    return ``os.walk``'s order: that is the filesystem's, unsorted, and
+    not the same from one machine to the next (on ext4 a hash order
+    seeded per filesystem; on a 9p mount it differed between machines and
+    between corpora written anew on them, though not with the order the
+    files were written in).  The datasets index this
+    list (BYOL's validation split and noise pick, the SER trainers' noise
+    pick), so the same corpus, config and seed trained differently from
+    one machine to the next; sorted, they train the same everywhere."""
+    return sorted(
         os.path.join(root, f)
         for root, _, files in os.walk(directory)
         for f in files
         if os.path.splitext(f)[1].lower() in AUDIO_EXTENSIONS
-    ]
+    )
 
 
 def _decode_wav(file_path: str) -> Tuple[np.ndarray, int]:

@@ -8,7 +8,8 @@ tensor would travel through shared memory that dies with its process).
 A rank that raises or dies fails the whole run: the others are stopped
 and the launcher raises with the rank's traceback.  Used by
 :mod:`nrse_tpu_torch.parallel.dryrun`, the CPU tests of the data-parallel
-path and ``chip_smoke.py``'s two-rank phase.
+path, ``chip_smoke.py``'s multi-rank phases and, without a group, its
+entry repeat's fresh processes.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -33,17 +34,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, world: int, port: int, backend: str,
-               threads: int, args, results) -> None:
+def _rank_main(fn, rank: int, world: int, port: int,
+               backend: Optional[str], threads: int, args,
+               results) -> None:
     try:
         if threads:
             torch.set_num_threads(threads)
-        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                                world_size=world, rank=rank, timeout=TIMEOUT)
-        try:
+        if backend is None:
             out = fn(rank, world, *args)
-        finally:
-            leave()
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://127.0.0.1:{port}",
+                world_size=world, rank=rank, timeout=TIMEOUT)
+            try:
+                out = fn(rank, world, *args)
+            finally:
+                leave()
         results.put((rank, True, out))
     except BaseException:  # reported to the launcher, which raises
         results.put((rank, False, traceback.format_exc()))
@@ -51,11 +57,12 @@ def _rank_main(fn, rank: int, world: int, port: int, backend: str,
 
 
 def run_ranks(fn: Callable, world: int, args: Sequence = (),
-              backend: str = "gloo", threads: int = 1,
+              backend: Optional[str] = "gloo", threads: int = 1,
               timeout: float = 600.0) -> List[Any]:
     """``[fn(r, world, *args) for r in range(world)]``, each rank in its
-    own process inside one ``backend`` group (``threads`` torch threads
-    each, 0 to keep torch's default).  ``fn`` must be importable by name
+    own process inside one ``backend`` group (None: each process alone,
+    in no group) with ``threads`` torch threads (0 to keep torch's
+    default).  ``fn`` must be importable by name
     (a module-level function).  Raises ``RuntimeError`` with the traceback
     of the first rank that failed, or after ``timeout`` seconds."""
     ctx = mp.get_context("spawn")

@@ -218,9 +218,28 @@ class StepGraphs:
             with torch.cuda.stream(side):
                 self.warm_up()
             torch.cuda.current_stream().wait_stream(side)
+            self._drop_graphs()
             self._build(torch.cuda.graph_pool_handle(), optimizer=True)
+            self._drop_graphs()
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
+
+    def _drop_graphs(self) -> None:
+        """Detach the static tensors a build left: its forwards' outputs
+        keep their autograd graphs for its backward parts, and a graph
+        keeps each parameter's AccumulateGrad node alive, with the stream
+        the node was made on.  Kept, the warm-up's nodes (the side
+        stream's) would serve the capture's backward on the capture
+        stream, and the capture's a later warm-up: autograd then joins
+        the two streams and warns that the node's stream does not match
+        the incoming gradient's.  Dropped, each build makes its own."""
+        def off(t):
+            return None if t is None else t.detach()
+
+        self.h0 = off(self.h0)
+        self.h_in = [off(t) for t in self.h_in]
+        self.h_out = [off(t) for t in self.h_out]
+        self.h_last = off(self.h_last)
 
     def _part(self, name: str, fn: Callable, pool):
         """``fn()`` eagerly (``pool`` None: the warm-up) or captured into a

@@ -223,6 +223,36 @@ def epochs_table(epochs, metric: str) -> str:
         for e in epochs)
 
 
+# what a stage's epoch records hold that a rerun must give again (not the
+# host clock's readings)
+RECORD_KEYS = ("phase", "epoch", "train_loss", "val_loss",
+               "val_avg_similarity", "f1", "ccc", "lr", "steps")
+
+
+def records(epochs) -> list:
+    """A stage's epoch records without their times: what two runs of
+    one command must give alike."""
+    return [{k: e[k] for k in RECORD_KEYS if k in e} for e in epochs]
+
+
+def checkpoint_digest(path: str) -> str:
+    """sha256 of a checkpoint directory's state: every tensor's name,
+    dtype, shape and bytes in name order, then the step and the seed."""
+    import hashlib
+
+    from nrse_tpu_torch.train.checkpoint import STATE_FILE
+
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    h = hashlib.sha256()
+    for name in sorted(saved["tensors"]):
+        t = saved["tensors"][name].contiguous()
+        h.update(f"{name} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    h.update(f"step {saved['step']} seed {saved['seed']}".encode())
+    return h.hexdigest()
+
+
 def free_card() -> None:
     """Free every captured graph and what the collector can reach, then
     empty the card's cache: the next stage starts from the card alone."""

@@ -10,7 +10,8 @@ package's, bit for bit, on ``conftest.py``'s mock MSP-Podcast corpus.
      and every item drawn with the same ``np.random.Generator`` — the crop,
      the noise file, its crop, the SNR, the mask — equal, with and without
      noise, at 1 s (the mock clips of 0.4–1.4 s padded or cropped, the
-     noise whole) and 0.5 s (the noise cropped too).
+     noise whole) and 0.5 s (the noise cropped too); JAX's dataset lists
+     the noise sorted, as the port's does (``torch_entry.sorted_listing``).
   2. ``create_emotion_dataloaders``: both loaders' batches over two epochs
      equal JAX's, ``__count__`` and the validation loader's padding
      included.
@@ -35,6 +36,14 @@ from nrse_tpu_torch.labels.parsing import (
     clean_filename,
 )
 from nrse_tpu_torch.metrics import categorical_metrics as metrics
+from torch_entry import sorted_listing
+
+
+@pytest.fixture(autouse=True)
+def jax_lists_sorted(monkeypatch):
+    """JAX's datasets list their audio sorted, as the port's do
+    (``torch_entry.sorted_listing``)."""
+    sorted_listing(monkeypatch)
 
 
 def _config(mock_msp_dir, clip_s, add_noise, categorical_only):

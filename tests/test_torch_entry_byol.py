@@ -10,7 +10,10 @@ training clips of 0.3 s at batch 4 (4 steps an epoch) and 4 held out.
 The port starts from JAX's initial variables: its
 ``init_byol_state_dict`` is patched to return
 ``byol_variables_to_state_dicts`` of what JAX's ``create_train_state``
-made at the same seed.  ``num_epochs`` is 3 (the cosine schedule runs
+made at the same seed.  Both sides list the corpus sorted (JAX's
+datasets through ``torch_entry.sorted_listing``), its clean files named
+in the order (``CLEAN_ORDER``) the bounds below were measured in.
+``num_epochs`` is 3 (the cosine schedule runs
 over 12 steps).  Early stopping watches the average similarity with
 patience 1 and ``min_delta`` 0.00757, 1.1e-5 above the second epoch's
 gain in JAX's run (0.0075589): a port within the similarity bound stops
@@ -59,7 +62,7 @@ from nrse_tpu_torch import train_byol
 from nrse_tpu_torch.data.synthetic import generate_corpus
 from nrse_tpu_torch.models.convert import byol_variables_to_state_dicts
 from nrse_tpu_torch.models.wavlm import WavLMConfig
-from torch_entry import EPS, checkpoints, quiet_names
+from torch_entry import EPS, checkpoints, quiet_names, sorted_listing
 
 torch.set_num_threads(1)
 
@@ -72,6 +75,18 @@ MIN_DELTA = 0.00757
 # digits)
 BOUNDS = {"train_loss": 2 * 1.29e-5, "val_loss": 2 * 7.40e-6,
           "similarity": 2 * 3.58e-7}
+# the order os.walk listed the clean files in (an ext4 directory's hash
+# order) where MIN_DELTA and BOUNDS were measured: the run they describe
+# takes its validation split and batches from this order.  Both sides now
+# list sorted (the port's get_audio_files, JAX's through
+# torch_entry.sorted_listing), and corpus() names the files so that the
+# sorted order is this one on every machine; JAX's run on it reads the
+# gain and the spread above (docs/entry_spread/byol.log).  On the files'
+# plain sorted order JAX's own spread on this run is 3.3-8.7x larger
+# (tools/entry_spread.py byol with corpus() not renaming: 7.30e-5,
+# 6.44e-5, 1.19e-6), so bounds measured there would hold the port less
+CLEAN_ORDER = (8, 5, 11, 10, 2, 7, 16, 14, 13, 12, 3, 9, 4, 1, 6, 19, 0, 18,
+               17, 15)
 
 
 def jax_byol_optimizer(learning_rate, weight_decay=1e-5, total_steps=0,
@@ -87,9 +102,16 @@ def jax_byol_optimizer(learning_rate, weight_decay=1e-5, total_steps=0,
 
 
 def corpus(root):
-    return generate_corpus(os.path.join(root, "corpus"), 20, 3,
-                           seconds=0.5, duration_jitter=0.3, seed=2,
-                           verbose=False)
+    """The synthetic corpus, its clean files named so that the sorted
+    listing both sides read is ``CLEAN_ORDER``."""
+    clean, noise = generate_corpus(os.path.join(root, "corpus"), 20, 3,
+                                   seconds=0.5, duration_jitter=0.3, seed=2,
+                                   verbose=False)
+    for rank, i in enumerate(CLEAN_ORDER):
+        src = os.path.join(clean, f"speech_{i:06d}.wav")
+        if os.path.exists(src):  # a corpus made before is named already
+            os.rename(src, os.path.join(clean, f"{rank:02d}_{i:06d}.wav"))
+    return clean, noise
 
 
 def config(root, clean, noise, side):
@@ -153,6 +175,7 @@ def jax_run(root, clean, noise, nudge: float = 0.0, variant=None):
                   make_byol_train_step)
         m.setattr(jax_schedules, "make_byol_optimizer", jax_byol_optimizer)
         quiet_names(m, variant)
+        sorted_listing(m)
         jax_train_byol.main(["--config", path])
     records = []
     for stub in glob.glob(os.path.join(cfg["training"]["log_dir"],

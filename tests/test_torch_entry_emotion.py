@@ -22,7 +22,10 @@ is 1e-3 on both sides (each package's optimizer patched, as in
 Held to JAX, per epoch: the train and validation losses, the macro-F1
 (categorical) or each dimension's CCC and their mean (dimensional), the
 learning rate ReduceLROnPlateau set, the layers open; the checkpoints
-written with their ``epoch``, ``phase`` and metric.  The bounds are
+written with their ``epoch``, ``phase`` and metric.  JAX's datasets
+list the noise sorted, as the port's do (``torch_entry.sorted_listing``;
+the two files' names sort as ``os.walk`` gave them where the bounds were
+measured).  The bounds are
 twice JAX's own spread on the same runs, measured four ways by
 ``tools/entry_spread.py emotion`` (as ``tests/test_torch_entry_byol.py``
 says).
@@ -58,7 +61,7 @@ from nrse_tpu_torch.models.convert import emotion_params_to_state_dict
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 from nrse_tpu_torch.train import categorical_emotions
 from nrse_tpu_torch.train import emotion_trainer
-from torch_entry import EPS, QUIET, checkpoints, quiet_names
+from torch_entry import EPS, QUIET, checkpoints, quiet_names, sorted_listing
 
 torch.set_num_threads(1)
 
@@ -253,6 +256,7 @@ def jax_run(root, msp, jax_ckpt, port_ckpt, nudge: float = 0.0,
             m.setattr(trainer, "make_emotion_optimizer",
                       jax_emotion_optimizer)
             quiet_names(m, variant)
+            sorted_listing(m)
             jax_train_emotion.main(["--config", path, "--task", task])
         epochs = _records(cfg["training"]["log_dir"], task)
         # the first call is the frozen scale, then one a fine-tune epoch

@@ -14,7 +14,7 @@ finds ``WavLMEncoder`` in ``nrse_tpu_torch.models``.  The optional
 imports (matplotlib and scikit-learn for the t-SNE plot, demucs, wandb)
 sit inside the functions that need them.  The port's scripts outside the
 package (:data:`SCRIPTS`: the quickstart, the evidence reports, the
-profile summary) import in the same interpreter."""
+profile summary, the repeat checks) import in the same interpreter."""
 
 import json
 import subprocess
@@ -136,6 +136,8 @@ SCRIPTS = [
     "tools/port_ccc_report.py",
     "tools/port_analyze_profile.py",
     "tools/port_transfer_seeds.py",
+    "tools/port_transfer_repeat.py",
+    "tools/entry_repeat.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas")
 

@@ -6,7 +6,9 @@ one config, corpus and seed, and read for two epochs: the train loader
 validation loader (in order, the last batch padded, ``__count__`` its
 real rows).  Every array of every batch must be equal bit for bit: the
 clean crops, the noise (the file chosen and its offset), the SNRs, the
-masks and labels, ``__count__`` and the padding.
+masks and labels, ``__count__`` and the padding.  JAX's datasets are
+given the port's sorted listing (``torch_entry.sorted_listing``): JAX's
+own is the filesystem's order.
 
   * BYOL: ``data.loader.create_dataloaders`` against
     ``nrse_tpu.data.noisy_speech_dataset.create_dataloaders`` on a
@@ -44,11 +46,19 @@ from nrse_tpu_torch.data.emotion_dataset import (
 )
 from nrse_tpu_torch.data.loader import create_dataloaders as port_byol_loaders
 from nrse_tpu_torch.data.synthetic import generate_corpus
+from torch_entry import sorted_listing
 
 torch.set_num_threads(1)
 
 EPOCHS = 2
 SR = 16000
+
+
+@pytest.fixture(autouse=True)
+def jax_lists_sorted(monkeypatch):
+    """JAX's datasets list their audio sorted, as the port's do
+    (``torch_entry.sorted_listing``)."""
+    sorted_listing(monkeypatch)
 
 
 def _epochs(loaders):

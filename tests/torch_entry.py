@@ -1,12 +1,15 @@
 """What the entry-trajectory tests share (``tests/test_torch_entry_*.py``,
-``tools/entry_spread.py``): the quiet encoder, Adam's eps and the
-checkpoints a run wrote."""
+``tools/entry_spread.py``): the quiet encoder, Adam's eps, the checkpoints
+a run wrote, and JAX's datasets listing their audio as the port's do."""
 
 import dataclasses
 import glob
 import json
 import os
 
+from nrse_tpu.audio import io as jax_io
+from nrse_tpu.data import emotion_dataset as jax_emotion_dataset
+from nrse_tpu.data import noisy_speech_dataset as jax_noisy_dataset
 from nrse_tpu.models.wavlm import WavLMConfig as JaxWavLMConfig
 from nrse_tpu_torch.models.wavlm import WavLMConfig
 
@@ -39,3 +42,20 @@ def checkpoints(ckpt_dir) -> dict:
         with open(meta) as f:
             out[os.path.basename(os.path.dirname(meta))] = json.load(f)
     return out
+
+
+def sorted_jax_get_audio_files(directory: str) -> list:
+    """JAX's ``get_audio_files``, its paths sorted."""
+    return sorted(jax_io.get_audio_files(directory))
+
+
+def sorted_listing(mp) -> None:
+    """JAX's datasets list their audio sorted, as the port's do: the
+    port's ``audio.io.get_audio_files`` sorts its paths (one order on every
+    machine) where JAX's returns ``os.walk``'s, the filesystem's.  The
+    datasets index that list (BYOL's validation split and noise pick, the
+    SER datasets' noise pick), so a test that holds the port's batches or
+    runs to JAX's gives JAX's datasets the sorted listing, through the
+    name each dataset module imported."""
+    for module in (jax_noisy_dataset, jax_emotion_dataset):
+        mp.setattr(module, "get_audio_files", sorted_jax_get_audio_files)

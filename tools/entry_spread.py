@@ -18,12 +18,13 @@ of JAX's own spread by up to 5×):
   * ``ffn``: JAX's Pallas FFN (``ffn_impl="fused"``) for its XLA pair.
 
 The Pallas kernels run in interpret mode on the CPU, as the JAX
-package's own tests run them.  Prints each way's largest |Δ| of each
-metric family against the first run (the module's ``gaps``), and their
-maximum, which the test doubles into its ``BOUNDS``; with ``--port``, also
-the port's entry point from JAX's initial variables (the module's
-``port_run``) against the first run, the gap the test holds to those
-bounds; then a JSON summary.  Imports the JAX package; the CPU only.
+package's own tests run them.  Prints the first run's epoch records
+(where a test's early-stopping ``MIN_DELTA`` is read), each way's largest
+|Δ| of each metric family against the first run (the module's ``gaps``),
+and their maximum, which the test doubles into its ``BOUNDS``; with
+``--port``, also the port's entry point from JAX's initial variables (the
+module's ``port_run``) against the first run, the gap the test holds to
+those bounds; then a JSON summary.  Imports the JAX package; the CPU only.
 """
 
 from __future__ import annotations
@@ -69,6 +70,10 @@ def spread(name: str, port: bool = False) -> dict:
     with tempfile.TemporaryDirectory() as root:
         data = mod.corpus(root)
         ref = mod.jax_run(root, *data)
+        out["reference"] = (ref["epochs"] if "epochs" in ref else
+                            {task: r["epochs"] for task, r in ref.items()})
+        print(f"{name} reference: {json.dumps(out['reference'])}",
+              flush=True)
         for way, kwargs in WAYS.items():
             out[way] = mod.gaps(ref, mod.jax_run(root, *data, **kwargs))
             print(f"{name} {way}: {out[way]}", flush=True)

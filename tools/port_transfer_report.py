@@ -21,8 +21,9 @@ so this runs the whole pipeline on the synthetic regime corpus
      report's keys and tables, and ``checks.json``: for each leg whether
      its encoder started as BYOL's online encoder (bit for bit, read from
      its phase-1 checkpoint, in which the encoder is frozen), whether its
-     trainer's last step ran from graphs, and the noise corpus its
-     readout mixed in.
+     trainer's last step ran from graphs, the noise corpus its readout
+     mixed in, its epoch records and the sha256 of its best checkpoint's
+     state (``report_utils.checkpoint_digest``; BYOL's best too).
 
 Usage (on the card; ``--smoke`` is a tiny CPU run of the same pipeline,
 no quality claim):
@@ -178,10 +179,11 @@ def main(argv=None) -> dict:
         info = report_utils.run_byol(config, _encoder(args))
         checks["byol"] = {"captured": info["captured"],
                           "steps": info["steps"],
-                          "epochs": [{k: e[k] for k in (
-                              "epoch", "train_loss", "val_loss",
-                              "val_avg_similarity", "s_per_step")}
-                              for e in info["epochs"]]}
+                          "epochs": report_utils.records(info["epochs"]),
+                          "s_per_step": [e["s_per_step"]
+                                         for e in info["epochs"]],
+                          "digest": report_utils.checkpoint_digest(
+                              byol_best)}
         seconds_of["byol"] = time.perf_counter() - t
         print(f"# transfer: BYOL {json.dumps(checks['byol'])}", flush=True)
     if args.stage == "byol":
@@ -249,6 +251,8 @@ def main(argv=None) -> dict:
                            "captured": info["captured"],
                            "steps": info["steps"],
                            "best": info["best"],
+                           "epochs": report_utils.records(info["epochs"]),
+                           "digest": report_utils.checkpoint_digest(best),
                            "train_noise": config["data"]["noise_data_path"]
                            if e2e else None,
                            "readout_noise": noise_eval}

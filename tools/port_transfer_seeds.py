@@ -108,10 +108,11 @@ greatest):
 | {stats} |
 
 Each run trains BYOL's e2e leg, then the random-init leg, in one
-process after the BYOL stage (`tools/port_transfer_report.py`). Whether
-what an earlier stage leaves in the process moves the random-init leg
-is an open question (`ROADMAP.md` Queue 3 item 6): until it is settled
-this lift is not a shown effect of BYOL.
+process after the BYOL stage (`tools/port_transfer_report.py`). The
+port lists the corpus sorted, so a leg gives the same bits on any
+machine, fresh or after an earlier stage in its process
+(`tools/port_transfer_repeat.py` holds one to that): the spread over
+the seeds is the seeds' own.
 """
 
 
